@@ -1,0 +1,723 @@
+"""In-process telemetry registry — the framework's aggregate-stats engine.
+
+Parity target: the reference's profiler aggregate-stats table
+(src/profiler/profiler.h AggregateStats, rendered by
+`profiler.dumps(aggregate_stats=True)`): a process-wide table of named
+counters, gauges, duration aggregators, and log-bucketed duration
+histograms (p50/p95/p99 — the serving engine's latency rows) fed by
+hooks in every hot path (CachedOp compiles, TrainStep timing, kvstore traffic, the fused
+Trainer pipeline — bucket counts, pre/post-compression wire bytes,
+fused allreduce/update dispatch timing —, dataloader waits, engine
+memory watermarks). `profiler.dumps()` renders this
+registry; `monitor.Monitor` writes per-layer stats into it.
+
+Design constraints:
+
+- **Near-zero cost when disabled** (``MXTPU_TELEMETRY=0``): every
+  recording function checks one module-level bool and returns. The
+  instrumented hot paths call ``clock()`` which returns 0.0 without a
+  syscall when disabled.
+- **Thread-safe**: one registry lock; every mutation is a few dict ops
+  under it. Callers on the engine hot path pay ~1µs per event.
+- **Unit convention**: duration aggregators store MILLISECONDS
+  (``duration_since`` converts); ``value()`` rows store native units
+  (monitor layer stats, byte counts routed through aggregators). The
+  rendered table carries the same caveat line the reference prints
+  ("counter items are counter values and not time units").
+"""
+from __future__ import annotations
+
+import bisect
+import json as _json
+import os
+import re as _re
+import threading
+import time
+
+__all__ = [
+    "enabled", "set_enabled", "clock", "counter", "counter_value",
+    "gauge", "gauge_value", "value", "duration_since", "hist",
+    "hist_since", "hist_quantiles", "hist_bounds", "snapshot", "reset",
+    "render", "names", "window", "Window", "SLOTracker",
+    "export_prometheus", "MetricsLogger", "SNAPSHOT_VERSION",
+]
+
+#: snapshot()/render(format="json") document version. v2 added
+#: ``hist_bounds`` (the shared bucket upper bounds) and per-histogram
+#: ``buckets`` counts so offline tooling can merge/diff snapshots
+#: without importing the private ``_HIST_BOUNDS``.
+SNAPSHOT_VERSION = 2
+
+_enabled = os.environ.get("MXTPU_TELEMETRY", "1").lower() \
+    not in ("0", "false", "off")
+
+_lock = threading.Lock()
+# name -> float
+_counters: dict = {}
+# name -> [value, peak]
+_gauges: dict = {}
+# name -> [count, total, min, max]
+_aggs: dict = {}
+# name -> [count, total, min, max, bucket_counts]
+_hists: dict = {}
+
+# Log-spaced histogram bucket UPPER bounds (ms): 12 per decade over
+# 1µs..10s, one overflow bucket past the end. Fixed buckets keep
+# recording O(1) with no per-event storage (a serving path records one
+# sample per request — a reservoir would be the hot-path cost the
+# registry exists to avoid); 12/decade bounds quantile interpolation
+# error at ~±10%, plenty for p50/p95/p99 latency reporting.
+_HIST_BOUNDS = tuple(10.0 ** (-3 + i / 12.0) for i in range(85))
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def set_enabled(flag: bool) -> bool:
+    """Toggle recording at runtime (tests; env var sets the default).
+    Returns the previous state."""
+    global _enabled
+    prev = _enabled
+    _enabled = bool(flag)
+    return prev
+
+
+def clock() -> float:
+    """perf_counter() when enabled, 0.0 (no syscall) when disabled.
+    Pair with duration_since()."""
+    if not _enabled:
+        return 0.0
+    return time.perf_counter()
+
+
+def counter(name: str, delta: float = 1):
+    """Increment a monotonic counter."""
+    if not _enabled:
+        return
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + delta
+
+
+def counter_value(name: str) -> float:
+    """Current value of one counter (0 if never incremented) — the
+    point read used by tests and ``bench.py --trainer-path`` without
+    paying for a full snapshot."""
+    with _lock:
+        return _counters.get(name, 0)
+
+
+def gauge_value(name: str, peak: bool = False) -> float:
+    """Current value of one gauge (its all-time peak with
+    ``peak=True``); 0.0 if never set — the point read the SLO tracker
+    and tests use without paying for a full ``snapshot()`` under the
+    registry lock (sibling of :func:`counter_value`)."""
+    with _lock:
+        g = _gauges.get(name)
+        if g is None:
+            return 0.0
+        return g[1] if peak else g[0]
+
+
+def gauge(name: str, val: float, peak: float | None = None):
+    """Set a gauge to its current value. A monotone all-time peak is
+    kept alongside every gauge (device-memory high-water marks). A
+    caller that tracked a higher transient itself (per-op peaks too
+    hot to publish each event) passes it via ``peak=``."""
+    if not _enabled:
+        return
+    hi = val if peak is None or peak < val else peak
+    with _lock:
+        g = _gauges.get(name)
+        if g is None:
+            _gauges[name] = [val, hi]
+        else:
+            g[0] = val
+            if hi > g[1]:
+                g[1] = hi
+
+
+def value(name: str, val: float):
+    """Record one sample into the count/total/min/max aggregator for
+    ``name`` (avg derives at render time — the 'p50-ish' column)."""
+    if not _enabled:
+        return
+    with _lock:
+        a = _aggs.get(name)
+        if a is None:
+            _aggs[name] = [1, val, val, val]
+        else:
+            a[0] += 1
+            a[1] += val
+            if val < a[2]:
+                a[2] = val
+            if val > a[3]:
+                a[3] = val
+
+
+def duration_since(name: str, t0: float):
+    """Record elapsed milliseconds since ``t0 = telemetry.clock()``.
+    A 0.0 t0 means the clock was read while disabled — skip (the
+    enabled flag may have flipped mid-measurement)."""
+    if not _enabled or t0 == 0.0:
+        return
+    value(name, (time.perf_counter() - t0) * 1e3)
+
+
+def hist(name: str, val: float):
+    """Record one sample into the log-bucketed histogram for ``name``.
+
+    Unlike ``value()`` (count/total/min/max only), a histogram can
+    answer quantile queries — ``snapshot()`` derives p50/p95/p99 by
+    interpolating within the matched bucket, and ``render()`` prints
+    them (the serving engine's latency rows). Negative samples clamp
+    into the first bucket."""
+    if not _enabled:
+        return
+    idx = bisect.bisect_left(_HIST_BOUNDS, val)
+    with _lock:
+        h = _hists.get(name)
+        if h is None:
+            _hists[name] = [1, val, val, val,
+                            [0] * (len(_HIST_BOUNDS) + 1)]
+            _hists[name][4][idx] = 1
+            return
+        h[0] += 1
+        h[1] += val
+        if val < h[2]:
+            h[2] = val
+        if val > h[3]:
+            h[3] = val
+        h[4][idx] += 1
+
+
+def hist_since(name: str, t0: float):
+    """Record elapsed milliseconds since ``t0 = telemetry.clock()``
+    into the histogram ``name`` (see ``duration_since`` for the 0.0
+    convention)."""
+    if not _enabled or t0 == 0.0:
+        return
+    hist(name, (time.perf_counter() - t0) * 1e3)
+
+
+def hist_quantiles(name: str) -> dict:
+    """Point read of one histogram's derived stats:
+    ``{count, total, min, max, avg, p50, p95, p99}`` (all zero if the
+    histogram was never recorded) — sibling of :func:`counter_value`,
+    for callers that need one latency row without a full snapshot."""
+    with _lock:
+        h = _hists.get(name)
+        h = None if h is None else [h[0], h[1], h[2], h[3], list(h[4])]
+    if h is None:
+        return {"count": 0, "total": 0.0, "min": 0.0, "max": 0.0,
+                "avg": 0.0, "p50": 0.0, "p95": 0.0, "p99": 0.0}
+    return {"count": h[0], "total": h[1], "min": h[2], "max": h[3],
+            "avg": h[1] / h[0] if h[0] else 0.0,
+            "p50": _hist_quantile(h, 0.50),
+            "p95": _hist_quantile(h, 0.95),
+            "p99": _hist_quantile(h, 0.99)}
+
+
+def hist_bounds() -> tuple:
+    """The shared histogram bucket UPPER bounds (ms). Bucket ``i``
+    covers ``(bounds[i-1], bounds[i]]`` (bucket 0 from 0); the final
+    bucket past ``bounds[-1]`` is the overflow bucket."""
+    return _HIST_BOUNDS
+
+
+def _hist_quantile(h, q: float) -> float:
+    """q-quantile estimate from bucket counts: locate the bucket
+    holding the q*count-th sample, interpolate linearly inside it,
+    clamp to the exact observed [min, max]."""
+    count, counts = h[0], h[4]
+    if not count:
+        return 0.0
+    rank = q * count
+    seen = 0
+    for i, n in enumerate(counts):
+        if not n:
+            continue
+        if seen + n >= rank:
+            lo = _HIST_BOUNDS[i - 1] if i > 0 else 0.0
+            hi = _HIST_BOUNDS[i] if i < len(_HIST_BOUNDS) else h[3]
+            est = lo + (hi - lo) * (rank - seen) / n
+            return min(max(est, h[2]), h[3])
+        seen += n
+    return h[3]
+
+
+def reset():
+    """Drop every registered entry."""
+    with _lock:
+        _counters.clear()
+        _gauges.clear()
+        _aggs.clear()
+        _hists.clear()
+
+
+def names():
+    """All registered entry names (tests / quick inspection)."""
+    with _lock:
+        return sorted(set(_counters) | set(_gauges) | set(_aggs)
+                      | set(_hists))
+
+
+def snapshot(reset_after: bool = False) -> dict:
+    """Consistent copy of the registry:
+    ``{"version": 2, "hist_bounds": [...],
+       "durations": {name: {count,total,min,max,avg}},
+       "counters": {name: value}, "gauges": {name: {value, peak}},
+       "histograms": {name: {count,total,min,max,avg,p50,p95,p99,
+       buckets}}}``. ``buckets`` are the raw per-bucket counts over
+    the shared ``hist_bounds`` (one extra overflow bucket), so two
+    snapshots can be merged (add) or diffed (subtract) offline."""
+    with _lock:
+        counters = dict(_counters)
+        gauges = {k: {"value": v[0], "peak": v[1]}
+                  for k, v in _gauges.items()}
+        aggs = {k: {"count": v[0], "total": v[1], "min": v[2],
+                    "max": v[3], "avg": v[1] / v[0] if v[0] else 0.0}
+                for k, v in _aggs.items()}
+        hists = {k: {"count": v[0], "total": v[1], "min": v[2],
+                     "max": v[3],
+                     "avg": v[1] / v[0] if v[0] else 0.0,
+                     "p50": _hist_quantile(v, 0.50),
+                     "p95": _hist_quantile(v, 0.95),
+                     "p99": _hist_quantile(v, 0.99),
+                     "buckets": list(v[4])}
+                 for k, v in _hists.items()}
+        if reset_after:
+            _counters.clear()
+            _gauges.clear()
+            _aggs.clear()
+            _hists.clear()
+    return {"version": SNAPSHOT_VERSION,
+            "hist_bounds": list(_HIST_BOUNDS),
+            "durations": aggs, "counters": counters, "gauges": gauges,
+            "histograms": hists}
+
+
+# -- rendering (the reference's aggregate-stats table) -----------------
+
+_SORT_KEYS = ("total", "count", "min", "max", "avg", "name")
+
+
+def _sorted_items(d, keyfn, sort_by, ascending):
+    if sort_by == "name":
+        return sorted(d.items(), key=lambda kv: kv[0],
+                      reverse=not ascending)
+    return sorted(d.items(), key=keyfn, reverse=not ascending)
+
+
+def render(format: str = "table", sort_by: str = "total",
+           ascending: bool = False, trace_dir: str | None = None,
+           reset_after: bool = False) -> str:
+    """Render the registry the way the reference renders
+    `dumps(aggregate_stats=True)` — a sectioned fixed-width table, or a
+    JSON document with sections ordered by the same sort.
+    ``reset_after`` clears the registry atomically with the read, so
+    events recorded while rendering land in the NEXT report instead of
+    vanishing."""
+    if sort_by not in _SORT_KEYS:
+        raise ValueError(f"sort_by must be one of {_SORT_KEYS}, "
+                         f"got {sort_by!r}")
+    if format not in ("table", "json"):
+        # validate BEFORE the (possibly resetting) snapshot: a bad
+        # format must not destroy the registry
+        raise ValueError(f"format must be 'table' or 'json', "
+                         f"got {format!r}")
+    snap = snapshot(reset_after=reset_after)
+    aggs = _sorted_items(
+        snap["durations"],
+        (lambda kv: kv[1][sort_by]) if sort_by != "name"
+        else (lambda kv: kv[0]),
+        sort_by, ascending)
+    # counters/gauges have no duration columns: sort by value unless
+    # sorting by name
+    cnt_key = (lambda kv: kv[0]) if sort_by == "name" \
+        else (lambda kv: kv[1])
+    counters = _sorted_items(snap["counters"], cnt_key, sort_by, ascending)
+    gauge_key = (lambda kv: kv[0]) if sort_by == "name" \
+        else (lambda kv: kv[1]["value"])
+    gauges = _sorted_items(snap["gauges"], gauge_key, sort_by, ascending)
+    hists = _sorted_items(
+        snap["histograms"],
+        (lambda kv: kv[1][sort_by]) if sort_by != "name"
+        else (lambda kv: kv[0]),
+        sort_by, ascending)
+
+    if format == "json":
+        doc = {
+            "version": SNAPSHOT_VERSION,
+            "sort_by": sort_by,
+            "ascending": ascending,
+            "hist_bounds": snap["hist_bounds"],
+            "durations": dict(aggs),
+            "counters": dict(counters),
+            "gauges": dict(gauges),
+            "histograms": dict(hists),
+        }
+        if trace_dir:
+            doc["trace_dir"] = trace_dir
+        return _json.dumps(doc, indent=2)
+
+    w = max([len(n) for n, _ in aggs + counters + gauges + hists]
+            + [24]) + 2
+    lines = ["Profile Statistics (aggregate)",
+             "\tNote that counter items are counter values and not "
+             "time units."]
+    if trace_dir:
+        lines.append(f"\tXprof timeline traces under {trace_dir}")
+    if aggs:
+        lines += ["", "Durations (ms unless the name says otherwise)",
+                  "=" * 46,
+                  f"{'Name':<{w}}{'Count':>10}{'Total':>14}"
+                  f"{'Min':>12}{'Max':>12}{'Avg':>12}",
+                  f"{'----':<{w}}{'-----':>10}{'-----':>14}"
+                  f"{'---':>12}{'---':>12}{'---':>12}"]
+        for name, a in aggs:
+            lines.append(
+                f"{name:<{w}}{a['count']:>10}{a['total']:>14.4f}"
+                f"{a['min']:>12.4f}{a['max']:>12.4f}{a['avg']:>12.4f}")
+    if hists:
+        lines += ["", "Duration histograms (ms; p* interpolated from "
+                  "log buckets)", "=" * 56,
+                  f"{'Name':<{w}}{'Count':>10}{'p50':>12}{'p95':>12}"
+                  f"{'p99':>12}{'Max':>12}{'Avg':>12}",
+                  f"{'----':<{w}}{'-----':>10}{'---':>12}{'---':>12}"
+                  f"{'---':>12}{'---':>12}{'---':>12}"]
+        for name, h in hists:
+            lines.append(
+                f"{name:<{w}}{h['count']:>10}{h['p50']:>12.4f}"
+                f"{h['p95']:>12.4f}{h['p99']:>12.4f}{h['max']:>12.4f}"
+                f"{h['avg']:>12.4f}")
+    if counters:
+        lines += ["", "Counters", "=" * 8,
+                  f"{'Name':<{w}}{'Value':>14}",
+                  f"{'----':<{w}}{'-----':>14}"]
+        for name, v in counters:
+            lines.append(f"{name:<{w}}{v:>14g}")
+    if gauges:
+        lines += ["", "Gauges", "=" * 6,
+                  f"{'Name':<{w}}{'Value':>14}{'Peak':>14}",
+                  f"{'----':<{w}}{'-----':>14}{'----':>14}"]
+        for name, g in gauges:
+            lines.append(f"{name:<{w}}{g['value']:>14g}{g['peak']:>14g}")
+    if not (aggs or counters or gauges or hists):
+        lines += ["", "(no telemetry recorded"
+                  + (" — MXTPU_TELEMETRY=0)" if not _enabled else ")")]
+    return "\n".join(lines)
+
+
+# -- sliding windows (bucket-snapshot subtraction) ---------------------
+
+class Window:
+    """A sliding-window view over the registry: deltas since the
+    window opened (or last ``read(restart=True)``), with **windowed
+    quantiles** derived by bucket-snapshot subtraction — the baseline
+    stores each histogram's bucket counts, and a read subtracts them
+    from the current counts, so the window costs O(histograms), not
+    per-event storage.
+
+    Quantiles interpolate inside the log buckets exactly like the
+    process-lifetime ``snapshot()`` does; the clamp to observed
+    [min, max] uses the *lifetime* extremes (the only ones a
+    subtraction can know), which is exact whenever the window contains
+    the extreme samples (e.g. a window opened at reset) and off by at
+    most one bucket width otherwise."""
+
+    def __init__(self):
+        self._t0 = 0.0
+        self._base = None
+        self.restart()
+
+    def restart(self):
+        """Rebase the window to now."""
+        with _lock:
+            self._base = {
+                "counters": dict(_counters),
+                "durations": {k: (v[0], v[1]) for k, v in _aggs.items()},
+                "hists": {k: (v[0], v[1], list(v[4]))
+                          for k, v in _hists.items()},
+            }
+        self._t0 = time.monotonic()
+
+    @property
+    def elapsed_s(self) -> float:
+        return time.monotonic() - self._t0
+
+    def read(self, restart: bool = False) -> dict:
+        """Deltas over the window:
+        ``{"counters": {name: delta}, "durations": {name: {count,
+        total, avg}}, "histograms": {name: {count, total, avg, p50,
+        p95, p99, buckets}}, "gauges": {name: value}, "elapsed_s"}``.
+        Counters that did not move and histograms with no new samples
+        are omitted. Gauges are point-in-time (current values). A
+        registry ``reset()`` mid-window is detected per entry (a
+        count that went backwards) and treated as a fresh baseline.
+        ``restart=True`` rebases the window after the read."""
+        base = self._base
+        with _lock:
+            counters = dict(_counters)
+            aggs = {k: (v[0], v[1]) for k, v in _aggs.items()}
+            hists = {k: [v[0], v[1], v[2], v[3], list(v[4])]
+                     for k, v in _hists.items()}
+            gauges = {k: v[0] for k, v in _gauges.items()}
+        elapsed = time.monotonic() - self._t0
+
+        d_counters = {}
+        for k, v in counters.items():
+            b = base["counters"].get(k, 0)
+            dv = v - b if v >= b else v   # reset mid-window
+            if dv:
+                d_counters[k] = dv
+        d_aggs = {}
+        for k, (c, t) in aggs.items():
+            bc, bt = base["durations"].get(k, (0, 0.0))
+            if c < bc:
+                bc, bt = 0, 0.0
+            dc, dt = c - bc, t - bt
+            if dc:
+                d_aggs[k] = {"count": dc, "total": dt, "avg": dt / dc}
+        d_hists = {}
+        for k, h in hists.items():
+            bc, bt, bbuckets = base["hists"].get(
+                k, (0, 0.0, None))
+            if h[0] < bc:
+                bc, bt, bbuckets = 0, 0.0, None
+            dc = h[0] - bc
+            if not dc:
+                continue
+            dbuckets = list(h[4]) if bbuckets is None else \
+                [a - b for a, b in zip(h[4], bbuckets)]
+            dt = h[1] - bt
+            # windowed quantiles: the lifetime [min, max] clamp is the
+            # closest observable bound (see class docstring)
+            wh = [dc, dt, h[2], h[3], dbuckets]
+            d_hists[k] = {"count": dc, "total": dt, "avg": dt / dc,
+                          "p50": _hist_quantile(wh, 0.50),
+                          "p95": _hist_quantile(wh, 0.95),
+                          "p99": _hist_quantile(wh, 0.99),
+                          "buckets": dbuckets}
+        if restart:
+            self.restart()
+        return {"elapsed_s": elapsed, "counters": d_counters,
+                "durations": d_aggs, "histograms": d_hists,
+                "gauges": gauges}
+
+
+def window() -> Window:
+    """Open a sliding window over the registry (see :class:`Window`)."""
+    return Window()
+
+
+def _hist_frac_below(buckets, count, thr_ms: float) -> float:
+    """Fraction of a (windowed) histogram's samples at or below
+    ``thr_ms``, interpolating inside the straddling bucket. Samples in
+    the overflow bucket (past the last bound) count as above."""
+    if not count:
+        return 1.0
+    acc = 0.0
+    for i, n in enumerate(buckets):
+        if not n:
+            continue
+        lo = _HIST_BOUNDS[i - 1] if i > 0 else 0.0
+        hi = _HIST_BOUNDS[i] if i < len(_HIST_BOUNDS) else None
+        if hi is not None and hi <= thr_ms:
+            acc += n
+        elif lo < thr_ms and hi is not None:
+            acc += n * (thr_ms - lo) / (hi - lo)
+        elif lo >= thr_ms:
+            break
+    return min(acc / count, 1.0)
+
+
+class SLOTracker:
+    """Windowed SLO view over the serving latency histograms — the
+    goodput/error-budget inputs an autoscaling controller acts on
+    (ROADMAP item 5).
+
+    ``ttft_ms``/``tpot_ms`` are the latency targets (either may be
+    None); ``target`` is the SLO attainment objective (default 0.99 —
+    an error budget of 1%). Each :meth:`update` reads the window since
+    the previous update (bucket-snapshot subtraction, no per-event
+    storage), computes the fraction of samples inside each target, and
+    publishes gauges::
+
+        serving.slo.ttft.goodput           fraction of windowed TTFT
+                                           samples <= ttft_ms
+        serving.slo.tpot.goodput           same for decode-step time
+        serving.slo.goodput                min over the tracked targets
+        serving.slo.error_budget_remaining 1 - (1-goodput)/(1-target)
+                                           (negative = budget blown)
+    """
+
+    def __init__(self, ttft_ms: float | None = None,
+                 tpot_ms: float | None = None, *, target: float = 0.99,
+                 ttft_hist: str = "serving.generate.ttft",
+                 tpot_hist: str = "serving.generate.decode",
+                 prefix: str = "serving.slo"):
+        if not 0.0 < target < 1.0:
+            raise ValueError(f"target must be in (0, 1), got {target!r}")
+        self.ttft_ms = None if ttft_ms is None else float(ttft_ms)
+        self.tpot_ms = None if tpot_ms is None else float(tpot_ms)
+        self.target = float(target)
+        self._hists = {"ttft": ttft_hist, "tpot": tpot_hist}
+        self.prefix = prefix
+        self._win = Window()
+
+    def update(self, restart: bool = True, publish: bool = True) -> dict:
+        """Read the window, compute goodput/error budget, publish the
+        gauges (unless ``publish=False``), and return the report dict.
+        ``restart=False`` keeps accumulating the same window."""
+        snap = self._win.read(restart=restart)
+        out = {"window_s": snap["elapsed_s"]}
+        goods = []
+        for label, thr in (("ttft", self.ttft_ms),
+                           ("tpot", self.tpot_ms)):
+            if thr is None:
+                continue
+            h = snap["histograms"].get(self._hists[label])
+            if h is None:
+                frac, n = 1.0, 0   # no traffic: the SLO is not at risk
+            else:
+                frac = _hist_frac_below(h["buckets"], h["count"], thr)
+                n = h["count"]
+            out[f"{label}_goodput"] = frac
+            out[f"{label}_count"] = n
+            goods.append(frac)
+        goodput = min(goods) if goods else 1.0
+        budget = 1.0 - self.target
+        remaining = 1.0 - (1.0 - goodput) / budget
+        out["goodput"] = goodput
+        out["error_budget_remaining"] = remaining
+        if publish:
+            for label in ("ttft", "tpot"):
+                if f"{label}_goodput" in out:
+                    gauge(f"{self.prefix}.{label}.goodput",
+                          out[f"{label}_goodput"])
+            gauge(f"{self.prefix}.goodput", goodput)
+            gauge(f"{self.prefix}.error_budget_remaining", remaining)
+        return out
+
+
+# -- exporters ---------------------------------------------------------
+
+_PROM_BAD = _re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(namespace: str, name: str) -> str:
+    n = _PROM_BAD.sub("_", name)
+    if namespace:
+        n = f"{namespace}_{n}"
+    if n and n[0].isdigit():
+        n = "_" + n
+    return n
+
+
+def _prom_num(v: float) -> str:
+    f = float(v)
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+def export_prometheus(namespace: str = "mxtpu") -> str:
+    """Render the registry in the Prometheus text exposition format.
+
+    Counters export as ``counter``, gauges as ``gauge`` (plus a
+    ``_peak`` gauge), duration aggregators as ``summary``
+    (``_sum``/``_count``), and histograms as native Prometheus
+    ``histogram`` series — cumulative ``_bucket{le="..."}`` counts
+    over the shared log-spaced bounds (``hist_bounds``; ms), an
+    ``le="+Inf"`` bucket, ``_sum`` and ``_count``. Values keep their
+    native units (durations are milliseconds, as everywhere in this
+    registry)."""
+    snap = snapshot()
+    lines = []
+    for name, v in sorted(snap["counters"].items()):
+        n = _prom_name(namespace, name)
+        # OpenMetrics counter convention: TYPE names the family, the
+        # sample carries the _total suffix
+        lines.append(f"# TYPE {n} counter")
+        lines.append(f"{n}_total {_prom_num(v)}")
+    for name, g in sorted(snap["gauges"].items()):
+        n = _prom_name(namespace, name)
+        lines.append(f"# TYPE {n} gauge")
+        lines.append(f"{n} {_prom_num(g['value'])}")
+        lines.append(f"# TYPE {n}_peak gauge")
+        lines.append(f"{n}_peak {_prom_num(g['peak'])}")
+    for name, a in sorted(snap["durations"].items()):
+        n = _prom_name(namespace, name)
+        lines.append(f"# TYPE {n} summary")
+        lines.append(f"{n}_sum {_prom_num(a['total'])}")
+        lines.append(f"{n}_count {_prom_num(a['count'])}")
+    bounds = snap["hist_bounds"]
+    for name, h in sorted(snap["histograms"].items()):
+        n = _prom_name(namespace, name)
+        lines.append(f"# TYPE {n} histogram")
+        acc = 0
+        for bound, cnt in zip(bounds, h["buckets"]):
+            acc += cnt
+            lines.append(f'{n}_bucket{{le="{bound:.6g}"}} {acc}')
+        lines.append(f'{n}_bucket{{le="+Inf"}} {h["count"]}')
+        lines.append(f"{n}_sum {_prom_num(h['total'])}")
+        lines.append(f"{n}_count {_prom_num(h['count'])}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+class MetricsLogger:
+    """Background thread appending periodic JSONL registry snapshots
+    to a file — the runtime sibling of the ``BENCH_*`` trajectory
+    documents (each line: ``{"ts": ..., **snapshot()}``).
+
+    ``start()`` launches the thread (one snapshot per ``interval_s``);
+    ``stop()`` halts it and appends one final snapshot so short runs
+    always leave a record. Usable as a context manager. Write errors
+    are counted (``telemetry.metrics_logger.errors``), never raised
+    into the serving path."""
+
+    def __init__(self, path: str, interval_s: float = 10.0):
+        self.path = str(path)
+        self.interval_s = float(interval_s)
+        self.lines_written = 0
+        self._halt = threading.Event()
+        self._thread = None
+
+    def _write_one(self):
+        doc = {"ts": time.time()}
+        doc.update(snapshot())
+        try:
+            with open(self.path, "a") as f:
+                f.write(_json.dumps(doc) + "\n")
+            self.lines_written += 1
+        except OSError:
+            counter("telemetry.metrics_logger.errors")
+
+    def _run(self):
+        while not self._halt.wait(self.interval_s):
+            self._write_one()
+
+    def start(self) -> "MetricsLogger":
+        if self._thread is not None:
+            raise RuntimeError("MetricsLogger already started")
+        self._halt.clear()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="telemetry.MetricsLogger")
+        self._thread.start()
+        return self
+
+    def stop(self, timeout: float = 5.0):
+        if self._thread is None:
+            return
+        self._halt.set()
+        self._thread.join(timeout=timeout)
+        self._thread = None
+        self._write_one()   # final flush: short runs leave a record
+
+    def __enter__(self) -> "MetricsLogger":
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False

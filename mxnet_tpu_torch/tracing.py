@@ -1,0 +1,356 @@
+"""Per-request tracing and the serving-stack flight recorder.
+
+Two observability primitives the aggregate telemetry registry
+(telemetry.py) cannot provide:
+
+- **Per-request traces** — a :class:`Trace` is minted at
+  ``GenerationEngine.submit`` / ``Router.submit`` and threaded through
+  every lifecycle edge (queue wait, admission, prefill chunks, decode /
+  verify ticks, COW copies, eviction, cross-replica retry hops, stream
+  emits). Each edge records a :class:`Span` ``(name, t0, dur, parent,
+  attrs)`` into the trace's bounded span list, retrievable via
+  ``GenerationStream.trace()``. The p99 outlier an aggregate histogram
+  can only *count* becomes a readable timeline.
+- **Flight recorder** — a fixed-size ring buffer of recent structured
+  events (admissions, evictions, breaker/health transitions, watchdog
+  trips, compiles, fault injections), dumped automatically on engine
+  ``_fail_all``, Router breaker-open, and TrainSupervisor
+  restart/abort: the post-mortem an operator reads instead of
+  rerunning the incident under ``JAX_LOG_COMPILES``.
+
+Design constraints (mirrors telemetry.py):
+
+- **Near-zero cost when disabled**: tracing is off by default; the hot
+  paths hold ``trace = None`` and pay one ``is not None`` check per
+  edge — no span objects, no clock reads, no locks. Enable
+  process-wide with ``MXTPU_TRACING=1`` or per request with
+  ``submit(trace=True)``.
+- **Host-side only**: spans are recorded strictly outside the jitted
+  closures, so an armed trace can never retrace or reshape the
+  fixed-shape serving programs (tests/test_telemetry_overhead.py and
+  ``bench.py --obs`` hold the zero-steady-state-compile gate).
+- **Thread-safe**: a trace crosses threads (submitter, engine worker,
+  router callbacks on replica workers); every mutation is a few list
+  ops under the trace's own lock.
+
+Flight-recorder env knobs: ``MXTPU_FLIGHT=0`` disables event
+recording entirely; ``MXTPU_FLIGHT_DIR=<dir>`` additionally writes
+each dump as a JSON file there (pretty-print with
+``scripts/obs_dump.py``).
+"""
+from __future__ import annotations
+
+import collections
+import itertools
+import json as _json
+import os
+import threading
+import time
+
+from . import telemetry
+
+__all__ = [
+    "enabled", "set_enabled", "new_trace_id", "Span", "Trace",
+    "start_trace", "FlightRecorder", "flight", "recent_traces",
+    "clear_recent", "spans_allocated",
+]
+
+_enabled = os.environ.get("MXTPU_TRACING", "0").lower() \
+    in ("1", "true", "on")
+
+_flight_enabled = os.environ.get("MXTPU_FLIGHT", "1").lower() \
+    not in ("0", "false", "off")
+
+#: process-lifetime count of Span objects constructed — the
+#: tracing-disabled overhead test asserts this stays FLAT across an
+#: untraced engine run (zero allocations, not merely zero retained)
+_allocs = 0
+
+_RUN = os.urandom(4).hex()
+_mint = itertools.count(1)
+_DEFAULT_MAX_SPANS = 1024
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def set_enabled(flag: bool) -> bool:
+    """Toggle the process-wide tracing default at runtime (tests; the
+    env var sets the import-time default). Returns the previous
+    state. Per-request ``submit(trace=True/False)`` still overrides."""
+    global _enabled
+    prev = _enabled
+    _enabled = bool(flag)
+    return prev
+
+
+def spans_allocated() -> int:
+    """Process-lifetime count of Span objects constructed (the
+    disabled-path zero-allocation gate reads it before/after)."""
+    return _allocs
+
+
+def new_trace_id() -> str:
+    """Process-unique trace id: a per-process random run prefix plus a
+    monotone sequence number (sortable within a process, collision-free
+    across replicas in one fleet process)."""
+    return f"{_RUN}-{next(_mint):06d}"
+
+
+class Span:
+    """One recorded lifecycle edge: ``t0`` is milliseconds since the
+    trace opened, ``dur`` is the span's duration in milliseconds (0.0
+    for instant events), ``parent`` the index of the parent span in
+    the trace (0 = the root ``request`` span), ``attrs`` free-form."""
+
+    __slots__ = ("name", "t0", "dur", "parent", "attrs")
+
+    def __init__(self, name, t0, dur, parent, attrs):
+        global _allocs
+        _allocs += 1
+        self.name = name
+        self.t0 = t0
+        self.dur = dur
+        self.parent = parent
+        self.attrs = attrs
+
+    def to_dict(self) -> dict:
+        d = {"name": self.name, "t0": self.t0, "dur": self.dur,
+             "parent": self.parent}
+        if self.attrs:
+            d["attrs"] = dict(self.attrs)
+        return d
+
+    def __repr__(self):
+        return (f"Span({self.name!r}, t0={self.t0:.3f}ms, "
+                f"dur={self.dur:.3f}ms{', ' + repr(self.attrs) if self.attrs else ''})")
+
+
+class Trace:
+    """Bounded per-request span list. Span 0 is the root ``request``
+    span, opened at mint time and closed (duration extended) by every
+    :meth:`finish` — a router request finished once per replica hop
+    keeps its root covering the full submit→final-finish interval.
+    Past ``max_spans`` recording degrades gracefully: spans are
+    dropped and counted, never reallocated or raised over."""
+
+    __slots__ = ("trace_id", "opened_at", "dropped", "_t0", "_spans",
+                 "_lock", "_max", "_registered")
+
+    def __init__(self, trace_id=None, max_spans=_DEFAULT_MAX_SPANS,
+                 **attrs):
+        self.trace_id = trace_id or new_trace_id()
+        self.opened_at = time.time()
+        self.dropped = 0
+        self._t0 = time.perf_counter()
+        self._lock = threading.Lock()
+        self._max = int(max_spans)
+        self._registered = False
+        self._spans = [Span("request", 0.0, 0.0, -1, attrs)]
+        telemetry.counter("tracing.traces")
+
+    # -- recording (producer side) -------------------------------------
+    def clock(self) -> float:
+        """``time.perf_counter()`` — the t0 source for :meth:`add`.
+        Unlike ``telemetry.clock()`` there is no disabled sentinel: a
+        Trace only exists when tracing is on for this request."""
+        return time.perf_counter()
+
+    def _append(self, span):
+        with self._lock:
+            if len(self._spans) >= self._max:
+                self.dropped += 1
+                return
+            self._spans.append(span)
+
+    def add(self, name, t0, parent=0, **attrs):
+        """Record a span that started at ``t0 = trace.clock()`` and
+        ends now."""
+        now = time.perf_counter()
+        self._append(Span(name, (t0 - self._t0) * 1e3,
+                          (now - t0) * 1e3, parent, attrs))
+
+    def add_ms(self, name, dur_ms, parent=0, **attrs):
+        """Record a span of known duration ``dur_ms`` ending now (queue
+        waits measured on another clock)."""
+        now_rel = (time.perf_counter() - self._t0) * 1e3
+        self._append(Span(name, now_rel - dur_ms, float(dur_ms),
+                          parent, attrs))
+
+    def event(self, name, parent=0, **attrs):
+        """Record an instant (zero-duration) event."""
+        self._append(Span(name, (time.perf_counter() - self._t0) * 1e3,
+                          0.0, parent, attrs))
+
+    def finish(self, reason=None, error=None):
+        """Close (or extend) the root span and record a ``finish``
+        event. Safe to call more than once: a router request finishes
+        once per replica attempt and once at the sink — the LAST
+        finish event is the request's final outcome, and the root span
+        always covers through it."""
+        now_rel = (time.perf_counter() - self._t0) * 1e3
+        attrs = {}
+        if reason is not None:
+            attrs["reason"] = reason
+        if error is not None:
+            attrs["error"] = f"{type(error).__name__}: {error}" \
+                if isinstance(error, BaseException) else str(error)
+        with self._lock:
+            self._spans[0].dur = now_rel
+            if len(self._spans) < self._max:
+                self._spans.append(Span("finish", now_rel, 0.0, 0,
+                                        attrs))
+            else:
+                self.dropped += 1
+            register = not self._registered
+            self._registered = True
+        if register:
+            _retain(self)
+
+    # -- reading (consumer side) ---------------------------------------
+    def spans(self) -> list:
+        """Snapshot of the recorded spans as plain dicts (chronological
+        by recording order; span 0 is the root)."""
+        with self._lock:
+            return [s.to_dict() for s in self._spans]
+
+    def to_dict(self) -> dict:
+        with self._lock:
+            spans = [s.to_dict() for s in self._spans]
+        return {"trace_id": self.trace_id, "opened_at": self.opened_at,
+                "dropped": self.dropped, "spans": spans}
+
+    def __len__(self):
+        with self._lock:
+            return len(self._spans)
+
+    def __repr__(self):
+        return f"Trace({self.trace_id}, {len(self)} spans)"
+
+
+def start_trace(trace, **attrs):
+    """Resolve a ``submit(trace=)`` argument against the module
+    default: a :class:`Trace` passes through (the Router threading one
+    trace across replica submits), ``True`` forces a new trace,
+    ``False`` forces none, ``None`` defers to :func:`enabled`.
+    Returns a Trace or None — the hot paths branch on ``is not
+    None`` only."""
+    if isinstance(trace, Trace):
+        return trace
+    if trace or (trace is None and _enabled):
+        return Trace(**attrs)
+    return None
+
+
+# -- recently finished traces (profiler.dumps spans section) -----------
+
+_recent_lock = threading.Lock()
+_recent: collections.deque = collections.deque(maxlen=16)
+
+
+def _retain(trace: Trace):
+    with _recent_lock:
+        _recent.append(trace)
+
+
+def recent_traces() -> list:
+    """The most recently FINISHED traces (bounded ring), as dicts —
+    ``profiler.dumps(aggregate_stats=True)`` renders these as its
+    spans section."""
+    with _recent_lock:
+        traces = list(_recent)
+    return [t.to_dict() for t in traces]
+
+
+def clear_recent():
+    with _recent_lock:
+        _recent.clear()
+
+
+# -- flight recorder ---------------------------------------------------
+
+class FlightRecorder:
+    """Fixed-size ring of recent structured events, dumped on serving
+    and training incidents.
+
+    ``record`` is the always-on cheap path (one deque append under a
+    lock — events are sparse: admissions, evictions, state
+    transitions, compiles, faults; never per-token). ``dump`` appends
+    the *triggering* event, snapshots the ring (trigger last), stashes
+    it as :meth:`last_dump`, and — when ``MXTPU_FLIGHT_DIR`` is set —
+    writes the dump as a JSON file for ``scripts/obs_dump.py``."""
+
+    def __init__(self, capacity: int = 512):
+        self._lock = threading.Lock()
+        self._buf: collections.deque = collections.deque(
+            maxlen=int(capacity))
+        self._last_dump = None
+        self._n_dumps = 0
+
+    def record(self, kind: str, **fields):
+        if not _flight_enabled:
+            return
+        with self._lock:
+            self._buf.append((time.time(), kind, fields))
+
+    def events(self) -> list:
+        """Snapshot of the ring, oldest first, as dicts."""
+        with self._lock:
+            buf = list(self._buf)
+        return [{"ts": ts, "kind": kind, **fields}
+                for ts, kind, fields in buf]
+
+    def dump(self, trigger: str, **fields) -> dict:
+        """Record the triggering event, snapshot the ring (triggering
+        event LAST), and return the dump document."""
+        now = time.time()
+        with self._lock:
+            self._buf.append((now, trigger, fields))
+            buf = list(self._buf)
+            self._n_dumps += 1
+            n = self._n_dumps
+        doc = {
+            "version": 1,
+            "trigger": trigger,
+            "dumped_at": now,
+            "events": [{"ts": ts, "kind": kind, **fs}
+                       for ts, kind, fs in buf],
+        }
+        with self._lock:
+            self._last_dump = doc
+        telemetry.counter("tracing.flight.dumps")
+        out_dir = os.environ.get("MXTPU_FLIGHT_DIR")
+        if out_dir:
+            try:
+                os.makedirs(out_dir, exist_ok=True)
+                path = os.path.join(
+                    out_dir,
+                    f"flight-{os.getpid()}-{n:04d}-"
+                    f"{trigger.replace('/', '_')}.json")
+                with open(path, "w") as f:
+                    _json.dump(doc, f, indent=2)
+            except OSError:
+                # a full/readonly disk must never take the serving
+                # path down with it — the in-memory dump stands
+                telemetry.counter("tracing.flight.dump_write_errors")
+        return doc
+
+    def last_dump(self):
+        """The most recent :meth:`dump` document (None before the
+        first incident)."""
+        with self._lock:
+            return self._last_dump
+
+    def clear(self):
+        with self._lock:
+            self._buf.clear()
+            self._last_dump = None
+
+    def __len__(self):
+        with self._lock:
+            return len(self._buf)
+
+
+#: the process-wide flight recorder every subsystem records into
+flight = FlightRecorder()
