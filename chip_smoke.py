@@ -5,26 +5,33 @@ Run from the repository root on a machine with an NVIDIA Hopper card::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc/`` (nvcc,
-seconds), holds each kernel against its plain PyTorch version on the
-card, serves greedy generation at GPT-2-small widths through
-``GenerationEngine`` and holds the engine's tokens and logits against
-the same weights run on the CPU. Every phase prints one JSON line; any
-failure raises (exit code != 0) and no result line is printed. The
-last line is ``{"ok": true, "device": {...}}``.
+It builds the port's four CUDA kernels from ``mxnet_tpu_torch/csrc/``
+(nvcc, one process per source, seconds), holds each kernel against its
+plain PyTorch version on the card (K1 flash prefill, K2 dense decode,
+K3 paged decode, K4 int8 dequant-matmul), then serves greedy
+generation at GPT-2-small widths through ``GenerationEngine`` twice —
+the dense fp32 engine, and the paged engine with int8 weights (prefix
+sharing, peek, copy-on-write, chunked prefill) — and holds each
+engine's tokens and logits against the same weights run on the CPU.
+Every phase prints one JSON line; any failure raises (exit code != 0)
+and no result line is printed. The line before the last lists the
+kernels; the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances, with their reasons:
 - kernel vs plain version on the same card inputs: max-abs-err of the
   attention output <= 2e-5 (fp32 throughout; the two sum in different
   orders), of the log-sum-exp <= 1e-4 (a value of ~10 in fp32 carries
-  ~1e-6 per rounding, and exp/log add a few);
+  ~1e-6 per rounding, and exp/log add a few); K4's max-abs-err <= 2e-5
+  x max|ref| (fp32 sums of 768-3072 terms in another order);
 - card logits vs the CPU forward of the same weights: <= 1e-3 (fp32
   reduction order over 12 layers of 768-wide products and a 50257-way
   head, on two devices and two BLAS libraries);
-- greedy agreement of the engine with the CPU under teacher forcing:
+- greedy agreement of each engine with the CPU under teacher forcing:
   >= 99%, and every disagreement on a CPU top-1 vs engine-token logit
   gap below 2e-3 (two logits each within 1e-3 can only swap when their
-  gap is below 2e-3).
+  gap is below 2e-3). The int8 engine is held to the same weights AND
+  the same int8 tables on the CPU, through the generation calls (the
+  plain ``forward`` stays fp32, as in the reference).
 
 It imports torch, numpy and mxnet_tpu_torch only (never jax or the JAX
 package). Without a CUDA device it exits with code 2 and prints no
@@ -49,6 +56,11 @@ import numpy as np
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 
+#: where the phases put their tensors: the card (a CPU dry run of the
+#: script's own logic may set "cpu"; the kernels then take their plain
+#: versions and nothing is measured)
+DEV = "cuda"
+
 OUT_TOL = 2e-5
 LSE_TOL = 1e-4
 LOGIT_TOL = 1e-3
@@ -70,13 +82,25 @@ class Timer:
     ``warm`` untimed ones. ``flush`` overwrites a 64 MiB buffer before
     every timed call, so the inputs come from HBM, not the 50 MB L2
     (a decode step finds its layer's cache cold: the other 11 layers
-    ran in between)."""
+    ran in between).
+
+    A small kernel runs for less time than the host takes to enqueue it
+    through its Python wrapper, so events recorded around the enqueue
+    of an idle card measure the host. Each timed call therefore starts
+    behind a device-side sleep (``torch.cuda._sleep``) long enough to
+    cover the enqueue: the card reaches the first event only when the
+    call's work is already queued, and the interval is device time.
+    ``with_launch=True`` times without the sleep (the card waits for
+    the host's enqueue inside the interval, as it does in the engine's
+    eager loop)."""
+
+    SLEEP_CYCLES = 5_000_000    # ~2.5 ms at the H100's ~2 GHz
 
     def __init__(self, torch):
         self.torch = torch
         self.buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, iters=30, warm=3, flush=False):
+    def __call__(self, fn, iters=30, warm=3, flush=False, with_launch=False):
         torch = self.torch
         for _ in range(warm):
             fn()
@@ -85,6 +109,8 @@ class Timer:
         for _ in range(iters):
             if flush:
                 self.buf.zero_()
+            if not with_launch:
+                torch.cuda._sleep(self.SLEEP_CYCLES)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -128,7 +154,7 @@ def phase_build():
 
 def _rand(torch, rng, *shape):
     return torch.from_numpy(
-        (rng.standard_normal(shape) * 0.5).astype("f4")).cuda()
+        (rng.standard_normal(shape) * 0.5).astype("f4")).to(DEV)
 
 
 def _split_view(torch, rng, b, s, h, d):
@@ -180,6 +206,8 @@ def phase_flash(torch, timer):
 
     # timing at the prefill shape (1, 12, 512, 64), causal, strided
     kernel_ms = timer(lambda: at.flash_attention_fwd(q, k, v, True))
+    launch_ms = timer(lambda: at.flash_attention_fwd(q, k, v, True),
+                      with_launch=True)
     plain_ms = timer(lambda: at._blockwise_fwd(q, k, v, True, scale))
     library_ms = timer(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True))
@@ -188,7 +216,8 @@ def phase_flash(torch, timer):
     n_bytes = 4 * (4 * b * h * sp * d + b * h * sp)  # q, k, v, out, lse
     bound_ms, bound_by = bound(n_bytes, n_flops)
     res = {"max_abs_err": err_o, "max_abs_err_lse": err_l,
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "kernel_ms": kernel_ms, "kernel_ms_with_launch": launch_ms,
+           "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "shape": [b, h, sp, d]}
     emit("flash_attention", **res)
@@ -230,6 +259,8 @@ def phase_decode(torch, timer):
     mask = live[:, :, :, 0][:, :, None, :]     # (B, 1, 1, S) bool
     kernel_ms = timer(lambda: at.decode_attention(q, kn, vn, lens),
                       flush=True)
+    launch_ms = timer(lambda: at.decode_attention(q, kn, vn, lens),
+                      flush=True, with_launch=True)
     plain_ms = timer(lambda: at._decode_fwd_torch(q, kn, vn, lens, scale),
                      flush=True)
     library_ms = timer(lambda: F.scaled_dot_product_attention(
@@ -238,10 +269,195 @@ def phase_decode(torch, timer):
     n_bytes = 4 * (2 * total * h * d + 2 * b * h * d) + 4 * b
     n_flops = 4 * d * h * total
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    res = {"max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+    res = {"max_abs_err": err, "kernel_ms": kernel_ms,
+           "kernel_ms_with_launch": launch_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "shape": [b, h, s, d], "lengths": lengths}
     emit("decode_attention", **res)
+    return res
+
+
+def _paged_inputs(torch, rng, lengths, h, ps, d, p_max, n_pages):
+    """Pools of ``n_pages`` pages with each slot's pages at shuffled
+    places: rows before each slot's length hold data; the scrap page 0,
+    every unreferenced page and every row at or past a length hold NaN.
+    Returns the table, the lengths, the NaN pools and the gathered
+    dense views with the garbage zeroed (for the library yardstick)."""
+    b = len(lengths)
+    need = [-(-n // ps) for n in lengths]
+    perm = rng.permutation(np.arange(1, n_pages))
+    table = np.zeros((b, p_max), "i4")
+    at = 0
+    for i, n in enumerate(need):
+        table[i, :n] = perm[at:at + n]
+        at += n
+    shape = (n_pages, h, ps, d)
+    kp = np.full(shape, np.nan, "f4")
+    vp = np.full(shape, np.nan, "f4")
+    for i, n in enumerate(lengths):
+        for t in range(n):
+            pg, r = table[i, t // ps], t % ps
+            kp[pg, :, r] = rng.standard_normal((h, d)) * 0.5
+            vp[pg, :, r] = rng.standard_normal((h, d)) * 0.5
+    tbl = torch.from_numpy(table).to(DEV)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    kn, vn = torch.from_numpy(kp).to(DEV), torch.from_numpy(vp).to(DEV)
+    return tbl, lens, kn, vn
+
+
+def phase_paged_decode(torch, timer):
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as at
+    rng = np.random.RandomState(3)
+    b, h, ps, d, p_max, n_pages = 8, 12, 16, 64, 64, 513
+    scale = 1.0 / math.sqrt(d)
+    lengths = [0, 1, 15, 16, 17, 500, 1023, 1024]
+    tbl, lens, kn, vn = _paged_inputs(torch, rng, lengths, h, ps, d, p_max,
+                                      n_pages)
+    cases, err = [], 0.0
+
+    def compare(q, table, ln, tag):
+        nonlocal err
+        out = at.paged_decode_attention(q, kn, vn, table, ln)
+        ref = at._decode_fwd_torch(q, at.gather_pages(kn, table),
+                                   at.gather_pages(vn, table), ln, scale)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()),
+              f"K3 non-finite output with NaN garbage ({tag})")
+        zero = [i for i, n in enumerate(ln.tolist()) if n == 0]
+        check(all(float(out[i].abs().max()) == 0.0 for i in zero),
+              "K3 len=0 row not zero")
+        e = float((out - ref).abs().max())
+        cases.append({"case": tag, "out_err": e})
+        err = max(err, e)
+
+    for sq in (1, 4):
+        compare(_split_view(torch, rng, b, sq, h, d), tbl, lens, f"sq={sq}")
+    # peek: one slot, B = 1, its own (1, P_max) table row
+    compare(_split_view(torch, rng, 1, 1, h, d), tbl[5:6].contiguous(),
+            lens[5:6].contiguous(), "peek b=1 len=500")
+    emit("paged_decode_attention_check", cases=cases)
+    check(err <= OUT_TOL, f"K3 max-abs-err {err} > {OUT_TOL}")
+
+    q = _split_view(torch, rng, b, 1, h, d)     # the decode step's layout
+    kz = torch.nan_to_num(at.gather_pages(kn, tbl), nan=0.0)
+    vz = torch.nan_to_num(at.gather_pages(vn, tbl), nan=0.0)
+    live = torch.arange(p_max * ps, device=DEV)[None, :] \
+        < lens.long()[:, None]
+    mask = live[:, None, None, :]               # (B, 1, 1, S) bool
+    kernel_ms = timer(lambda: at.paged_decode_attention(q, kn, vn, tbl,
+                                                        lens), flush=True)
+    launch_ms = timer(lambda: at.paged_decode_attention(q, kn, vn, tbl,
+                                                        lens), flush=True,
+                      with_launch=True)
+    plain_ms = timer(lambda: at._decode_fwd_torch(
+        q, at.gather_pages(kn, tbl), at.gather_pages(vn, tbl), lens, scale),
+        flush=True)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        q, kz, vz, attn_mask=mask), flush=True)
+    total = sum(lengths)
+    n_bytes = 4 * (2 * total * h * d + 2 * b * h * d) + 4 * b * (p_max + 1)
+    n_flops = 4 * d * h * total
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    res = {"max_abs_err": err, "kernel_ms": kernel_ms,
+           "kernel_ms_with_launch": launch_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library": "scaled_dot_product_attention on the pre-gathered "
+                      "dense view with a bool mask (gather not timed)",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "shape": {"B": b, "H": h, "page_size": ps, "D": d,
+                     "P_max": p_max, "n_pages": n_pages},
+           "lengths": lengths}
+    emit("paged_decode_attention", **res)
+    return res
+
+
+#: the projections of one GPT-2-small layer, (N, K): q, k, v, out,
+#: ffn1, ffn2
+LAYER_PROJECTIONS = [(768, 768)] * 4 + [(3072, 768), (768, 3072)]
+DEQUANT_REL_TOL = 2e-5
+
+
+def _library_dequant(torch, x, wq, scales):
+    """One PyTorch call computing the same product: the int8
+    weight-only product where this build runs it on the card, else
+    ``F.linear`` on a weight dequantized ahead of time (4x the bytes).
+    A yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+    try:
+        torch._weight_int8pack_mm(x, wq, scales)
+        torch.cuda.synchronize()
+        return (lambda: torch._weight_int8pack_mm(x, wq, scales),
+                "torch._weight_int8pack_mm")
+    except (RuntimeError, AttributeError, NotImplementedError):
+        wf = wq.float() * scales[:, None]
+        return (lambda: F.linear(x, wf),
+                "F.linear on a pre-dequantized fp32 weight")
+
+
+def phase_dequant(torch, timer):
+    from mxnet_tpu_torch.ops import quantized as qz
+    rng = np.random.RandomState(4)
+    cases, err_abs, err_rel = [], 0.0, 0.0
+    tables = {}
+    for n, k in sorted(set(LAYER_PROJECTIONS)):
+        w = torch.from_numpy(
+            (rng.standard_normal((n, k)) * 0.02).astype("f4")).to(DEV)
+        w[n // 3] = 0.0                          # an all-zero channel
+        tables[(n, k)] = qz.quantize_channelwise(w)
+        wq, sc = tables[(n, k)]
+        check(int(wq[n // 3].abs().max()) == 0, "zero channel not zero")
+        for m in (1, 8, 32, 512):
+            x = _rand(torch, rng, m, k)
+            out = qz.dequant_matmul(x, wq, sc)
+            ref = qz._dequant_matmul_torch(x, wq, sc)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), "K4 non-finite output")
+            e = float((out - ref).abs().max())
+            rel = e / float(ref.abs().max())
+            cases.append({"M": m, "N": n, "K": k, "max_abs_err": e,
+                          "rel": rel})
+            err_abs, err_rel = max(err_abs, e), max(err_rel, rel)
+    emit("dequant_matmul_check", cases=cases)
+    check(err_rel <= DEQUANT_REL_TOL,
+          f"K4 max-abs-err {err_rel} x max|ref| > {DEQUANT_REL_TOL}")
+
+    # timing at the decode shape, M = 8, each projection of one layer
+    m = 8
+    per_shape, lib_name = {}, None
+    for n, k in sorted(set(LAYER_PROJECTIONS)):
+        wq, sc = tables[(n, k)]
+        x = _rand(torch, rng, m, k)
+        lib, lib_name = _library_dequant(torch, x, wq, sc)
+        per_shape[(n, k)] = {
+            "kernel_ms": timer(lambda: qz.dequant_matmul(x, wq, sc),
+                               flush=True),
+            "kernel_ms_with_launch": timer(
+                lambda: qz.dequant_matmul(x, wq, sc), flush=True,
+                with_launch=True),
+            "plain_ms": timer(lambda: qz._dequant_matmul_torch(x, wq, sc),
+                              flush=True),
+            "library_ms": timer(lib, flush=True),
+            "bound": bound(n * k + 4 * (m * k + n + m * n), 2 * m * n * k)}
+
+    def layer(key):
+        return sum(per_shape[s][key] for s in LAYER_PROJECTIONS)
+    n_bytes = sum(n * k + 4 * (m * k + n + m * n)
+                  for n, k in LAYER_PROJECTIONS)
+    n_flops = sum(2 * m * n * k for n, k in LAYER_PROJECTIONS)
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    res = {"max_abs_err": err_abs, "max_rel_err": err_rel,
+           "kernel_ms": layer("kernel_ms"),
+           "kernel_ms_with_launch": layer("kernel_ms_with_launch"),
+           "plain_ms": layer("plain_ms"),
+           "library_ms": layer("library_ms"), "library": lib_name,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "timed": "the 6 projections of one layer at M=8, summed",
+           "per_shape": [{"N": n, "K": k, **{kk: vv for kk, vv in r.items()
+                                             if kk != "bound"},
+                          "bound_ms": r["bound"][0]}
+                         for (n, k), r in per_shape.items()]}
+    emit("dequant_matmul", **res)
     return res
 
 
@@ -249,9 +465,8 @@ def phase_engine(torch):
     """GPT-2-small widths, 12 layers, random weights from a seed, 24
     prompts of 16..512 tokens from 4 client threads; then the CPU
     reference on the same weights."""
-    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch import ops, telemetry
     from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
-    from mxnet_tpu_torch.ops import attention as at
     from mxnet_tpu_torch.serving import GenerationEngine
 
     vocab, n_layers, n_req, max_new = 50257, 12, 24, 64
@@ -285,7 +500,7 @@ def phase_engine(torch):
             errors.append(e)
 
     telemetry.reset()
-    at.reset_launch_counts()           # the main path's run starts here
+    ops.reset_launch_counts()          # the main path's run starts here
     t0 = time.perf_counter()
     clients = [threading.Thread(target=client, args=(c,)) for c in range(4)]
     for th in clients:
@@ -293,7 +508,7 @@ def phase_engine(torch):
     for th in clients:
         th.join(timeout=900)
     wall = time.perf_counter() - t0
-    launches = at.launch_counts()      # ... and ends here
+    launches = ops.launch_counts()     # ... and ends here
     steps = int(telemetry.counter_value("serving.generate.host_syncs"))
     decode_hist = telemetry.hist_quantiles("serving.generate.decode")
     if errors:
@@ -368,6 +583,220 @@ def phase_engine(torch):
     return eng_res
 
 
+def _paged_prompts(rng, vocab):
+    """The shape of ``bench.py --prefix``: 19 prompts share one
+    192-token system prompt followed by a unique tail of 16-256 tokens,
+    3 are unshared (16-512 tokens, one short enough for a single fresh
+    prefill), and 2 repeat an earlier prompt exactly, at a length that
+    is not a multiple of the page size. Returns the prompts and, for
+    each repeat, the index of its original."""
+    sys_prompt = rng.randint(0, vocab - 1, size=192).astype("i4")
+    tails = rng.randint(16, 257, size=19)
+    tails[16:18] = [37, 101]          # the originals of the repeats
+    prompts = [np.concatenate([sys_prompt,
+                               rng.randint(0, vocab - 1, size=n)
+                               .astype("i4")]) for n in tails]
+    for n in (rng.randint(16, 33), rng.randint(33, 257),
+              rng.randint(257, 513)):
+        prompts.append(rng.randint(0, vocab - 1, size=n).astype("i4"))
+    repeats = {22: 16, 23: 17}
+    for j, orig in repeats.items():
+        prompts.append(prompts[orig].copy())
+    return prompts, repeats
+
+
+#: the paged phases' model: GPT-2-small widths (docs/SERVING.md)
+PAGED_MODEL = dict(vocab_size=50257, units=768, num_layers=12, num_heads=12,
+                   max_length=1024)
+
+
+def _gpt2_small(torch, device=None):
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
+    return GPTModel(**PAGED_MODEL, device=device).initialize(seed=0)
+
+
+def phase_paged_engine(torch):
+    """GPT-2-small widths, 12 layers, random weights from seed 0,
+    ``paged=True, quantize="int8_weights"``, 8 slots, page 16, default
+    chunk and pool; 24 prompts from 4 client threads, each sending its
+    6 back to back, except that a repeat is sent once its original's
+    result is in (a user re-sending a prompt)."""
+    from mxnet_tpu_torch import ops, telemetry
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    n_layers, n_req, max_new = PAGED_MODEL["num_layers"], 24, 64
+    t0 = time.perf_counter()
+    model = _gpt2_small(torch, DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(model, max_slots=8, max_new_tokens=max_new,
+                           eos_id=50256, paged=True, page_size=16,
+                           quantize="int8_weights", device=DEV)
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    prompts, repeats = _paged_prompts(np.random.RandomState(5),
+                                      PAGED_MODEL["vocab_size"])
+    results, ttft, errors = [None] * n_req, [None] * n_req, []
+    streams, sent = [None] * n_req, [threading.Event() for _ in prompts]
+
+    def client(c):
+        try:
+            mine = []
+            for j in range(c, n_req, 4):
+                if j in repeats:
+                    sent[repeats[j]].wait(600)
+                    streams[repeats[j]].result(timeout=600)
+                st = eng.submit(prompts[j])
+                streams[j] = st
+                sent[j].set()
+                mine.append((j, time.perf_counter(), st))
+            for j, t, st in mine:
+                results[j] = st.result(timeout=600)
+                ttft[j] = (st.first_token_at - t) * 1e3
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    telemetry.reset()
+    ops.reset_launch_counts()          # the main path's run starts here
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for th in clients:
+        th.start()
+    for th in clients:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()     # ... and ends here
+    snap = telemetry.snapshot()
+    cnt = snap["counters"]
+    steps = int(cnt.get("serving.generate.host_syncs", 0))
+    decode_hist = telemetry.hist_quantiles("serving.generate.decode")
+    chunks_peak = snap["gauges"][
+        "serving.generate.prefill_chunks_per_iter"]["peak"]
+    if errors:
+        raise errors[0]
+    check(all(r is not None for r in results), "a request did not finish")
+    check(all(r.finish_reason in ("eos", "length") for r in results),
+          f"finish reasons {[r.finish_reason for r in results]}")
+    gen_tokens = sum(len(r.tokens) for r in results)
+    tt = np.array(ttft)
+    res = {"requests": n_req, "generated_tokens": gen_tokens,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "wall_s": wall, "tokens_per_s": gen_tokens / wall,
+           "ttft_ms_p50": float(np.percentile(tt, 50)),
+           "ttft_ms_p99": float(np.percentile(tt, 99)),
+           "decode_steps": steps,
+           "decode_step_ms_p50": decode_hist["p50"],
+           "decode_step_ms_avg": decode_hist["avg"],
+           "prefix_hits": int(cnt.get("serving.generate.prefix_hits", 0)),
+           "cow_copies": int(cnt.get("serving.generate.pages.cow_copies",
+                                     0)),
+           "pages_shared": int(cnt.get("serving.generate.pages.shared", 0)),
+           "prefill_chunks": int(cnt.get("serving.generate.prefill_chunks",
+                                         0)),
+           "prefill_chunks_per_iter_peak": chunks_peak,
+           "launches": launches,
+           "launches_per_decode_step": {
+               k: v / steps for k, v in launches.items()} if steps else {},
+           "init_s": init_s, "warmup_s": warmup_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit("paged_engine", **res)
+    check(chunks_peak == 1, f"prefill chunks per iteration peak "
+          f"{chunks_peak} != 1")
+    check(res["prefix_hits"] > 0, "no prefix hit (peek) ran")
+    check(res["cow_copies"] > 0, "no copy-on-write ran")
+    check(launches["flash_attention_fwd"] > 0, "K1 never launched")
+    check(launches["paged_decode_attention"] >= steps * n_layers > 0,
+          f"K3 launched {launches['paged_decode_attention']} times for "
+          f"{steps} decode steps")
+    check(launches["dequant_matmul"] >= 6 * n_layers * steps,
+          f"K4 launched {launches['dequant_matmul']} times for {steps} "
+          f"decode steps")
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    return res, model, prompts, results, repeats
+
+
+def _teacher_forced_paged(model, prompt, gen, chunk=32, ps=16):
+    """Logits of every generated position of one request through the
+    port's paged generation calls, teacher-forced on ``gen``: the
+    engine's own prefill plan (one fresh prefill when the padded prompt
+    fits a chunk, else chunks) into a one-slot pool, then decode steps.
+    Returns a (len(gen), V) CPU tensor."""
+    import torch
+    n = len(prompt)
+    cap = -(-(n + len(gen)) // ps)
+    s_max = PAGED_MODEL["max_length"]
+    cache = model.init_paged_cache(1, cap + 1, ps, s_max)
+    row = np.zeros(s_max // ps, "i4")
+    row[:cap] = np.arange(1, cap + 1)
+    w = max(ps, 1 << (n - 1).bit_length())
+    if w <= chunk:
+        toks = np.zeros((1, w), "i4")
+        toks[0, :n] = prompt
+        lg, cache = model.prefill_paged(toks, n, 0, row, cache, fresh=True)
+    else:
+        for pos in range(0, n, chunk):
+            nv = min(chunk, n - pos)
+            toks = np.zeros((1, chunk), "i4")
+            toks[0, :nv] = prompt[pos:pos + nv]
+            lg, cache = model.prefill_paged(toks, nv, 0, row, cache,
+                                            start=pos)
+    out = [lg[0].cpu()]
+    for tok in gen[:-1]:
+        lg, cache = model.decode_step_paged(np.array([tok], "i4"),
+                                            np.ones(1, "i4"), cache)
+        out.append(lg[0].cpu())
+    return torch.stack(out)
+
+
+def phase_paged_cpu_reference(torch, model, prompts, results, repeats):
+    """The paged int8 engine's tokens held against the same weights and
+    int8 tables on the CPU, teacher-forced through the port's
+    generation calls (not ``forward``, which stays fp32), for 4
+    requests: a prefix hit, its COW'd original, an unshared prompt and
+    a shared-system-prompt one; the card's own teacher-forced logits
+    against the CPU's; and, reported without a gate, how often the fp32
+    model would have picked the int8 engine's token."""
+    hit, orig = 22, repeats[22]
+    picks = [hit, orig, 20, 3]
+    card = [_teacher_forced_paged(model, prompts[j], results[j].tokens)
+            for j in picks]
+    model.to("cpu")
+    fp32 = [_teacher_forced_paged(model.quantize_params(include=()),
+                                  prompts[j], results[j].tokens)
+            for j in picks]
+    model.quantize_params()            # the int8 tables, made on the CPU
+    agree = total = agree32 = 0
+    flips, logit_err = [], 0.0
+    for j, lg_card, lg32 in zip(picks, card, fp32):
+        g = results[j].tokens
+        lg = _teacher_forced_paged(model, prompts[j], g)
+        pred = lg.argmax(dim=-1).numpy()
+        pred32 = lg32.argmax(dim=-1).numpy()
+        logit_err = max(logit_err, float((lg_card - lg).abs().max()))
+        for i, tok in enumerate(g):
+            total += 1
+            agree32 += int(pred32[i] == tok)
+            if pred[i] == tok:
+                agree += 1
+            else:
+                flips.append({"request": j, "pos": i,
+                              "gap": float(lg[i].max() - lg[i, tok])})
+    rate = agree / total
+    emit("paged_cpu_reference", requests=picks, tokens=total,
+         agreement=rate, disagreements=flips,
+         card_vs_cpu_logit_max_abs_err=logit_err, logit_tol=LOGIT_TOL,
+         int8_vs_fp32_agreement=agree32 / total)
+    check(rate >= AGREE_MIN, f"greedy agreement {rate} < {AGREE_MIN}")
+    check(all(f["gap"] < 2 * LOGIT_TOL for f in flips),
+          f"a disagreement on a gap >= {2 * LOGIT_TOL}: {flips}")
+    check(logit_err <= LOGIT_TOL,
+          f"card vs CPU logits {logit_err} > {LOGIT_TOL}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -378,34 +807,49 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    from mxnet_tpu_torch.ops import attention as at
-
     phase_env(torch)
     phase_build()
     timer = Timer(torch)
     k1 = phase_flash(torch, timer)
     k2 = phase_decode(torch, timer)
+    k3 = phase_paged_decode(torch, timer)
+    k4 = phase_dequant(torch, timer)
     if args.kernels_only:
         return 0
+    from mxnet_tpu_torch import ops
     eng = phase_engine(torch)
+    paged, model, prompts, results, repeats = phase_paged_engine(torch)
+    phase_paged_cpu_reference(torch, model, prompts, results, repeats)
     rows = []
-    for name, src, line, fn, res in (
-            ("flash_attention_fwd", "flash_attention.cu", 141,
-             "flash_attention_pallas", k1),
-            ("decode_attention", "decode_attention.cu", 474,
-             "decode_attention_pallas", k2)):
+    for name, src, replaces, fn, res in (
+            ("flash_attention_fwd", "flash_attention.cu",
+             "mxnet_tpu/ops/attention.py:141", "flash_attention_pallas", k1),
+            ("decode_attention", "decode_attention.cu",
+             "mxnet_tpu/ops/attention.py:474", "decode_attention_pallas",
+             k2),
+            ("paged_decode_attention", "paged_decode_attention.cu",
+             "mxnet_tpu/ops/attention.py:566",
+             "paged_decode_attention_pallas", k3),
+            ("dequant_matmul", "dequant_matmul.cu",
+             "mxnet_tpu/ops/quantized.py:151", "dequant_matmul_pallas", k4)):
+        dense_n = eng["launches"].get(name, 0)
+        paged_n = paged["launches"][name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"mxnet_tpu_torch/csrc/{src}",
-            "replaces": f"mxnet_tpu/ops/attention.py:{line}",
-            "replaces_function": fn,
-            "launches": eng["launches"][name],
+            "replaces": replaces, "replaces_function": fn,
+            "launches": dense_n + paged_n,
+            "launches_dense_engine": dense_n,
+            "launches_paged_engine": paged_n,
             "max_abs_err": res["max_abs_err"],
             "ms": res["kernel_ms"], "kernel_ms": res["kernel_ms"],
+            "kernel_ms_with_launch": res["kernel_ms_with_launch"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
-    check(set(at.launch_counts()) == {r["name"] for r in rows},
+    check(set(ops.launch_counts()) == {r["name"] for r in rows},
           "a kernel of the path is missing from the kernels line")
+    check(all(r["launches"] > 0 for r in rows),
+          "a kernel of the path was never launched by an engine")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

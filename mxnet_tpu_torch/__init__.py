@@ -1,13 +1,15 @@
 """mxnet_tpu_torch — the PyTorch / CUDA port of ``mxnet_tpu``.
 
 A second package beside the JAX one, mirroring its layout and names
-(each module sits at the same relative path as its counterpart). This
-slice serves greedy generation on a dense KV cache: the GPT decoder
-(``gluon.model_zoo.gpt``) behind the continuously batched
-``serving.GenerationEngine``. Prefill attention and decode attention
-run as CUDA kernels written by hand for Hopper (``csrc/``, built with
-``nvcc`` at the first CUDA call, see ``_build.py``); everything else is
-plain PyTorch.
+(each module sits at the same relative path as its counterpart). It
+serves greedy generation: the GPT decoder (``gluon.model_zoo.gpt``)
+behind the continuously batched ``serving.GenerationEngine``, on a
+dense or a paged KV cache (prefix sharing, copy-on-write, chunked
+prefill), with fp32 or weight-only int8 projections. Prefill attention,
+dense and paged decode attention and the int8 projection run as CUDA
+kernels written by hand for Hopper (``csrc/``, built with ``nvcc`` at
+the first CUDA call, see ``_build.py``); everything else is plain
+PyTorch.
 
 Device rule: entry points default to ``device="cuda"`` and raise when no
 card is present — pass ``device="cpu"`` to run the plain versions on the

@@ -35,6 +35,8 @@ BUILD_DIR = _PKG / "_build"
 KERNEL_SOURCES = {
     "flash_attention": "flash_attention.cu",
     "decode_attention": "decode_attention.cu",
+    "paged_decode_attention": "paged_decode_attention.cu",
+    "dequant_matmul": "dequant_matmul.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,4 +1,5 @@
-"""GPT — the causal decoder family, dense fp32 generation path.
+"""GPT — the causal decoder family: dense and paged fp32 generation,
+with optional weight-only int8 projections.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/gpt.py``: token plus learned
 position embedding, N pre-LayerNorm blocks (q/k/v/out projections, an
@@ -25,18 +26,37 @@ there is no jit and no trace counter: the port's form of "no
 steady-state recompiles" is "no steady-state reallocation" — the cache
 tensors keep their ``data_ptr()`` across admissions and decode steps.
 
-Attention runs through ``ops.attention``: on the card, prefill and the
-full forward launch K1 (``csrc/flash_attention.cu``) and decode
-launches K2 (``csrc/decode_attention.cu``); on the CPU both take their
-plain versions.
+The PAGED cache (``init_paged_cache``) is a global pool of fixed-size
+pages per layer plus a page table: ``prefill_paged`` (a whole short
+prompt, ``fresh=True``, or one chunk against the gathered page view),
+``decode_step_paged`` (inactive rows write into the scrap page 0),
+``peek_logits_paged`` (the prefix-hit path: logits of the last cached
+token, no write), ``bind_slot_paged`` and ``copy_page_paged`` (the copy
+half of copy-on-write). Like the dense cache, the pool, the table and
+the lengths are written in place and keep their ``data_ptr()``.
 
-The reference's other generation modes (paged cache, int8 weights,
-bf16 compute, LoRA, speculative verify, multi-tick decode,
-tensor-parallel sharding) are later slices; a non-fp32 model or cache
-raises ``NotImplementedError`` naming the ROADMAP.md item.
+``quantize_params`` arms weight-only int8: every block projection of
+``_QUANTIZED_PROJECTIONS`` keeps an int8 copy of its weight with
+per-channel scales, and the GENERATION calls (dense and paged) route
+those projections through ``ops.quantized.dequant_matmul``. As in the
+reference, the plain ``forward`` stays fp32.
+
+Attention runs through ``ops.attention``: on the card, prefill and the
+full forward launch K1 (``csrc/flash_attention.cu``), dense decode
+launches K2 (``csrc/decode_attention.cu``) and paged decode and peek
+launch K3 (``csrc/paged_decode_attention.cu``); the int8 projections
+launch K4 (``csrc/dequant_matmul.cu``). On the CPU each takes its
+plain version. The chunked-prefill attention is plain PyTorch, as it is
+plain jnp in the reference.
+
+The reference's other generation modes (int8 KV, bf16 compute, LoRA,
+speculative verify, multi-tick decode, tensor-parallel sharding) are
+later slices; a non-fp32 model or cache raises ``NotImplementedError``
+naming the ROADMAP.md item.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as onp
@@ -45,11 +65,31 @@ import torch
 from ...base import not_ported
 from ...context import resolve_device
 from ...ops import attention as _att
+from ...ops import quantized as _qz
+from ...ops import nn as _nn
 from ..block import HybridBlock
 from ..parameter import Parameter
 from ..nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
 
 __all__ = ["GPTBlock", "GPTModel", "gpt_small", "load_jax_params"]
+
+#: the weight-only int8 target set: every per-block projection on the
+#: decode path. Embeddings, LayerNorms and the lm_head stay fp32.
+_QUANTIZED_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "out_proj",
+                          "ffn1", "ffn2")
+
+
+def _to_pages(a, page_size):
+    """Reshape a (1, H, C, Dh) chunk of K or V into page-pool layout
+    (C / page_size, H, page_size, Dh) for a scatter into the pool —
+    the one place the pool's page layout is encoded."""
+    h, c, d = a.shape[1:]
+    return a[0].reshape(h, c // page_size, page_size, d).transpose(0, 1)
+
+
+def _not_ported_cache_dtype(dtype):
+    return not_ported(f"a {dtype} KV cache",
+                      "8 (int8 KV)" if str(dtype) == "int8" else "10 (bf16)")
 
 
 class GPTBlock(HybridBlock):
@@ -76,6 +116,10 @@ class GPTBlock(HybridBlock):
                           dtype=dtype, in_units=units)
         self.ffn2 = Dense(units, flatten=False, dtype=dtype, in_units=hidden)
         self.drop = Dropout(dropout) if dropout else None
+        #: ``{proj_name: (int8 weight, fp32 scales)}`` while a generation
+        #: call of a quantized model runs (``GPTModel._quant_bound``);
+        #: None keeps every projection on its fp32 Dense
+        self._qbind = None
 
     def _split(self, x):
         """(B, S, U) -> (B, H, S, Dh), a strided view (no copy)."""
@@ -87,17 +131,35 @@ class GPTBlock(HybridBlock):
         b, h, s, d = out.shape
         return out.transpose(1, 2).reshape(b, s, h * d)
 
+    def _proj(self, name, x):
+        """One projection: the fp32 Dense, or — when the bound quant
+        table carries ``name`` — the fused dequant-matmul over its int8
+        weight (K4 on the card). Bias and activation follow the Dense's
+        own, after the product, so the two paths differ only in the
+        weight rounding."""
+        layer = getattr(self, name)
+        q = self._qbind.get(name) if self._qbind else None
+        if q is None:
+            return layer(x)
+        y = _qz.dequant_matmul(x, *q)
+        if layer.bias is not None:
+            y = y + layer.bias.data()
+        if layer._act_type is not None:
+            y = _nn.activation(y, layer._act_type)
+        return y
+
     def _qkv(self, x):
         h = self.ln1(x)
-        return (self._split(self.q_proj(h)), self._split(self.k_proj(h)),
-                self._split(self.v_proj(h)))
+        return (self._split(self._proj("q_proj", h)),
+                self._split(self._proj("k_proj", h)),
+                self._split(self._proj("v_proj", h)))
 
     def _finish(self, x, attn):
-        y = self.out_proj(self._merge(attn))
+        y = self._proj("out_proj", self._merge(attn))
         if self.drop is not None:
             y = self.drop(y)
         x = x + y
-        y = self.ffn2(self.ffn1(self.ln2(x)))
+        y = self._proj("ffn2", self._proj("ffn1", self.ln2(x)))
         if self.drop is not None:
             y = self.drop(y)
         return x + y
@@ -123,6 +185,51 @@ class GPTBlock(HybridBlock):
         v_cache[rows, :, pos] = v[:, :, 0].to(v_cache.dtype)
         attn = _att.decode_attention(q, k_cache, v_cache, att_len)
         return self._finish(x, attn), k_cache, v_cache
+
+    # -- paged-cache generation ----------------------------------------
+    def decode_paged(self, x, k_pool, v_pool, table, page, offset,
+                     att_len):
+        """One decode step against a PAGED cache: write this token's K/V
+        into pool page ``page[b]`` at row ``offset[b]`` IN PLACE, attend
+        over each row's valid pages through the table (K3 on the card).
+        Inactive rows arrive with ``page == 0`` (the scrap page): a free
+        slot's table row may alias pages another slot owns, so its
+        write is redirected, never masked after the fact. Several
+        inactive rows then write the same scrap row in one
+        ``index_put``; which value lands there is unspecified, and
+        nothing reads that row as valid."""
+        q, k, v = self._qkv(x)
+        k_pool[page, :, offset] = k[:, :, 0].to(k_pool.dtype)
+        v_pool[page, :, offset] = v[:, :, 0].to(v_pool.dtype)
+        attn = _att.paged_decode_attention(q, k_pool, v_pool, table,
+                                           att_len)
+        return self._finish(x, attn)
+
+    def prefill_chunk(self, x, k_pool, v_pool, pages, page_ids, start):
+        """One prefill CHUNK against a paged cache: scatter the chunk's
+        K/V into its pool pages ``page_ids`` IN PLACE, then attend the
+        chunk's queries over the slot's whole gathered view (shared
+        prefix pages, earlier chunks and this one) under the causal
+        mask in global coordinates (``start`` is the chunk's first
+        position)."""
+        q, k, v = self._qkv(x)
+        ps = k_pool.shape[2]
+        k_pool[page_ids] = _to_pages(k, ps).to(k_pool.dtype)
+        v_pool[page_ids] = _to_pages(v, ps).to(v_pool.dtype)
+        kg = _att.gather_pages(k_pool, pages[None])
+        vg = _att.gather_pages(v_pool, pages[None])
+        attn = _att.chunked_prefill_attention(q, kg.to(q.dtype),
+                                              vg.to(q.dtype), start)
+        return self._finish(x, attn)
+
+    def peek_paged(self, x, k_pool, v_pool, table, att_len):
+        """Logits-only attention for the LAST already-cached token of
+        one slot (its K/V, its own included, is in the pool): no write,
+        cache untouched — the prefix-hit path."""
+        q, _k, _v = self._qkv(x)
+        attn = _att.paged_decode_attention(q, k_pool, v_pool, table,
+                                           att_len)
+        return self._finish(x, attn)
 
 
 class GPTModel(HybridBlock):
@@ -151,6 +258,9 @@ class GPTModel(HybridBlock):
         self._head_dim = units // num_heads
         self._max_length = max_length
         self._dtype = dtype
+        #: per-block ``{proj_name: (int8 weight, fp32 scales)}`` once
+        #: ``quantize_params`` armed weight-only int8, else None
+        self._quant = None
         with dev:
             self.word_embed = Embedding(vocab_size, units, dtype=dtype)
             self.position_weight = Parameter(
@@ -172,6 +282,64 @@ class GPTModel(HybridBlock):
     @property
     def device(self) -> torch.device:
         return self.position_weight._var().device
+
+    @property
+    def quantized(self) -> bool:
+        """True once ``quantize_params`` armed the weight-only int8
+        generation path."""
+        return self._quant is not None
+
+    def quantize_params(self, include=_QUANTIZED_PROJECTIONS):
+        """Arm (or refresh) weight-only int8 generation: quantize every
+        ``include`` projection of every block per output channel
+        (``ops.quantized.quantize_channelwise``, bitwise the
+        reference's tables) on the model's device, and route the
+        generation calls' projections through the fused dequant-matmul.
+        Embeddings, LayerNorms and the lm_head stay fp32, and the plain
+        ``forward`` is untouched: the fp32 parameters remain the source
+        of truth. Call it again after moving the model to another
+        device. Returns self."""
+        tabs = []
+        for blk in self._blocks():
+            tab = {}
+            for name in include:
+                layer = getattr(blk, name, None)
+                if not isinstance(layer, Dense):
+                    raise ValueError(
+                        f"unknown quantizable projection {name!r} "
+                        f"(choose from {_QUANTIZED_PROJECTIONS})")
+                tab[name] = _qz.quantize_channelwise(layer.weight.data())
+            tabs.append(tab)
+        self._quant = tabs
+        return self
+
+    def quantized_param_stats(self):
+        """``(n_elements, bytes_saved)`` of the current quant tables
+        (fp32 -> int8 saves 3 bytes per element; the per-channel scales
+        are counted against the saving)."""
+        if self._quant is None:
+            return 0, 0
+        n = sum(wq.numel() for tab in self._quant for wq, _s in tab.values())
+        scale_bytes = sum(s.numel() * 4 for tab in self._quant
+                          for _wq, s in tab.values())
+        return n, n * 3 - scale_bytes
+
+    @contextlib.contextmanager
+    def _quant_bound(self):
+        """Bind each block's int8 tables for the duration of one
+        generation call (the reference's ``_make_bind`` quant binding);
+        an fp32 model binds nothing."""
+        if self._quant is None:
+            yield
+            return
+        blocks = self._blocks()
+        for blk, tab in zip(blocks, self._quant):
+            blk._qbind = tab
+        try:
+            yield
+        finally:
+            for blk in blocks:
+                blk._qbind = None
 
     def _blocks(self):
         return list(self.layers._modules.values())
@@ -228,9 +396,7 @@ class GPTModel(HybridBlock):
                 f"cache max_length {s} out of range (position table "
                 f"holds {self._max_length})")
         if dtype is not None and str(dtype) != "float32":
-            raise not_ported(
-                f"a {dtype} KV cache",
-                "8 (int8 KV)" if str(dtype) == "int8" else "10 (bf16)")
+            raise _not_ported_cache_dtype(dtype)
         shape = (int(batch_size), self._num_heads, s, self._head_dim)
         dev = self.device
 
@@ -263,10 +429,11 @@ class GPTModel(HybridBlock):
         slots = torch.arange(b, device=dev) if slots is None else \
             torch.as_tensor(onp.asarray(slots)).to(dev, torch.long)
         x = self._embed(tokens)
-        for blk, kc, vc in zip(self._blocks(), cache["k"], cache["v"]):
-            x, (k, v) = blk.prefill(x)
-            kc[slots, :, :sb] = k.to(kc.dtype)
-            vc[slots, :, :sb] = v.to(vc.dtype)
+        with self._quant_bound():
+            for blk, kc, vc in zip(self._blocks(), cache["k"], cache["v"]):
+                x, (k, v) = blk.prefill(x)
+                kc[slots, :, :sb] = k.to(kc.dtype)
+                vc[slots, :, :sb] = v.to(vc.dtype)
         # logits of the LAST VALID prompt token (predicts token 1)
         idx = (valid_len.long() - 1).clamp(0, sb - 1)
         last = x[torch.arange(b, device=dev), idx][:, None, :]
@@ -291,11 +458,184 @@ class GPTModel(HybridBlock):
         x = (emb + self.position_weight.data()[pos])[:, None, :]
         if self.embed_drop is not None:
             x = self.embed_drop(x)
-        for blk, kc, vc in zip(self._blocks(), cache["k"], cache["v"]):
-            x, _, _ = blk.decode(x, kc, vc, pos, att_len)
+        with self._quant_bound():
+            for blk, kc, vc in zip(self._blocks(), cache["k"], cache["v"]):
+                x, _, _ = blk.decode(x, kc, vc, pos, att_len)
         logits = self.lm_head(self.ln_f(x))    # (B, 1, V)
         ln += 1
         return logits[:, 0, :].float(), cache
+
+    # -- paged-cache generation API ------------------------------------
+    def init_paged_cache(self, batch_size, n_pages, page_size,
+                         max_length=None, dtype=None):
+        """Preallocated PAGED KV cache: a global pool of ``n_pages``
+        fixed-size pages per layer plus a fixed-shape page table —
+        ``{"k": tuple of L (n_pages, H, page_size, Dh) tensors, "v":
+        same, "table": (B, P_max) int32, "len": (B,) int32}`` with
+        ``P_max = max_length // page_size``, all zeros on the model's
+        device. Logical position ``t`` of slot ``b`` lives at
+        ``pool[table[b, t // ps], :, t % ps]``. Page 0 is the reserved
+        SCRAP page: free table entries point at it and redirected
+        writes land in it. The paged calls update it in place."""
+        s = int(max_length) if max_length is not None else self._max_length
+        if not 1 <= s <= self._max_length:
+            raise ValueError(
+                f"cache max_length {s} out of range (position table "
+                f"holds {self._max_length})")
+        ps = int(page_size)
+        if ps < 1 or s % ps != 0:
+            raise ValueError(
+                f"page_size {ps} must divide cache max_length {s}")
+        if int(n_pages) < 2:
+            raise ValueError("n_pages must be >= 2 (page 0 is the "
+                             "reserved scrap page)")
+        if dtype is not None and str(dtype) != "float32":
+            raise _not_ported_cache_dtype(dtype)
+        shape = (int(n_pages), self._num_heads, ps, self._head_dim)
+        dev = self.device
+
+        def zeros():
+            return tuple(torch.zeros(shape, dtype=torch.float32, device=dev)
+                         for _ in range(self._num_layers))
+        return {"k": zeros(), "v": zeros(),
+                "table": torch.zeros((int(batch_size), s // ps),
+                                     dtype=torch.int32, device=dev),
+                "len": torch.zeros((int(batch_size),), dtype=torch.int32,
+                                   device=dev)}
+
+    def _as_row(self, pages):
+        return torch.as_tensor(onp.asarray(pages, "i4")).to(self.device)
+
+    @torch.no_grad()
+    def prefill_paged(self, tokens, n_valid, slot, pages, cache, *,
+                      start=0, fresh=False):
+        """Prefill one chunk (or, with ``fresh=True``, one whole short
+        prompt) of ``slot`` into pool pages. ``tokens`` is (1, W) with
+        W a multiple of the page size; ``pages`` is the slot's FULL
+        (P_max,) physical-page row (entries past its reservation point
+        at scrap page 0); ``start`` is the chunk's global offset (a
+        multiple of the page size; 0 when ``fresh``); ``n_valid``
+        counts the real tokens of this chunk. Returns
+        ``(last_valid_logits (1, V), cache)``, the cache updated in
+        place.
+
+        ``fresh=True`` runs the dense prefill's computation (causal
+        flash over the prompt block only, K1 on the card) and is
+        bitwise equal to dense ``prefill``; the general path attends
+        the gathered page view (shared prefix and earlier chunks) under
+        the global causal mask."""
+        tokens = self._as_tokens(tokens)
+        if tokens.dim() != 2 or tokens.shape[0] != 1:
+            raise ValueError(f"paged prefill tokens must be (1, W), got "
+                             f"shape {tuple(tokens.shape)}")
+        ps = cache["k"][0].shape[2]
+        s_max = cache["table"].shape[1] * ps
+        w = tokens.shape[1]
+        start, n_valid, slot = int(start), int(n_valid), int(slot)
+        if w % ps or w > s_max:
+            raise ValueError(
+                f"chunk width {w} must be a multiple of page_size {ps} "
+                f"and fit cache capacity {s_max}")
+        if start % ps:
+            raise ValueError(f"chunk start {start} must be a multiple of "
+                             f"page_size {ps}")
+        if fresh and start != 0:
+            raise ValueError("fresh prefill starts at 0 by definition")
+        pages = self._as_row(pages)
+        page_ids = pages[start // ps:(start + w) // ps].long()
+        blocks = self._blocks()
+        with self._quant_bound():
+            if fresh:
+                x = self._embed(tokens)
+                for blk, kp, vp in zip(blocks, cache["k"], cache["v"]):
+                    x, (k, v) = blk.prefill(x)
+                    kp[page_ids] = _to_pages(k, ps).to(kp.dtype)
+                    vp[page_ids] = _to_pages(v, ps).to(vp.dtype)
+            else:
+                pw = self.position_weight.data()
+                x = self.word_embed(tokens) + pw[start:start + w]
+                if self.embed_drop is not None:
+                    x = self.embed_drop(x)
+                for blk, kp, vp in zip(blocks, cache["k"], cache["v"]):
+                    x = blk.prefill_chunk(x, kp, vp, pages, page_ids, start)
+        idx = min(max(n_valid - 1, 0), w - 1)
+        logits = self.lm_head(self.ln_f(x[:, idx:idx + 1]))
+        cache["table"][slot] = pages
+        cache["len"][slot] = start + n_valid
+        return logits[:, 0, :].float(), cache
+
+    @torch.no_grad()
+    def decode_step_paged(self, tokens, active, cache):
+        """One decode step for every slot of a PAGED cache: write each
+        active row's K/V into its current page at ``len % page_size``,
+        attend its valid pages, bump its ``len``. ``active`` (B,) masks
+        rows: inactive rows run the same fixed-shape step but their
+        writes go to the scrap page and their ``len`` stands still (a
+        freed slot's table row may alias pages someone else owns).
+        Returns ``(logits (B, V), cache)``, the cache updated in
+        place."""
+        tokens = self._as_tokens(tokens)
+        live = torch.as_tensor(onp.asarray(active)).to(self.device) > 0
+        ps = cache["k"][0].shape[2]
+        table, ln = cache["table"], cache["len"]
+        s_max = table.shape[1] * ps
+        rows = torch.arange(ln.shape[0], device=self.device)
+        pos = ln.clamp(max=s_max - 1).long()
+        att_len = (pos + 1).to(torch.int32)
+        zero = torch.zeros_like(pos)
+        # inactive rows write into scrap page 0: their table rows may
+        # alias pages now owned by other slots
+        page = torch.where(live, table[rows, pos // ps].long(), zero)
+        offset = torch.where(live, pos % ps, zero)
+        x = (self.word_embed(tokens) + self.position_weight.data()[pos])[
+            :, None, :]
+        if self.embed_drop is not None:
+            x = self.embed_drop(x)
+        with self._quant_bound():
+            for blk, kp, vp in zip(self._blocks(), cache["k"], cache["v"]):
+                x = blk.decode_paged(x, kp, vp, table, page, offset, att_len)
+        logits = self.lm_head(self.ln_f(x))
+        ln += live.to(torch.int32)
+        return logits[:, 0, :].float(), cache
+
+    @torch.no_grad()
+    def peek_logits_paged(self, token, slot, cache):
+        """Next-token logits for a slot whose ENTIRE prompt is already
+        cached (prefix reuse): recompute the last prompt token's query
+        at position ``len - 1`` and attend the cached pages — no
+        prefill, no write. Returns (vocab,) logits."""
+        slot = int(slot)
+        ln = cache["len"][slot:slot + 1]
+        pos = (ln - 1).long()
+        tok = self._as_tokens([int(token)])
+        x = (self.word_embed(tok) + self.position_weight.data()[pos])[
+            :, None, :]
+        if self.embed_drop is not None:
+            x = self.embed_drop(x)
+        table1 = cache["table"][slot:slot + 1]
+        with self._quant_bound():
+            for blk, kp, vp in zip(self._blocks(), cache["k"], cache["v"]):
+                x = blk.peek_paged(x, kp, vp, table1, ln)
+        return self.lm_head(self.ln_f(x))[0, 0].float()
+
+    @torch.no_grad()
+    def bind_slot_paged(self, slot, pages, length, cache):
+        """Install a slot's page-table row and valid length (the
+        prefix-hit admission, and the rebind after a COW copy): no
+        compute. Returns the cache, updated in place."""
+        cache["table"][int(slot)] = self._as_row(pages)
+        cache["len"][int(slot)] = int(length)
+        return cache
+
+    @torch.no_grad()
+    def copy_page_paged(self, src, dst, cache):
+        """Copy physical page ``src`` to ``dst`` across every layer's K
+        and V pools — the copy half of copy-on-write at a shared
+        divergence page. Returns the cache, updated in place."""
+        src, dst = int(src), int(dst)
+        for pool in (*cache["k"], *cache["v"]):
+            pool[dst] = pool[src]
+        return cache
 
 
 def gpt_small(vocab_size=1000, units=64, num_layers=2, num_heads=4,

@@ -1,5 +1,18 @@
 """Operators of the port: plain PyTorch, plus hand-written CUDA kernels
-where the JAX package had a Pallas kernel (``attention``)."""
-from . import attention, nn
+where the JAX package had a Pallas kernel (``attention``,
+``quantized``)."""
+from . import attention, nn, quantized
 
-__all__ = ["attention", "nn"]
+__all__ = ["attention", "nn", "quantized", "launch_counts",
+           "reset_launch_counts"]
+
+
+def launch_counts() -> dict:
+    """Launches of every CUDA kernel of the port since the last reset,
+    by kernel name."""
+    return {**attention.launch_counts(), **quantized.launch_counts()}
+
+
+def reset_launch_counts():
+    attention.reset_launch_counts()
+    quantized.reset_launch_counts()

@@ -1,13 +1,17 @@
-"""Attention ops of the port: flash attention (prefill / full forward)
-and decode attention over a dense KV cache.
+"""Attention ops of the port: flash attention (prefill / full forward),
+decode attention over a dense KV cache and over a paged pool, and the
+chunked-prefill attention of the paged engine.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``, forward only. Each op
-has a plain PyTorch version (``_blockwise_fwd``, ``_decode_fwd_torch``)
-and a CUDA kernel written for Hopper (``csrc/flash_attention.cu``,
-``csrc/decode_attention.cu``). The public functions dispatch on the
-device of their inputs: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel or raises — there is no fallback from the
-kernel to the plain version.
+that the reference ran as a Pallas kernel has a plain PyTorch version
+(``_blockwise_fwd``, ``_decode_fwd_torch``, ``gather_pages`` +
+``_decode_fwd_torch``) and a CUDA kernel written for Hopper
+(``csrc/flash_attention.cu``, ``csrc/decode_attention.cu``,
+``csrc/paged_decode_attention.cu``). The public functions dispatch on
+the device of their inputs: a CPU tensor takes the plain version, a
+CUDA tensor launches the kernel or raises — there is no fallback from
+the kernel to the plain version. ``chunked_prefill_attention`` is plain
+``jnp`` in the reference and stays plain PyTorch here.
 
 All shapes are (batch, heads, seq, head_dim). ``kv_len`` means "only
 the first kv_len entries of the key/value buffer are real": keys at or
@@ -16,8 +20,10 @@ end-aligned against the valid prefix (``offset = kv_len - seq_q``).
 
 Numerical rules kept from the reference: the masked score is
 ``NEG_INF = -1e30`` (finite, never -inf), p is re-masked to 0 after
-the exp, and the denominator is guarded (``l_safe``), so a query row
-that sees no key returns zeros.
+the exp, and the denominator is guarded (``l_safe``), so a decode row
+that sees no key returns zeros. Flash attention's fully-masked causal
+rows (``kv_len < seq_q``) follow the reference's blockwise path
+instead, which does not re-mask: see ``_fill_unseen_rows``.
 """
 from __future__ import annotations
 
@@ -27,9 +33,12 @@ import math
 import torch
 
 from .. import _build
+from ..base import not_ported
 
 __all__ = ["NEG_INF", "mha_reference", "flash_attention",
-           "flash_attention_fwd", "decode_attention", "launch_counts",
+           "flash_attention_fwd", "decode_attention", "gather_pages",
+           "expand_page_scales", "paged_decode_attention",
+           "chunked_prefill_attention", "launch_counts",
            "reset_launch_counts", "KERNEL_HEAD_DIMS"]
 
 NEG_INF = -1e30
@@ -39,7 +48,8 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 #: launches of each CUDA kernel since the last reset — bumped by the
 #: wrappers right where they launch, and nowhere else
-_launches = {"flash_attention_fwd": 0, "decode_attention": 0}
+_launches = {"flash_attention_fwd": 0, "decode_attention": 0,
+             "paged_decode_attention": 0}
 
 
 def launch_counts() -> dict:
@@ -179,14 +189,38 @@ def _flash_fwd_cuda(q, k, v, causal, scale, kv_len):
     return out, lse
 
 
+def _fill_unseen_rows(out, lse, v, n_rows, block=512):
+    """The reference's value for the first ``n_rows`` query rows of a
+    causal call with ``kv_len < seq_q``, which see no key. Its blockwise
+    path does not re-mask after the exp: every score of such a row is
+    NEG_INF, so exp(s - m) is 1 on every column of every key block of
+    the zero-padded buffer, and the row comes out as the sum of V over
+    the buffer divided by the padded length, with lse = NEG_INF (the
+    log of that length vanishes against 1e30 in fp32). Both kernels
+    and the plain version compute zeros there; the wrapper overwrites
+    those rows in place."""
+    sk = v.shape[-2]
+    padded = -(-sk // block) * block
+    out[..., :n_rows, :] = (v.sum(dim=-2, keepdim=True).float()
+                            / padded).to(out.dtype)
+    lse[..., :n_rows] = NEG_INF
+    return out, lse
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None, kv_len=None):
     """Flash attention forward, returning ``(out, lse)``. CUDA inputs
-    launch K1; CPU inputs take the plain blockwise version."""
+    launch K1; CPU inputs take the plain blockwise version. Causal rows
+    that see no key (``kv_len < seq_q``) get the reference's value
+    (``_fill_unseen_rows``) on both paths."""
     kv_len = _check_kv_len(kv_len, k.shape[-2])
     scale = _scale(q, scale)
     if q.is_cuda:
-        return _flash_fwd_cuda(q, k, v, causal, scale, kv_len)
-    return _blockwise_fwd(q, k, v, causal, scale, kv_len=kv_len)
+        out, lse = _flash_fwd_cuda(q, k, v, causal, scale, kv_len)
+    else:
+        out, lse = _blockwise_fwd(q, k, v, causal, scale, kv_len=kv_len)
+    if causal and kv_len < q.shape[-2]:
+        out, lse = _fill_unseen_rows(out, lse, v, q.shape[-2] - kv_len)
+    return out, lse
 
 
 def flash_attention(q, k, v, causal=False, scale=None, kv_len=None):
@@ -285,3 +319,128 @@ def decode_attention(q, k, v, lengths, scale=None):
     if q.is_cuda:
         return _decode_cuda(q, k, v, lengths, scale)
     return _decode_fwd_torch(q, k, v, lengths, scale)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (a page pool addressed through a page table)
+# ---------------------------------------------------------------------------
+def gather_pages(pool, table):
+    """Materialize each slot's logical KV view from a paged pool:
+    ``pool`` (n_pages, H, page_size, D) + ``table`` (B, P_max) int ->
+    (B, H, P_max * page_size, D). Logical position ``t`` of slot ``b``
+    lives at ``pool[table[b, t // ps], :, t % ps]``. Free table entries
+    point at the reserved scrap page (id 0): their rows are garbage that
+    per-row length masking must exclude."""
+    g = pool[table.long()]                     # (B, P_max, H, ps, D)
+    b, pm, h, ps, d = g.shape
+    return g.transpose(1, 2).reshape(b, h, pm * ps, d)
+
+
+def expand_page_scales(pool_scale, table, page_size):
+    """The int8 pool's per-page scales broadcast onto token positions;
+    the int8 KV cache is a later slice."""
+    raise not_ported("expand_page_scales (int8 KV pool)", "8 (int8 KV)")
+
+
+#: q, k_pool, v_pool, table, lengths, out; B, H, Sq, D, page_size,
+#: P_max, n_pages; scale; q strides; stream
+_PAGED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale):
+    """Launch K3 (``csrc/paged_decode_attention.cu``). q may be a
+    strided view (the decode step's head split); the pools must be
+    contiguous (n_pages, H, ps, D) fp32; table (B, P_max) and lengths
+    (B,) contiguous int32, all on one card. Anything else raises —
+    nothing is copied."""
+    name = "paged_decode_attention"
+    _check_cuda_f32(name, q, k_pool, v_pool)
+    b, h, sq, d = q.shape
+    if k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
+            or (k_pool.shape[1], k_pool.shape[3]) != (h, d):
+        raise ValueError(f"{name}: pool layout {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError(f"{name}: the page pools must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{name}: the page pools must start on 16-byte "
+                         f"boundaries")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
+    n_pages, _, ps, _ = k_pool.shape
+    for what, t, shape in (("table", table, None), ("lengths", lengths,
+                                                    (b,))):
+        if t.device != q.device or t.dtype != torch.int32 \
+                or not t.is_contiguous() \
+                or (shape is not None and t.shape != shape) \
+                or (shape is None and (t.dim() != 2 or t.shape[0] != b)):
+            raise ValueError(f"{name}: {what} must be a contiguous int32 "
+                             f"tensor on {q.device} with {b} rows, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if b > 65535 or sq > 65535 * 4:
+        raise ValueError(f"{name}: batch {b} / queries {sq} exceed the grid")
+    q_strides = (ctypes.c_longlong * 3)(*_kernel_strides(name, q))
+    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    fn = _build.function("paged_decode_attention",
+                         "mxtt_paged_decode_attention", _PAGED_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
+                 sq, d, ps, table.shape[1], n_pages, float(scale),
+                 ctypes.addressof(q_strides), stream)
+    _launches[name] += 1
+    _build.check("paged_decode_attention", err, name)
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, lengths, scale=None,
+                           k_scale=None, v_scale=None):
+    """Decode attention against a PAGED KV cache.
+
+    ``q`` is (B, H, Sq, D); ``k_pool``/``v_pool`` are the page pools
+    (n_pages, H, page_size, D); ``table`` (B, P_max) int32 maps each
+    slot's logical page index to a physical pool page; ``lengths`` (B,)
+    int32 marks each slot's valid token prefix. The result equals
+    ``decode_attention`` over the gathered per-slot view, which is what
+    the plain version computes (``gather_pages`` + ``_decode_fwd_torch``,
+    the reference's own jnp definition); CUDA inputs launch K3, which
+    walks each slot's valid pages through the table and never loads a
+    row at or past its length. ``k_scale``/``v_scale`` (an int8 pool)
+    are a later slice."""
+    if k_scale is not None or v_scale is not None:
+        raise not_ported("paged_decode_attention over an int8 pool",
+                         "8 (int8 KV)")
+    scale = _scale(q, scale)
+    if not torch.is_tensor(lengths):
+        lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                  device=q.device)
+    if not torch.is_tensor(table):
+        table = torch.as_tensor(table, dtype=torch.int32, device=q.device)
+    if q.is_cuda:
+        return _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale)
+    k = gather_pages(k_pool, table)
+    v = gather_pages(v_pool, table)
+    return _decode_fwd_torch(q, k, v, lengths, scale)
+
+
+def chunked_prefill_attention(q, k, v, start, scale=None):
+    """Attention for one PREFILL CHUNK against a cache buffer.
+
+    ``q`` (B, H, C, D) holds the chunk's queries at global positions
+    ``start + i`` (``start`` a (B,) int tensor or a scalar); ``k``/``v``
+    (B, H, S, D) are each row's gathered cache holding valid keys
+    ``[0, start + C)``. Row ``i`` attends keys ``[0, start + i]``: the
+    causal mask in global coordinates, which also masks every
+    unwritten or garbage cache position. Single-pass masked softmax,
+    as in the reference (plain jnp there, plain PyTorch here)."""
+    scale = _scale(q, scale)
+    start = torch.as_tensor(start, device=q.device).to(torch.long)
+    if start.dim() == 0:
+        start = start[None]
+    row = torch.arange(q.shape[2], device=q.device)[None, None, :, None]
+    col = torch.arange(k.shape[2], device=q.device)[None, None, None, :]
+    valid = col <= start[:, None, None, None] + row
+    return _masked_attend(q, k, v, valid, scale)

@@ -1,7 +1,8 @@
 """GenerationEngine — slot-based continuous batching for greedy
-autoregressive decoding (dense KV cache, fp32).
+autoregressive decoding, over a dense or a paged KV cache, with fp32 or
+weight-only int8 projections.
 
-Counterpart of ``mxnet_tpu/serving/generate.py``'s dense greedy engine.
+Counterpart of ``mxnet_tpu/serving/generate.py``'s greedy engine.
 Iteration-level scheduling (Orca, OSDI'22; vLLM's continuous batching)
 admits and evicts requests at DECODE-STEP boundaries over a fixed
 ``max_slots``-row KV cache (``GPTModel.init_cache``): every step of
@@ -40,16 +41,32 @@ not depend on its co-tenants, so the output equals a single-request
 ``prefill`` + ``decode_step`` loop at the same slot width — and, on the
 same weights, the JAX package's engine.
 
-The reference engine's other modes — paged KV, int8 weights or KV,
-speculative decoding, multi-tick decode, bf16 compute, LoRA, tensor
-parallelism, sampling and weight rollover — are later slices of the
-port; asking for one raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+``paged=True`` serves from a page pool (``GPTModel.init_paged_cache``,
+host bookkeeping in ``serving/paging.py``): a request's pages are
+reserved at admission for its worst case, the longest cached prefix is
+shared (refcounted pages of the prefix index), a prompt that is cached
+whole skips prefill and peeks its first token off the pool, the shared
+partial tail page is copied before the first decode write into it
+(copy-on-write), long or prefix-sharing prompts prefill in chunks — at
+most ONE chunk per engine iteration, interleaved with the decode step —
+and a request the pool cannot cover waits, FIFO, until pages free up.
+``quantize="int8_weights"`` (dense or paged) arms the model's
+weight-only int8 projections (``GPTModel.quantize_params``).
+
+The reference engine's other modes — int8 KV, speculative decoding,
+multi-tick decode, bf16 compute, LoRA, tensor parallelism, sampling and
+weight rollover — are later slices of the port; asking for one raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 Telemetry: counters ``serving.generate.{requests,tokens,prefills,
 evictions,rejected_full,rejected_closed,timeouts,errors,host_syncs,
-dispatches}``, gauges ``serving.generate.slots`` /
-``serving.generate.queue.depth``, histograms
+dispatches}``, in paged mode ``serving.generate.{prefix_hits,
+prefill_chunks}`` and ``serving.generate.pages.{allocated,shared,
+cow_copies,freed}``, with ``quantize`` ``serving.generate.quant.{params,
+bytes_saved}``; gauges ``serving.generate.slots`` /
+``serving.generate.queue.depth``, in paged mode
+``serving.generate.pages.free`` and
+``serving.generate.prefill_chunks_per_iter``; histograms
 ``serving.generate.{queue_wait,prefill,decode,ttft}``. The ``prefill``
 and ``decode`` histograms end at the host's read of the step's tokens,
 so on the card they include the device time (PyTorch returns before
@@ -58,6 +75,7 @@ dispatch).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import queue
 import threading
@@ -72,6 +90,7 @@ from .._bounded_worker import BoundedQueueWorker
 from ..base import not_ported
 from ..bucketing import BucketingPolicy, as_policy
 from ..context import resolve_device
+from . import paging
 from .engine import (
     EngineClosedError, QueueFullError, ReplicaFailedError,
     RequestTimeoutError, _live_engines, _serving_enabled,
@@ -225,6 +244,38 @@ class _Slot:
         self.n_ctx = n_ctx     # cache rows filled (prompt + decoded)
 
 
+class _PagedSlot:
+    """Slot state in paged mode. ``state`` is "prefill" (chunks still
+    pending — the slot sits out decode steps) or "decode". ``row`` is
+    the host mirror of the slot's page-table row (physical page per
+    logical page index; scrap 0 past its reservation); ``page_refs``
+    are the pool references the slot holds (released at eviction);
+    ``cow_pending`` is ``(src, dst, logical_idx)`` when the slot's next
+    decode write would land in a SHARED page — the divergence page is
+    copied to ``dst`` right before that first write (copy-on-write)."""
+
+    __slots__ = ("stream", "last", "left", "eos_id", "deadline", "n_ctx",
+                 "state", "chunks", "row", "page_refs", "cow_pending",
+                 "prompt", "seq", "t_submit")
+
+    def __init__(self, stream, left, eos_id, deadline, n_ctx, row,
+                 page_refs, prompt, seq, t_submit):
+        self.stream = stream
+        self.last = None
+        self.left = left
+        self.eos_id = eos_id
+        self.deadline = deadline
+        self.n_ctx = n_ctx
+        self.state = "prefill"
+        self.chunks = collections.deque()
+        self.row = row
+        self.page_refs = page_refs
+        self.cow_pending = None
+        self.prompt = prompt   # kept until registered in the index
+        self.seq = seq         # admission order (oldest prefills first)
+        self.t_submit = t_submit
+
+
 class _GenWorker(BoundedQueueWorker):
     """Consumer side of the request queue: the admit/step loop.
 
@@ -332,28 +383,51 @@ class GenerationEngine:
         Where the engine runs: the CUDA card by default (raises without
         one); ``"cpu"`` only when asked for. Must be the model's device.
 
-    The reference's other keyword arguments (``paged``, ``quantize``,
-    ``kv_dtype``, ``draft_model``, ``decode_ticks > 1``,
-    ``compute_dtype="bfloat16"``, ``lora_rank``, ``mesh_layout``, a
-    non-fp32 ``cache_dtype``) raise ``NotImplementedError``.
+    paged : bool
+        Serve from a page pool with prefix sharing, copy-on-write and
+        chunked prefill instead of a dense cache.
+    page_size, n_pages, prefill_chunk, prefix_cache
+        Paged mode: tokens per page (a power of two dividing
+        ``max_length``), pool pages (default ``max_slots * P_max + 1``:
+        the dense cache's bytes plus the scrap page), prefill chunk
+        width (default ``min(max_length, max(32, 2 * page_size))``) and
+        whether prompts are published to the prefix index.
+    quantize : str, optional
+        ``"int8_weights"`` arms the model's weight-only int8
+        projections (``quantize_params``) for every generation call.
+
+    The reference's other keyword arguments (``kv_dtype``,
+    ``draft_model``, ``decode_ticks > 1``, ``compute_dtype="bfloat16"``,
+    ``lora_rank``, ``mesh_layout``, a non-fp32 ``cache_dtype``) raise
+    ``NotImplementedError``.
     """
 
     def __init__(self, model, max_slots: int = 8, max_length=None,
                  max_new_tokens: int = 64, eos_id=None,
                  queue_limit: int = 256, timeout_ms=None,
                  prefill_bucketing=None, cache_dtype=None,
-                 paged: bool = False, quantize=None, kv_dtype=None,
-                 draft_model=None, speculative=None, mesh_layout=None,
-                 lora_rank=None, decode_ticks: int = 1,
-                 compute_dtype=None, device=None):
-        if paged:
-            raise not_ported("paged=True", "7 (paged engine)")
-        if quantize is not None or kv_dtype is not None:
-            raise not_ported(f"quantize={quantize!r} / "
-                             f"kv_dtype={kv_dtype!r}", "8 (int8)")
+                 paged: bool = False, page_size: int = 16, n_pages=None,
+                 prefill_chunk=None, prefix_cache: bool = True,
+                 quantize=None, kv_dtype=None, draft_model=None,
+                 speculative=None, mesh_layout=None, lora_rank=None,
+                 decode_ticks: int = 1, compute_dtype=None, device=None):
+        if quantize not in (None, "int8_weights"):
+            raise ValueError(f"unsupported quantize={quantize!r} (only "
+                             f"'int8_weights')")
+        if kv_dtype is not None:
+            if cache_dtype is not None \
+                    and str(cache_dtype) != str(kv_dtype):
+                raise ValueError(f"kv_dtype={kv_dtype!r} conflicts with "
+                                 f"cache_dtype={cache_dtype!r}")
+            if str(kv_dtype) != "int8":
+                raise ValueError(
+                    f"unsupported kv_dtype={kv_dtype!r} (only 'int8'; use "
+                    f"cache_dtype for plain float layouts)")
+            raise not_ported(f"kv_dtype={kv_dtype!r} (paged={paged})",
+                             "8 (int8 KV)")
         if cache_dtype is not None and str(cache_dtype) != "float32":
             raise not_ported(f"cache_dtype={cache_dtype!r}",
-                             "8 (int8) / 10 (bf16)")
+                             "8 (int8 KV) / 10 (bf16)")
         if draft_model is not None or speculative:
             raise not_ported("speculative decoding (draft_model=)",
                              "9 (speculative decoding)")
@@ -369,7 +443,14 @@ class GenerationEngine:
             raise not_ported(f"mesh_layout={mesh_layout!r}",
                              "20 (parallelism over torch.distributed)")
         dev = resolve_device(device)
-        for attr in ("init_cache", "prefill", "decode_step"):
+        self.paged = bool(paged)
+        api = ("init_paged_cache", "prefill_paged", "decode_step_paged",
+               "peek_logits_paged", "bind_slot_paged",
+               "copy_page_paged") if self.paged \
+            else ("init_cache", "prefill", "decode_step")
+        if quantize is not None:
+            api += ("quantize_params",)
+        for attr in api:
             if not callable(getattr(model, attr, None)):
                 raise TypeError(
                     f"GenerationEngine needs a decoder with the "
@@ -385,6 +466,16 @@ class GenerationEngine:
             raise ValueError("max_new_tokens must be >= 1")
         self.device = dev
         self.model = model
+        self.quantize = quantize
+        if quantize is not None:
+            t0 = telemetry.clock()
+            model.quantize_params()
+            telemetry.hist_since("serving.generate.quant.quantize", t0)
+            n, saved = model.quantized_param_stats() \
+                if callable(getattr(model, "quantized_param_stats",
+                                    None)) else (0, 0)
+            telemetry.counter("serving.generate.quant.params", n)
+            telemetry.counter("serving.generate.quant.bytes_saved", saved)
         self.max_slots = int(max_slots)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
@@ -399,10 +490,51 @@ class GenerationEngine:
             raise ValueError(
                 f"max_length {self._s_max} leaves no usable capacity")
         policy = as_policy(prefill_bucketing)
-        if policy is None:
-            policy = BucketingPolicy(mode="pow2", min_size=8)
-        self.policy = policy.clamped(self._s_max)
-        self._cache = model.init_cache(self.max_slots, self._s_max)
+        if self.paged:
+            ps = int(page_size)
+            if ps < 1 or (ps & (ps - 1)):
+                raise ValueError("page_size must be a power of two")
+            if self._s_max % ps:
+                raise ValueError(f"page_size {ps} must divide max_length "
+                                 f"{self._s_max}")
+            self._ps = ps
+            self._p_max = self._s_max // ps
+            chunk = int(prefill_chunk) if prefill_chunk is not None \
+                else min(self._s_max, max(32, 2 * ps))
+            if chunk % ps or not 0 < chunk <= self._s_max:
+                raise ValueError(
+                    f"prefill_chunk {chunk} must be a positive multiple of "
+                    f"page_size {ps} within the cache capacity "
+                    f"{self._s_max}")
+            self._chunk = chunk
+            if policy is None:
+                policy = BucketingPolicy(mode="pow2", min_size=max(8, ps))
+            self.policy = policy.clamped(self._s_max)
+            for w in self.policy.sizes(self._chunk):
+                if w <= self._chunk and w % ps:
+                    raise ValueError(
+                        f"prefill bucket {w} is not a multiple of "
+                        f"page_size {ps} (page-granular scatter needs "
+                        f"aligned widths)")
+            #: default pool = the dense cache's bytes exactly (max_slots
+            #: full-length rows) + the scrap page; prefix sharing turns
+            #: the saving into extra effective slots
+            np_total = int(n_pages) if n_pages is not None \
+                else self.max_slots * self._p_max + 1
+            self._pool = paging.PagePool(np_total)
+            self._prefix = paging.PrefixIndex(self._pool, ps) \
+                if prefix_cache else None
+            #: page-starved requests, oldest first
+            self._blocked: collections.deque = collections.deque()
+            self._seq = 0
+            self._chunks_this_iter = 0
+            self._cache = model.init_paged_cache(self.max_slots, np_total,
+                                                 ps, self._s_max)
+        else:
+            if policy is None:
+                policy = BucketingPolicy(mode="pow2", min_size=8)
+            self.policy = policy.clamped(self._s_max)
+            self._cache = model.init_cache(self.max_slots, self._s_max)
         self._slots: list = [None] * self.max_slots
         self._n_active = 0
         #: serializes every model call (worker admit/step, sync-mode
@@ -439,31 +571,79 @@ class GenerationEngine:
     def warmup(self):
         """Run every shape the steady state will see once ahead of
         traffic — one prefill per sequence bucket the policy can
-        produce, plus the decode step — against a THROWAWAY cache of the
-        live cache's shape. On the card the first call also builds the
-        CUDA kernels, so no request pays for that."""
+        produce, plus the decode step (paged mode: ``_warmup_paged``) —
+        against a THROWAWAY cache of the live cache's shape. On the card
+        the first call also builds the CUDA kernels, so no request pays
+        for that."""
         with self._gen_exclusive():
             if self._closed:
                 return self
-            cache = self.model.init_cache(self.max_slots, self._s_max)
-            for sb in self.policy.sizes(self._s_cap - 1):
-                _, cache = self.model.prefill(onp.zeros((1, sb), "i4"),
-                                              [sb], cache, slots=[0])
-            lg, cache = self.model.decode_step(
-                onp.zeros((self.max_slots,), "i4"), cache)
-            lg.argmax(dim=-1).cpu()
-            del cache
+            if self.paged:
+                self._warmup_paged()
+            else:
+                cache = self.model.init_cache(self.max_slots, self._s_max)
+                for sb in self.policy.sizes(self._s_cap - 1):
+                    _, cache = self.model.prefill(
+                        onp.zeros((1, sb), "i4"), [sb], cache, slots=[0])
+                lg, cache = self.model.decode_step(
+                    onp.zeros((self.max_slots,), "i4"), cache)
+                lg.argmax(dim=-1).cpu()
+                del cache
             self._warmup_telemetry()
         return self
 
+    def _warmup_paged(self):
+        """The paged steady state against a throwaway pool: one fresh
+        prefill per bucket up to the chunk width, one chunk per
+        page-multiple width up to it (tail chunks shrink near the cache
+        end), the decode step, the peek (prefix-hit) path and the
+        table-bind / page-copy (COW) calls. Page ids are data, not
+        shape, so the ids used here are arbitrary."""
+        cache = self.model.init_paged_cache(
+            self.max_slots, self._pool.n_pages, self._ps, self._s_max)
+        row = onp.ones((self._p_max,), "i4")
+        for sb in self.policy.sizes(self._chunk):
+            if sb <= self._chunk:
+                _, cache = self.model.prefill_paged(
+                    onp.zeros((1, sb), "i4"), sb, 0, row, cache, fresh=True)
+        for w in range(self._ps, self._chunk + 1, self._ps):
+            _, cache = self.model.prefill_paged(
+                onp.zeros((1, w), "i4"), w, 0, row, cache, start=0)
+        lg, cache = self.model.decode_step_paged(
+            onp.zeros((self.max_slots,), "i4"),
+            onp.ones((self.max_slots,), "i4"), cache)
+        lg.argmax(dim=-1).cpu()
+        self.model.peek_logits_paged(0, 0, cache)
+        cache = self.model.bind_slot_paged(0, row, 1, cache)
+        self.model.copy_page_paged(1, 1, cache)
+        del cache
+
+    def _cache_tensors(self):
+        keys = ("k", "v", "table", "len") if self.paged \
+            else ("k", "v", "len")
+        out = []
+        for key in keys:
+            val = self._cache[key]
+            out += list(val) if isinstance(val, tuple) else [val]
+        return out
+
     def _warmup_telemetry(self):
-        """The measured bytes of parameters + live cache on the device
-        (``serving.generate.per_device_bytes``)."""
+        """The measured bytes of parameters, int8 tables and the live
+        cache on the device (``serving.generate.per_device_bytes``)."""
         tensors = list(self.model.parameters()) if callable(
             getattr(self.model, "parameters", None)) else []
-        tensors += [*self._cache["k"], *self._cache["v"], self._cache["len"]]
+        for tab in getattr(self.model, "_quant", None) or ():
+            for wq, sc in tab.values():
+                tensors += [wq, sc]
+        tensors += self._cache_tensors()
         telemetry.gauge("serving.generate.per_device_bytes",
                         sum(t.numel() * t.element_size() for t in tensors))
+
+    @property
+    def precision(self) -> str:
+        """The replica's numeric configuration: ``"fp32"`` or
+        ``"int8_weights"``."""
+        return self.quantize or "fp32"
 
     def close(self, timeout: float = 5.0):
         """Stop admission, finish ACTIVE generations and drain the
@@ -518,6 +698,13 @@ class GenerationEngine:
             else int(max_new_tokens)
         if max_new < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.paged:
+            cap = min(int(prompt.size) + max_new, self._s_cap)
+            need = -(-cap // self._ps)
+            if need > self._pool.n_pages - 1:
+                raise ValueError(
+                    f"request needs up to {need} KV pages but the pool "
+                    f"holds {self._pool.n_pages - 1} allocatable pages")
         eos = self.eos_id if eos_id is None else eos_id
         return prompt.astype("i4"), max_new, eos
 
@@ -580,6 +767,14 @@ class GenerationEngine:
                 self._admit_one(req)
                 while self._n_active:
                     self._step()
+                if self.paged and self._blocked:
+                    # an idle sync engine can never unblock a stashed
+                    # request (validated capacity makes this a pool-
+                    # accounting fault, not a load condition): reject
+                    # rather than hang
+                    self._blocked.popleft().stream._finish(
+                        exc=QueueFullError("page pool exhausted for a "
+                                           "synchronous request"))
             return stream
         try:
             self._worker._queue.put_nowait(req)
@@ -608,13 +803,38 @@ class GenerationEngine:
 
     # -- scheduling (generator thread / sync mode) ---------------------
     def _admit(self, q):
-        while self._n_active < self.max_slots:
+        if self.paged:
+            # page-starved requests wait in _blocked, FIFO: younger queue
+            # entries must not starve an older blocked one. queue_wait is
+            # recorded at the actual admission (or the rejection), so
+            # time spent blocked on KV pages shows in the histogram
+            while self._blocked and self._n_active < self.max_slots:
+                r = self._blocked[0]
+                waited_ms = (time.monotonic() - r.t_enq) * 1e3
+                if r.deadline is not None and time.monotonic() > r.deadline:
+                    telemetry.hist("serving.generate.queue_wait", waited_ms)
+                    telemetry.counter("serving.generate.timeouts")
+                    r.stream._finish(exc=RequestTimeoutError(
+                        f"request deadline expired while awaiting KV "
+                        f"pages (waited {waited_ms:.1f} ms)"))
+                    self._blocked.popleft()
+                    continue
+                if not self._try_admit_paged(r):
+                    break
+                telemetry.hist("serving.generate.queue_wait", waited_ms)
+                if r.stream._trace is not None:
+                    r.stream._trace.add_ms("queue", waited_ms, blocked=True)
+                self._blocked.popleft()
+        while self._n_active < self.max_slots \
+                and not (self.paged and self._blocked):
             try:
                 r = q.get_nowait()
             except queue.Empty:
                 break
             self._admit_one(r)
-        telemetry.gauge("serving.generate.queue.depth", q.qsize())
+        telemetry.gauge(
+            "serving.generate.queue.depth",
+            q.qsize() + (len(self._blocked) if self.paged else 0))
 
     def _admit_one(self, r: _GenRequest):
         """Admit ``r`` into a free slot, prefill it and emit its first
@@ -638,6 +858,18 @@ class GenerationEngine:
             raise
 
     def _admit_one_inner(self, r: _GenRequest, waited_ms):
+        if self.paged:
+            # a page-starved request goes to _blocked: its queue_wait is
+            # recorded when it actually admits (or is rejected)
+            if self._try_admit_paged(r):
+                telemetry.hist("serving.generate.queue_wait", waited_ms)
+                if r.stream._trace is not None:
+                    r.stream._trace.add_ms("queue", waited_ms)
+            else:
+                if r.stream._trace is not None:
+                    r.stream._trace.event("deferred", why="kv_pages")
+                self._blocked.append(r)
+            return
         telemetry.hist("serving.generate.queue_wait", waited_ms)
         tr = r.stream._trace
         if tr is not None:
@@ -675,26 +907,277 @@ class GenerationEngine:
         else:
             telemetry.gauge("serving.generate.slots", self._n_active)
 
+    # -- paged scheduling ----------------------------------------------
+    def _alloc_pages(self, n):
+        """Allocate ``n`` pool pages, evicting LRU cached prefixes to
+        make room; None when even an empty prefix cache cannot cover
+        them (the pages are pinned by active slots)."""
+        out = self._pool.alloc(n)
+        while out is None and self._prefix is not None \
+                and self._prefix.evict_lru():
+            out = self._pool.alloc(n)
+        return out
+
+    def _release_pages(self, pids):
+        for pid in pids:
+            self._pool.release(pid)
+
+    def _try_admit_paged(self, r: _GenRequest) -> bool:
+        """Place ``r`` into a free slot: match the longest cached
+        prefix, reserve its worst-case private pages (so decode can
+        never run out mid-sequence), and either peek its first token
+        straight off a fully-cached prompt or queue its prefill chunks.
+        False when the pool (after prefix-cache eviction) cannot cover
+        the reservation — the request stays blocked."""
+        length = int(r.prompt.size)
+        ps = self._ps
+        cap_pages = -(-min(length + r.max_new, self._s_cap) // ps)
+        shared_pages, shared_tokens = [], 0
+        if self._prefix is not None:
+            shared_pages, shared_tokens = self._prefix.match(r.prompt)
+        peek = shared_tokens == length
+        first_write = (length if peek else shared_tokens) // ps
+        # retain the matched pages BEFORE allocating: _alloc_pages may
+        # LRU-evict the very record backing them, and unretained pages
+        # would return to the free list and come straight back as this
+        # request's PRIVATE pages (LIFO) — the row would alias shared
+        # and private, and chunk prefill would overwrite the prefix K/V
+        refs = []
+        n_shared = len(shared_pages) if peek else first_write
+        for i in range(n_shared):
+            self._pool.retain(shared_pages[i])
+            refs.append(shared_pages[i])
+        private = self._alloc_pages(cap_pages - first_write)
+        if private is None and refs:
+            # our retained prefix refs pinned exactly the pages the
+            # eviction sweep tried to reclaim: drop the match and retry
+            # UNSHARED — a page-heavy prefix hit degrades to a plain
+            # prefill instead of failing an admission a retry satisfies
+            self._release_pages(refs)
+            refs = []
+            shared_pages, shared_tokens = [], 0
+            peek = False
+            first_write = n_shared = 0
+            private = self._alloc_pages(cap_pages)
+        if private is None:
+            self._release_pages(refs)
+            return False
+        slot = self._slots.index(None)
+        tr = r.stream._trace
+        if tr is not None:
+            tr.event("admission", slot=slot, mode="paged", peek=peek,
+                     prefix_tokens=shared_tokens)
+        tracing.flight.record("gen.admit", slot=slot, mode="paged",
+                              peek=peek, prefix_tokens=shared_tokens,
+                              trace_id=r.stream.trace_id)
+        row = onp.zeros((self._p_max,), "i4")   # scrap past the cap
+        for i in range(n_shared):
+            row[i] = shared_pages[i]
+        refs.extend(private)
+        s = _PagedSlot(r.stream, r.max_new, r.eos_id, r.deadline,
+                       n_ctx=length, row=row, page_refs=refs,
+                       prompt=r.prompt, seq=self._seq, t_submit=r.t_submit)
+        self._seq += 1
+        if peek:
+            if length % ps:
+                # the shared partial tail is this slot's divergence
+                # page: COW it right before the first decode write
+                s.cow_pending = (int(row[first_write]), private[0],
+                                 first_write)
+                row[first_write + 1:cap_pages] = private[1:]
+            else:
+                row[first_write:cap_pages] = private
+            telemetry.counter("serving.generate.prefix_hits")
+            self._slots[slot] = s
+            self._n_active += 1
+            pt0 = time.perf_counter() if tr is not None else 0.0
+            t0 = telemetry.clock()
+            self._cache = self.model.bind_slot_paged(slot, row, length,
+                                                     self._cache)
+            logits = self.model.peek_logits_paged(int(r.prompt[-1]), slot,
+                                                  self._cache)
+            tok = int(logits.argmax())   # the host sync of this admission
+            telemetry.hist_since("serving.generate.prefill", t0)
+            telemetry.counter("serving.generate.prefills")
+            if tr is not None:
+                tr.add("prefill", pt0, slot=slot, tokens=length, peek=True)
+            self._register_prefix(s)
+            self._first_token(slot, s, tok)
+            return True
+        row[first_write:cap_pages] = private
+        start0 = first_write * ps
+        if start0 == 0 and self.policy.bucket(length) <= self._chunk:
+            w = self.policy.bucket(length)     # one fresh prefill
+            toks = onp.zeros((1, w), "i4")
+            toks[0, :length] = r.prompt
+            s.chunks.append((toks, 0, length, True))
+        else:
+            pos = start0
+            while pos < length:
+                w = min(self._chunk, self._s_max - pos)
+                nv = min(w, length - pos)
+                toks = onp.zeros((1, w), "i4")
+                toks[0, :nv] = r.prompt[pos:pos + nv]
+                s.chunks.append((toks, pos, nv, False))
+                pos += nv
+        self._slots[slot] = s
+        self._n_active += 1
+        return True
+
+    def _register_prefix(self, s: _PagedSlot):
+        """Publish a completed prompt's pages to the prefix index so
+        later identical or shared-prefix requests reuse them. When the
+        prompt ends mid-page and this slot will keep decoding, the now
+        index-retained tail page becomes shared — arm a COW so the
+        slot's first decode write copies it instead of corrupting the
+        cached prefix."""
+        if self._prefix is None or s.prompt is None:
+            return
+        length = int(s.prompt.size)
+        needs_cow = (length % self._ps != 0 and s.cow_pending is None
+                     and s.left > 1 and s.n_ctx < self._s_cap)
+        dst = None
+        if needs_cow:
+            dst = self._alloc_pages(1)
+            if dst is None:
+                return  # cannot afford to freeze the tail: skip caching
+        if not self._prefix.register(s.prompt, s.row):
+            if dst:
+                self._release_pages(dst)
+        elif dst:
+            s.cow_pending = (int(s.row[length // self._ps]), dst[0],
+                             length // self._ps)
+            s.page_refs.append(dst[0])
+        s.prompt = None
+
+    def _first_token(self, slot: int, s: _PagedSlot, tok: int):
+        """Emit a freshly admitted request's first token (from its last
+        prefill chunk's logits or the prefix-hit peek) — the paged
+        analog of the dense admission's tail."""
+        s.last = tok
+        s.left -= 1
+        s.state = "decode"
+        s.stream._emit(tok)
+        telemetry.counter("serving.generate.tokens")
+        telemetry.hist_since("serving.generate.ttft", s.t_submit)
+        if s.eos_id is not None and tok == s.eos_id:
+            self._evict(slot, "eos")
+        elif s.left <= 0 or s.n_ctx >= self._s_cap:
+            self._evict(slot, "length")
+        else:
+            telemetry.gauge("serving.generate.slots", self._n_active)
+
+    def _prefill_tick(self) -> int:
+        """Run AT MOST ONE prefill chunk (oldest admitted slot first):
+        the decode-stall bound — a long prompt spends several iterations
+        prefilling, each interleaved with a decode step over the
+        in-flight slots, so a decode step waits for one chunk, never
+        for a whole prompt."""
+        best = None
+        for i, s in enumerate(self._slots):
+            if s is not None and s.state == "prefill" \
+                    and (best is None or s.seq < self._slots[best].seq):
+                best = i
+        if best is None:
+            return 0
+        s = self._slots[best]
+        if s.deadline is not None and time.monotonic() > s.deadline:
+            telemetry.counter("serving.generate.timeouts")
+            self._evict_exc(best, RequestTimeoutError(
+                "request deadline expired during chunked prefill"))
+            return 0
+        toks, start, n_valid, fresh = s.chunks.popleft()
+        tr = s.stream._trace
+        pt0 = time.perf_counter() if tr is not None else 0.0
+        t0 = telemetry.clock()
+        logits, self._cache = self.model.prefill_paged(
+            toks, n_valid, best, s.row, self._cache, start=start,
+            fresh=fresh)
+        last = not s.chunks
+        tok = int(logits[0].argmax()) if last else None   # host sync
+        telemetry.hist_since("serving.generate.prefill", t0)
+        telemetry.counter("serving.generate.prefill_chunks")
+        if tr is not None:
+            tr.add("prefill_chunk", pt0, slot=best, start=start,
+                   tokens=n_valid)
+        self._chunks_this_iter += 1
+        if last:
+            telemetry.counter("serving.generate.prefills")
+            self._register_prefix(s)
+            self._first_token(best, s, tok)
+        return 1
+
+    def _cow_sweep(self):
+        """Copy-on-write: a decoding slot whose next cache write would
+        land in a SHARED page copies the divergence page first and
+        rebinds its table row. Runs before every paged decode step."""
+        for i, s in enumerate(self._slots):
+            if s is not None and s.state == "decode" \
+                    and s.cow_pending is not None:
+                src, dst, logical = s.cow_pending
+                tr = s.stream._trace
+                pt0 = time.perf_counter() if tr is not None else 0.0
+                self._cache = self.model.copy_page_paged(src, dst,
+                                                         self._cache)
+                s.row[logical] = dst
+                self._cache = self.model.bind_slot_paged(i, s.row, s.n_ctx,
+                                                         self._cache)
+                self._pool.release(src)
+                s.page_refs.remove(src)
+                s.cow_pending = None
+                telemetry.counter("serving.generate.pages.cow_copies")
+                if tr is not None:
+                    tr.add("cow_copy", pt0, slot=i, src=src, dst=dst)
+
+    # -- the engine iteration ------------------------------------------
     def _step(self):
-        """One engine iteration: one decode step over ALL slots (free
-        rows ride along in the fixed-shape batch), the argmax of every
-        row taken on the device and the (B,) tokens brought to the host
-        — the step's one sync — then one token per live slot and the
-        eviction ladder: eos first, then budget/capacity, then
-        deadline. Freed rows admit the next prompts mid-sequence."""
-        idxs = [i for i, s in enumerate(self._slots) if s is not None]
+        """One engine iteration. Paged mode: at most one prefill chunk
+        (``_prefill_tick``), then one decode step over the decoding
+        slots. Dense mode: one decode step over ALL slots."""
+        if self.paged:
+            # the gauge counts every chunk run inside this iteration, so
+            # the one-chunk decode-stall bound is falsifiable
+            self._chunks_this_iter = 0
+            self._prefill_tick()
+            telemetry.gauge("serving.generate.prefill_chunks_per_iter",
+                            self._chunks_this_iter)
+            if any(s is not None and s.state == "decode"
+                   for s in self._slots):
+                self._decode_tick()
+            return
+        self._decode_tick()
+
+    def _decode_tick(self):
+        """One decode step over every DECODING slot (free rows, and in
+        paged mode prefilling rows, ride along in the fixed-shape batch:
+        paged writes of those rows go to the scrap page and their
+        ``len`` stands still), the argmax of every row taken on the
+        device and the (B,) tokens brought to the host — the step's one
+        sync — then one token per live slot and the eviction ladder:
+        eos first, then budget/capacity, then deadline. Freed rows admit
+        the next prompts mid-sequence."""
+        if self.paged:
+            self._cow_sweep()
+        idxs = [i for i, s in enumerate(self._slots)
+                if s is not None and (not self.paged or s.state == "decode")]
         if not idxs:
             return
         toks = onp.zeros((self.max_slots,), "i4")
+        active = onp.zeros((self.max_slots,), "i4")
         any_trace = False
         for i in idxs:
             s = self._slots[i]
             toks[i] = s.last
+            active[i] = 1
             if s.stream._trace is not None:
                 any_trace = True
         tt0 = time.perf_counter() if any_trace else 0.0
         t0 = telemetry.clock()
-        logits, self._cache = self.model.decode_step(toks, self._cache)
+        if self.paged:
+            logits, self._cache = self.model.decode_step_paged(
+                toks, active, self._cache)
+        else:
+            logits, self._cache = self.model.decode_step(toks, self._cache)
         step_toks = logits.argmax(dim=-1).cpu().numpy()
         telemetry.hist_since("serving.generate.decode", t0)
         telemetry.counter("serving.generate.host_syncs")
@@ -719,11 +1202,31 @@ class GenerationEngine:
         telemetry.counter("serving.generate.tokens", len(idxs))
         telemetry.gauge("serving.generate.slots", self._n_active)
 
+    def _release_slot_refs(self, s):
+        if self.paged and s.page_refs:
+            self._release_pages(s.page_refs)
+            s.page_refs = []
+
     def _free_slot(self, slot: int):
+        self._release_slot_refs(self._slots[slot])
         self._slots[slot] = None
         self._n_active -= 1
         telemetry.counter("serving.generate.evictions")
         telemetry.gauge("serving.generate.slots", self._n_active)
+
+    def _evict_exc(self, slot: int, exc):
+        """Reject a slot whose stream has delivered nothing yet (a
+        prefill-phase deadline): an exception, not a truncated
+        result."""
+        s = self._slots[slot]
+        if s.stream._trace is not None:
+            s.stream._trace.event("evict", slot=slot,
+                                  error=f"{type(exc).__name__}: {exc}")
+        tracing.flight.record("gen.evict", slot=slot,
+                              error=type(exc).__name__,
+                              trace_id=s.stream.trace_id)
+        s.stream._finish(exc=exc)
+        self._free_slot(slot)
 
     def _evict(self, slot: int, reason: str):
         s = self._slots[slot]
@@ -736,12 +1239,35 @@ class GenerationEngine:
 
     def _close_active(self, reason: str):
         """Finish every still-active stream with ``reason`` (a first
-        outcome stands) and free the slots."""
+        outcome stands) and free the slots. A paged slot still in its
+        PREFILL phase has delivered nothing — it is rejected with
+        :class:`EngineClosedError` like a queued request, never handed
+        an empty 'successful' result. Paged mode also rejects
+        page-starved blocked requests."""
         for i, s in enumerate(self._slots):
             if s is not None:
-                s.stream._finish(reason=reason)
+                if self.paged and s.state == "prefill":
+                    s.stream._finish(exc=EngineClosedError(
+                        "engine closed during chunked prefill (no tokens "
+                        "were generated)"))
+                else:
+                    s.stream._finish(reason=reason)
+                self._release_slot_refs(s)
                 self._slots[i] = None
         self._n_active = 0
+        self._teardown_paged(EngineClosedError(
+            "engine closed while the request awaited KV pages"))
+
+    def _teardown_paged(self, exc):
+        """Terminal paged cleanup shared by close and worker crash:
+        reject every page-starved blocked request with ``exc`` and drain
+        the prefix index — the pool must read fully free afterwards."""
+        if not self.paged:
+            return
+        while self._blocked:
+            self._blocked.popleft().stream._finish(exc=exc)
+        if self._prefix is not None:
+            self._prefix.release_all()
 
     def _fail_all(self, exc):
         """Worker crashed mid-step: fail every live stream and queued
@@ -760,8 +1286,10 @@ class GenerationEngine:
         for i, s in enumerate(self._slots):
             if s is not None:
                 s.stream._finish(exc=failure)
+                self._release_slot_refs(s)
                 self._slots[i] = None
         self._n_active = 0
+        self._teardown_paged(failure)
         if self._worker is not None:
             self._worker._stopped = True
             try:

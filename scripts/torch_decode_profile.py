@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's generation time goes on the card: one decode step
-and one prefill of ``mxnet_tpu_torch`` at GPT-2-small widths.
+and one prefill of ``mxnet_tpu_torch`` at GPT-2-small widths, on the
+dense fp32 cache and on the paged cache with int8 weights.
 
 Run from the repository root on a machine with an NVIDIA card::
 
@@ -11,8 +12,11 @@ wide, 12 layers, 12 heads, 1024 positions, random weights from seed 0),
 prefills all 8 slots of a 1024-row cache with prompts of 16..512 tokens
 and then runs decode steps exactly as ``GenerationEngine`` does
 (``decode_step``, argmax on the card, the (8,) tokens read by the host).
-For the decode step and for one 512-token prefill it prints one JSON
-line each with:
+Then it arms the int8 weights (``quantize_params``), fills a paged pool
+(page 16) with the same prompts through 32-token prefill chunks, as the
+paged engine does, and profiles the paged decode step
+(``decode_step_paged``, all 8 slots active) and one 32-token chunk.
+For each of the four it prints one JSON line with:
 
 - ``wall_ms``: host clock per step, ending in the host's read;
 - ``device_busy_ms``: the union of the card's kernel intervals per step,
@@ -39,7 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel  # noqa: E402
-from mxnet_tpu_torch.ops import attention as at  # noqa: E402
+from mxnet_tpu_torch import ops  # noqa: E402
 
 
 def _busy(kernels):
@@ -107,10 +111,10 @@ def main(argv=None):
     model = GPTModel(vocab_size=50257, units=768, num_layers=12,
                      num_heads=12, max_length=1024).initialize(seed=0)
     rng = np.random.RandomState(2)
+    lengths = [int(n) for n in rng.randint(16, 513, size=8)]
     cache = model.init_cache(8, 1024)
     last = np.zeros(8, "i4")
-    for slot in range(8):
-        n = int(rng.randint(16, 513))
+    for slot, n in enumerate(lengths):
         sb = 1 << (n - 1).bit_length()
         toks = np.zeros((1, max(sb, 8)), "i4")
         toks[0, :n] = rng.randint(0, 50256, size=n)
@@ -122,10 +126,10 @@ def main(argv=None):
         lg, _ = model.decode_step(state["toks"], cache)
         state["toks"] = lg.argmax(dim=-1).cpu().numpy().astype("i4")
 
-    at.reset_launch_counts()
+    ops.reset_launch_counts()
     dec = profile(decode, args.steps)
-    dec["attention_launches_per_step"] = {
-        k: v / (args.steps + 1) for k, v in at.launch_counts().items()}
+    dec["kernel_launches_per_step"] = {
+        k: v / (args.steps + 1) for k, v in ops.launch_counts().items()}
     print(json.dumps({"phase": "decode_step", "slots": 8,
                       "cache_rows": 1024, **dec}), flush=True)
 
@@ -139,6 +143,49 @@ def main(argv=None):
     pre = profile(prefill, max(1, args.steps // 4))
     print(json.dumps({"phase": "prefill", "tokens": 512, **pre}),
           flush=True)
+
+    # the paged engine's step: int8 projections (K4), paged attention (K3)
+    model.quantize_params()
+    ps, p_max, chunk = 16, 1024 // 16, 32
+    gcache = model.init_paged_cache(8, 8 * p_max + 1, ps, 1024)
+    for slot, n in enumerate(lengths):
+        row = np.arange(1 + slot * p_max, 1 + (slot + 1) * p_max,
+                        dtype="i4")
+        ptoks_n = rng.randint(0, 50256, size=n).astype("i4")
+        for pos in range(0, n, chunk):
+            nv = min(chunk, n - pos)
+            toks = np.zeros((1, chunk), "i4")
+            toks[0, :nv] = ptoks_n[pos:pos + nv]
+            lg, gcache = model.prefill_paged(toks, nv, slot, row, gcache,
+                                             start=pos)
+        last[slot] = int(lg[0].argmax())
+    gstate = {"toks": last.copy()}
+    active = np.ones(8, "i4")
+
+    def decode_paged():
+        lg, _ = model.decode_step_paged(gstate["toks"], active, gcache)
+        gstate["toks"] = lg.argmax(dim=-1).cpu().numpy().astype("i4")
+
+    ops.reset_launch_counts()
+    dec = profile(decode_paged, args.steps)
+    dec["kernel_launches_per_step"] = {
+        k: v / (args.steps + 1) for k, v in ops.launch_counts().items()}
+    print(json.dumps({"phase": "decode_step_paged_int8", "slots": 8,
+                      "page_size": ps, "pool_pages": 8 * p_max + 1, **dec}),
+          flush=True)
+
+    ccache = model.init_paged_cache(1, p_max + 1, ps, 1024)
+    crow = np.arange(1, p_max + 1, dtype="i4")
+    ctoks = rng.randint(0, 50256, size=(1, chunk)).astype("i4")
+
+    def prefill_chunk():
+        lg, _ = model.prefill_paged(ctoks, chunk, 0, crow, ccache,
+                                    start=192)
+        int(lg[0].argmax())
+
+    pre = profile(prefill_chunk, max(1, args.steps // 4))
+    print(json.dumps({"phase": "prefill_chunk_paged_int8", "tokens": chunk,
+                      "start": 192, **pre}), flush=True)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0
 

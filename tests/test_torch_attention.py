@@ -98,19 +98,19 @@ def test_flash_kv_len_validation():
 
 def test_flash_fully_masked_rows_return_zeros():
     """A causal query row that sees no key (kv_len < sq, rows with
-    r + kv_len - sq < 0) returns zeros with lse = NEG_INF in the port
-    (re-mask after the exp + l_safe), the rule both CUDA kernels keep.
-    The JAX blockwise path returns the mean of the zero-padded value
-    block for such rows instead (no re-mask) — a recorded deviation
-    (ROADMAP.md queue 3). Rows that see a key agree."""
+    r + kv_len - sq < 0) gets the reference's value: its blockwise path
+    does not re-mask after the exp, so such a row is the sum of V over
+    the zero-padded buffer divided by the padded length, with lse =
+    NEG_INF. The port's wrapper fills those rows the same way on both
+    paths; every row equals the JAX package's ``_flash_fwd``."""
     q, k, v = _flash_inputs(8, 8, seed=3)
     out, lse = tat.flash_attention_fwd(_t(q), _t(k), _t(v), True, None, 4)
-    assert out[:, :, :4].abs().max().item() == 0.0
+    ref, res = jat._flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), True, None, 4)
+    onp.testing.assert_allclose(out.numpy(), onp.asarray(ref), **TOL)
+    onp.testing.assert_allclose(lse.numpy(), onp.asarray(res[4]), **TOL)
     assert (lse[:, :, :4] == tat.NEG_INF).all()
-    ref = onp.asarray(jat.flash_attention(jnp.asarray(q), jnp.asarray(k),
-                                          jnp.asarray(v), True, None, 4))
-    onp.testing.assert_allclose(out[:, :, 4:].numpy(), ref[:, :, 4:], **TOL)
-    assert onp.abs(ref[:, :, :4]).max() > 0.0   # the reference's rows
+    assert out[:, :, :4].abs().max().item() > 0.0
 
 
 def _decode_inputs(sq, seed=4):
@@ -173,3 +173,130 @@ def test_kernel_layout_checks():
     with pytest.raises(ValueError, match="16-byte"):
         tat._kernel_strides("t", torch.zeros(1, 2, 5, 6))
     assert math.isclose(tat.NEG_INF, jat.NEG_INF)
+
+
+# -- paged decode attention (K3's plain version) -------------------------
+PS, P_MAX, N_PAGES = 8, 8, 40
+PAGED_LENGTHS = [0, 1, PS - 1, PS, PS + 1, P_MAX * PS]
+
+
+def _paged_inputs(sq, seed=6, garbage=onp.nan):
+    """A pool whose slots' pages sit at shuffled places, with
+    ``garbage`` in the scrap page 0, in every unreferenced page and in
+    every row at or past a slot's length. Returns q, the garbage pools,
+    the same pools with the garbage zeroed, the table and lengths."""
+    rng = onp.random.RandomState(seed)
+    b, h, d = len(PAGED_LENGTHS), 2, 32
+    perm = rng.permutation(onp.arange(1, N_PAGES))
+    table = onp.zeros((b, P_MAX), "i4")
+    at = 0
+    for i, n in enumerate(PAGED_LENGTHS):
+        need = -(-n // PS)
+        table[i, :need] = perm[at:at + need]
+        at += need
+    kp = onp.full((N_PAGES, h, PS, d), garbage, "f4")
+    vp = onp.full((N_PAGES, h, PS, d), garbage, "f4")
+    for i, n in enumerate(PAGED_LENGTHS):
+        for t in range(n):
+            kp[table[i, t // PS], :, t % PS] = _mk(rng, h, d)
+            vp[table[i, t // PS], :, t % PS] = _mk(rng, h, d)
+    q = _mk(rng, b, h, sq, d)
+    lengths = onp.asarray(PAGED_LENGTHS, "i4")
+    return q, kp, vp, onp.nan_to_num(kp), onp.nan_to_num(vp), table, lengths
+
+
+def test_gather_pages_matches_jax():
+    _q, _kn, _vn, kz, _vz, table, _ln = _paged_inputs(1)
+    onp.testing.assert_array_equal(
+        tat.gather_pages(_t(kz), _t(table)).numpy(),
+        onp.asarray(jat.gather_pages(jnp.asarray(kz), jnp.asarray(table))))
+
+
+@pytest.mark.parametrize("sq", [1, 3])
+def test_paged_decode_matches_jax_with_garbage(sq):
+    """Shuffled pages, NaN in the scrap page, in unreferenced pages and
+    past every length: the port's output is finite, a len-0 row is
+    zero, and every row equals the JAX jnp path run on the same pool
+    with the garbage zeroed (the jnp path has no V-overhang guard)."""
+    q, kn, vn, kz, vz, table, lengths = _paged_inputs(sq)
+    out = tat.paged_decode_attention(_t(q), _t(kn), _t(vn), _t(table),
+                                     _t(lengths)).numpy()
+    assert onp.isfinite(out).all()
+    assert onp.abs(out[0]).max() == 0.0
+    ref = jat.paged_decode_attention(jnp.asarray(q), jnp.asarray(kz),
+                                     jnp.asarray(vz), jnp.asarray(table),
+                                     jnp.asarray(lengths))
+    onp.testing.assert_allclose(out, onp.asarray(ref), **TOL)
+    # the dense op over the gathered view is the same function
+    dense = tat.decode_attention(_t(q), tat.gather_pages(_t(kn), _t(table)),
+                                 tat.gather_pages(_t(vn), _t(table)),
+                                 _t(lengths)).numpy()
+    onp.testing.assert_array_equal(out, dense)
+
+
+@pytest.mark.requires_pallas
+@pytest.mark.parametrize("sq", [1, 3])
+def test_paged_decode_matches_pallas_kernel_with_garbage(sq):
+    q, kn, vn, _kz, _vz, table, lengths = _paged_inputs(sq)
+    out = tat.paged_decode_attention(_t(q), _t(kn), _t(vn), _t(table),
+                                     _t(lengths)).numpy()
+    pal = jat.paged_decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn),
+        jnp.asarray(table), jnp.asarray(lengths), interpret=True)
+    onp.testing.assert_allclose(out, onp.asarray(pal), **TOL)
+
+
+def test_paged_decode_peek_row():
+    """The prefix-hit peek: one slot, its own (1, P_max) table row."""
+    q, kn, vn, kz, vz, table, lengths = _paged_inputs(1, seed=7)
+    out = tat.paged_decode_attention(_t(q[4:5]), _t(kn), _t(vn),
+                                     _t(table[4:5]), _t(lengths[4:5]))
+    ref = jat.paged_decode_attention(jnp.asarray(q[4:5]), jnp.asarray(kz),
+                                     jnp.asarray(vz), jnp.asarray(table[4:5]),
+                                     jnp.asarray(lengths[4:5]))
+    onp.testing.assert_allclose(out.numpy(), onp.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("start", ["scalar", "rows"])
+def test_chunked_prefill_attention_matches_jax(start):
+    rng = onp.random.RandomState(8)
+    b, h, c, s, d = 3, 2, 8, 40, 16
+    q, k, v = _mk(rng, b, h, c, d), _mk(rng, b, h, s, d), _mk(rng, b, h, s, d)
+    st = onp.asarray(16, "i4") if start == "scalar" \
+        else onp.asarray([0, 8, 32], "i4")
+    out = tat.chunked_prefill_attention(_t(q), _t(k), _t(v), _t(st))
+    ref = jat.chunked_prefill_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), jnp.asarray(st))
+    onp.testing.assert_allclose(out.numpy(), onp.asarray(ref), **TOL)
+    # a plain int start is the scalar case
+    if start == "scalar":
+        onp.testing.assert_array_equal(
+            tat.chunked_prefill_attention(_t(q), _t(k), _t(v), 16).numpy(),
+            out.numpy())
+
+
+def test_paged_kernel_wrapper_checks():
+    """K3's wrapper refuses what the kernel does not take, before any
+    build or launch (the checks run on any tensor)."""
+    q, kn, vn, _kz, _vz, table, lengths = (_t(a) for a in _paged_inputs(1))
+    with pytest.raises(ValueError, match="contiguous"):
+        tat._paged_decode_cuda(q, kn.transpose(2, 3).contiguous()
+                               .transpose(2, 3), vn, table, lengths, 0.1)
+    with pytest.raises(ValueError, match="int32"):
+        tat._paged_decode_cuda(q, kn, vn, table.long(), lengths, 0.1)
+    with pytest.raises(ValueError, match="int32"):
+        tat._paged_decode_cuda(q, kn, vn, table, lengths[:3], 0.1)
+    with pytest.raises(ValueError, match="pool layout"):
+        tat._paged_decode_cuda(q, kn[:, :1], vn[:, :1], table, lengths, 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        tat._paged_decode_cuda(q, kn.double(), vn, table, lengths, 0.1)
+
+
+def test_int8_pool_is_a_later_slice():
+    q, kn, vn, _kz, _vz, table, lengths = (_t(a) for a in _paged_inputs(1))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tat.paged_decode_attention(q, kn, vn, table, lengths,
+                                   k_scale=torch.ones(N_PAGES, 2),
+                                   v_scale=torch.ones(N_PAGES, 2))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tat.expand_page_scales(torch.ones(N_PAGES, 2), table, PS)

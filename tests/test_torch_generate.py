@@ -300,10 +300,31 @@ def test_worker_crash_surfaces_replica_failed(net):
         eng.submit(_prompt(rng, 4))
 
 
+PORTED = [
+    ("paged", dict(paged=True, page_size=8)),
+    ("quantize", dict(quantize="int8_weights")),
+]
+
+
+@pytest.mark.parametrize("kw", [p[1] for p in PORTED],
+                         ids=[p[0] for p in PORTED])
+def test_ported_modes_serve(kw):
+    """Modes this slice ports build on the CPU and serve a request (on a
+    model of their own: an int8 engine arms its model's tables)."""
+    net = tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=1,
+                         num_heads=4, max_length=128,
+                         device="cpu").initialize(seed=3)
+    eng = _engine(net, max_slots=2, max_new_tokens=3, **kw)
+    r = eng.generate(_prompt(onp.random.RandomState(14), 5), timeout=60)
+    assert len(r.tokens) == 3 and r.finish_reason == "length"
+    assert eng.paged == bool(kw.get("paged"))
+    assert eng.precision == kw.get("quantize", "fp32")
+    eng.close()
+
+
 UNPORTED = [
-    ("paged", dict(paged=True), "7"),
-    ("quantize", dict(quantize="int8_weights"), "8"),
     ("kv_dtype", dict(kv_dtype="int8"), "8"),
+    ("kv_dtype_paged", dict(kv_dtype="int8", paged=True), "8"),
     ("cache_dtype", dict(cache_dtype="int8"), "8"),
     ("draft_model", dict(draft_model=object()), "9"),
     ("decode_ticks", dict(decode_ticks=4), "10"),

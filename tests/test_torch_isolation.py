@@ -20,7 +20,8 @@ import chip_smoke
 import torch
 import mxnet_tpu_torch
 from mxnet_tpu_torch import _build, telemetry, tracing
-from mxnet_tpu_torch.ops import attention, nn
+from mxnet_tpu_torch.ops import attention, nn, quantized
+from mxnet_tpu_torch.serving import paging
 from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel, load_jax_params
 from mxnet_tpu_torch.serving import GenerationEngine
 bad = sorted(m for m in sys.modules
@@ -94,7 +95,8 @@ def test_import_builds_nothing():
     from mxnet_tpu_torch import _build
     assert _build._libs == {} or all(
         n in _build.KERNEL_SOURCES for n in _build._libs)
-    assert set(_build.KERNEL_SOURCES) == {"flash_attention",
-                                          "decode_attention"}
+    assert set(_build.KERNEL_SOURCES) == {
+        "flash_attention", "decode_attention", "paged_decode_attention",
+        "dequant_matmul"}
     for src in _build.KERNEL_SOURCES.values():
         assert (_build.CSRC / src).is_file()
