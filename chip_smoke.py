@@ -56,11 +56,6 @@ import numpy as np
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 
-#: where the phases put their tensors: the card (a CPU dry run of the
-#: script's own logic may set "cpu"; the kernels then take their plain
-#: versions and nothing is measured)
-DEV = "cuda"
-
 OUT_TOL = 2e-5
 LSE_TOL = 1e-4
 LOGIT_TOL = 1e-3
@@ -84,15 +79,16 @@ class Timer:
     (a decode step finds its layer's cache cold: the other 11 layers
     ran in between).
 
-    A small kernel runs for less time than the host takes to enqueue it
-    through its Python wrapper, so events recorded around the enqueue
-    of an idle card measure the host. Each timed call therefore starts
-    behind a device-side sleep (``torch.cuda._sleep``) long enough to
-    cover the enqueue: the card reaches the first event only when the
-    call's work is already queued, and the interval is device time.
-    ``with_launch=True`` times without the sleep (the card waits for
-    the host's enqueue inside the interval, as it does in the engine's
-    eager loop)."""
+    By default the events bracket the call's enqueue as well as its
+    work: the card waits inside the interval for the host to enqueue
+    the call through its Python wrapper, as it does in the engine's
+    eager loop. This is the ``ms``, ``plain_ms`` and ``library_ms`` of
+    the kernels line. A small kernel runs for less time than that
+    enqueue, so ``device=True`` starts each timed call behind a
+    device-side sleep (``torch.cuda._sleep``) long enough to cover it:
+    the card reaches the first event only when the call's work is
+    already queued, and the interval is device time (the ``*_device``
+    fields)."""
 
     SLEEP_CYCLES = 5_000_000    # ~2.5 ms at the H100's ~2 GHz
 
@@ -100,7 +96,7 @@ class Timer:
         self.torch = torch
         self.buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, iters=30, warm=3, flush=False, with_launch=False):
+    def __call__(self, fn, iters=30, warm=3, flush=False, device=False):
         torch = self.torch
         for _ in range(warm):
             fn()
@@ -109,7 +105,7 @@ class Timer:
         for _ in range(iters):
             if flush:
                 self.buf.zero_()
-            if not with_launch:
+            if device:
                 torch.cuda._sleep(self.SLEEP_CYCLES)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -119,6 +115,25 @@ class Timer:
             e1.synchronize()
             times.append(e0.elapsed_time(e1))
         return float(np.median(times))
+
+    def both(self, fn, flush=False):
+        """``(enqueue-inclusive ms, device ms)`` of ``fn``."""
+        return self(fn, flush=flush), self(fn, flush=flush, device=True)
+
+
+TIMING_KEYS = ("kernel_ms", "kernel_ms_device", "plain_ms",
+               "plain_ms_device", "library_ms", "library_ms_device")
+
+
+def timings(timer, flush, kernel, plain, library):
+    """The kernel's, its plain version's and the library call's times,
+    each enqueue-inclusive (``*_ms``) and device-only
+    (``*_ms_device``)."""
+    out = {}
+    for key, fn in (("kernel", kernel), ("plain", plain),
+                    ("library", library)):
+        out[f"{key}_ms"], out[f"{key}_ms_device"] = timer.both(fn, flush)
+    return out
 
 
 def check(cond, what):
@@ -154,7 +169,7 @@ def phase_build():
 
 def _rand(torch, rng, *shape):
     return torch.from_numpy(
-        (rng.standard_normal(shape) * 0.5).astype("f4")).to(DEV)
+        (rng.standard_normal(shape) * 0.5).astype("f4")).cuda()
 
 
 def _split_view(torch, rng, b, s, h, d):
@@ -205,21 +220,18 @@ def phase_flash(torch, timer):
     check(err_l <= LSE_TOL, f"K1 lse max-abs-err {err_l} > {LSE_TOL}")
 
     # timing at the prefill shape (1, 12, 512, 64), causal, strided
-    kernel_ms = timer(lambda: at.flash_attention_fwd(q, k, v, True))
-    launch_ms = timer(lambda: at.flash_attention_fwd(q, k, v, True),
-                      with_launch=True)
-    plain_ms = timer(lambda: at._blockwise_fwd(q, k, v, True, scale))
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
+    times = timings(
+        timer, False,
+        lambda: at.flash_attention_fwd(q, k, v, True),
+        lambda: at._blockwise_fwd(q, k, v, True, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     pairs = sp * (sp + 1) // 2                       # visible (q, k) pairs
     n_flops = 4 * d * b * h * pairs                  # q.k and p.v
     n_bytes = 4 * (4 * b * h * sp * d + b * h * sp)  # q, k, v, out, lse
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    res = {"max_abs_err": err_o, "max_abs_err_lse": err_l,
-           "kernel_ms": kernel_ms, "kernel_ms_with_launch": launch_ms,
-           "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "shape": [b, h, sp, d]}
+    res = {"max_abs_err": err_o, "max_abs_err_lse": err_l, **times,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "shape": [b, h, sp, d]}
     emit("flash_attention", **res)
     return res
 
@@ -257,21 +269,16 @@ def phase_decode(torch, timer):
 
     q = _split_view(torch, rng, b, 1, h, d)    # the decode step's layout
     mask = live[:, :, :, 0][:, :, None, :]     # (B, 1, 1, S) bool
-    kernel_ms = timer(lambda: at.decode_attention(q, kn, vn, lens),
-                      flush=True)
-    launch_ms = timer(lambda: at.decode_attention(q, kn, vn, lens),
-                      flush=True, with_launch=True)
-    plain_ms = timer(lambda: at._decode_fwd_torch(q, kn, vn, lens, scale),
-                     flush=True)
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        q, kz, vz, attn_mask=mask), flush=True)
+    times = timings(
+        timer, True,
+        lambda: at.decode_attention(q, kn, vn, lens),
+        lambda: at._decode_fwd_torch(q, kn, vn, lens, scale),
+        lambda: F.scaled_dot_product_attention(q, kz, vz, attn_mask=mask))
     total = sum(lengths)                        # K/V rows this data needs
     n_bytes = 4 * (2 * total * h * d + 2 * b * h * d) + 4 * b
     n_flops = 4 * d * h * total
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    res = {"max_abs_err": err, "kernel_ms": kernel_ms,
-           "kernel_ms_with_launch": launch_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
+    res = {"max_abs_err": err, **times, "bound_ms": bound_ms,
            "bound_by": bound_by, "shape": [b, h, s, d], "lengths": lengths}
     emit("decode_attention", **res)
     return res
@@ -299,9 +306,9 @@ def _paged_inputs(torch, rng, lengths, h, ps, d, p_max, n_pages):
             pg, r = table[i, t // ps], t % ps
             kp[pg, :, r] = rng.standard_normal((h, d)) * 0.5
             vp[pg, :, r] = rng.standard_normal((h, d)) * 0.5
-    tbl = torch.from_numpy(table).to(DEV)
-    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
-    kn, vn = torch.from_numpy(kp).to(DEV), torch.from_numpy(vp).to(DEV)
+    tbl = torch.from_numpy(table).cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kn, vn = torch.from_numpy(kp).cuda(), torch.from_numpy(vp).cuda()
     return tbl, lens, kn, vn
 
 
@@ -342,26 +349,20 @@ def phase_paged_decode(torch, timer):
     q = _split_view(torch, rng, b, 1, h, d)     # the decode step's layout
     kz = torch.nan_to_num(at.gather_pages(kn, tbl), nan=0.0)
     vz = torch.nan_to_num(at.gather_pages(vn, tbl), nan=0.0)
-    live = torch.arange(p_max * ps, device=DEV)[None, :] \
+    live = torch.arange(p_max * ps, device="cuda")[None, :] \
         < lens.long()[:, None]
     mask = live[:, None, None, :]               # (B, 1, 1, S) bool
-    kernel_ms = timer(lambda: at.paged_decode_attention(q, kn, vn, tbl,
-                                                        lens), flush=True)
-    launch_ms = timer(lambda: at.paged_decode_attention(q, kn, vn, tbl,
-                                                        lens), flush=True,
-                      with_launch=True)
-    plain_ms = timer(lambda: at._decode_fwd_torch(
-        q, at.gather_pages(kn, tbl), at.gather_pages(vn, tbl), lens, scale),
-        flush=True)
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        q, kz, vz, attn_mask=mask), flush=True)
+    times = timings(
+        timer, True,
+        lambda: at.paged_decode_attention(q, kn, vn, tbl, lens),
+        lambda: at._decode_fwd_torch(q, at.gather_pages(kn, tbl),
+                                     at.gather_pages(vn, tbl), lens, scale),
+        lambda: F.scaled_dot_product_attention(q, kz, vz, attn_mask=mask))
     total = sum(lengths)
     n_bytes = 4 * (2 * total * h * d + 2 * b * h * d) + 4 * b * (p_max + 1)
     n_flops = 4 * d * h * total
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    res = {"max_abs_err": err, "kernel_ms": kernel_ms,
-           "kernel_ms_with_launch": launch_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms,
+    res = {"max_abs_err": err, **times,
            "library": "scaled_dot_product_attention on the pre-gathered "
                       "dense view with a bool mask (gather not timed)",
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -402,7 +403,7 @@ def phase_dequant(torch, timer):
     tables = {}
     for n, k in sorted(set(LAYER_PROJECTIONS)):
         w = torch.from_numpy(
-            (rng.standard_normal((n, k)) * 0.02).astype("f4")).to(DEV)
+            (rng.standard_normal((n, k)) * 0.02).astype("f4")).cuda()
         w[n // 3] = 0.0                          # an all-zero channel
         tables[(n, k)] = qz.quantize_channelwise(w)
         wq, sc = tables[(n, k)]
@@ -430,14 +431,9 @@ def phase_dequant(torch, timer):
         x = _rand(torch, rng, m, k)
         lib, lib_name = _library_dequant(torch, x, wq, sc)
         per_shape[(n, k)] = {
-            "kernel_ms": timer(lambda: qz.dequant_matmul(x, wq, sc),
-                               flush=True),
-            "kernel_ms_with_launch": timer(
-                lambda: qz.dequant_matmul(x, wq, sc), flush=True,
-                with_launch=True),
-            "plain_ms": timer(lambda: qz._dequant_matmul_torch(x, wq, sc),
-                              flush=True),
-            "library_ms": timer(lib, flush=True),
+            **timings(timer, True,
+                      lambda: qz.dequant_matmul(x, wq, sc),
+                      lambda: qz._dequant_matmul_torch(x, wq, sc), lib),
             "bound": bound(n * k + 4 * (m * k + n + m * n), 2 * m * n * k)}
 
     def layer(key):
@@ -447,10 +443,7 @@ def phase_dequant(torch, timer):
     n_flops = sum(2 * m * n * k for n, k in LAYER_PROJECTIONS)
     bound_ms, bound_by = bound(n_bytes, n_flops)
     res = {"max_abs_err": err_abs, "max_rel_err": err_rel,
-           "kernel_ms": layer("kernel_ms"),
-           "kernel_ms_with_launch": layer("kernel_ms_with_launch"),
-           "plain_ms": layer("plain_ms"),
-           "library_ms": layer("library_ms"), "library": lib_name,
+           **{key: layer(key) for key in TIMING_KEYS}, "library": lib_name,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "timed": "the 6 projections of one layer at M=8, summed",
            "per_shape": [{"N": n, "K": k, **{kk: vv for kk, vv in r.items()
@@ -610,9 +603,9 @@ PAGED_MODEL = dict(vocab_size=50257, units=768, num_layers=12, num_heads=12,
                    max_length=1024)
 
 
-def _gpt2_small(torch, device=None):
+def _gpt2_small():
     from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
-    return GPTModel(**PAGED_MODEL, device=device).initialize(seed=0)
+    return GPTModel(**PAGED_MODEL, device="cuda").initialize(seed=0)
 
 
 def phase_paged_engine(torch):
@@ -626,13 +619,13 @@ def phase_paged_engine(torch):
 
     n_layers, n_req, max_new = PAGED_MODEL["num_layers"], 24, 64
     t0 = time.perf_counter()
-    model = _gpt2_small(torch, DEV)
+    model = _gpt2_small()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     eng = GenerationEngine(model, max_slots=8, max_new_tokens=max_new,
                            eos_id=50256, paged=True, page_size=16,
-                           quantize="int8_weights", device=DEV)
+                           quantize="int8_weights")
     t0 = time.perf_counter()
     eng.warmup()
     warmup_s = time.perf_counter() - t0
@@ -842,10 +835,9 @@ def main(argv=None):
             "launches_dense_engine": dense_n,
             "launches_paged_engine": paged_n,
             "max_abs_err": res["max_abs_err"],
-            "ms": res["kernel_ms"], "kernel_ms": res["kernel_ms"],
-            "kernel_ms_with_launch": res["kernel_ms_with_launch"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
+            "ms": res["kernel_ms"],
+            **{key: res[key] for key in TIMING_KEYS},
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"]})
     check(set(ops.launch_counts()) == {r["name"] for r in rows},
           "a kernel of the path is missing from the kernels line")
     check(all(r["launches"] > 0 for r in rows),

@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Two measurements of the port's kernels on the card that
+``chip_smoke.py`` does not make.
+
+Run from the repository root on a machine with an NVIDIA Hopper card::
+
+    python3 scripts/torch_kernel_ab.py --other-csrc DIR [--rounds 2]
+
+1. ``decode_attention_ab``: K2 (dense decode attention) built from
+   ``DIR/decode_attention.cu`` — another revision's ``csrc/``, e.g. a
+   ``git archive`` of an earlier commit — against K2 built from this
+   checkout, at ``chip_smoke.py``'s decode shape (8, 12, 1024, 64), the
+   same lengths and NaN garbage, through the same Python wrapper and
+   ``chip_smoke.Timer`` (L2 flushed; enqueue-inclusive and device-only
+   ms). The two run in the order other, this, this, other, ``--rounds``
+   times, in one process. Both must take the same C interface.
+2. ``wrapper_host_cost``: host microseconds per call of K4's wrapper
+   (``dequant_matmul`` at M = 8, N = K = 768) taken apart: the whole
+   wrapper, its pieces (device context and stream, output allocation,
+   pointers), the bare ctypes call of K4's entry point, and a
+   launch-API probe compiled here: an empty kernel with K4's arguments
+   and grid launched through ``<<<>>>``, through ``cudaLaunchKernelEx``
+   with no attribute and with K4's cluster attribute, and with a
+   compile-time ``__cluster_dims__``, beside a C function that launches
+   nothing (the ctypes call alone). Host time is read while the card
+   sleeps, so the launch queue never pushes back.
+
+The first line printed is ``nvidia-smi``'s name and power limit; each
+measurement prints one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from mxnet_tpu_torch import _build  # noqa: E402
+from mxnet_tpu_torch.ops import attention as at  # noqa: E402
+from mxnet_tpu_torch.ops import quantized as qz  # noqa: E402
+
+#: an empty kernel with K4's arguments, launched four ways (see above)
+PROBE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void probe(const float*, const signed char*, const float*, float*,
+                      int, int, int) {}
+__global__ void __cluster_dims__(1, 1, 8)
+probe_fixed(const float*, const signed char*, const float*, float*, int, int,
+            int) {}
+#define ARGS const float* x, const signed char* w, const float* s, float* o, \
+    int M, int N, int K, void* stream
+#define GRID dim3((N + 31) / 32, 1, 8)
+extern "C" {
+int probe_none(ARGS) { return 0; }
+int probe_chevron(ARGS) {
+  probe<<<GRID, 256, 0, (cudaStream_t)stream>>>(x, w, s, o, M, N, K);
+  return cudaGetLastError();
+}
+static int launch_ex(ARGS, bool cluster) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = GRID;
+  cfg.blockDim = dim3(256);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 8;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, probe, x, w, s, o, M, N, K);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+int probe_ex(ARGS) { return launch_ex(x, w, s, o, M, N, K, stream, false); }
+int probe_ex_cluster(ARGS) {
+  return launch_ex(x, w, s, o, M, N, K, stream, true);
+}
+int probe_fixed_cluster(ARGS) {
+  probe_fixed<<<GRID, 256, 0, (cudaStream_t)stream>>>(x, w, s, o, M, N, K);
+  return cudaGetLastError();
+}
+}
+"""
+
+
+def _compile(src_path, include, tag):
+    """nvcc ``src_path`` with the port's flags into ``_build/``; returns
+    the loaded library."""
+    h = hashlib.sha256(open(src_path, "rb").read()).hexdigest()[:16]
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    lib = _build.BUILD_DIR / f"lib{tag}-{h}.so"
+    if not lib.exists():
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(include), "-o",
+               str(lib), str(src_path)]
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(lib))
+
+
+def decode_ab(timer, other_csrc, rounds):
+    """K2 from ``other_csrc`` against this checkout's, same wrapper."""
+    rng = np.random.RandomState(1)
+    b, h, s, d = 8, 12, 1024, 64
+    lengths = [0, 1, 63, 64, 65, 500, 1023, 1024]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    k, v = (cs._rand(torch, rng, b, h, s, d) for _ in range(2))
+    live = (torch.arange(s, device="cuda")[None, :]
+            < lens.long()[:, None])[:, None, :, None]
+    nan = torch.tensor(float("nan"), device="cuda")
+    kn, vn = torch.where(live, k, nan), torch.where(live, v, nan)
+    q = cs._split_view(torch, rng, b, 1, h, d)
+
+    key = ("decode_attention", "mxtt_decode_attention")
+    this_fn = _build.function(*key, at._DECODE_ARGTYPES)
+    other = _compile(os.path.join(other_csrc, "decode_attention.cu"),
+                     other_csrc, "decode_attention-other")
+    other_fn = other.mxtt_decode_attention
+    other_fn.restype = ctypes.c_int
+    other_fn.argtypes = at._DECODE_ARGTYPES
+    fns = {"other": other_fn, "this": this_fn}
+
+    def run(which):
+        _build._fns[key] = fns[which]
+        return at.decode_attention(q, kn, vn, lens)
+
+    ref = run("this")
+    diff = float((run("other") - ref).abs().max())
+    cs.check(diff <= cs.OUT_TOL, f"the two K2 builds differ by {diff}")
+    times = {"other": [], "this": []}
+    for _ in range(rounds):
+        for which in ("other", "this", "this", "other"):
+            ms, dev = timer.both(lambda: run(which), flush=True)
+            times[which].append({"ms": ms, "ms_device": dev})
+    _build._fns[key] = this_fn
+    res = {"shape": [b, h, s, d], "lengths": lengths,
+           "other_csrc": other_csrc, "max_abs_diff": diff,
+           "order": "other, this, this, other", "rounds": rounds}
+    for which, ts in times.items():
+        res[which] = {"ms_median": float(np.median([t["ms"] for t in ts])),
+                      "ms_device_median": float(np.median(
+                          [t["ms_device"] for t in ts])),
+                      "runs": ts}
+    cs.emit("decode_attention_ab", **res)
+
+
+def _host_us(fn, calls=200, reps=7):
+    """Median host microseconds per call of ``fn``, enqueued while the
+    card sleeps (so the launch queue never blocks the host)."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(reps):
+        torch.cuda._sleep(100_000_000)            # ~50 ms
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per))
+
+
+def wrapper_cost():
+    """Host µs per call of K4's wrapper at M = 8, N = K = 768, apart."""
+    rng = np.random.RandomState(4)
+    m, n, k = 8, 768, 768
+    w = torch.from_numpy((rng.standard_normal((n, k)) * 0.02)
+                         .astype("f4")).cuda()
+    wq, sc = qz.quantize_channelwise(w)
+    x = cs._rand(torch, rng, m, k)
+    out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+    dev = x.device
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (x.data_ptr(), wq.data_ptr(), sc.data_ptr(), out.data_ptr())
+    k4 = _build.function("dequant_matmul", "mxtt_dequant_matmul",
+                         qz._DEQUANT_ARGTYPES)
+
+    def ctx_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream().cuda_stream
+
+    res = {
+        "wrapper": _host_us(lambda: qz.dequant_matmul(x, wq, sc)),
+        "cuda_wrapper": _host_us(lambda: qz._dequant_matmul_cuda(x, wq,
+                                                                 sc)),
+        "device_context_and_stream": _host_us(ctx_stream),
+        "output_alloc": _host_us(lambda: torch.empty(
+            (m, n), dtype=torch.float32, device=dev)),
+        "data_ptrs": _host_us(lambda: (x.data_ptr(), wq.data_ptr(),
+                                       sc.data_ptr(), out.data_ptr())),
+        "k4_entry_ctypes": _host_us(lambda: k4(*ptrs, m, n, k, stream)),
+    }
+    src = _build.BUILD_DIR / "launch_probe.cu"
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    src.write_text(PROBE_SRC)
+    probe = _compile(str(src), _build.CSRC, "launch_probe")
+    for name in ("probe_none", "probe_chevron", "probe_ex",
+                 "probe_ex_cluster", "probe_fixed_cluster"):
+        fn = getattr(probe, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = qz._DEQUANT_ARGTYPES
+        cs.check(fn(*ptrs, m, n, k, stream) == 0, f"{name} failed")
+        res[name] = _host_us(lambda: fn(*ptrs, m, n, k, stream))
+    torch.cuda.synchronize()
+    cs.emit("wrapper_host_cost", unit="us per call, host", M=m, N=n, K=k,
+            **res)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other-csrc", required=True,
+                    help="another revision's mxnet_tpu_torch/csrc/")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    cs.phase_env(torch)
+    _build.build_all()
+    timer = cs.Timer(torch)
+    decode_ab(timer, os.path.abspath(args.other_csrc), args.rounds)
+    wrapper_cost()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
-"""The port stands alone: mxnet_tpu_torch and chip_smoke.py import
-neither jax nor the JAX package, and the port's entry points default to
-the CUDA card (raising on a machine without one)."""
+"""The port stands alone: mxnet_tpu_torch, chip_smoke.py and the port's
+scripts (scripts/torch_*.py) import neither jax nor the JAX package,
+and the port's entry points default to the CUDA card (raising on a
+machine without one)."""
 import ast
 import os
 import pathlib
@@ -54,7 +55,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "scripts").glob("torch_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_reference_imports_in_source(path):
     bad = [m for m in _imported_roots(path) if m in FORBIDDEN]

@@ -30,7 +30,10 @@ from mxnet_tpu_torch import telemetry
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.serving import EngineClosedError, GenerationEngine
 
-VOCAB, SLOTS, SMAX, PS, CHUNK = 97, 4, 64, 8, 16
+#: gpt_small's defaults (vocab 1000, 64 units, 2 layers, 4 heads, 128
+#: positions) in both packages
+VOCAB, UNITS, HEADS = 1000, 64, 4
+SLOTS, SMAX, PS, CHUNK = 4, 64, 8, 16
 N_PAGES = SLOTS * SMAX // PS + 1
 P_MAX = SMAX // PS
 TOL = dict(rtol=2e-3, atol=2e-4)
@@ -40,14 +43,12 @@ def _models():
     """(JAX model, port model) on the same seeded weights."""
     onp.random.seed(1234)
     mx.np.random.seed(1234)
-    jnet = jgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=2,
-                          num_heads=4, max_length=128)
+    jnet = jgpt.gpt_small()
     jnet.initialize(mx.init.Xavier())
     jnet._gen_params()
     params = {k: p.data().asnumpy() for k, p in
               jnet.collect_params().items()}
-    tnet = tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=2,
-                          num_heads=4, max_length=128, device="cpu")
+    tnet = tgpt.gpt_small(device="cpu")
     tgpt.load_jax_params(tnet, params)
     return jnet, tnet
 
@@ -102,7 +103,8 @@ def test_paged_fresh_prefill_bitwise_matches_dense(net):
                                     fresh=True)
     assert torch.equal(lg_d, lg_p)
     onp.testing.assert_array_equal(
-        paged["k"][1][[5, 6]].transpose(0, 1).reshape(4, 16, 8).numpy(),
+        paged["k"][1][[5, 6]].transpose(0, 1)
+        .reshape(HEADS, 16, UNITS // HEADS).numpy(),
         dense["k"][1][2, :, :16].numpy())
     tok = int(lg_d[0].argmax())
     active = onp.zeros(SLOTS, "i4")

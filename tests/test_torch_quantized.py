@@ -25,7 +25,8 @@ from mxnet_tpu_torch.ops import quantized as tqz
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 MODEL_TOL = dict(rtol=2e-3, atol=2e-4)
-VOCAB, SLOTS, SMAX = 97, 4, 64
+#: gpt_small's defaults: vocab 1000, 64 units, 2 layers, 4 heads
+VOCAB, SLOTS, SMAX = 1000, 4, 64
 
 
 def _t(a):
@@ -128,14 +129,12 @@ def test_kernel_wrapper_checks():
 def pair():
     onp.random.seed(1234)
     mx.np.random.seed(1234)
-    jnet = jgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=2,
-                          num_heads=4, max_length=128)
+    jnet = jgpt.gpt_small()
     jnet.initialize(mx.init.Xavier())
     jnet._gen_params()
     params = {k: p.data().asnumpy() for k, p in
               jnet.collect_params().items()}
-    tnet = tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=2,
-                          num_heads=4, max_length=128, device="cpu")
+    tnet = tgpt.gpt_small(device="cpu")
     tgpt.load_jax_params(tnet, params)
     jnet.quantize_params()
     tnet.quantize_params()
@@ -177,8 +176,7 @@ def test_quantized_generation_logits_match_jax(pair):
         onp.testing.assert_allclose(tl.numpy()[[1, 3]],
                                     onp.asarray(jl)[[1, 3]], **MODEL_TOL)
     # the int8 path really differs from fp32 (the rounding is visible)
-    fp32 = tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=2,
-                          num_heads=4, max_length=128, device="cpu")
+    fp32 = tgpt.gpt_small(device="cpu")
     tgpt.load_jax_params(fp32, {k: p.data().numpy() for k, p in
                                 tnet.collect_params().items()})
     fl, _ = fp32.prefill(padded, [11, 5], fp32.init_cache(SLOTS, SMAX),
