@@ -5,17 +5,30 @@ Run from the repository root on a machine with an NVIDIA Hopper card::
 
     python3 chip_smoke.py
 
-It builds the port's four CUDA kernels from ``mxnet_tpu_torch/csrc/``
-(nvcc, one process per source, seconds), holds each kernel against its
-plain PyTorch version on the card (K1 flash prefill, K2 dense decode,
-K3 paged decode, K4 int8 dequant-matmul), then serves greedy
-generation at GPT-2-small widths through ``GenerationEngine`` twice —
-the dense fp32 engine, and the paged engine with int8 weights (prefix
-sharing, peek, copy-on-write, chunked prefill) — and holds each
-engine's tokens and logits against the same weights run on the CPU.
-Every phase prints one JSON line; any failure raises (exit code != 0)
-and no result line is printed. The line before the last lists the
-kernels; the last line is ``{"ok": true, "device": {...}}``.
+It builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc/`` (nvcc,
+one process per source, seconds) and holds each kernel instance against
+its plain PyTorch version on the card: K1 flash prefill, K2 dense decode
+and K3 paged decode (each in its fp32 and its int8-KV instance, with
+garbage past every length and NaN in the scrap page, every unreferenced
+page and their int8 scales) and K4 int8 dequant-matmul. Then it serves
+generation at GPT-2-small widths through ``GenerationEngine``:
+
+- ``engine``: the dense fp32 engine, 24 greedy requests;
+- ``paged_engine``: the paged engine with int8 weights (prefix sharing,
+  peek, copy-on-write, chunked prefill), 24 greedy requests;
+- ``int8_kv_engine``: the same traffic with int8 weights AND an int8 KV
+  pool, 4 of the 24 requests sampled with fixed seeds (each repeated on
+  a second engine: the same seed gives the same tokens; every sampled
+  token inside its top-k set);
+- ``dense_int8_kv_engine``: a dense int8-KV engine with fp32 weights, 8
+  requests, then ``load_weights`` to another seed's weights and a
+  second wave held against a fresh engine on those weights;
+
+and holds the engines' tokens and logits against the same weights (and
+int8 tables) run on the CPU. Every phase prints one JSON line; any
+failure raises (exit code != 0) and no result line is printed. The line
+before the last lists the kernels; the last line is
+``{"ok": true, "device": {...}}``.
 
 Tolerances, with their reasons:
 - kernel vs plain version on the same card inputs: max-abs-err of the
@@ -29,9 +42,14 @@ Tolerances, with their reasons:
 - greedy agreement of each engine with the CPU under teacher forcing:
   >= 99%, and every disagreement on a CPU top-1 vs engine-token logit
   gap below 2e-3 (two logits each within 1e-3 can only swap when their
-  gap is below 2e-3). The int8 engine is held to the same weights AND
+  gap is below 2e-3). The int8 engines are held to the same weights AND
   the same int8 tables on the CPU, through the generation calls (the
-  plain ``forward`` stays fp32, as in the reference).
+  plain ``forward`` stays fp32, as in the reference);
+- the int8-KV engine: the reference's int8-KV gate (``bench.py
+  --quant``), int8 KV against an fp32 KV with per-step logits within 0.6
+  (the agreement of the two is reported; see
+  ``phase_int8_kv_cpu_reference``), and card vs CPU agreement >= 99%
+  with every disagreement on a gap below FLIP_GAP (derived there).
 
 It imports torch, numpy and mxnet_tpu_torch only (never jax or the JAX
 package). Without a CUDA device it exits with code 2 and prints no
@@ -60,6 +78,15 @@ OUT_TOL = 2e-5
 LSE_TOL = 1e-4
 LOGIT_TOL = 1e-3
 AGREE_MIN = 0.99
+#: the reference's int8-KV gate (bench.py --quant): per-step logit
+#: max-abs-err of int8 KV against an fp32 KV, both with int8 weights
+QNT_KV_TOL = 0.60
+#: the share of int8 cache entries two implementations may quantize one
+#: step apart (tests/test_torch_kvquant.py holds torch to XLA at it)
+FLIP_FRAC = 1e-3
+#: card vs CPU int8-KV disagreements sit on a logit gap below this
+#: (derived in phase_int8_kv_cpu_reference)
+FLIP_GAP = 2 * (LOGIT_TOL + 4 * FLIP_FRAC * QNT_KV_TOL)
 
 
 def emit(phase, **fields):
@@ -281,7 +308,53 @@ def phase_decode(torch, timer):
     res = {"max_abs_err": err, **times, "bound_ms": bound_ms,
            "bound_by": bound_by, "shape": [b, h, s, d], "lengths": lengths}
     emit("decode_attention", **res)
-    return res
+
+    # the int8 instance: per-(slot, head) scales from the live rows'
+    # amax, random int8 garbage past every length and a NaN scale on
+    # the empty slot
+    from mxnet_tpu_torch.ops import quantized as qz
+    ks = qz.kv_scale(kz, (2, 3))
+    vs = qz.kv_scale(vz, (2, 3))
+    kq = qz.kv_quantize(kz, ks[:, :, None, None])
+    vq = qz.kv_quantize(vz, vs[:, :, None, None])
+    for t in (kq, vq):
+        junk = torch.from_numpy(rng.randint(-127, 128, t.shape)
+                                .astype("i1")).cuda()
+        t.copy_(torch.where(live, t, junk))
+    ks[0], vs[0] = float("nan"), float("nan")
+    kd, vd = at._dequantize(kq, ks), at._dequantize(vq, vs)
+    cases, err8 = [], 0.0
+    for sq in (1, 4, 5):
+        q = _split_view(torch, rng, b, sq, h, d)
+        out = at.decode_attention(q, kq, vq, lens, k_scale=ks, v_scale=vs)
+        ref = at._decode_fwd_torch(q, kd, vd, lens, scale)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()),
+              f"K2-int8 non-finite output (sq={sq})")
+        check(float(out[0].abs().max()) == 0.0, "K2-int8 len=0 row not zero")
+        e = float((out - ref).abs().max())
+        cases.append({"case": f"sq={sq}", "out_err": e})
+        err8 = max(err8, e)
+    emit("decode_attention_int8_check", cases=cases)
+    check(err8 <= OUT_TOL, f"K2-int8 max-abs-err {err8} > {OUT_TOL}")
+    q = _split_view(torch, rng, b, 1, h, d)
+    kdz, vdz = kd * live, vd * live           # for the library yardstick
+    kdz[0], vdz[0] = 0.0, 0.0
+    times8 = timings(
+        timer, True,
+        lambda: at.decode_attention(q, kq, vq, lens, k_scale=ks, v_scale=vs),
+        lambda: at._decode_fwd_torch(q, at._dequantize(kq, ks),
+                                     at._dequantize(vq, vs), lens, scale),
+        lambda: F.scaled_dot_product_attention(q, kdz, vdz, attn_mask=mask))
+    n_bytes = 2 * total * h * d + 4 * (2 * b * h * d + 2 * b * h) + 4 * b
+    bound8 = bound(n_bytes, n_flops)
+    res8 = {"max_abs_err": err8, **times8, "bound_ms": bound8[0],
+            "bound_by": bound8[1],
+            "library": "scaled_dot_product_attention over the dequantized "
+                       "fp32 view (dequantize not timed)",
+            "shape": [b, h, s, d], "lengths": lengths}
+    emit("decode_attention_int8", **res8)
+    return res, res8
 
 
 def _paged_inputs(torch, rng, lengths, h, ps, d, p_max, n_pages):
@@ -362,15 +435,86 @@ def phase_paged_decode(torch, timer):
     n_bytes = 4 * (2 * total * h * d + 2 * b * h * d) + 4 * b * (p_max + 1)
     n_flops = 4 * d * h * total
     bound_ms, bound_by = bound(n_bytes, n_flops)
+    shape = {"B": b, "H": h, "page_size": ps, "D": d, "P_max": p_max,
+             "n_pages": n_pages}
     res = {"max_abs_err": err, **times,
            "library": "scaled_dot_product_attention on the pre-gathered "
                       "dense view with a bool mask (gather not timed)",
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "shape": {"B": b, "H": h, "page_size": ps, "D": d,
-                     "P_max": p_max, "n_pages": n_pages},
+           "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape,
            "lengths": lengths}
     emit("paged_decode_attention", **res)
-    return res
+
+    # the int8 instance on the same table: random int8 in every row (the
+    # garbage past each length included), per-page scales on the pages
+    # the lengths reach and NaN scales on the scrap page and every
+    # unreferenced page
+    n_used = [-(-n // ps) for n in lengths]
+    tbl_np = tbl.cpu().numpy()
+    used = sorted({int(tbl_np[i, j]) for i in range(b)
+                   for j in range(n_used[i])})
+    kq8, vq8 = (torch.from_numpy(rng.randint(-127, 128, kn.shape)
+                                 .astype("i1")).cuda() for _ in range(2))
+    ksc, vsc = (torch.full((n_pages, h), float("nan"), device="cuda")
+                for _ in range(2))
+    idx = torch.tensor(used, device="cuda")
+    for sc in (ksc, vsc):
+        sc[idx] = torch.from_numpy(
+            (rng.random_sample((len(used), h)) * 0.02 + 0.005)
+            .astype("f4")).cuda()
+
+    def plain8(q, table, ln):
+        return at._decode_fwd_torch(q, _int8_view(at, kq8, ksc, table, ps),
+                                    _int8_view(at, vq8, vsc, table, ps), ln,
+                                    scale)
+
+    cases, err8 = [], 0.0
+    for tag, q, table, ln in (
+            ("sq=1", _split_view(torch, rng, b, 1, h, d), tbl, lens),
+            ("sq=4", _split_view(torch, rng, b, 4, h, d), tbl, lens),
+            ("peek b=1 len=500", _split_view(torch, rng, 1, 1, h, d),
+             tbl[5:6].contiguous(), lens[5:6].contiguous())):
+        out = at.paged_decode_attention(q, kq8, vq8, table, ln,
+                                        k_scale=ksc, v_scale=vsc)
+        ref = plain8(q, table, ln)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()),
+              f"K3-int8 non-finite output with NaN scales ({tag})")
+        zero = [i for i, n in enumerate(ln.tolist()) if n == 0]
+        check(all(float(out[i].abs().max()) == 0.0 for i in zero),
+              "K3-int8 len=0 row not zero")
+        e = float((out - ref).abs().max())
+        cases.append({"case": tag, "out_err": e})
+        err8 = max(err8, e)
+    emit("paged_decode_attention_int8_check", cases=cases)
+    check(err8 <= OUT_TOL, f"K3-int8 max-abs-err {err8} > {OUT_TOL}")
+    q = _split_view(torch, rng, b, 1, h, d)
+    kd, vd = (torch.nan_to_num(_int8_view(at, pool, sc, tbl, ps), nan=0.0)
+              * live[:, None, :, None]
+              for pool, sc in ((kq8, ksc), (vq8, vsc)))
+    times8 = timings(
+        timer, True,
+        lambda: at.paged_decode_attention(q, kq8, vq8, tbl, lens,
+                                          k_scale=ksc, v_scale=vsc),
+        lambda: plain8(q, tbl, lens),
+        lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
+    n_bytes = (2 * total * h * d + 4 * (2 * b * h * d) + 4 * b * (p_max + 1)
+               + 4 * 2 * h * sum(n_used))
+    bound8 = bound(n_bytes, n_flops)
+    res8 = {"max_abs_err": err8, **times8, "bound_ms": bound8[0],
+            "bound_by": bound8[1],
+            "library": "scaled_dot_product_attention over the gathered, "
+                       "dequantized fp32 view (gather and dequantize not "
+                       "timed)",
+            "shape": shape, "lengths": lengths}
+    emit("paged_decode_attention_int8", **res8)
+    return res, res8
+
+
+def _int8_view(at, pool, scales, table, ps):
+    """The gathered, dequantized fp32 view of an int8 pool: the plain
+    version's input."""
+    return at._dequantize(at.gather_pages(pool, table),
+                          at.expand_page_scales(scales, table, ps))
 
 
 #: the projections of one GPT-2-small layer, (N, K): q, k, v, out,
@@ -603,34 +747,20 @@ PAGED_MODEL = dict(vocab_size=50257, units=768, num_layers=12, num_heads=12,
                    max_length=1024)
 
 
-def _gpt2_small():
+def _gpt2_small(seed=0):
     from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
-    return GPTModel(**PAGED_MODEL, device="cuda").initialize(seed=0)
+    return GPTModel(**PAGED_MODEL, device="cuda").initialize(seed=seed)
 
 
-def phase_paged_engine(torch):
-    """GPT-2-small widths, 12 layers, random weights from seed 0,
-    ``paged=True, quantize="int8_weights"``, 8 slots, page 16, default
-    chunk and pool; 24 prompts from 4 client threads, each sending its
-    6 back to back, except that a repeat is sent once its original's
-    result is in (a user re-sending a prompt)."""
+def _serve_paged_traffic(torch, eng, prompts, repeats, submit_kw=None):
+    """Serve ``prompts`` from 4 client threads, each sending its 6 back
+    to back, except that a repeat is sent once its original's result is
+    in (a user re-sending a prompt); ``submit_kw[j]`` adds request j's
+    sampling knobs. The launch counters and telemetry cover exactly
+    this run. Returns (results, metrics)."""
     from mxnet_tpu_torch import ops, telemetry
-    from mxnet_tpu_torch.serving import GenerationEngine
-
-    n_layers, n_req, max_new = PAGED_MODEL["num_layers"], 24, 64
-    t0 = time.perf_counter()
-    model = _gpt2_small()
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    eng = GenerationEngine(model, max_slots=8, max_new_tokens=max_new,
-                           eos_id=50256, paged=True, page_size=16,
-                           quantize="int8_weights")
-    t0 = time.perf_counter()
-    eng.warmup()
-    warmup_s = time.perf_counter() - t0
-    prompts, repeats = _paged_prompts(np.random.RandomState(5),
-                                      PAGED_MODEL["vocab_size"])
+    n_req = len(prompts)
+    submit_kw = submit_kw or {}
     results, ttft, errors = [None] * n_req, [None] * n_req, []
     streams, sent = [None] * n_req, [threading.Event() for _ in prompts]
 
@@ -641,7 +771,7 @@ def phase_paged_engine(torch):
                 if j in repeats:
                     sent[repeats[j]].wait(600)
                     streams[repeats[j]].result(timeout=600)
-                st = eng.submit(prompts[j])
+                st = eng.submit(prompts[j], **submit_kw.get(j, {}))
                 streams[j] = st
                 sent[j].set()
                 mine.append((j, time.perf_counter(), st))
@@ -665,8 +795,6 @@ def phase_paged_engine(torch):
     cnt = snap["counters"]
     steps = int(cnt.get("serving.generate.host_syncs", 0))
     decode_hist = telemetry.hist_quantiles("serving.generate.decode")
-    chunks_peak = snap["gauges"][
-        "serving.generate.prefill_chunks_per_iter"]["peak"]
     if errors:
         raise errors[0]
     check(all(r is not None for r in results), "a request did not finish")
@@ -688,64 +816,219 @@ def phase_paged_engine(torch):
            "pages_shared": int(cnt.get("serving.generate.pages.shared", 0)),
            "prefill_chunks": int(cnt.get("serving.generate.prefill_chunks",
                                          0)),
-           "prefill_chunks_per_iter_peak": chunks_peak,
+           "prefill_chunks_per_iter_peak": snap["gauges"][
+               "serving.generate.prefill_chunks_per_iter"]["peak"],
            "launches": launches,
            "launches_per_decode_step": {
                k: v / steps for k, v in launches.items()} if steps else {},
-           "init_s": init_s, "warmup_s": warmup_s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-    emit("paged_engine", **res)
-    check(chunks_peak == 1, f"prefill chunks per iteration peak "
-          f"{chunks_peak} != 1")
+    check(res["prefill_chunks_per_iter_peak"] == 1,
+          f"prefill chunks per iteration peak "
+          f"{res['prefill_chunks_per_iter_peak']} != 1")
     check(res["prefix_hits"] > 0, "no prefix hit (peek) ran")
     check(res["cow_copies"] > 0, "no copy-on-write ran")
+    check(launches["dequant_matmul"] >= 6 * PAGED_MODEL["num_layers"] * steps,
+          f"K4 launched {launches['dequant_matmul']} times for {steps} "
+          f"decode steps")
+    return results, res
+
+
+def phase_paged_engine(torch):
+    """GPT-2-small widths, 12 layers, random weights from seed 0,
+    ``paged=True, quantize="int8_weights"``, 8 slots, page 16, default
+    chunk and pool; the 24 prompts of ``_paged_prompts``."""
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    n_layers = PAGED_MODEL["num_layers"]
+    t0 = time.perf_counter()
+    model = _gpt2_small()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(model, max_slots=8, max_new_tokens=64,
+                           eos_id=50256, paged=True, page_size=16,
+                           quantize="int8_weights")
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    prompts, repeats = _paged_prompts(np.random.RandomState(5),
+                                      PAGED_MODEL["vocab_size"])
+    results, res = _serve_paged_traffic(torch, eng, prompts, repeats)
+    res.update(init_s=init_s, warmup_s=warmup_s)
+    emit("paged_engine", **res)
+    launches, steps = res["launches"], res["decode_steps"]
     check(launches["flash_attention_fwd"] > 0, "K1 never launched")
     check(launches["paged_decode_attention"] >= steps * n_layers > 0,
           f"K3 launched {launches['paged_decode_attention']} times for "
           f"{steps} decode steps")
-    check(launches["dequant_matmul"] >= 6 * n_layers * steps,
-          f"K4 launched {launches['dequant_matmul']} times for {steps} "
-          f"decode steps")
     eng.close()
     del eng
     torch.cuda.empty_cache()
     return res, model, prompts, results, repeats
 
 
-def _teacher_forced_paged(model, prompt, gen, chunk=32, ps=16):
-    """Logits of every generated position of one request through the
-    port's paged generation calls, teacher-forced on ``gen``: the
-    engine's own prefill plan (one fresh prefill when the padded prompt
-    fits a chunk, else chunks) into a one-slot pool, then decode steps.
-    Returns a (len(gen), V) CPU tensor."""
+#: the sampled requests of the int8-KV phase (none is a repeat or the
+#: original of one, nor one the CPU reference replays) and their knobs
+SAMPLED = {1: 101, 6: 106, 11: 111, 18: 118}
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+#: the greedy requests the CPU reference replays: a prefix hit, its COW'd
+#: original, an unshared prompt and a shared-system-prompt one
+CPU_PICKS = (22, 16, 20, 3)
+
+
+def _kv_pool_bytes(cache):
+    return sum(t.numel() * t.element_size()
+               for key in ("k", "v", "k_scale", "v_scale")
+               for t in cache.get(key, ()))
+
+
+def phase_int8_kv_engine(torch, model, prompts, repeats):
+    """``paged=True, quantize="int8_weights", kv_dtype="int8"`` at
+    GPT-2-small widths on ``model`` (seed 0), 8 slots, 64 new tokens,
+    the prompts of ``_paged_prompts``; 4 of the 24 requests are sampled
+    with fixed seeds. Then the sampled requests again, alone, on a second
+    engine of the same configuration (the same seed gives the same
+    tokens), and the card's teacher-forced int8-KV logits of the CPU
+    reference's greedy requests and of the sampled ones (each sampled
+    token must lie inside its top-k set)."""
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    n_layers = PAGED_MODEL["num_layers"]
+    cfg = dict(max_slots=8, max_new_tokens=64, eos_id=50256, paged=True,
+               page_size=16, quantize="int8_weights", kv_dtype="int8")
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(model, **cfg)
+    check(eng.precision == "int8_weights+int8_kv",
+          f"precision {eng.precision!r}")
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    kw = {j: dict(SAMPLING, seed=seed) for j, seed in SAMPLED.items()}
+    results, res = _serve_paged_traffic(torch, eng, prompts, repeats, kw)
+    launches, steps = res["launches"], res["decode_steps"]
+    pool = _kv_pool_bytes(eng._cache)
+    fp32_pool = sum(t.numel() * 4 for key in ("k", "v")
+                    for t in eng._cache[key])
+    res.update(warmup_s=warmup_s, sampled_requests=sorted(SAMPLED),
+               sampling=SAMPLING, kv_pool_bytes=pool,
+               fp32_kv_pool_bytes=fp32_pool,
+               kv_pool_ratio=pool / fp32_pool)
+    eng.close()
+    del eng
+    check(launches["paged_decode_attention_int8"] >= steps * n_layers > 0,
+          f"K3-int8 launched {launches['paged_decode_attention_int8']} "
+          f"times for {steps} decode steps")
+    check(launches["paged_decode_attention"] == 0,
+          "the fp32 K3 ran on the int8-KV path")
+
+    # the same seeds again, alone, on a fresh engine
+    eng2 = GenerationEngine(model, **cfg)
+    again = {j: eng2.submit(prompts[j], **kw[j]) for j in SAMPLED}
+    again = {j: st.result(timeout=600).tokens for j, st in again.items()}
+    eng2.close()
+    del eng2
+    same = {j: again[j] == results[j].tokens for j in SAMPLED}
+    res["sampled_repeat_identical"] = same
+
+    # teacher-forced logits on the card: every request over an int8
+    # pool, the greedy ones over an fp32 pool too (int8 weights in both)
+    gens = [r.tokens for r in results]
+    card = dict(enumerate(_teacher_forced(model, prompts, gens,
+                                          kv_dtype="int8")))
+    greedy = [j for j in range(len(prompts)) if j not in SAMPLED]
+    card32 = _teacher_forced(model, [prompts[j] for j in greedy],
+                             [gens[j] for j in greedy])
+    kv = _kv_contract([(card[j], lg32, gens[j])
+                       for j, lg32 in zip(greedy, card32)])
+    outside = []
+    for j in SAMPLED:
+        lg, g = card[j], gens[j]
+        for i, tok in enumerate(g):
+            rank = int((lg[i] > lg[i, tok]).sum())
+            if rank >= SAMPLING["top_k"]:
+                outside.append({"request": j, "pos": i, "rank": rank})
+    res["sampled_tokens_outside_top_k"] = outside
+    res["int8_kv_vs_fp32_kv_on_card"] = dict(kv, requests=greedy)
+    emit("int8_kv_engine", **res)
+    check(all(same.values()), f"a seeded sampled request did not repeat: "
+          f"{same}")
+    check(not outside, f"sampled tokens outside their top-k: {outside}")
+    check(kv["kv_logit_max_abs_err"] <= QNT_KV_TOL,
+          f"int8 KV vs fp32 KV logits on the card "
+          f"{kv['kv_logit_max_abs_err']} > {QNT_KV_TOL}")
+    torch.cuda.empty_cache()
+    return res, results, card
+
+
+def _kv_contract(runs):
+    """The reference's int8-KV measures over ``runs`` of (int8-KV logits,
+    fp32-KV logits, the int8-KV engine's tokens), all teacher-forced on
+    those tokens: the per-step logit max-abs-err, how often the fp32-KV
+    argmax is the engine's token, and the fp32-KV logit gap (its top-1
+    minus the token's) at each position where it is not."""
+    err, agree, total, gaps = 0.0, 0, 0, []
+    for lg8, lg32, g in runs:
+        err = max(err, float((lg8 - lg32).abs().max()))
+        p32 = lg32.argmax(dim=-1).numpy()
+        for i, tok in enumerate(g):
+            total += 1
+            if p32[i] == tok:
+                agree += 1
+            else:
+                gaps.append(float(lg32[i].max() - lg32[i, tok]))
+    return {"tokens": total, "kv_logit_max_abs_err": err,
+            "agreement": agree / total, "disagreements": len(gaps),
+            "disagreement_gap_max": max(gaps, default=0.0),
+            "disagreement_gap_median": float(np.median(gaps)) if gaps
+            else 0.0}
+
+
+def _teacher_forced(model, prompts, gens, chunk=32, ps=16, kv_dtype=None):
+    """Logits of every generated position of several requests through
+    the port's paged generation calls, teacher-forced on their tokens
+    ``gens``: each request's own prefill plan (one fresh prefill when
+    its padded prompt fits a chunk, else chunks from 0 — the engine's
+    chunk boundaries, since a shared prefix ends on a chunk boundary)
+    into its own slot of one pool of ``kv_dtype``, then decode steps
+    over all slots at once (a slot whose tokens ran out idles). Returns
+    one (len(gen), V) CPU tensor per request."""
     import torch
-    n = len(prompt)
-    cap = -(-(n + len(gen)) // ps)
     s_max = PAGED_MODEL["max_length"]
-    cache = model.init_paged_cache(1, cap + 1, ps, s_max)
-    row = np.zeros(s_max // ps, "i4")
-    row[:cap] = np.arange(1, cap + 1)
-    w = max(ps, 1 << (n - 1).bit_length())
-    if w <= chunk:
-        toks = np.zeros((1, w), "i4")
-        toks[0, :n] = prompt
-        lg, cache = model.prefill_paged(toks, n, 0, row, cache, fresh=True)
-    else:
-        for pos in range(0, n, chunk):
-            nv = min(chunk, n - pos)
-            toks = np.zeros((1, chunk), "i4")
-            toks[0, :nv] = prompt[pos:pos + nv]
-            lg, cache = model.prefill_paged(toks, nv, 0, row, cache,
-                                            start=pos)
-    out = [lg[0].cpu()]
-    for tok in gen[:-1]:
-        lg, cache = model.decode_step_paged(np.array([tok], "i4"),
-                                            np.ones(1, "i4"), cache)
-        out.append(lg[0].cpu())
-    return torch.stack(out)
+    caps = [-(-(len(p) + len(g)) // ps) for p, g in zip(prompts, gens)]
+    cache = model.init_paged_cache(len(prompts), sum(caps) + 1, ps, s_max,
+                                   dtype=kv_dtype)
+    first = 1
+    out = []
+    for b, (prompt, cap) in enumerate(zip(prompts, caps)):
+        n = len(prompt)
+        row = np.zeros(s_max // ps, "i4")
+        row[:cap] = np.arange(first, first + cap)
+        first += cap
+        w = max(ps, 1 << (n - 1).bit_length())
+        if w <= chunk:
+            toks = np.zeros((1, w), "i4")
+            toks[0, :n] = prompt
+            lg, cache = model.prefill_paged(toks, n, b, row, cache,
+                                            fresh=True)
+        else:
+            for pos in range(0, n, chunk):
+                nv = min(chunk, n - pos)
+                toks = np.zeros((1, chunk), "i4")
+                toks[0, :nv] = prompt[pos:pos + nv]
+                lg, cache = model.prefill_paged(toks, nv, b, row, cache,
+                                                start=pos)
+        out.append([lg[0].cpu()])
+    for t in range(max(len(g) for g in gens) - 1):
+        live = np.array([t < len(g) - 1 for g in gens], "i4")
+        toks = np.array([g[t] if t < len(g) - 1 else 0 for g in gens], "i4")
+        lg, cache = model.decode_step_paged(toks, live, cache)
+        lg = lg.cpu()
+        for b in np.flatnonzero(live):
+            out[b].append(lg[b])
+    return [torch.stack(o) for o in out]
 
 
-def phase_paged_cpu_reference(torch, model, prompts, results, repeats):
+def phase_paged_cpu_reference(torch, model, prompts, results):
     """The paged int8 engine's tokens held against the same weights and
     int8 tables on the CPU, teacher-forced through the port's
     generation calls (not ``forward``, which stays fp32), for 4
@@ -753,20 +1036,17 @@ def phase_paged_cpu_reference(torch, model, prompts, results, repeats):
     a shared-system-prompt one; the card's own teacher-forced logits
     against the CPU's; and, reported without a gate, how often the fp32
     model would have picked the int8 engine's token."""
-    hit, orig = 22, repeats[22]
-    picks = [hit, orig, 20, 3]
-    card = [_teacher_forced_paged(model, prompts[j], results[j].tokens)
-            for j in picks]
+    picks = list(CPU_PICKS)
+    ps_, gs_ = [prompts[j] for j in picks], [results[j].tokens for j in picks]
+    card = _teacher_forced(model, ps_, gs_)
     model.to("cpu")
-    fp32 = [_teacher_forced_paged(model.quantize_params(include=()),
-                                  prompts[j], results[j].tokens)
-            for j in picks]
+    fp32 = _teacher_forced(model.quantize_params(include=()), ps_, gs_)
     model.quantize_params()            # the int8 tables, made on the CPU
+    cpu = _teacher_forced(model, ps_, gs_)
     agree = total = agree32 = 0
     flips, logit_err = [], 0.0
-    for j, lg_card, lg32 in zip(picks, card, fp32):
+    for j, lg_card, lg32, lg in zip(picks, card, fp32, cpu):
         g = results[j].tokens
-        lg = _teacher_forced_paged(model, prompts[j], g)
         pred = lg.argmax(dim=-1).numpy()
         pred32 = lg32.argmax(dim=-1).numpy()
         logit_err = max(logit_err, float((lg_card - lg).abs().max()))
@@ -790,6 +1070,180 @@ def phase_paged_cpu_reference(torch, model, prompts, results, repeats):
           f"card vs CPU logits {logit_err} > {LOGIT_TOL}")
 
 
+def phase_int8_kv_cpu_reference(torch, model, prompts, results, card):
+    """The int8-KV engine's greedy requests ``CPU_PICKS`` (a prefix hit,
+    its COW'd original, an unshared prompt and a shared-system-prompt
+    one) replayed on the CPU, teacher-forced on the engine's tokens
+    through the port's plain paths, with the same weights and int8
+    tables (``model`` is on the CPU, its int8 weight tables armed):
+
+    (a) the reference's int8-KV contract (``bench.py --quant``): int8 KV
+        against int8 weights with an fp32 KV, per-step logit max-abs-err
+        <= QNT_KV_TOL. The agreement of the fp32-KV argmax with the
+        engine's tokens is reported, not gated: the reference gates its
+        98 % agreement floor on the int8-WEIGHTS replay against fp32
+        only, and on this random-weight GPT-2-small head (50257 tokens,
+        logits of standard deviation ~0.17) the top-2 logit gaps are a
+        few hundredths, so a perturbation a hundredth in size moves some
+        argmaxes: the int8-weight engine's tokens agree with the fp32
+        model's at a like rate (``paged_cpu_reference``). The same replay
+        on the card over all 20 greedy requests is in the
+        ``int8_kv_engine`` line;
+    (b) card against CPU in the same configuration: the CPU's int8-KV
+        argmax agrees with the card's token at >= AGREE_MIN of the
+        positions, every disagreement on a logit gap below FLIP_GAP. The
+        bound: quantizing every K/V entry (an error of at most half a
+        step, a quarter on average) moves the logits by at most
+        QNT_KV_TOL. The card and the CPU compute K/V in another order,
+        so an entry next to a rounding tie may land one step apart — a
+        whole step on at most FLIP_FRAC of the entries (the bound the
+        CPU tests hold torch and XLA to), i.e. at most 4 * FLIP_FRAC of
+        the whole quantization's perturbation, which moves a logit by at
+        most 4 * FLIP_FRAC * QNT_KV_TOL. With the fp32 difference
+        LOGIT_TOL on top, two logits can swap only when their gap is
+        below twice the sum: FLIP_GAP = 2 * (1e-3 + 4e-3 * 0.6) =
+        6.8e-3, well under 0.6.
+
+    The card's own teacher-forced int8-KV logits are held against the
+    CPU's (reported)."""
+    picks = list(CPU_PICKS)
+    ps_ = [prompts[j] for j in picks]
+    gs_ = [results[j].tokens for j in picks]
+    t0 = time.perf_counter()
+    kv8 = _teacher_forced(model, ps_, gs_, kv_dtype="int8")
+    kv32 = _teacher_forced(model, ps_, gs_)
+    cpu_s = time.perf_counter() - t0
+    kv = _kv_contract(list(zip(kv8, kv32, gs_)))
+    total = agree8 = 0
+    flips, card_err = [], 0.0
+    for j, lg8, g in zip(picks, kv8, gs_):
+        card_err = max(card_err, float((card[j] - lg8).abs().max()))
+        p8 = lg8.argmax(dim=-1).numpy()
+        for i, tok in enumerate(g):
+            total += 1
+            if p8[i] == tok:
+                agree8 += 1
+            else:
+                flips.append({"request": j, "pos": i,
+                              "gap": float(lg8[i].max() - lg8[i, tok])})
+    res = {"requests": picks, "tokens": total, "cpu_s": cpu_s,
+           "int8_kv_vs_fp32_kv": kv, "kv_logit_tol": QNT_KV_TOL,
+           "card_vs_cpu_agreement": agree8 / total,
+           "disagreements": flips, "flip_gap_bound": FLIP_GAP,
+           "card_vs_cpu_logit_max_abs_err": card_err}
+    emit("int8_kv_cpu_reference", **res)
+    check(kv["kv_logit_max_abs_err"] <= QNT_KV_TOL,
+          f"int8 KV vs fp32 KV logits {kv['kv_logit_max_abs_err']} > "
+          f"{QNT_KV_TOL}")
+    check(agree8 / total >= AGREE_MIN,
+          f"card vs CPU agreement {agree8 / total} < {AGREE_MIN}")
+    check(all(f["gap"] < FLIP_GAP for f in flips),
+          f"a disagreement on a gap >= {FLIP_GAP}: {flips}")
+    return res
+
+
+def phase_dense_int8_kv(torch):
+    """``kv_dtype="int8"`` with fp32 weights on a dense cache at
+    GPT-2-small widths (seed 0): 8 requests of 16..512 tokens, so that
+    K2's int8 instance runs on the engine path; then ``load_weights`` to
+    seed 1's weights between waves, and a second wave's greedy tokens
+    held against a fresh engine on those weights."""
+    from mxnet_tpu_torch import ops, telemetry
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    n_layers = PAGED_MODEL["num_layers"]
+    cfg = dict(max_slots=8, max_new_tokens=64, eos_id=50256, kv_dtype="int8")
+    model = _gpt2_small(seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(model, **cfg)
+    check(eng.precision == "int8_kv", f"precision {eng.precision!r}")
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    rng = np.random.RandomState(7)
+    vocab = PAGED_MODEL["vocab_size"]
+
+    def wave():
+        return [rng.randint(0, vocab - 1, size=n).astype("i4")
+                for n in rng.randint(16, 513, size=8)]
+
+    first = wave()
+    telemetry.reset()
+    ops.reset_launch_counts()          # the main path's run starts here
+    t0 = time.perf_counter()
+    streams = [(time.perf_counter(), eng.submit(p)) for p in first]
+    results = [st.result(timeout=600) for _t, st in streams]
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()     # ... and ends here
+    steps = int(telemetry.counter_value("serving.generate.host_syncs"))
+    decode_hist = telemetry.hist_quantiles("serving.generate.decode")
+    tt = np.array([(st.first_token_at - t) * 1e3 for t, st in streams])
+    gen_tokens = sum(len(r.tokens) for r in results)
+    check(launches["decode_attention_int8"] >= steps * n_layers > 0,
+          f"K2-int8 launched {launches['decode_attention_int8']} times for "
+          f"{steps} decode steps")
+    check(launches["decode_attention"] == 0,
+          "the fp32 K2 ran on the int8-KV path")
+
+    donor = _gpt2_small(seed=1)
+    t0 = time.perf_counter()
+    eng.load_weights({k: p.data() for k, p in
+                      donor.collect_params().items()})
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    second = wave()
+    after = [st.result(timeout=600).tokens
+             for st in [eng.submit(p) for p in second]]
+    eng.close()
+    fresh = GenerationEngine(donor, **cfg)
+    expect = [st.result(timeout=600).tokens
+              for st in [fresh.submit(p) for p in second]]
+    fresh.close()
+    res = {"requests": len(first), "generated_tokens": gen_tokens,
+           "prompt_tokens": int(sum(len(p) for p in first)),
+           "wall_s": wall, "tokens_per_s": gen_tokens / wall,
+           "ttft_ms_p50": float(np.percentile(tt, 50)),
+           "ttft_ms_p99": float(np.percentile(tt, 99)),
+           "decode_steps": steps,
+           "decode_step_ms_p50": decode_hist["p50"],
+           "decode_step_ms_avg": decode_hist["avg"],
+           "launches": launches,
+           "launches_per_decode_step": {
+               k: v / steps for k, v in launches.items()},
+           "kv_cache_bytes": _kv_pool_bytes(eng._cache),
+           "warmup_s": warmup_s, "load_weights_ms": swap_ms,
+           "rollover_requests": len(second),
+           "rollover_tokens_equal_fresh_engine": after == expect,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit("dense_int8_kv_engine", **res)
+    check(after == expect, "after load_weights the engine's tokens differ "
+          "from a fresh engine's on the new weights")
+    del eng, fresh, model, donor
+    torch.cuda.empty_cache()
+    return res
+
+
+#: the kernels line: name, source, the TPU kernel it replaces (file:line
+#: and function), the kernel phase's result key
+KERNELS = [
+    ("flash_attention_fwd", "flash_attention.cu",
+     "mxnet_tpu/ops/attention.py:141", "flash_attention_pallas", "k1"),
+    ("decode_attention", "decode_attention.cu",
+     "mxnet_tpu/ops/attention.py:474", "decode_attention_pallas", "k2"),
+    ("decode_attention_int8", "decode_attention.cu",
+     "mxnet_tpu/ops/attention.py:474",
+     "decode_attention_pallas (k_scale/v_scale; body "
+     "_decode_fwd_kernel quant=True, :402)", "k2i"),
+    ("paged_decode_attention", "paged_decode_attention.cu",
+     "mxnet_tpu/ops/attention.py:566", "paged_decode_attention_pallas",
+     "k3"),
+    ("paged_decode_attention_int8", "paged_decode_attention.cu",
+     "mxnet_tpu/ops/attention.py:566",
+     "paged_decode_attention_pallas (k_scale/v_scale)", "k3i"),
+    ("dequant_matmul", "dequant_matmul.cu",
+     "mxnet_tpu/ops/quantized.py:151", "dequant_matmul_pallas", "k4"),
+]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -804,39 +1258,38 @@ def main(argv=None):
     phase_build()
     timer = Timer(torch)
     k1 = phase_flash(torch, timer)
-    k2 = phase_decode(torch, timer)
-    k3 = phase_paged_decode(torch, timer)
+    k2, k2i = phase_decode(torch, timer)
+    k3, k3i = phase_paged_decode(torch, timer)
     k4 = phase_dequant(torch, timer)
     if args.kernels_only:
         return 0
     from mxnet_tpu_torch import ops
-    eng = phase_engine(torch)
+    kernel_res = {"k1": k1, "k2": k2, "k2i": k2i, "k3": k3, "k3i": k3i,
+                  "k4": k4}
+    phases = {"engine": phase_engine(torch)}
     paged, model, prompts, results, repeats = phase_paged_engine(torch)
-    phase_paged_cpu_reference(torch, model, prompts, results, repeats)
+    phases["paged_engine"] = paged
+    kv8, kv8_results, card8 = phase_int8_kv_engine(torch, model, prompts,
+                                                   repeats)
+    phases["int8_kv_engine"] = kv8
+    phase_paged_cpu_reference(torch, model, prompts, results)
+    phase_int8_kv_cpu_reference(torch, model, prompts, kv8_results, card8)
+    del model
+    phases["dense_int8_kv_engine"] = phase_dense_int8_kv(torch)
     rows = []
-    for name, src, replaces, fn, res in (
-            ("flash_attention_fwd", "flash_attention.cu",
-             "mxnet_tpu/ops/attention.py:141", "flash_attention_pallas", k1),
-            ("decode_attention", "decode_attention.cu",
-             "mxnet_tpu/ops/attention.py:474", "decode_attention_pallas",
-             k2),
-            ("paged_decode_attention", "paged_decode_attention.cu",
-             "mxnet_tpu/ops/attention.py:566",
-             "paged_decode_attention_pallas", k3),
-            ("dequant_matmul", "dequant_matmul.cu",
-             "mxnet_tpu/ops/quantized.py:151", "dequant_matmul_pallas", k4)):
-        dense_n = eng["launches"].get(name, 0)
-        paged_n = paged["launches"][name]
+    for name, src, replaces, fn, key in KERNELS:
+        res = kernel_res[key]
+        by_phase = {ph: r["launches"].get(name, 0)
+                    for ph, r in phases.items()}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"mxnet_tpu_torch/csrc/{src}",
             "replaces": replaces, "replaces_function": fn,
-            "launches": dense_n + paged_n,
-            "launches_dense_engine": dense_n,
-            "launches_paged_engine": paged_n,
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
             "max_abs_err": res["max_abs_err"],
             "ms": res["kernel_ms"],
-            **{key: res[key] for key in TIMING_KEYS},
+            **{k: res[k] for k in TIMING_KEYS},
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"]})
     check(set(ops.launch_counts()) == {r["name"] for r in rows},
           "a kernel of the path is missing from the kernels line")

@@ -1,24 +1,43 @@
 // The decode-attention block body shared by K2 (decode_attention.cu,
-// a dense cache) and K3 (paged_decode_attention.cu, a page pool).
+// a dense cache) and K3 (paged_decode_attention.cu, a page pool), each
+// in an fp32 and an int8 instance.
 //
 // One thread block computes NR query rows of one (slot, head) against
-// the slot's keys [0, len). The two kernels differ only in where key
-// row t lives, which the ``Rows`` policy answers (``offsets(t, ko,
-// vo)``: the element offsets of K row t from ``rows.k`` and of V row t
-// from ``rows.v``; ``kIndirect``: whether that takes a table lookup):
-// a strided cache row for K2, a page looked up in the slot's page
-// table for K3. Everything else is the same arithmetic:
+// the slot's keys [0, len). The kernels differ only in where key row t
+// lives and how it is scaled, which the ``Rows`` policy answers:
+// ``offsets(t, ko, vo, ks, vs)`` gives the element offsets of K row t
+// from ``rows.k`` and of V row t from ``rows.v`` (a strided cache row
+// for K2, a page looked up in the slot's page table for K3) and, for a
+// per-key scale, the row's K and V scales; ``kIndirect`` says whether
+// that takes a table lookup; the type of ``rows.k`` / ``rows.v`` is
+// the cache's element type (float or int8_t); ``kScale`` says how an
+// int8 cache is scaled:
+//
+// - KvScale::kNone: an fp32 cache.
+// - KvScale::kSlot: an int8 dense cache with one K and one V scale per
+//   (slot, head) (``rows.k_mul``, ``rows.v_mul``). K's scale is folded
+//   into q when q is staged in shared memory, V's is applied once, at
+//   the final write.
+// - KvScale::kKey: an int8 pool whose scale changes per page. Each lane
+//   reads its key's two scales with the table lookup it already does;
+//   the score is multiplied by the K scale and p by the V scale, which
+//   the V loop takes from the key's lane by shuffle, as it takes the
+//   row offset.
+//
+// Everything else is the same arithmetic:
 //
 // - 8 warps split [0, len) into interleaved 32-key chunks, so 256 key
 //   rows are in flight per block; each warp keeps an online-softmax
 //   state and the states merge once, through shared memory, at the
 //   end (the TPU kernel's sequential kv-block grid axis becomes this
 //   loop).
-// - No K or V row at or past ``len`` is ever loaded, so garbage (even
-//   NaN) in a cache tail, a scrap page or a recycled page cannot reach
-//   a sum — the Hopper form of the TPU kernel's "skip blocks past
-//   ceil(len / block)" and "zero the V overhang".
-// - K rows are read with 16-byte loads, one row per lane; V rows are
+// - No K or V row at or past ``len`` is ever loaded, and no scale of a
+//   key at or past it is read, so garbage (even NaN) in a cache tail, a
+//   scrap page, a recycled page or their scales cannot reach a sum —
+//   the Hopper form of the TPU kernel's "skip blocks past ceil(len /
+//   block)" and "zero the V overhang".
+// - K rows are read with 16-byte loads, one row per lane (4 floats or
+//   16 int8 values a load, widened to fp32 in registers); V rows are
 //   read coalesced, one row per step across the warp, each lane owning
 //   D / 32 output columns; p reaches the lanes by shuffle. Each lane
 //   computes its key's row offsets once per chunk; with an indirect
@@ -28,6 +47,8 @@
 // - len == 0 writes zeros (an empty slot attends nothing).
 #pragma once
 
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace mxtt {
@@ -35,6 +56,50 @@ namespace mxtt {
 constexpr int kDecodeWarps = 8;
 constexpr int kDecodeThreads = kDecodeWarps * 32;
 constexpr int kDecodeChunk = 32;   // keys per warp step: one per lane
+
+enum class KvScale { kNone, kSlot, kKey };
+
+// s[r] += q_s[r] . K row, for a row of D floats (16-byte loads).
+template <int D, int NR>
+__device__ __forceinline__ void dot_row(const float* __restrict__ krow,
+                                        const float (&q_s)[NR][D],
+                                        float (&s)[NR]) {
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    const float4 kx = load4(krow + c);
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      s[r] = dot4(*reinterpret_cast<const float4*>(&q_s[r][c]), kx, s[r]);
+  }
+}
+
+// The same for a row of D int8 values: one 16-byte load per 16 values,
+// widened to fp32 in registers (the caller applies the scale).
+template <int D, int NR>
+__device__ __forceinline__ void dot_row(const int8_t* __restrict__ krow,
+                                        const float (&q_s)[NR][D],
+                                        float (&s)[NR]) {
+  static_assert(D % 16 == 0, "int8 K rows are read 16 bytes at a time");
+#pragma unroll 2
+  for (int c = 0; c < D; c += 16) {
+    const int4 raw = __ldg(reinterpret_cast<const int4*>(krow + c));
+    const float4 k4[4] = {s8x4_to_float4(raw.x), s8x4_to_float4(raw.y),
+                          s8x4_to_float4(raw.z), s8x4_to_float4(raw.w)};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        s[r] = dot4(*reinterpret_cast<const float4*>(&q_s[r][c + 4 * u]),
+                    k4[u], s[r]);
+    }
+  }
+}
+
+__device__ __forceinline__ float load_elem(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load_elem(const int8_t* p) {
+  return static_cast<float>(__ldg(reinterpret_cast<const signed char*>(p)));
+}
 
 // qb: this (slot, head)'s first query row; q_ss its row stride. r0/nr:
 // the block's first query row and its count (<= NR). ob: the output
@@ -45,6 +110,9 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
                                              int len, float scale,
                                              const Rows& rows,
                                              float* __restrict__ ob) {
+  constexpr KvScale kScale = Rows::kScale;
+  static_assert(kScale != KvScale::kKey || Rows::kIndirect,
+                "per-key scales travel with the shuffled row offsets");
   constexpr int DPL = D >= 32 ? D / 32 : 1;   // output columns per lane
   constexpr int V4 = D / 4;
   __shared__ __align__(16) float q_s[NR][D];
@@ -61,16 +129,18 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
     return;
   }
 
+  float q_mul = scale;
+  if constexpr (kScale == KvScale::kSlot) q_mul *= rows.k_mul;
   for (int i = tid; i < NR * V4; i += kDecodeThreads) {
     const int r = i / V4;
     const int c = (i - r * V4) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < nr) {
       x = load4(qb + (long long)(r0 + r) * q_ss + c);
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
+      x.x *= q_mul;
+      x.y *= q_mul;
+      x.z *= q_mul;
+      x.w *= q_mul;
     }
     *reinterpret_cast<float4*>(&q_s[r][c]) = x;
   }
@@ -93,15 +163,13 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
 #pragma unroll
     for (int r = 0; r < NR; ++r) s[r] = 0.f;
     long long koff = 0, voff = 0;
+    float ks = 1.f, vs = 1.f;   // this lane's key scales (kKey only)
     if (valid) {
-      rows.offsets(key, koff, voff);
-      const float* krow = rows.k + koff;
-#pragma unroll 4
-      for (int c = 0; c < D; c += 4) {
-        const float4 kx = load4(krow + c);
+      rows.offsets(key, koff, voff, ks, vs);
+      dot_row<D, NR>(rows.k + koff, q_s, s);
+      if constexpr (kScale == KvScale::kKey) {
 #pragma unroll
-        for (int r = 0; r < NR; ++r)
-          s[r] = dot4(*reinterpret_cast<const float4*>(&q_s[r][c]), kx, s[r]);
+        for (int r = 0; r < NR; ++r) s[r] *= ks;
       }
     }
     float p[NR];
@@ -125,18 +193,23 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
         vo = __shfl_sync(kFullMask, voff, j);
       } else {
         long long ko_unused;
-        rows.offsets(k0 + j, ko_unused, vo);
+        float ks_unused, vs_unused;
+        rows.offsets(k0 + j, ko_unused, vo, ks_unused, vs_unused);
       }
-      const float* vrow = rows.v + vo;
+      float vsj = 1.f;
+      if constexpr (kScale == KvScale::kKey)
+        vsj = __shfl_sync(kFullMask, vs, j);
+      const auto* vrow = rows.v + vo;
       float vv[DPL];
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
         const int d = lane + 32 * i;
-        vv[i] = d < D ? __ldg(vrow + d) : 0.f;
+        vv[i] = d < D ? load_elem(vrow + d) : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
-        const float pj = __shfl_sync(kFullMask, p[r], j);
+        float pj = __shfl_sync(kFullMask, p[r], j);
+        if constexpr (kScale == KvScale::kKey) pj *= vsj;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(pj, vv[i], acc[r][i]);
       }
@@ -173,7 +246,9 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
       o = fmaf(acc_s[w][r][d], a, o);
     }
     const float l_safe = lsum > 0.f ? lsum : 1.f;
-    ob[r * D + d] = o / l_safe;
+    float out = o / l_safe;
+    if constexpr (kScale == KvScale::kSlot) out *= rows.v_mul;
+    ob[r * D + d] = out;
   }
 }
 

@@ -1,5 +1,5 @@
-"""GPT — the causal decoder family: dense and paged fp32 generation,
-with optional weight-only int8 projections.
+"""GPT — the causal decoder family: dense and paged generation over an
+fp32 or int8 KV cache, with optional weight-only int8 projections.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/gpt.py``: token plus learned
 position embedding, N pre-LayerNorm blocks (q/k/v/out projections, an
@@ -35,6 +35,15 @@ token, no write), ``bind_slot_paged`` and ``copy_page_paged`` (the copy
 half of copy-on-write). Like the dense cache, the pool, the table and
 the lengths are written in place and keep their ``data_ptr()``.
 
+``dtype="int8"`` (either cache) stores K/V as int8 with fp32 per-head
+scales beside them (``k_scale``/``v_scale``): per slot for the dense
+cache, set at prefill from the prompt's amax over its padded bucket and
+reused by every decode write into that slot; per PAGE for the paged
+pool, set when a prefill writes the page, inherited by a page whose
+first token a decode step writes from the slot's previous page, and
+copied with the page by ``copy_page_paged``. The scales are written in
+place like the rest of the cache.
+
 ``quantize_params`` arms weight-only int8: every block projection of
 ``_QUANTIZED_PROJECTIONS`` keeps an int8 copy of its weight with
 per-channel scales, and the GENERATION calls (dense and paged) route
@@ -44,15 +53,16 @@ reference, the plain ``forward`` stays fp32.
 Attention runs through ``ops.attention``: on the card, prefill and the
 full forward launch K1 (``csrc/flash_attention.cu``), dense decode
 launches K2 (``csrc/decode_attention.cu``) and paged decode and peek
-launch K3 (``csrc/paged_decode_attention.cu``); the int8 projections
-launch K4 (``csrc/dequant_matmul.cu``). On the CPU each takes its
-plain version. The chunked-prefill attention is plain PyTorch, as it is
-plain jnp in the reference.
+launch K3 (``csrc/paged_decode_attention.cu``), each in its int8
+instance over an int8 cache; the int8 projections launch K4
+(``csrc/dequant_matmul.cu``). On the CPU each takes its plain version.
+The chunked-prefill attention is plain PyTorch, as it is plain jnp in
+the reference.
 
-The reference's other generation modes (int8 KV, bf16 compute, LoRA,
-speculative verify, multi-tick decode, tensor-parallel sharding) are
-later slices; a non-fp32 model or cache raises ``NotImplementedError``
-naming the ROADMAP.md item.
+The reference's other generation modes (bf16 compute, LoRA, speculative
+verify, multi-tick decode, tensor-parallel sharding) are later slices; a
+bf16 model or cache raises ``NotImplementedError`` naming the ROADMAP.md
+item.
 """
 from __future__ import annotations
 
@@ -87,9 +97,29 @@ def _to_pages(a, page_size):
     return a[0].reshape(h, c // page_size, page_size, d).transpose(0, 1)
 
 
-def _not_ported_cache_dtype(dtype):
-    return not_ported(f"a {dtype} KV cache",
-                      "8 (int8 KV)" if str(dtype) == "int8" else "10 (bf16)")
+def _cache_dtype(dtype):
+    """The cache's element type: float32 (the default) or int8; any
+    other layout is a later slice."""
+    try:
+        name = str(dtype).replace("torch.", "") \
+            if isinstance(dtype, torch.dtype) else onp.dtype(dtype).name
+    except TypeError:
+        name = str(dtype)
+    if dtype is None or name == "float32":
+        return torch.float32
+    if name == "int8":
+        return torch.int8
+    raise not_ported(f"a {dtype} KV cache", "10 (bf16)")
+
+
+def _write_quantized(pool, scales, a, idx):
+    """Quantize ``a`` (rows, H, ., Dh) with its per-(row, head) amax
+    scale (``kv_scale`` over the last two axes) and write both in
+    place: the int8 values to ``pool[idx]``, the scales to
+    ``scales[idx[0]]``."""
+    s = _qz.kv_scale(a, (2, 3))
+    pool[idx] = _qz.kv_quantize(a, s[:, :, None, None])
+    scales[idx[0]] = s
 
 
 class GPTBlock(HybridBlock):
@@ -175,20 +205,32 @@ class GPTBlock(HybridBlock):
         attn = _att.flash_attention(q, k, v, True, None)
         return self._finish(x, attn), (k, v)
 
-    def decode(self, x, k_cache, v_cache, pos, att_len):
+    def decode(self, x, k_cache, v_cache, pos, att_len, k_scale=None,
+               v_scale=None):
         """One decode step: write this token's K/V at ``pos`` (B,) of
         each row IN PLACE, attend over the valid prefix ``[0,
-        att_len)``. Returns the block output and the (same) buffers."""
+        att_len)``. Returns the block output and the (same) buffers.
+        ``k_scale``/``v_scale`` (B, H) mark an INT8 cache: the new token
+        quantizes against its slot's per-head scale (fixed at prefill)
+        and attention dequantizes in the kernel (K2's int8 instance on
+        the card)."""
         q, k, v = self._qkv(x)
         rows = torch.arange(x.shape[0], device=x.device)
-        k_cache[rows, :, pos] = k[:, :, 0].to(k_cache.dtype)
-        v_cache[rows, :, pos] = v[:, :, 0].to(v_cache.dtype)
-        attn = _att.decode_attention(q, k_cache, v_cache, att_len)
+        if k_scale is not None:
+            k_cache[rows, :, pos] = _qz.kv_quantize(k[:, :, 0],
+                                                    k_scale[:, :, None])
+            v_cache[rows, :, pos] = _qz.kv_quantize(v[:, :, 0],
+                                                    v_scale[:, :, None])
+        else:
+            k_cache[rows, :, pos] = k[:, :, 0].to(k_cache.dtype)
+            v_cache[rows, :, pos] = v[:, :, 0].to(v_cache.dtype)
+        attn = _att.decode_attention(q, k_cache, v_cache, att_len,
+                                     k_scale=k_scale, v_scale=v_scale)
         return self._finish(x, attn), k_cache, v_cache
 
     # -- paged-cache generation ----------------------------------------
     def decode_paged(self, x, k_pool, v_pool, table, page, offset,
-                     att_len):
+                     att_len, k_scale=None, v_scale=None, prev_page=None):
         """One decode step against a PAGED cache: write this token's K/V
         into pool page ``page[b]`` at row ``offset[b]`` IN PLACE, attend
         over each row's valid pages through the table (K3 on the card).
@@ -197,38 +239,69 @@ class GPTBlock(HybridBlock):
         write is redirected, never masked after the fact. Several
         inactive rows then write the same scrap row in one
         ``index_put``; which value lands there is unspecified, and
-        nothing reads that row as valid."""
+        nothing reads that row as valid.
+
+        ``k_scale``/``v_scale`` (n_pages, H) mark an INT8 pool. The
+        write page's per-head scale quantizes the new token; a FRESH
+        page (``offset == 0``) inherits ``prev_page``'s scale (the
+        page's later tokens share it; a recycled page's stale scale
+        never leaks in). Both scales are read before the write page's
+        scale is written, and the scale write rides the same scrap-page
+        redirect as the data: inactive rows write page 0's own scale
+        back into it."""
         q, k, v = self._qkv(x)
-        k_pool[page, :, offset] = k[:, :, 0].to(k_pool.dtype)
-        v_pool[page, :, offset] = v[:, :, 0].to(v_pool.dtype)
+        if k_scale is not None:
+            fresh = (offset == 0)[:, None]
+            for pool, sc, a in ((k_pool, k_scale, k), (v_pool, v_scale, v)):
+                eff = torch.where(fresh, sc[prev_page], sc[page])
+                sc[page] = eff
+                pool[page, :, offset] = _qz.kv_quantize(a[:, :, 0],
+                                                        eff[:, :, None])
+        else:
+            k_pool[page, :, offset] = k[:, :, 0].to(k_pool.dtype)
+            v_pool[page, :, offset] = v[:, :, 0].to(v_pool.dtype)
         attn = _att.paged_decode_attention(q, k_pool, v_pool, table,
-                                           att_len)
+                                           att_len, k_scale=k_scale,
+                                           v_scale=v_scale)
         return self._finish(x, attn)
 
-    def prefill_chunk(self, x, k_pool, v_pool, pages, page_ids, start):
+    def prefill_chunk(self, x, k_pool, v_pool, pages, page_ids, start,
+                      k_scale=None, v_scale=None):
         """One prefill CHUNK against a paged cache: scatter the chunk's
         K/V into its pool pages ``page_ids`` IN PLACE, then attend the
         chunk's queries over the slot's whole gathered view (shared
         prefix pages, earlier chunks and this one) under the causal
         mask in global coordinates (``start`` is the chunk's first
-        position)."""
+        position). ``k_scale``/``v_scale`` (n_pages, H) mark an INT8
+        pool: each written page gets its own per-head amax scale, and
+        the gathered view dequantizes every page, shared-prefix pages
+        included, with the scale it was written under."""
         q, k, v = self._qkv(x)
         ps = k_pool.shape[2]
-        k_pool[page_ids] = _to_pages(k, ps).to(k_pool.dtype)
-        v_pool[page_ids] = _to_pages(v, ps).to(v_pool.dtype)
-        kg = _att.gather_pages(k_pool, pages[None])
-        vg = _att.gather_pages(v_pool, pages[None])
-        attn = _att.chunked_prefill_attention(q, kg.to(q.dtype),
-                                              vg.to(q.dtype), start)
+        if k_scale is None:
+            k_pool[page_ids] = _to_pages(k, ps).to(k_pool.dtype)
+            v_pool[page_ids] = _to_pages(v, ps).to(v_pool.dtype)
+            kg = _att.gather_pages(k_pool, pages[None]).to(q.dtype)
+            vg = _att.gather_pages(v_pool, pages[None]).to(q.dtype)
+        else:
+            _write_quantized(k_pool, k_scale, _to_pages(k, ps), (page_ids,))
+            _write_quantized(v_pool, v_scale, _to_pages(v, ps), (page_ids,))
+            kg, vg = (_att.gather_pages(pool, pages[None]).float()
+                      * _att.expand_page_scales(sc, pages[None], ps)[
+                          ..., None]
+                      for pool, sc in ((k_pool, k_scale), (v_pool, v_scale)))
+        attn = _att.chunked_prefill_attention(q, kg, vg, start)
         return self._finish(x, attn)
 
-    def peek_paged(self, x, k_pool, v_pool, table, att_len):
+    def peek_paged(self, x, k_pool, v_pool, table, att_len, k_scale=None,
+                   v_scale=None):
         """Logits-only attention for the LAST already-cached token of
         one slot (its K/V, its own included, is in the pool): no write,
         cache untouched — the prefix-hit path."""
         q, _k, _v = self._qkv(x)
         attn = _att.paged_decode_attention(q, k_pool, v_pool, table,
-                                           att_len)
+                                           att_len, k_scale=k_scale,
+                                           v_scale=v_scale)
         return self._finish(x, attn)
 
 
@@ -389,23 +462,41 @@ class GPTModel(HybridBlock):
         """Preallocated fixed-shape KV cache for ``batch_size`` slots:
         ``{"k": tuple of L (B, H, S_max, Dh) tensors, "v": same, "len":
         (B,) int32}`` on the model's device, all zeros. ``prefill`` and
-        ``decode_step`` update it in place."""
+        ``decode_step`` update it in place.
+
+        ``dtype="int8"`` allocates a QUANTIZED cache (a quarter of the
+        K/V bytes of fp32) with ``k_scale``/``v_scale`` tuples of L
+        (B, H) fp32 per-slot-per-head scales, set at prefill from each
+        prompt's amax and reused by every decode write into that
+        slot."""
         s = int(max_length) if max_length is not None else self._max_length
         if not 1 <= s <= self._max_length:
             raise ValueError(
                 f"cache max_length {s} out of range (position table "
                 f"holds {self._max_length})")
-        if dtype is not None and str(dtype) != "float32":
-            raise _not_ported_cache_dtype(dtype)
-        shape = (int(batch_size), self._num_heads, s, self._head_dim)
-        dev = self.device
+        dt = _cache_dtype(dtype)
+        b = int(batch_size)
+        shape = (b, self._num_heads, s, self._head_dim)
+        cache = {"k": self._zeros(shape, dt), "v": self._zeros(shape, dt),
+                 "len": torch.zeros((b,), dtype=torch.int32,
+                                    device=self.device)}
+        if dt == torch.int8:
+            cache["k_scale"] = self._zeros((b, self._num_heads))
+            cache["v_scale"] = self._zeros((b, self._num_heads))
+        return cache
 
-        def zeros():
-            return tuple(torch.zeros(shape, dtype=torch.float32, device=dev)
-                         for _ in range(self._num_layers))
-        return {"k": zeros(), "v": zeros(),
-                "len": torch.zeros((int(batch_size),), dtype=torch.int32,
-                                   device=dev)}
+    def _zeros(self, shape, dtype=torch.float32):
+        """One zero tensor of ``shape`` per layer, on the model's
+        device."""
+        return tuple(torch.zeros(shape, dtype=dtype, device=self.device)
+                     for _ in range(self._num_layers))
+
+    def _kv_scales(self, cache):
+        """The cache's per-layer ``(k_scale, v_scale)`` tuples, or L
+        Nones each for an fp32 cache."""
+        if "k_scale" in cache:
+            return cache["k_scale"], cache["v_scale"]
+        return (None,) * self._num_layers, (None,) * self._num_layers
 
     @torch.no_grad()
     def prefill(self, tokens, valid_length, cache, slots=None):
@@ -430,10 +521,20 @@ class GPTModel(HybridBlock):
             torch.as_tensor(onp.asarray(slots)).to(dev, torch.long)
         x = self._embed(tokens)
         with self._quant_bound():
-            for blk, kc, vc in zip(self._blocks(), cache["k"], cache["v"]):
+            for blk, kc, vc, ks, vs in zip(self._blocks(), cache["k"],
+                                           cache["v"],
+                                           *self._kv_scales(cache)):
                 x, (k, v) = blk.prefill(x)
-                kc[slots, :, :sb] = k.to(kc.dtype)
-                vc[slots, :, :sb] = v.to(vc.dtype)
+                if ks is None:
+                    kc[slots, :, :sb] = k.to(kc.dtype)
+                    vc[slots, :, :sb] = v.to(vc.dtype)
+                else:
+                    # per-slot-per-head scales from the prompt's amax
+                    # over the padded bucket (the pad rows contribute,
+                    # as in the reference)
+                    idx = (slots, slice(None), slice(None, sb))
+                    _write_quantized(kc, ks, k, idx)
+                    _write_quantized(vc, vs, v, idx)
         # logits of the LAST VALID prompt token (predicts token 1)
         idx = (valid_len.long() - 1).clamp(0, sb - 1)
         last = x[torch.arange(b, device=dev), idx][:, None, :]
@@ -459,8 +560,10 @@ class GPTModel(HybridBlock):
         if self.embed_drop is not None:
             x = self.embed_drop(x)
         with self._quant_bound():
-            for blk, kc, vc in zip(self._blocks(), cache["k"], cache["v"]):
-                x, _, _ = blk.decode(x, kc, vc, pos, att_len)
+            for blk, kc, vc, ks, vs in zip(self._blocks(), cache["k"],
+                                           cache["v"],
+                                           *self._kv_scales(cache)):
+                x, _, _ = blk.decode(x, kc, vc, pos, att_len, ks, vs)
         logits = self.lm_head(self.ln_f(x))    # (B, 1, V)
         ln += 1
         return logits[:, 0, :].float(), cache
@@ -476,7 +579,12 @@ class GPTModel(HybridBlock):
         device. Logical position ``t`` of slot ``b`` lives at
         ``pool[table[b, t // ps], :, t % ps]``. Page 0 is the reserved
         SCRAP page: free table entries point at it and redirected
-        writes land in it. The paged calls update it in place."""
+        writes land in it. The paged calls update it in place.
+
+        ``dtype="int8"`` allocates an int8 pool with ``k_scale``/
+        ``v_scale`` tuples of L (n_pages, H) fp32 per-head-per-PAGE
+        scales: a shared prefix page carries its own scale wherever its
+        refcount travels, and COW copies it with the data."""
         s = int(max_length) if max_length is not None else self._max_length
         if not 1 <= s <= self._max_length:
             raise ValueError(
@@ -489,19 +597,18 @@ class GPTModel(HybridBlock):
         if int(n_pages) < 2:
             raise ValueError("n_pages must be >= 2 (page 0 is the "
                              "reserved scrap page)")
-        if dtype is not None and str(dtype) != "float32":
-            raise _not_ported_cache_dtype(dtype)
+        dt = _cache_dtype(dtype)
         shape = (int(n_pages), self._num_heads, ps, self._head_dim)
         dev = self.device
-
-        def zeros():
-            return tuple(torch.zeros(shape, dtype=torch.float32, device=dev)
-                         for _ in range(self._num_layers))
-        return {"k": zeros(), "v": zeros(),
-                "table": torch.zeros((int(batch_size), s // ps),
-                                     dtype=torch.int32, device=dev),
-                "len": torch.zeros((int(batch_size),), dtype=torch.int32,
-                                   device=dev)}
+        cache = {"k": self._zeros(shape, dt), "v": self._zeros(shape, dt),
+                 "table": torch.zeros((int(batch_size), s // ps),
+                                      dtype=torch.int32, device=dev),
+                 "len": torch.zeros((int(batch_size),), dtype=torch.int32,
+                                    device=dev)}
+        if dt == torch.int8:
+            cache["k_scale"] = self._zeros((int(n_pages), self._num_heads))
+            cache["v_scale"] = self._zeros((int(n_pages), self._num_heads))
+        return cache
 
     def _as_row(self, pages):
         return torch.as_tensor(onp.asarray(pages, "i4")).to(self.device)
@@ -543,21 +650,29 @@ class GPTModel(HybridBlock):
             raise ValueError("fresh prefill starts at 0 by definition")
         pages = self._as_row(pages)
         page_ids = pages[start // ps:(start + w) // ps].long()
-        blocks = self._blocks()
+        layers = list(zip(self._blocks(), cache["k"], cache["v"],
+                          *self._kv_scales(cache)))
         with self._quant_bound():
             if fresh:
                 x = self._embed(tokens)
-                for blk, kp, vp in zip(blocks, cache["k"], cache["v"]):
+                for blk, kp, vp, ks, vs in layers:
                     x, (k, v) = blk.prefill(x)
-                    kp[page_ids] = _to_pages(k, ps).to(kp.dtype)
-                    vp[page_ids] = _to_pages(v, ps).to(vp.dtype)
+                    if ks is None:
+                        kp[page_ids] = _to_pages(k, ps).to(kp.dtype)
+                        vp[page_ids] = _to_pages(v, ps).to(vp.dtype)
+                    else:   # per-page, per-head amax scales
+                        _write_quantized(kp, ks, _to_pages(k, ps),
+                                         (page_ids,))
+                        _write_quantized(vp, vs, _to_pages(v, ps),
+                                         (page_ids,))
             else:
                 pw = self.position_weight.data()
                 x = self.word_embed(tokens) + pw[start:start + w]
                 if self.embed_drop is not None:
                     x = self.embed_drop(x)
-                for blk, kp, vp in zip(blocks, cache["k"], cache["v"]):
-                    x = blk.prefill_chunk(x, kp, vp, pages, page_ids, start)
+                for blk, kp, vp, ks, vs in layers:
+                    x = blk.prefill_chunk(x, kp, vp, pages, page_ids, start,
+                                          ks, vs)
         idx = min(max(n_valid - 1, 0), w - 1)
         logits = self.lm_head(self.ln_f(x[:, idx:idx + 1]))
         cache["table"][slot] = pages
@@ -587,13 +702,20 @@ class GPTModel(HybridBlock):
         # alias pages now owned by other slots
         page = torch.where(live, table[rows, pos // ps].long(), zero)
         offset = torch.where(live, pos % ps, zero)
+        # the previous page, whose scale a fresh page of an int8 pool
+        # inherits; same scrap-page redirect
+        prev_page = torch.where(
+            live, table[rows, (pos // ps - 1).clamp(min=0)].long(), zero)
         x = (self.word_embed(tokens) + self.position_weight.data()[pos])[
             :, None, :]
         if self.embed_drop is not None:
             x = self.embed_drop(x)
         with self._quant_bound():
-            for blk, kp, vp in zip(self._blocks(), cache["k"], cache["v"]):
-                x = blk.decode_paged(x, kp, vp, table, page, offset, att_len)
+            for blk, kp, vp, ks, vs in zip(self._blocks(), cache["k"],
+                                           cache["v"],
+                                           *self._kv_scales(cache)):
+                x = blk.decode_paged(x, kp, vp, table, page, offset, att_len,
+                                     ks, vs, prev_page)
         logits = self.lm_head(self.ln_f(x))
         ln += live.to(torch.int32)
         return logits[:, 0, :].float(), cache
@@ -614,15 +736,18 @@ class GPTModel(HybridBlock):
             x = self.embed_drop(x)
         table1 = cache["table"][slot:slot + 1]
         with self._quant_bound():
-            for blk, kp, vp in zip(self._blocks(), cache["k"], cache["v"]):
-                x = blk.peek_paged(x, kp, vp, table1, ln)
+            for blk, kp, vp, ks, vs in zip(self._blocks(), cache["k"],
+                                           cache["v"],
+                                           *self._kv_scales(cache)):
+                x = blk.peek_paged(x, kp, vp, table1, ln, ks, vs)
         return self.lm_head(self.ln_f(x))[0, 0].float()
 
     @torch.no_grad()
     def bind_slot_paged(self, slot, pages, length, cache):
         """Install a slot's page-table row and valid length (the
         prefix-hit admission, and the rebind after a COW copy): no
-        compute. Returns the cache, updated in place."""
+        compute; an int8 pool's scales stay as they are. Returns the
+        cache, updated in place."""
         cache["table"][int(slot)] = self._as_row(pages)
         cache["len"][int(slot)] = int(length)
         return cache
@@ -631,9 +756,11 @@ class GPTModel(HybridBlock):
     def copy_page_paged(self, src, dst, cache):
         """Copy physical page ``src`` to ``dst`` across every layer's K
         and V pools — the copy half of copy-on-write at a shared
-        divergence page. Returns the cache, updated in place."""
+        divergence page — and, for an int8 pool, its scales. Returns the
+        cache, updated in place."""
         src, dst = int(src), int(dst)
-        for pool in (*cache["k"], *cache["v"]):
+        for pool in (*cache["k"], *cache["v"], *cache.get("k_scale", ()),
+                     *cache.get("v_scale", ())):
             pool[dst] = pool[src]
         return cache
 

@@ -1,9 +1,10 @@
 """Operators of the port: plain PyTorch, plus hand-written CUDA kernels
 where the JAX package had a Pallas kernel (``attention``,
-``quantized``)."""
-from . import attention, nn, quantized
+``quantized``); ``sampling`` is plain PyTorch, as it is plain jnp in
+the reference."""
+from . import attention, nn, quantized, sampling
 
-__all__ = ["attention", "nn", "quantized", "launch_counts",
+__all__ = ["attention", "nn", "quantized", "sampling", "launch_counts",
            "reset_launch_counts"]
 
 

@@ -7,7 +7,11 @@ that the reference ran as a Pallas kernel has a plain PyTorch version
 (``_blockwise_fwd``, ``_decode_fwd_torch``, ``gather_pages`` +
 ``_decode_fwd_torch``) and a CUDA kernel written for Hopper
 (``csrc/flash_attention.cu``, ``csrc/decode_attention.cu``,
-``csrc/paged_decode_attention.cu``). The public functions dispatch on
+``csrc/paged_decode_attention.cu``). The two decode kernels come in an
+fp32 and an int8 instance: an int8 cache (``k_scale``/``v_scale``
+given) is dequantized before the masked softmax in the plain version
+and in registers, after the int8 load, in the kernel. The public
+functions dispatch on
 the device of their inputs: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises — there is no fallback from
 the kernel to the plain version. ``chunked_prefill_attention`` is plain
@@ -33,7 +37,6 @@ import math
 import torch
 
 from .. import _build
-from ..base import not_ported
 
 __all__ = ["NEG_INF", "mha_reference", "flash_attention",
            "flash_attention_fwd", "decode_attention", "gather_pages",
@@ -49,7 +52,8 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 #: launches of each CUDA kernel since the last reset — bumped by the
 #: wrappers right where they launch, and nowhere else
 _launches = {"flash_attention_fwd": 0, "decode_attention": 0,
-             "paged_decode_attention": 0}
+             "decode_attention_int8": 0, "paged_decode_attention": 0,
+             "paged_decode_attention_int8": 0}
 
 
 def launch_counts() -> dict:
@@ -126,8 +130,9 @@ def _blockwise_fwd(q, k, v, causal, scale, block=512, kv_len=None):
 def _kernel_strides(name, x, ndim=4):
     """The (b, h, s) element strides of ``x`` for a kernel that reads
     rows with 16-byte loads: the last axis must be contiguous, the base
-    16-byte aligned and every row start a multiple of 4 elements. Any
-    other layout raises — the wrappers never copy an input."""
+    16-byte aligned and every row start 16 bytes after the last (4 fp32
+    or 16 int8 elements). Any other layout raises — the wrappers never
+    copy an input."""
     if x.dim() != ndim:
         raise ValueError(f"{name}: expected a {ndim}-d tensor, got shape "
                          f"{tuple(x.shape)}")
@@ -135,7 +140,8 @@ def _kernel_strides(name, x, ndim=4):
     if st[-1] != 1 and x.shape[-1] > 1:
         raise ValueError(f"{name}: the head_dim axis must be contiguous "
                          f"(strides {st})")
-    if x.data_ptr() % 16 or any(s % 4 for s in st[:-1]):
+    if x.data_ptr() % 16 or any(s * x.element_size() % 16
+                                for s in st[:-1]):
         raise ValueError(f"{name}: rows must start on 16-byte boundaries "
                          f"(strides {st}, data_ptr {x.data_ptr():#x})")
     return st[:-1]
@@ -261,18 +267,61 @@ def _decode_fwd_torch(q, k, v, lengths, scale):
     return _masked_attend(q, k, v, live[:, None, None, :], scale)
 
 
+def _check_decode_inputs(name, q, k, v, k_scale, v_scale, scale_rows):
+    """The checks K2 and K3 share: every input on q's device, q fp32,
+    K/V fp32 — or, with scales, int8 K/V and contiguous
+    (``scale_rows``, H) fp32 scales."""
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError(f"{name}: k_scale and v_scale come together")
+    tensors = (q, k, v, k_scale, v_scale) if quant else (q, k, v)
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{name}: inputs on different devices "
+                             f"({q.device} vs {t.device})")
+    if q.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32 queries, got "
+                        f"{q.dtype}")
+    want = torch.int8 if quant else torch.float32
+    for t in (k, v):
+        if t.dtype != want:
+            raise TypeError(f"{name}: the kernel takes {want} K/V here, "
+                            f"got {t.dtype}")
+    if quant:
+        shape = (scale_rows, q.shape[1])
+        for t in (k_scale, v_scale):
+            if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                    or not t.is_contiguous():
+                raise ValueError(f"{name}: scales must be contiguous "
+                                 f"{shape} float32, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+
+
+def _dequantize(x, scale):
+    """int8 K/V -> fp32 with a scale broadcast over the trailing axes
+    it lacks (``(B, H)`` per slot, ``(B, H, S)`` per position)."""
+    return x.float() * scale.reshape(*scale.shape, *[1] * (
+        x.dim() - scale.dim()))
+
+
 #: q, k, v, lengths, out; B, H, Sq, S, D; scale; strides; stream
 _DECODE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+#: the int8 instance: q, k, v, k_scale, v_scale, lengths, out; the rest
+_DECODE_INT8_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _decode_cuda(q, k, v, lengths, scale):
-    """Launch K2 (``csrc/decode_attention.cu``). q may be a strided
-    view (the decode step's head split); k/v are the cache buffers;
-    lengths is a (B,) int32 tensor on the same card."""
-    name = "decode_attention"
-    _check_cuda_f32(name, q, k, v)
+def _decode_cuda(q, k, v, lengths, scale, k_scale=None, v_scale=None):
+    """Launch K2 (``csrc/decode_attention.cu``): its fp32 instance, or
+    with ``k_scale``/``v_scale`` (B, H) its int8 instance over an int8
+    cache. q may be a strided view (the decode step's head split); k/v
+    are the cache buffers; lengths is a (B,) int32 tensor on the same
+    card."""
+    quant = k_scale is not None
+    name = "decode_attention_int8" if quant else "decode_attention"
     b, h, sq, d = q.shape
+    _check_decode_inputs(name, q, k, v, k_scale, v_scale, b)
     if k.shape[:2] != (b, h) or k.shape[-1] != d or v.shape != k.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
@@ -290,11 +339,13 @@ def _decode_cuda(q, k, v, lengths, scale):
         *_kernel_strides(name, q), *_kernel_strides(name, k),
         *_kernel_strides(name, v))
     out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
-    fn = _build.function("decode_attention", "mxtt_decode_attention",
-                         _DECODE_ARGTYPES)
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quant else ()
+    fn = _build.function(
+        "decode_attention", f"mxtt_{name}",
+        _DECODE_INT8_ARGTYPES if quant else _DECODE_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
                  lengths.data_ptr(), out.data_ptr(), b, h, sq, k.shape[2],
                  d, float(scale), ctypes.addressof(strides), stream)
     _launches[name] += 1
@@ -302,7 +353,8 @@ def _decode_cuda(q, k, v, lengths, scale):
     return out
 
 
-def decode_attention(q, k, v, lengths, scale=None):
+def decode_attention(q, k, v, lengths, scale=None, k_scale=None,
+                     v_scale=None):
     """Autoregressive decode attention against a preallocated KV cache.
 
     ``q`` is (B, H, Sq, D) — Sq is 1 on the decode hot path; ``k``/``v``
@@ -310,14 +362,20 @@ def decode_attention(q, k, v, lengths, scale=None):
     ``lengths`` (B,) int32 marks each slot's valid prefix INCLUDING the
     just-inserted token. Every query attends keys [0, lengths[b]); a
     row with lengths == 0 (an empty serving slot riding along in the
-    fixed-shape batch) returns zeros. CUDA inputs launch K2; CPU inputs
-    take the plain version."""
+    fixed-shape batch) returns zeros.
+
+    ``k_scale``/``v_scale`` (B, H) fp32 mark an INT8 cache: the stored
+    int8 K/V dequantize with each slot's per-head scale. CUDA inputs
+    launch K2 (its int8 instance for an int8 cache); CPU inputs take the
+    plain version (dequantize, then ``_decode_fwd_torch``)."""
     scale = _scale(q, scale)
     if not torch.is_tensor(lengths):
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=q.device)
     if q.is_cuda:
-        return _decode_cuda(q, k, v, lengths, scale)
+        return _decode_cuda(q, k, v, lengths, scale, k_scale, v_scale)
+    if k_scale is not None:
+        k, v = _dequantize(k, k_scale), _dequantize(v, v_scale)
     return _decode_fwd_torch(q, k, v, lengths, scale)
 
 
@@ -337,31 +395,46 @@ def gather_pages(pool, table):
 
 
 def expand_page_scales(pool_scale, table, page_size):
-    """The int8 pool's per-page scales broadcast onto token positions;
-    the int8 KV cache is a later slice."""
-    raise not_ported("expand_page_scales (int8 KV pool)", "8 (int8 KV)")
+    """Broadcast per-head-per-PAGE scales onto token positions:
+    ``pool_scale`` (n_pages, H) + ``table`` (B, P_max) ->
+    (B, H, P_max * page_size) — position ``t`` of slot ``b`` carries
+    the scale of its page ``table[b, t // page_size]``. The dequant
+    companion of ``gather_pages`` for an int8 pool."""
+    g = pool_scale[table.long()]                # (B, P_max, H)
+    return g.transpose(1, 2).repeat_interleave(int(page_size), dim=2)
 
 
 #: q, k_pool, v_pool, table, lengths, out; B, H, Sq, D, page_size,
 #: P_max, n_pages; scale; q strides; stream
 _PAGED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+#: the int8 instance: q, k_pool, v_pool, k_scale, v_scale, table,
+#: lengths, out; the rest
+_PAGED_INT8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale):
-    """Launch K3 (``csrc/paged_decode_attention.cu``). q may be a
-    strided view (the decode step's head split); the pools must be
-    contiguous (n_pages, H, ps, D) fp32; table (B, P_max) and lengths
-    (B,) contiguous int32, all on one card. Anything else raises —
-    nothing is copied."""
-    name = "paged_decode_attention"
-    _check_cuda_f32(name, q, k_pool, v_pool)
+def _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale,
+                       k_scale=None, v_scale=None):
+    """Launch K3 (``csrc/paged_decode_attention.cu``): its fp32
+    instance, or with ``k_scale``/``v_scale`` (n_pages, H) its int8
+    instance over an int8 pool. q may be a strided view (the decode
+    step's head split); the pools must be contiguous (n_pages, H, ps,
+    D) and 16-byte aligned; table (B, P_max) and lengths (B,)
+    contiguous int32, all on one card. Anything else raises — nothing
+    is copied."""
+    quant = k_scale is not None
+    name = "paged_decode_attention_int8" if quant \
+        else "paged_decode_attention"
     b, h, sq, d = q.shape
     if k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
             or (k_pool.shape[1], k_pool.shape[3]) != (h, d):
         raise ValueError(f"{name}: pool layout {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} does not match q "
                          f"{tuple(q.shape)}")
+    n_pages, _, ps, _ = k_pool.shape
+    _check_decode_inputs(name, q, k_pool, v_pool, k_scale, v_scale,
+                         n_pages)
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError(f"{name}: the page pools must be contiguous")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
@@ -369,7 +442,6 @@ def _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale):
                          f"boundaries")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
-    n_pages, _, ps, _ = k_pool.shape
     for what, t, shape in (("table", table, None), ("lengths", lengths,
                                                     (b,))):
         if t.device != q.device or t.dtype != torch.int32 \
@@ -383,14 +455,16 @@ def _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale):
         raise ValueError(f"{name}: batch {b} / queries {sq} exceed the grid")
     q_strides = (ctypes.c_longlong * 3)(*_kernel_strides(name, q))
     out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
-    fn = _build.function("paged_decode_attention",
-                         "mxtt_paged_decode_attention", _PAGED_ARGTYPES)
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quant else ()
+    fn = _build.function(
+        "paged_decode_attention", f"mxtt_{name}",
+        _PAGED_INT8_ARGTYPES if quant else _PAGED_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
-                 sq, d, ps, table.shape[1], n_pages, float(scale),
-                 ctypes.addressof(q_strides), stream)
+                 *scales, table.data_ptr(), lengths.data_ptr(),
+                 out.data_ptr(), b, h, sq, d, ps, table.shape[1], n_pages,
+                 float(scale), ctypes.addressof(q_strides), stream)
     _launches[name] += 1
     _build.check("paged_decode_attention", err, name)
     return out
@@ -408,11 +482,12 @@ def paged_decode_attention(q, k_pool, v_pool, table, lengths, scale=None,
     the plain version computes (``gather_pages`` + ``_decode_fwd_torch``,
     the reference's own jnp definition); CUDA inputs launch K3, which
     walks each slot's valid pages through the table and never loads a
-    row at or past its length. ``k_scale``/``v_scale`` (an int8 pool)
-    are a later slice."""
-    if k_scale is not None or v_scale is not None:
-        raise not_ported("paged_decode_attention over an int8 pool",
-                         "8 (int8 KV)")
+    row at or past its length.
+
+    ``k_scale``/``v_scale`` (n_pages, H) fp32 mark an INT8 pool: the
+    plain version dequantizes the gathered view with each page's
+    per-head scale (``expand_page_scales``); K3's int8 instance
+    dequantizes each key in registers with its page's scales."""
     scale = _scale(q, scale)
     if not torch.is_tensor(lengths):
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
@@ -420,9 +495,14 @@ def paged_decode_attention(q, k_pool, v_pool, table, lengths, scale=None,
     if not torch.is_tensor(table):
         table = torch.as_tensor(table, dtype=torch.int32, device=q.device)
     if q.is_cuda:
-        return _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale)
+        return _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale,
+                                  k_scale, v_scale)
     k = gather_pages(k_pool, table)
     v = gather_pages(v_pool, table)
+    if k_scale is not None:
+        ps = k_pool.shape[2]
+        k = _dequantize(k, expand_page_scales(k_scale, table, ps))
+        v = _dequantize(v, expand_page_scales(v_scale, table, ps))
     return _decode_fwd_torch(q, k, v, lengths, scale)
 
 

@@ -1,5 +1,6 @@
-"""Weight-only int8 projections: per-channel quantization and the fused
-dequantize-matmul (K4).
+"""int8 quantization: weight-only int8 projections (per-channel
+quantization and the fused dequantize-matmul, K4) and the int8 KV
+cache's scales (``kv_scale``, ``kv_quantize``).
 
 Counterpart of ``mxnet_tpu/ops/quantized.py``. Decode at small batch is
 bound by the bytes of the weights it streams, so the projections keep
@@ -16,9 +17,10 @@ output-channel block of ``_block_n`` channels at a time through
 ``_dequant_dot``), a CUDA tensor launches K4
 (``csrc/dequant_matmul.cu``), which streams each int8 weight byte once
 and dequantizes it in registers — or raises. There is no fallback.
-The KV-cache half of the reference module (``kv_scale``,
-``kv_quantize``) comes with the int8 KV cache (ROADMAP.md queue 1,
-item 8).
+
+The int8 KV cache quantizes K/V with the same convention (amax / 127,
+round half to even, clip to ±127) through ``kv_scale`` and
+``kv_quantize``, bitwise the reference's on the same fp32 input.
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["quantize_channelwise", "dequant_matmul", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["quantize_channelwise", "dequant_matmul", "kv_scale",
+           "kv_quantize", "launch_counts", "reset_launch_counts"]
 
 _INT8_MAX = 127.0
 #: the reference's output-channel block of the plain version
@@ -65,6 +67,23 @@ def quantize_channelwise(w, axis=0):
     wq = torch.clamp(torch.round(w / scale), -_INT8_MAX, _INT8_MAX) \
         .to(torch.int8)
     return wq, scale.reshape(-1)
+
+
+def kv_scale(x, axes):
+    """amax-derived symmetric int8 scale of ``x`` over ``axes`` (fp32):
+    ``amax / 127``, a true division, with NO floor — an all-zero input
+    (an empty slot, a zero page) gets scale 0, as in the reference."""
+    return (x.abs().amax(dim=axes) / _INT8_MAX).float()
+
+
+def kv_quantize(x, scale):
+    """Quantize K/V values with a broadcast-ready ``scale``: divide by
+    the scale floored at 1e-12 (a zero scale would mint NaN int8
+    garbage, which a masked V row would still carry into ``p @ v`` as
+    0 * NaN), round half to even, clip to ±127."""
+    s = torch.clamp(scale, min=1e-12)
+    return torch.clamp(torch.round(x / s), -_INT8_MAX, _INT8_MAX) \
+        .to(torch.int8)
 
 
 def _block_n(n, block_n):

@@ -1,8 +1,8 @@
-"""GenerationEngine — slot-based continuous batching for greedy
-autoregressive decoding, over a dense or a paged KV cache, with fp32 or
-weight-only int8 projections.
+"""GenerationEngine — slot-based continuous batching for autoregressive
+decoding, greedy or sampled per request, over a dense or a paged KV
+cache (fp32 or int8), with fp32 or weight-only int8 projections.
 
-Counterpart of ``mxnet_tpu/serving/generate.py``'s greedy engine.
+Counterpart of ``mxnet_tpu/serving/generate.py``'s single-step engine.
 Iteration-level scheduling (Orca, OSDI'22; vLLM's continuous batching)
 admits and evicts requests at DECODE-STEP boundaries over a fixed
 ``max_slots``-row KV cache (``GPTModel.init_cache``): every step of
@@ -36,10 +36,15 @@ drains-then-rejects via the shared ``BoundedQueueWorker``; no stream is
 ever left hanging; ``MXTPU_SERVING=0`` degrades to synchronous inline
 generation.
 
-Decoding is GREEDY (argmax, taken on the device): a request's tokens do
-not depend on its co-tenants, so the output equals a single-request
-``prefill`` + ``decode_step`` loop at the same slot width — and, on the
-same weights, the JAX package's engine.
+Decoding is GREEDY by default (argmax, taken on the device): a
+request's tokens do not depend on its co-tenants, so the output equals
+a single-request ``prefill`` + ``decode_step`` loop at the same slot
+width — and, on the same weights, the JAX package's engine.
+``submit(temperature>0, top_k, top_p, seed)`` samples that request
+instead (``ops/sampling.py``) with a ``torch.Generator`` of its own,
+seeded from ``seed``: a mixed greedy and sampled batch runs the same
+step, greedy rows keep their argmax, and a sampled request's tokens
+depend on its seed only, never on its co-tenants or its slot.
 
 ``paged=True`` serves from a page pool (``GPTModel.init_paged_cache``,
 host bookkeeping in ``serving/paging.py``): a request's pages are
@@ -51,23 +56,30 @@ partial tail page is copied before the first decode write into it
 most ONE chunk per engine iteration, interleaved with the decode step —
 and a request the pool cannot cover waits, FIFO, until pages free up.
 ``quantize="int8_weights"`` (dense or paged) arms the model's
-weight-only int8 projections (``GPTModel.quantize_params``).
+weight-only int8 projections (``GPTModel.quantize_params``);
+``kv_dtype="int8"`` (alias ``cache_dtype="int8"``, dense or paged)
+keeps the KV cache as int8 with per-head scales (per slot, or per page)
+and decodes through the int8 instances of the decode kernels.
+``load_weights`` swaps the model's weights in place between steps
+(re-quantizing an int8 engine's tables inside the swap).
 
-The reference engine's other modes — int8 KV, speculative decoding,
-multi-tick decode, bf16 compute, LoRA, tensor parallelism, sampling and
-weight rollover — are later slices of the port; asking for one raises
-``NotImplementedError`` naming its ROADMAP.md item.
+The reference engine's other modes — speculative decoding, multi-tick
+decode, bf16 compute, LoRA and tensor parallelism, and weight rollover
+from a checkpoint path — are later slices of the port; asking for one
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 Telemetry: counters ``serving.generate.{requests,tokens,prefills,
 evictions,rejected_full,rejected_closed,timeouts,errors,host_syncs,
-dispatches}``, in paged mode ``serving.generate.{prefix_hits,
-prefill_chunks}`` and ``serving.generate.pages.{allocated,shared,
-cow_copies,freed}``, with ``quantize`` ``serving.generate.quant.{params,
-bytes_saved}``; gauges ``serving.generate.slots`` /
-``serving.generate.queue.depth``, in paged mode
-``serving.generate.pages.free`` and
+dispatches,weight_swaps,sampling.requests}``, in paged mode
+``serving.generate.{prefix_hits,prefill_chunks}`` and
+``serving.generate.pages.{allocated,shared,cow_copies,freed}``, with
+``quantize`` ``serving.generate.quant.{params,bytes_saved}``; gauges
+``serving.generate.slots`` / ``serving.generate.queue.depth``, with an
+int8 KV cache ``serving.generate.quant.kv_bytes_per_slot``, in paged
+mode ``serving.generate.pages.free`` and
 ``serving.generate.prefill_chunks_per_iter``; histograms
-``serving.generate.{queue_wait,prefill,decode,ttft}``. The ``prefill``
+``serving.generate.{queue_wait,prefill,decode,ttft,swap}`` and
+``serving.generate.quant.{quantize,requantize}``. The ``prefill``
 and ``decode`` histograms end at the host's read of the step's tokens,
 so on the card they include the device time (PyTorch returns before
 the device finishes; the reference's XLA histograms timed the
@@ -77,6 +89,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import os
 import queue
 import threading
 import time
@@ -90,6 +103,7 @@ from .._bounded_worker import BoundedQueueWorker
 from ..base import not_ported
 from ..bucketing import BucketingPolicy, as_policy
 from ..context import resolve_device
+from ..ops import sampling as _smp
 from . import paging
 from .engine import (
     EngineClosedError, QueueFullError, ReplicaFailedError,
@@ -97,6 +111,33 @@ from .engine import (
 )
 
 __all__ = ["GenerationEngine", "GenerationStream", "GenerationResult"]
+
+
+def _swap_param_buffers(params, new_params, strict=True):
+    """Write ``new_params`` (``{name: array}``) into the live
+    parameters ``params`` in place. Everything is checked first — name
+    coverage under ``strict`` (``strict=False`` swaps the intersection)
+    and every shape — so a bad source never leaves a model
+    half-swapped. Returns the number of parameters written."""
+    missing = [n for n in params if n not in new_params]
+    unexpected = [n for n in new_params if n not in params]
+    if strict and (missing or unexpected):
+        raise ValueError(f"weights do not match the model: "
+                         f"missing={missing[:4]} unexpected={unexpected[:4]}")
+    plan = []
+    for name, p in params.items():
+        if name not in new_params:
+            continue
+        arr = new_params[name]
+        shape = tuple(arr.shape) if hasattr(arr, "shape") \
+            else onp.shape(arr)
+        if shape != tuple(p.shape):
+            raise ValueError(f"shape mismatch for {name}: model "
+                             f"{tuple(p.shape)}, given {shape}")
+        plan.append((p, arr))
+    for p, arr in plan:
+        p.set_data(arr if torch.is_tensor(arr) else onp.asarray(arr))
+    return len(plan)
 
 
 class GenerationResult:
@@ -219,10 +260,10 @@ class GenerationStream:
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "eos_id", "stream", "t_submit",
-                 "t_enq", "deadline")
+                 "t_enq", "deadline", "sampling")
 
     def __init__(self, prompt, max_new, eos_id, stream, t_submit, t_enq,
-                 deadline):
+                 deadline, sampling=(0.0, 0, 1.0, None)):
         self.prompt = prompt
         self.max_new = max_new
         self.eos_id = eos_id
@@ -230,6 +271,8 @@ class _GenRequest:
         self.t_submit = t_submit
         self.t_enq = t_enq     # monotonic enqueue stamp (queue wait)
         self.deadline = deadline
+        #: (temperature, top_k, top_p, seed); temperature 0 is greedy
+        self.sampling = sampling
 
 
 class _Slot:
@@ -256,10 +299,10 @@ class _PagedSlot:
 
     __slots__ = ("stream", "last", "left", "eos_id", "deadline", "n_ctx",
                  "state", "chunks", "row", "page_refs", "cow_pending",
-                 "prompt", "seq", "t_submit")
+                 "prompt", "seq", "t_submit", "sampling")
 
     def __init__(self, stream, left, eos_id, deadline, n_ctx, row,
-                 page_refs, prompt, seq, t_submit):
+                 page_refs, prompt, seq, t_submit, sampling):
         self.stream = stream
         self.last = None
         self.left = left
@@ -274,6 +317,8 @@ class _PagedSlot:
         self.prompt = prompt   # kept until registered in the index
         self.seq = seq         # admission order (oldest prefills first)
         self.t_submit = t_submit
+        #: the request's sampling knobs, armed when it enters decode
+        self.sampling = sampling
 
 
 class _GenWorker(BoundedQueueWorker):
@@ -349,7 +394,7 @@ class _GenWorker(BoundedQueueWorker):
 
 
 class GenerationEngine:
-    """Continuously-batched greedy generation over a decoder model.
+    """Continuously-batched generation over a decoder model.
 
     Parameters
     ----------
@@ -395,10 +440,13 @@ class GenerationEngine:
     quantize : str, optional
         ``"int8_weights"`` arms the model's weight-only int8
         projections (``quantize_params``) for every generation call.
+    kv_dtype : str, optional
+        ``"int8"`` keeps the KV cache (dense or paged) as int8 with
+        fp32 per-head scales; ``cache_dtype="int8"`` is the same.
 
-    The reference's other keyword arguments (``kv_dtype``,
-    ``draft_model``, ``decode_ticks > 1``, ``compute_dtype="bfloat16"``,
-    ``lora_rank``, ``mesh_layout``, a non-fp32 ``cache_dtype``) raise
+    The reference's other keyword arguments (``draft_model``,
+    ``decode_ticks > 1``, ``compute_dtype="bfloat16"``, ``lora_rank``,
+    ``mesh_layout``, a bf16 ``cache_dtype``) raise
     ``NotImplementedError``.
     """
 
@@ -423,11 +471,10 @@ class GenerationEngine:
                 raise ValueError(
                     f"unsupported kv_dtype={kv_dtype!r} (only 'int8'; use "
                     f"cache_dtype for plain float layouts)")
-            raise not_ported(f"kv_dtype={kv_dtype!r} (paged={paged})",
-                             "8 (int8 KV)")
-        if cache_dtype is not None and str(cache_dtype) != "float32":
-            raise not_ported(f"cache_dtype={cache_dtype!r}",
-                             "8 (int8 KV) / 10 (bf16)")
+            cache_dtype = kv_dtype
+        if cache_dtype is not None \
+                and str(cache_dtype) not in ("float32", "int8"):
+            raise not_ported(f"cache_dtype={cache_dtype!r}", "10 (bf16)")
         if draft_model is not None or speculative:
             raise not_ported("speculative decoding (draft_model=)",
                              "9 (speculative decoding)")
@@ -477,6 +524,7 @@ class GenerationEngine:
             telemetry.counter("serving.generate.quant.params", n)
             telemetry.counter("serving.generate.quant.bytes_saved", saved)
         self.max_slots = int(max_slots)
+        self._cache_dtype = cache_dtype
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
         self.queue_limit = max(1, int(queue_limit))
@@ -529,12 +577,29 @@ class GenerationEngine:
             self._seq = 0
             self._chunks_this_iter = 0
             self._cache = model.init_paged_cache(self.max_slots, np_total,
-                                                 ps, self._s_max)
+                                                 ps, self._s_max,
+                                                 dtype=cache_dtype)
         else:
             if policy is None:
                 policy = BucketingPolicy(mode="pow2", min_size=8)
             self.policy = policy.clamped(self._s_max)
-            self._cache = model.init_cache(self.max_slots, self._s_max)
+            self._cache = model.init_cache(self.max_slots, self._s_max,
+                                           dtype=cache_dtype)
+        self._kv_int8 = "k_scale" in self._cache
+        if self._kv_int8:   # quant.* telemetry only for quantized engines
+            kv_bytes = sum(t.numel() * t.element_size()
+                           for key in ("k", "v", "k_scale", "v_scale")
+                           for t in self._cache[key])
+            telemetry.gauge("serving.generate.quant.kv_bytes_per_slot",
+                            kv_bytes // self.max_slots)
+        #: per-slot sampling state, armed when a request enters decode:
+        #: host vectors the step's sampler reads (greedy rows keep the
+        #: defaults) and one generator per sampled slot
+        self._temps = onp.zeros((self.max_slots,), "f4")
+        self._topks = onp.zeros((self.max_slots,), "i4")
+        self._topps = onp.ones((self.max_slots,), "f4")
+        self._gens: list = [None] * self.max_slots
+        self._n_sampling = 0   # active slots with temperature > 0
         self._slots: list = [None] * self.max_slots
         self._n_active = 0
         #: serializes every model call (worker admit/step, sync-mode
@@ -579,18 +644,28 @@ class GenerationEngine:
             if self._closed:
                 return self
             if self.paged:
-                self._warmup_paged()
+                lg = self._warmup_paged()
             else:
-                cache = self.model.init_cache(self.max_slots, self._s_max)
+                cache = self.model.init_cache(self.max_slots, self._s_max,
+                                              dtype=self._cache_dtype)
                 for sb in self.policy.sizes(self._s_cap - 1):
                     _, cache = self.model.prefill(
                         onp.zeros((1, sb), "i4"), [sb], cache, slots=[0])
                 lg, cache = self.model.decode_step(
                     onp.zeros((self.max_slots,), "i4"), cache)
-                lg.argmax(dim=-1).cpu()
                 del cache
+            self._warm_sampler(lg)
             self._warmup_telemetry()
         return self
+
+    def _warm_sampler(self, logits):
+        """One sampled draw over a step's (B, V) logits, so the first
+        sampled request does not pay for the sampler's first calls."""
+        gen = torch.Generator(device=self.device)
+        _smp.sample_tokens([gen] * self.max_slots, logits,
+                           onp.ones((self.max_slots,), "f4"),
+                           onp.full((self.max_slots,), 50, "i4"),
+                           onp.full((self.max_slots,), 0.9, "f4")).cpu()
 
     def _warmup_paged(self):
         """The paged steady state against a throwaway pool: one fresh
@@ -600,7 +675,8 @@ class GenerationEngine:
         table-bind / page-copy (COW) calls. Page ids are data, not
         shape, so the ids used here are arbitrary."""
         cache = self.model.init_paged_cache(
-            self.max_slots, self._pool.n_pages, self._ps, self._s_max)
+            self.max_slots, self._pool.n_pages, self._ps, self._s_max,
+            dtype=self._cache_dtype)
         row = onp.ones((self._p_max,), "i4")
         for sb in self.policy.sizes(self._chunk):
             if sb <= self._chunk:
@@ -612,18 +688,15 @@ class GenerationEngine:
         lg, cache = self.model.decode_step_paged(
             onp.zeros((self.max_slots,), "i4"),
             onp.ones((self.max_slots,), "i4"), cache)
-        lg.argmax(dim=-1).cpu()
         self.model.peek_logits_paged(0, 0, cache)
         cache = self.model.bind_slot_paged(0, row, 1, cache)
         self.model.copy_page_paged(1, 1, cache)
         del cache
+        return lg
 
     def _cache_tensors(self):
-        keys = ("k", "v", "table", "len") if self.paged \
-            else ("k", "v", "len")
         out = []
-        for key in keys:
-            val = self._cache[key]
+        for val in self._cache.values():
             out += list(val) if isinstance(val, tuple) else [val]
         return out
 
@@ -641,9 +714,50 @@ class GenerationEngine:
 
     @property
     def precision(self) -> str:
-        """The replica's numeric configuration: ``"fp32"`` or
-        ``"int8_weights"``."""
-        return self.quantize or "fp32"
+        """The replica's numeric configuration, as the reference names
+        it: ``"fp32"``, ``"int8_weights"``, ``"int8_kv"`` or
+        ``"int8_weights+int8_kv"``."""
+        parts = [self.quantize] if self.quantize is not None else []
+        if self._kv_int8:
+            parts.append("int8_kv")
+        return "+".join(parts) if parts else "fp32"
+
+    def load_weights(self, source, strict: bool = True):
+        """Weight rollover: install new parameter values into the live
+        model while traffic runs.
+
+        ``source`` is an in-memory ``{name: array}`` mapping (a
+        checkpoint path is a later slice). Names (under ``strict``, the
+        model's exactly) and shapes are checked before any buffer is
+        touched, so a bad source never leaves the model half-swapped.
+        The swap happens at a step boundary under the generation lock:
+        the parameters are written in place (same tensors, same
+        ``data_ptr()``), an int8-weight engine re-quantizes its tables
+        inside the same window (a step never sees new fp32 weights with
+        stale int8 tables), and a paged engine flushes its prefix index
+        and stops in-flight prompts from registering, since their K/V
+        came from the old weights. In-flight requests keep their KV
+        cache and continue on the new weights. Returns self."""
+        if self._closed:
+            raise EngineClosedError("load_weights on a closed engine")
+        if not isinstance(source, dict):
+            raise not_ported("load_weights from a checkpoint path",
+                             "18 (checkpoint)")
+        t0 = telemetry.clock()
+        with self._gen_exclusive():
+            _swap_param_buffers(self.model.collect_params(), source, strict)
+            if self.quantize is not None:
+                tq = telemetry.clock()
+                self.model.quantize_params()
+                telemetry.hist_since("serving.generate.quant.requantize", tq)
+            if self.paged and self._prefix is not None:
+                self._prefix.release_all()
+                for s in self._slots:
+                    if s is not None:
+                        s.prompt = None
+        telemetry.hist_since("serving.generate.swap", t0)
+        telemetry.counter("serving.generate.weight_swaps")
+        return self
 
     def close(self, timeout: float = 5.0):
         """Stop admission, finish ACTIVE generations and drain the
@@ -710,9 +824,10 @@ class GenerationEngine:
 
     @staticmethod
     def _validate_sampling(temperature, top_k, top_p, seed):
-        """Validate the per-request sampling knobs as the reference does;
-        only greedy (``temperature`` absent or 0, where ``top_k`` /
-        ``top_p`` / ``seed`` are ignored) is ported."""
+        """Normalize and validate the per-request sampling knobs as the
+        reference does. Returns ``(temperature, top_k, top_p, seed)``
+        with the greedy/off defaults filled in (``0.0``, ``0``, ``1.0``,
+        ``None``)."""
         t = 0.0 if temperature is None else float(temperature)
         if not t >= 0.0:   # also rejects NaN
             raise ValueError(
@@ -726,9 +841,9 @@ class GenerationEngine:
         if not 0.0 < p <= 1.0:
             raise ValueError(
                 f"top_p must be in (0, 1] (1 = off), got {top_p!r}")
-        if t > 0:
-            raise not_ported("sampling (temperature > 0)",
-                             "6 (ops/sampling.py)")
+        if seed is not None:
+            seed = int(seed)
+        return t, k, p, seed
 
     def submit(self, prompt, max_new_tokens=None, eos_id=None,
                timeout_ms=None, temperature=None, top_k=None, top_p=None,
@@ -736,7 +851,14 @@ class GenerationEngine:
         """Queue one prompt; returns a :class:`GenerationStream`.
         Raises :class:`EngineClosedError` / :class:`QueueFullError` /
         ``ValueError`` immediately instead of returning a stream that
-        can never complete. ``trace`` arms per-request tracing
+        can never complete.
+
+        ``temperature``/``top_k``/``top_p`` select per-request sampling
+        (default greedy: ``temperature`` absent or 0, and ``top_k`` /
+        ``top_p`` / ``seed`` are then ignored). ``seed`` seeds the
+        request's own generator: the same seed gives the same tokens on
+        the same device and engine configuration; without one a fresh
+        seed is drawn. ``trace`` arms per-request tracing
         (``True``/``False``/``None`` = the module flag, or a
         ``tracing.Trace`` to thread through)."""
         if self._failure is not None:
@@ -748,9 +870,14 @@ class GenerationEngine:
             raise EngineClosedError("submit on a closed engine")
         prompt, max_new, eos = self._validate(prompt, max_new_tokens,
                                               eos_id)
-        self._validate_sampling(temperature, top_k, top_p, seed)
+        temp, tk, tp, seed = self._validate_sampling(temperature, top_k,
+                                                     top_p, seed)
         if adapter is not None:
             raise not_ported("adapter=", "11 (batched LoRA)")
+        if temp > 0:
+            telemetry.counter("serving.generate.sampling.requests")
+            if seed is None:
+                seed = int.from_bytes(os.urandom(4), "little")
         telemetry.counter("serving.generate.requests")
         stream = GenerationStream(int(prompt.size))
         tr = tracing.start_trace(trace)
@@ -761,7 +888,8 @@ class GenerationEngine:
         tmo = self.timeout_ms if timeout_ms is None else timeout_ms
         now = time.monotonic()
         req = _GenRequest(prompt, max_new, eos, stream, telemetry.clock(),
-                          now, now + tmo / 1e3 if tmo is not None else None)
+                          now, now + tmo / 1e3 if tmo is not None else None,
+                          (temp, tk, tp, seed))
         if self._sync:  # MXTPU_SERVING=0: inline generation
             with self._gen_lock:
                 self._admit_one(req)
@@ -888,7 +1016,8 @@ class GenerationEngine:
         logits, self._cache = self.model.prefill(
             padded, onp.asarray([n], "i4"), self._cache,
             slots=onp.asarray([slot], "i4"))
-        tok = int(logits[0].argmax())   # the host sync of this admission
+        self._arm_sampling(slot, r.sampling)
+        tok = self._pick_first(slot, logits[0])   # the admission's sync
         telemetry.hist_since("serving.generate.prefill", t0)
         telemetry.counter("serving.generate.prefills")
         if tr is not None:
@@ -906,6 +1035,50 @@ class GenerationEngine:
             self._evict(slot, "length")
         else:
             telemetry.gauge("serving.generate.slots", self._n_active)
+
+    def _arm_sampling(self, slot: int, sampling):
+        """Install a request's sampling knobs into the per-slot vectors
+        when it enters decode (greedy requests write the defaults: the
+        vectors never carry a previous tenant's state). A sampled
+        request gets its own generator, seeded here; a paged request
+        arms only at its first token, so the draws it makes depend on
+        nothing that ran while it prefilled."""
+        temp, tk, tp, seed = sampling
+        self._temps[slot], self._topks[slot], self._topps[slot] = \
+            temp, tk, tp
+        if temp > 0:
+            self._n_sampling += 1
+            self._gens[slot] = torch.Generator(
+                device=self.device).manual_seed(seed)
+
+    def _disarm_sampling(self, slot: int):
+        if self._temps[slot] > 0:
+            self._n_sampling -= 1
+        self._temps[slot], self._topks[slot], self._topps[slot] = 0, 0, 1
+        self._gens[slot] = None
+
+    def _pick_first(self, slot: int, logits_row) -> int:
+        """First token of a fresh admission, from its prefill or peek
+        logits row (V,): argmax for a greedy slot, a draw with the
+        slot's generator for a sampled one."""
+        if self._temps[slot] <= 0:
+            return int(logits_row.argmax())
+        sl = slice(slot, slot + 1)
+        return int(_smp.sample_tokens(
+            [self._gens[slot]], logits_row[None], self._temps[sl],
+            self._topks[sl], self._topps[sl])[0])
+
+    def _pick_step_tokens(self, logits):
+        """Every row's next token from a decode step's (B, V) logits,
+        brought to the host (the step's one sync): argmax when no slot
+        samples, else one sampler call in which greedy rows keep their
+        argmax."""
+        if self._n_sampling:
+            tok = _smp.sample_tokens(self._gens, logits, self._temps,
+                                     self._topks, self._topps)
+        else:
+            tok = logits.argmax(dim=-1)
+        return tok.cpu().numpy()
 
     # -- paged scheduling ----------------------------------------------
     def _alloc_pages(self, n):
@@ -976,7 +1149,8 @@ class GenerationEngine:
         refs.extend(private)
         s = _PagedSlot(r.stream, r.max_new, r.eos_id, r.deadline,
                        n_ctx=length, row=row, page_refs=refs,
-                       prompt=r.prompt, seq=self._seq, t_submit=r.t_submit)
+                       prompt=r.prompt, seq=self._seq, t_submit=r.t_submit,
+                       sampling=r.sampling)
         self._seq += 1
         if peek:
             if length % ps:
@@ -996,13 +1170,12 @@ class GenerationEngine:
                                                      self._cache)
             logits = self.model.peek_logits_paged(int(r.prompt[-1]), slot,
                                                   self._cache)
-            tok = int(logits.argmax())   # the host sync of this admission
+            self._register_prefix(s)
+            self._first_token(slot, s, logits)   # the admission's sync
             telemetry.hist_since("serving.generate.prefill", t0)
             telemetry.counter("serving.generate.prefills")
             if tr is not None:
                 tr.add("prefill", pt0, slot=slot, tokens=length, peek=True)
-            self._register_prefix(s)
-            self._first_token(slot, s, tok)
             return True
         row[first_write:cap_pages] = private
         start0 = first_write * ps
@@ -1050,10 +1223,13 @@ class GenerationEngine:
             s.page_refs.append(dst[0])
         s.prompt = None
 
-    def _first_token(self, slot: int, s: _PagedSlot, tok: int):
-        """Emit a freshly admitted request's first token (from its last
-        prefill chunk's logits or the prefix-hit peek) — the paged
-        analog of the dense admission's tail."""
+    def _first_token(self, slot: int, s: _PagedSlot, logits_row):
+        """Pick and emit a freshly admitted request's first token from
+        its last prefill chunk's logits or the prefix-hit peek's (V,) —
+        the paged analog of the dense admission's tail. The request's
+        sampling knobs go live here, at its entry into decode."""
+        self._arm_sampling(slot, s.sampling)
+        tok = self._pick_first(slot, logits_row)
         s.last = tok
         s.left -= 1
         s.state = "decode"
@@ -1093,18 +1269,16 @@ class GenerationEngine:
         logits, self._cache = self.model.prefill_paged(
             toks, n_valid, best, s.row, self._cache, start=start,
             fresh=fresh)
-        last = not s.chunks
-        tok = int(logits[0].argmax()) if last else None   # host sync
-        telemetry.hist_since("serving.generate.prefill", t0)
         telemetry.counter("serving.generate.prefill_chunks")
+        self._chunks_this_iter += 1
+        if not s.chunks:
+            telemetry.counter("serving.generate.prefills")
+            self._register_prefix(s)
+            self._first_token(best, s, logits[0])   # host sync
+        telemetry.hist_since("serving.generate.prefill", t0)
         if tr is not None:
             tr.add("prefill_chunk", pt0, slot=best, start=start,
                    tokens=n_valid)
-        self._chunks_this_iter += 1
-        if last:
-            telemetry.counter("serving.generate.prefills")
-            self._register_prefix(s)
-            self._first_token(best, s, tok)
         return 1
 
     def _cow_sweep(self):
@@ -1178,7 +1352,7 @@ class GenerationEngine:
                 toks, active, self._cache)
         else:
             logits, self._cache = self.model.decode_step(toks, self._cache)
-        step_toks = logits.argmax(dim=-1).cpu().numpy()
+        step_toks = self._pick_step_tokens(logits)
         telemetry.hist_since("serving.generate.decode", t0)
         telemetry.counter("serving.generate.host_syncs")
         telemetry.counter("serving.generate.dispatches")
@@ -1210,6 +1384,7 @@ class GenerationEngine:
     def _free_slot(self, slot: int):
         self._release_slot_refs(self._slots[slot])
         self._slots[slot] = None
+        self._disarm_sampling(slot)
         self._n_active -= 1
         telemetry.counter("serving.generate.evictions")
         telemetry.gauge("serving.generate.slots", self._n_active)
@@ -1254,6 +1429,7 @@ class GenerationEngine:
                     s.stream._finish(reason=reason)
                 self._release_slot_refs(s)
                 self._slots[i] = None
+                self._disarm_sampling(i)
         self._n_active = 0
         self._teardown_paged(EngineClosedError(
             "engine closed while the request awaited KV pages"))
@@ -1288,6 +1464,7 @@ class GenerationEngine:
                 s.stream._finish(exc=failure)
                 self._release_slot_refs(s)
                 self._slots[i] = None
+                self._disarm_sampling(i)
         self._n_active = 0
         self._teardown_paged(failure)
         if self._worker is not None:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's generation time goes on the card: one decode step
 and one prefill of ``mxnet_tpu_torch`` at GPT-2-small widths, on the
-dense fp32 cache and on the paged cache with int8 weights.
+dense fp32 cache, the dense int8 KV cache, and the paged cache with
+int8 weights over an fp32 and an int8 pool.
 
 Run from the repository root on a machine with an NVIDIA card::
 
@@ -11,12 +12,13 @@ It builds the model that ``chip_smoke.py`` serves (vocab 50257, 768
 wide, 12 layers, 12 heads, 1024 positions, random weights from seed 0),
 prefills all 8 slots of a 1024-row cache with prompts of 16..512 tokens
 and then runs decode steps exactly as ``GenerationEngine`` does
-(``decode_step``, argmax on the card, the (8,) tokens read by the host).
-Then it arms the int8 weights (``quantize_params``), fills a paged pool
-(page 16) with the same prompts through 32-token prefill chunks, as the
-paged engine does, and profiles the paged decode step
-(``decode_step_paged``, all 8 slots active) and one 32-token chunk.
-For each of the four it prints one JSON line with:
+(``decode_step``, argmax on the card, the (8,) tokens read by the host),
+and the same over an int8 KV cache (``dtype="int8"``). Then it arms the
+int8 weights (``quantize_params``), fills a paged pool (page 16) with
+the same prompts through 32-token prefill chunks, as the paged engine
+does, and profiles the paged decode step (``decode_step_paged``, all 8
+slots active) over an fp32 and an int8 pool, and one 32-token chunk.
+For each it prints one JSON line with:
 
 - ``wall_ms``: host clock per step, ending in the host's read;
 - ``device_busy_ms``: the union of the card's kernel intervals per step,
@@ -112,26 +114,32 @@ def main(argv=None):
                      num_heads=12, max_length=1024).initialize(seed=0)
     rng = np.random.RandomState(2)
     lengths = [int(n) for n in rng.randint(16, 513, size=8)]
-    cache = model.init_cache(8, 1024)
-    last = np.zeros(8, "i4")
-    for slot, n in enumerate(lengths):
-        sb = 1 << (n - 1).bit_length()
-        toks = np.zeros((1, max(sb, 8)), "i4")
-        toks[0, :n] = rng.randint(0, 50256, size=n)
-        lg, cache = model.prefill(toks, [n], cache, slots=[slot])
-        last[slot] = int(lg[0].argmax())
-    state = {"toks": last}
+    prompts = [rng.randint(0, 50256, size=n).astype("i4") for n in lengths]
 
-    def decode():
-        lg, _ = model.decode_step(state["toks"], cache)
-        state["toks"] = lg.argmax(dim=-1).cpu().numpy().astype("i4")
+    def dense_step(dtype, phase):
+        cache = model.init_cache(8, 1024, dtype=dtype)
+        last = np.zeros(8, "i4")
+        for slot, p in enumerate(prompts):
+            sb = 1 << (len(p) - 1).bit_length()
+            toks = np.zeros((1, max(sb, 8)), "i4")
+            toks[0, :len(p)] = p
+            lg, cache = model.prefill(toks, [len(p)], cache, slots=[slot])
+            last[slot] = int(lg[0].argmax())
+        state = {"toks": last}
 
-    ops.reset_launch_counts()
-    dec = profile(decode, args.steps)
-    dec["kernel_launches_per_step"] = {
-        k: v / (args.steps + 1) for k, v in ops.launch_counts().items()}
-    print(json.dumps({"phase": "decode_step", "slots": 8,
-                      "cache_rows": 1024, **dec}), flush=True)
+        def decode():
+            lg, _ = model.decode_step(state["toks"], cache)
+            state["toks"] = lg.argmax(dim=-1).cpu().numpy().astype("i4")
+
+        ops.reset_launch_counts()
+        dec = profile(decode, args.steps)
+        dec["kernel_launches_per_step"] = {
+            k: v / (args.steps + 1) for k, v in ops.launch_counts().items()}
+        print(json.dumps({"phase": phase, "slots": 8, "cache_rows": 1024,
+                          **dec}), flush=True)
+
+    dense_step(None, "decode_step")
+    dense_step("int8", "decode_step_int8_kv")
 
     pcache = model.init_cache(1, 1024)
     ptoks = rng.randint(0, 50256, size=(1, 512)).astype("i4")
@@ -147,32 +155,37 @@ def main(argv=None):
     # the paged engine's step: int8 projections (K4), paged attention (K3)
     model.quantize_params()
     ps, p_max, chunk = 16, 1024 // 16, 32
-    gcache = model.init_paged_cache(8, 8 * p_max + 1, ps, 1024)
-    for slot, n in enumerate(lengths):
-        row = np.arange(1 + slot * p_max, 1 + (slot + 1) * p_max,
-                        dtype="i4")
-        ptoks_n = rng.randint(0, 50256, size=n).astype("i4")
-        for pos in range(0, n, chunk):
-            nv = min(chunk, n - pos)
-            toks = np.zeros((1, chunk), "i4")
-            toks[0, :nv] = ptoks_n[pos:pos + nv]
-            lg, gcache = model.prefill_paged(toks, nv, slot, row, gcache,
-                                             start=pos)
-        last[slot] = int(lg[0].argmax())
-    gstate = {"toks": last.copy()}
-    active = np.ones(8, "i4")
 
-    def decode_paged():
-        lg, _ = model.decode_step_paged(gstate["toks"], active, gcache)
-        gstate["toks"] = lg.argmax(dim=-1).cpu().numpy().astype("i4")
+    def paged_step(dtype, phase):
+        gcache = model.init_paged_cache(8, 8 * p_max + 1, ps, 1024,
+                                        dtype=dtype)
+        last = np.zeros(8, "i4")
+        for slot, p in enumerate(prompts):
+            row = np.arange(1 + slot * p_max, 1 + (slot + 1) * p_max,
+                            dtype="i4")
+            for pos in range(0, len(p), chunk):
+                nv = min(chunk, len(p) - pos)
+                toks = np.zeros((1, chunk), "i4")
+                toks[0, :nv] = p[pos:pos + nv]
+                lg, gcache = model.prefill_paged(toks, nv, slot, row,
+                                                 gcache, start=pos)
+            last[slot] = int(lg[0].argmax())
+        gstate = {"toks": last}
+        active = np.ones(8, "i4")
 
-    ops.reset_launch_counts()
-    dec = profile(decode_paged, args.steps)
-    dec["kernel_launches_per_step"] = {
-        k: v / (args.steps + 1) for k, v in ops.launch_counts().items()}
-    print(json.dumps({"phase": "decode_step_paged_int8", "slots": 8,
-                      "page_size": ps, "pool_pages": 8 * p_max + 1, **dec}),
-          flush=True)
+        def decode_paged():
+            lg, _ = model.decode_step_paged(gstate["toks"], active, gcache)
+            gstate["toks"] = lg.argmax(dim=-1).cpu().numpy().astype("i4")
+
+        ops.reset_launch_counts()
+        dec = profile(decode_paged, args.steps)
+        dec["kernel_launches_per_step"] = {
+            k: v / (args.steps + 1) for k, v in ops.launch_counts().items()}
+        print(json.dumps({"phase": phase, "slots": 8, "page_size": ps,
+                          "pool_pages": 8 * p_max + 1, **dec}), flush=True)
+
+    paged_step(None, "decode_step_paged_int8")
+    paged_step("int8", "decode_step_paged_int8_kv")
 
     ccache = model.init_paged_cache(1, p_max + 1, ps, 1024)
     crow = np.arange(1, p_max + 1, dtype="i4")

@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""Two measurements of the port's kernels on the card that
+"""Measurements of the port's kernels on the card that
 ``chip_smoke.py`` does not make.
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
     python3 scripts/torch_kernel_ab.py --other-csrc DIR [--rounds 2]
 
-1. ``decode_attention_ab``: K2 (dense decode attention) built from
-   ``DIR/decode_attention.cu`` — another revision's ``csrc/``, e.g. a
-   ``git archive`` of an earlier commit — against K2 built from this
-   checkout, at ``chip_smoke.py``'s decode shape (8, 12, 1024, 64), the
-   same lengths and NaN garbage, through the same Python wrapper and
-   ``chip_smoke.Timer`` (L2 flushed; enqueue-inclusive and device-only
-   ms). The two run in the order other, this, this, other, ``--rounds``
-   times, in one process. Both must take the same C interface.
-2. ``wrapper_host_cost``: host microseconds per call of K4's wrapper
+1. ``decode_attention_ab`` and ``paged_decode_attention_ab``: the fp32
+   K2 (dense decode attention) and K3 (paged) built from ``DIR`` —
+   another revision's ``csrc/``, e.g. a ``git archive`` of an earlier
+   commit — against the same kernels built from this checkout, at
+   ``chip_smoke.py``'s decode shapes ((8, 12, 1024, 64); K3 over a
+   513-page pool, page 16), the same lengths and NaN garbage, through
+   the same Python wrapper and ``chip_smoke.Timer`` (L2 flushed;
+   enqueue-inclusive and device-only ms). The two run in the order
+   other, this, this, other, ``--rounds`` times, in one process. Both
+   must take the same C interface.
+2. ``int8_dense_vs_paged``: the same int8 K/V (the decode shape, the
+   same lengths) through K2's int8 instance over the dense cache and
+   through K3's over a pool holding each slot's rows in its own pages
+   in order (per-page scales equal to the slot's), beside the fp32
+   instances on the same values, and K2 (both instances) over a cache
+   whose rows per (slot, head) are padded from 1024 to 1040, so that no
+   (slot, head) starts at a multiple of 64 KiB: device ms, in turns.
+3. ``wrapper_host_cost``: host microseconds per call of K4's wrapper
    (``dequant_matmul`` at M = 8, N = K = 768) taken apart: the whole
    wrapper, its pieces (device context and stream, output allocation,
    pointers), the bare ctypes call of K4's entry point, and a
@@ -107,9 +116,8 @@ def _compile(src_path, include, tag):
     return ctypes.CDLL(str(lib))
 
 
-def decode_ab(timer, other_csrc, rounds):
-    """K2 from ``other_csrc`` against this checkout's, same wrapper."""
-    rng = np.random.RandomState(1)
+def _decode_inputs(rng):
+    """The decode shape's q, NaN-tailed K/V, lengths and live mask."""
     b, h, s, d = 8, 12, 1024, 64
     lengths = [0, 1, 63, 64, 65, 500, 1023, 1024]
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
@@ -119,30 +127,63 @@ def decode_ab(timer, other_csrc, rounds):
     nan = torch.tensor(float("nan"), device="cuda")
     kn, vn = torch.where(live, k, nan), torch.where(live, v, nan)
     q = cs._split_view(torch, rng, b, 1, h, d)
+    return q, kn, vn, lens, lengths, live
 
-    key = ("decode_attention", "mxtt_decode_attention")
-    this_fn = _build.function(*key, at._DECODE_ARGTYPES)
-    other = _compile(os.path.join(other_csrc, "decode_attention.cu"),
-                     other_csrc, "decode_attention-other")
-    other_fn = other.mxtt_decode_attention
+
+def _to_pool(x, ps):
+    """(B, H, S, D) -> a (1 + B * S / ps, H, ps, D) pool holding slot
+    b's page p at 1 + b * S / ps + p (page 0 scrap), and its table."""
+    b, h, s, d = x.shape
+    pool = x.reshape(b, h, s // ps, ps, d).transpose(1, 2).reshape(
+        b * s // ps, h, ps, d)
+    pool = torch.cat([torch.zeros_like(pool[:1]), pool]).contiguous()
+    table = (1 + torch.arange(b * s // ps, device=x.device, dtype=torch.int32)
+             ).reshape(b, s // ps)
+    return pool, table
+
+
+def kernel_ab(timer, other_csrc, rounds, paged):
+    """K2 (or K3) fp32 from ``other_csrc`` against this checkout's,
+    same wrapper."""
+    q, kn, vn, lens, lengths, _live = _decode_inputs(np.random.RandomState(1))
+    if paged:
+        name, src, argtypes = ("paged_decode_attention",
+                               "paged_decode_attention.cu",
+                               at._PAGED_ARGTYPES)
+        kp, table = _to_pool(kn, 16)
+        vp, _ = _to_pool(vn, 16)
+
+        def call():
+            return at.paged_decode_attention(q, kp, vp, table, lens)
+    else:
+        name, src, argtypes = ("decode_attention", "decode_attention.cu",
+                               at._DECODE_ARGTYPES)
+
+        def call():
+            return at.decode_attention(q, kn, vn, lens)
+    key = (name, f"mxtt_{name}")
+    this_fn = _build.function(*key, argtypes)
+    other = _compile(os.path.join(other_csrc, src), other_csrc,
+                     f"{name}-other")
+    other_fn = getattr(other, f"mxtt_{name}")
     other_fn.restype = ctypes.c_int
-    other_fn.argtypes = at._DECODE_ARGTYPES
+    other_fn.argtypes = argtypes
     fns = {"other": other_fn, "this": this_fn}
 
     def run(which):
         _build._fns[key] = fns[which]
-        return at.decode_attention(q, kn, vn, lens)
+        return call()
 
     ref = run("this")
     diff = float((run("other") - ref).abs().max())
-    cs.check(diff <= cs.OUT_TOL, f"the two K2 builds differ by {diff}")
+    cs.check(diff <= cs.OUT_TOL, f"the two {name} builds differ by {diff}")
     times = {"other": [], "this": []}
     for _ in range(rounds):
         for which in ("other", "this", "this", "other"):
             ms, dev = timer.both(lambda: run(which), flush=True)
             times[which].append({"ms": ms, "ms_device": dev})
     _build._fns[key] = this_fn
-    res = {"shape": [b, h, s, d], "lengths": lengths,
+    res = {"shape": [8, 12, 1024, 64], "lengths": lengths,
            "other_csrc": other_csrc, "max_abs_diff": diff,
            "order": "other, this, this, other", "rounds": rounds}
     for which, ts in times.items():
@@ -150,7 +191,64 @@ def decode_ab(timer, other_csrc, rounds):
                       "ms_device_median": float(np.median(
                           [t["ms_device"] for t in ts])),
                       "runs": ts}
-    cs.emit("decode_attention_ab", **res)
+    cs.emit(f"{name}_ab", **res)
+
+
+def int8_dense_vs_paged(timer, rounds):
+    """The same int8 values through K2-int8 (dense) and K3-int8 (a pool
+    of each slot's pages in order), and the fp32 values through K2 and
+    K3, device ms in turns."""
+    q, kn, vn, lens, lengths, live = _decode_inputs(np.random.RandomState(2))
+    kz, vz = torch.nan_to_num(kn), torch.nan_to_num(vn)
+    ks, vs = qz.kv_scale(kz, (2, 3)), qz.kv_scale(vz, (2, 3))
+    kq = qz.kv_quantize(kz, ks[:, :, None, None])
+    vq = qz.kv_quantize(vz, vs[:, :, None, None])
+    ps = 16
+    kq_p, table = _to_pool(kq, ps)
+    vq_p, _ = _to_pool(vq, ps)
+    kz_p, _ = _to_pool(kz, ps)
+    vz_p, _ = _to_pool(vz, ps)
+    n_pp = kq.shape[2] // ps                   # pages per slot
+    pad = torch.zeros_like(ks[:1])
+    ks_p = torch.cat([pad, ks.repeat_interleave(n_pp, dim=0)]).contiguous()
+    vs_p = torch.cat([pad, vs.repeat_interleave(n_pp, dim=0)]).contiguous()
+    def padded(x, extra=16):
+        buf = torch.zeros((*x.shape[:2], x.shape[2] + extra, x.shape[3]),
+                          dtype=x.dtype, device=x.device)
+        buf[:, :, :x.shape[2]] = x
+        return buf[:, :, :x.shape[2]]
+
+    kq_x, vq_x, kz_x, vz_x = (padded(t) for t in (kq, vq, kz, vz))
+    calls = {
+        "dense_int8": lambda: at.decode_attention(q, kq, vq, lens, None, ks,
+                                                  vs),
+        "dense_int8_padded": lambda: at.decode_attention(
+            q, kq_x, vq_x, lens, None, ks, vs),
+        "dense_fp32_padded": lambda: at.decode_attention(q, kz_x, vz_x,
+                                                         lens),
+        "paged_int8": lambda: at.paged_decode_attention(
+            q, kq_p, vq_p, table, lens, None, ks_p, vs_p),
+        "dense_fp32": lambda: at.decode_attention(q, kz, vz, lens),
+        "paged_fp32": lambda: at.paged_decode_attention(q, kz_p, vz_p, table,
+                                                        lens),
+    }
+    outs = {k: fn() for k, fn in calls.items()}
+    diffs = {f"{a} vs {b}": float((outs[a] - outs[b]).abs().max())
+             for a, b in (("dense_int8", "paged_int8"),
+                          ("dense_int8", "dense_int8_padded"),
+                          ("dense_fp32", "paged_fp32"),
+                          ("dense_fp32", "dense_fp32_padded"))}
+    times = {k: [] for k in calls}
+    order = list(calls) + list(calls)[::-1]
+    for _ in range(rounds):
+        for k in order:
+            times[k].append(timer(calls[k], flush=True, device=True))
+    cs.emit("int8_dense_vs_paged", shape=[8, 12, 1024, 64], page_size=ps,
+            lengths=lengths, order=order, rounds=rounds,
+            max_abs_diff=diffs,
+            ms_device_median={k: float(np.median(v))
+                              for k, v in times.items()},
+            ms_device_runs=times)
 
 
 def _host_us(fn, calls=200, reps=7):
@@ -227,7 +325,10 @@ def main(argv=None):
     cs.phase_env(torch)
     _build.build_all()
     timer = cs.Timer(torch)
-    decode_ab(timer, os.path.abspath(args.other_csrc), args.rounds)
+    for paged in (False, True):
+        kernel_ab(timer, os.path.abspath(args.other_csrc), args.rounds,
+                  paged)
+    int8_dense_vs_paged(timer, args.rounds)
     wrapper_cost()
     return 0
 

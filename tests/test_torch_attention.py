@@ -293,10 +293,25 @@ def test_paged_kernel_wrapper_checks():
 
 
 def test_int8_pool_is_a_later_slice():
-    q, kn, vn, _kz, _vz, table, lengths = (_t(a) for a in _paged_inputs(1))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tat.paged_decode_attention(q, kn, vn, table, lengths,
-                                   k_scale=torch.ones(N_PAGES, 2),
-                                   v_scale=torch.ones(N_PAGES, 2))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tat.expand_page_scales(torch.ones(N_PAGES, 2), table, PS)
+    """The int8 pool, a later slice when this test was written, is
+    served now: an int8 copy of the pool with per-page scales gives the
+    JAX jnp path's output (tests/test_torch_kvquant.py holds it in
+    full)."""
+    q, _kn, _vn, kz, vz, table, lengths = _paged_inputs(1)
+    ks = onp.maximum(onp.abs(kz).max(axis=(2, 3)), 1e-12) / 127.0
+    vs = onp.maximum(onp.abs(vz).max(axis=(2, 3)), 1e-12) / 127.0
+    kq = onp.round(kz / ks[:, :, None, None]).astype("i1")
+    vq = onp.round(vz / vs[:, :, None, None]).astype("i1")
+    ks, vs = ks.astype("f4"), vs.astype("f4")
+    out = tat.paged_decode_attention(_t(q), _t(kq), _t(vq), _t(table),
+                                     _t(lengths), k_scale=_t(ks),
+                                     v_scale=_t(vs))
+    ref = jat.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(table),
+        jnp.asarray(lengths), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs))
+    onp.testing.assert_allclose(out.numpy(), onp.asarray(ref), **TOL)
+    onp.testing.assert_array_equal(
+        tat.expand_page_scales(_t(ks), _t(table), PS).numpy(),
+        onp.asarray(jat.expand_page_scales(jnp.asarray(ks),
+                                           jnp.asarray(table), PS)))

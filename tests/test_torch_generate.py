@@ -2,9 +2,11 @@
 
 Greedy output must be TOKEN-IDENTICAL to the JAX package's engine on
 the same weights; eviction (eos, length, capacity, deadline), admission
-control and shutdown follow the reference engine's contract; modes this
-slice does not port raise NotImplementedError naming their ROADMAP.md
-item.
+control and shutdown follow the reference engine's contract; sampled
+requests are seeded, row-independent and leave greedy co-tenants
+untouched; ``load_weights`` swaps weights in place and serves as a fresh
+engine on the new weights would; modes the port does not have yet raise
+NotImplementedError naming their ROADMAP.md item.
 """
 import time
 
@@ -301,16 +303,23 @@ def test_worker_crash_surfaces_replica_failed(net):
 
 
 PORTED = [
-    ("paged", dict(paged=True, page_size=8)),
-    ("quantize", dict(quantize="int8_weights")),
+    ("paged", dict(paged=True, page_size=8), "fp32"),
+    ("quantize", dict(quantize="int8_weights"), "int8_weights"),
+    ("kv_dtype", dict(kv_dtype="int8"), "int8_kv"),
+    ("kv_dtype_paged", dict(kv_dtype="int8", paged=True, page_size=8),
+     "int8_kv"),
+    ("cache_dtype", dict(cache_dtype="int8"), "int8_kv"),
+    ("both_int8", dict(kv_dtype="int8", quantize="int8_weights"),
+     "int8_weights+int8_kv"),
 ]
 
 
-@pytest.mark.parametrize("kw", [p[1] for p in PORTED],
+@pytest.mark.parametrize("kw,precision", [p[1:] for p in PORTED],
                          ids=[p[0] for p in PORTED])
-def test_ported_modes_serve(kw):
-    """Modes this slice ports build on the CPU and serve a request (on a
-    model of their own: an int8 engine arms its model's tables)."""
+def test_ported_modes_serve(kw, precision):
+    """Modes the port has build on the CPU and serve a request (on a
+    model of their own: an int8 engine arms its model's tables), and
+    ``precision`` names them as the reference does."""
     net = tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=1,
                          num_heads=4, max_length=128,
                          device="cpu").initialize(seed=3)
@@ -318,14 +327,23 @@ def test_ported_modes_serve(kw):
     r = eng.generate(_prompt(onp.random.RandomState(14), 5), timeout=60)
     assert len(r.tokens) == 3 and r.finish_reason == "length"
     assert eng.paged == bool(kw.get("paged"))
-    assert eng.precision == kw.get("quantize", "fp32")
+    assert eng.precision == precision
+    assert (eng._cache["k"][0].dtype == torch.int8) == (
+        "int8_kv" in precision)
     eng.close()
 
 
+def test_kv_dtype_validation(net):
+    """The reference's ValueErrors for a conflicting or unknown KV
+    dtype."""
+    with pytest.raises(ValueError, match="conflicts"):
+        _engine(net, kv_dtype="int8", cache_dtype="float32")
+    with pytest.raises(ValueError, match="unsupported kv_dtype"):
+        _engine(net, kv_dtype="int4")
+
+
 UNPORTED = [
-    ("kv_dtype", dict(kv_dtype="int8"), "8"),
-    ("kv_dtype_paged", dict(kv_dtype="int8", paged=True), "8"),
-    ("cache_dtype", dict(cache_dtype="int8"), "8"),
+    ("cache_dtype_bf16", dict(cache_dtype="bfloat16"), "10"),
     ("draft_model", dict(draft_model=object()), "9"),
     ("decode_ticks", dict(decode_ticks=4), "10"),
     ("compute_dtype", dict(compute_dtype="bfloat16"), "10"),
@@ -342,14 +360,18 @@ def test_unported_modes_raise(net, kw, item):
 
 
 def test_unported_request_options_raise(net):
+    """``adapter=`` (batched LoRA) is still a later slice; sampling is
+    ported, with the reference's validation."""
     eng = _engine(net, max_slots=2, max_new_tokens=2)
     p = _prompt(onp.random.RandomState(13), 3)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.submit(p, temperature=0.7)
     with pytest.raises(NotImplementedError, match="item 11"):
         eng.submit(p, adapter="tenant")
-    with pytest.raises(ValueError, match="temperature"):
-        eng.submit(p, temperature=-1.0)
+    for bad in (dict(temperature=-1.0), dict(temperature=float("nan")),
+                dict(top_k=-1), dict(top_p=0.0), dict(top_p=1.5)):
+        with pytest.raises(ValueError, match=next(iter(bad))):
+            eng.submit(p, **bad)
+    assert len(eng.generate(p, temperature=0.7, seed=1,
+                            timeout=60).tokens) == 2
     # greedy ignores the sampling knobs, as in the reference
     assert len(eng.generate(p, temperature=0.0, top_k=5, seed=3,
                             timeout=60).tokens) == 2
@@ -368,3 +390,112 @@ def test_engine_device_rule(net):
     on_card.device = torch.device("cuda", 0)
     with pytest.raises(ValueError, match="lives on"):
         GenerationEngine(on_card, max_slots=2, device="cpu")
+
+
+# -- per-request sampling ---------------------------------------------
+def _sampled(eng, p, seed, **kw):
+    return eng.submit(p, temperature=0.9, top_k=20, top_p=0.95, seed=seed,
+                      **kw)
+
+
+def test_sampled_requests_seeded_and_independent_of_co_tenants(net):
+    """A sampled request's tokens depend on its seed only: alone, or in
+    another slot beside greedy and other sampled co-tenants, the same
+    seed gives the same tokens; greedy co-tenants keep their greedy
+    tokens; the sampling counter counts sampled requests."""
+    rng = onp.random.RandomState(21)
+    p, q = _prompt(rng, 6), _prompt(rng, 11)
+    eng = _engine(net, max_slots=SLOTS, max_new_tokens=12, queue_limit=64)
+    alone = _sampled(eng, p, seed=7).result(timeout=120).tokens
+    greedy = eng.generate(q, timeout=120).tokens
+    telemetry.reset()
+    # busy engine: the seeded request now lands in another slot
+    streams = [eng.submit(q), _sampled(eng, q, seed=3), eng.submit(p),
+               _sampled(eng, p, seed=7), _sampled(eng, p, seed=8)]
+    out = [s.result(timeout=120).tokens for s in streams]
+    eng.close()
+    assert out[3] == alone
+    assert out[0] == greedy
+    assert out[4] != alone      # another seed, another stream
+    assert telemetry.counter_value("serving.generate.sampling.requests") == 3
+    assert eng._n_sampling == 0 and all(g is None for g in eng._gens)
+
+
+def test_sampling_with_top_k_1_is_greedy(net):
+    """top_k=1 leaves one token to draw: the sampled stream equals the
+    greedy one, whatever the seed and temperature."""
+    p = _prompt(onp.random.RandomState(22), 9)
+    eng = _engine(net, max_slots=2, max_new_tokens=8)
+    greedy = eng.generate(p, timeout=120).tokens
+    for seed, t in ((1, 0.5), (2, 3.0)):
+        assert eng.generate(p, temperature=t, top_k=1, seed=seed,
+                            timeout=120).tokens == greedy
+    eng.close()
+
+
+# -- weight rollover ----------------------------------------------------
+def _fresh_params(seed):
+    donor = tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=2,
+                           num_heads=4, max_length=128,
+                           device="cpu").initialize(seed=seed)
+    return {k: p.data().numpy().copy()
+            for k, p in donor.collect_params().items()}
+
+
+@pytest.mark.parametrize("kw", [{}, dict(quantize="int8_weights",
+                                         kv_dtype="int8")],
+                         ids=["fp32", "int8_weights_int8_kv"])
+def test_load_weights_matches_a_fresh_engine(kw):
+    """load_weights swaps the parameters in place (same tensors) under
+    the generation lock; a quantized engine re-quantizes inside the swap
+    window; the next requests get a fresh engine's tokens on the new
+    weights (tests/test_quantized.py's rollover test)."""
+    def model(seed):
+        return tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=2,
+                              num_heads=4, max_length=128,
+                              device="cpu").initialize(seed=seed)
+    rng = onp.random.RandomState(23)
+    prompts = [_prompt(rng, n) for n in (4, 9, 15)]
+    net_a = model(0)
+    eng = _engine(net_a, max_slots=2, max_new_tokens=6, **kw).warmup()
+    before = [eng.generate(p, timeout=120).tokens for p in prompts]
+    ptrs = [p.data().data_ptr() for p in net_a.collect_params().values()]
+    new = _fresh_params(5)
+    telemetry.reset()
+    assert eng.load_weights(new) is eng
+    after = [eng.generate(p, timeout=120).tokens for p in prompts]
+    snap = telemetry.snapshot()
+    eng.close()
+    assert [p.data().data_ptr()
+            for p in net_a.collect_params().values()] == ptrs
+    assert snap["counters"]["serving.generate.weight_swaps"] == 1
+    assert "serving.generate.swap" in snap["histograms"]
+    assert ("serving.generate.quant.requantize" in snap["histograms"]) \
+        == ("quantize" in kw)
+    fresh = _engine(model(5), max_slots=2, max_new_tokens=6, **kw)
+    expect = [fresh.generate(p, timeout=120).tokens for p in prompts]
+    fresh.close()
+    assert after == expect and after != before
+
+
+def test_load_weights_validates_before_touching_anything(net):
+    eng = _engine(net, max_slots=2, max_new_tokens=2)
+    good = {k: p.data().numpy().copy()
+            for k, p in net.collect_params().items()}
+    snapshot = {k: v.copy() for k, v in good.items()}
+    bad_shape = dict(good)
+    bad_shape["lm_head.weight"] = onp.zeros((3, 3), "f4")
+    bad_shape["layers.0.ln1.gamma"] = onp.full(32, 9.0, "f4")
+    with pytest.raises(ValueError, match="shape mismatch"):
+        eng.load_weights(bad_shape)
+    missing = {k: v for k, v in good.items() if k != "ln_f.beta"}
+    with pytest.raises(ValueError, match="missing"):
+        eng.load_weights(missing)
+    for k, p in net.collect_params().items():
+        onp.testing.assert_array_equal(p.data().numpy(), snapshot[k])
+    eng.load_weights(missing, strict=False)   # the intersection
+    with pytest.raises(NotImplementedError, match="item 18"):
+        eng.load_weights("/some/checkpoint/dir")
+    eng.close()
+    with pytest.raises(EngineClosedError):
+        eng.load_weights(good)

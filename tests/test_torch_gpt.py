@@ -163,9 +163,11 @@ def test_cache_validation_and_unported_modes(pair):
     cache = tnet.init_cache(2, 16)
     with pytest.raises(ValueError, match="exceeds cache"):
         tnet.prefill(onp.zeros((1, 32), "i4"), [32], cache, slots=[0])
-    for dtype, item in (("int8", "8"), ("bfloat16", "10")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tnet.init_cache(2, 16, dtype=dtype)
+    int8 = tnet.init_cache(2, 16, dtype="int8")
+    assert int8["k"][0].dtype == int8["v"][1].dtype == torch.int8
+    assert [tuple(t.shape) for t in int8["v_scale"]] == [(2, 4)] * 2
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tnet.init_cache(2, 16, dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="item 10"):
         tgpt.GPTModel(VOCAB, units=32, num_layers=1, num_heads=4,
                       dtype="bfloat16", device="cpu")

@@ -21,7 +21,7 @@ import chip_smoke
 import torch
 import mxnet_tpu_torch
 from mxnet_tpu_torch import _build, telemetry, tracing
-from mxnet_tpu_torch.ops import attention, nn, quantized
+from mxnet_tpu_torch.ops import attention, nn, quantized, sampling
 from mxnet_tpu_torch.serving import paging
 from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel, load_jax_params
 from mxnet_tpu_torch.serving import GenerationEngine

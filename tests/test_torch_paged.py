@@ -224,8 +224,12 @@ def test_paged_cache_validation(net):
         net.init_paged_cache(SLOTS, N_PAGES, 7, SMAX)
     with pytest.raises(ValueError, match="scrap"):
         net.init_paged_cache(SLOTS, 1, PS, SMAX)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        net.init_paged_cache(SLOTS, N_PAGES, PS, SMAX, dtype="int8")
+    int8 = net.init_paged_cache(SLOTS, N_PAGES, PS, SMAX, dtype="int8")
+    assert int8["k"][0].dtype == torch.int8
+    assert [tuple(t.shape) for t in int8["k_scale"]] == \
+        [(N_PAGES, HEADS)] * 2
+    with pytest.raises(NotImplementedError, match="item 10"):
+        net.init_paged_cache(SLOTS, N_PAGES, PS, SMAX, dtype="bfloat16")
     cache = net.init_paged_cache(SLOTS, N_PAGES, PS, SMAX)
     row = onp.zeros(P_MAX, "i4")
     with pytest.raises(ValueError, match="multiple of page_size"):
@@ -485,3 +489,46 @@ def test_engine_paged_constructor_validation(net):
         _paged_engine(net, prefill_chunk=12)
     with pytest.raises(ValueError, match="quantize"):
         _paged_engine(net, quantize="int4")
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["fp32", "int8_kv"])
+def test_engine_paged_rollover_flushes_prefix_cache(kv_dtype):
+    """load_weights on a paged engine drops the prefix cache (its K/V
+    came from the old weights): the repeated prompt prefills again under
+    the new weights — no stale prefix hit — and matches a fresh engine
+    (tests/test_paged.py's rollover test)."""
+    def build(seed):
+        return tgpt.gpt_small(device="cpu").initialize(seed=seed)
+    params_b = {k: p.data().numpy().copy()
+                for k, p in build(2).collect_params().items()}
+    eng = _paged_engine(build(1), kv_dtype=kv_dtype)
+    p = _prompt(onp.random.RandomState(12), 2 * PS)   # a clean peek hit
+    eng.generate(p, max_new_tokens=4, timeout=300)
+    assert len(eng._prefix) == 1
+    eng.load_weights(params_b)
+    assert len(eng._prefix) == 0, "stale prefix survived the rollover"
+    telemetry.reset()
+    got = eng.generate(p, max_new_tokens=4, timeout=300).tokens
+    assert telemetry.counter_value("serving.generate.prefix_hits") == 0
+    eng.close()
+    ref = _paged_engine(build(2), kv_dtype=kv_dtype)
+    assert got == ref.generate(p, max_new_tokens=4, timeout=300).tokens
+    ref.close()
+
+
+def test_engine_paged_sampled_requests_seeded(net):
+    """Paged mode arms a sampled request at its first token: its stream
+    is the same alone and behind a chunked prefill, a prefix hit and
+    greedy co-tenants."""
+    rng = onp.random.RandomState(17)
+    p, long_p = _prompt(rng, 13), _prompt(rng, 40)
+    eng = _paged_engine(net, max_new_tokens=10)
+    alone = eng.submit(p, temperature=0.8, top_k=50, seed=4).result(
+        timeout=300).tokens
+    streams = [eng.submit(long_p), eng.submit(p),
+               eng.submit(p, temperature=0.8, top_k=50, seed=4),
+               eng.submit(long_p, temperature=1.2, seed=9)]
+    out = [s.result(timeout=300).tokens for s in streams]
+    eng.close()
+    assert out[2] == alone
+    assert eng._pool.free_count == eng._pool.n_pages - 1
