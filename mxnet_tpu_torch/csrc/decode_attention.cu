@@ -25,8 +25,12 @@
 //   reaches a sum.
 // - K rows are read with 16-byte loads, one row per lane; V rows
 //   coalesced across the warp. The int8 instance moves the int8 bytes
-//   only and widens them in registers: the slot's K scale is folded
-//   into q as q is staged, its V scale applied once to the output.
+//   only and widens them in registers; the slot's K and V scales ride
+//   with every key as K3's page scales do, and its V loop takes the
+//   row offsets by shuffle, as K3's does: folding the K scale into q
+//   and computing the offsets in place, as the fp32 instance does (it
+//   is the faster so), took the int8 instance about twice the device
+//   time (scripts/torch_kernel_ab.py; PERF.md).
 // - Decode (one query per slot) runs a one-row instance, so no work is
 //   spent on absent query rows; 2..R queries run four rows per block.
 // At the serving shape (8 slots x 12 heads) the 96 blocks do not fill
@@ -37,23 +41,22 @@ namespace {
 
 constexpr int kThreads = mxtt::kDecodeThreads;
 
-using mxtt::KvScale;
-
 // Key row t of one (slot, head) of a dense (B, H, S, D) cache of T; an
-// int8 cache carries the (slot, head)'s K and V scales.
+// int8 cache gives every key the (slot, head)'s K and V scales.
 template <class T>
 struct DenseRows {
   const T* k;
   const T* v;
   long long k_ss, v_ss;
   float k_mul, v_mul;
-  static constexpr bool kIndirect = false;
-  static constexpr KvScale kScale =
-      sizeof(T) == 1 ? KvScale::kSlot : KvScale::kNone;
+  static constexpr bool kIndirect = sizeof(T) == 1;
+  static constexpr bool kKeyScales = sizeof(T) == 1;
   __device__ __forceinline__ void offsets(int t, long long& ko, long long& vo,
-                                          float&, float&) const {
+                                          float& ks, float& vs) const {
     ko = (long long)t * k_ss;
     vo = (long long)t * v_ss;
+    ks = k_mul;
+    vs = v_mul;
   }
 };
 

@@ -7,22 +7,15 @@
 // lives and how it is scaled, which the ``Rows`` policy answers:
 // ``offsets(t, ko, vo, ks, vs)`` gives the element offsets of K row t
 // from ``rows.k`` and of V row t from ``rows.v`` (a strided cache row
-// for K2, a page looked up in the slot's page table for K3) and, for a
-// per-key scale, the row's K and V scales; ``kIndirect`` says whether
-// that takes a table lookup; the type of ``rows.k`` / ``rows.v`` is
-// the cache's element type (float or int8_t); ``kScale`` says how an
-// int8 cache is scaled:
-//
-// - KvScale::kNone: an fp32 cache.
-// - KvScale::kSlot: an int8 dense cache with one K and one V scale per
-//   (slot, head) (``rows.k_mul``, ``rows.v_mul``). K's scale is folded
-//   into q when q is staged in shared memory, V's is applied once, at
-//   the final write.
-// - KvScale::kKey: an int8 pool whose scale changes per page. Each lane
-//   reads its key's two scales with the table lookup it already does;
-//   the score is multiplied by the K scale and p by the V scale, which
-//   the V loop takes from the key's lane by shuffle, as it takes the
-//   row offset.
+// for K2, a page looked up in the slot's page table for K3) and, for an
+// int8 cache, the row's K and V scales; the type of ``rows.k`` /
+// ``rows.v`` is the cache's element type (float or int8_t);
+// ``kIndirect`` says whether the V loop takes each row's offset from
+// its key's lane by shuffle instead of computing it in place;
+// ``kKeyScales`` marks an int8 cache: each lane gets its key's two
+// scales with its offsets (a page's for K3, the slot's for K2), the
+// score is multiplied by the K scale and p by the V scale, which the V
+// loop takes by shuffle beside the row offset.
 //
 // Everything else is the same arithmetic:
 //
@@ -41,9 +34,10 @@
 //   read coalesced, one row per step across the warp, each lane owning
 //   D / 32 output columns; p reaches the lanes by shuffle. Each lane
 //   computes its key's row offsets once per chunk; with an indirect
-//   policy (K3: one table load and one division) the V loop takes row
-//   j's offset from lane j by shuffle, so no step waits on a table
-//   load, while a strided policy (K2) computes it in place.
+//   policy (K3: one table load and one division; K2's int8 instance)
+//   the V loop takes row j's offset from lane j by shuffle, so no step
+//   waits on a table load, while K2's fp32 instance computes it in
+//   place.
 // - len == 0 writes zeros (an empty slot attends nothing).
 #pragma once
 
@@ -56,8 +50,6 @@ namespace mxtt {
 constexpr int kDecodeWarps = 8;
 constexpr int kDecodeThreads = kDecodeWarps * 32;
 constexpr int kDecodeChunk = 32;   // keys per warp step: one per lane
-
-enum class KvScale { kNone, kSlot, kKey };
 
 // s[r] += q_s[r] . K row, for a row of D floats (16-byte loads).
 template <int D, int NR>
@@ -110,8 +102,8 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
                                              int len, float scale,
                                              const Rows& rows,
                                              float* __restrict__ ob) {
-  constexpr KvScale kScale = Rows::kScale;
-  static_assert(kScale != KvScale::kKey || Rows::kIndirect,
+  constexpr bool kScaled = Rows::kKeyScales;
+  static_assert(!kScaled || Rows::kIndirect,
                 "per-key scales travel with the shuffled row offsets");
   constexpr int DPL = D >= 32 ? D / 32 : 1;   // output columns per lane
   constexpr int V4 = D / 4;
@@ -129,18 +121,16 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
     return;
   }
 
-  float q_mul = scale;
-  if constexpr (kScale == KvScale::kSlot) q_mul *= rows.k_mul;
   for (int i = tid; i < NR * V4; i += kDecodeThreads) {
     const int r = i / V4;
     const int c = (i - r * V4) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < nr) {
       x = load4(qb + (long long)(r0 + r) * q_ss + c);
-      x.x *= q_mul;
-      x.y *= q_mul;
-      x.z *= q_mul;
-      x.w *= q_mul;
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
     }
     *reinterpret_cast<float4*>(&q_s[r][c]) = x;
   }
@@ -163,11 +153,11 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
 #pragma unroll
     for (int r = 0; r < NR; ++r) s[r] = 0.f;
     long long koff = 0, voff = 0;
-    float ks = 1.f, vs = 1.f;   // this lane's key scales (kKey only)
+    float ks = 1.f, vs = 1.f;   // this lane's key scales (int8 only)
     if (valid) {
       rows.offsets(key, koff, voff, ks, vs);
       dot_row<D, NR>(rows.k + koff, q_s, s);
-      if constexpr (kScale == KvScale::kKey) {
+      if constexpr (kScaled) {
 #pragma unroll
         for (int r = 0; r < NR; ++r) s[r] *= ks;
       }
@@ -197,8 +187,7 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
         rows.offsets(k0 + j, ko_unused, vo, ks_unused, vs_unused);
       }
       float vsj = 1.f;
-      if constexpr (kScale == KvScale::kKey)
-        vsj = __shfl_sync(kFullMask, vs, j);
+      if constexpr (kScaled) vsj = __shfl_sync(kFullMask, vs, j);
       const auto* vrow = rows.v + vo;
       float vv[DPL];
 #pragma unroll
@@ -209,7 +198,7 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
         float pj = __shfl_sync(kFullMask, p[r], j);
-        if constexpr (kScale == KvScale::kKey) pj *= vsj;
+        if constexpr (kScaled) pj *= vsj;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(pj, vv[i], acc[r][i]);
       }
@@ -246,9 +235,7 @@ __device__ __forceinline__ void decode_block(const float* __restrict__ qb,
       o = fmaf(acc_s[w][r][d], a, o);
     }
     const float l_safe = lsum > 0.f ? lsum : 1.f;
-    float out = o / l_safe;
-    if constexpr (kScale == KvScale::kSlot) out *= rows.v_mul;
-    ob[r * D + d] = out;
+    ob[r * D + d] = o / l_safe;
   }
 }
 

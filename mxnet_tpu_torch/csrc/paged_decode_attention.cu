@@ -49,8 +49,6 @@ namespace {
 
 constexpr int kThreads = mxtt::kDecodeThreads;
 
-using mxtt::KvScale;
-
 // Key row t of one (slot, head) of a (n_pages, H, ps, D) pool of T: k
 // and v already point at head h of page 0, page_stride = H * ps * D;
 // for an int8 pool k_scale / v_scale point at head h of page 0's
@@ -65,14 +63,13 @@ struct PagedRows {
   int ps, D, H, n_pages;
   long long page_stride;
   static constexpr bool kIndirect = true;
-  static constexpr KvScale kScale =
-      sizeof(T) == 1 ? KvScale::kKey : KvScale::kNone;
+  static constexpr bool kKeyScales = sizeof(T) == 1;
   __device__ __forceinline__ void offsets(int t, long long& ko, long long& vo,
                                           float& ks, float& vs) const {
     const int lp = t / ps;
     const int pg = min(max(__ldg(table + lp), 0), n_pages - 1);
     ko = vo = (long long)pg * page_stride + (long long)(t - lp * ps) * D;
-    if constexpr (kScale == KvScale::kKey) {
+    if constexpr (kKeyScales) {
       ks = __ldg(k_scale + (long long)pg * H);
       vs = __ldg(v_scale + (long long)pg * H);
     }

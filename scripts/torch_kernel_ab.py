@@ -4,18 +4,21 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card::
 
-    python3 scripts/torch_kernel_ab.py --other-csrc DIR [--rounds 2]
+    python3 scripts/torch_kernel_ab.py --other-csrc DIR [--other-csrc DIR2]
+                                       [--rounds 2]
 
-1. ``decode_attention_ab`` and ``paged_decode_attention_ab``: the fp32
-   K2 (dense decode attention) and K3 (paged) built from ``DIR`` —
-   another revision's ``csrc/``, e.g. a ``git archive`` of an earlier
-   commit — against the same kernels built from this checkout, at
-   ``chip_smoke.py``'s decode shapes ((8, 12, 1024, 64); K3 over a
-   513-page pool, page 16), the same lengths and NaN garbage, through
-   the same Python wrapper and ``chip_smoke.Timer`` (L2 flushed;
-   enqueue-inclusive and device-only ms). The two run in the order
-   other, this, this, other, ``--rounds`` times, in one process. Both
-   must take the same C interface.
+1. ``decode_attention_ab``, ``paged_decode_attention_ab`` and their
+   ``_int8`` siblings: K2 (dense decode attention) and K3 (paged), each
+   instance, built from ``DIR`` — another revision's ``csrc/``, e.g. a
+   ``git archive`` of an earlier commit — against the same instance
+   built from this checkout, at ``chip_smoke.py``'s decode shape (8,
+   12, 1024, 64; K3 over a pool of each slot's pages in order, page
+   16), the same lengths and NaN garbage (int8: the values quantized
+   with their amax scales), through the same Python wrapper and
+   ``chip_smoke.Timer`` (L2 flushed; enqueue-inclusive and device-only
+   ms). The two run in the order other, this, this, other,
+   ``--rounds`` times, in one process. Both must take the same C
+   interface; an instance the other revision lacks is skipped.
 2. ``int8_dense_vs_paged``: the same int8 K/V (the decode shape, the
    same lengths) through K2's int8 instance over the dense cache and
    through K3's over a pool holding each slot's rows in its own pages
@@ -142,29 +145,56 @@ def _to_pool(x, ps):
     return pool, table
 
 
-def kernel_ab(timer, other_csrc, rounds, paged):
-    """K2 (or K3) fp32 from ``other_csrc`` against this checkout's,
-    same wrapper."""
+def _int8_inputs(kn, vn, ps=16):
+    """int8 K/V with (B, H) scales from the NaN-tailed values (the
+    garbage zeroed first), and the same values as a pool of each slot's
+    pages in order with per-page scales."""
+    kz, vz = torch.nan_to_num(kn), torch.nan_to_num(vn)
+    ks, vs = qz.kv_scale(kz, (2, 3)), qz.kv_scale(vz, (2, 3))
+    kq = qz.kv_quantize(kz, ks[:, :, None, None])
+    vq = qz.kv_quantize(vz, vs[:, :, None, None])
+    kq_p, table = _to_pool(kq, ps)
+    vq_p, _ = _to_pool(vq, ps)
+    n_pp = kq.shape[2] // ps                   # pages per slot
+    pad = torch.zeros_like(ks[:1])
+    ks_p, vs_p = (torch.cat([pad, sc.repeat_interleave(n_pp, dim=0)])
+                  .contiguous() for sc in (ks, vs))
+    return dict(kz=kz, vz=vz, kq=kq, vq=vq, ks=ks, vs=vs, kq_p=kq_p,
+                vq_p=vq_p, ks_p=ks_p, vs_p=vs_p, table=table)
+
+
+def kernel_ab(timer, other_csrc, rounds, paged, int8):
+    """K2 (or K3), fp32 (or int8) instance, from ``other_csrc`` against
+    this checkout's, same wrapper; skipped when the other revision has
+    no such instance."""
     q, kn, vn, lens, lengths, _live = _decode_inputs(np.random.RandomState(1))
-    if paged:
-        name, src, argtypes = ("paged_decode_attention",
-                               "paged_decode_attention.cu",
-                               at._PAGED_ARGTYPES)
-        kp, table = _to_pool(kn, 16)
-        vp, _ = _to_pool(vn, 16)
-
-        def call():
-            return at.paged_decode_attention(q, kp, vp, table, lens)
-    else:
-        name, src, argtypes = ("decode_attention", "decode_attention.cu",
-                               at._DECODE_ARGTYPES)
-
-        def call():
-            return at.decode_attention(q, kn, vn, lens)
-    key = (name, f"mxtt_{name}")
+    base = "paged_decode_attention" if paged else "decode_attention"
+    name = base + ("_int8" if int8 else "")
+    argtypes = {(False, False): at._DECODE_ARGTYPES,
+                (False, True): at._DECODE_INT8_ARGTYPES,
+                (True, False): at._PAGED_ARGTYPES,
+                (True, True): at._PAGED_INT8_ARGTYPES}[(paged, int8)]
+    x = _int8_inputs(kn, vn)
+    kp, table = _to_pool(kn, 16)
+    vp, _ = _to_pool(vn, 16)
+    call = {
+        (False, False): lambda: at.decode_attention(q, kn, vn, lens),
+        (False, True): lambda: at.decode_attention(
+            q, x["kq"], x["vq"], lens, None, x["ks"], x["vs"]),
+        (True, False): lambda: at.paged_decode_attention(q, kp, vp, table,
+                                                         lens),
+        (True, True): lambda: at.paged_decode_attention(
+            q, x["kq_p"], x["vq_p"], x["table"], lens, None, x["ks_p"],
+            x["vs_p"]),
+    }[(paged, int8)]
+    key = (base, f"mxtt_{name}")
     this_fn = _build.function(*key, argtypes)
-    other = _compile(os.path.join(other_csrc, src), other_csrc,
-                     f"{name}-other")
+    other = _compile(os.path.join(other_csrc, f"{base}.cu"), other_csrc,
+                     f"{base}-other")
+    if not hasattr(other, f"mxtt_{name}"):
+        cs.emit(f"{name}_ab", other_csrc=other_csrc,
+                skipped=f"no mxtt_{name} in the other revision")
+        return
     other_fn = getattr(other, f"mxtt_{name}")
     other_fn.restype = ctypes.c_int
     other_fn.argtypes = argtypes
@@ -198,37 +228,31 @@ def int8_dense_vs_paged(timer, rounds):
     """The same int8 values through K2-int8 (dense) and K3-int8 (a pool
     of each slot's pages in order), and the fp32 values through K2 and
     K3, device ms in turns."""
-    q, kn, vn, lens, lengths, live = _decode_inputs(np.random.RandomState(2))
-    kz, vz = torch.nan_to_num(kn), torch.nan_to_num(vn)
-    ks, vs = qz.kv_scale(kz, (2, 3)), qz.kv_scale(vz, (2, 3))
-    kq = qz.kv_quantize(kz, ks[:, :, None, None])
-    vq = qz.kv_quantize(vz, vs[:, :, None, None])
-    ps = 16
-    kq_p, table = _to_pool(kq, ps)
-    vq_p, _ = _to_pool(vq, ps)
-    kz_p, _ = _to_pool(kz, ps)
-    vz_p, _ = _to_pool(vz, ps)
-    n_pp = kq.shape[2] // ps                   # pages per slot
-    pad = torch.zeros_like(ks[:1])
-    ks_p = torch.cat([pad, ks.repeat_interleave(n_pp, dim=0)]).contiguous()
-    vs_p = torch.cat([pad, vs.repeat_interleave(n_pp, dim=0)]).contiguous()
-    def padded(x, extra=16):
-        buf = torch.zeros((*x.shape[:2], x.shape[2] + extra, x.shape[3]),
-                          dtype=x.dtype, device=x.device)
-        buf[:, :, :x.shape[2]] = x
-        return buf[:, :, :x.shape[2]]
+    q, kn, vn, lens, lengths, _live = _decode_inputs(
+        np.random.RandomState(2))
+    x = _int8_inputs(kn, vn)
+    kz_p, table = _to_pool(x["kz"], 16)
+    vz_p, _ = _to_pool(x["vz"], 16)
 
-    kq_x, vq_x, kz_x, vz_x = (padded(t) for t in (kq, vq, kz, vz))
+    def padded(t, extra=16):
+        buf = torch.zeros((*t.shape[:2], t.shape[2] + extra, t.shape[3]),
+                          dtype=t.dtype, device=t.device)
+        buf[:, :, :t.shape[2]] = t
+        return buf[:, :, :t.shape[2]]
+
+    kq_x, vq_x, kz_x, vz_x = (padded(x[k]) for k in ("kq", "vq", "kz",
+                                                      "vz"))
     calls = {
-        "dense_int8": lambda: at.decode_attention(q, kq, vq, lens, None, ks,
-                                                  vs),
+        "dense_int8": lambda: at.decode_attention(
+            q, x["kq"], x["vq"], lens, None, x["ks"], x["vs"]),
         "dense_int8_padded": lambda: at.decode_attention(
-            q, kq_x, vq_x, lens, None, ks, vs),
+            q, kq_x, vq_x, lens, None, x["ks"], x["vs"]),
         "dense_fp32_padded": lambda: at.decode_attention(q, kz_x, vz_x,
                                                          lens),
         "paged_int8": lambda: at.paged_decode_attention(
-            q, kq_p, vq_p, table, lens, None, ks_p, vs_p),
-        "dense_fp32": lambda: at.decode_attention(q, kz, vz, lens),
+            q, x["kq_p"], x["vq_p"], x["table"], lens, None, x["ks_p"],
+            x["vs_p"]),
+        "dense_fp32": lambda: at.decode_attention(q, x["kz"], x["vz"], lens),
         "paged_fp32": lambda: at.paged_decode_attention(q, kz_p, vz_p, table,
                                                         lens),
     }
@@ -243,7 +267,7 @@ def int8_dense_vs_paged(timer, rounds):
     for _ in range(rounds):
         for k in order:
             times[k].append(timer(calls[k], flush=True, device=True))
-    cs.emit("int8_dense_vs_paged", shape=[8, 12, 1024, 64], page_size=ps,
+    cs.emit("int8_dense_vs_paged", shape=[8, 12, 1024, 64], page_size=16,
             lengths=lengths, order=order, rounds=rounds,
             max_abs_diff=diffs,
             ms_device_median={k: float(np.median(v))
@@ -315,8 +339,9 @@ def wrapper_cost():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--other-csrc", required=True,
-                    help="another revision's mxnet_tpu_torch/csrc/")
+    ap.add_argument("--other-csrc", required=True, action="append",
+                    help="another revision's mxnet_tpu_torch/csrc/ "
+                         "(repeat for several)")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -325,9 +350,11 @@ def main(argv=None):
     cs.phase_env(torch)
     _build.build_all()
     timer = cs.Timer(torch)
-    for paged in (False, True):
-        kernel_ab(timer, os.path.abspath(args.other_csrc), args.rounds,
-                  paged)
+    for other in args.other_csrc:
+        for paged in (False, True):
+            for int8 in (False, True):
+                kernel_ab(timer, os.path.abspath(other), args.rounds, paged,
+                          int8)
     int8_dense_vs_paged(timer, args.rounds)
     wrapper_cost()
     return 0
