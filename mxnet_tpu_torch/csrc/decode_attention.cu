@@ -28,9 +28,9 @@
 //   only and widens them in registers; the slot's K and V scales ride
 //   with every key as K3's page scales do, and its V loop takes the
 //   row offsets by shuffle, as K3's does: folding the K scale into q
-//   and computing the offsets in place, as the fp32 instance does (it
-//   is the faster so), took the int8 instance about twice the device
-//   time (scripts/torch_kernel_ab.py; PERF.md).
+//   and computing the offsets in place, as the fp32 instance does,
+//   took the int8 instance about twice the device time
+//   (scripts/torch_kernel_ab.py; PERF.md).
 // - Decode (one query per slot) runs a one-row instance, so no work is
 //   spent on absent query rows; 2..R queries run four rows per block.
 // At the serving shape (8 slots x 12 heads) the 96 blocks do not fill
