@@ -10,8 +10,17 @@ one process per source, seconds) and holds each kernel instance against
 its plain PyTorch version on the card: K1 flash prefill, K2 dense decode
 and K3 paged decode (each in its fp32 and its int8-KV instance, with
 garbage past every length and NaN in the scrap page, every unreferenced
-page and their int8 scales) and K4 int8 dequant-matmul. Then it serves
-generation at GPT-2-small widths through ``GenerationEngine``:
+page and their int8 scales), K4 int8 dequant-matmul and K5, the
+runtime-compiled user kernels: one ``rtc.CudaModule`` compiled by NVRTC
+for sm_90a (the JAX rtc tests' kernels, the example's ``scale2`` and a
+shared-memory ``row_softmax``), each held against its plain torch
+version. Then it drives the imperative front end and serves generation
+at GPT-2-small widths through ``GenerationEngine``:
+
+- ``custom_op``: the flow of ``examples/custom_op.py`` on the card
+  (a CustomOp through ``npx.custom``, an ``autograd.Function``,
+  ``backward``, ``scale2`` through rtc), a kernel with ``grad=``, an
+  opaque one and a numpy-backed CustomOp, held against closed forms;
 
 - ``engine``: the dense fp32 engine, 24 greedy requests;
 - ``paged_engine``: the paged engine with int8 weights (prefix sharing,
@@ -31,6 +40,10 @@ before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Tolerances, with their reasons:
+- rtc kernels vs their plain torch versions: the elementwise ones
+  bitwise (the same fp32 operations, and ``2x + y`` rounds once either
+  way: ``2x`` is exact); ``row_softmax`` max-abs-err <= 1e-6 (outputs
+  in [0, 1], sums of 1024 terms in another order);
 - kernel vs plain version on the same card inputs: max-abs-err of the
   attention output <= 2e-5 (fp32 throughout; the two sum in different
   orders), of the log-sum-exp <= 1e-4 (a value of ~10 in fp32 carries
@@ -1222,6 +1235,343 @@ def phase_dense_int8_kv(torch):
     return res
 
 
+#: the rtc module of the K5 phases: the JAX rtc tests' kernels
+#: (tests/test_extensions.py: scale_add, negate, double, ident), the
+#: example's scale2 (examples/custom_op.py), and row_softmax — one
+#: block per row, dynamic shared memory for the max and sum reductions,
+#: the row width from ``-DCOLS=...`` (grid, block and shared_mem given)
+RTC_SOURCE = r'''
+extern "C" __global__ void scale_add(const float* __restrict__ x,
+                                     const float* __restrict__ y,
+                                     float* __restrict__ out, long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n) out[i] = x[i] * 2.0f + y[i];
+}
+extern "C" __global__ void negate(const float* __restrict__ x,
+                                  float* __restrict__ out, long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n) out[i] = -x[i];
+}
+extern "C" __global__ void double_it(const float* __restrict__ x,
+                                     float* __restrict__ out, long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n) out[i] = x[i] * 2.0f;
+}
+extern "C" __global__ void ident(const float* __restrict__ x,
+                                 float* __restrict__ out, long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n) out[i] = x[i];
+}
+extern "C" __global__ void scale2(const float* __restrict__ x,
+                                  float* __restrict__ out, long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n) out[i] = x[i] * 2.0f;
+}
+// one block per row of COLS floats; blockDim.x a power of two and
+// blockDim.x floats of dynamic shared memory for the reductions
+extern "C" __global__ void row_softmax(const float* __restrict__ x,
+                                       float* __restrict__ out,
+                                       long long n) {
+    extern __shared__ float red[];
+    const long long base = blockIdx.x * (long long)COLS;
+    if (base >= n) return;
+    const float* xr = x + base;
+    float* orow = out + base;
+    const int t = threadIdx.x;
+    float m = __int_as_float(0xff800000);            // -inf
+    for (int c = t; c < COLS; c += blockDim.x) m = fmaxf(m, xr[c]);
+    red[t] = m;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (t < s) red[t] = fmaxf(red[t], red[t + s]);
+        __syncthreads();
+    }
+    m = red[0];
+    __syncthreads();
+    float sum = 0.0f;
+    for (int c = t; c < COLS; c += blockDim.x) sum += expf(xr[c] - m);
+    red[t] = sum;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+        if (t < s) red[t] += red[t + s];
+        __syncthreads();
+    }
+    sum = red[0];
+    for (int c = t; c < COLS; c += blockDim.x)
+        orow[c] = expf(xr[c] - m) / sum;
+}
+'''
+RTC_COLS = 1024
+RTC_OPTIONS = (f"-DCOLS={RTC_COLS}",)
+#: the plain torch version of each rtc kernel
+RTC_PLAIN = {
+    "scale_add": lambda x, y: x * 2.0 + y,
+    "negate": lambda x: -x,
+    "double_it": lambda x: x * 2.0,
+    "ident": lambda x: x.clone(),
+    "scale2": lambda x: x * 2.0,
+}
+RTC_SOFTMAX_TOL = 1e-6
+SCALE_ADD_N = 1 << 26
+
+
+def _plain_row_softmax(x):
+    e = (x - x.max(dim=1, keepdim=True).values).exp()
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def phase_rtc(torch, timer):
+    """K5: compile one ``rtc.CudaModule`` with NVRTC for sm_90a, hold
+    each of its kernels against its plain torch version on the card
+    (elementwise bitwise, row_softmax within 1e-6), check the refusals
+    (a compile error raises with NVRTC's log; a dtype or arity mismatch
+    raises before launch), and time scale_add at 2^26 fp32 elements and
+    row_softmax at (4096, 1024)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops, rtc
+
+    t0 = time.perf_counter()
+    mod = mx.rtc.CudaModule(RTC_SOURCE, options=RTC_OPTIONS).load()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mx.rtc.CudaModule(RTC_SOURCE, options=RTC_OPTIONS).load()
+    cached_s = time.perf_counter() - t0
+    info = rtc.nvrtc_info()
+    check(mod.list_kernels() == sorted(
+        [*RTC_PLAIN, "row_softmax"]), f"kernels {mod.list_kernels()}")
+
+    bad = 'extern "C" __global__ void bad(float* o, long long n) ' \
+          '{ o[0] = no_such_name; }'
+    try:
+        mx.rtc.CudaModule(bad).load()
+        raise AssertionError("a broken rtc source compiled")
+    except RuntimeError as e:
+        check("no_such_name" in str(e), f"no NVRTC log in: {e}")
+
+    rng = np.random.RandomState(11)
+    cases, err = [], 0.0
+    with mx.gpu(0):
+        for n in (1, 3, 255, 257, (8, 128), (4, 8), 1 << 20):
+            shape = n if isinstance(n, tuple) else (n,)
+            xa = rng.standard_normal(shape).astype("f4")
+            ya = rng.standard_normal(shape).astype("f4")
+            x, y = mx.np.array(xa), mx.np.array(ya)
+            for name, plain in RTC_PLAIN.items():
+                k = mod.get_kernel(name)
+                args = (x, y) if name == "scale_add" else (x,)
+                out = k(*args)
+                ref = plain(*[a._data for a in args])
+                torch.cuda.synchronize()
+                check(out._data.is_cuda and out.shape == tuple(shape),
+                      f"{name} output {out.shape} on {out._data.device}")
+                diff = int((out._data != ref).sum())
+                err = max(err, float((out._data - ref).abs().max()))
+                cases.append({"kernel": name, "shape": list(shape),
+                              "mismatches": diff})
+                check(diff == 0, f"rtc {name} differs from its plain "
+                      f"version in {diff} elements at {shape}")
+        # dtype and arity refusals happen before any launch
+        before = ops.launch_counts()["rtc"]
+        x64 = mx.NDArray(torch.ones(4, dtype=torch.float64,
+                                    device="cuda"))
+        for bad_args in ((x64,), (mx.np.ones((4,)), mx.np.ones((4,)))):
+            try:
+                mod.get_kernel("negate")(*bad_args)
+                raise AssertionError(f"negate ran on {bad_args}")
+            except TypeError:
+                pass
+        check(ops.launch_counts()["rtc"] == before,
+              "a refused rtc call launched")
+
+        rows = 4096
+        sm = mod.get_kernel("row_softmax", grid=(rows,), block=(256,),
+                            shared_mem=256 * 4)
+        xs = mx.np.array(rng.standard_normal((rows, RTC_COLS))
+                         .astype("f4") * 4)
+        out = sm(xs)
+        ref = _plain_row_softmax(xs._data)
+        torch.cuda.synchronize()
+        sm_err = float((out._data - ref).abs().max())
+        check(bool(torch.isfinite(out._data).all()),
+              "row_softmax non-finite")
+        check(sm_err <= RTC_SOFTMAX_TOL,
+              f"row_softmax max-abs-err {sm_err} > {RTC_SOFTMAX_TOL}")
+        emit("rtc_check", nvrtc=info, compile_s_cold=cold_s,
+             compile_s_cached=cached_s, cases=cases,
+             row_softmax_max_abs_err=sm_err)
+
+        # timing: scale_add at 2^26 fp32 (3 x 256 MiB streams, past L2)
+        sa = mod.get_kernel("scale_add")
+        x = mx.np.array(rng.standard_normal(SCALE_ADD_N).astype("f4"))
+        y = mx.np.array(rng.standard_normal(SCALE_ADD_N).astype("f4"))
+        xt, yt = x._data, y._data
+        times = timings(timer, False, lambda: sa(x, y),
+                        lambda: xt * 2.0 + yt,
+                        lambda: torch.add(yt, xt, alpha=2.0))
+        bound_ms, bound_by = bound(3 * 4 * SCALE_ADD_N, 2 * SCALE_ADD_N)
+        st = timings(timer, True, lambda: sm(xs),
+                     lambda: _plain_row_softmax(xs._data),
+                     lambda: torch.softmax(xs._data, dim=1))
+        sm_bound = bound(2 * 4 * rows * RTC_COLS, 5 * rows * RTC_COLS)
+
+        # the host's cost of one launch through the NDArray wrapper on a
+        # 3-element input, beside an mx.np op and a bare torch op
+        x3 = mx.np.array([1.0, 2.0, 3.0])
+        k3 = mod.get_kernel("scale2")
+        host_us = {}
+        for key, fn in (("rtc_launch", lambda: k3(x3)),
+                        ("mx_np_multiply", lambda: x3 * 2.0),
+                        ("torch_mul", lambda: x3._data * 2.0)):
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            host_us[key] = (time.perf_counter() - t0) / 2000 * 1e6
+            torch.cuda.synchronize()
+    res = {"max_abs_err": max(err, sm_err),
+           "elementwise_mismatches": sum(c["mismatches"] for c in cases),
+           "row_softmax_max_abs_err": sm_err, **times,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "timed": f"scale_add at {SCALE_ADD_N} fp32 elements",
+           "library": "torch.add(y, x, alpha=2.0)",
+           "row_softmax": {**st, "shape": [rows, RTC_COLS],
+                           "bound_ms": sm_bound[0],
+                           "bound_by": sm_bound[1],
+                           "library": "torch.softmax"},
+           "host_us_per_call": host_us, "compile_s_cold": cold_s,
+           "compile_s_cached": cached_s, "nvrtc": info}
+    emit("rtc", **res)
+    return res
+
+
+def phase_custom_op(torch):
+    """The flow of examples/custom_op.py on the card through
+    ``import mxnet_tpu_torch as mx``: the softsign CustomOp via
+    ``npx.custom``, ``ClipGrad`` (an ``autograd.Function``), backward,
+    and ``scale2`` through rtc; then ``double`` with ``grad=``, ``ident``
+    opaque and the ``sigmoid_x2`` CustomOp of
+    tests/test_operator_custom.py. Every array, output and grad lives on
+    the card; each value is held against its closed form computed by
+    numpy on the host (fp32 elementwise within 1e-6, gradients within
+    rtol 1e-5: ``(1+|x|)**2`` and the sigmoid are rounded differently
+    by torch and numpy)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, operator, ops
+
+    @operator.register("softsign_x")
+    class SoftsignProp(operator.CustomOpProp):
+        def list_arguments(self):
+            return ["data"]
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return Softsign()
+
+    class Softsign(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0]
+            self.assign(out_data[0], req[0], x / (1 + abs(x)))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            x = in_data[0]
+            self.assign(in_grad[0], req[0], out_grad[0] / (1 + abs(x)) ** 2)
+
+    @operator.register("sigmoid_x2")
+    class SigmoidX2Prop(operator.CustomOpProp):
+        def list_outputs(self):
+            return ["out"]
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return SigmoidX2()
+
+    class SigmoidX2(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            self.assign(out_data[0], req[0],
+                        mx.np.array(2.0 / (1.0 + np.exp(-x))))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            s = out_data[0].asnumpy() / 2.0
+            g = out_grad[0].asnumpy() * 2.0 * s * (1.0 - s)
+            self.assign(in_grad[0], req[0], mx.np.array(g))
+
+    class ClipGrad(autograd.Function):
+        def forward(self, x):
+            return x
+
+        def backward(self, dy):
+            return mx.np.clip(dy, -0.1, 0.1)
+
+    mod = mx.rtc.CudaModule(RTC_SOURCE, options=RTC_OPTIONS)
+    xs = np.linspace(-3, 3, 8, dtype="float32")
+    xd = np.random.RandomState(12).uniform(-1, 1, (4, 8)).astype("f4")
+    xg = np.linspace(-2, 2, 12, dtype="float32").reshape(3, 4)
+    on_card = []
+
+    ops.reset_launch_counts()          # the main path's run starts here
+    x = mx.np.array(xs)                # default context: gpu(0)
+    x.attach_grad()
+    with autograd.record():
+        y = mx.npx.custom(x, op_type="softsign_x")
+        z = ClipGrad()(y * 4.0)
+        loss = z.sum()
+    loss.backward()
+    s2 = mod.get_kernel("scale2")(mx.np.array([1.0, 2.0, 3.0]))
+    d = mx.np.array(xd)
+    d.attach_grad()
+    with autograd.record():
+        dout = mod.get_kernel("double_it",
+                              grad=lambda ct, v: (ct * 2.0,))(d).sum()
+    dout.backward()
+    i = mx.np.array(xd[0])
+    i.attach_grad()
+    with autograd.record():
+        iout = (mod.get_kernel("ident")(i) * 2.0).sum()
+    iout.backward()
+    g = mx.np.array(xg)
+    g.attach_grad()
+    with autograd.record():
+        sg = mx.operator.custom(g, op_type="sigmoid_x2")
+        sg.sum().backward()
+    mx.waitall()
+    launches = ops.launch_counts()     # ... and ends here
+
+    for name, arr in (("x", x), ("y", y), ("z", z), ("x.grad", x.grad),
+                      ("scale2", s2), ("d.grad", d.grad),
+                      ("ident.grad", i.grad), ("sigmoid_x2", sg),
+                      ("sigmoid_x2.grad", g.grad)):
+        on_card.append(name)
+        check(arr._data.is_cuda and arr.ctx == mx.gpu(0),
+              f"{name} is on {arr._data.device} ({arr.ctx})")
+    sig = 1.0 / (1.0 + np.exp(-xg))
+    soft = xs / (1 + np.abs(xs))
+    errs = {
+        "softsign": float(np.abs(y.asnumpy() - soft).max()),
+        "clip_forward": float(np.abs(z.asnumpy() - 4 * soft).max()),
+        "x.grad_rel": float(np.abs(x.grad.asnumpy()
+                                   / (0.4 / (1 + np.abs(xs)) ** 2)
+                                   - 1).max()),
+        "scale2": float(np.abs(s2.asnumpy() - [2.0, 4.0, 6.0]).max()),
+        "double.grad": float(np.abs(d.grad.asnumpy() - 2.0).max()),
+        "ident.grad": float(np.abs(i.grad.asnumpy()).max()),
+        "sigmoid_x2_rel": float(np.abs(sg.asnumpy() / (2 * sig)
+                                       - 1).max()),
+        "sigmoid_x2.grad_rel": float(np.abs(
+            g.grad.asnumpy() / (2 * sig * (1 - sig)) - 1).max()),
+    }
+    res = {"launches": launches, "on_card": on_card, "errors": errs}
+    emit("custom_op", **res)
+    for key in ("softsign", "clip_forward", "scale2", "double.grad",
+                "ident.grad"):
+        check(errs[key] <= 1e-6, f"custom_op {key} off by {errs[key]}")
+    for key in ("x.grad_rel", "sigmoid_x2_rel", "sigmoid_x2.grad_rel"):
+        check(errs[key] <= 1e-5, f"custom_op {key} off by {errs[key]}")
+    check(launches["rtc"] == 3, f"rtc launched {launches['rtc']} times "
+          "in the custom_op flow (scale2, double, ident)")
+    return res
+
+
 #: the kernels line: name, source, the TPU kernel it replaces (file:line
 #: and function), the kernel phase's result key
 KERNELS = [
@@ -1261,12 +1611,14 @@ def main(argv=None):
     k2, k2i = phase_decode(torch, timer)
     k3, k3i = phase_paged_decode(torch, timer)
     k4 = phase_dequant(torch, timer)
+    k5 = phase_rtc(torch, timer)
     if args.kernels_only:
         return 0
     from mxnet_tpu_torch import ops
     kernel_res = {"k1": k1, "k2": k2, "k2i": k2i, "k3": k3, "k3i": k3i,
                   "k4": k4}
-    phases = {"engine": phase_engine(torch)}
+    phases = {"custom_op": phase_custom_op(torch)}
+    phases["engine"] = phase_engine(torch)
     paged, model, prompts, results, repeats = phase_paged_engine(torch)
     phases["paged_engine"] = paged
     kv8, kv8_results, card8 = phase_int8_kv_engine(torch, model, prompts,
@@ -1291,6 +1643,17 @@ def main(argv=None):
             "ms": res["kernel_ms"],
             **{k: res[k] for k in TIMING_KEYS},
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"]})
+    by_phase = {ph: r["launches"].get("rtc", 0) for ph, r in phases.items()}
+    rows.append({
+        "name": "rtc", "route": "cuda", "compiler": "nvrtc",
+        "source": "mxnet_tpu_torch/rtc.py",
+        "user_source": "chip_smoke.py RTC_SOURCE",
+        "replaces": "mxnet_tpu/rtc.py:56",
+        "replaces_function": "Kernel._build_call (pl.pallas_call :75)",
+        "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+        "max_abs_err": k5["max_abs_err"], "timed": k5["timed"],
+        "ms": k5["kernel_ms"], **{k: k5[k] for k in TIMING_KEYS},
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"]})
     check(set(ops.launch_counts()) == {r["name"] for r in rows},
           "a kernel of the path is missing from the kernels line")
     check(all(r["launches"] > 0 for r in rows),

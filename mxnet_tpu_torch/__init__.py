@@ -11,18 +11,38 @@ kernels written by hand for Hopper (``csrc/``, built with ``nvcc`` at
 the first CUDA call, see ``_build.py``); everything else is plain
 PyTorch.
 
-Device rule: entry points default to ``device="cuda"`` and raise when no
-card is present — pass ``device="cpu"`` to run the plain versions on the
-CPU. Nothing falls back on its own.
+The imperative front end is ported too: ``mx.np`` arrays
+(``NDArray`` over a ``torch.Tensor``), ``mx.npx``, ``autograd``
+(record/pause, backward, ``Function``), ``operator`` (CustomOp) and
+``rtc`` (``CudaModule``: CUDA C user kernels compiled at runtime with
+NVRTC).
+
+Device rule: entry points default to the CUDA card (``device="cuda"``,
+``mx.gpu(0)``) and raise when no card is present — pass
+``device="cpu"`` or use ``with mx.cpu():`` to run the plain versions on
+the CPU. Nothing falls back on its own.
 
 The package imports ``torch`` and ``numpy`` only: never ``jax`` and
 never ``mxnet_tpu``. The standard-library modules it needs from the JAX
 package (``telemetry``, ``tracing``, ``_bounded_worker``,
-``bucketing``) are its own copies.
+``bucketing``) are its own copies. Importing it compiles nothing, loads
+no NVRTC and touches no device.
 """
-from . import telemetry, tracing, bucketing, context, ops
-from .context import resolve_device
+from . import telemetry, tracing, bucketing, base, context, engine
+from . import autograd, ops, random_state
+from .base import MXNetError
+from .context import (Context, cpu, gpu, num_gpus, current_context,
+                      resolve_device)
+from .ndarray.ndarray import NDArray, waitall
+from . import ndarray, numpy, numpy_extension, operator, rtc
 from . import gluon, serving
 
-__all__ = ["telemetry", "tracing", "bucketing", "context", "ops", "gluon",
-           "serving", "resolve_device"]
+nd = ndarray
+np = numpy
+npx = numpy_extension
+
+__all__ = ["telemetry", "tracing", "bucketing", "base", "context", "engine",
+           "autograd", "ops", "random_state", "ndarray", "numpy",
+           "numpy_extension", "operator", "rtc", "gluon", "serving", "nd",
+           "np", "npx", "NDArray", "Context", "cpu", "gpu", "num_gpus",
+           "current_context", "waitall", "resolve_device", "MXNetError"]

@@ -1,0 +1,562 @@
+"""mx.np — the NumPy-semantics array API, the subset this slice ports.
+
+The port of ``mxnet_tpu/numpy/__init__.py``: every function lowers to a
+PyTorch expression through ``ops.apply_op`` (async on the card,
+context inference, autograd). Conventions, as in the reference:
+
+- NDArray positional args are differentiable; static attributes (axis,
+  shape, ...) are closed over.
+- Default dtypes follow the reference (float32 for creation ops unless
+  the input carries a dtype), not NumPy's float64; 64-bit results
+  narrow to 32 bits (``base.NARROW64``).
+- A Python scalar operand takes part as a 0-d tensor, so it promotes
+  like a JAX weak-typed scalar (``int32 + 2`` stays int32,
+  ``int32 * 2.5`` is float32).
+- ``out=`` is honored by installing the result into the target array.
+
+Functions of the reference that are not ported yet raise
+``base.not_ported(..., 13)`` (an AttributeError too, so ``hasattr``
+answers False).
+"""
+from __future__ import annotations
+
+import builtins
+
+import numpy as onp
+import torch
+
+from .. import engine
+from ..base import (default_float, narrow_dtype, not_ported, resolve_dtype,
+                    to_numpy_dtype)
+from ..context import current_context
+from ..ndarray.ndarray import NDArray
+from ..ops import apply_op
+from . import random  # noqa: F401  (mx.np.random)
+
+# re-exported names
+ndarray = NDArray
+pi = onp.pi
+e = onp.e
+inf = onp.inf
+nan = onp.nan
+newaxis = None
+
+float16 = onp.float16
+float32 = onp.float32
+float64 = onp.float64
+bfloat16 = torch.bfloat16
+int8 = onp.int8
+int16 = onp.int16
+int32 = onp.int32
+int64 = onp.int64
+uint8 = onp.uint8
+uint16 = onp.uint16
+uint32 = onp.uint32
+uint64 = onp.uint64
+bool_ = onp.bool_
+dtype = onp.dtype
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+def _is_scalar(x) -> bool:
+    return isinstance(x, (bool, int, float, complex)) or onp.isscalar(x)
+
+
+def _coerce(x):
+    """Lift array-likes to NDArray; leave NDArray and scalars alone."""
+    if isinstance(x, NDArray) or x is None or _is_scalar(x):
+        return x
+    return array(x)
+
+
+def _scalar(x):
+    """A Python or numpy scalar as a 0-d CPU tensor: torch then
+    promotes it like a JAX weak-typed scalar, and lets it meet a tensor
+    on the card."""
+    return torch.as_tensor(x)
+
+
+def _set_out(out, r):
+    if out is None:
+        return r
+    return out._inplace(r)
+
+
+def _binary(tfn, a, b, out=None, name=None):
+    a, b = _coerce(a), _coerce(b)
+    if isinstance(a, NDArray) and isinstance(b, NDArray):
+        r = apply_op(tfn, a, b, name=name)
+    elif isinstance(a, NDArray):
+        sb = _scalar(b)
+        r = apply_op(lambda x: tfn(x, sb), a, name=name)
+    elif isinstance(b, NDArray):
+        sa = _scalar(a)
+        r = apply_op(lambda y: tfn(sa, y), b, name=name)
+    else:
+        ctx = current_context()
+        r = apply_op(lambda: tfn(_scalar(a), _scalar(b)).to(
+            ctx.torch_device), ctx=ctx, name=name)
+    return _set_out(out, r)
+
+
+def _unary(tfn, a, out=None, name=None):
+    a = _coerce(a)
+    if not isinstance(a, NDArray):
+        a = array(a)
+    return _set_out(out, apply_op(tfn, a, name=name))
+
+
+def _npx():
+    from .. import numpy_extension
+    return numpy_extension
+
+
+def _mkbin(tfn, name):
+    def f(x1, x2, out=None, **kwargs):
+        return _binary(tfn, x1, x2, out=out, name=name)
+    f.__name__ = name
+    return f
+
+
+def _mkunary(tfn, name):
+    def f(x, out=None, **kwargs):
+        return _unary(tfn, x, out=out, name=name)
+    f.__name__ = name
+    return f
+
+
+def _ctx(ctx, device):
+    return ctx or device or current_context()
+
+
+def _shape(shape):
+    if isinstance(shape, (int, onp.integer)):
+        return (int(shape),)
+    return tuple(int(s) for s in shape)
+
+
+def _new(t, ctx):
+    return NDArray(engine.track(t), ctx=ctx)
+
+
+# ---------------------------------------------------------------------------
+# creation
+# ---------------------------------------------------------------------------
+def array(object, dtype=None, ctx=None, device=None):
+    """Create an array. Default dtype is float32 for untyped input
+    (reference semantics), preserved dtype for typed ndarray input;
+    64-bit dtypes narrow to 32 bits (integers with a bounds check)."""
+    ctx = _ctx(ctx, device)
+    dev = ctx.torch_device
+    if isinstance(object, NDArray):
+        t = object._data.detach()
+        dt = resolve_dtype(dtype) if dtype is not None \
+            else narrow_dtype(None, t.dtype)
+        return _new(t.to(device=dev, dtype=dt), ctx)
+    if dtype is None:
+        probe = onp.asarray(object)
+        if isinstance(object, (onp.ndarray, onp.generic)):
+            dt = probe.dtype          # typed input keeps its dtype
+        else:
+            # Python scalars and lists default to float32 (reference
+            # semantics: mx.np.array([1, 2]) is float32)
+            dt = to_numpy_dtype(default_float())
+        npdata = probe.astype(dt) if probe.dtype != dt else probe
+        tdt = narrow_dtype(npdata, dt)
+    else:
+        npdata = onp.asarray(object)
+        tdt = resolve_dtype(dtype, values=npdata)
+    host = onp.float32 if tdt == torch.bfloat16 else to_numpy_dtype(tdt)
+    t = torch.from_numpy(onp.asarray(npdata, dtype=host, order="C"))
+    # from_numpy shares the host buffer: copy on the host, move otherwise
+    t = t.to(device=dev, dtype=tdt, copy=dev.type == "cpu")
+    return _new(t, ctx)
+
+
+def asarray(a, dtype=None, ctx=None):
+    if isinstance(a, NDArray) and dtype is None:
+        return a
+    return array(a, dtype=dtype, ctx=ctx)
+
+
+def _creation(maker, shape, dtype, ctx):
+    dt = resolve_dtype(dtype) if dtype is not None else default_float()
+    return _new(maker(_shape(shape), dt, ctx.torch_device), ctx)
+
+
+def zeros(shape, dtype=None, order="C", ctx=None, device=None):
+    return _creation(lambda s, d, dev: torch.zeros(s, dtype=d, device=dev),
+                     shape, dtype, _ctx(ctx, device))
+
+
+def ones(shape, dtype=None, order="C", ctx=None, device=None):
+    return _creation(lambda s, d, dev: torch.ones(s, dtype=d, device=dev),
+                     shape, dtype, _ctx(ctx, device))
+
+
+def empty(shape, dtype=None, order="C", ctx=None, device=None):
+    return zeros(shape, dtype=dtype, ctx=ctx, device=device)
+
+
+def full(shape, fill_value, dtype=None, order="C", ctx=None, out=None,
+         device=None):
+    if dtype is None:
+        # reference semantics: full is a default-dtype op even for an
+        # int fill; a bool fill gives bool
+        dtype = onp.bool_ if isinstance(fill_value, bool) \
+            else default_float()
+    r = _creation(lambda s, d, dev: torch.full(s, fill_value, dtype=d,
+                                               device=dev),
+                  shape, dtype, _ctx(ctx, device))
+    return _set_out(out, r)
+
+
+def zeros_like(a, dtype=None, order="C", ctx=None, out=None):
+    dt = resolve_dtype(dtype)
+    return _unary(lambda x: torch.zeros_like(x, dtype=dt), a, out=out,
+                  name="zeros_like")
+
+
+def ones_like(a, dtype=None, order="C", ctx=None, out=None):
+    dt = resolve_dtype(dtype)
+    return _unary(lambda x: torch.ones_like(x, dtype=dt), a, out=out,
+                  name="ones_like")
+
+
+def full_like(a, fill_value, dtype=None, order="C", ctx=None, out=None):
+    dt = resolve_dtype(dtype)
+    return _unary(lambda x: torch.full_like(x, fill_value, dtype=dt), a,
+                  out=out, name="full_like")
+
+
+def empty_like(prototype, dtype=None, order="C", subok=False):
+    return zeros_like(prototype, dtype=dtype)
+
+
+def arange(start, stop=None, step=1, dtype=None, ctx=None, device=None):
+    """float32 regardless of the argument types (deep-numpy mode)."""
+    ctx = _ctx(ctx, device)
+    dt = resolve_dtype(dtype) if dtype is not None else default_float()
+    if stop is None:
+        start, stop = 0, start
+    t = torch.arange(start, stop, step, dtype=torch.float64,
+                     device=ctx.torch_device)
+    return _new(t.to(dt), ctx)
+
+
+def linspace(start, stop, num=50, endpoint=True, retstep=False, dtype=None,
+             axis=0, ctx=None):
+    ctx = ctx or current_context()
+    dt = resolve_dtype(dtype) if dtype is not None else default_float()
+    div = (num - 1) if endpoint else num
+    step = (stop - start) / div if div > 0 else float("nan")
+    t = torch.linspace(start, stop if endpoint else start + step * num,
+                       num + (0 if endpoint else 1), dtype=torch.float64,
+                       device=ctx.torch_device)[:num]
+    r = _new(t.to(dt), ctx)
+    return (r, float(step)) if retstep else r
+
+
+def eye(N, M=None, k=0, dtype=None, ctx=None):
+    ctx = ctx or current_context()
+    dt = resolve_dtype(dtype) if dtype is not None else default_float()
+    M = N if M is None else M
+    t = torch.ones(N, M, dtype=dt, device=ctx.torch_device)
+    return _new(t.triu(k).tril(k), ctx)
+
+
+def copy(a):
+    return _unary(lambda x: x.clone(), a, name="copy")
+
+
+# ---------------------------------------------------------------------------
+# elementwise binary
+# ---------------------------------------------------------------------------
+add = _mkbin(torch.add, "add")
+subtract = _mkbin(torch.sub, "subtract")
+multiply = _mkbin(torch.mul, "multiply")
+divide = _mkbin(torch.true_divide, "divide")
+true_divide = _mkbin(torch.true_divide, "true_divide")
+floor_divide = _mkbin(torch.floor_divide, "floor_divide")
+mod = _mkbin(torch.remainder, "mod")
+remainder = mod
+power = _mkbin(torch.pow, "power")
+maximum = _mkbin(torch.maximum, "maximum")
+minimum = _mkbin(torch.minimum, "minimum")
+bitwise_and = _mkbin(torch.bitwise_and, "bitwise_and")
+bitwise_or = _mkbin(torch.bitwise_or, "bitwise_or")
+bitwise_xor = _mkbin(torch.bitwise_xor, "bitwise_xor")
+left_shift = _mkbin(torch.bitwise_left_shift, "left_shift")
+right_shift = _mkbin(torch.bitwise_right_shift, "right_shift")
+
+equal = _mkbin(torch.eq, "equal")
+not_equal = _mkbin(torch.ne, "not_equal")
+less = _mkbin(torch.lt, "less")
+less_equal = _mkbin(torch.le, "less_equal")
+greater = _mkbin(torch.gt, "greater")
+greater_equal = _mkbin(torch.ge, "greater_equal")
+
+
+# ---------------------------------------------------------------------------
+# elementwise unary
+# ---------------------------------------------------------------------------
+def _float_in(tfn):
+    """Integer inputs compute in float32, as jnp does for
+    transcendental ops."""
+    def f(x):
+        if not (x.dtype.is_floating_point or x.dtype.is_complex):
+            x = x.to(default_float())
+        return tfn(x)
+    return f
+
+
+negative = _mkunary(torch.neg, "negative")
+positive = _mkunary(lambda x: x, "positive")
+abs = _mkunary(torch.abs, "abs")
+absolute = abs
+sign = _mkunary(torch.sign, "sign")
+square = _mkunary(torch.square, "square")
+sqrt = _mkunary(_float_in(torch.sqrt), "sqrt")
+exp = _mkunary(_float_in(torch.exp), "exp")
+log = _mkunary(_float_in(torch.log), "log")
+tanh = _mkunary(_float_in(torch.tanh), "tanh")
+invert = _mkunary(torch.bitwise_not, "invert")
+bitwise_not = invert
+
+
+def clip(a, a_min=None, a_max=None, out=None):
+    lo = None if a_min is None else (
+        a_min._data if isinstance(a_min, NDArray) else a_min)
+    hi = None if a_max is None else (
+        a_max._data if isinstance(a_max, NDArray) else a_max)
+    return _unary(lambda x: torch.clamp(x, lo, hi), a, out=out, name="clip")
+
+
+def where(condition, x=None, y=None):
+    if x is None and y is None:
+        raise not_ported("mx.np.where(condition) (nonzero)", 13)
+    parts = [_coerce(condition), _coerce(x), _coerce(y)]
+    nd = [p for p in parts if isinstance(p, NDArray)]
+
+    def f(*ds):
+        it = iter(ds)
+        c, a, b = [next(it) if isinstance(p, NDArray) else _scalar(p)
+                   for p in parts]
+        return torch.where(c if c.dtype == torch.bool else c != 0, a, b)
+
+    return apply_op(f, *nd, name="where")
+
+
+# ---------------------------------------------------------------------------
+# reductions
+# ---------------------------------------------------------------------------
+def _norm_axis(axis):
+    if axis is None:
+        return None
+    if isinstance(axis, (list, tuple)):
+        return tuple(int(a) for a in axis)
+    return (int(axis),)
+
+
+def _reduce_each(tfn, x, dims, keepdims):
+    """Reduce one axis at a time (torch's prod takes a single dim)."""
+    for d in sorted((d % x.dim() for d in dims), reverse=True):
+        x = tfn(x, d, keepdim=keepdims)
+    return x
+
+
+def _sum(x, dims, keepdims):
+    return torch.sum(x, dim=dims, keepdim=keepdims) if dims \
+        else torch.sum(x)
+
+
+def _mean(x, dims, keepdims):
+    if not (x.dtype.is_floating_point or x.dtype.is_complex):
+        x = x.to(default_float())
+    return torch.mean(x, dim=dims, keepdim=keepdims) if dims \
+        else torch.mean(x)
+
+
+def _max(x, dims, keepdims):
+    return torch.amax(x, dim=dims, keepdim=keepdims) if dims \
+        else torch.amax(x)
+
+
+def _min(x, dims, keepdims):
+    return torch.amin(x, dim=dims, keepdim=keepdims) if dims \
+        else torch.amin(x)
+
+
+def _prod(x, dims, keepdims):
+    return _reduce_each(torch.prod, x, dims, keepdims) if dims \
+        else torch.prod(x)
+
+
+def _mkreduce(tfn, name, has_dtype=True):
+    def run(x, axis, dt, keepdims):
+        if dt is not None:
+            x = x.to(dt)
+        dims = _norm_axis(axis)
+        if axis is None:
+            r = tfn(x, None, False)
+            return r.reshape((1,) * x.dim()) if keepdims else r
+        if dims == ():
+            return x
+        return tfn(x, dims, keepdims)
+
+    if has_dtype:
+        def f(a, axis=None, dtype=None, out=None, keepdims=False, **kw):
+            dt = resolve_dtype(dtype)
+            return _unary(lambda x: run(x, axis, dt, keepdims), a, out=out,
+                          name=name)
+    else:
+        def f(a, axis=None, out=None, keepdims=False, **kw):
+            return _unary(lambda x: run(x, axis, None, keepdims), a,
+                          out=out, name=name)
+    f.__name__ = name
+    return f
+
+
+sum = _mkreduce(_sum, "sum")
+prod = _mkreduce(_prod, "prod")
+mean = _mkreduce(_mean, "mean")
+max = _mkreduce(_max, "max", has_dtype=False)
+min = _mkreduce(_min, "min", has_dtype=False)
+amax = max
+amin = min
+
+
+def argmax(a, axis=None, out=None):
+    return _unary(lambda x: torch.argmax(x, dim=axis), a, out=out,
+                  name="argmax")
+
+
+def argmin(a, axis=None, out=None):
+    return _unary(lambda x: torch.argmin(x, dim=axis), a, out=out,
+                  name="argmin")
+
+
+# ---------------------------------------------------------------------------
+# shape manipulation
+# ---------------------------------------------------------------------------
+def reshape(a, newshape, order="C"):
+    newshape = _shape(newshape)
+    return _unary(lambda x: torch.reshape(x, newshape), a, name="reshape")
+
+
+def transpose(a, axes=None):
+    def f(x):
+        ax = tuple(range(x.dim() - 1, -1, -1)) if axes is None \
+            else tuple(axes)
+        return x.permute(ax)
+    return _unary(f, a, name="transpose")
+
+
+def expand_dims(a, axis):
+    def f(x):
+        ax = (axis,) if isinstance(axis, int) else tuple(axis)
+        n = x.dim() + len(ax)
+        for d in sorted(d % n for d in ax):
+            x = x.unsqueeze(d)
+        return x
+    return _unary(f, a, name="expand_dims")
+
+
+def squeeze(a, axis=None):
+    def f(x):
+        if axis is None:
+            return torch.squeeze(x)
+        ax = tuple(d % x.dim() for d in _norm_axis(axis))
+        if builtins.any(x.shape[d] != 1 for d in ax):
+            raise ValueError("cannot select an axis to squeeze out which "
+                             "has size not equal to one")
+        return x.squeeze(ax)
+    return _unary(f, a, name="squeeze")
+
+
+def ravel(a, order="C"):
+    return reshape(a, (-1,))
+
+
+def broadcast_to(array_, shape):
+    shape = _shape(shape)
+    return _unary(lambda x: torch.broadcast_to(x, shape), array_,
+                  name="broadcast_to")
+
+
+def concatenate(seq, axis=0, out=None):
+    arrs = [_coerce(a) for a in seq]
+    if axis is None:
+        r = apply_op(lambda *xs: torch.cat([x.reshape(-1) for x in xs]),
+                     *arrs, name="concatenate")
+    else:
+        r = apply_op(lambda *xs: torch.cat(xs, dim=axis), *arrs,
+                     name="concatenate")
+    return _set_out(out, r)
+
+
+concat = concatenate
+
+
+def stack(arrays, axis=0, out=None):
+    arrs = [_coerce(a) for a in arrays]
+    r = apply_op(lambda *xs: torch.stack(xs, dim=axis), *arrs, name="stack")
+    return _set_out(out, r)
+
+
+def split(ary, indices_or_sections, axis=0):
+    ary = _coerce(ary)
+    ios = indices_or_sections
+    if isinstance(ios, NDArray):
+        ios = [int(i) for i in ios.asnumpy()]
+    if isinstance(ios, (list, tuple)):
+        ios = [int(i) for i in ios]
+        nout = len(ios) + 1
+    else:
+        nout = int(ios)
+        if ary.shape[axis] % nout:
+            raise ValueError(
+                "array split does not result in an equal division")
+    outs = apply_op(lambda x: tuple(torch.tensor_split(x, ios, dim=axis)),
+                    ary, nout=nout, name="split")
+    return list(outs) if isinstance(outs, tuple) else [outs]
+
+
+def tile(A, reps):
+    reps = _shape(reps)
+    return _unary(lambda x: torch.tile(x, reps), A, name="tile")
+
+
+def flip(m, axis=None):
+    def f(x):
+        dims = tuple(range(x.dim())) if axis is None else _norm_axis(axis)
+        return torch.flip(x, dims)
+    return _unary(f, m, name="flip")
+
+
+# ---------------------------------------------------------------------------
+# linear algebra (top-level)
+# ---------------------------------------------------------------------------
+def _dot(a, b):
+    if a.dim() == 0 or b.dim() == 0:
+        return a * b
+    if b.dim() == 1 or (a.dim() <= 2 and b.dim() <= 2):
+        return torch.matmul(a, b)
+    return torch.tensordot(a, b, dims=([-1], [-2]))
+
+
+def dot(a, b, out=None):
+    return _binary(_dot, a, b, out=out, name="dot")
+
+
+def matmul(a, b, out=None):
+    return _binary(torch.matmul, a, b, out=out, name="matmul")
+
+
+def __getattr__(name):
+    if name.startswith("_") or not callable(getattr(onp, name, None)):
+        raise AttributeError(
+            f"module 'mxnet_tpu_torch.numpy' has no attribute {name!r}")
+    raise not_ported(f"mx.np.{name}", 13)

@@ -1,0 +1,205 @@
+"""mx.npx — the NumPy-extension operators this slice ports.
+
+The port of ``mxnet_tpu/numpy_extension/__init__.py``'s activations
+(``relu``, ``sigmoid``), the softmax family (``softmax``,
+``log_softmax``, with ``length``/``use_length`` masking and
+``temperature``), ``dropout`` (active only under
+``autograd.is_training()``, drawing from the port's generator),
+``one_hot``, ``pick``, ``topk``, ``custom`` and the framework helpers
+``waitall``/``num_gpus``/``current_device``. Everything runs as plain
+PyTorch through ``ops.apply_op``.
+
+``flash_attention`` and ``decode_attention`` wait for the training
+slice: under ``record()`` they need K1's backward (ROADMAP.md queue 1,
+item 12). Other functions of the reference raise
+``base.not_ported(..., 13)``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import autograd as _ag
+from ..base import not_ported, resolve_dtype
+from ..ops import apply_op
+from ..random_state import generator
+
+__all__ = ["relu", "sigmoid", "softmax", "log_softmax", "dropout",
+           "one_hot", "pick", "topk", "custom", "waitall", "num_gpus",
+           "current_device"]
+
+
+def _c(x):
+    from ..numpy import _coerce
+    return _coerce(x)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+def relu(data, **kwargs):
+    return apply_op(torch.relu, _c(data), name="relu")
+
+
+def sigmoid(data, **kwargs):
+    return apply_op(torch.sigmoid, _c(data), name="sigmoid")
+
+
+# ---------------------------------------------------------------------------
+# softmax family
+# ---------------------------------------------------------------------------
+def _mask_by_length(x, length, axis):
+    ax = axis % x.dim()
+    idx = torch.arange(x.shape[ax], device=x.device)
+    idx = idx.reshape((1,) * ax + (-1,) + (1,) * (x.dim() - ax - 1))
+    ln = length.reshape(tuple(length.shape)
+                        + (1,) * (x.dim() - length.dim()))
+    return torch.where(idx < ln, x, float("-inf"))
+
+
+def _softmax_fn(tfn, axis, temperature, masked):
+    def f(x, *length):
+        if temperature is not None and temperature != 1.0:
+            x = x / temperature
+        if masked:
+            x = _mask_by_length(x, length[0], axis)
+        return tfn(x, dim=axis)
+    return f
+
+
+def softmax(data, length=None, axis=-1, temperature=None, use_length=False,
+            dtype=None, **kwargs):
+    masked = use_length and length is not None
+    args = (_c(data), _c(length)) if masked else (_c(data),)
+    r = apply_op(_softmax_fn(torch.softmax, axis, temperature, masked),
+                 *args, name="softmax")
+    return r.astype(dtype) if dtype is not None else r
+
+
+def log_softmax(data, axis=-1, length=None, temperature=None,
+                use_length=False, dtype=None, **kwargs):
+    masked = use_length and length is not None
+    args = (_c(data), _c(length)) if masked else (_c(data),)
+    r = apply_op(_softmax_fn(torch.log_softmax, axis, temperature, masked),
+                 *args, name="log_softmax")
+    return r.astype(dtype) if dtype is not None else r
+
+
+# ---------------------------------------------------------------------------
+# dropout / indexing
+# ---------------------------------------------------------------------------
+def dropout(data, p=0.5, axes=None, mode="training", cudnn_off=None,
+            **kwargs):
+    """Inverted dropout, active only under ``autograd.train_mode``
+    (parity: src/operator/nn/dropout.cc 'training' mode); ``axes``
+    broadcasts the mask (spatial dropout)."""
+    data = _c(data)
+    if p <= 0.0 or (mode == "training" and not _ag.is_training()):
+        return data
+    shape = list(data.shape)
+    for ax in axes or ():
+        shape[ax] = 1
+    keep = 1.0 - p
+    dev = data._data.device
+    u = torch.rand(shape, generator=generator(dev), device=dev)
+
+    def f(x):
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+    return apply_op(f, data, name="dropout")
+
+
+def one_hot(data, depth, on_value=1.0, off_value=0.0, dtype="float32",
+            **kwargs):
+    """Out-of-range indices give an all-``off_value`` row, as
+    ``jax.nn.one_hot`` does."""
+    dt = resolve_dtype(dtype)
+
+    def f(i):
+        hot = i.to(torch.int64).unsqueeze(-1) == torch.arange(
+            depth, device=i.device)
+        return hot.to(dt) * (on_value - off_value) + off_value
+    return apply_op(f, _c(data), name="one_hot")
+
+
+def topk(data, k=1, axis=-1, ret_typ="indices", is_ascend=False,
+         dtype="float32", **kwargs):
+    idt = resolve_dtype(dtype)
+
+    def f(x):
+        ax = axis % x.dim()
+        xm = x.movedim(ax, -1)
+        if is_ascend:
+            # bottom-k by a stable ascending sort, as the reference
+            vals, idx = torch.sort(xm, dim=-1, stable=True)
+            vals, idx = vals[..., :k], idx[..., :k]
+        else:
+            vals, idx = torch.topk(xm, k, dim=-1, largest=True,
+                                   sorted=True)
+        if ret_typ == "mask":
+            mask = torch.zeros_like(xm).scatter(-1, idx, 1)
+            return mask.movedim(-1, ax)
+        vals, idx = vals.movedim(-1, ax), idx.movedim(-1, ax)
+        if ret_typ == "indices":
+            return idx.to(idt)
+        if ret_typ == "value":
+            return vals
+        if ret_typ == "both":
+            return vals, idx.to(idt)
+        raise ValueError(f"unsupported ret_typ {ret_typ!r}")
+
+    return apply_op(f, _c(data), nout=2 if ret_typ == "both" else 1,
+                    name="topk")
+
+
+def pick(data, index, axis=-1, mode="clip", keepdims=False, **kwargs):
+    """``mode='clip'`` clamps an index into range, ``'wrap'`` wraps it."""
+    def f(x, i):
+        ax = axis % x.dim()
+        i = i.to(torch.int64)
+        n = x.shape[ax]
+        i = i.remainder(n) if mode == "wrap" else i.clamp(0, n - 1)
+        out = torch.take_along_dim(x, i.unsqueeze(ax), dim=ax)
+        return out if keepdims else out.squeeze(ax)
+    return apply_op(f, _c(data), _c(index), name="pick")
+
+
+# ---------------------------------------------------------------------------
+# framework helpers
+# ---------------------------------------------------------------------------
+def custom(*data, op_type, **kwargs):
+    """Invoke a registered Python CustomOp (parity: mx.nd.Custom); a
+    thin alias of ``mxnet_tpu_torch.operator.custom``."""
+    from .. import operator as _operator
+    return _operator.custom(*data, op_type=op_type, **kwargs)
+
+
+def num_gpus():
+    from ..context import num_gpus as _n
+    return _n()
+
+
+def current_device():
+    from ..context import current_context
+    return current_context()
+
+
+def waitall():
+    from .. import engine
+    engine.waitall()
+
+
+def flash_attention(*args, **kwargs):
+    raise not_ported("npx.flash_attention (K1's backward under record())",
+                     12)
+
+
+def decode_attention(*args, **kwargs):
+    raise not_ported("npx.decode_attention (K1's backward under record())",
+                     12)
+
+
+def __getattr__(name):
+    if name.startswith("_"):
+        raise AttributeError(
+            f"module 'mxnet_tpu_torch.numpy_extension' has no attribute "
+            f"{name!r}")
+    raise not_ported(f"npx.{name}", 13)

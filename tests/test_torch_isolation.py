@@ -25,9 +25,16 @@ from mxnet_tpu_torch.ops import attention, nn, quantized, sampling
 from mxnet_tpu_torch.serving import paging
 from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel, load_jax_params
 from mxnet_tpu_torch.serving import GenerationEngine
+from mxnet_tpu_torch import (autograd, operator, rtc, engine, numpy,
+                             numpy_extension, ndarray, random_state)
+import mxnet_tpu_torch as mx
+assert mx.np is numpy and mx.npx is numpy_extension and mx.nd is ndarray
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
 print("BAD", bad)
+with open("/proc/self/maps") as f:
+    print("NVRTC", "libnvrtc" in f.read())
+print("CUDA_INIT", torch.cuda.is_initialized())
 """
 
 
@@ -42,6 +49,9 @@ def test_import_leaves_jax_and_reference_out():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
+    # importing loads no NVRTC and touches no device
+    assert "NVRTC False" in r.stdout and "CUDA_INIT False" in r.stdout, \
+        r.stdout
 
 
 def _imported_roots(path):

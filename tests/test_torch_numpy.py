@@ -1,0 +1,374 @@
+"""The port's mx.np / mx.npx functions (mxnet_tpu_torch.numpy and
+.numpy_extension) against the JAX package's on the same numpy inputs,
+both on the CPU (the port under ``with mx.cpu():``).
+
+Tolerances: elementwise fp32 rtol=1e-6, atol=1e-6; reductions, matmul
+and softmax 1e-5 (another summation order); dtypes and shapes equal.
+Random functions are compared by shape, dtype, range and moments only:
+torch's Philox/Mersenne streams and JAX's Threefry differ.
+"""
+import numpy as onp
+import pytest
+
+import mxnet_tpu as jmx
+import mxnet_tpu_torch as tmx
+
+EW = dict(rtol=1e-6, atol=1e-6)
+RED = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    with tmx.cpu():
+        yield
+
+
+def _rand(*shape, lo=-2.0, hi=2.0, seed=0):
+    return onp.random.RandomState(seed).uniform(lo, hi, shape).astype("f4")
+
+
+def _ints(*shape, lo=-20, hi=20, seed=1):
+    return onp.random.RandomState(seed).randint(lo, hi, shape).astype("i4")
+
+
+def _lift(pkg, a):
+    return pkg.np.array(a) if isinstance(a, onp.ndarray) else a
+
+
+def _run(pkg, fn, args, kw):
+    out = getattr(pkg.np, fn)(*[_lift(pkg, a) for a in args], **kw)
+    return out
+
+
+def _same(t, j, tol):
+    if isinstance(j, (list, tuple)):
+        assert isinstance(t, (list, tuple)) and len(t) == len(j)
+        for a, b in zip(t, j):
+            _same(a, b, tol)
+        return
+    assert t.dtype == j.dtype, (t.dtype, j.dtype)
+    assert t.shape == j.shape, (t.shape, j.shape)
+    tn, jn = t.asnumpy(), j.asnumpy()
+    if onp.issubdtype(jn.dtype, onp.inexact):
+        onp.testing.assert_allclose(tn, jn, **tol)
+    else:
+        onp.testing.assert_array_equal(tn, jn)
+
+
+X = _rand(3, 4)
+Y = _rand(3, 4, seed=2)
+P = _rand(3, 4, lo=0.1, hi=3.0, seed=3)
+I = _ints(3, 4)
+J = _ints(3, 4, lo=1, hi=7, seed=4)
+S = _ints(3, 4, lo=0, hi=5, seed=5)
+B = X > 0
+
+BINARY = [
+    ("add", X, Y), ("subtract", X, Y), ("multiply", X, Y),
+    ("divide", X, P), ("true_divide", I, J), ("floor_divide", X, P),
+    ("floor_divide", I, J), ("mod", X, P), ("mod", I, J),
+    ("remainder", I, J), ("power", P, Y), ("power", I, 2),
+    ("maximum", X, Y), ("minimum", X, Y),
+    ("bitwise_and", I, J), ("bitwise_or", I, J), ("bitwise_xor", I, J),
+    ("left_shift", S, S), ("right_shift", J, S),
+    ("equal", I, J), ("not_equal", X, Y), ("less", X, Y),
+    ("less_equal", X, Y), ("greater", X, Y), ("greater_equal", X, Y),
+    # scalars promote like weak-typed scalars
+    ("add", I, 2), ("multiply", I, 2.5), ("subtract", 3.0, X),
+    ("add", B, 1), ("true_divide", 1, J), ("maximum", X, 0.0),
+    ("power", 2.0, X), ("add", X, onp.float32(1.5)), ("add", 2, 3.5),
+]
+
+
+@pytest.mark.parametrize("fn,a,b", BINARY,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(BINARY)])
+def test_binary(fn, a, b):
+    _same(_run(tmx, fn, (a, b), {}), _run(jmx, fn, (a, b), {}), EW)
+
+
+UNARY = [
+    ("negative", X), ("positive", X), ("abs", X), ("absolute", I),
+    ("sign", X), ("square", X), ("square", I), ("sqrt", P), ("exp", X),
+    ("exp", I), ("log", P), ("tanh", X), ("invert", I),
+    ("bitwise_not", I), ("copy", X),
+]
+
+
+@pytest.mark.parametrize("fn,a", UNARY,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(UNARY)])
+def test_unary(fn, a):
+    _same(_run(tmx, fn, (a,), {}), _run(jmx, fn, (a,), {}), EW)
+
+
+X3 = _rand(2, 3, 4, seed=6)
+REDUCE = [
+    ("sum", {}), ("sum", {"axis": 0}), ("sum", {"axis": (0, 2)}),
+    ("sum", {"axis": -1, "keepdims": True}), ("sum", {"keepdims": True}),
+    ("mean", {}), ("mean", {"axis": 1}), ("mean", {"axis": [0, 1]}),
+    ("max", {}), ("max", {"axis": 2}), ("max", {"axis": (0, 1),
+                                               "keepdims": True}),
+    ("min", {"axis": 0}), ("amax", {"axis": 1}), ("amin", {}),
+    ("prod", {}), ("prod", {"axis": (0, 2)}),
+    ("prod", {"axis": 1, "keepdims": True}), ("argmax", {"axis": 1}),
+    ("argmin", {}),
+]
+
+
+@pytest.mark.parametrize("fn,kw", REDUCE,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(REDUCE)])
+def test_reduction(fn, kw):
+    a = X3 * 0.5 if fn == "prod" else X3
+    _same(_run(tmx, fn, (a,), kw), _run(jmx, fn, (a,), kw), RED)
+
+
+@pytest.mark.parametrize("fn,a,kw", [
+    ("sum", _ints(2, 3, 4), {"axis": 1}), ("sum", B, {}),
+    ("mean", _ints(2, 3), {}), ("max", _ints(2, 3, 4), {"axis": 0}),
+    ("prod", _ints(2, 3, lo=1, hi=4), {"axis": 1}),
+    ("sum", X3, {"dtype": "float16"}),
+], ids=["int_sum", "bool_sum", "int_mean", "int_max", "int_prod",
+        "sum_dtype"])
+def test_reduction_dtypes(fn, a, kw):
+    _same(_run(tmx, fn, (a,), kw), _run(jmx, fn, (a,), kw),
+          dict(rtol=1e-3, atol=1e-3) if "dtype" in kw else RED)
+
+
+A = _rand(2, 3, 4, seed=7)
+SHAPE = [
+    ("reshape", (A, (4, 6)), {}), ("reshape", (A, (-1, 4)), {}),
+    ("reshape", (A, 24), {}), ("transpose", (A,), {}),
+    ("transpose", (A, (1, 0, 2)), {}), ("expand_dims", (A, 1), {}),
+    ("expand_dims", (A, (0, -1)), {}),
+    ("squeeze", (A[:, :1], ), {}), ("squeeze", (A[:1, :, :1], 2), {}),
+    ("broadcast_to", (A[:, :1], (2, 5, 4)), {}), ("tile", (A, (2, 1, 2)),
+                                                  {}),
+    ("tile", (X, 2), {}), ("flip", (A,), {}), ("flip", (A, 1), {}),
+    ("flip", (A, (0, 2)), {}), ("ravel", (A,), {}),
+    ("concatenate", ([X, Y],), {}), ("concatenate", ([X, Y],),
+                                     {"axis": 1}),
+    ("concatenate", ([X, A[0]],), {"axis": None}),
+    ("stack", ([X, Y],), {}), ("stack", ([X, Y],), {"axis": -1}),
+    ("split", (A, 3), {"axis": 1}), ("split", (A, [1, 3]), {"axis": 2}),
+    ("clip", (X, -0.5, 0.5), {}), ("clip", (X, None, 0.2), {}),
+    ("where", (B, X, Y), {}), ("where", (X, X, 0.0), {}),
+]
+
+
+@pytest.mark.parametrize("fn,args,kw", SHAPE,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(SHAPE)])
+def test_shape_and_select(fn, args, kw):
+    def lift(pkg, a):
+        if isinstance(a, list):
+            return [pkg.np.array(x) for x in a]
+        return _lift(pkg, a)
+    t = getattr(tmx.np, fn)(*[lift(tmx, a) for a in args], **kw)
+    j = getattr(jmx.np, fn)(*[lift(jmx, a) for a in args], **kw)
+    _same(t, j, EW)
+
+
+def test_split_unequal_raises():
+    with pytest.raises(ValueError):
+        tmx.np.split(tmx.np.array(A), 5, axis=1)
+    with pytest.raises(ValueError):
+        tmx.np.squeeze(tmx.np.array(A), axis=1)
+
+
+MATMUL = [
+    ("matmul", _rand(3, 5), _rand(5, 2, seed=8)),
+    ("matmul", _rand(4, 3, 5), _rand(4, 5, 2, seed=8)),
+    ("matmul", _rand(5), _rand(5, 2, seed=8)),
+    ("matmul", _rand(5), _rand(5, seed=8)),
+    ("dot", _rand(3, 5), _rand(5, 2, seed=8)),
+    ("dot", _rand(5), _rand(5, seed=8)),
+    ("dot", _rand(2, 3, 5), _rand(5, 4, seed=8)),
+    ("dot", _rand(2, 3, 5), _rand(5, seed=8)),
+    ("dot", _rand(3, 4), 2.0),
+]
+
+
+@pytest.mark.parametrize("fn,a,b", MATMUL,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(MATMUL)])
+def test_matmul_dot(fn, a, b):
+    _same(_run(tmx, fn, (a, b), {}), _run(jmx, fn, (a, b), {}), RED)
+
+
+CREATE = [
+    ("zeros", ((2, 3),), {}), ("zeros", (4,), {"dtype": "int32"}),
+    ("ones", ((2, 3),), {"dtype": "int64"}), ("empty", ((3,),), {}),
+    ("full", ((2, 2), 7), {}), ("full", ((2,), True), {}),
+    ("full", ((2,), 3), {"dtype": "int32"}), ("arange", (5,), {}),
+    ("arange", (2, 10, 3), {}), ("arange", (0.5, 2.0, 0.25), {}),
+    ("arange", (6,), {"dtype": "int32"}), ("linspace", (0, 1, 7), {}),
+    ("linspace", (-2, 3, 6), {"endpoint": False}), ("eye", (3,), {}),
+    ("eye", (3, 4, 1), {}), ("eye", (4,), {"k": -2, "dtype": "int32"}),
+]
+
+
+@pytest.mark.parametrize("fn,args,kw", CREATE,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(CREATE)])
+def test_creation(fn, args, kw):
+    _same(getattr(tmx.np, fn)(*args, **kw), getattr(jmx.np, fn)(*args, **kw),
+          EW)
+
+
+def test_linspace_retstep():
+    t, ts = tmx.np.linspace(0, 2, 5, retstep=True)
+    j, js = jmx.np.linspace(0, 2, 5, retstep=True)
+    _same(t, j, EW)
+    assert ts == pytest.approx(js)
+
+
+@pytest.mark.parametrize("fn", ["zeros_like", "ones_like", "empty_like"])
+def test_like(fn):
+    _same(getattr(tmx.np, fn)(tmx.np.array(I)),
+          getattr(jmx.np, fn)(jmx.np.array(I)), EW)
+    _same(getattr(tmx.np, fn)(tmx.np.array(X), dtype="int32"),
+          getattr(jmx.np, fn)(jmx.np.array(X), dtype="int32"), EW)
+
+
+def test_full_like():
+    _same(tmx.np.full_like(tmx.np.array(X), 3.5),
+          jmx.np.full_like(jmx.np.array(X), 3.5), EW)
+
+
+def test_out_argument():
+    for pkg in (tmx, jmx):
+        o = pkg.np.zeros((3, 4))
+        r = pkg.np.add(pkg.np.array(X), pkg.np.array(Y), out=o)
+        assert r is o
+        onp.testing.assert_allclose(o.asnumpy(), X + Y, **EW)
+        s = pkg.np.zeros(())
+        pkg.np.sum(pkg.np.array(X), out=s)
+        onp.testing.assert_allclose(s.asnumpy(), X.sum(), **RED)
+        m = pkg.np.zeros((3, 4))
+        pkg.np.exp(pkg.np.array(X), out=m)
+        onp.testing.assert_allclose(m.asnumpy(), onp.exp(X), rtol=1e-6)
+
+
+def test_dtype_names_match_reference():
+    for name in ("float16", "float32", "float64", "int8", "int16", "int32",
+                 "int64", "uint8", "bool_"):
+        assert getattr(tmx.np, name) == getattr(jmx.np, name), name
+    assert tmx.np.dtype("float32") == jmx.np.dtype("float32")
+
+
+def test_unported_function_raises_not_ported():
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tmx.np.cumsum
+    assert not hasattr(tmx.np, "cumsum")
+    with pytest.raises(AttributeError):
+        tmx.np.no_such_function
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tmx.npx.batch_norm
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tmx.npx.flash_attention(None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# npx
+# ---------------------------------------------------------------------------
+Z = _rand(3, 5, seed=9)
+L = onp.array([2, 5, 1], "i4")
+NPX = [
+    ("relu", (Z,), {}), ("sigmoid", (Z,), {}), ("softmax", (Z,), {}),
+    ("softmax", (Z,), {"axis": 0}), ("softmax", (Z,), {"temperature": 2.0}),
+    ("softmax", (Z, L), {"use_length": True}),
+    ("log_softmax", (Z,), {}), ("log_softmax", (Z,), {"axis": 0,
+                                                      "temperature": 0.5}),
+    ("one_hot", (onp.array([0, 3, 1], "i4"), 4), {}),
+    ("one_hot", (onp.array([0., 2., 5.], "f4"), 4),
+     {"on_value": 2.0, "off_value": -1.0}),
+    ("pick", (Z, onp.array([0, 4, 2], "f4")), {}),
+    ("pick", (Z, onp.array([1, 0, 1, 2, 0], "i4")), {"axis": 0}),
+    ("pick", (Z, onp.array([1, 2, 3], "i4")), {"keepdims": True}),
+    ("topk", (Z,), {"k": 2}), ("topk", (Z,), {"k": 3, "ret_typ": "value"}),
+    ("topk", (Z,), {"k": 2, "ret_typ": "both", "axis": 0}),
+    ("topk", (Z,), {"k": 2, "ret_typ": "mask"}),
+    ("topk", (Z,), {"k": 2, "is_ascend": True, "dtype": "int32"}),
+]
+
+
+@pytest.mark.parametrize("fn,args,kw", NPX,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(NPX)])
+def test_npx(fn, args, kw):
+    t = getattr(tmx.npx, fn)(*[_lift(tmx, a) for a in args], **kw)
+    j = getattr(jmx.npx, fn)(*[_lift(jmx, a) for a in args], **kw)
+    _same(t, j, RED)
+
+
+def test_npx_helpers():
+    assert tmx.npx.current_device() == tmx.cpu()
+    assert tmx.npx.num_gpus() == tmx.num_gpus()
+    tmx.npx.waitall()
+
+
+@pytest.mark.parametrize("pkg", [tmx, jmx], ids=["port", "jax"])
+def test_dropout_moments(pkg):
+    x = pkg.np.ones((4000,))
+    onp.testing.assert_array_equal(pkg.npx.dropout(x, p=0.3).asnumpy(),
+                                   onp.ones(4000))
+    with pkg.autograd.train_mode():
+        a = pkg.npx.dropout(x, p=0.3).asnumpy()
+        sp = pkg.npx.dropout(pkg.np.ones((50, 40)), p=0.5,
+                             axes=(1,)).asnumpy()
+    assert a.dtype == onp.float32
+    assert set(onp.unique(a)) <= {0.0, onp.float32(1 / 0.7)}
+    assert abs((a == 0).mean() - 0.3) < 0.04
+    assert abs(a.mean() - 1.0) < 0.06
+    # spatial dropout: one draw per row, broadcast along axis 1
+    assert all(len(onp.unique(r)) == 1 for r in sp)
+
+
+# ---------------------------------------------------------------------------
+# random
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("pkg", [tmx, jmx], ids=["port", "jax"])
+def test_random_moments(pkg):
+    pkg.np.random.seed(7)
+    u = pkg.np.random.uniform(-1.0, 3.0, size=(20000,))
+    n = pkg.np.random.normal(2.0, 0.5, size=(200, 100))
+    r = pkg.np.random.randint(3, 9, size=(20000,))
+    h = pkg.np.random.uniform(size=(5,), dtype="float16")
+    assert (u.shape, u.dtype) == ((20000,), onp.float32)
+    assert (n.shape, n.dtype) == ((200, 100), onp.float32)
+    assert (r.shape, r.dtype) == ((20000,), onp.int32)
+    assert h.dtype == onp.float16
+    ua, na, ra = u.asnumpy(), n.asnumpy(), r.asnumpy()
+    assert ua.min() >= -1.0 and ua.max() < 3.0
+    assert abs(ua.mean() - 1.0) < 0.05 and abs(ua.var() - 16 / 12) < 0.05
+    assert abs(na.mean() - 2.0) < 0.02 and abs(na.std() - 0.5) < 0.02
+    assert ra.min() == 3 and ra.max() == 8
+    assert abs(ra.mean() - 5.5) < 0.05
+    # a broadcast of array bounds sets the shape
+    lo = pkg.np.array([0.0, 10.0])
+    b = pkg.np.random.uniform(lo, lo + 1.0)
+    assert b.shape == (2,)
+    assert 0 <= b.asnumpy()[0] < 1 and 10 <= b.asnumpy()[1] < 11
+
+
+def test_random_seed_repeats_and_randint_bounds():
+    tmx.np.random.seed(3)
+    a = tmx.np.random.normal(size=(6,)).asnumpy()
+    tmx.np.random.seed(3)
+    onp.testing.assert_array_equal(tmx.np.random.normal(size=(6,)).asnumpy(),
+                                   a)
+    for pkg in (tmx, jmx):
+        with pytest.raises(OverflowError):
+            pkg.np.random.randint(0, 2 ** 40, size=(2,))
+
+
+def test_random_state_snapshot_restores_the_stream():
+    from mxnet_tpu_torch import random_state
+    tmx.np.random.seed(5)
+    tmx.np.random.uniform(size=(3,))
+    snap = random_state.get_state()
+    a = tmx.np.random.normal(size=(4,)).asnumpy()
+    with tmx.autograd.train_mode():
+        m = tmx.npx.dropout(tmx.np.ones((50,)), p=0.5).asnumpy()
+    random_state.set_state(*snap)
+    onp.testing.assert_array_equal(tmx.np.random.normal(size=(4,)).asnumpy(),
+                                   a)
+    with tmx.autograd.train_mode():
+        onp.testing.assert_array_equal(
+            tmx.npx.dropout(tmx.np.ones((50,)), p=0.5).asnumpy(), m)
+    assert snap[0] == 5
