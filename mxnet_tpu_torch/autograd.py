@@ -135,13 +135,11 @@ def _owned_leaves(heads):
     keep = []                       # hold nodes so ids stay unique
     stack = []
     for t in heads:
-        if t.grad_fn is None:
-            stack.append(None)
-            if id(t) not in seen_leaf:
-                seen_leaf.add(id(t))
-                leaves.append(t)
-        else:
+        if t.grad_fn is not None:
             stack.append(t.grad_fn)
+        elif id(t) not in seen_leaf:          # a head that is a leaf
+            seen_leaf.add(id(t))
+            leaves.append(t)
     while stack:
         fn = stack.pop()
         if fn is None or id(fn) in seen_fn:

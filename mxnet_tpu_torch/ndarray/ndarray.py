@@ -86,10 +86,7 @@ class NDArray:
     __array_priority__ = 1000.0
     __array_ufunc__ = None
 
-    def __init__(self, data: torch.Tensor, ctx: Context = None,
-                 _track: bool = False):
-        if _track:
-            data = engine.track(data)
+    def __init__(self, data: torch.Tensor, ctx: Context = None):
         self._data = data
         self._ctx = ctx if ctx is not None else _ctx_of(data)
         self._grad = None

@@ -69,12 +69,29 @@ def test_bfloat16_resolves_to_torch():
 
 
 def test_array_without_context_raises_without_a_card():
+    """In a thread with no context scope the default is gpu(0), which
+    raises here; so does asking for it."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the rule under test is "
                     "the CUDA-less refusal")
+    import threading
+    seen = []
+
+    def make():
+        try:
+            tmx.np.array([1.0])
+        except RuntimeError as e:
+            seen.append((tmx.current_context(), str(e)))
+
+    th = threading.Thread(target=make)
+    th.start()
+    th.join(timeout=60)
+    assert not th.is_alive()
+    assert len(seen) == 1 and seen[0][0] == tmx.gpu(0)
+    assert "device='cpu'" in seen[0][1]
     with tmx.gpu(0):
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            tmx.np.array([1.0])
+            tmx.np.zeros((2,))
     assert tmx.context.default_context() == tmx.gpu(0)
 
 
