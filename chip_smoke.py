@@ -7,10 +7,13 @@ Run from the repository root on a machine with an NVIDIA Hopper card::
 
 It builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc/`` (nvcc,
 one process per source, seconds) and holds each kernel instance against
-its plain PyTorch version on the card: K1 flash prefill, K2 dense decode
+its plain PyTorch version on the card: K1 flash prefill (3xTF32 tensor
+cores; causal up to the 1024-token context, head dims 16-128, strided
+views, NaN past kv_len), K2 dense decode
 and K3 paged decode (each in its fp32 and its int8-KV instance, with
 garbage past every length and NaN in the scrap page, every unreferenced
-page and their int8 scales), K4 int8 dequant-matmul and K5, the
+page and their int8 scales), K4 int8 dequant-matmul (M = 1 to 512,
+with and without the bias it adds in its epilogue) and K5, the
 runtime-compiled user kernels: one ``rtc.CudaModule`` compiled by NVRTC
 for sm_90a (the JAX rtc tests' kernels, the example's ``scale2`` and a
 shared-memory ``row_softmax``), each held against its plain torch
@@ -45,10 +48,12 @@ Tolerances, with their reasons:
   way: ``2x`` is exact); ``row_softmax`` max-abs-err <= 1e-6 (outputs
   in [0, 1], sums of 1024 terms in another order);
 - kernel vs plain version on the same card inputs: max-abs-err of the
-  attention output <= 2e-5 (fp32 throughout; the two sum in different
-  orders), of the log-sum-exp <= 1e-4 (a value of ~10 in fp32 carries
-  ~1e-6 per rounding, and exp/log add a few); K4's max-abs-err <= 2e-5
-  x max|ref| (fp32 sums of 768-3072 terms in another order);
+  attention output <= 2e-5 (fp32-accurate throughout: K1's products in
+  3xTF32 keep about 22 bits, 2^-22 relative, and the two sum in
+  different orders), of the log-sum-exp <= 1e-4 (a value of ~10 in fp32
+  carries ~1e-6 per rounding, and exp/log add a few); K4's max-abs-err
+  <= 2e-5 x max|ref| (fp32 sums of 768-3072 terms in another order;
+  at M <= 8 x is split for the tensor cores as K1's operands are);
 - card logits vs the CPU forward of the same weights: <= 1e-3 (fp32
   reduction order over 12 layers of 768-wide products and a 50257-way
   head, on two devices and two BLAS libraries);
@@ -82,10 +87,12 @@ import time
 import numpy as np
 
 #: H100 SXM published peaks (NVIDIA data sheet), used for bound_ms:
-#: HBM3 bytes/s, and fp32 FLOP/s outside the tensor cores (the kernels
-#: compute in full fp32 on the CUDA cores)
+#: HBM3 bytes/s, fp32 FLOP/s outside the tensor cores, and the TF32
+#: tensor cores' dense rate (K1 runs its products there in 3xTF32: three
+#: TF32 products per fp32-accurate one)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 OUT_TOL = 2e-5
 LSE_TOL = 1e-4
@@ -106,8 +113,8 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def bound(n_bytes, n_flops):
-    t_b, t_f = n_bytes / PEAK_BYTES_S, n_flops / PEAK_FP32_FLOPS
+def bound(n_bytes, n_flops, peak_flops=PEAK_FP32_FLOPS):
+    t_b, t_f = n_bytes / PEAK_BYTES_S, n_flops / peak_flops
     return (max(t_b, t_f) * 1e3,
             "bytes" if t_b >= t_f else "operations")
 
@@ -229,6 +236,8 @@ def phase_flash(torch, timer):
     def compare(q, k, v, causal, kv_len, tag):
         nonlocal err_o, err_l
         out, lse = at.flash_attention_fwd(q, k, v, causal, None, kv_len)
+        # the plain version's p @ v would carry 0 * NaN from past kv_len
+        k, v = torch.nan_to_num(k), torch.nan_to_num(v)
         ref, ref_lse = at._blockwise_fwd(q, k, v, causal,
                                          1.0 / math.sqrt(q.shape[-1]),
                                          kv_len=kv_len)
@@ -250,8 +259,19 @@ def phase_flash(torch, timer):
     for hd in (16, 32, 128):
         q, k, v = (_rand(torch, rng, 2, 3, 77, hd) for _ in range(3))
         compare(q, k, v, True, None, f"head_dim={hd}")
+    # the model's full context (every q-tile at full depth, the
+    # heaviest first), and a 1000-key buffer with NaN past kv_len = 999:
+    # the zero-filled rows are never read
+    full = [_rand(torch, rng, b, h, 1024, d) for _ in range(3)]
+    compare(*full, True, None, "s=1024 causal")
+    kn, vn = (_rand(torch, rng, b, h, 1000, d) for _ in range(2))
+    kn[:, :, 999:], vn[:, :, 999:] = float("nan"), float("nan")
+    q = _rand(torch, rng, b, h, 300, d)
+    compare(q, kn, vn, True, 999, "sq=300 kv_len=999 NaN past it")
     # the prefill's own layout: strided views out of the head split
     sp = 512
+    q, k, v = (_split_view(torch, rng, b, sp, h, 128) for _ in range(3))
+    compare(q, k, v, True, None, f"strided s={sp} head_dim=128 causal")
     q, k, v = (_split_view(torch, rng, b, sp, h, d) for _ in range(3))
     check(not q.is_contiguous(), "strided case is contiguous")
     compare(q, k, v, True, None, f"strided s={sp} causal")
@@ -259,19 +279,47 @@ def phase_flash(torch, timer):
     check(err_o <= OUT_TOL, f"K1 out max-abs-err {err_o} > {OUT_TOL}")
     check(err_l <= LSE_TOL, f"K1 lse max-abs-err {err_l} > {LSE_TOL}")
 
+    def work(s, hd):
+        pairs = s * (s + 1) // 2                     # visible (q, k) pairs
+        n_flops = 4 * hd * b * h * pairs             # q.k and p.v
+        n_bytes = 4 * (4 * b * h * s * hd + b * h * s)   # q, k, v, out, lse
+        return n_bytes, n_flops
+
     # timing at the prefill shape (1, 12, 512, 64), causal, strided
     times = timings(
         timer, False,
         lambda: at.flash_attention_fwd(q, k, v, True),
         lambda: at._blockwise_fwd(q, k, v, True, scale),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    pairs = sp * (sp + 1) // 2                       # visible (q, k) pairs
-    n_flops = 4 * d * b * h * pairs                  # q.k and p.v
-    n_bytes = 4 * (4 * b * h * sp * d + b * h * sp)  # q, k, v, out, lse
-    bound_ms, bound_by = bound(n_bytes, n_flops)
+    n_bytes, n_flops = work(sp, d)
+    # the least time for this fp32-accurate work: 3xTF32 on the tensor
+    # cores; beside it the fp32 CUDA cores' figure (the bound of a
+    # kernel that keeps off the tensor cores)
+    bound_ms, bound_by = bound(n_bytes, 3 * n_flops, PEAK_TF32_FLOPS)
+    fp32_ms, fp32_by = bound(n_bytes, n_flops)
+    # the other full-depth shapes, device time beside SDPA's
+    per_shape = []
+    for s, hd, (qq, kk, vv) in ((1024, d, full), (sp, 128, (None,) * 3)):
+        if qq is None:
+            qq, kk, vv = (_split_view(torch, rng, b, s, h, hd)
+                          for _ in range(3))
+        nb, nf = work(s, hd)
+        per_shape.append({
+            "shape": [b, h, s, hd], "causal": True,
+            "kernel_ms_device": timer(
+                lambda: at.flash_attention_fwd(qq, kk, vv, True),
+                device=True),
+            "library_ms_device": timer(
+                lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                       is_causal=True),
+                device=True),
+            "bound_ms": bound(nb, 3 * nf, PEAK_TF32_FLOPS)[0]})
     res = {"max_abs_err": err_o, "max_abs_err_lse": err_l, **times,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "shape": [b, h, sp, d]}
+           "bound_ms_fp32_cores": fp32_ms, "bound_by_fp32_cores": fp32_by,
+           "bound_rule": "3 x FLOP at 495 TFLOP/s (3xTF32) vs bytes at "
+                         "3.35 TB/s",
+           "shape": [b, h, sp, d], "per_shape": per_shape}
     emit("flash_attention", **res)
     return res
 
@@ -557,56 +605,78 @@ def phase_dequant(torch, timer):
     from mxnet_tpu_torch.ops import quantized as qz
     rng = np.random.RandomState(4)
     cases, err_abs, err_rel = [], 0.0, 0.0
-    tables = {}
+    tables, biases = {}, {}
     for n, k in sorted(set(LAYER_PROJECTIONS)):
         w = torch.from_numpy(
             (rng.standard_normal((n, k)) * 0.02).astype("f4")).cuda()
         w[n // 3] = 0.0                          # an all-zero channel
         tables[(n, k)] = qz.quantize_channelwise(w)
+        biases[(n, k)] = _rand(torch, rng, n)
         wq, sc = tables[(n, k)]
         check(int(wq[n // 3].abs().max()) == 0, "zero channel not zero")
-        for m in (1, 8, 32, 512):
+        for m in (1, 3, 8, 9, 32, 512):
             x = _rand(torch, rng, m, k)
-            out = qz.dequant_matmul(x, wq, sc)
-            ref = qz._dequant_matmul_torch(x, wq, sc)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out).all()), "K4 non-finite output")
-            e = float((out - ref).abs().max())
-            rel = e / float(ref.abs().max())
-            cases.append({"M": m, "N": n, "K": k, "max_abs_err": e,
-                          "rel": rel})
-            err_abs, err_rel = max(err_abs, e), max(err_rel, rel)
+            for bias in (None, biases[(n, k)]):
+                out = qz.dequant_matmul(x, wq, sc, bias=bias)
+                ref = qz._dequant_matmul_torch(x, wq, sc, bias=bias)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(out).all()),
+                      "K4 non-finite output")
+                e = float((out - ref).abs().max())
+                rel = e / float(ref.abs().max())
+                cases.append({"M": m, "N": n, "K": k,
+                              "bias": bias is not None, "max_abs_err": e,
+                              "rel": rel})
+                err_abs, err_rel = max(err_abs, e), max(err_rel, rel)
     emit("dequant_matmul_check", cases=cases)
     check(err_rel <= DEQUANT_REL_TOL,
           f"K4 max-abs-err {err_rel} x max|ref| > {DEQUANT_REL_TOL}")
 
-    # timing at the decode shape, M = 8, each projection of one layer
-    m = 8
+    # timing at the decode shape, M = 8 (the kernels line), and at M = 1
+    # (peek) and M = 32 (a prefill chunk), each projection of one layer;
+    # bias=None, as the library call and earlier kernels had none, with
+    # the path's bias epilogue timed beside it
     per_shape, lib_name = {}, None
-    for n, k in sorted(set(LAYER_PROJECTIONS)):
-        wq, sc = tables[(n, k)]
-        x = _rand(torch, rng, m, k)
-        lib, lib_name = _library_dequant(torch, x, wq, sc)
-        per_shape[(n, k)] = {
-            **timings(timer, True,
-                      lambda: qz.dequant_matmul(x, wq, sc),
-                      lambda: qz._dequant_matmul_torch(x, wq, sc), lib),
-            "bound": bound(n * k + 4 * (m * k + n + m * n), 2 * m * n * k)}
+    for m in (1, 8, 32):
+        for n, k in sorted(set(LAYER_PROJECTIONS)):
+            wq, sc = tables[(n, k)]
+            bias = biases[(n, k)]
+            x = _rand(torch, rng, m, k)
+            lib, lib_name = _library_dequant(torch, x, wq, sc)
+            per_shape[(m, n, k)] = {
+                **timings(timer, True,
+                          lambda: qz.dequant_matmul(x, wq, sc),
+                          lambda: qz._dequant_matmul_torch(x, wq, sc), lib),
+                "kernel_bias_ms_device": timer(
+                    lambda: qz.dequant_matmul(x, wq, sc, bias=bias),
+                    flush=True, device=True),
+                "bound": bound(n * k + 4 * (m * k + n + m * n),
+                               2 * m * n * k)}
 
-    def layer(key):
-        return sum(per_shape[s][key] for s in LAYER_PROJECTIONS)
-    n_bytes = sum(n * k + 4 * (m * k + n + m * n)
-                  for n, k in LAYER_PROJECTIONS)
-    n_flops = sum(2 * m * n * k for n, k in LAYER_PROJECTIONS)
-    bound_ms, bound_by = bound(n_bytes, n_flops)
+    def layer(m, key):
+        return sum(per_shape[(m, n, k)][key] for n, k in LAYER_PROJECTIONS)
+
+    def layer_bound(m):
+        return bound(sum(n * k + 4 * (m * k + n + m * n)
+                         for n, k in LAYER_PROJECTIONS),
+                     sum(2 * m * n * k for n, k in LAYER_PROJECTIONS))
+    m = 8
+    bound_ms, bound_by = layer_bound(m)
     res = {"max_abs_err": err_abs, "max_rel_err": err_rel,
-           **{key: layer(key) for key in TIMING_KEYS}, "library": lib_name,
-           "bound_ms": bound_ms, "bound_by": bound_by,
+           **{key: layer(m, key) for key in TIMING_KEYS},
+           "kernel_bias_ms_device": layer(m, "kernel_bias_ms_device"),
+           "library": lib_name, "bound_ms": bound_ms, "bound_by": bound_by,
            "timed": "the 6 projections of one layer at M=8, summed",
-           "per_shape": [{"N": n, "K": k, **{kk: vv for kk, vv in r.items()
-                                             if kk != "bound"},
+           "per_m": {mm: {"kernel_ms": layer(mm, "kernel_ms"),
+                          "kernel_ms_device": layer(mm, "kernel_ms_device"),
+                          "library_ms_device": layer(mm, "library_ms_device"),
+                          "bound_ms": layer_bound(mm)[0]}
+                     for mm in (1, 8, 32)},
+           "per_shape": [{"M": mm, "N": n, "K": k,
+                          **{kk: vv for kk, vv in r.items()
+                             if kk != "bound"},
                           "bound_ms": r["bound"][0]}
-                         for (n, k), r in per_shape.items()]}
+                         for (mm, n, k), r in per_shape.items()]}
     emit("dequant_matmul", **res)
     return res
 
@@ -1642,7 +1712,9 @@ def main(argv=None):
             "max_abs_err": res["max_abs_err"],
             "ms": res["kernel_ms"],
             **{k: res[k] for k in TIMING_KEYS},
-            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"]})
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            **{k: res[k] for k in ("bound_ms_fp32_cores", "bound_rule")
+               if k in res}})
     by_phase = {ph: r["launches"].get("rtc", 0) for ph, r in phases.items()}
     rows.append({
         "name": "rtc", "route": "cuda", "compiler": "nvrtc",

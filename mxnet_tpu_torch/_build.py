@@ -24,8 +24,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["library", "function", "check", "build_all", "KERNEL_SOURCES",
-           "BUILD_DIR"]
+import torch
+
+__all__ = ["library", "function", "launch_on", "check", "build_all",
+           "KERNEL_SOURCES", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -46,7 +48,7 @@ _lock = threading.Lock()
 _libs: dict = {}
 _fns: dict = {}
 #: name -> {"seconds": build wall time or 0.0 when cached,
-#: "ptxas": the compiler's resource lines}
+#: "ptxas": the compiler's resource and spill lines}
 build_info: dict = {}
 
 
@@ -75,7 +77,7 @@ def _digest(src: Path) -> str:
 
 def _ptxas_lines(log: str):
     return [ln.strip() for ln in log.splitlines()
-            if "Used" in ln or "Compiling entry" in ln]
+            if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
 
 
 def build_all() -> dict:
@@ -143,6 +145,18 @@ def function(name: str, symbol: str, argtypes):
         fn.argtypes = list(argtypes)
         _fns[key] = fn
     return fn
+
+
+def launch_on(tensor, fn, args):
+    """Call the C entry point ``fn(*args, stream)`` on the current
+    stream of ``tensor``'s card and return its ``cudaError_t``. The card
+    is made current around the call only when it is not already (a
+    device context costs microseconds per launch)."""
+    idx = tensor.get_device()
+    if torch._C._cuda_getDevice() == idx:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def check(name: str, code: int, what: str):

@@ -3,47 +3,56 @@
 //
 // Replaces: mxnet_tpu/ops/quantized.py dequant_matmul_pallas (kernel
 // body _dequant_matmul_kernel -> _dequant_dot). Same function:
-//   out[m, n] = sum_k x[m, k] * (float(wq[n, k]) * scale[n])
-// for fp32 x (M, K), int8 wq (N, K) in the Dense (out, in) layout and
-// fp32 per-output-channel scales (N,). The TPU kernel walks 512-channel
-// blocks in a grid and dequantizes each in VMEM; the block rule only
-// fixes its summation structure, so this kernel tiles as it likes and
-// is held to the plain version within a tolerance, not bitwise.
+//   out[m, n] = sum_k x[m, k] * (float(wq[n, k]) * scale[n]) (+ bias[n])
+// for fp32 x (M, K), int8 wq (N, K) in the Dense (out, in) layout, fp32
+// per-output-channel scales (N,) and an optional fp32 bias (N,), added
+// in the epilogue (null: none). The TPU kernel walks 512-channel blocks
+// in a grid and dequantizes each in VMEM; the block rule only fixes its
+// summation structure, so this kernel tiles as it likes and is held to
+// the plain version within a tolerance, not bitwise.
 //
-// What bounds it on the H100: bytes at the decode shape. At M = 8 rows
-// each weight byte feeds 2 * 8 FLOP, far below the card's ~20 fp32
-// FLOP per byte, so the int8 weights streamed from HBM (N * K bytes, a
-// quarter of the fp32 weight) set the time. At M = 512 (the dense
-// engine's prefill) the products set it instead.
+// What bounds it on the H100: at decode widths (M <= 8) a launch moves
+// 0.6-2.5 MB of int8 weights (0.2-0.75 us at 3.35 TB/s), so what sets
+// its time is latency: the launch, one DRAM round trip, the sum over K.
+// At M = 512 (the dense engine's prefill) the products set it instead.
 //
-// What the design does about it:
-// - Each lane owns one output channel (32 channels per block) and all
-//   rows of the launch tile (up to MT = 32 rows of x), so a launch
-//   reads each weight byte ONCE, not once per row. A lane streams its
-//   channel's int8 row with 16-byte loads (16 weights), four in flight
-//   before any is used, converts and scales them in registers (the
-//   reference's wq.f32 * scale before the product) and accumulates MT
-//   fp32 sums on the CUDA cores.
-// - K is split twice so that every SM has work: across the blocks of
-//   a thread-block cluster along grid.z (up to 8, sized at launch for
-//   about two blocks per SM: at M = 8 that is 192 blocks instead of 24
-//   for N = 768, and a 2-way split for N = 3072), and within a block
-//   across its 8 warps. The warps' partial sums meet in shared memory;
-//   the cluster's blocks then meet through distributed shared memory,
-//   where block rank 0 adds its peers' sums in rank order — one launch,
-//   no scratch buffer, no atomics, the same summation order on every
-//   run.
-// - The x rows of the tile are staged in shared memory, a K-tile at a
-//   time, and read as broadcasts: every lane of a warp works on the
-//   same k at once, so one shared-memory read serves 32 channels.
-// - The dequantized weight never exists outside registers; the
-//   outputs are written coalesced (consecutive lanes, consecutive
-//   channels).
-// - M = 1 (peek) and M <= 8 (decode) have their own instances so no
-//   FMAs are spent on absent rows; M > 32 tiles the rows over grid.y
-//   (the weights are then read once per 32-row tile).
+// M <= 8: a latency-first GEMV on the TF32 tensor cores
+// (dequant_gemv_kernel).
+// - A block owns 8 output channels (the n of mma.m16n8k8); its warps
+//   split K, each one or two 64-wide k steps. Lane (g, t) of a
+//   warp loads 16 bytes of channel g's weight row at k = 64 s + 16 t:
+//   one warp load covers 64 contiguous bytes of each of 8 rows, whole
+//   sectors, and the weight is read once per launch.
+// - Every weight load of the warp's round is issued first, before x is
+//   touched and before any barrier (one 16-byte load a lane at
+//   K <= 2048, two above; one round up to K = 4096, the GPT-2 widths
+//   included); x (just written to L2 by the previous kernel) is read
+//   while they fly: lane (g, t) takes row g's 16 fp32 at the same k
+//   (rows at or past M are zeros). The block's scale and bias are
+//   fetched at the start too, behind the weights.
+// - The product runs as mma.sync m16n8k8 with x as A and the weight as
+//   B, the mma's k mapped to the lane's own 16 values (k = 2i and
+//   2i + 1 of its run at step i), so no data moves between lanes. An
+//   int8 weight is exact in TF32, so the 3xTF32 split needs only x's,
+//   and the two terms share one mma: A rows 0..7 hold x's big parts,
+//   rows 8..15 (unused by M <= 8) its small parts, and the two halves
+//   of the accumulator are added at the end. The channel scale
+//   multiplies the sum once. Two accumulators a step keep the
+//   dependent mma chains 4 long.
+// - The warps' partial sums meet in shared memory behind ONE barrier
+//   and are added in warp order (the same order on every run); the
+//   epilogue applies the scale and the bias. No cluster, no atomics,
+//   no second pass. N is split across blocks (96-384 at GPT-2 widths).
+//
+// M > 8: a lane per output channel (dequant_tiled_kernel), all rows of
+// a 32-row tile of x per lane, so each weight byte is read once per
+// tile; K split across the block's 8 warps and across a thread-block
+// cluster of up to 8 blocks sized at launch, sums met through
+// distributed shared memory in rank order; x staged in shared memory
+// and read as broadcasts; the bias added by rank 0.
+//
 // K must be a multiple of 16 and x, wq 16-byte aligned (the wrapper
-// checks); bias and activation stay torch ops after the kernel.
+// checks); the activation stays a torch op after the kernel.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -52,19 +61,139 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+// ---- M <= 8: the tensor-core GEMV ---------------------------------------
+constexpr int kGemvRows = 8;       // rows of x (A rows 0..7; 8..15 the small)
+constexpr int kGemvChannels = 8;   // output channels per block (the n)
+constexpr int kSpan = 64;          // k of one warp step: 4 lanes x 16
+constexpr int kMaxWarps = 32;
+
+template <int STEPS>   // 64-k steps per warp per round
+__global__ void __launch_bounds__(kMaxWarps * 32)
+dequant_gemv_kernel(const float* __restrict__ x,
+                    const signed char* __restrict__ wq,
+                    const float* __restrict__ scales,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int M, int N, int K) {
+  __shared__ float part[kMaxWarps][kGemvRows * kGemvChannels];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n = blockIdx.x * kGemvChannels + g;   // this lane's weight row
+  const bool w_live = n < N;
+  const bool x_live = g < M;                      // this lane's x row
+  const signed char* wrow = wq + (long long)(w_live ? n : 0) * K;
+  const float* xrow = x + (long long)(x_live ? g : 0) * K;
+  const int steps = (K + kSpan - 1) / kSpan;
+  // the epilogue's scale and bias, fetched now so their latency hides
+  // behind the weights'
+  const int i_out = threadIdx.x;
+  const int n_out = blockIdx.x * kGemvChannels + (i_out % kGemvChannels);
+  const bool out_live = i_out < kGemvRows * kGemvChannels &&
+                        i_out / kGemvChannels < M && n_out < N;
+  const float s_out = out_live ? __ldg(scales + n_out) : 0.f;
+  const float b_out = out_live && bias != nullptr ? __ldg(bias + n_out) : 0.f;
+
+  // two accumulators per step (even and odd k pairs): 4-long chains
+  float acc[STEPS][2][4] = {};
+  for (int s0 = warp * STEPS; s0 < steps; s0 += warps * STEPS) {
+    // the round's weight loads first: they do not depend on x
+    int4 w[STEPS];
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u) {
+      const int k = (s0 + u) * kSpan + 16 * t;
+      w[u] = make_int4(0, 0, 0, 0);
+      if (w_live && s0 + u < steps && k < K)
+        w[u] = __ldg(reinterpret_cast<const int4*>(wrow + k));
+    }
+    float xf[STEPS][16];
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u) {
+      const int k = (s0 + u) * kSpan + 16 * t;
+      const bool live = x_live && s0 + u < steps && k < K;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 v = live ? mxtt::load4(xrow + k + 4 * c)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        xf[u][4 * c] = v.x;
+        xf[u][4 * c + 1] = v.y;
+        xf[u][4 * c + 2] = v.z;
+        xf[u][4 * c + 3] = v.w;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u) {
+      const signed char* wb = reinterpret_cast<const signed char*>(&w[u]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        // mma k index t <-> this lane's k = 2i, t + 4 <-> 2i + 1; A row g
+        // holds x's big part, row g + 8 its small part
+        unsigned a[4];
+        mxtt::split_tf32(xf[u][2 * i], a[0], a[1]);
+        mxtt::split_tf32(xf[u][2 * i + 1], a[2], a[3]);
+        const unsigned b[2] = {
+            __float_as_uint(static_cast<float>(wb[2 * i])),
+            __float_as_uint(static_cast<float>(wb[2 * i + 1]))};
+        mxtt::mma_tf32(acc[u][i & 1], a, b);
+      }
+    }
+  }
+
+  // acc[.][.][0..1]: x row g's big part times channels 2t, 2t + 1 of
+  // the block; [2..3]: its small part
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    float sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u)
+      sum += (acc[u][0][2 + e] + acc[u][1][2 + e]) +
+             (acc[u][0][e] + acc[u][1][e]);
+    part[warp][g * kGemvChannels + 2 * t + e] = sum;
+  }
+  __syncthreads();
+  if (out_live) {
+    float sum = 0.f;
+    for (int w = 0; w < warps; ++w) sum += part[w][i_out];
+    out[(long long)(i_out / kGemvChannels) * N + n_out] =
+        sum * s_out + b_out;
+  }
+}
+
+cudaError_t launch_gemv(const float* x, const signed char* wq,
+                        const float* scales, const float* bias, float* out,
+                        int M, int N, int K, cudaStream_t stream) {
+  const int steps = (K + kSpan - 1) / kSpan;
+  const dim3 grid((N + kGemvChannels - 1) / kGemvChannels);
+  // one step a warp while the block has room (K <= 2048), else two; at
+  // least 2 warps, so the epilogue's 64 threads exist
+  if (steps <= kMaxWarps) {
+    dequant_gemv_kernel<1><<<grid, max(2, steps) * 32, 0, stream>>>(
+        x, wq, scales, bias, out, M, N, K);
+  } else {
+    const int warps = min(kMaxWarps, (steps + 1) / 2);
+    dequant_gemv_kernel<2><<<grid, warps * 32, 0, stream>>>(
+        x, wq, scales, bias, out, M, N, K);
+  }
+  return cudaGetLastError();
+}
+
+// ---- M > 8: a lane per channel, K split across warps and a cluster ------
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kMT = 32;             // rows of x per launch tile
 constexpr int kMaxSplit = 8;        // blocks of one cluster, splitting K
 constexpr int kTargetBlocks = 264;  // about two per SM of the H100
 constexpr int kSmemFloats = 8192;   // 32 KB: the x tile, then the sums
 constexpr int kLoads = 4;           // weight loads in flight per lane
 
-template <int MT>
 __global__ void __launch_bounds__(kThreads)
-dequant_matmul_kernel(const float* __restrict__ x,
-                      const signed char* __restrict__ wq,
-                      const float* __restrict__ scales,
-                      float* __restrict__ out, int M, int N, int K) {
+dequant_tiled_kernel(const float* __restrict__ x,
+                     const signed char* __restrict__ wq,
+                     const float* __restrict__ scales,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int M, int N, int K) {
+  constexpr int MT = kMT;
   constexpr int KT = kSmemFloats / MT;   // k per staged x tile
   static_assert(KT % 16 == 0 && KT * MT <= kSmemFloats, "x tile");
   static_assert(kWarps * MT * 32 <= kSmemFloats, "partial sums");
@@ -165,19 +294,20 @@ dequant_matmul_kernel(const float* __restrict__ x,
       float t = 0.f;
       for (int r = 0; r < split; ++r)
         t += *cluster.map_shared_rank(part + i, r);
+      if (bias != nullptr) t += __ldg(bias + nn);
       out[(long long)(m0 + (i >> 5)) * N + nn] = t;
     }
   }
   cluster.sync();   // peers keep their shared memory until rank 0 is done
 }
 
-template <int MT>
-cudaError_t launch(const float* x, const signed char* wq, const float* scales,
-                   float* out, int M, int N, int K, cudaStream_t stream) {
-  const int tiles = ((N + 31) / 32) * ((M + MT - 1) / MT);
+cudaError_t launch_tiled(const float* x, const signed char* wq,
+                         const float* scales, const float* bias, float* out,
+                         int M, int N, int K, cudaStream_t stream) {
+  const int tiles = ((N + 31) / 32) * ((M + kMT - 1) / kMT);
   const int split = max(1, min(kMaxSplit, kTargetBlocks / tiles));
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + 31) / 32, (M + MT - 1) / MT, split);
+  cfg.gridDim = dim3((N + 31) / 32, (M + kMT - 1) / kMT, split);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -189,7 +319,7 @@ cudaError_t launch(const float* x, const signed char* wq, const float* scales,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, dequant_matmul_kernel<MT>, x, wq, scales, out, M, N, K);
+      &cfg, dequant_tiled_kernel, x, wq, scales, bias, out, M, N, K);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -198,18 +328,19 @@ cudaError_t launch(const float* x, const signed char* wq, const float* scales,
 extern "C" {
 
 // x: (M, K) contiguous fp32; wq: (N, K) contiguous int8; scales: (N,)
-// fp32; out: (M, N) contiguous fp32; K % 16 == 0, x and wq 16-byte
-// aligned. Returns the launch's cudaError_t.
+// fp32; bias: (N,) fp32 or null; out: (M, N) contiguous fp32;
+// K % 16 == 0, x and wq 16-byte aligned. Returns the launch's
+// cudaError_t.
 int mxtt_dequant_matmul(const float* x, const signed char* wq,
-                        const float* scales, float* out, int M, int N, int K,
-                        void* stream) {
+                        const float* scales, const float* bias, float* out,
+                        int M, int N, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return cudaSuccess;
   if (K <= 0 || K % 16) return cudaErrorInvalidValue;
-  if ((M + 31) / 32 > 65535) return cudaErrorInvalidValue;
-  if (M == 1) return launch<1>(x, wq, scales, out, M, N, K, s);
-  if (M <= 8) return launch<8>(x, wq, scales, out, M, N, K, s);
-  return launch<32>(x, wq, scales, out, M, N, K, s);
+  if ((M + kMT - 1) / kMT > 65535) return cudaErrorInvalidValue;
+  if (M <= kGemvRows)
+    return launch_gemv(x, wq, scales, bias, out, M, N, K, s);
+  return launch_tiled(x, wq, scales, bias, out, M, N, K, s);
 }
 
 const char* mxtt_error_string(int code) {

@@ -5,53 +5,104 @@
 // online-softmax attention over (B, H, S, D), causal or not, keys at or
 // past kv_len masked, the causal diagonal end-aligned at
 // offset = kv_len - Sq, fp32 running max / denominator / numerator,
-// the l_safe guard, and outputs (out, lse).
+// the masked score -1e30 with p re-masked to 0 after the exp, the
+// l_safe guard, and outputs (out, lse).
 //
-// What bounds it on the H100: operations. At the prefill shape the
-// two products do 4 * D FLOP per (query, visible key) pair against
-// 16 * D bytes per row of q, k, v and out, so the work per byte grows
-// with the sequence; the inputs are fp32 and the contract is fp32
-// arithmetic, so the ceiling is the 67 TFLOP/s of the fp32 cores (no
-// TF32 tensor cores: they keep ~10 mantissa bits).
+// What bounds it on the H100: operations. The two products do 4 * D
+// FLOP per (query, visible key) pair against 16 * D bytes per row of q,
+// k, v and out, so the work per byte grows with the sequence. The
+// inputs and the contract are fp32 (2e-5 on the output). Single TF32
+// keeps 10 mantissa bits and misses that; the 3xTF32 split
+// (x = big + small, big * big + big * small + small * big, common.cuh)
+// keeps about 21 and runs on the TF32 tensor cores: its bound is
+// 3 x FLOP at 495 TFLOP/s, 2.5x below the 67 TFLOP/s fp32 cores'.
+// This kernel replaces one that ran both products on the CUDA cores,
+// one warp per 8 rows, with each K/V tile loaded and then used behind
+// two barriers.
 //
 // What the design does about it:
-// - One thread block per (b * h, 32-row query tile); a loop inside the
-//   block walks the K/V tiles (32 keys each) through shared memory —
-//   the TPU kernel's sequential grid axis becomes that loop, and the
-//   many (b * h, q-tile) blocks fill the 132 SMs.
-// - Each warp owns 8 query rows; each lane owns one key of the tile for
-//   the score product and D / 32 output columns for the P @ V product,
-//   so every score and every output element is accumulated in
-//   registers by exactly one thread (no atomics, no cross-warp sums).
-// - The loop stops at the last tile the causal mask can reach for the
-//   tile's last row: the upper triangle is never loaded.
-// - Shared-memory rows are padded by 4 floats so the lanes' 16-byte
-//   loads of 32 different K rows fall in distinct banks; q and p are
-//   read as broadcasts.
-// - The masked score is -1e30 (not -inf) and p is re-masked to 0 after
-//   the exp, so a row that sees no key yet keeps m - m = 0 and l = 0;
-//   such a row returns zeros (l_safe = 1).
-// Later work (queued in ROADMAP.md): wgmma / TMA tiles on bf16 inputs.
+// - Both products on the tensor cores as mma.sync m16n8k8 TF32 in
+//   3xTF32. A block owns 32 query rows: 2 row warps of 16 rows (the
+//   mma's m) times G key groups; group i takes the K/V tiles i, i + G,
+//   i + 2G.. of the block's range, so the chain of tiles a warp walks
+//   is 1/G of the range, and the partial softmax states (m, l, o) meet
+//   in shared memory at the end. The prefill shape (1, 12, 512, 64)
+//   gives 192 blocks for the 132 SMs: while the grid fits in one wave
+//   of two blocks per SM, the launch takes G = 4 on 16-key tiles (the
+//   work per block sets the time), else G = 2 on 32-key tiles (less
+//   work per key; the 1024-token context's 384 blocks).
+// - The mma's k index is summed over, so each product maps it to the
+//   layout that lets a lane load with the widest shared-memory reads:
+//   * S = Q K^T: over a pair of k steps lane (g, t) takes head dims
+//     16 c + 4 t .. + 3 of its rows (A: Q) and of key g (B: K), one
+//     16-byte load each. Rows are padded to D + 16 floats (48 at
+//     D = 16), so the 8 lanes of a quarter warp hit 8 distinct 16-byte
+//     bank groups. Q is scaled, split and kept in registers as A
+//     fragments (D <= 64; at D = 128 it is re-read from shared memory,
+//     which keeps the kernel out of spills).
+//   * O += P V: the accumulator of S holds, in lane (g, t), keys 2t and
+//     2t + 1 of each 8-key slice, so A's column t is key 2t and column
+//     t + 4 key 2t + 1: the S accumulator IS P's A fragment (no shared
+//     memory, no shuffle). B's column g of the 4 n tiles 4c .. 4c + 3 is
+//     head dim 32 c + 4 g + r, one 16-byte load of V row 2t (and 2t + 1)
+//     per 4 n tiles (8 bytes per 2 at D = 16); V rows padded to D + 4
+//     floats keep a quarter warp on distinct bank groups. The epilogue
+//     undoes the map: a lane stores 4 consecutive outputs at a time.
+// - The online softmax on the accumulator fragments, in the log2
+//   domain (q pre-scaled by scale * log2(e), exp2 on the SFU): a row
+//   lives in the 4 lanes of a quad, so its max and sum take two
+//   shuffles.
+// - K/V tiles in a ring of 2G stages filled by cp.async.cg 16-byte
+//   copies: a round's G tiles are computed while the next round's are
+//   in flight, and the copies of the round after are issued as soon as
+//   this one is consumed. A row at or past kv_len is zero-filled with a
+//   source size of 0, so it is never read (NaN there stays out).
+// - Causal: the loop stops at the last tile the block's last row may
+//   see, a warp skips a tile none of its rows sees, and the grid runs
+//   the heaviest q-tiles first (q-tile index reversed on the slow grid
+//   axis), so the blocks the scheduler places second on an SM are the
+//   lightest.
+// - The dynamic shared-memory limit is raised once per device and
+//   instance, not on every launch.
+// Later work (ROADMAP.md): wgmma / TMA tiles on bf16 inputs.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRows = 8;                  // query rows per warp
-constexpr int kBlockQ = kWarps * kRows;   // query rows per block
-constexpr int kBlockK = 32;               // keys per tile: one per lane
-constexpr int kThreads = kWarps * 32;
+constexpr int kRowWarps = 2;                // warps along the query rows
+constexpr int kRows = 16;                   // query rows per warp (mma m)
+constexpr int kBlockQ = kRowWarps * kRows;  // query rows per block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
+// A block of G key groups walking K/V tiles of BK keys.
+template <int D, int G, int BK>
 struct FlashSmem {
-  static constexpr int kPad = D + 4;      // padded row (floats)
+  static constexpr int kGroups = G;          // warp groups splitting keys
+  static constexpr int kBlockK = BK;         // keys per K/V tile
+  static constexpr int kStages = 2 * G;      // K/V ring depth
+  static constexpr int kThreads = kRowWarps * G * 32;
+  // Q and K rows: 16 mod 32 floats (16-byte fragment loads)
+  static constexpr int kPadK = (D + 16) % 32 == 16 ? D + 16 : D + 32;
+  // V rows: 4 mod 32 floats (16-byte loads of rows 2t and 2t + 1)
+  static constexpr int kPadV = D + 4;
+  static constexpr int kTileK = kBlockK * kPadK;
+  static constexpr int kTileV = kBlockK * kPadV;
   static constexpr int kFloats =
-      kBlockQ * kPad + kBlockK * kPad + kBlockK * D + kWarps * kRows * kBlockK;
+      kBlockQ * kPadK + kStages * (kTileK + kTileV);
   static constexpr size_t kBytes = kFloats * sizeof(float);
+  static constexpr bool kQInRegs = D <= 64;
+  // n tiles of O per 16-byte (or 8-byte) V load
+  static constexpr int kVec = D >= 32 ? 4 : 2;
+  // floats a lane hands over when the key groups meet
+  static constexpr int kXch = 4 + D / 2;
+  static_assert((kGroups - 1) * kRowWarps * kXch * 32 <=
+                    kStages * (kTileK + kTileV),
+                "the exchange fits in the ring");
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int G, int BK>
+__global__ void __launch_bounds__(kRowWarps * G * 32)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int H, int Sq, int kv_len,
@@ -59,168 +110,407 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  long long q_ss, long long k_sb, long long k_sh,
                  long long k_ss, long long v_sb, long long v_sh,
                  long long v_ss) {
-  constexpr int P = FlashSmem<D>::kPad;
-  constexpr int V4 = D / 4;                   // float4 per row
-  constexpr int DPL = D >= 32 ? D / 32 : 1;   // output columns per lane
+  using S = FlashSmem<D, G, BK>;
+  constexpr int kGroups = S::kGroups;
+  constexpr int kBlockK = S::kBlockK;
+  constexpr int kStages = S::kStages;
+  constexpr int kThreads = S::kThreads;
+  constexpr int PK = S::kPadK;
+  constexpr int PV = S::kPadV;
+  constexpr int V4 = D / 4;          // 16-byte chunks per row
+  constexpr int KD = D / 8;          // mma k steps over the head dim
+  constexpr int NK = kBlockK / 8;    // 8-key slices per tile
+  constexpr int VEC = S::kVec;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // [kBlockQ][P]
-  float* k_s = q_s + kBlockQ * P;                 // [kBlockK][P]
-  float* v_s = k_s + kBlockK * P;                 // [kBlockK][D]
-  float* p_s = v_s + kBlockK * D;                 // [kWarps][kRows][kBlockK]
+  float* q_s = reinterpret_cast<float*>(smem4);   // [kBlockQ][PK]
+  float* k_s = q_s + kBlockQ * PK;                // [kStages][kBlockK][PK]
+  float* v_s = k_s + kStages * S::kTileK;         // [kStages][kBlockK][PV]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
+  const int grp = warp / kRowWarps;   // takes tiles grp, grp + kGroups..
+  const int wr = warp % kRowWarps;    // owns rows 16 wr .. 16 wr + 15
   const int lane = tid & 31;
-  const int bh = blockIdx.y;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int n_q = gridDim.y;
+  // heaviest causal q-tile first
+  const int q0 = (causal ? n_q - 1 - (int)blockIdx.y : (int)blockIdx.y) *
+                 kBlockQ;
   const int offset = kv_len - Sq;
   const float* qb = q + b * q_sb + h * q_sh;
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
 
-  // stage the scaled query tile; rows past Sq are zeros
-  for (int i = tid; i < kBlockQ * V4; i += kThreads) {
-    const int r = i / V4;
-    const int c = (i - r * V4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq) {
-      x = mxtt::load4(qb + (long long)(q0 + r) * q_ss + c);
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-    }
-    *reinterpret_cast<float4*>(q_s + r * P + c) = x;
-  }
-
-  // last key any row of this tile may see
+  // last key any row of this block (and of this warp) may see
   int last = kv_len - 1;
-  if (causal) last = min(last, q0 + kBlockQ - 1 + offset);
+  int warp_last = kv_len - 1;
+  if (causal) {
+    last = min(last, q0 + kBlockQ - 1 + offset);
+    warp_last = min(warp_last, q0 + wr * kRows + kRows - 1 + offset);
+  }
   const int n_tiles = last < 0 ? 0 : last / kBlockK + 1;
 
-  float m[kRows], l[kRows], acc[kRows][DPL];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = MXTT_NEG_INF;
-    l[r] = 0.f;   // this lane's share of the denominator
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
-  float* pw = p_s + warp * kRows * kBlockK;
-  const float* qw = q_s + warp * kRows * P;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();   // the previous tile's readers are done
+  auto load_kv = [&](int tile) {
+    const int k0 = tile * kBlockK;
+    float* ks = k_s + (tile % kStages) * S::kTileK;
+    float* vs = v_s + (tile % kStages) * S::kTileV;
     for (int i = tid; i < kBlockK * V4; i += kThreads) {
       const int r = i / V4;
       const int c = (i - r * V4) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (k0 + r < kv_len) {   // rows at or past kv_len are never read
-        kx = mxtt::load4(kb + (long long)(k0 + r) * k_ss + c);
-        vx = mxtt::load4(vb + (long long)(k0 + r) * v_ss + c);
-      }
-      *reinterpret_cast<float4*>(k_s + r * P + c) = kx;
-      *reinterpret_cast<float4*>(v_s + r * D + c) = vx;
+      const bool live = k0 + r < kv_len;   // never read past kv_len
+      const long long row = live ? k0 + r : 0;
+      mxtt::cp_async16(ks + r * PK + c, kb + row * k_ss + c, live);
+      mxtt::cp_async16(vs + r * PV + c, vb + row * v_ss + c, live);
     }
-    __syncthreads();
+  };
 
-    // scores: lane = key, 8 rows per warp
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float* krow = k_s + lane * P;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      const float4 kx = *reinterpret_cast<const float4*>(krow + c);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        s[r] = mxtt::dot4(*reinterpret_cast<const float4*>(qw + r * P + c),
-                          kx, s[r]);
-    }
-
-    // online softmax, one row at a time
-    const int key = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qrow = q0 + warp * kRows + r;
-      const bool valid = key < kv_len && (!causal || key <= qrow + offset);
-      const float sv = valid ? s[r] : MXTT_NEG_INF;
-      const float m_new = fmaxf(m[r], mxtt::warp_max(sv));
-      const float alpha = expf(m[r] - m_new);
-      const float p = valid ? expf(sv - m_new) : 0.f;   // re-mask
-      l[r] = l[r] * alpha + p;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-      m[r] = m_new;
-      pw[r * kBlockK + lane] = p;
-    }
-    __syncwarp();
-
-    // P @ V: lane owns output columns lane + 32 * i
-#pragma unroll 2
-    for (int j = 0; j < kBlockK; j += 4) {
-      float vv[4][DPL];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int d = lane + 32 * i;
-          vv[jj][i] = d < D ? v_s[(j + jj) * D + d] : 0.f;
-        }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(pw + r * kBlockK + j);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          float a = acc[r][i];
-          a = fmaf(p4.x, vv[0][i], a);
-          a = fmaf(p4.y, vv[1][i], a);
-          a = fmaf(p4.z, vv[2][i], a);
-          a = fmaf(p4.w, vv[3][i], a);
-          acc[r][i] = a;
-        }
-      }
-    }
-    __syncwarp();
+  // copy group 0: the query tile (rows past Sq zero) and the K/V tiles
+  // of round 0; copy group 1: those of round 1
+  for (int i = tid; i < kBlockQ * V4; i += kThreads) {
+    const int r = i / V4;
+    const int c = (i - r * V4) * 4;
+    const bool live = q0 + r < Sq;
+    mxtt::cp_async16(q_s + r * PK + c,
+                     qb + (long long)(live ? q0 + r : 0) * q_ss + c, live);
+  }
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_tiles) load_kv(i);
+    if (i % kGroups == kGroups - 1) mxtt::cp_async_commit();
   }
 
-  // epilogue: out = acc / l_safe, lse = m + log(l_safe)
-  const long long row0 = (long long)bh * Sq;
+  // this warp's 16 query rows, scaled into the log2 domain and split:
+  // A fragments of k steps 2c (head dims 16c + 4t, +1) and 2c + 1
+  // (16c + 4t + 2, +3)
+  const float* qw = q_s + wr * kRows * PK;
+  const float qscale = scale * kLog2e;
+  unsigned qa_big[S::kQInRegs ? KD : 1][4];
+  unsigned qa_small[S::kQInRegs ? KD : 1][4];
+  auto q_frags = [&](int c, unsigned (&big)[2][4], unsigned (&small)[2][4]) {
+    const float4 lo = *reinterpret_cast<const float4*>(qw + g * PK +
+                                                       16 * c + 4 * t);
+    const float4 hi = *reinterpret_cast<const float4*>(
+        qw + (g + 8) * PK + 16 * c + 4 * t);
+    mxtt::split_tf32(lo.x * qscale, big[0][0], small[0][0]);
+    mxtt::split_tf32(hi.x * qscale, big[0][1], small[0][1]);
+    mxtt::split_tf32(lo.y * qscale, big[0][2], small[0][2]);
+    mxtt::split_tf32(hi.y * qscale, big[0][3], small[0][3]);
+    mxtt::split_tf32(lo.z * qscale, big[1][0], small[1][0]);
+    mxtt::split_tf32(hi.z * qscale, big[1][1], small[1][1]);
+    mxtt::split_tf32(lo.w * qscale, big[1][2], small[1][2]);
+    mxtt::split_tf32(hi.w * qscale, big[1][3], small[1][3]);
+  };
+  if constexpr (S::kQInRegs) {
+    mxtt::cp_async_wait<1>();
+    __syncthreads();
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float lt = mxtt::warp_sum(l[r]);
-    const float l_safe = lt > 0.f ? lt : 1.f;
-    const int qrow = q0 + warp * kRows + r;
-    if (qrow < Sq) {
-      float* orow = out + (row0 + qrow) * D;
+    for (int c = 0; c < KD / 2; ++c) {
+      unsigned bg[2][4], sm[2][4];
+      q_frags(c, bg, sm);
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) orow[d] = acc[r][i] / l_safe;
+      for (int i = 0; i < 4; ++i) {
+        qa_big[2 * c][i] = bg[0][i];
+        qa_small[2 * c][i] = sm[0][i];
+        qa_big[2 * c + 1][i] = bg[1][i];
+        qa_small[2 * c + 1][i] = sm[1][i];
       }
-      if (lane == 0) lse[row0 + qrow] = m[r] + logf(l_safe);
+    }
+  }
+
+  // rows g and g + 8 of the warp: running max (log2 domain), this
+  // lane's share of the denominator, and the output accumulator
+  const int row0 = q0 + wr * kRows + g;
+  const int row1 = row0 + 8;
+  float m0 = MXTT_NEG_INF, m1 = MXTT_NEG_INF, l0 = 0.f, l1 = 0.f;
+  float o[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int round = 0; round * kGroups < n_tiles; ++round) {
+    mxtt::cp_async_wait<1>();   // this thread's copies of the round landed
+    __syncthreads();            // everyone's
+    const int tile = round * kGroups + grp;
+    const int k0 = tile * kBlockK;
+    // a warp computes when its tile exists and one of its rows sees it
+    if (tile < n_tiles && k0 <= warp_last) {
+      const float* ks = k_s + (tile % kStages) * S::kTileK;
+      const float* vs = v_s + (tile % kStages) * S::kTileV;
+
+      // S = (scale log2e Q) K^T: 16 rows x 32 keys in 4 accumulators
+      float s[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int c = 0; c < KD / 2; ++c) {
+        unsigned ab[2][4], as[2][4];
+        if constexpr (S::kQInRegs) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ab[0][i] = qa_big[2 * c][i];
+            as[0][i] = qa_small[2 * c][i];
+            ab[1][i] = qa_big[2 * c + 1][i];
+            as[1][i] = qa_small[2 * c + 1][i];
+          }
+        } else {
+          q_frags(c, ab, as);
+        }
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const float4 kx = *reinterpret_cast<const float4*>(
+              ks + (j * 8 + g) * PK + 16 * c + 4 * t);
+          unsigned bb[2][2], bs[2][2];
+          mxtt::split_tf32(kx.x, bb[0][0], bs[0][0]);
+          mxtt::split_tf32(kx.y, bb[0][1], bs[0][1]);
+          mxtt::split_tf32(kx.z, bb[1][0], bs[1][0]);
+          mxtt::split_tf32(kx.w, bb[1][1], bs[1][1]);
+          mxtt::mma_3xtf32(s[j], ab[0], as[0], bb[0], bs[0]);
+          mxtt::mma_3xtf32(s[j], ab[1], as[1], bb[1], bs[1]);
+        }
+      }
+
+      // mask (only tiles that cross kv_len or the diagonal), then the
+      // online softmax on the fragments: row g in s[j][0..1], row g + 8
+      // in s[j][2..3], keys k0 + 8j + 2t + {0, 1}
+      const bool edge = k0 + kBlockK > kv_len ||
+                        (causal && k0 + kBlockK - 1 > row0 - g + offset);
+      float mx0 = MXTT_NEG_INF, mx1 = MXTT_NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (edge) {
+            const int key = k0 + j * 8 + 2 * t + e;
+            const bool in = key < kv_len;
+            if (!(in && (!causal || key <= row0 + offset)))
+              s[j][e] = MXTT_NEG_INF;
+            if (!(in && (!causal || key <= row1 + offset)))
+              s[j][2 + e] = MXTT_NEG_INF;
+          }
+          mx0 = fmaxf(mx0, s[j][e]);
+          mx1 = fmaxf(mx1, s[j][2 + e]);
+        }
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(mxtt::kFullMask, mx0, sh));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(mxtt::kFullMask, mx1, sh));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // re-mask after the exp: a masked score gives exactly 0
+          const float p0 =
+              s[j][e] == MXTT_NEG_INF ? 0.f : exp2f(s[j][e] - mn0);
+          const float p1 =
+              s[j][2 + e] == MXTT_NEG_INF ? 0.f : exp2f(s[j][2 + e] - mn1);
+          s[j][e] = p0;
+          s[j][2 + e] = p1;
+          ps0 += p0;
+          ps1 += p1;
+        }
+      l0 = l0 * al0 + ps0;
+      l1 = l1 * al1 + ps1;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+        o[n][0] *= al0;
+        o[n][1] *= al0;
+        o[n][2] *= al1;
+        o[n][3] *= al1;
+      }
+
+      // O += P V: the P fragment of slice j is s[j] (A's column t is key
+      // 2t, t + 4 key 2t + 1); B's column g of n tile VEC * c + r is
+      // head dim 8 VEC c + VEC g + r
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        unsigned pb[4], ps[4];
+        mxtt::split_tf32(s[j][0], pb[0], ps[0]);
+        mxtt::split_tf32(s[j][2], pb[1], ps[1]);
+        mxtt::split_tf32(s[j][1], pb[2], ps[2]);
+        mxtt::split_tf32(s[j][3], pb[3], ps[3]);
+        const float* v0 = vs + (j * 8 + 2 * t) * PV + VEC * g;
+#pragma unroll
+        for (int c = 0; c < KD / VEC; ++c) {
+          float va[VEC], vb2[VEC];
+          if constexpr (VEC == 4) {
+            const float4 x0 = *reinterpret_cast<const float4*>(v0 + 32 * c);
+            const float4 x1 =
+                *reinterpret_cast<const float4*>(v0 + PV + 32 * c);
+            va[0] = x0.x; va[1] = x0.y; va[2] = x0.z; va[3] = x0.w;
+            vb2[0] = x1.x; vb2[1] = x1.y; vb2[2] = x1.z; vb2[3] = x1.w;
+          } else {
+            const float2 x0 = *reinterpret_cast<const float2*>(v0 + 16 * c);
+            const float2 x1 =
+                *reinterpret_cast<const float2*>(v0 + PV + 16 * c);
+            va[0] = x0.x; va[1] = x0.y;
+            vb2[0] = x1.x; vb2[1] = x1.y;
+          }
+#pragma unroll
+          for (int r = 0; r < VEC; ++r) {
+            unsigned bb[2], bs[2];
+            mxtt::split_tf32(va[r], bb[0], bs[0]);
+            mxtt::split_tf32(vb2[r], bb[1], bs[1]);
+            mxtt::mma_3xtf32(o[VEC * c + r], pb, ps, bb, bs);
+          }
+        }
+      }
+    }
+    __syncthreads();            // the round's stages are consumed
+    for (int i = 0; i < kGroups; ++i)
+      if ((round + 2) * kGroups + i < n_tiles)
+        load_kv((round + 2) * kGroups + i);
+    mxtt::cp_async_commit();
+  }
+  mxtt::cp_async_wait<0>();
+
+  // the key groups' partial states meet: groups 1.. hand (m, l, o) of
+  // each lane to the same lane of group 0's warp over the same rows,
+  // which folds them in in group order
+  __syncthreads();              // the ring is free
+  float* xch = k_s + ((grp > 0 ? grp - 1 : 0) * kRowWarps + wr) *
+                         S::kXch * 32 + lane;
+  if (grp > 0) {
+    xch[0] = m0;
+    xch[32] = m1;
+    xch[64] = l0;
+    xch[96] = l1;
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xch[(4 + 4 * n + i) * 32] = o[n][i];
+  }
+  __syncthreads();
+  if (grp > 0) return;
+  for (int src = 1; src < kGroups; ++src) {
+    const float* in = xch + (src - 1) * kRowWarps * S::kXch * 32;
+    const float pm0 = in[0], pm1 = in[32];
+    const float nm0 = fmaxf(m0, pm0), nm1 = fmaxf(m1, pm1);
+    const float a0 = exp2f(m0 - nm0), c0 = exp2f(pm0 - nm0);
+    const float a1 = exp2f(m1 - nm1), c1 = exp2f(pm1 - nm1);
+    l0 = l0 * a0 + in[64] * c0;
+    l1 = l1 * a1 + in[96] * c1;
+    m0 = nm0;
+    m1 = nm1;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      o[n][0] = o[n][0] * a0 + in[(4 + 4 * n) * 32] * c0;
+      o[n][1] = o[n][1] * a0 + in[(5 + 4 * n) * 32] * c0;
+      o[n][2] = o[n][2] * a1 + in[(6 + 4 * n) * 32] * c1;
+      o[n][3] = o[n][3] * a1 + in[(7 + 4 * n) * 32] * c1;
+    }
+  }
+
+  // epilogue: out = o / l_safe, lse = m ln 2 + log(l_safe) (a row that
+  // saw no key keeps m = -1e30); o[VEC c + r][e] (and [2 + e] for row
+  // g + 8) is head dim 8 VEC c + VEC (2t + e) + r
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    l0 += __shfl_xor_sync(mxtt::kFullMask, l0, sh);
+    l1 += __shfl_xor_sync(mxtt::kFullMask, l1, sh);
+  }
+  const float ls0 = l0 > 0.f ? l0 : 1.f;
+  const float ls1 = l1 > 0.f ? l1 : 1.f;
+  const float inv0 = 1.f / ls0, inv1 = 1.f / ls1;
+  const long long base = (long long)bh * Sq;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
+    if (row >= Sq) continue;
+    const float inv = half ? inv1 : inv0;
+    float* orow = out + (base + row) * D;
+#pragma unroll
+    for (int c = 0; c < KD / VEC; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* dst = orow + 8 * VEC * c + VEC * (2 * t + e);
+        const int i = 2 * half + e;
+        if constexpr (VEC == 4) {
+          *reinterpret_cast<float4*>(dst) = make_float4(
+              o[4 * c][i] * inv, o[4 * c + 1][i] * inv,
+              o[4 * c + 2][i] * inv, o[4 * c + 3][i] * inv);
+        } else {
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(o[2 * c][i] * inv, o[2 * c + 1][i] * inv);
+        }
+      }
+    if (t == 0) {
+      const float m = half ? m1 : m0;
+      lse[base + row] = (m == MXTT_NEG_INF ? m : m * kLn2) +
+                        logf(half ? ls1 : ls0);
     }
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// The dynamic shared-memory limit of an instance, raised once per device.
+template <int D, int G, int BK>
+cudaError_t raise_smem_limit(int dev) {
+  static int raised[kMaxDevices] = {};   // 0: not yet, 1: done
+  if (dev < kMaxDevices && raised[dev]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, G, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FlashSmem<D, G, BK>::kBytes);
+  if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = 1;
+  return err;
+}
+
+// The device's SM count, read once per device.
+cudaError_t sm_count(int dev, int* n) {
+  static int count[kMaxDevices] = {};
+  if (dev < kMaxDevices && count[dev]) {
+    *n = count[dev];
+    return cudaSuccess;
+  }
+  const cudaError_t err =
+      cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kMaxDevices) count[dev] = *n;
+  return err;
+}
+
+template <int D, int G, int BK>
+cudaError_t launch_shape(const float* q, const float* k, const float* v,
+                         float* out, float* lse, int dev, int B, int H,
+                         int Sq, int kv_len, int causal, float scale,
+                         const long long* st, cudaStream_t stream) {
+  using S = FlashSmem<D, G, BK>;
+  const cudaError_t err = raise_smem_limit<D, G, BK>(dev);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ);
+  flash_fwd_kernel<D, G, BK><<<grid, S::kThreads, S::kBytes, stream>>>(
+      q, k, v, out, lse, H, Sq, kv_len, causal, scale, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8]);
+  return cudaGetLastError();
+}
+
+// Four key groups on 16-key tiles while the grid fits in one wave of two
+// blocks per SM (the prefill's 512 tokens: 192 blocks): the work per
+// block then sets the time, and splitting its keys four ways shortens
+// it. Past that (1024 tokens: 384 blocks) two groups on 32-key tiles do
+// less work per key and win.
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    float* lse, int B, int H, int Sq, int kv_len, int causal,
                    float scale, const long long* st, cudaStream_t stream) {
-  constexpr size_t bytes = FlashSmem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = sm_count(dev, &sms);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, out, lse, H, Sq, kv_len, causal, scale, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8]);
-  return cudaGetLastError();
+  const long long blocks =
+      (long long)B * H * ((Sq + kBlockQ - 1) / kBlockQ);
+  if (blocks <= 2LL * sms)
+    return launch_shape<D, 4, 16>(q, k, v, out, lse, dev, B, H, Sq, kv_len,
+                                  causal, scale, st, stream);
+  return launch_shape<D, 2, 32>(q, k, v, out, lse, dev, B, H, Sq, kv_len,
+                                causal, scale, st, stream);
 }
 
 }  // namespace
@@ -228,15 +518,17 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
 extern "C" {
 
 // q: (B, H, Sq, D), k / v: (B, H, Sk, D), all fp32 with a contiguous
-// last axis; ``strides`` holds the (b, h, s) element strides of q, k
-// and v in that order. out: (B, H, Sq, D) and lse: (B, H, Sq),
-// contiguous fp32. Returns the cudaError_t of the launch.
+// last axis and 16-byte aligned rows; ``strides`` holds the (b, h, s)
+// element strides of q, k and v in that order. out: (B, H, Sq, D) and
+// lse: (B, H, Sq), contiguous fp32. Returns the cudaError_t of the
+// launch.
 int mxtt_flash_attention_fwd(const float* q, const float* k, const float* v,
                              float* out, float* lse, int B, int H, int Sq,
                              int D, int kv_len, int causal, float scale,
                              const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * H == 0 || Sq == 0) return cudaSuccess;
+  if ((Sq + kBlockQ - 1) / kBlockQ > 65535) return cudaErrorInvalidValue;
   switch (D) {
     case 16:
       return launch<16>(q, k, v, out, lse, B, H, Sq, kv_len, causal, scale,

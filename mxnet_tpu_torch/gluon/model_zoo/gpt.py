@@ -164,16 +164,15 @@ class GPTBlock(HybridBlock):
     def _proj(self, name, x):
         """One projection: the fp32 Dense, or — when the bound quant
         table carries ``name`` — the fused dequant-matmul over its int8
-        weight (K4 on the card). Bias and activation follow the Dense's
-        own, after the product, so the two paths differ only in the
-        weight rounding."""
+        weight (K4 on the card, which adds the Dense's bias in its
+        epilogue). The activation follows the Dense's own, after the
+        product, so the two paths differ only in the weight rounding."""
         layer = getattr(self, name)
         q = self._qbind.get(name) if self._qbind else None
         if q is None:
             return layer(x)
-        y = _qz.dequant_matmul(x, *q)
-        if layer.bias is not None:
-            y = y + layer.bias.data()
+        bias = layer.bias.data() if layer.bias is not None else None
+        y = _qz.dequant_matmul(x, *q, bias=bias)
         if layer._act_type is not None:
             y = _nn.activation(y, layer._act_type)
         return y

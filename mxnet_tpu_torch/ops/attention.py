@@ -161,6 +161,10 @@ def _check_cuda_f32(name, *tensors):
 #: q, k, v, out, lse; B, H, Sq, D, kv_len, causal; scale; strides; stream
 _FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+#: the (b, h, s) strides of q, k and v, as the kernel reads them
+_Strides9 = ctypes.c_longlong * 9
+#: K1's rows per query tile, and its grid's limit on query tiles
+_FLASH_BLOCK_Q, _GRID_Y_MAX = 32, 65535
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale, kv_len):
@@ -176,20 +180,18 @@ def _flash_fwd_cuda(q, k, v, causal, scale, kv_len):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
-    if b * h > 65535:
-        raise ValueError(f"{name}: batch*heads {b * h} exceeds the grid")
-    strides = (ctypes.c_longlong * 9)(
-        *_kernel_strides(name, q), *_kernel_strides(name, k),
-        *_kernel_strides(name, v))
+    if -(-sq // _FLASH_BLOCK_Q) > _GRID_Y_MAX:
+        raise ValueError(f"{name}: {sq} query rows exceed the grid")
+    strides = _Strides9(*_kernel_strides(name, q), *_kernel_strides(name, k),
+                        *_kernel_strides(name, v))
     out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention", "mxtt_flash_attention_fwd",
                          _FLASH_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, h, sq, d, kv_len, int(bool(causal)),
-                 float(scale), ctypes.addressof(strides), stream)
+    err = _build.launch_on(q, fn, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, h, sq, d, kv_len, int(bool(causal)),
+        float(scale), ctypes.addressof(strides)))
     _launches[name] += 1
     _build.check("flash_attention", err, name)
     return out, lse
@@ -335,19 +337,17 @@ def _decode_cuda(q, k, v, lengths, scale, k_scale=None, v_scale=None):
                          f"{lengths.device}")
     if b > 65535 or sq > 65535 * 4:
         raise ValueError(f"{name}: batch {b} / queries {sq} exceed the grid")
-    strides = (ctypes.c_longlong * 9)(
-        *_kernel_strides(name, q), *_kernel_strides(name, k),
-        *_kernel_strides(name, v))
+    strides = _Strides9(*_kernel_strides(name, q), *_kernel_strides(name, k),
+                        *_kernel_strides(name, v))
     out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quant else ()
     fn = _build.function(
         "decode_attention", f"mxtt_{name}",
         _DECODE_INT8_ARGTYPES if quant else _DECODE_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
-                 lengths.data_ptr(), out.data_ptr(), b, h, sq, k.shape[2],
-                 d, float(scale), ctypes.addressof(strides), stream)
+    err = _build.launch_on(q, fn, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
+        lengths.data_ptr(), out.data_ptr(), b, h, sq, k.shape[2], d,
+        float(scale), ctypes.addressof(strides)))
     _launches[name] += 1
     _build.check("decode_attention", err, name)
     return out
@@ -459,12 +459,11 @@ def _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale,
     fn = _build.function(
         "paged_decode_attention", f"mxtt_{name}",
         _PAGED_INT8_ARGTYPES if quant else _PAGED_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 *scales, table.data_ptr(), lengths.data_ptr(),
-                 out.data_ptr(), b, h, sq, d, ps, table.shape[1], n_pages,
-                 float(scale), ctypes.addressof(q_strides), stream)
+    err = _build.launch_on(q, fn, (
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, sq, d,
+        ps, table.shape[1], n_pages, float(scale),
+        ctypes.addressof(q_strides)))
     _launches[name] += 1
     _build.check("paged_decode_attention", err, name)
     return out

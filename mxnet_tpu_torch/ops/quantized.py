@@ -15,8 +15,9 @@ Activations stay fp32, so the only error source is the weight rounding.
 takes the plain version (the reference's blocked computation, one
 output-channel block of ``_block_n`` channels at a time through
 ``_dequant_dot``), a CUDA tensor launches K4
-(``csrc/dequant_matmul.cu``), which streams each int8 weight byte once
-and dequantizes it in registers — or raises. There is no fallback.
+(``csrc/dequant_matmul.cu``), which streams each int8 weight byte once,
+converts it in registers and adds an optional bias in its epilogue —
+or raises. There is no fallback.
 
 The int8 KV cache quantizes K/V with the same convention (amax / 127,
 round half to even, clip to ±127) through ``kv_scale`` and
@@ -101,33 +102,46 @@ def _dequant_dot(x2, wq_blk, s_blk):
     return x2 @ wf.T
 
 
-def _dequant_matmul_torch(x2, wq, scales, block_n=_BLOCK_N):
+def _dequant_matmul_torch(x2, wq, scales, block_n=_BLOCK_N, bias=None):
     """The plain version of K4: ``_dequant_dot`` over ``block_n``-wide
     output-channel blocks, so at most one block of the weight is ever
-    dequantized at a time."""
+    dequantized at a time; the bias, when given, is added after the
+    product (the reference's ``_proj``: ``dequant_matmul(...) + bias``)."""
     n = wq.shape[0]
     bn = _block_n(n, block_n)
     if bn == n:
-        return _dequant_dot(x2, wq, scales)
-    return torch.cat([_dequant_dot(x2, wq[j:j + bn], scales[j:j + bn])
-                      for j in range(0, n, bn)], dim=1)
+        out = _dequant_dot(x2, wq, scales)
+    else:
+        out = torch.cat([_dequant_dot(x2, wq[j:j + bn], scales[j:j + bn])
+                         for j in range(0, n, bn)], dim=1)
+    return out if bias is None else out + bias
 
 
-#: x, wq, scales, out; M, N, K; stream
-_DEQUANT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+def _check_bias(bias, n):
+    if tuple(bias.shape) != (n,):
+        raise ValueError(f"dequant_matmul: bias shape {tuple(bias.shape)} "
+                         f"must be ({n},)")
+
+
+#: x, wq, scales, bias, out; M, N, K; stream
+_DEQUANT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p]
 
 
-def _dequant_matmul_cuda(x2, wq, scales):
+def _dequant_matmul_cuda(x2, wq, scales, bias=None):
     """Launch K4 (``csrc/dequant_matmul.cu``): x2 (M, K) fp32, wq (N, K)
-    int8 and scales (N,) fp32, all contiguous on one card, K a multiple
-    of 16 (16-byte weight loads). Anything else raises — nothing is
-    copied."""
+    int8, scales (N,) fp32 and an optional bias (N,) fp32, all
+    contiguous on one card, K a multiple of 16 (16-byte weight loads).
+    Anything else raises — nothing is copied."""
     name = "dequant_matmul"
     m, k = x2.shape
     n = wq.shape[0]
-    for what, t, dt in (("x", x2, torch.float32), ("wq", wq, torch.int8),
-                        ("scales", scales, torch.float32)):
+    checked = [("x", x2, torch.float32), ("wq", wq, torch.int8),
+               ("scales", scales, torch.float32)]
+    if bias is not None:
+        _check_bias(bias, n)
+        checked.append(("bias", bias, torch.float32))
+    for what, t, dt in checked:
         if t.device != x2.device:
             raise ValueError(f"{name}: inputs on different devices "
                              f"({x2.device} vs {t.device} for {what})")
@@ -140,25 +154,24 @@ def _dequant_matmul_cuda(x2, wq, scales):
         raise ValueError(f"{name}: in-features {k} must be a multiple of "
                          f"16 for the kernel's 16-byte weight loads")
     out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    fn = _build.function("dequant_matmul", "mxtt_dequant_matmul",
-                         _DEQUANT_ARGTYPES)
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x2.data_ptr(), wq.data_ptr(), scales.data_ptr(),
-                 out.data_ptr(), m, n, k, stream)
+    fn = _build.function(name, "mxtt_dequant_matmul", _DEQUANT_ARGTYPES)
+    err = _build.launch_on(x2, fn, (
+        x2.data_ptr(), wq.data_ptr(), scales.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k))
     _launches[name] += 1
-    _build.check("dequant_matmul", err, name)
+    _build.check(name, err, name)
     return out
 
 
-def dequant_matmul(x, wq, scales, block_n=_BLOCK_N):
-    """``x @ dequant(wq, scales).T``.
+def dequant_matmul(x, wq, scales, block_n=_BLOCK_N, bias=None):
+    """``x @ dequant(wq, scales).T (+ bias)``.
 
     ``x`` is ``(..., K)`` fp32, ``wq`` ``(N, K)`` int8 (the Dense
-    ``(out, in)`` layout), ``scales`` ``(N,)`` fp32. Returns
-    ``(..., N)`` fp32. CUDA inputs launch K4 (``x`` folded to ``(M, K)``
+    ``(out, in)`` layout), ``scales`` ``(N,)`` fp32, ``bias`` ``(N,)``
+    fp32 or None. Returns ``(..., N)`` fp32. CUDA inputs launch K4,
+    which adds the bias in its epilogue (``x`` folded to ``(M, K)``
     without a copy, so it must be contiguous); CPU inputs take the
-    blocked plain version."""
+    blocked plain version and add the bias after it."""
     n, k = wq.shape
     if x.shape[-1] != k:
         raise ValueError(f"x features {x.shape[-1]} do not match "
@@ -166,13 +179,15 @@ def dequant_matmul(x, wq, scales, block_n=_BLOCK_N):
     if tuple(scales.shape) != (n,):
         raise ValueError(f"scales shape {tuple(scales.shape)} must be "
                          f"({n},)")
+    if bias is not None:
+        _check_bias(bias, n)
     lead = x.shape[:-1]
     if x.is_cuda:
         if not x.is_contiguous():
             raise ValueError("dequant_matmul: x must be contiguous (the "
                              "kernel reads it as (M, K) without a copy)")
-        out = _dequant_matmul_cuda(x.view(-1, k), wq, scales)
+        out = _dequant_matmul_cuda(x.view(-1, k), wq, scales, bias)
     else:
         out = _dequant_matmul_torch(x.reshape(-1, k).float(), wq, scales,
-                                    block_n)
+                                    block_n, bias)
     return out.reshape(*lead, n)

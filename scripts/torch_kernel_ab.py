@@ -7,26 +7,47 @@ Run from the repository root on a machine with an NVIDIA Hopper card::
     python3 scripts/torch_kernel_ab.py --other-csrc DIR [--other-csrc DIR2]
                                        [--rounds 2]
 
-1. ``decode_attention_ab``, ``paged_decode_attention_ab`` and their
+e.g. with the parent commit unpacked into ``_tree/`` (``.gitignore``
+lists it): ``git archive HEAD~1 | tar -x -C _tree`` and
+``--other-csrc _tree/mxnet_tpu_torch/csrc``.
+
+1. ``flash_attention_ab``: K1 (flash prefill) built from ``DIR`` —
+   another revision's ``csrc/``, e.g. a ``git archive`` of an earlier
+   commit — against K1 built from this checkout, through the same
+   wrapper (the C entry point swapped), at ``chip_smoke.py``'s prefill
+   shape (1, 12, 512, 64), causal, on strided views, and at the full
+   context (1, 12, 1024, 64). ``chip_smoke.Timer``: enqueue-inclusive
+   and device-only ms.
+2. ``dequant_matmul_ab``: K4 from ``DIR`` against this checkout's, at
+   ``chip_smoke.py``'s shapes (one GPT-2-small layer's six projections
+   at M = 1, 8 and 32, L2 flushed before every call), ``bias=None``
+   (an earlier entry point may have no bias argument). Both are called
+   by one thin caller (output allocation, pointers, the C call), each
+   with its own revision's arguments. Both A/Bs add the kernels' own
+   run time from ``torch.profiler`` (``kernel_us_profiler``: no launch
+   latency, which the timer's device interval includes).
+3. ``decode_attention_ab``, ``paged_decode_attention_ab`` and their
    ``_int8`` siblings: K2 (dense decode attention) and K3 (paged), each
-   instance, built from ``DIR`` — another revision's ``csrc/``, e.g. a
-   ``git archive`` of an earlier commit — against the same instance
-   built from this checkout, at ``chip_smoke.py``'s decode shape (8,
-   12, 1024, 64; K3 over a pool of each slot's pages in order, page
-   16), the same lengths and NaN garbage (int8: the values quantized
-   with their amax scales), through the same Python wrapper and
-   ``chip_smoke.Timer`` (L2 flushed; enqueue-inclusive and device-only
-   ms). The two run in the order other, this, this, other,
-   ``--rounds`` times, in one process. Both must take the same C
-   interface; an instance the other revision lacks is skipped.
-2. ``int8_dense_vs_paged``: the same int8 K/V (the decode shape, the
+   instance, from ``DIR`` against this checkout's, at
+   ``chip_smoke.py``'s decode shape (8, 12, 1024, 64; K3 over a pool of
+   each slot's pages in order, page 16), the same lengths and NaN
+   garbage (int8: the values quantized with their amax scales),
+   through the same Python wrapper and ``chip_smoke.Timer`` (L2
+   flushed). Both must take the same C interface; an instance the
+   other revision lacks is skipped.
+
+Every A/B runs the two in the order other, this, this, other,
+``--rounds`` times, in one process, and checks first that the two
+builds agree.
+
+4. ``int8_dense_vs_paged``: the same int8 K/V (the decode shape, the
    same lengths) through K2's int8 instance over the dense cache and
    through K3's over a pool holding each slot's rows in its own pages
    in order (per-page scales equal to the slot's), beside the fp32
    instances on the same values, and K2 (both instances) over a cache
    whose rows per (slot, head) are padded from 1024 to 1040, so that no
    (slot, head) starts at a multiple of 64 KiB: device ms, in turns.
-3. ``wrapper_host_cost``: host microseconds per call of K4's wrapper
+5. ``wrapper_host_cost``: host microseconds per call of K4's wrapper
    (``dequant_matmul`` at M = 8, N = K = 768) taken apart: the whole
    wrapper, its pieces (device context and stream, output allocation,
    pointers), the bare ctypes call of K4's entry point, and a
@@ -35,7 +56,15 @@ Run from the repository root on a machine with an NVIDIA Hopper card::
    with no attribute and with K4's cluster attribute, and with a
    compile-time ``__cluster_dims__``, beside a C function that launches
    nothing (the ctypes call alone). Host time is read while the card
-   sleeps, so the launch queue never pushes back.
+   sleeps, so the launch queue never pushes back. ``launch_floor``:
+   the device timer's floor, the empty kernel alone in the interval
+   beside K4 (with and without the L2 flush).
+6. ``wrapper_host_us``: host microseconds per call of K1's and K4's
+   public wrappers (``flash_attention_fwd`` at the prefill shape,
+   ``dequant_matmul`` at M = 8, N = K = 768), for this checkout and,
+   where ``DIR`` sits in a whole package tree (``DIR/../..`` holds
+   ``mxnet_tpu_torch``), for that tree's wrappers in a child process
+   (``--host-probe ROOT``).
 
 The first line printed is ``nvidia-smi``'s name and power limit; each
 measurement prints one JSON line.
@@ -45,6 +74,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -55,9 +85,15 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-import chip_smoke as cs  # noqa: E402
+# the package under test: this checkout's, or with --host-probe ROOT2
+# another tree's (chip_smoke.py is always this checkout's)
+PKG_ROOT = (os.path.abspath(sys.argv[sys.argv.index("--host-probe") + 1])
+            if "--host-probe" in sys.argv else ROOT)
+sys.path.insert(0, PKG_ROOT)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
 from mxnet_tpu_torch import _build  # noqa: E402
 from mxnet_tpu_torch.ops import attention as at  # noqa: E402
 from mxnet_tpu_torch.ops import quantized as qz  # noqa: E402
@@ -224,6 +260,193 @@ def kernel_ab(timer, other_csrc, rounds, paged, int8):
     cs.emit(f"{name}_ab", **res)
 
 
+def _turns(timer, calls, rounds, flush):
+    """``{which: [{"ms", "ms_device"}, ...]}`` over ``rounds`` rounds of
+    other, this, this, other."""
+    times = {"other": [], "this": []}
+    for _ in range(rounds):
+        for which in ("other", "this", "this", "other"):
+            ms, dev = timer.both(calls[which], flush=flush)
+            times[which].append({"ms": ms, "ms_device": dev})
+    return times
+
+
+def _summary(times):
+    return {which: {"ms_median": float(np.median([t["ms"] for t in ts])),
+                    "ms_device_median": float(np.median(
+                        [t["ms_device"] for t in ts])),
+                    "runs": ts}
+            for which, ts in times.items()}
+
+
+def _kernel_us(fn, name_part, reps=10, flush=None):
+    """Median µs per call of the device kernels whose name holds
+    ``name_part``, from ``torch.profiler``'s kernel intervals (the
+    kernels' own run time: no launch latency, no event); ``flush`` runs
+    between calls, outside the sum."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    kern = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and name_part in e.name]
+    if not kern:
+        return None                     # the profiler saw no kernel
+    return float(sum(kern) / reps)
+
+
+def flash_ab(timer, other_csrc, rounds):
+    """K1 from ``other_csrc`` against this checkout's, through the same
+    wrapper (the cached entry point swapped), prefill shape and full
+    context."""
+    other = _compile(os.path.join(other_csrc, "flash_attention.cu"),
+                     other_csrc, "flash_attention-other")
+    other_fn = other.mxtt_flash_attention_fwd
+    other_fn.restype = ctypes.c_int
+    other_fn.argtypes = at._FLASH_ARGTYPES
+    key = ("flash_attention", "mxtt_flash_attention_fwd")
+    fns = {"other": other_fn,
+           "this": _build.function(*key, at._FLASH_ARGTYPES)}
+    rng = np.random.RandomState(3)
+    for s in (512, 1024):
+        q, k, v = (cs._split_view(torch, rng, 1, s, 12, 64) for _ in range(3))
+
+        def run(which):
+            _build._fns[key] = fns[which]
+            return at.flash_attention_fwd(q, k, v, True)
+        ref, ref_lse = run("this")
+        out, lse = run("other")
+        diff = float((out - ref).abs().max())
+        cs.check(diff <= 2 * cs.OUT_TOL,
+                 f"the two K1 builds differ by {diff}")
+        times = _turns(timer, {w: (lambda w=w: run(w)) for w in fns},
+                       rounds, False)
+        kernel_us = {w: _kernel_us(lambda w=w: run(w), "flash_fwd")
+                     for w in fns}
+        _build._fns[key] = fns["this"]
+        cs.emit("flash_attention_ab", shape=[1, 12, s, 64], causal=True,
+                strided=True, other_csrc=other_csrc, max_abs_diff=diff,
+                max_abs_diff_lse=float((lse - ref_lse).abs().max()),
+                order="other, this, this, other", rounds=rounds,
+                kernel_us_profiler=kernel_us, **_summary(times))
+
+
+#: K4's entry point before it took a bias: x, wq, scales, out; M, N, K;
+#: stream
+_DEQUANT_ARGTYPES_NO_BIAS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    ctypes.c_void_p]
+
+
+def dequant_ab(timer, other_csrc, rounds):
+    """K4 from ``other_csrc`` against this checkout's at one layer's six
+    projections, M = 1, 8 and 32, bias=None, through one thin caller."""
+    src = os.path.join(other_csrc, "dequant_matmul.cu")
+    with open(src) as f:
+        takes_bias = "const float* bias, float* out" in f.read()
+    other = _compile(src, other_csrc, "dequant_matmul-other")
+    other_fn = other.mxtt_dequant_matmul
+    other_fn.restype = ctypes.c_int
+    other_fn.argtypes = (qz._DEQUANT_ARGTYPES if takes_bias
+                         else _DEQUANT_ARGTYPES_NO_BIAS)
+    this_fn = _build.function("dequant_matmul", "mxtt_dequant_matmul",
+                              qz._DEQUANT_ARGTYPES)
+
+    def caller(fn, bias_arg, x, wq, sc):
+        m, k = x.shape
+        n = wq.shape[0]
+        ptrs = (x.data_ptr(), wq.data_ptr(), sc.data_ptr())
+
+        def call():
+            out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+            args = (*ptrs, *((None,) if bias_arg else ()), out.data_ptr(),
+                    m, n, k)
+            cs.check(_build.launch_on(x, fn, args) == 0, "K4 launch failed")
+            return out
+        return call
+
+    rng = np.random.RandomState(5)
+    tables = {}
+    for n, k in sorted(set(cs.LAYER_PROJECTIONS)):
+        w = torch.from_numpy((rng.standard_normal((n, k)) * 0.02)
+                             .astype("f4")).cuda()
+        tables[(n, k)] = qz.quantize_channelwise(w)
+    for m in (1, 8, 32):
+        per = {"other": {}, "this": {}}
+        prof_us = {"other": 0.0, "this": 0.0}
+        diff = 0.0
+        for n, k in sorted(set(cs.LAYER_PROJECTIONS)):
+            wq, sc = tables[(n, k)]
+            x = cs._rand(torch, rng, m, k)
+            calls = {"other": caller(other_fn, takes_bias, x, wq, sc),
+                     "this": caller(this_fn, True, x, wq, sc)}
+            ref = qz._dequant_matmul_torch(x, wq, sc)
+            scale = float(ref.abs().max())
+            for which in calls:
+                diff = max(diff, float((calls[which]() - ref).abs().max())
+                           / scale)
+            times = _turns(timer, calls, rounds, True)
+            for which, ts in times.items():
+                per[which][(n, k)] = ts
+            for which, fn in calls.items():
+                us = _kernel_us(fn, "dequant", flush=timer.buf.zero_)
+                if prof_us[which] is not None:
+                    prof_us[which] = None if us is None else prof_us[which] + us
+        cs.check(diff <= cs.DEQUANT_REL_TOL,
+                 f"a K4 build is {diff} x max|ref| off the plain version")
+        layer = {}
+        for which, by_shape in per.items():
+            runs = [{key: sum(by_shape[s][i][key]
+                              for s in cs.LAYER_PROJECTIONS)
+                     for key in ("ms", "ms_device")}
+                    for i in range(2 * rounds)]
+            layer[which] = runs
+        cs.emit("dequant_matmul_ab", M=m, timed="one layer's 6 projections, "
+                "summed; L2 flushed before every call", bias=None,
+                other_csrc=other_csrc, other_takes_bias=takes_bias,
+                max_rel_err=diff, order="other, this, this, other",
+                rounds=rounds, kernel_us_profiler=prof_us,
+                **_summary(layer))
+
+
+def host_probe():
+    """Host µs per call of K1's and K4's public wrappers, for the
+    package imported from ``PKG_ROOT``."""
+    rng = np.random.RandomState(6)
+    q, k, v = (cs._split_view(torch, rng, 1, 512, 12, 64) for _ in range(3))
+    w = torch.from_numpy((rng.standard_normal((768, 768)) * 0.02)
+                         .astype("f4")).cuda()
+    wq, sc = qz.quantize_channelwise(w)
+    x = cs._rand(torch, rng, 8, 768)
+    res = {"flash_attention_fwd": _host_us(
+               lambda: at.flash_attention_fwd(q, k, v, True)),
+           "dequant_matmul": _host_us(lambda: qz.dequant_matmul(x, wq, sc))}
+    torch.cuda.synchronize()
+    return res
+
+
+def wrapper_host_us(other_csrc_list):
+    """``host_probe`` for this checkout, and in a child process for each
+    other revision that sits in a whole package tree."""
+    cs.emit("wrapper_host_us", unit="us per call, host", tree=PKG_ROOT,
+            which="this", **host_probe())
+    for other in other_csrc_list:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(other)))
+        if not os.path.isdir(os.path.join(root, "mxnet_tpu_torch", "ops")):
+            continue
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--host-probe",
+             root], capture_output=True, text=True, timeout=600)
+        cs.check(out.returncode == 0,
+                 f"host probe of {root} failed:\n{out.stderr[-2000:]}")
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+
+
 def int8_dense_vs_paged(timer, rounds):
     """The same int8 values through K2-int8 (dense) and K3-int8 (a pool
     of each slot's pages in order), and the fp32 values through K2 and
@@ -291,8 +514,10 @@ def _host_us(fn, calls=200, reps=7):
     return float(np.median(per))
 
 
-def wrapper_cost():
-    """Host µs per call of K4's wrapper at M = 8, N = K = 768, apart."""
+def wrapper_cost(timer):
+    """Host µs per call of K4's wrapper at M = 8, N = K = 768, apart
+    (the launch probe's empty kernels take K4's arguments before it took
+    a bias)."""
     rng = np.random.RandomState(4)
     m, n, k = 8, 768, 768
     w = torch.from_numpy((rng.standard_normal((n, k)) * 0.02)
@@ -302,9 +527,11 @@ def wrapper_cost():
     out = torch.empty((m, n), dtype=torch.float32, device="cuda")
     dev = x.device
     stream = torch.cuda.current_stream().cuda_stream
+    bias = cs._rand(torch, rng, n)
     ptrs = (x.data_ptr(), wq.data_ptr(), sc.data_ptr(), out.data_ptr())
     k4 = _build.function("dequant_matmul", "mxtt_dequant_matmul",
                          qz._DEQUANT_ARGTYPES)
+    k4_args = (*ptrs[:3], None, ptrs[3], m, n, k)
 
     def ctx_stream():
         with torch.cuda.device(dev):
@@ -312,14 +539,20 @@ def wrapper_cost():
 
     res = {
         "wrapper": _host_us(lambda: qz.dequant_matmul(x, wq, sc)),
+        "wrapper_bias": _host_us(lambda: qz.dequant_matmul(x, wq, sc,
+                                                           bias=bias)),
         "cuda_wrapper": _host_us(lambda: qz._dequant_matmul_cuda(x, wq,
                                                                  sc)),
         "device_context_and_stream": _host_us(ctx_stream),
+        "raw_stream_on_current_device": _host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(
+                torch._C._cuda_getDevice())),
         "output_alloc": _host_us(lambda: torch.empty(
             (m, n), dtype=torch.float32, device=dev)),
         "data_ptrs": _host_us(lambda: (x.data_ptr(), wq.data_ptr(),
                                        sc.data_ptr(), out.data_ptr())),
-        "k4_entry_ctypes": _host_us(lambda: k4(*ptrs, m, n, k, stream)),
+        "k4_entry_ctypes": _host_us(lambda: k4(*k4_args, stream)),
+        "k4_launch_on": _host_us(lambda: _build.launch_on(x, k4, k4_args)),
     }
     src = _build.BUILD_DIR / "launch_probe.cu"
     _build.BUILD_DIR.mkdir(exist_ok=True)
@@ -329,34 +562,59 @@ def wrapper_cost():
                  "probe_ex_cluster", "probe_fixed_cluster"):
         fn = getattr(probe, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = qz._DEQUANT_ARGTYPES
+        fn.argtypes = _DEQUANT_ARGTYPES_NO_BIAS
         cs.check(fn(*ptrs, m, n, k, stream) == 0, f"{name} failed")
         res[name] = _host_us(lambda: fn(*ptrs, m, n, k, stream))
     torch.cuda.synchronize()
     cs.emit("wrapper_host_cost", unit="us per call, host", M=m, N=n, K=k,
             **res)
+    # the device timer's floor: the empty kernel with K4's grid, and K4
+    # itself, each alone in the interval (chip_smoke.Timer, device=True)
+    empty = probe.probe_chevron
+    floor = {}
+    for flush in (False, True):
+        tag = "_flushed" if flush else ""
+        floor["empty_kernel" + tag] = timer(
+            lambda: empty(*ptrs, m, n, k, stream), flush=flush, device=True)
+        floor["k4" + tag] = timer(lambda: qz.dequant_matmul(x, wq, sc),
+                                  flush=flush, device=True)
+    cs.emit("launch_floor", unit="ms per call, device", M=m, N=n, K=k,
+            grid="K4's parent grid: (N / 32, 1, 8) x 256 threads", **floor)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--other-csrc", required=True, action="append",
+    ap.add_argument("--other-csrc", action="append", default=[],
                     help="another revision's mxnet_tpu_torch/csrc/ "
                          "(repeat for several)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--host-probe", metavar="ROOT",
+                    help="only print the host cost of the wrappers of the "
+                         "package under ROOT")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
+    if args.host_probe:
+        _build.build_all()
+        cs.emit("wrapper_host_us", unit="us per call, host", tree=PKG_ROOT,
+                which="other", **host_probe())
+        return 0
+    if not args.other_csrc:
+        ap.error("--other-csrc is required")
     cs.phase_env(torch)
     _build.build_all()
     timer = cs.Timer(torch)
     for other in args.other_csrc:
+        other = os.path.abspath(other)
+        flash_ab(timer, other, args.rounds)
+        dequant_ab(timer, other, args.rounds)
         for paged in (False, True):
             for int8 in (False, True):
-                kernel_ab(timer, os.path.abspath(other), args.rounds, paged,
-                          int8)
+                kernel_ab(timer, other, args.rounds, paged, int8)
     int8_dense_vs_paged(timer, args.rounds)
-    wrapper_cost()
+    wrapper_cost(timer)
+    wrapper_host_us(args.other_csrc)
     return 0
 
 

@@ -100,12 +100,74 @@ def test_dequant_matmul_matches_pallas_kernel(n, block):
     onp.testing.assert_allclose(out.numpy(), onp.asarray(pal), **TOL)
 
 
+#: K4's cases on the card: M = 1 (peek), M <= 8 (decode: the GEMV
+#: instance), M = 32 (a prefill chunk: the tiled instance)
+BIAS_MS = (1, 8, 32)
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["none", "bias"])
+@pytest.mark.parametrize("m", BIAS_MS)
+def test_dequant_matmul_bias_matches_jax(m, with_bias):
+    """``dequant_matmul(..., bias=b)`` equals the reference's ``_proj``
+    composition ``dequant_matmul(x, wq, sc) + b`` (bitwise: the same
+    blocked product, then the same fp32 add); ``bias=None`` is the bare
+    product."""
+    rng = onp.random.RandomState(7)
+    n, k = 96, 64
+    wq, sc = tqz.quantize_channelwise(_t(_weights(rng, n, k, zero_row=3)))
+    x = (rng.randn(m, k) * 0.5).astype("f4")
+    b = (rng.randn(n) * 0.1).astype("f4") if with_bias else None
+    out = tqz.dequant_matmul(_t(x), wq, sc, block_n=32,
+                             bias=None if b is None else _t(b))
+    ref = jqz.dequant_matmul(jnp.asarray(x), jnp.asarray(wq.numpy()),
+                             jnp.asarray(sc.numpy()), block_n=32)
+    if b is not None:
+        ref = ref + jnp.asarray(b)
+    assert out.shape == (m, n)
+    onp.testing.assert_allclose(out.numpy(), onp.asarray(ref), **TOL)
+    plain = tqz.dequant_matmul(_t(x), wq, sc, block_n=32).numpy()
+    if b is not None:
+        onp.testing.assert_array_equal(out.numpy(), plain + b)
+    else:
+        onp.testing.assert_array_equal(out.numpy(), plain)
+
+
+@pytest.mark.requires_pallas
+@pytest.mark.parametrize("m", BIAS_MS)
+def test_dequant_matmul_bias_matches_pallas_kernel(m):
+    rng = onp.random.RandomState(8)
+    n, k = 96, 64
+    wq, sc = tqz.quantize_channelwise(_t(_weights(rng, n, k, zero_row=1)))
+    x = (rng.randn(m, k) * 0.5).astype("f4")
+    b = (rng.randn(n) * 0.1).astype("f4")
+    out = tqz.dequant_matmul(_t(x), wq, sc, block_n=32, bias=_t(b))
+    pal = jqz.dequant_matmul_pallas(jnp.asarray(x), jnp.asarray(wq.numpy()),
+                                    jnp.asarray(sc.numpy()), block_n=32,
+                                    interpret=True) + jnp.asarray(b)
+    onp.testing.assert_allclose(out.numpy(), onp.asarray(pal), **TOL)
+
+
+def test_kernel_wrapper_checks_bias():
+    """K4's wrapper refuses a bias the epilogue cannot read, before any
+    build or launch."""
+    wq, sc = tqz.quantize_channelwise(torch.ones(8, 16))
+    x = torch.ones(2, 16)
+    with pytest.raises(ValueError, match="bias shape"):
+        tqz._dequant_matmul_cuda(x, wq, sc, torch.ones(4))
+    with pytest.raises(TypeError, match="float32"):
+        tqz._dequant_matmul_cuda(x, wq, sc, torch.ones(8).double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tqz._dequant_matmul_cuda(x, wq, sc, torch.ones(8, 2)[:, 0])
+
+
 def test_dequant_matmul_shape_errors():
     wq, sc = tqz.quantize_channelwise(torch.ones(8, 16))
     with pytest.raises(ValueError, match="features"):
         tqz.dequant_matmul(torch.ones(2, 12), wq, sc)
     with pytest.raises(ValueError, match="scales shape"):
         tqz.dequant_matmul(torch.ones(2, 16), wq, sc[:4])
+    with pytest.raises(ValueError, match="bias shape"):
+        tqz.dequant_matmul(torch.ones(2, 16), wq, sc, bias=torch.ones(1))
 
 
 def test_kernel_wrapper_checks():
