@@ -12,7 +12,9 @@ cores; causal up to the 1024-token context, head dims 16-128, strided
 views, NaN past kv_len), K2 dense decode
 and K3 paged decode (each in its fp32 and its int8-KV instance, with
 garbage past every length and NaN in the scrap page, every unreferenced
-page and their int8 scales), K4 int8 dequant-matmul (M = 1 to 512,
+page and their int8 scales; K3 also at lengths on either side of its
+cluster ranks' page ranges and at a P_max that is not a multiple of its
+cluster size), K4 int8 dequant-matmul (M = 1 to 512,
 with and without the bias it adds in its epilogue) and K5, the
 runtime-compiled user kernels: one ``rtc.CudaModule`` compiled by NVRTC
 for sm_90a (the JAX rtc tests' kernels, the example's ``scale2`` and a
@@ -446,6 +448,39 @@ def _paged_inputs(torch, rng, lengths, h, ps, d, p_max, n_pages):
     return tbl, lens, kn, vn
 
 
+def _int8_paged(torch, rng, table, lengths, ps, shape):
+    """Random int8 pools over ``shape`` (every row, the garbage past
+    each length included), per-page scales on the pages the lengths
+    reach and NaN scales on the scrap page and every unreferenced
+    page."""
+    n_pages, h = shape[0], shape[1]
+    tbl = table.cpu().numpy()
+    used = sorted({int(tbl[i, j]) for i, n in enumerate(lengths)
+                   for j in range(-(-n // ps))})
+    kq8, vq8 = (torch.from_numpy(rng.randint(-127, 128, shape)
+                                 .astype("i1")).cuda() for _ in range(2))
+    ksc, vsc = (torch.full((n_pages, h), float("nan"), device="cuda")
+                for _ in range(2))
+    idx = torch.tensor(used, device="cuda")
+    for sc in (ksc, vsc):
+        sc[idx] = torch.from_numpy(
+            (rng.random_sample((len(used), h)) * 0.02 + 0.005)
+            .astype("f4")).cuda()
+    return kq8, vq8, ksc, vsc
+
+
+#: K3's check sets beyond the timed shape: (tag, lengths, P_max). The
+#: split plan gives each of the 8 cluster ranks 8 pages (128 keys) at
+#: P_max = 64, so "edges" puts lengths on either side of rank
+#: boundaries (128k - 1, 128k, 128k + 1); at P_max = 61 the last rank
+#: holds 5 pages. Lengths that end mid-page (500, 129, 975, ...) leave
+#: NaN in that page's tail rows.
+PAGED_CHECK_SETS = [
+    ("edges", [0, 127, 128, 129, 511, 512, 513, 895, 896, 897], 64),
+    ("p_max=61", [0, 1, 500, 975, 976], 61),
+]
+
+
 def phase_paged_decode(torch, timer):
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as at
@@ -455,30 +490,55 @@ def phase_paged_decode(torch, timer):
     lengths = [0, 1, 15, 16, 17, 500, 1023, 1024]
     tbl, lens, kn, vn = _paged_inputs(torch, rng, lengths, h, ps, d, p_max,
                                       n_pages)
-    cases, err = [], 0.0
+    kq8, vq8, ksc, vsc = _int8_paged(torch, rng, tbl, lengths, ps, kn.shape)
 
-    def compare(q, table, ln, tag):
-        nonlocal err
-        out = at.paged_decode_attention(q, kn, vn, table, ln)
-        ref = at._decode_fwd_torch(q, at.gather_pages(kn, table),
-                                   at.gather_pages(vn, table), ln, scale)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()),
-              f"K3 non-finite output with NaN garbage ({tag})")
-        zero = [i for i, n in enumerate(ln.tolist()) if n == 0]
-        check(all(float(out[i].abs().max()) == 0.0 for i in zero),
-              "K3 len=0 row not zero")
-        e = float((out - ref).abs().max())
-        cases.append({"case": tag, "out_err": e})
-        err = max(err, e)
+    def plain8(q, table, ln, kq8, vq8, ksc, vsc):
+        return at._decode_fwd_torch(q, _int8_view(at, kq8, ksc, table, ps),
+                                    _int8_view(at, vq8, vsc, table, ps), ln,
+                                    scale)
 
-    for sq in (1, 4):
-        compare(_split_view(torch, rng, b, sq, h, d), tbl, lens, f"sq={sq}")
-    # peek: one slot, B = 1, its own (1, P_max) table row
-    compare(_split_view(torch, rng, 1, 1, h, d), tbl[5:6].contiguous(),
-            lens[5:6].contiguous(), "peek b=1 len=500")
+    # every case through both instances: the timed shape at sq = 1 and
+    # 4 and the peek (one slot, B = 1, its own (1, P_max) table row),
+    # then each check set at sq = 1 and 4
+    sets = [((kn, vn), (kq8, vq8, ksc, vsc), [
+        ("sq=1", _split_view(torch, rng, b, 1, h, d), tbl, lens),
+        ("sq=4", _split_view(torch, rng, b, 4, h, d), tbl, lens),
+        ("peek b=1 len=500", _split_view(torch, rng, 1, 1, h, d),
+         tbl[5:6].contiguous(), lens[5:6].contiguous())])]
+    for tag, lns, pm in PAGED_CHECK_SETS:
+        t2, l2, k2, v2 = _paged_inputs(torch, rng, lns, h, ps, d, pm,
+                                       n_pages)
+        i8 = _int8_paged(torch, rng, t2, lns, ps, k2.shape)
+        sets.append(((k2, v2), i8, [
+            (f"{tag} sq={sq}", _split_view(torch, rng, len(lns), sq, h, d),
+             t2, l2) for sq in (1, 4)]))
+    cases, cases8, err, err8 = [], [], 0.0, 0.0
+    for (kp, vp), i8, runs in sets:
+        for tag, q, table, ln in runs:
+            zero = [i for i, n in enumerate(ln.tolist()) if n == 0]
+            out = at.paged_decode_attention(q, kp, vp, table, ln)
+            ref = at._decode_fwd_torch(q, at.gather_pages(kp, table),
+                                       at.gather_pages(vp, table), ln, scale)
+            out8 = at.paged_decode_attention(q, i8[0], i8[1], table, ln,
+                                             k_scale=i8[2], v_scale=i8[3])
+            ref8 = plain8(q, table, ln, *i8)
+            torch.cuda.synchronize()
+            for inst, o, r, acc in (("K3", out, ref, cases),
+                                    ("K3-int8", out8, ref8, cases8)):
+                check(bool(torch.isfinite(o).all()),
+                      f"{inst} non-finite output with NaN garbage ({tag})")
+                check(all(float(o[i].abs().max()) == 0.0 for i in zero),
+                      f"{inst} len=0 row not zero ({tag})")
+                e = float((o - r).abs().max())
+                acc.append({"case": tag, "out_err": e,
+                            "lengths": ln.tolist(),
+                            "P_max": int(table.shape[1])})
+            err = max(err, cases[-1]["out_err"])
+            err8 = max(err8, cases8[-1]["out_err"])
     emit("paged_decode_attention_check", cases=cases)
     check(err <= OUT_TOL, f"K3 max-abs-err {err} > {OUT_TOL}")
+    emit("paged_decode_attention_int8_check", cases=cases8)
+    check(err8 <= OUT_TOL, f"K3-int8 max-abs-err {err8} > {OUT_TOL}")
 
     q = _split_view(torch, rng, b, 1, h, d)     # the decode step's layout
     kz = torch.nan_to_num(at.gather_pages(kn, tbl), nan=0.0)
@@ -505,49 +565,6 @@ def phase_paged_decode(torch, timer):
            "lengths": lengths}
     emit("paged_decode_attention", **res)
 
-    # the int8 instance on the same table: random int8 in every row (the
-    # garbage past each length included), per-page scales on the pages
-    # the lengths reach and NaN scales on the scrap page and every
-    # unreferenced page
-    n_used = [-(-n // ps) for n in lengths]
-    tbl_np = tbl.cpu().numpy()
-    used = sorted({int(tbl_np[i, j]) for i in range(b)
-                   for j in range(n_used[i])})
-    kq8, vq8 = (torch.from_numpy(rng.randint(-127, 128, kn.shape)
-                                 .astype("i1")).cuda() for _ in range(2))
-    ksc, vsc = (torch.full((n_pages, h), float("nan"), device="cuda")
-                for _ in range(2))
-    idx = torch.tensor(used, device="cuda")
-    for sc in (ksc, vsc):
-        sc[idx] = torch.from_numpy(
-            (rng.random_sample((len(used), h)) * 0.02 + 0.005)
-            .astype("f4")).cuda()
-
-    def plain8(q, table, ln):
-        return at._decode_fwd_torch(q, _int8_view(at, kq8, ksc, table, ps),
-                                    _int8_view(at, vq8, vsc, table, ps), ln,
-                                    scale)
-
-    cases, err8 = [], 0.0
-    for tag, q, table, ln in (
-            ("sq=1", _split_view(torch, rng, b, 1, h, d), tbl, lens),
-            ("sq=4", _split_view(torch, rng, b, 4, h, d), tbl, lens),
-            ("peek b=1 len=500", _split_view(torch, rng, 1, 1, h, d),
-             tbl[5:6].contiguous(), lens[5:6].contiguous())):
-        out = at.paged_decode_attention(q, kq8, vq8, table, ln,
-                                        k_scale=ksc, v_scale=vsc)
-        ref = plain8(q, table, ln)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()),
-              f"K3-int8 non-finite output with NaN scales ({tag})")
-        zero = [i for i, n in enumerate(ln.tolist()) if n == 0]
-        check(all(float(out[i].abs().max()) == 0.0 for i in zero),
-              "K3-int8 len=0 row not zero")
-        e = float((out - ref).abs().max())
-        cases.append({"case": tag, "out_err": e})
-        err8 = max(err8, e)
-    emit("paged_decode_attention_int8_check", cases=cases)
-    check(err8 <= OUT_TOL, f"K3-int8 max-abs-err {err8} > {OUT_TOL}")
     q = _split_view(torch, rng, b, 1, h, d)
     kd, vd = (torch.nan_to_num(_int8_view(at, pool, sc, tbl, ps), nan=0.0)
               * live[:, None, :, None]
@@ -556,10 +573,11 @@ def phase_paged_decode(torch, timer):
         timer, True,
         lambda: at.paged_decode_attention(q, kq8, vq8, tbl, lens,
                                           k_scale=ksc, v_scale=vsc),
-        lambda: plain8(q, tbl, lens),
+        lambda: plain8(q, tbl, lens, kq8, vq8, ksc, vsc),
         lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask))
+    n_used = sum(-(-n // ps) for n in lengths)
     n_bytes = (2 * total * h * d + 4 * (2 * b * h * d) + 4 * b * (p_max + 1)
-               + 4 * 2 * h * sum(n_used))
+               + 4 * 2 * h * n_used)
     bound8 = bound(n_bytes, n_flops)
     res8 = {"max_abs_err": err8, **times8, "bound_ms": bound8[0],
             "bound_by": bound8[1],

@@ -14,8 +14,8 @@
 // pair, one to four FLOP per byte, far below the card's ~20 FLOP per
 // byte for fp32.
 //
-// What the design does about it (the block body is decode_core.cuh,
-// shared with K3):
+// What the design does about it (the block body is decode_core.cuh;
+// K3 used it too before its cluster split-KV redesign):
 // - One thread block per (head, slot, group of query rows); 8 warps
 //   split the slot's valid prefix into interleaved 32-key chunks, so
 //   256 key rows are in flight per block, and merge their
@@ -26,8 +26,8 @@
 // - K rows are read with 16-byte loads, one row per lane; V rows
 //   coalesced across the warp. The int8 instance moves the int8 bytes
 //   only and widens them in registers; the slot's K and V scales ride
-//   with every key as K3's page scales do, and its V loop takes the
-//   row offsets by shuffle, as K3's does: folding the K scale into q
+//   with every key as K3's page scales did, and its V loop takes the
+//   row offsets by shuffle, as K3's did: folding the K scale into q
 //   and computing the offsets in place, as the fp32 instance does,
 //   took the int8 instance about twice the device time
 //   (scripts/torch_kernel_ab.py; PERF.md).

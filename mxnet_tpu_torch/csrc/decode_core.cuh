@@ -1,9 +1,10 @@
-// The decode-attention block body shared by K2 (decode_attention.cu,
-// a dense cache) and K3 (paged_decode_attention.cu, a page pool), each
-// in an fp32 and an int8 instance.
+// The decode-attention block body of K2 (decode_attention.cu, a dense
+// cache), in an fp32 and an int8 instance. K3 (paged_decode_attention.cu)
+// ran it through a paged policy until its cluster split-KV redesign;
+// the mentions of K3 below describe that policy.
 //
 // One thread block computes NR query rows of one (slot, head) against
-// the slot's keys [0, len). The kernels differ only in where key row t
+// the slot's keys [0, len). Instances differ only in where key row t
 // lives and how it is scaled, which the ``Rows`` policy answers:
 // ``offsets(t, ko, vo, ks, vs)`` gives the element offsets of K row t
 // from ``rows.k`` and of V row t from ``rows.v`` (a strided cache row

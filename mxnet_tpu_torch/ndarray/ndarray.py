@@ -23,6 +23,7 @@ The port of ``mxnet_tpu/ndarray/ndarray.py``:
 """
 from __future__ import annotations
 
+import builtins
 import weakref
 
 import numpy as onp
@@ -64,6 +65,45 @@ def _to_torch_index(key, device):
     if isinstance(key, list):
         return [_to_torch_index(k, device) for k in key]
     return key
+
+
+def _index_dims(k) -> int:
+    """How many array dims the index element ``k`` consumes."""
+    if k is None or k is Ellipsis or isinstance(k, (bool, onp.bool_)):
+        return 0
+    if isinstance(k, (NDArray, torch.Tensor)):
+        t = k._data if isinstance(k, NDArray) else k
+        return t.dim() if t.dtype == torch.bool else 1
+    if isinstance(k, (list, onp.ndarray)):
+        a = onp.asarray(k)
+        return a.ndim if a.dtype == onp.bool_ else 1
+    return 1
+
+
+def _reverse_steps(key, shape):
+    """Rewrite the negative-step slices of ``key``, which torch refuses.
+
+    Returns ``(pre, dims, rest)`` such that ``x[pre].flip(dims)[rest]``
+    is NumPy's ``x[key]``: ``pre`` cuts each such dim with the positive
+    slice over the same elements, ``flip`` puts them in the slice's
+    order, and ``rest`` is ``key`` with those slices made ``:``. Returns
+    None when ``key`` has no negative step."""
+    items = key if isinstance(key, tuple) else (key,)
+    if not any(isinstance(k, slice) and k.step is not None and k.step < 0
+               for k in items):
+        return None
+    ell = len(shape) - builtins.sum(_index_dims(k) for k in items)
+    pre, dims, rest, d = [slice(None)] * len(shape), [], [], 0
+    for k in items:
+        if isinstance(k, slice) and k.step is not None and k.step < 0:
+            r = range(*k.indices(shape[d]))
+            pre[d] = slice(r[-1], r[0] + 1, -r.step) if r else slice(0, 0)
+            dims.append(d)
+            k = slice(None)
+        rest.append(k)
+        d += ell if k is Ellipsis else _index_dims(k)
+    return (tuple(pre), dims,
+            tuple(rest) if isinstance(key, tuple) else rest[0])
 
 
 def _value_tensor(value, dtype, device) -> torch.Tensor:
@@ -316,8 +356,20 @@ class NDArray:
             value = value._data
         t = self._data
         idx = _to_torch_index(key, t.device)
+        rev = _reverse_steps(idx, t.shape)
         with torch.no_grad():
-            if idx is Ellipsis or (isinstance(idx, slice)
+            if rev is not None:
+                # write through the flipped copy of the cut, then put
+                # it back in place
+                pre, dims, rest = rev
+                new = t.detach().clone()
+                cut = new[pre]
+                flipped = cut.flip(dims)
+                flipped[rest] = value if isinstance(
+                    value, (bool, int, float)) else _value_tensor(
+                        value, t.dtype, t.device)
+                cut.copy_(flipped.flip(dims))
+            elif idx is Ellipsis or (isinstance(idx, slice)
                                    and idx == slice(None)) \
                     or (isinstance(idx, tuple) and not idx):
                 v = _value_tensor(value, t.dtype, t.device)
@@ -344,6 +396,10 @@ class NDArray:
         else:
             nd_keys = []
 
+        rev = _reverse_steps(key, self.shape)
+        if rev is not None:
+            pre, dims, key = rev
+
         def do_index(x, *keys):
             kit = iter(keys)
 
@@ -353,6 +409,8 @@ class NDArray:
                 return k
             k = tuple(one(kk) for kk in key) if isinstance(key, tuple) \
                 else one(key)
+            if rev is not None:
+                x = x[pre].flip(dims)
             return x[k]
 
         return apply_op(do_index, self, *nd_keys, name="getitem")

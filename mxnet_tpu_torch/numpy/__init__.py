@@ -84,8 +84,53 @@ def _set_out(out, r):
     return out._inplace(r)
 
 
+#: unsigned dtypes torch neither promotes nor computes on
+_WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+
+
+def _is_int(dt) -> bool:
+    return not (dt.is_floating_point or dt.is_complex)
+
+
+def _unsigned_result(a, b):
+    """The reference's result dtype when one operand is uint16/32/64
+    and the other an integer or bool, else None. Arrays and NumPy
+    scalars take NumPy's promotion table narrowed to 32 bits (JAX's
+    with x64 off: uint32 + int32 -> int32, uint16 + uint8 -> uint16); a
+    Python int or bool is weak and takes the array's dtype."""
+    def dt(x):
+        if isinstance(x, NDArray):
+            return x._data.dtype
+        if isinstance(x, (bool, int)):
+            return None                       # weak
+        if isinstance(x, (onp.integer, onp.bool_)):
+            return resolve_dtype(onp.asarray(x).dtype)
+        return False                          # a float or complex scalar
+    da, db = dt(a), dt(b)
+    if da is False or db is False \
+            or not any(d in _WIDE_UNSIGNED for d in (da, db)) \
+            or not all(d is None or _is_int(d) for d in (da, db)):
+        return None
+    if da is None or db is None:
+        return da or db
+    return resolve_dtype(onp.promote_types(to_numpy_dtype(da),
+                                           to_numpy_dtype(db)))
+
+
+def _via_int64(tfn, res):
+    """``tfn`` computed on int64 operands, an integer result cast to
+    ``res`` (two's complement wraps as the narrower type would)."""
+    def f(x, y):
+        r = tfn(x.to(torch.int64), y.to(torch.int64))
+        return r.to(res) if r.dtype == torch.int64 else r
+    return f
+
+
 def _binary(tfn, a, b, out=None, name=None):
     a, b = _coerce(a), _coerce(b)
+    res = _unsigned_result(a, b)
+    if res is not None:
+        tfn = _via_int64(tfn, res)
     if isinstance(a, NDArray) and isinstance(b, NDArray):
         r = apply_op(tfn, a, b, name=name)
     elif isinstance(a, NDArray):
@@ -282,7 +327,20 @@ true_divide = _mkbin(torch.true_divide, "true_divide")
 floor_divide = _mkbin(torch.floor_divide, "floor_divide")
 mod = _mkbin(torch.remainder, "mod")
 remainder = mod
-power = _mkbin(torch.pow, "power")
+
+
+def power(x1, x2, out=None, **kwargs):
+    base = _coerce(x1)
+    if isinstance(x2, (int, onp.integer)) \
+            and not isinstance(x2, (bool, onp.bool_)) and x2 < 0 \
+            and isinstance(base, NDArray) and _is_int(base._data.dtype):
+        # the reference's integer_pow refuses a negative integer exponent
+        raise TypeError(
+            f"Integers cannot be raised to negative powers, got "
+            f"integer_pow({base.dtype}{list(base.shape)}, {int(x2)})")
+    return _binary(torch.pow, base, x2, out=out, name="power")
+
+
 maximum = _mkbin(torch.maximum, "maximum")
 minimum = _mkbin(torch.minimum, "minimum")
 bitwise_and = _mkbin(torch.bitwise_and, "bitwise_and")
@@ -314,7 +372,18 @@ def _float_in(tfn):
 
 negative = _mkunary(torch.neg, "negative")
 positive = _mkunary(lambda x: x, "positive")
-abs = _mkunary(torch.abs, "abs")
+
+
+def _abs(x):
+    # on the tape, the reference's subgradient: 1 at 0 (JAX passes the
+    # gradient where x >= 0; torch.abs gives 0 there); + 0.0 makes -0.0
+    # +0.0, as abs does
+    if x.requires_grad and x.is_floating_point():
+        return torch.where(x >= 0, x, -x) + 0.0
+    return torch.abs(x)
+
+
+abs = _mkunary(_abs, "abs")
 absolute = abs
 sign = _mkunary(torch.sign, "sign")
 square = _mkunary(torch.square, "square")
@@ -331,7 +400,20 @@ def clip(a, a_min=None, a_max=None, out=None):
         a_min._data if isinstance(a_min, NDArray) else a_min)
     hi = None if a_max is None else (
         a_max._data if isinstance(a_max, NDArray) else a_max)
-    return _unary(lambda x: torch.clamp(x, lo, hi), a, out=out, name="clip")
+
+    def f(x):
+        if not x.requires_grad:
+            return torch.clamp(x, lo, hi)
+        # on the tape, the reference's min(max(x, lo), hi): a tie with a
+        # bound splits the gradient in halves (torch.clamp gives x all)
+        if lo is not None:
+            x = torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype,
+                                                 device=x.device))
+        if hi is not None:
+            x = torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype,
+                                                 device=x.device))
+        return x
+    return _unary(f, a, out=out, name="clip")
 
 
 def where(condition, x=None, y=None):
@@ -367,6 +449,21 @@ def _reduce_each(tfn, x, dims, keepdims):
     return x
 
 
+#: sum and prod of these give uint32, as in the reference
+_UNSIGNED = (torch.uint8, *_WIDE_UNSIGNED)
+
+
+def _unsigned_acc(tfn):
+    """``tfn``, with an unsigned input summed in int64 and the result
+    cast to uint32 (torch gives int64, which would narrow to int32)."""
+    def f(x, dims, keepdims):
+        if x.dtype in _UNSIGNED:
+            return tfn(x.to(torch.int64), dims, keepdims).to(torch.uint32)
+        return tfn(x, dims, keepdims)
+    return f
+
+
+@_unsigned_acc
 def _sum(x, dims, keepdims):
     return torch.sum(x, dim=dims, keepdim=keepdims) if dims \
         else torch.sum(x)
@@ -389,6 +486,7 @@ def _min(x, dims, keepdims):
         else torch.amin(x)
 
 
+@_unsigned_acc
 def _prod(x, dims, keepdims):
     return _reduce_each(torch.prod, x, dims, keepdims) if dims \
         else torch.prod(x)

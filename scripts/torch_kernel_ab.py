@@ -29,12 +29,17 @@ lists it): ``git archive HEAD~1 | tar -x -C _tree`` and
 3. ``decode_attention_ab``, ``paged_decode_attention_ab`` and their
    ``_int8`` siblings: K2 (dense decode attention) and K3 (paged), each
    instance, from ``DIR`` against this checkout's, at
-   ``chip_smoke.py``'s decode shape (8, 12, 1024, 64; K3 over a pool of
-   each slot's pages in order, page 16), the same lengths and NaN
-   garbage (int8: the values quantized with their amax scales),
-   through the same Python wrapper and ``chip_smoke.Timer`` (L2
-   flushed). Both must take the same C interface; an instance the
-   other revision lacks is skipped.
+   ``chip_smoke.py``'s decode shapes (8, 12, 1024, 64; K3 over a pool
+   of each slot's pages in order, page 16, P_max 64), each kernel's own
+   smoke lengths (K2 [0, 1, 63, 64, 65, 500, 1023, 1024], K3 [0, 1, 15,
+   16, 17, 500, 1023, 1024]) and NaN garbage past them (int8: the
+   values quantized with their amax scales), through the same Python
+   wrapper and ``chip_smoke.Timer`` (L2 flushed), plus the kernels' own
+   run time from ``torch.profiler`` and the device time with L2 left
+   warm (``ms_device_warm``). K3 also runs four query rows a
+   slot (``sq=4``) and the peek (one slot, B = 1, length 500). Both
+   must take the same C interface; an instance the other revision
+   lacks is skipped.
 
 Every A/B runs the two in the order other, this, this, other,
 ``--rounds`` times, in one process, and checks first that the two
@@ -65,6 +70,10 @@ builds agree.
    where ``DIR`` sits in a whole package tree (``DIR/../..`` holds
    ``mxnet_tpu_torch``), for that tree's wrappers in a child process
    (``--host-probe ROOT``).
+
+``--only NAME`` (repeatable) runs just those: ``flash``, ``dequant``,
+``decode``, ``paged``, ``int8_dense_vs_paged``, ``wrapper_cost``,
+``wrapper_host_us``.
 
 The first line printed is ``nvidia-smi``'s name and power limit; each
 measurement prints one JSON line.
@@ -155,10 +164,14 @@ def _compile(src_path, include, tag):
     return ctypes.CDLL(str(lib))
 
 
-def _decode_inputs(rng):
+#: the lengths of chip_smoke.py's K2 and K3 phases
+DENSE_LENGTHS = [0, 1, 63, 64, 65, 500, 1023, 1024]
+PAGED_LENGTHS = [0, 1, 15, 16, 17, 500, 1023, 1024]
+
+
+def _decode_inputs(rng, lengths=DENSE_LENGTHS):
     """The decode shape's q, NaN-tailed K/V, lengths and live mask."""
     b, h, s, d = 8, 12, 1024, 64
-    lengths = [0, 1, 63, 64, 65, 500, 1023, 1024]
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     k, v = (cs._rand(torch, rng, b, h, s, d) for _ in range(2))
     live = (torch.arange(s, device="cuda")[None, :]
@@ -203,7 +216,9 @@ def kernel_ab(timer, other_csrc, rounds, paged, int8):
     """K2 (or K3), fp32 (or int8) instance, from ``other_csrc`` against
     this checkout's, same wrapper; skipped when the other revision has
     no such instance."""
-    q, kn, vn, lens, lengths, _live = _decode_inputs(np.random.RandomState(1))
+    rng = np.random.RandomState(1)
+    q, kn, vn, lens, lengths, _live = _decode_inputs(
+        rng, PAGED_LENGTHS if paged else DENSE_LENGTHS)
     base = "paged_decode_attention" if paged else "decode_attention"
     name = base + ("_int8" if int8 else "")
     argtypes = {(False, False): at._DECODE_ARGTYPES,
@@ -213,16 +228,25 @@ def kernel_ab(timer, other_csrc, rounds, paged, int8):
     x = _int8_inputs(kn, vn)
     kp, table = _to_pool(kn, 16)
     vp, _ = _to_pool(vn, 16)
-    call = {
-        (False, False): lambda: at.decode_attention(q, kn, vn, lens),
-        (False, True): lambda: at.decode_attention(
-            q, x["kq"], x["vq"], lens, None, x["ks"], x["vs"]),
-        (True, False): lambda: at.paged_decode_attention(q, kp, vp, table,
-                                                         lens),
-        (True, True): lambda: at.paged_decode_attention(
-            q, x["kq_p"], x["vq_p"], x["table"], lens, None, x["ks_p"],
-            x["vs_p"]),
-    }[(paged, int8)]
+
+    def call(q, lens, table):
+        return {
+            (False, False): lambda: at.decode_attention(q, kn, vn, lens),
+            (False, True): lambda: at.decode_attention(
+                q, x["kq"], x["vq"], lens, None, x["ks"], x["vs"]),
+            (True, False): lambda: at.paged_decode_attention(
+                q, kp, vp, table, lens),
+            (True, True): lambda: at.paged_decode_attention(
+                q, x["kq_p"], x["vq_p"], table, lens, None, x["ks_p"],
+                x["vs_p"]),
+        }[(paged, int8)]
+    variants = [("sq=1", call(q, lens, table))]
+    if paged:
+        q4 = cs._split_view(torch, rng, 8, 4, 12, 64)
+        variants += [("sq=4", call(q4, lens, table)),
+                     ("peek b=1 len=500", call(
+                         q[5:6], lens[5:6].contiguous(),
+                         table[5:6].contiguous()))]
     key = (base, f"mxtt_{name}")
     this_fn = _build.function(*key, argtypes)
     other = _compile(os.path.join(other_csrc, f"{base}.cu"), other_csrc,
@@ -235,29 +259,29 @@ def kernel_ab(timer, other_csrc, rounds, paged, int8):
     other_fn.restype = ctypes.c_int
     other_fn.argtypes = argtypes
     fns = {"other": other_fn, "this": this_fn}
+    for case, fn in variants:
+        def run(which, fn=fn):
+            _build._fns[key] = fns[which]
+            return fn()
 
-    def run(which):
-        _build._fns[key] = fns[which]
-        return call()
-
-    ref = run("this")
-    diff = float((run("other") - ref).abs().max())
-    cs.check(diff <= cs.OUT_TOL, f"the two {name} builds differ by {diff}")
-    times = {"other": [], "this": []}
-    for _ in range(rounds):
-        for which in ("other", "this", "this", "other"):
-            ms, dev = timer.both(lambda: run(which), flush=True)
-            times[which].append({"ms": ms, "ms_device": dev})
-    _build._fns[key] = this_fn
-    res = {"shape": [8, 12, 1024, 64], "lengths": lengths,
-           "other_csrc": other_csrc, "max_abs_diff": diff,
-           "order": "other, this, this, other", "rounds": rounds}
-    for which, ts in times.items():
-        res[which] = {"ms_median": float(np.median([t["ms"] for t in ts])),
-                      "ms_device_median": float(np.median(
-                          [t["ms_device"] for t in ts])),
-                      "runs": ts}
-    cs.emit(f"{name}_ab", **res)
+        ref = run("this")
+        diff = float((run("other") - ref).abs().max())
+        cs.check(diff <= cs.OUT_TOL,
+                 f"the two {name} builds differ by {diff} ({case})")
+        times = _turns(timer, {w: (lambda w=w: run(w)) for w in fns},
+                       rounds, True)
+        kernel_us = {w: _kernel_us(lambda w=w: run(w),
+                                   "paged_" if paged else "decode",
+                                   flush=timer.buf.zero_)
+                     for w in fns}
+        # the same with the inputs and the kernel's code left in L2
+        warm = {w: timer(lambda w=w: run(w), device=True) for w in fns}
+        _build._fns[key] = this_fn
+        cs.emit(f"{name}_ab", case=case, shape=[8, 12, 1024, 64],
+                lengths=lengths, other_csrc=other_csrc, max_abs_diff=diff,
+                order="other, this, this, other", rounds=rounds,
+                kernel_us_profiler=kernel_us, ms_device_warm=warm,
+                **_summary(times))
 
 
 def _turns(timer, calls, rounds, flush):
@@ -582,12 +606,19 @@ def wrapper_cost(timer):
             grid="K4's parent grid: (N / 32, 1, 8) x 256 threads", **floor)
 
 
+#: the measurements --only selects from
+ONLY = ("flash", "dequant", "decode", "paged", "int8_dense_vs_paged",
+        "wrapper_cost", "wrapper_host_us")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other-csrc", action="append", default=[],
                     help="another revision's mxnet_tpu_torch/csrc/ "
                          "(repeat for several)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--only", action="append", choices=ONLY,
+                    help="run only this measurement (repeatable)")
     ap.add_argument("--host-probe", metavar="ROOT",
                     help="only print the host cost of the wrappers of the "
                          "package under ROOT")
@@ -605,16 +636,23 @@ def main(argv=None):
     cs.phase_env(torch)
     _build.build_all()
     timer = cs.Timer(torch)
+    only = set(args.only or ONLY)
     for other in args.other_csrc:
         other = os.path.abspath(other)
-        flash_ab(timer, other, args.rounds)
-        dequant_ab(timer, other, args.rounds)
+        if "flash" in only:
+            flash_ab(timer, other, args.rounds)
+        if "dequant" in only:
+            dequant_ab(timer, other, args.rounds)
         for paged in (False, True):
-            for int8 in (False, True):
-                kernel_ab(timer, other, args.rounds, paged, int8)
-    int8_dense_vs_paged(timer, args.rounds)
-    wrapper_cost(timer)
-    wrapper_host_us(args.other_csrc)
+            if ("paged" if paged else "decode") in only:
+                for int8 in (False, True):
+                    kernel_ab(timer, other, args.rounds, paged, int8)
+    if "int8_dense_vs_paged" in only:
+        int8_dense_vs_paged(timer, args.rounds)
+    if "wrapper_cost" in only:
+        wrapper_cost(timer)
+    if "wrapper_host_us" in only:
+        wrapper_host_us(args.other_csrc)
     return 0
 
 

@@ -331,3 +331,39 @@ def test_gradients_of_ported_ops():
         return (loss.asnumpy(), x.grad.asnumpy(), w.grad.asnumpy(),
                 b.grad.asnumpy())
     _both(case)
+
+
+@pytest.mark.parametrize("op", ["abs", "clip_both", "clip_low",
+                                "clip_high"])
+def test_subgradients_at_ties(op):
+    """The reference's subgradients where the function has a kink: abs
+    passes the gradient at 0 (JAX: where x >= 0), clip splits it in
+    halves at a bound (JAX's min/max split ties)."""
+    xa = [-1.0, 0.0, 0.5, 2.0, 3.0, -0.0]
+
+    def case(pkg):
+        np = pkg.np
+        x = _var(pkg, xa)
+        with pkg.autograd.record():
+            y = {"abs": lambda: np.abs(x),
+                 "clip_both": lambda: np.clip(x, 0.0, 2.0),
+                 "clip_low": lambda: np.clip(x, 0.5, None),
+                 "clip_high": lambda: np.clip(x, None, 2.0)}[op]()
+            loss = (y * np.arange(1, 1 + y.shape[0])).sum()
+        loss.backward()
+        return y.asnumpy(), x.grad.asnumpy()
+    (y, g) = _both(case)
+    if op == "abs":
+        onp.testing.assert_array_equal(g, [-1, 2, 3, 4, 5, 6])
+        assert not onp.signbit(y).any()      # |-0.0| is +0.0
+
+
+def test_negative_step_slice_gradient():
+    def case(pkg):
+        x = _var(pkg, [[1.0, -2.0, 3.0], [4.0, 5.0, -6.0]])
+        with pkg.autograd.record():
+            y = (x[::-1, ::-2] * pkg.np.array([[1.0, 2.0], [3.0, 4.0]]))
+            loss = (y * y).sum()
+        loss.backward()
+        return y.asnumpy(), x.grad.asnumpy()
+    _both(case)

@@ -278,6 +278,51 @@ def test_setitem_ndarray_index_and_value(idx):
     _same(ti, ji)
 
 
+A10 = onp.arange(10, dtype="f4")
+IDX = onp.array([0, 2], "i4")
+#: negative-step slices (torch refuses them; the port flips): (array,
+#: key), with ``"idx"`` standing for an NDArray index
+NEG_GETS = [
+    (A10, slice(None, None, -1)), (A10, slice(8, 2, -3)),
+    (A10, slice(5, 5, -1)), (A10, slice(-2, None, -4)),
+    (X, (-1, slice(None, None, -1))), (X, (slice(None, None, -1), "idx")),
+    (X, (Ellipsis, slice(None, None, -2))),
+    (X, (slice(None, None, -2), None, slice(1, None))),
+    (X, (slice(None, None, -1), slice(3, 0, -2))),
+]
+
+
+def _key(pkg, key):
+    items = key if isinstance(key, tuple) else (key,)
+    out = tuple(pkg.np.array(IDX) if k == "idx" else k for k in items)
+    return out if isinstance(key, tuple) else out[0]
+
+
+@pytest.mark.parametrize("a,key", NEG_GETS,
+                         ids=[repr(k) for _, k in NEG_GETS])
+def test_getitem_negative_step(a, key):
+    _same(tmx.np.array(a)[_key(tmx, key)], jmx.np.array(a)[_key(jmx, key)])
+
+
+NEG_SETS = [
+    (slice(None, None, -1), onp.arange(4, dtype="f4") * 10),
+    (slice(None, None, -1), X * 10),
+    ((1, slice(None, None, -2)), onp.array([7, 8], "f4")),
+    ((slice(None, None, -1), "idx"), 5.0),
+    ((slice(2, 0, -1), slice(None, None, -3)), onp.ones((2, 2), "f4")),
+]
+
+
+@pytest.mark.parametrize("key,val", NEG_SETS,
+                         ids=[f"{k!r}-{i}" for i, (k, _) in
+                              enumerate(NEG_SETS)])
+def test_setitem_negative_step(key, val):
+    t, j = tmx.np.array(X), jmx.np.array(X)
+    t[_key(tmx, key)] = val
+    j[_key(jmx, key)] = val
+    _same(t, j)
+
+
 def test_setitem_is_functional_and_checks_shape():
     t = tmx.np.array(X)
     view = t[0]

@@ -86,6 +86,54 @@ def test_binary(fn, a, b):
     _same(_run(tmx, fn, (a, b), {}), _run(jmx, fn, (a, b), {}), EW)
 
 
+U8 = onp.arange(1, 13, dtype="u1").reshape(3, 4)
+#: binary ops mixing uint16/uint32 with integers: the reference takes
+#: NumPy's promotion table with x64 off (torch refuses to promote them)
+UNSIGNED = [
+    ("add", U8.astype("u4"), I), ("add", U8.astype("u2"), U8),
+    ("multiply", U8.astype("u2"), I.astype("i2")),
+    ("subtract", U8.astype("u4"), I.astype("i1")),
+    ("maximum", U8.astype("u4"), I), ("less", U8.astype("u4"), I),
+    ("bitwise_and", U8.astype("u2"), U8), ("add", U8.astype("u4"), B),
+    ("add", U8.astype("u4"), U8.astype("u4")), ("add", U8.astype("u4"), 2),
+    ("multiply", U8.astype("u4"), 2.5), ("add", 3, U8.astype("u2")),
+    ("true_divide", U8.astype("u4"), J),
+]
+
+
+@pytest.mark.parametrize("fn,a,b", UNSIGNED,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(UNSIGNED)])
+def test_unsigned_promotion(fn, a, b):
+    _same(_run(tmx, fn, (a, b), {}), _run(jmx, fn, (a, b), {}), EW)
+
+
+@pytest.mark.parametrize("fn", ["sum", "prod"])
+@pytest.mark.parametrize("dt", ["uint8", "uint16", "uint32"])
+@pytest.mark.parametrize("axis", [None, 1])
+def test_unsigned_reductions_give_uint32(fn, dt, axis):
+    a = (U8 % 3 + 1).astype(dt)
+    _same(_run(tmx, fn, (a,), {"axis": axis}),
+          _run(jmx, fn, (a,), {"axis": axis}), EW)
+
+
+@pytest.mark.parametrize("base,exp", [
+    (I, -1), (U8, -1), (I, -2), (I, onp.int32(-1)), (B, -1)],
+    ids=["int32", "uint8", "int32-2", "numpy-scalar", "bool"])
+def test_integer_power_to_negative_integer_raises(base, exp):
+    for pkg in (tmx, jmx):
+        with pytest.raises(TypeError, match="negative powers"):
+            pkg.np.power(pkg.np.array(base), exp)
+        with pytest.raises(TypeError, match="negative powers"):
+            pkg.np.array(base) ** exp
+
+
+@pytest.mark.parametrize("base,exp", [(I, -1.0), (P, -1), (I, 0)],
+                         ids=["float-exponent", "float-base", "zero"])
+def test_power_negative_exponent_allowed(base, exp):
+    _same(_run(tmx, "power", (base, exp), {}),
+          _run(jmx, "power", (base, exp), {}), EW)
+
+
 UNARY = [
     ("negative", X), ("positive", X), ("abs", X), ("absolute", I),
     ("sign", X), ("square", X), ("square", I), ("sqrt", P), ("exp", X),
