@@ -12,9 +12,10 @@ cores; causal up to the 1024-token context, head dims 16-128, strided
 views, NaN past kv_len), K2 dense decode
 and K3 paged decode (each in its fp32 and its int8-KV instance, with
 garbage past every length and NaN in the scrap page, every unreferenced
-page and their int8 scales; K3 also at lengths on either side of its
-cluster ranks' page ranges and at a P_max that is not a multiple of its
-cluster size), K4 int8 dequant-matmul (M = 1 to 512,
+page and their int8 scales; both also at lengths on either side of
+their cluster ranks' ranges, K3 at a P_max that is not a multiple of
+its cluster size, K2 at S = 1000, on a cache sliced from a longer
+buffer and on a row-strided view), K4 int8 dequant-matmul (M = 1 to 512,
 with and without the bias it adds in its epilogue) and K5, the
 runtime-compiled user kernels: one ``rtc.CudaModule`` compiled by NVRTC
 for sm_90a (the JAX rtc tests' kernels, the example's ``scale2`` and a
@@ -326,6 +327,55 @@ def phase_flash(torch, timer):
     return res
 
 
+#: K2's check sets beyond the timed shape: (tag, lengths, S, layout).
+#: The split plan gives each of the 8 cluster ranks 128 keys at S = 1024
+#: (and at S = 1000, where the last rank holds 104), so "edges" puts
+#: lengths on either side of rank boundaries (128k - 1, 128k, 128k + 1).
+#: "slice" is a cache that is a view k_big[:, :, :S] of a longer buffer
+#: (rows contiguous, (slot, head) rows further apart); "strided" a view
+#: k_big[:, :, ::2] whose rows are not contiguous, which takes the
+#: kernel's copy-a-row path.
+DENSE_CHECK_SETS = [
+    ("edges", [0, 127, 128, 129, 511, 512, 513, 895, 896, 897], 1024,
+     "dense"),
+    ("S=1000", [0, 1, 127, 128, 129, 500, 999, 1000], 1000, "dense"),
+    ("slice", [0, 1, 63, 64, 65, 500, 1023, 1024], 1024, "slice"),
+    ("strided", [0, 1, 63, 64, 65, 500, 1023, 1024], 1024, "strided"),
+]
+
+
+def _dense_cache(torch, rng, lengths, h, s, d, layout="dense"):
+    """A (B, H, S, D) fp32 cache laid out as ``layout`` (see
+    DENSE_CHECK_SETS) with NaN past every length, and an int8 cache of
+    the same values in the same layout: (B, H) scales from the live
+    rows' amax, random int8 past every length and NaN scales on every
+    empty slot. Returns the lengths, the live mask, the two fp32 views,
+    the two int8 views and the scales."""
+    from mxnet_tpu_torch.ops import quantized as qz
+    b = len(lengths)
+    rows = {"dense": s, "slice": s + 76, "strided": 2 * s}[layout]
+
+    def view(t):
+        return {"dense": t, "slice": t[:, :, :s],
+                "strided": t[:, :, ::2]}[layout]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    live = (torch.arange(s, device="cuda")[None, :]
+            < lens.long()[:, None])[:, None, :, None]     # (B, 1, S, 1)
+    kn, vn = (view(_rand(torch, rng, b, h, rows, d)) for _ in range(2))
+    kz, vz = kn * live, vn * live
+    for t in (kn, vn):
+        t.masked_fill_(~live, float("nan"))    # in place: the view stays
+    ks, vs = qz.kv_scale(kz, (2, 3)), qz.kv_scale(vz, (2, 3))
+    kq, vq = (view(torch.from_numpy(rng.randint(-127, 128, (b, h, rows, d))
+                                    .astype("i1")).cuda()) for _ in range(2))
+    for t, z, sc in ((kq, kz, ks), (vq, vz, vs)):
+        t.copy_(torch.where(live, qz.kv_quantize(z, sc[:, :, None, None]),
+                            t))
+    empty = lens == 0
+    ks[empty], vs[empty] = float("nan"), float("nan")
+    return lens, live, (kn, vn), (kq, vq), (ks, vs)
+
+
 def phase_decode(torch, timer):
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as at
@@ -333,29 +383,47 @@ def phase_decode(torch, timer):
     b, h, s, d = 8, 12, 1024, 64
     scale = 1.0 / math.sqrt(d)
     lengths = [0, 1, 63, 64, 65, 500, 1023, 1024]
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    k, v = (_rand(torch, rng, b, h, s, d) for _ in range(2))
-    live = (torch.arange(s, device="cuda")[None, :]
-            < lens.long()[:, None])[:, None, :, None]     # (B, 1, S, 1)
-    kz, vz = k * live, v * live                # garbage rows zeroed
-    nan = torch.tensor(float("nan"), device="cuda")
-    kn, vn = torch.where(live, k, nan), torch.where(live, v, nan)
-    cases, err = [], 0.0
-    for sq in (1, 4, 5):
-        q = _split_view(torch, rng, b, sq, h, d)
-        out = at.decode_attention(q, kn, vn, lens)
-        ref = at._decode_fwd_torch(q, kz, vz, lens, scale)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()),
-              f"K2 non-finite output with NaN past the lengths (sq={sq})")
-        check(float(out[0].abs().max()) == 0.0, "K2 len=0 row not zero")
-        e = float((out - ref).abs().max())
-        per_slot = (out - ref).abs().amax(dim=(1, 2, 3)).tolist()
-        cases.append({"case": f"sq={sq}", "out_err": e,
-                      "per_slot": per_slot})
-        err = max(err, e)
+    lens, live, (kn, vn), (kq, vq), (ks, vs) = _dense_cache(
+        torch, rng, lengths, h, s, d)
+    kz, vz = kn.nan_to_num(0.0), vn.nan_to_num(0.0)   # garbage zeroed
+    # every case through both instances: the timed shape at sq = 1, 4
+    # and 5, then each check set at sq = 1 and 4
+    sets = [(lens, (kn, vn), (kq, vq, ks, vs),
+             [(f"sq={sq}", _split_view(torch, rng, b, sq, h, d))
+              for sq in (1, 4, 5)])]
+    for tag, lns, s2, layout in DENSE_CHECK_SETS:
+        l2, _, kv, kv8, sc8 = _dense_cache(torch, rng, lns, h, s2, d,
+                                           layout)
+        sets.append((l2, kv, (*kv8, *sc8), [
+            (f"{tag} sq={sq}", _split_view(torch, rng, len(lns), sq, h, d))
+            for sq in (1, 4)]))
+    cases, cases8, err, err8 = [], [], 0.0, 0.0
+    for ln, (k2, v2), (kq2, vq2, ks2, vs2), runs in sets:
+        zero = [i for i, n in enumerate(ln.tolist()) if n == 0]
+        for tag, q in runs:
+            out = at.decode_attention(q, k2, v2, ln)
+            ref = at._decode_fwd_torch(q, k2, v2, ln, scale)
+            out8 = at.decode_attention(q, kq2, vq2, ln, k_scale=ks2,
+                                       v_scale=vs2)
+            ref8 = at._decode_fwd_torch(q, at._dequantize(kq2, ks2),
+                                        at._dequantize(vq2, vs2), ln, scale)
+            torch.cuda.synchronize()
+            for inst, o, r, acc in (("K2", out, ref, cases),
+                                    ("K2-int8", out8, ref8, cases8)):
+                check(bool(torch.isfinite(o).all()),
+                      f"{inst} non-finite output with NaN past the lengths "
+                      f"({tag})")
+                check(all(float(o[i].abs().max()) == 0.0 for i in zero),
+                      f"{inst} len=0 row not zero ({tag})")
+                acc.append({"case": tag, "out_err": float((o - r).abs().max()),
+                            "lengths": ln.tolist(), "S": int(k2.shape[2]),
+                            "k_strides": list(k2.stride())})
+            err = max(err, cases[-1]["out_err"])
+            err8 = max(err8, cases8[-1]["out_err"])
     emit("decode_attention_check", cases=cases)
     check(err <= OUT_TOL, f"K2 max-abs-err {err} > {OUT_TOL}")
+    emit("decode_attention_int8_check", cases=cases8)
+    check(err8 <= OUT_TOL, f"K2-int8 max-abs-err {err8} > {OUT_TOL}")
 
     q = _split_view(torch, rng, b, 1, h, d)    # the decode step's layout
     mask = live[:, :, :, 0][:, :, None, :]     # (B, 1, 1, S) bool
@@ -375,31 +443,7 @@ def phase_decode(torch, timer):
     # the int8 instance: per-(slot, head) scales from the live rows'
     # amax, random int8 garbage past every length and a NaN scale on
     # the empty slot
-    from mxnet_tpu_torch.ops import quantized as qz
-    ks = qz.kv_scale(kz, (2, 3))
-    vs = qz.kv_scale(vz, (2, 3))
-    kq = qz.kv_quantize(kz, ks[:, :, None, None])
-    vq = qz.kv_quantize(vz, vs[:, :, None, None])
-    for t in (kq, vq):
-        junk = torch.from_numpy(rng.randint(-127, 128, t.shape)
-                                .astype("i1")).cuda()
-        t.copy_(torch.where(live, t, junk))
-    ks[0], vs[0] = float("nan"), float("nan")
     kd, vd = at._dequantize(kq, ks), at._dequantize(vq, vs)
-    cases, err8 = [], 0.0
-    for sq in (1, 4, 5):
-        q = _split_view(torch, rng, b, sq, h, d)
-        out = at.decode_attention(q, kq, vq, lens, k_scale=ks, v_scale=vs)
-        ref = at._decode_fwd_torch(q, kd, vd, lens, scale)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()),
-              f"K2-int8 non-finite output (sq={sq})")
-        check(float(out[0].abs().max()) == 0.0, "K2-int8 len=0 row not zero")
-        e = float((out - ref).abs().max())
-        cases.append({"case": f"sq={sq}", "out_err": e})
-        err8 = max(err8, e)
-    emit("decode_attention_int8_check", cases=cases)
-    check(err8 <= OUT_TOL, f"K2-int8 max-abs-err {err8} > {OUT_TOL}")
     q = _split_view(torch, rng, b, 1, h, d)
     kdz, vdz = kd * live, vd * live           # for the library yardstick
     kdz[0], vdz[0] = 0.0, 0.0

@@ -34,13 +34,6 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// Four int8 values packed in a 32-bit word, widened to fp32 (char4's
-// members are signed char).
-__device__ __forceinline__ float4 s8x4_to_float4(int w) {
-  const char4 c = *reinterpret_cast<const char4*>(&w);
-  return make_float4(c.x, c.y, c.z, c.w);
-}
-
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);

@@ -1,5 +1,6 @@
 // K2 — decode attention over a dense KV cache, fp32 or int8, for Hopper
-// (sm_90a).
+// (sm_90a): a split-KV (flash-decoding) kernel in one launch, each
+// (slot, head, group of query rows) split across a thread-block cluster.
 //
 // Replaces: mxnet_tpu/ops/attention.py decode_attention_pallas (kernel
 // body _decode_fwd_kernel), both variants: fp32, and int8 K/V with
@@ -12,49 +13,126 @@
 // K and V row once — 2 * sum(len) * H * D * 4 bytes per layer in fp32,
 // a quarter of that in int8 — and does 4 * D FLOP per (query, key)
 // pair, one to four FLOP per byte, far below the card's ~20 FLOP per
-// byte for fp32.
+// byte for fp32. At 8 slots x 12 heads x lengths up to 1024 that is
+// 16 MB, 5 us at 3.35 TB/s.
 //
-// What the design does about it (the block body is decode_core.cuh;
-// K3 used it too before its cluster split-KV redesign):
-// - One thread block per (head, slot, group of query rows); 8 warps
-//   split the slot's valid prefix into interleaved 32-key chunks, so
-//   256 key rows are in flight per block, and merge their
-//   online-softmax states once at the end.
-// - The loop runs over [0, len) only: no K or V row at or past the
-//   slot's length is ever loaded, so garbage (even NaN) there never
-//   reaches a sum.
-// - K rows are read with 16-byte loads, one row per lane; V rows
-//   coalesced across the warp. The int8 instance moves the int8 bytes
-//   only and widens them in registers; the slot's K and V scales ride
-//   with every key as K3's page scales did, and its V loop takes the
-//   row offsets by shuffle, as K3's did: folding the K scale into q
-//   and computing the offsets in place, as the fp32 instance does,
-//   took the int8 instance about twice the device time
-//   (scripts/torch_kernel_ab.py; PERF.md).
-// - Decode (one query per slot) runs a one-row instance, so no work is
-//   spent on absent query rows; 2..R queries run four rows per block.
-// At the serving shape (8 slots x 12 heads) the 96 blocks do not fill
-// 132 SMs; a split-KV (flash-decoding) redesign is queued in ROADMAP.md.
-#include "decode_core.cuh"
+// What the design does about it. The earlier kernel ran one block per
+// (slot, head): 96 blocks on 132 SMs, each walking its slot's whole
+// prefix with a few hundred bytes in flight per warp. Here:
+// - Split-KV across a cluster. plan() sizes a cluster of S <= 8 blocks
+//   from the cache's S_max: each rank owns ceil(S_max / 8) keys rounded
+//   up to a warp's 32 (128 keys, 8 ranks, at the engine's S_max = 1024).
+//   A long slot is read by 8 SMs; a rank whose range starts at or past
+//   the slot's length copies nothing and leaves after one relaxed
+//   cluster arrive/wait, freeing its SM for the next clusters.
+// - One memory latency before the copies. The length, q and, in the
+//   int8 instance, the slot's two scales all go out at once (none needs
+//   the length). Then warp 0 issues the rank's K and V rows below the
+//   length as cp.async.bulk copies into shared memory (the TMA's 1D
+//   form), all completing on one mbarrier: a (slot, head) row of a
+//   cache whose rows are contiguous (k_ss == D) is one run of memory,
+//   copied in pieces of 4 KB, one a lane; a cache whose rows are strided
+//   (a row-strided view) takes one copy a row, on the same barrier.
+//   Rows are 16-512 bytes (int8 at D 16 to fp32 at D 128), multiples of
+//   16, so exactly the valid rows arrive: no garbage row ever reaches
+//   shared memory, and no row at or past the length is read at all.
+// - The cluster body is split_decode.cuh's, shared with K3 (the paged
+//   cache) through a row source, DenseRows below: per-warp online
+//   softmax from shared memory with no block-wide barrier in the loop,
+//   and the ranks merged with st.async into rank 0 in rank order (no
+//   second launch, no global scratch, no atomics: deterministic).
+// - A rank holds at most kBudget bytes of rows; a longer range runs in
+//   batches through the same buffers. At the engine's shapes one batch
+//   holds all (64 KB fp32, 16 KB int8).
+// - Decode (one query per slot) runs a one-row instance; 2..R queries
+//   run four rows per cluster, so the rows are read once for the four.
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "split_decode.cuh"
 
 namespace {
 
-constexpr int kThreads = mxtt::kDecodeThreads;
+using mxtt::kBudget;
+using mxtt::kMaxRanks;
 
-// Key row t of one (slot, head) of a dense (B, H, S, D) cache of T; an
-// int8 cache gives every key the (slot, head)'s K and V scales.
-template <class T>
+// a rank's keys are a multiple of one warp chunk
+constexpr int kRowAlign = 32;
+// bytes a bulk copy carries on the contiguous path
+constexpr int kCopyBytes = 4096;
+
+// How a launch splits the cache rows: a cluster of S ranks, each owning
+// ``rows`` keys, at most ``batch`` of them in shared memory at once.
+struct Plan {
+  int S, rows, batch;
+  size_t smem;
+};
+
+Plan plan(int S_max, int D, int elem) {
+  Plan p;
+  S_max = std::max(S_max, 1);
+  const int rpr = (S_max + kMaxRanks - 1) / kMaxRanks;
+  p.rows = (rpr + kRowAlign - 1) / kRowAlign * kRowAlign;
+  p.S = (S_max + p.rows - 1) / p.rows;
+  const int row_bytes = 2 * D * elem;   // K and V of one key
+  p.batch = std::min(p.rows, kBudget / row_bytes);
+  p.smem = (size_t)p.batch * row_bytes;
+  return p;
+}
+
+// The row source of one (slot, head) of a dense cache: key t is row t of
+// the (slot, head)'s rows, ``k_ss`` / ``v_ss`` elements apart. Only rows
+// before the length are copied. An int8 cache gives every key the
+// (slot, head)'s two scales.
+template <int D, class T>
 struct DenseRows {
-  const T* k;
+  const T* k;   // the (slot, head)'s row 0
   const T* v;
+  const float* k_scale;   // the (slot, head)'s scales (int8)
+  const float* v_scale;
+  const int* lengths;
   long long k_ss, v_ss;
-  float k_mul, v_mul;
-  static constexpr bool kIndirect = sizeof(T) == 1;
-  static constexpr bool kKeyScales = sizeof(T) == 1;
-  __device__ __forceinline__ void offsets(int t, long long& ko, long long& vo,
-                                          float& ks, float& vs) const {
-    ko = (long long)t * k_ss;
-    vo = (long long)t * v_ss;
+  int b, S_max;
+  float k_mul = 1.f, v_mul = 1.f;
+
+  __device__ __forceinline__ int length() const {
+    return max(0, min(__ldg(lengths + b), S_max));
+  }
+
+  // int8: the slot's two scales, every thread (one address each)
+  __device__ __forceinline__ void prefetch(int, int) {
+    if constexpr (sizeof(T) == 1) {
+      k_mul = __ldg(k_scale);
+      v_mul = __ldg(v_scale);
+    }
+  }
+
+  // rows [rb, rb + nk): in pieces of kCopyBytes a lane where both
+  // caches' rows are contiguous, else a row a lane; then the batch's one
+  // arrival
+  __device__ __forceinline__ void issue(int, int rb, int nk, T* k_buf,
+                                        T* v_buf, float*, unsigned bar,
+                                        int lane) const {
+    constexpr unsigned kRowBytes = D * sizeof(T);
+    constexpr int kPiece =
+        kCopyBytes / (int)kRowBytes > 1 ? kCopyBytes / (int)kRowBytes : 1;
+    const int piece = k_ss == D && v_ss == D ? kPiece : 1;
+    if (lane == 0) mxtt::mbar_expect_tx(bar, 2u * nk * kRowBytes);
+    __syncwarp();
+    for (int i = lane * piece; i < nk; i += 32 * piece) {
+      const unsigned bytes = (unsigned)min(piece, nk - i) * kRowBytes;
+      mxtt::bulk_copy(k_buf + (size_t)i * D, k + (long long)(rb + i) * k_ss,
+                      bytes, bar);
+      mxtt::bulk_copy(v_buf + (size_t)i * D, v + (long long)(rb + i) * v_ss,
+                      bytes, bar);
+    }
+    __syncwarp();
+    if (lane == 0) mxtt::mbar_arrive(bar);
+  }
+
+  __device__ __forceinline__ void scales(int, const float*, float& ks,
+                                         float& vs) const {
     ks = k_mul;
     vs = v_mul;
   }
@@ -63,51 +141,57 @@ struct DenseRows {
 // k_scale / v_scale: (B, H) contiguous fp32 for an int8 cache, unused
 // (null) for fp32.
 template <int D, int NR, class T>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ k_scale,
-              const float* __restrict__ v_scale,
-              const int* __restrict__ lengths, float* __restrict__ out, int H,
-              int Sq, int S, float scale, long long q_sb, long long q_sh,
-              long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-              long long v_sb, long long v_sh, long long v_ss) {
-  const int h = blockIdx.x;
+__global__ void __launch_bounds__(mxtt::kSplitThreads,
+                                  mxtt::kSplitMinBlocks<T>)
+decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ lengths, float* __restrict__ out,
+                    int H, int Sq, int S_max, int rows, int batch,
+                    float scale, long long q_sb, long long q_sh,
+                    long long q_ss, long long k_sb, long long k_sh,
+                    long long k_ss, long long v_sb, long long v_sh,
+                    long long v_ss) {
+  const int S = (int)cooperative_groups::this_cluster().num_blocks();
+  const int h = blockIdx.x / S;
   const int b = blockIdx.y;
   const int r0 = blockIdx.z * NR;
-  const int nr = min(NR, Sq - r0);
-  const int len = max(0, min(lengths[b], S));
-  float k_mul = 1.f, v_mul = 1.f;
-  if constexpr (sizeof(T) == 1) {
-    if (len > 0) {
-      k_mul = __ldg(k_scale + b * H + h);
-      v_mul = __ldg(v_scale + b * H + h);
-    }
-  }
-  const DenseRows<T> rows{k + b * k_sb + h * k_sh, v + b * v_sb + h * v_sh,
-                          k_ss, v_ss, k_mul, v_mul};
-  mxtt::decode_block<D, NR>(q + b * q_sb + h * q_sh, q_ss, r0, nr, len,
-                            scale, rows,
-                            out + (((long long)b * H + h) * Sq + r0) * D);
+  const long long bh = (long long)b * H + h;
+  constexpr bool kInt8 = sizeof(T) == 1;
+  DenseRows<D, T> src{k + b * k_sb + h * k_sh, v + b * v_sb + h * v_sh,
+                      kInt8 ? k_scale + bh : nullptr,
+                      kInt8 ? v_scale + bh : nullptr, lengths, k_ss, v_ss, b,
+                      S_max};
+  mxtt::split_decode<D, NR, T>(src, q + b * q_sb + h * q_sh, q_ss, r0,
+                               min(NR, Sq - r0), rows, batch, scale,
+                               out + (bh * Sq + r0) * D);
+}
+
+template <int D, int NR, class T>
+cudaError_t launch_rows(const float* q, const T* k, const T* v,
+                        const float* k_scale, const float* v_scale,
+                        const int* lengths, float* out, int B, int H, int Sq,
+                        int S_max, float scale, const long long* st,
+                        cudaStream_t stream) {
+  const Plan p = plan(S_max, D, (int)sizeof(T));
+  return mxtt::launch_split<decode_split_kernel<D, NR, T>>(
+      dim3(H * p.S, B, (Sq + NR - 1) / NR), p.S, p.smem, stream, q, k, v,
+      k_scale, v_scale, lengths, out, H, Sq, S_max, p.rows, p.batch, scale,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
 }
 
 template <int D, class T>
 cudaError_t launch(const float* q, const T* k, const T* v,
                    const float* k_scale, const float* v_scale,
-                   const int* lengths, float* out, int B, int H, int Sq, int S,
-                   float scale, const long long* st, cudaStream_t stream) {
-  if (Sq == 1) {
-    decode_kernel<D, 1, T><<<dim3(H, B, 1), kThreads, 0, stream>>>(
-        q, k, v, k_scale, v_scale, lengths, out, H, Sq, S, scale, st[0],
-        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
-  } else {
-    constexpr int NR = 4;
-    decode_kernel<D, NR, T><<<dim3(H, B, (Sq + NR - 1) / NR), kThreads, 0,
-                              stream>>>(q, k, v, k_scale, v_scale, lengths,
-                                        out, H, Sq, S, scale, st[0], st[1],
-                                        st[2], st[3], st[4], st[5], st[6],
-                                        st[7], st[8]);
-  }
-  return cudaGetLastError();
+                   const int* lengths, float* out, int B, int H, int Sq,
+                   int S_max, float scale, const long long* st,
+                   cudaStream_t stream) {
+  if (Sq == 1)
+    return launch_rows<D, 1, T>(q, k, v, k_scale, v_scale, lengths, out, B,
+                                H, Sq, S_max, scale, st, stream);
+  return launch_rows<D, 4, T>(q, k, v, k_scale, v_scale, lengths, out, B, H,
+                              Sq, S_max, scale, st, stream);
 }
 
 template <class T>
@@ -140,9 +224,10 @@ int dispatch(const float* q, const T* k, const T* v, const float* k_scale,
 extern "C" {
 
 // q: (B, H, Sq, D); k / v: (B, H, S, D) cache buffers; all fp32 with a
-// contiguous last axis; ``strides`` holds the (b, h, s) element strides
-// of q, k and v in that order. lengths: (B,) int32 on the device.
-// out: (B, H, Sq, D) contiguous fp32. Returns the launch's cudaError_t.
+// contiguous last axis, 16-byte aligned rows; ``strides`` holds the
+// (b, h, s) element strides of q, k and v in that order. lengths: (B,)
+// int32 on the device. out: (B, H, Sq, D) contiguous fp32. Returns the
+// launch's cudaError_t.
 int mxtt_decode_attention(const float* q, const float* k, const float* v,
                           const int* lengths, float* out, int B, int H,
                           int Sq, int S, int D, float scale,

@@ -86,6 +86,8 @@ def _set_out(out, r):
 
 #: unsigned dtypes torch neither promotes nor computes on
 _WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+#: sum and prod of these give uint32, as in the reference
+_UNSIGNED = (torch.uint8, *_WIDE_UNSIGNED)
 
 
 def _is_int(dt) -> bool:
@@ -123,6 +125,23 @@ def _via_int64(tfn, res):
     def f(x, y):
         r = tfn(x.to(torch.int64), y.to(torch.int64))
         return r.to(res) if r.dtype == torch.int64 else r
+    return f
+
+
+def _int64_route(tfn, res=None):
+    """``tfn`` of one tensor (further arguments passed on): a uint16/32/64
+    tensor, which torch's kernels mostly refuse on the CPU and the card
+    alike, is computed on as int64 and an int64 result cast back to its
+    dtype, so ``negative`` wraps as the narrower type would. ``res``
+    names the result dtype of an op with a rule of its own (sum and
+    prod give uint32, uint8 included; argmax keeps its index)."""
+    routed = _UNSIGNED if res is not None else _WIDE_UNSIGNED
+
+    def f(x, *args):
+        if x.dtype not in routed:
+            return tfn(x, *args)
+        r = tfn(x.to(torch.int64), *args)
+        return r.to(res or x.dtype) if r.dtype == torch.int64 else r
     return f
 
 
@@ -166,6 +185,8 @@ def _mkbin(tfn, name):
 
 
 def _mkunary(tfn, name):
+    tfn = _int64_route(tfn)
+
     def f(x, out=None, **kwargs):
         return _unary(tfn, x, out=out, name=name)
     f.__name__ = name
@@ -413,7 +434,7 @@ def clip(a, a_min=None, a_max=None, out=None):
             x = torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype,
                                                  device=x.device))
         return x
-    return _unary(f, a, out=out, name="clip")
+    return _unary(_int64_route(f), a, out=out, name="clip")
 
 
 def where(condition, x=None, y=None):
@@ -449,21 +470,6 @@ def _reduce_each(tfn, x, dims, keepdims):
     return x
 
 
-#: sum and prod of these give uint32, as in the reference
-_UNSIGNED = (torch.uint8, *_WIDE_UNSIGNED)
-
-
-def _unsigned_acc(tfn):
-    """``tfn``, with an unsigned input summed in int64 and the result
-    cast to uint32 (torch gives int64, which would narrow to int32)."""
-    def f(x, dims, keepdims):
-        if x.dtype in _UNSIGNED:
-            return tfn(x.to(torch.int64), dims, keepdims).to(torch.uint32)
-        return tfn(x, dims, keepdims)
-    return f
-
-
-@_unsigned_acc
 def _sum(x, dims, keepdims):
     return torch.sum(x, dim=dims, keepdim=keepdims) if dims \
         else torch.sum(x)
@@ -486,13 +492,14 @@ def _min(x, dims, keepdims):
         else torch.amin(x)
 
 
-@_unsigned_acc
 def _prod(x, dims, keepdims):
     return _reduce_each(torch.prod, x, dims, keepdims) if dims \
         else torch.prod(x)
 
 
-def _mkreduce(tfn, name, has_dtype=True):
+def _mkreduce(tfn, name, has_dtype=True, res=None):
+    tfn = _int64_route(tfn, res)
+
     def run(x, axis, dt, keepdims):
         if dt is not None:
             x = x.to(dt)
@@ -517,8 +524,10 @@ def _mkreduce(tfn, name, has_dtype=True):
     return f
 
 
-sum = _mkreduce(_sum, "sum")
-prod = _mkreduce(_prod, "prod")
+# an unsigned input sums in int64 to uint32 (torch gives int64, which
+# would narrow to int32)
+sum = _mkreduce(_sum, "sum", res=torch.uint32)
+prod = _mkreduce(_prod, "prod", res=torch.uint32)
 mean = _mkreduce(_mean, "mean")
 max = _mkreduce(_max, "max", has_dtype=False)
 min = _mkreduce(_min, "min", has_dtype=False)
@@ -527,13 +536,13 @@ amin = min
 
 
 def argmax(a, axis=None, out=None):
-    return _unary(lambda x: torch.argmax(x, dim=axis), a, out=out,
-                  name="argmax")
+    return _unary(_int64_route(lambda x: torch.argmax(x, dim=axis),
+                               torch.int64), a, out=out, name="argmax")
 
 
 def argmin(a, axis=None, out=None):
-    return _unary(lambda x: torch.argmin(x, dim=axis), a, out=out,
-                  name="argmin")
+    return _unary(_int64_route(lambda x: torch.argmin(x, dim=axis),
+                               torch.int64), a, out=out, name="argmin")
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,8 @@ def _c(x):
 # activations
 # ---------------------------------------------------------------------------
 def relu(data, **kwargs):
-    return apply_op(torch.relu, _c(data), name="relu")
+    from ..numpy import _int64_route
+    return apply_op(_int64_route(torch.relu), _c(data), name="relu")
 
 
 def sigmoid(data, **kwargs):
@@ -122,11 +123,16 @@ def one_hot(data, depth, on_value=1.0, off_value=0.0, dtype="float32",
 
 def topk(data, k=1, axis=-1, ret_typ="indices", is_ascend=False,
          dtype="float32", **kwargs):
+    from ..numpy import _UNSIGNED, _WIDE_UNSIGNED
     idt = resolve_dtype(dtype)
 
     def f(x):
         ax = axis % x.dim()
+        src = x.dtype
+        # torch ranks no uint16/32/64: rank their int64 values
         xm = x.movedim(ax, -1)
+        if src in _WIDE_UNSIGNED:
+            xm = xm.to(torch.int64)
         if is_ascend:
             # bottom-k by a stable ascending sort, as the reference
             vals, idx = torch.sort(xm, dim=-1, stable=True)
@@ -135,9 +141,16 @@ def topk(data, k=1, axis=-1, ret_typ="indices", is_ascend=False,
             vals, idx = torch.topk(xm, k, dim=-1, largest=True,
                                    sorted=True)
         if ret_typ == "mask":
+            # the reference sums k one-hots in the data's dtype, so the
+            # mask takes sum's dtype: uint32 for an unsigned input, int32
+            # (narrowed from int64) for another integer one
             mask = torch.zeros_like(xm).scatter(-1, idx, 1)
+            if src in _UNSIGNED:
+                mask = mask.to(torch.uint32)
+            elif not (src.is_floating_point or src.is_complex):
+                mask = mask.to(torch.int64)
             return mask.movedim(-1, ax)
-        vals, idx = vals.movedim(-1, ax), idx.movedim(-1, ax)
+        vals, idx = vals.to(src).movedim(-1, ax), idx.movedim(-1, ax)
         if ret_typ == "indices":
             return idx.to(idt)
         if ret_typ == "value":

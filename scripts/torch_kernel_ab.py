@@ -36,8 +36,8 @@ lists it): ``git archive HEAD~1 | tar -x -C _tree`` and
    values quantized with their amax scales), through the same Python
    wrapper and ``chip_smoke.Timer`` (L2 flushed), plus the kernels' own
    run time from ``torch.profiler`` and the device time with L2 left
-   warm (``ms_device_warm``). K3 also runs four query rows a
-   slot (``sq=4``) and the peek (one slot, B = 1, length 500). Both
+   warm (``ms_device_warm``). Both also run four query rows a slot
+   (``sq=4``), K3 the peek (one slot, B = 1, length 500). Both
    must take the same C interface; an instance the other revision
    lacks is skipped.
 
@@ -153,8 +153,15 @@ int probe_fixed_cluster(ARGS) {
 
 def _compile(src_path, include, tag):
     """nvcc ``src_path`` with the port's flags into ``_build/``; returns
-    the loaded library."""
-    h = hashlib.sha256(open(src_path, "rb").read()).hexdigest()[:16]
+    the loaded library. Named by a hash of the source and the headers
+    beside it, so two trees that differ only in a header build apart."""
+    h = hashlib.sha256()
+    for p in (src_path, *sorted(
+            os.path.join(include, n) for n in os.listdir(include)
+            if n.endswith(".cuh"))):
+        with open(p, "rb") as f:
+            h.update(f.read())
+    h = h.hexdigest()[:16]
     _build.BUILD_DIR.mkdir(exist_ok=True)
     lib = _build.BUILD_DIR / f"lib{tag}-{h}.so"
     if not lib.exists():
@@ -240,11 +247,11 @@ def kernel_ab(timer, other_csrc, rounds, paged, int8):
                 q, x["kq_p"], x["vq_p"], table, lens, None, x["ks_p"],
                 x["vs_p"]),
         }[(paged, int8)]
-    variants = [("sq=1", call(q, lens, table))]
+    q4 = cs._split_view(torch, rng, 8, 4, 12, 64)
+    variants = [("sq=1", call(q, lens, table)),
+                ("sq=4", call(q4, lens, table))]
     if paged:
-        q4 = cs._split_view(torch, rng, 8, 4, 12, 64)
-        variants += [("sq=4", call(q4, lens, table)),
-                     ("peek b=1 len=500", call(
+        variants += [("peek b=1 len=500", call(
                          q[5:6], lens[5:6].contiguous(),
                          table[5:6].contiguous()))]
     key = (base, f"mxtt_{name}")

@@ -171,6 +171,31 @@ def test_unary_dunders_and_matmul():
     _same(r, jr)
 
 
+#: the operator and method forms on uint16/uint32 arrays (holding 0
+#: and the dtype's maximum): they follow the mx.np functions' int64 route
+WIDE_FORMS = [
+    ("neg", op.neg), ("abs", abs), ("max_axis0", lambda a: a.max(axis=0)),
+    ("max", lambda a: a.max()), ("min_axis1", lambda a: a.min(axis=1)),
+    ("argmax", lambda a: a.argmax()),
+    ("argmax_axis1", lambda a: a.argmax(axis=1)),
+    ("argmin_axis0", lambda a: a.argmin(axis=0)),
+    ("clip", lambda a: a.clip(2, 600)), ("abs_method", lambda a: a.abs()),
+    ("prod_axis1", lambda a: a.prod(axis=1)), ("invert", op.invert),
+]
+
+
+@pytest.mark.parametrize("dt", ["uint16", "uint32"])
+@pytest.mark.parametrize("fn", [f for _, f in WIDE_FORMS],
+                         ids=[n for n, _ in WIDE_FORMS])
+def test_wide_unsigned_operator_forms(fn, dt):
+    a = onp.random.RandomState(3).randint(1, 1000, (3, 4)).astype(dt)
+    a[1, 0], a[0, 2] = 0, onp.iinfo(dt).max
+    t, j = fn(tmx.np.array(a)), fn(jmx.np.array(a))
+    assert t.dtype == j.dtype, (t.dtype, j.dtype)
+    assert t.shape == j.shape
+    onp.testing.assert_array_equal(t.asnumpy(), j.asnumpy())
+
+
 def test_inplace_dunders_bump_version():
     t, j = tmx.np.array(X), jmx.np.array(X)
     v = t._version

@@ -116,6 +116,45 @@ def test_unsigned_reductions_give_uint32(fn, dt, axis):
           _run(jmx, fn, (a,), {"axis": axis}), EW)
 
 
+def _wide(dt, seed=12):
+    """numpy-seeded (3, 4) ``dt`` values holding 0 and the dtype's
+    maximum, so that negative, square and prod wrap."""
+    a = onp.random.RandomState(seed).randint(1, 1000, (3, 4)).astype(dt)
+    a[0, 1], a[2, 3] = 0, onp.iinfo(dt).max
+    return a
+
+
+#: single-operand ops of uint16/uint32 arrays, which torch's kernels
+#: refuse: the port computes them in int64 and casts an integer result
+#: back (an index stays an index)
+WIDE_UNARY = [
+    ("negative", {}), ("abs", {}), ("absolute", {}), ("square", {}),
+    ("sign", {}), ("clip", {"a_min": 3, "a_max": 500}),
+    ("clip", {"a_min": 200}), ("max", {}), ("max", {"axis": 0}),
+    ("amax", {"axis": 1, "keepdims": True}), ("min", {}),
+    ("min", {"axis": 1}), ("argmax", {}), ("argmax", {"axis": 1}),
+    ("argmin", {}), ("argmin", {"axis": 0}), ("prod", {}),
+    ("prod", {"axis": 0}), ("invert", {}),
+]
+
+
+@pytest.mark.parametrize("dt", ["uint16", "uint32"])
+@pytest.mark.parametrize("fn,kw", WIDE_UNARY,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(WIDE_UNARY)])
+def test_wide_unsigned_unary_and_reductions(fn, kw, dt):
+    a = _wide(dt)
+    _same(_run(tmx, fn, (a,), kw), _run(jmx, fn, (a,), kw), EW)
+
+
+@pytest.mark.parametrize("dt", ["uint16", "uint32"])
+def test_wide_unsigned_negative_wraps(dt):
+    a = onp.array([1, 5, 3], dt)
+    t = tmx.np.negative(tmx.np.array(a))
+    assert t.dtype == onp.dtype(dt)
+    assert t.asnumpy().tolist() == [int(onp.iinfo(dt).max) + 1 - v
+                                    for v in (1, 5, 3)]
+
+
 @pytest.mark.parametrize("base,exp", [
     (I, -1), (U8, -1), (I, -2), (I, onp.int32(-1)), (B, -1)],
     ids=["int32", "uint8", "int32-2", "numpy-scalar", "bool"])
@@ -342,6 +381,34 @@ def test_npx(fn, args, kw):
     t = getattr(tmx.npx, fn)(*[_lift(tmx, a) for a in args], **kw)
     j = getattr(jmx.npx, fn)(*[_lift(jmx, a) for a in args], **kw)
     _same(t, j, RED)
+
+
+#: npx ops of uint16/uint32 arrays; topk's mask takes sum's dtype
+WIDE_NPX = [
+    ("relu", {}), ("topk", {"k": 2}), ("topk", {"k": 3, "ret_typ": "value"}),
+    ("topk", {"k": 2, "ret_typ": "both", "axis": 0}),
+    ("topk", {"k": 2, "ret_typ": "mask"}),
+    ("topk", {"k": 2, "is_ascend": True, "ret_typ": "both"}),
+]
+
+
+@pytest.mark.parametrize("dt", ["uint16", "uint32"])
+@pytest.mark.parametrize("fn,kw", WIDE_NPX,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(WIDE_NPX)])
+def test_npx_wide_unsigned(fn, kw, dt):
+    a = _wide(dt, seed=13)
+    t = getattr(tmx.npx, fn)(tmx.np.array(a), **kw)
+    j = getattr(jmx.npx, fn)(jmx.np.array(a), **kw)
+    _same(t, j, RED)
+
+
+@pytest.mark.parametrize("dt", ["int8", "uint8", "int16"])
+def test_topk_mask_takes_sum_dtype(dt):
+    a = _wide(dt, seed=14) if dt.startswith("u") else _ints(3, 4)
+    a = a.astype(dt)
+    kw = {"k": 2, "ret_typ": "mask"}
+    _same(tmx.npx.topk(tmx.np.array(a), **kw),
+          jmx.npx.topk(jmx.np.array(a), **kw), RED)
 
 
 def test_npx_helpers():

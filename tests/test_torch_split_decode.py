@@ -21,6 +21,14 @@ Tolerance 1e-5 against both references (fp32 sums in another order, as
 in tests/test_torch_kvquant.py); the jnp path is given the pools with
 the garbage zeroed (its masked softmax multiplies masked rows by 0),
 the Pallas kernel the NaN pools themselves.
+
+K2 (mxnet_tpu_torch/csrc/decode_attention.cu, a dense cache) runs the
+same cluster body (csrc/split_decode.cuh) over another row source, and
+the second half of this file follows it the same way against the JAX
+package's decode attention: its ``plan`` gives each of S <= 8 ranks
+ceil(S_max / 8) keys rounded up to a warp's 32, a rank copies only its
+rows before the length (in pieces of kCopyBytes on a contiguous cache, a
+row a copy on a row-strided one), at most ``batch`` rows at a time.
 """
 import math
 import re
@@ -36,11 +44,15 @@ ATT_TOL = 1e-5
 NEG_INF = onp.float32(-1e30)
 WARPS, CHUNK = 4, 32
 
-_SRC = (Path(__file__).resolve().parent.parent / "mxnet_tpu_torch" / "csrc"
-        / "paged_decode_attention.cu").read_text()
-MAX_RANKS = int(re.search(r"constexpr int kMaxRanks = (\d+);", _SRC)[1])
+_CSRC = Path(__file__).resolve().parent.parent / "mxnet_tpu_torch" / "csrc"
+_BODY = (_CSRC / "split_decode.cuh").read_text()
+_DENSE = (_CSRC / "decode_attention.cu").read_text()
+MAX_RANKS = int(re.search(r"constexpr int kMaxRanks = (\d+);", _BODY)[1])
 BUDGET = int(re.search(r"constexpr int kBudget = (\d+) \* 1024;",
-                       _SRC)[1]) * 1024
+                       _BODY)[1]) * 1024
+ROW_ALIGN = int(re.search(r"constexpr int kRowAlign = (\d+);", _DENSE)[1])
+COPY_BYTES = int(re.search(r"constexpr int kCopyBytes = (\d+);",
+                           _DENSE)[1])
 
 
 def plan(p_max, ps, d, elem, budget=BUDGET):
@@ -70,6 +82,40 @@ def _merge(ms, ls, accs):
     return m, lsum, acc
 
 
+class _Warps:
+    """The four warps of one rank: each keeps an online softmax over the
+    32-key chunks (keys warp * 32 + lane, + 128, ...) of every batch in
+    shared memory, over its first ``nk`` rows only."""
+
+    def __init__(self, sq, d):
+        self.m = [onp.full(sq, NEG_INF, onp.float32) for _ in range(WARPS)]
+        self.l = [onp.zeros(sq, onp.float32) for _ in range(WARPS)]
+        self.acc = [onp.zeros((sq, d), onp.float32) for _ in range(WARPS)]
+
+    def batch(self, qs, kb, vb, kscale, vscale, nk, key0, b, log):
+        """One batch: buffer rows ``kb``/``vb`` (int8 or fp32) with each
+        row's K and V scale; buffer row j is key ``key0 + j``."""
+        kb, vb = kb.astype(onp.float32), vb.astype(onp.float32)
+        kscale = onp.asarray(kscale, onp.float32)
+        vscale = onp.asarray(vscale, onp.float32)
+        for w in range(WARPS):
+            for k0 in range(w * CHUNK, nk, WARPS * CHUNK):
+                keys = onp.arange(k0, min(k0 + CHUNK, nk))
+                if log is not None:
+                    log += [("sum", b, key0 + int(j)) for j in keys]
+                s = (qs @ kb[keys].T) * kscale[keys]
+                m_new = onp.maximum(self.m[w], s.max(axis=1))
+                alpha = onp.exp(self.m[w] - m_new)
+                p = onp.exp(s - m_new[:, None])
+                self.l[w] = self.l[w] * alpha + p.sum(axis=1)
+                pv = p * vscale[keys]
+                self.acc[w] = self.acc[w] * alpha[:, None] + pv @ vb[keys]
+                self.m[w] = m_new
+
+    def merged(self):
+        return _merge(self.m, self.l, self.acc)
+
+
 def emulate(q, kp, vp, table, lengths, scale, ks=None, vs=None,
             budget=BUDGET, log=None):
     """K3's output, step by step in float32. ``log`` (a list) collects
@@ -92,11 +138,7 @@ def emulate(q, kp, vp, table, lengths, scale, ks=None, vs=None,
                 u_end = min(u_begin + upr, n_units)
                 if u_begin >= u_end:
                     continue             # no copy, no state
-                m = [onp.full(sq, NEG_INF, onp.float32)
-                     for _ in range(WARPS)]
-                l = [onp.zeros(sq, onp.float32) for _ in range(WARPS)]
-                acc = [onp.zeros((sq, d), onp.float32)
-                       for _ in range(WARPS)]
+                warps = _Warps(sq, d)
                 for ub in range(u_begin, u_end, batch):
                     nu = min(batch, u_end - ub)
                     nk = min(nu * unit, ln - ub * unit)
@@ -112,24 +154,10 @@ def emulate(q, kp, vp, table, lengths, scale, ks=None, vs=None,
                         vscale += [vs[pg, h] if int8 else 1.0] * unit
                         if log is not None:
                             log.append(("copy", b, lp))
-                    kb = onp.concatenate(krows).astype(onp.float32)
-                    vb = onp.concatenate(vrows).astype(onp.float32)
-                    for w in range(WARPS):
-                        for k0 in range(w * CHUNK, nk, WARPS * CHUNK):
-                            keys = onp.arange(k0, min(k0 + CHUNK, nk))
-                            if log is not None:
-                                log += [("sum", b, ub * unit + int(j))
-                                        for j in keys]
-                            s = (qs @ kb[keys].T) * onp.asarray(
-                                kscale, onp.float32)[keys]
-                            m_new = onp.maximum(m[w], s.max(axis=1))
-                            alpha = onp.exp(m[w] - m_new)
-                            p = onp.exp(s - m_new[:, None])
-                            l[w] = l[w] * alpha + p.sum(axis=1)
-                            pv = p * onp.asarray(vscale, onp.float32)[keys]
-                            acc[w] = acc[w] * alpha[:, None] + pv @ vb[keys]
-                            m[w] = m_new
-                ranks.append(_merge(m, l, acc))
+                    warps.batch(qs, onp.concatenate(krows),
+                                onp.concatenate(vrows), kscale, vscale, nk,
+                                ub * unit, b, log)
+                ranks.append(warps.merged())
             if ranks:
                 _, lsum, a = _merge(*zip(*ranks))
                 out[b, h] = a / lsum[:, None]
@@ -279,3 +307,194 @@ def test_only_valid_pages_copied_and_keys_summed(budget):
         assert all(table[b, lp] != 0 for lp in copied)
         summed = [k for op, bb, k in log if op == "sum" and bb == b]
         assert sorted(summed) == sorted(list(range(n)) * H)
+
+
+# ===========================================================================
+# K2: the dense cache
+# ===========================================================================
+def dense_plan(s_max, d, elem, budget=BUDGET):
+    """decode_attention.cu's ``plan()``: (S, keys per rank, batch)."""
+    s_max = max(s_max, 1)
+    rows = -(-(-(-s_max // MAX_RANKS)) // ROW_ALIGN) * ROW_ALIGN
+    return -(-s_max // rows), rows, min(rows, budget // (2 * d * elem))
+
+
+def dense_emulate(q, k, v, lengths, scale, ks=None, vs=None, budget=BUDGET,
+                  contiguous=True, log=None):
+    """K2's output, step by step in float32. ``log`` collects each copy
+    (slot, head, first row, rows) and each summed (slot, key)."""
+    b_n, h_n, sq, d = q.shape
+    s_max = k.shape[2]
+    int8 = ks is not None
+    elem = 1 if int8 else 4
+    s_n, rows, batch = dense_plan(s_max, d, elem, budget)
+    piece = max(1, COPY_BYTES // (d * elem)) if contiguous else 1
+    out = onp.zeros(q.shape, onp.float32)
+    for b in range(b_n):
+        ln = max(0, min(int(lengths[b]), s_max))
+        for h in range(h_n):
+            qs = (q[b, h] * onp.float32(scale)).astype(onp.float32)
+            ranks = []
+            for rank in range(s_n):
+                row_end = min((rank + 1) * rows, ln)
+                if rank * rows >= row_end:
+                    continue             # no copy, no state
+                warps = _Warps(sq, d)
+                for rb in range(rank * rows, row_end, batch):
+                    nk = min(batch, row_end - rb)
+                    for i in range(0, nk, piece):   # only rows before len
+                        if log is not None:
+                            log.append(("copy", b, h, rb + i,
+                                        min(piece, nk - i)))
+                    kscale = [ks[b, h] if int8 else 1.0] * nk
+                    vscale = [vs[b, h] if int8 else 1.0] * nk
+                    warps.batch(qs, k[b, h, rb:rb + nk], v[b, h, rb:rb + nk],
+                                kscale, vscale, nk, rb, b, log)
+                ranks.append(warps.merged())
+            if ranks:
+                _, lsum, a = _merge(*zip(*ranks))
+                out[b, h] = a / lsum[:, None]
+    return out
+
+
+@pytest.mark.parametrize("s_max,d,elem,expect", [
+    (1024, 64, 4, (8, 128, 128)),   # the engine's: 8 ranks x 128 keys
+    (1024, 64, 1, (8, 128, 128)),
+    (1000, 64, 4, (8, 128, 128)),   # the last rank holds 104 keys
+    (64, 64, 4, (2, 32, 32)),
+    (1, 16, 4, (1, 32, 32)),
+    (0, 16, 4, (1, 32, 32)),        # an empty cache: one rank, no keys
+    (4096, 128, 4, (8, 512, 112)),  # 512 keys a rank, 112 at a time
+])
+def test_dense_plan_rank_ranges(s_max, d, elem, expect):
+    s, rows, batch = dense_plan(s_max, d, elem)
+    assert (s, rows, batch) == expect
+    assert 1 <= s <= MAX_RANKS and rows % ROW_ALIGN == 0
+    # the ranks' keys tile [0, S_max), none of them empty
+    if s_max:
+        keys = [list(range(r * rows, min((r + 1) * rows, s_max)))
+                for r in range(s)]
+        assert all(keys) and sum(keys, []) == list(range(s_max))
+    assert 1 <= batch and batch * 2 * d * elem <= BUDGET
+
+
+DH, DD = 2, 16
+#: (S_max, lengths): ranks own 128 keys at S_max 1024 and 1000: lengths
+#: on either side of rank edges, 0, 1 and the full cache
+DENSE_SETS = [
+    (1024, [0, 1, 127, 128, 129, 511, 512, 513, 895, 896, 897, 1024]),
+    (1000, [0, 1, 127, 128, 129, 500, 895, 896, 999, 1000]),
+]
+
+
+def _dense_inputs(s_max, lengths, sq, int8, seed=0):
+    """q; K/V with NaN (or random int8) past every length; the same
+    with the fp32 garbage zeroed; (B, H) scales with NaN on every empty
+    slot (and 0 there, for the jnp path)."""
+    rng = onp.random.RandomState(seed)
+    b = len(lengths)
+    shape = (b, DH, s_max, DD)
+    if int8:
+        k, v = (rng.randint(-127, 128, shape).astype("i1") for _ in range(2))
+        kz, vz = k, v
+    else:
+        k, v = ((rng.standard_normal(shape) * 0.5).astype("f4")
+                for _ in range(2))
+        for i, n in enumerate(lengths):
+            k[i, :, n:] = onp.nan
+            v[i, :, n:] = onp.nan
+        kz, vz = onp.nan_to_num(k), onp.nan_to_num(v)
+    scales = []
+    for _ in range(2):
+        sc = rng.uniform(0.005, 0.03, (b, DH)).astype("f4")
+        sc[[i for i, n in enumerate(lengths) if n == 0]] = onp.nan
+        scales.append(sc)
+    q = (rng.standard_normal((b, DH, sq, DD)) * 0.5).astype("f4")
+    return q, k, v, kz, vz, onp.asarray(lengths, "i4"), scales
+
+
+def _dense_emulate(q, k, v, lengths, scales, int8, **kw):
+    sc = dict(ks=scales[0], vs=scales[1]) if int8 else {}
+    return dense_emulate(q, k, v, lengths, 1.0 / math.sqrt(DD), **sc, **kw)
+
+
+def _dense_jnp(q, kz, vz, lengths, scales, int8):
+    kw = {}
+    if int8:
+        kw = dict(k_scale=jnp.asarray(onp.nan_to_num(scales[0])),
+                  v_scale=jnp.asarray(onp.nan_to_num(scales[1])))
+    return onp.asarray(jat.decode_attention(
+        jnp.asarray(q), jnp.asarray(kz), jnp.asarray(vz),
+        jnp.asarray(lengths), **kw))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("sq", [1, 4])
+@pytest.mark.parametrize("s_max,lengths", DENSE_SETS,
+                         ids=[f"S={s}" for s, _ in DENSE_SETS])
+def test_dense_split_matches_jax(s_max, lengths, sq, int8):
+    q, k, v, kz, vz, ln, scales = _dense_inputs(s_max, lengths, sq, int8)
+    out = _dense_emulate(q, k, v, ln, scales, int8)
+    assert onp.isfinite(out).all()
+    assert (out[0] == 0).all()                 # len == 0 gives zeros
+    ref = _dense_jnp(q, kz, vz, ln, scales, int8)
+    assert onp.abs(out - ref).max() < ATT_TOL
+
+
+@pytest.mark.requires_pallas
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("sq", [1, 4])
+def test_dense_split_matches_pallas_kernel(sq, int8):
+    s_max, lengths = DENSE_SETS[1]
+    q, k, v, _kz, _vz, ln, scales = _dense_inputs(s_max, lengths, sq, int8,
+                                                  seed=1)
+    out = _dense_emulate(q, k, v, ln, scales, int8)
+    kw = {}
+    if int8:
+        kw = dict(k_scale=jnp.asarray(onp.nan_to_num(scales[0])),
+                  v_scale=jnp.asarray(onp.nan_to_num(scales[1])))
+    pal = onp.asarray(jat.decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(ln),
+        interpret=True, **kw))
+    assert onp.abs(out - pal).max() < ATT_TOL
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_dense_rows_in_batches(int8):
+    """A budget of 40 rows makes every long rank run four batches
+    (40 + 40 + 40 + 8 of 128 keys): the warps' online softmax carries
+    across them and the result holds."""
+    s_max, lengths = DENSE_SETS[0]
+    q, k, v, kz, vz, ln, scales = _dense_inputs(s_max, lengths, 4, int8,
+                                                seed=2)
+    elem = 1 if int8 else 4
+    small = 40 * 2 * DD * elem
+    assert dense_plan(s_max, DD, elem, small) == (8, 128, 40)
+    out = _dense_emulate(q, k, v, ln, scales, int8, budget=small)
+    assert onp.isfinite(out).all()
+    ref = _dense_jnp(q, kz, vz, ln, scales, int8)
+    assert onp.abs(out - ref).max() < ATT_TOL
+
+
+@pytest.mark.parametrize("contiguous", [True, False],
+                         ids=["contiguous", "row_strided"])
+@pytest.mark.parametrize("budget", [BUDGET, 40 * 2 * DD * 4])
+def test_dense_only_valid_rows_copied_and_summed(budget, contiguous):
+    """Every copy lies below the slot's length, and together they cover
+    [0, len) once per head; every key before the length is summed once
+    per head, none at or past it."""
+    for s_max, lengths in DENSE_SETS:
+        q, k, v, _kz, _vz, ln, scales = _dense_inputs(s_max, lengths, 1,
+                                                      False)
+        log = []
+        _dense_emulate(q, k, v, ln, scales, False, budget=budget,
+                       contiguous=contiguous, log=log)
+        for b, n in enumerate(lengths):
+            for h in range(DH):
+                rows = [r for op, bb, *rest in log if op == "copy"
+                        and bb == b and rest[0] == h
+                        for r in range(rest[1], rest[1] + rest[2])]
+                assert all(r < n for r in rows)
+                assert sorted(rows) == list(range(n))
+            summed = [kk for op, bb, kk, *_ in log if op == "sum" and bb == b]
+            assert sorted(summed) == sorted(list(range(n)) * DH)
