@@ -16,7 +16,9 @@ page and their int8 scales; both also at lengths on either side of
 their cluster ranks' ranges, K3 at a P_max that is not a multiple of
 its cluster size, K2 at S = 1000, on a cache sliced from a longer
 buffer and on a row-strided view), K4 int8 dequant-matmul (M = 1 to 512,
-with and without the bias it adds in its epilogue) and K5, the
+with and without the bias it adds in its epilogue), the bf16 instances
+of K1, K2 and K3 (every case of the fp32 phases on bf16 inputs; K2 and
+K3 with a bf16 and an fp32 q over bf16 caches) and K5, the
 runtime-compiled user kernels: one ``rtc.CudaModule`` compiled by NVRTC
 for sm_90a (the JAX rtc tests' kernels, the example's ``scale2`` and a
 shared-memory ``row_softmax``), each held against its plain torch
@@ -29,12 +31,19 @@ at GPT-2-small widths through ``GenerationEngine``:
   opaque one and a numpy-backed CustomOp, held against closed forms;
 
 - ``engine``: the dense fp32 engine, 24 greedy requests;
+- ``bf16_engine``: the same requests on the dense engine with
+  ``compute_dtype="bfloat16"`` at ``decode_ticks=4`` and then 1 (the
+  same tokens), the reference's bf16 contract against the fp32 model
+  on the card, and the card's bf16 logits against the CPU port's;
 - ``paged_engine``: the paged engine with int8 weights (prefix sharing,
   peek, copy-on-write, chunked prefill), 24 greedy requests;
 - ``int8_kv_engine``: the same traffic with int8 weights AND an int8 KV
   pool, 4 of the 24 requests sampled with fixed seeds (each repeated on
   a second engine: the same seed gives the same tokens; every sampled
   token inside its top-k set);
+- ``paged_bf16_engine``: the paged int8-weight traffic under bf16
+  compute at ``decode_ticks=4`` and then 1 (the same tokens), and the
+  bf16 contract against the fp32 int8-weight model;
 - ``dense_int8_kv_engine``: a dense int8-KV engine with fp32 weights, 8
   requests, then ``load_weights`` to another seed's weights and a
   second wave held against a fresh engine on those weights;
@@ -57,6 +66,14 @@ Tolerances, with their reasons:
   carries ~1e-6 per rounding, and exp/log add a few); K4's max-abs-err
   <= 2e-5 x max|ref| (fp32 sums of 768-3072 terms in another order;
   at M <= 8 x is split for the tensor cores as K1's operands are);
+- a bf16 kernel vs its plain version run in fp32 on the widened inputs
+  and rounded to bf16: one bf16 step, 2^-8 x max(1, max|ref|) (both
+  compute in fp32 before one rounding to bf16; see BF16_ULP);
+- a bf16 engine vs the fp32 model, teacher-forced: the reference's
+  bounded-divergence contract, per-step logits within 0.25 and >= 90 %
+  argmax agreement; the card's bf16 logits vs the CPU port's, both
+  bf16: within 2 x 0.25 + 1e-3 (BF16_CARD_CPU_TOL), agreement >= 90 %,
+  every disagreement on a gap below twice that;
 - card logits vs the CPU forward of the same weights: <= 1e-3 (fp32
   reduction order over 12 layers of 768-wide products and a 50257-way
   head, on two devices and two BLAS libraries);
@@ -92,10 +109,12 @@ import numpy as np
 #: H100 SXM published peaks (NVIDIA data sheet), used for bound_ms:
 #: HBM3 bytes/s, fp32 FLOP/s outside the tensor cores, and the TF32
 #: tensor cores' dense rate (K1 runs its products there in 3xTF32: three
-#: TF32 products per fp32-accurate one)
+#: TF32 products per fp32-accurate one), and the bf16 one (the bound of
+#: the bf16 instances' work)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 
 OUT_TOL = 2e-5
 LSE_TOL = 1e-4
@@ -640,6 +659,293 @@ def _int8_view(at, pool, scales, table, ps):
                           at.expand_page_scales(scales, table, ps))
 
 
+# ---- the bf16 instances of K1, K2 and K3 ---------------------------------
+#: bf16 kernel vs its plain version run in fp32 on the widened inputs
+#: and rounded to bf16: the kernels compute in fp32 from the bf16 bytes
+#: (as the reference's Pallas kernels do), so the two differ by fp32
+#: rounding before the output's one bf16 rounding, which may then land
+#: one bf16 step apart: at most 2^-8 of the output's magnitude (bf16
+#: keeps 8 significant bits), taken as max(1, max|ref|). The lse stays
+#: fp32 (LSE_TOL).
+BF16_ULP = 2.0 ** -8
+
+
+def _bf16_err(out, ref):
+    """max|out - ref| over the bf16 tolerance of ``ref``'s magnitude."""
+    e = float((out.float() - ref.float()).abs().max())
+    return e, BF16_ULP * max(1.0, float(ref.float().abs().max()))
+
+
+def phase_flash_bf16(torch, timer):
+    """K1's bf16 instance: the fp32 phase's cases on bf16 q/k/v, each
+    against the plain version on the widened inputs rounded to bf16
+    (and, reported, against the plain version run in bf16)."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as at
+    rng = np.random.RandomState(10)
+    b, h, d = 1, 12, 64
+    scale = 1.0 / math.sqrt(d)
+    cases, worst, err_o, err_l, gap_plain = [], 0.0, 0.0, 0.0, 0.0
+
+    def compare(q, k, v, causal, kv_len, tag):
+        nonlocal worst, err_o, err_l, gap_plain
+        out, lse = at.flash_attention_fwd(q, k, v, causal, None, kv_len)
+        k, v = torch.nan_to_num(k), torch.nan_to_num(v)
+        sc = 1.0 / math.sqrt(q.shape[-1])
+        ref, ref_lse = at._blockwise_fwd(q.float(), k.float(), v.float(),
+                                         causal, sc, kv_len=kv_len)
+        plain = at._blockwise_fwd(q, k, v, causal, sc, kv_len=kv_len)[0]
+        torch.cuda.synchronize()
+        check(out.dtype == torch.bfloat16 and lse.dtype == torch.float32,
+              f"K1-bf16 output types {out.dtype}, {lse.dtype}")
+        check(bool(torch.isfinite(out).all()), f"K1-bf16 non-finite {tag}")
+        eo, tol = _bf16_err(out, ref.bfloat16())
+        el = float((lse - ref_lse).abs().max())
+        ep = float((out.float() - plain.float()).abs().max())
+        cases.append({"case": tag, "out_err": eo, "tol": tol, "lse_err": el,
+                      "vs_plain_bf16": ep})
+        worst, err_o = max(worst, eo / tol), max(err_o, eo)
+        err_l, gap_plain = max(err_l, el), max(gap_plain, ep)
+
+    for s in (1, 37, 128, 512, 1000):
+        for causal in (False, True):
+            q, k, v = (_rand(torch, rng, b, h, s, d).bfloat16()
+                       for _ in range(3))
+            compare(q, k, v, causal, None, f"s={s} causal={causal}")
+    kbuf, vbuf = (_rand(torch, rng, b, h, 96, d).bfloat16() for _ in range(2))
+    for sq, kvl in ((16, 70), (1, 33), (70, 70)):
+        q = _rand(torch, rng, b, h, sq, d).bfloat16()
+        compare(q, kbuf, vbuf, True, kvl, f"sq={sq} kv_len={kvl}")
+    for hd in (16, 32, 128):
+        q, k, v = (_rand(torch, rng, 2, 3, 77, hd).bfloat16()
+                   for _ in range(3))
+        compare(q, k, v, True, None, f"head_dim={hd}")
+    full = [_rand(torch, rng, b, h, 1024, d).bfloat16() for _ in range(3)]
+    compare(*full, True, None, "s=1024 causal")
+    kn, vn = (_rand(torch, rng, b, h, 1000, d).bfloat16() for _ in range(2))
+    kn[:, :, 999:], vn[:, :, 999:] = float("nan"), float("nan")
+    q = _rand(torch, rng, b, h, 300, d).bfloat16()
+    compare(q, kn, vn, True, 999, "sq=300 kv_len=999 NaN past it")
+    sp = 512
+    q, k, v = (_split_view(torch, rng, b, sp, h, 128).bfloat16()
+               for _ in range(3))
+    compare(q, k, v, True, None, f"strided s={sp} head_dim=128 causal")
+    q, k, v = (_split_view(torch, rng, b, sp, h, d).bfloat16()
+               for _ in range(3))
+    check(not q.is_contiguous(), "strided case is contiguous")
+    compare(q, k, v, True, None, f"strided s={sp} causal")
+    emit("flash_attention_bf16_check", cases=cases)
+    check(worst <= 1.0, f"K1-bf16 off its widened plain version by "
+          f"{worst} bf16 tolerances")
+    check(err_l <= LSE_TOL, f"K1-bf16 lse max-abs-err {err_l} > {LSE_TOL}")
+
+    times = timings(
+        timer, False,
+        lambda: at.flash_attention_fwd(q, k, v, True),
+        lambda: at._blockwise_fwd(q, k, v, True, scale),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    pairs = sp * (sp + 1) // 2
+    n_flops = 4 * d * b * h * pairs
+    n_bytes = 2 * 4 * b * h * sp * d + 4 * b * h * sp   # q k v out; lse
+    bound_ms, bound_by = bound(n_bytes, n_flops, PEAK_BF16_FLOPS)
+    tf32_ms, _ = bound(n_bytes, 3 * n_flops, PEAK_TF32_FLOPS)
+    kk = full
+    per_shape = [{
+        "shape": [b, h, 1024, d], "causal": True,
+        "kernel_ms_device": timer(
+            lambda: at.flash_attention_fwd(*kk, True), device=True),
+        "library_ms_device": timer(
+            lambda: F.scaled_dot_product_attention(*kk, is_causal=True),
+            device=True),
+        "bound_ms": bound(2 * 4 * b * h * 1024 * d + 4 * b * h * 1024,
+                          4 * d * b * h * 1024 * 1025 // 2,
+                          PEAK_BF16_FLOPS)[0]}]
+    res = {"max_abs_err": err_o, "max_tol_ratio": worst,
+           "max_abs_err_lse": err_l, "max_gap_to_plain_bf16": gap_plain,
+           **times, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_tf32_products": tf32_ms,
+           "bound_rule": "bf16 FLOP at 989 TFLOP/s vs bytes at 3.35 TB/s "
+                         "(the kernel's 3 TF32 products at 495 TFLOP/s: "
+                         "bound_ms_tf32_products)",
+           "library": "scaled_dot_product_attention on the same bf16 "
+                      "tensors, causal",
+           "shape": [b, h, sp, d], "per_shape": per_shape}
+    emit("flash_attention_bf16", **res)
+    return res
+
+
+def _decode_bf16_check(torch, at, kern, plain_fp32, plain_bf16, q, ln, tag,
+                       cases):
+    """One bf16 decode case: the kernel's output type and finiteness,
+    exact zeros at len 0, and its distance to the widened plain version
+    rounded to bf16 (in bf16 tolerances) and to the bf16 plain path."""
+    out = kern(q)
+    ref = plain_fp32(q.float()).bfloat16()
+    pl = plain_bf16(q)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.bfloat16, f"{tag}: output {out.dtype}")
+    check(bool(torch.isfinite(out).all()), f"{tag}: non-finite output "
+          "with NaN past the lengths")
+    zero = [i for i, n in enumerate(ln.tolist()) if n == 0]
+    check(all(float(out[i].abs().max()) == 0.0 for i in zero),
+          f"{tag}: len=0 row not zero")
+    e, tol = _bf16_err(out, ref)
+    cases.append({"case": tag, "q": str(q.dtype).replace("torch.", ""),
+                  "out_err": e, "tol": tol,
+                  "vs_plain_bf16": float((out.float() - pl.float())
+                                         .abs().max()),
+                  "lengths": ln.tolist()})
+
+
+def _bf16_summary(cases):
+    """The worst case of a bf16 check: its max-abs-err, its ratio to the
+    tolerance and the widest gap to the plain bf16 path."""
+    return {"max_abs_err": max(c["out_err"] for c in cases),
+            "max_tol_ratio": max(c["out_err"] / c["tol"] for c in cases),
+            "max_gap_to_plain_bf16": max(c["vs_plain_bf16"] for c in cases)}
+
+
+def phase_decode_bf16(torch, timer):
+    """K2's bf16 instance over bf16 caches: the fp32 phase's cases (the
+    timed shape at sq = 1, 4, 5 and every check set at sq = 1, 4), each
+    with a bf16 q (the bf16 model) and an fp32 q (int8 weights over a
+    bf16 cache)."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as at
+    rng = np.random.RandomState(11)
+    b, h, s, d = 8, 12, 1024, 64
+    scale = 1.0 / math.sqrt(d)
+    lengths = [0, 1, 63, 64, 65, 500, 1023, 1024]
+    lens, live, (kn, vn), _, _ = _dense_cache(torch, rng, lengths, h, s, d)
+    kb, vb = kn.bfloat16(), vn.bfloat16()
+    sets = [(lens, (kb, vb), [(f"sq={sq}", _split_view(torch, rng, b, sq, h,
+                                                       d))
+                              for sq in (1, 4, 5)])]
+    for tag, lns, s2, layout in DENSE_CHECK_SETS:
+        l2, _, (k2, v2), _, _ = _dense_cache(torch, rng, lns, h, s2, d,
+                                             layout)
+        if layout != "dense":   # the same view of a bf16 buffer
+            k2, v2 = (t._base.bfloat16().as_strided(t.shape, t.stride(),
+                                                t.storage_offset())
+                      for t in (k2, v2))
+        else:
+            k2, v2 = k2.bfloat16(), v2.bfloat16()
+        sets.append((l2, (k2, v2), [
+            (f"{tag} sq={sq}", _split_view(torch, rng, len(lns), sq, h, d))
+            for sq in (1, 4)]))
+    cases = []
+    for ln, (k2, v2), runs in sets:
+        for tag, q in runs:
+            for qq in (q.bfloat16(), q):
+                _decode_bf16_check(
+                    torch, at,
+                    lambda x: at.decode_attention(x, k2, v2, ln),
+                    lambda x: at._decode_fwd_torch(x, k2.float(), v2.float(),
+                                                   ln, scale),
+                    lambda x: at._decode_fwd_torch(x, k2, v2, ln, scale),
+                    qq, ln, f"K2-bf16 {tag}", cases)
+    emit("decode_attention_bf16_check", cases=cases)
+    summary = _bf16_summary(cases)
+    check(summary["max_tol_ratio"] <= 1.0, f"K2-bf16 off its widened plain "
+          f"version by {summary['max_tol_ratio']} bf16 tolerances")
+
+    q = _split_view(torch, rng, b, 1, h, d).bfloat16()
+    mask = live[:, :, :, 0][:, :, None, :]
+    kz, vz = kb.nan_to_num(0.0), vb.nan_to_num(0.0)
+    times = timings(
+        timer, True,
+        lambda: at.decode_attention(q, kb, vb, lens),
+        lambda: at._decode_fwd_torch(q, kb, vb, lens, scale),
+        lambda: F.scaled_dot_product_attention(q, kz, vz, attn_mask=mask))
+    total = sum(lengths)
+    n_bytes = 2 * (2 * total * h * d + 2 * b * h * d) + 4 * b
+    bound_ms, bound_by = bound(n_bytes, 4 * d * h * total, PEAK_BF16_FLOPS)
+    q32 = _split_view(torch, rng, b, 1, h, d)
+    res = {**summary, **times,
+           "kernel_fp32_q_ms_device": timer(
+               lambda: at.decode_attention(q32, kb, vb, lens), flush=True,
+               device=True),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library": "scaled_dot_product_attention on the bf16 cache "
+                      "with a bool mask",
+           "shape": [b, h, s, d], "lengths": lengths}
+    emit("decode_attention_bf16", **res)
+    return res
+
+
+def phase_paged_decode_bf16(torch, timer):
+    """K3's bf16 instance over bf16 pools: the fp32 phase's cases (sq =
+    1 and 4, the peek, every check set), each with a bf16 q and an fp32
+    q, NaN in the scrap page, every unreferenced page and past every
+    length."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as at
+    rng = np.random.RandomState(13)
+    b, h, ps, d, p_max, n_pages = 8, 12, 16, 64, 64, 513
+    scale = 1.0 / math.sqrt(d)
+    lengths = [0, 1, 15, 16, 17, 500, 1023, 1024]
+    tbl, lens, kn, vn = _paged_inputs(torch, rng, lengths, h, ps, d, p_max,
+                                      n_pages)
+    kb, vb = kn.bfloat16(), vn.bfloat16()
+    sets = [((kb, vb), [
+        ("sq=1", _split_view(torch, rng, b, 1, h, d), tbl, lens),
+        ("sq=4", _split_view(torch, rng, b, 4, h, d), tbl, lens),
+        ("peek b=1 len=500", _split_view(torch, rng, 1, 1, h, d),
+         tbl[5:6].contiguous(), lens[5:6].contiguous())])]
+    for tag, lns, pm in PAGED_CHECK_SETS:
+        t2, l2, k2, v2 = _paged_inputs(torch, rng, lns, h, ps, d, pm,
+                                       n_pages)
+        sets.append(((k2.bfloat16(), v2.bfloat16()), [
+            (f"{tag} sq={sq}", _split_view(torch, rng, len(lns), sq, h, d),
+             t2, l2) for sq in (1, 4)]))
+    cases = []
+    for (kp, vp), runs in sets:
+        for tag, q, table, ln in runs:
+            kg, vg = at.gather_pages(kp, table), at.gather_pages(vp, table)
+            for qq in (q.bfloat16(), q):
+                _decode_bf16_check(
+                    torch, at,
+                    lambda x: at.paged_decode_attention(x, kp, vp, table,
+                                                        ln),
+                    lambda x: at._decode_fwd_torch(x, kg.float(),
+                                                   vg.float(), ln, scale),
+                    lambda x: at._decode_fwd_torch(x, kg, vg, ln, scale),
+                    qq, ln, f"K3-bf16 {tag}", cases)
+    emit("paged_decode_attention_bf16_check", cases=cases)
+    summary = _bf16_summary(cases)
+    check(summary["max_tol_ratio"] <= 1.0, f"K3-bf16 off its widened plain "
+          f"version by {summary['max_tol_ratio']} bf16 tolerances")
+
+    q = _split_view(torch, rng, b, 1, h, d).bfloat16()
+    kz = torch.nan_to_num(at.gather_pages(kb, tbl), nan=0.0)
+    vz = torch.nan_to_num(at.gather_pages(vb, tbl), nan=0.0)
+    live = torch.arange(p_max * ps, device="cuda")[None, :] \
+        < lens.long()[:, None]
+    mask = live[:, None, None, :]
+    times = timings(
+        timer, True,
+        lambda: at.paged_decode_attention(q, kb, vb, tbl, lens),
+        lambda: at._decode_fwd_torch(q, at.gather_pages(kb, tbl),
+                                     at.gather_pages(vb, tbl), lens, scale),
+        lambda: F.scaled_dot_product_attention(q, kz, vz, attn_mask=mask))
+    total = sum(lengths)
+    n_bytes = 2 * (2 * total * h * d + 2 * b * h * d) + 4 * b * (p_max + 1)
+    bound_ms, bound_by = bound(n_bytes, 4 * d * h * total, PEAK_BF16_FLOPS)
+    q32 = _split_view(torch, rng, b, 1, h, d)
+    res = {**summary, **times,
+           "kernel_fp32_q_ms_device": timer(
+               lambda: at.paged_decode_attention(q32, kb, vb, tbl, lens),
+               flush=True, device=True),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library": "scaled_dot_product_attention on the pre-gathered "
+                      "bf16 view with a bool mask (gather not timed)",
+           "shape": {"B": b, "H": h, "page_size": ps, "D": d,
+                     "P_max": p_max, "n_pages": n_pages},
+           "lengths": lengths}
+    emit("paged_decode_attention_bf16", **res)
+    return res
+
+
 #: the projections of one GPT-2-small layer, (N, K): q, k, v, out,
 #: ffn1, ffn2
 LAYER_PROJECTIONS = [(768, 768)] * 4 + [(3072, 768), (768, 3072)]
@@ -747,7 +1053,6 @@ def phase_engine(torch):
     """GPT-2-small widths, 12 layers, random weights from a seed, 24
     prompts of 16..512 tokens from 4 client threads; then the CPU
     reference on the same weights."""
-    from mxnet_tpu_torch import ops, telemetry
     from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
     from mxnet_tpu_torch.serving import GenerationEngine
 
@@ -766,56 +1071,14 @@ def phase_engine(torch):
     rng = np.random.RandomState(2)
     lens = rng.randint(16, 513, size=n_req)
     prompts = [rng.randint(0, vocab - 1, size=n).astype("i4") for n in lens]
-    results, ttft, errors = [None] * n_req, [None] * n_req, []
-
-    def client(c):
-        # each client sends its 6 prompts back to back, then collects:
-        # up to 24 requests queue for the 8 slots
-        try:
-            mine = []
-            for j in range(c, n_req, 4):
-                mine.append((j, time.perf_counter(), eng.submit(prompts[j])))
-            for j, t, st in mine:
-                results[j] = st.result(timeout=600)
-                ttft[j] = (st.first_token_at - t) * 1e3
-        except Exception as e:  # noqa: BLE001 — re-raised below
-            errors.append(e)
-
-    telemetry.reset()
-    ops.reset_launch_counts()          # the main path's run starts here
-    t0 = time.perf_counter()
-    clients = [threading.Thread(target=client, args=(c,)) for c in range(4)]
-    for th in clients:
-        th.start()
-    for th in clients:
-        th.join(timeout=900)
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()     # ... and ends here
-    steps = int(telemetry.counter_value("serving.generate.host_syncs"))
-    decode_hist = telemetry.hist_quantiles("serving.generate.decode")
-    if errors:
-        raise errors[0]
-    check(all(r is not None for r in results), "a request did not finish")
-    check(all(r.finish_reason in ("eos", "length") for r in results),
-          f"finish reasons {[r.finish_reason for r in results]}")
-    gen_tokens = sum(len(r.tokens) for r in results)
+    results, eng_res, _ = _serve_traffic(torch, eng, prompts)
+    launches, steps = eng_res["launches"], eng_res["decode_steps"]
     check(launches["flash_attention_fwd"] >= n_layers * n_req,
           f"K1 launched {launches['flash_attention_fwd']} times")
     check(launches["decode_attention"] >= steps * n_layers > 0,
           f"K2 launched {launches['decode_attention']} times for "
           f"{steps} decode steps")
-    tt = np.array(ttft)
-    eng_res = {"requests": n_req, "generated_tokens": gen_tokens,
-               "prompt_tokens": int(lens.sum()), "wall_s": wall,
-               "tokens_per_s": gen_tokens / wall,
-               "ttft_ms_p50": float(np.percentile(tt, 50)),
-               "ttft_ms_p99": float(np.percentile(tt, 99)),
-               "decode_steps": steps,
-               "decode_step_ms_p50": decode_hist["p50"],
-               "decode_step_ms_avg": decode_hist["avg"],
-               "launches": launches, "init_s": init_s,
-               "warmup_s": warmup_s,
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    eng_res.update(init_s=init_s, warmup_s=warmup_s)
     emit("engine", **eng_res)
 
     # the card's own prefill + decode logits for request 0, teacher-forced
@@ -862,7 +1125,175 @@ def phase_engine(torch):
           f"a disagreement on a gap >= {2 * LOGIT_TOL}: {flips}")
     check(logit_err <= LOGIT_TOL,
           f"card vs CPU logits {logit_err} > {LOGIT_TOL}")
-    return eng_res
+    return eng_res, model, prompts, results
+
+
+#: the reference's bf16 contract (tests/test_multitick.py:305-348):
+#: teacher-forced on the fp32 model's greedy tokens, the bf16 model's
+#: per-step logits within 0.25 of the fp32 ones, and argmax agreement
+#: >= 90 %
+BF16_TOL = 0.25
+BF16_AGREE_MIN = 0.90
+#: card vs CPU, both in bf16, teacher-forced on the card's tokens: each
+#: is within BF16_TOL of the fp32 model (the contract above, held on the
+#: card here and in tests/test_torch_bf16.py on the CPU), and the fp32
+#: models of the two devices within LOGIT_TOL of each other, so the two
+#: bf16 runs are within 2 * BF16_TOL + LOGIT_TOL; two logits can swap
+#: only on a gap below twice that, and the agreement floor is the bf16
+#: contract's
+BF16_CARD_CPU_TOL = 2 * BF16_TOL + LOGIT_TOL
+BF16_CPU_REQUESTS = (0, 1)
+#: decode steps per tick of the multi-tick phases
+TICKS = 4
+
+
+def _teacher_forced_dense(model, prompts, gens, policy):
+    """Logits of every generated position of several requests through
+    the dense generation calls, teacher-forced on their tokens ``gens``:
+    each prompt prefilled into its own slot at the engine's bucket, then
+    decode steps over all slots at once (a slot whose tokens ran out
+    idles). Returns one (len(gen), V) CPU tensor per request."""
+    import torch
+    cache = model.init_cache(len(prompts), PAGED_MODEL["max_length"])
+    out = []
+    for b, p in enumerate(prompts):
+        padded = np.zeros((1, policy.bucket(len(p))), "i4")
+        padded[0, :len(p)] = p
+        lg, cache = model.prefill(padded, [len(p)], cache, slots=[b])
+        out.append([lg[0].cpu()])
+    for t in range(max(len(g) for g in gens) - 1):
+        toks = np.array([g[t] if t < len(g) - 1 else 0 for g in gens], "i4")
+        lg, cache = model.decode_step(toks, cache)
+        lg = lg.cpu()
+        for b, g in enumerate(gens):
+            if t < len(g) - 1:
+                out[b].append(lg[b])
+    return [torch.stack(o) for o in out]
+
+
+def _bf16_contract(bf, fp, gens):
+    """The reference's bf16 measures over teacher-forced logit pairs
+    (bf16, fp32) on tokens ``gens``: the per-step logit max-abs-err and
+    how often the two argmaxes agree."""
+    err, agree, total = 0.0, 0, 0
+    for lb, lf in zip(bf, fp):
+        err = max(err, float((lb - lf).abs().max()))
+        agree += int((lb.argmax(-1) == lf.argmax(-1)).sum())
+        total += lb.shape[0]
+    return {"tokens": total, "logit_max_abs_err": err,
+            "agreement": agree / total, "tol": BF16_TOL,
+            "agree_min": BF16_AGREE_MIN}
+
+
+def phase_bf16_engine(torch, cpu_model, prompts, fp32_results):
+    """``compute_dtype="bfloat16", decode_ticks=TICKS`` on the dense
+    engine at GPT-2-small widths (seed 0, the ``engine`` phase's weights
+    and 24 prompts), then the same engine at ``decode_ticks=1``: the
+    tokens must be the same. Then the reference's bf16 contract on the
+    card, teacher-forced on the fp32 engine's tokens, and the card's
+    bf16 logits against the CPU port's bf16 logits (``cpu_model``, the
+    same weights) on the bf16 engine's tokens."""
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    n_layers = PAGED_MODEL["num_layers"]
+    model = _gpt2_small(seed=0)
+    runs = {}
+    for k in (TICKS, 1):
+        torch.cuda.reset_peak_memory_stats()
+        eng = GenerationEngine(model, max_slots=8, max_new_tokens=64,
+                               eos_id=50256, compute_dtype="bfloat16",
+                               decode_ticks=k)
+        check(eng.precision == "bf16", f"precision {eng.precision!r}")
+        check(eng._cache["k"][0].dtype == torch.bfloat16,
+              f"the bf16 engine's cache is {eng._cache['k'][0].dtype}")
+        t0 = time.perf_counter()
+        eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        results, res, _ = _serve_traffic(torch, eng, prompts)
+        pol = eng.policy
+        kv = _kv_pool_bytes(eng._cache)
+        res.update(decode_ticks_knob=k, warmup_s=warmup_s,
+                   kv_cache_bytes=kv,
+                   kv_cache_bytes_fp32=2 * kv,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        launches, ticks = res["launches"], res["decode_steps"]
+        check(launches["flash_attention_fwd_bf16"] >= n_layers * len(prompts),
+              f"K1-bf16 launched {launches['flash_attention_fwd_bf16']} "
+              f"times")
+        check(launches["decode_attention_bf16"] >= ticks * n_layers > 0,
+              f"K2-bf16 launched {launches['decode_attention_bf16']} times "
+              f"for {ticks} ticks")
+        check(launches["flash_attention_fwd"] == 0
+              and launches["decode_attention"] == 0,
+              "an fp32 instance ran on the bf16 path")
+        eng.close()
+        del eng
+        runs[k] = (results, res)
+    toks = {k: [r.tokens for r in runs[k][0]] for k in runs}
+    same = toks[TICKS] == toks[1]
+    main = runs[TICKS][1]
+    main["k1"] = {key: runs[1][1][key] for key in (
+        "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "decode_steps",
+        "decode_step_ms_p50", "host_syncs_per_token", "wall_s")}
+    main["tokens_equal_k1"] = same
+
+    # the reference's bf16 contract on the card: bf16 teacher-forced on
+    # the fp32 engine's greedy tokens, against the fp32 model
+    picks = list(range(4))
+    ps_, g32 = [prompts[j] for j in picks], [fp32_results[j].tokens
+                                              for j in picks]
+    bf = _teacher_forced_dense(model, ps_, g32, pol)
+    model.cast_compute_params(None)
+    fp = _teacher_forced_dense(model, ps_, g32, pol)
+    contract = _bf16_contract(bf, fp, g32)
+
+    # card vs CPU, both bf16, on the bf16 engine's tokens
+    cpu_picks = list(BF16_CPU_REQUESTS)
+    gb = [runs[TICKS][0][j].tokens for j in cpu_picks]
+    pb = [prompts[j] for j in cpu_picks]
+    model.cast_compute_params("bfloat16")
+    card = _teacher_forced_dense(model, pb, gb, pol)
+    model.cast_compute_params(None)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_model.cast_compute_params("bfloat16")
+    cpu = _teacher_forced_dense(cpu_model, pb, gb, pol)
+    cpu_model.cast_compute_params(None)
+    cpu_s = time.perf_counter() - t0
+    flips, agree, total, err = [], 0, 0, 0.0
+    for j, lc, lp, g in zip(cpu_picks, card, cpu, gb):
+        err = max(err, float((lc - lp).abs().max()))
+        pred = lp.argmax(-1).numpy()
+        for i, tok in enumerate(g):
+            total += 1
+            if pred[i] == tok:
+                agree += 1
+            else:
+                flips.append({"request": j, "pos": i,
+                              "gap": float(lp[i].max() - lp[i, tok])})
+    main.update(bf16_vs_fp32_on_card=dict(contract, requests=picks),
+                card_vs_cpu_bf16={
+                    "requests": cpu_picks, "tokens": total,
+                    "logit_max_abs_err": err, "tol": BF16_CARD_CPU_TOL,
+                    "agreement": agree / total, "disagreements": flips,
+                    "cpu_s": cpu_s})
+    emit("bf16_engine", **main)
+    check(same, f"decode_ticks={TICKS} tokens differ from decode_ticks=1")
+    check(contract["logit_max_abs_err"] <= BF16_TOL,
+          f"bf16 vs fp32 logits {contract['logit_max_abs_err']} > "
+          f"{BF16_TOL}")
+    check(contract["agreement"] >= BF16_AGREE_MIN,
+          f"bf16 vs fp32 agreement {contract['agreement']} < "
+          f"{BF16_AGREE_MIN}")
+    check(err <= BF16_CARD_CPU_TOL,
+          f"card vs CPU bf16 logits {err} > {BF16_CARD_CPU_TOL}")
+    check(agree / total >= BF16_AGREE_MIN,
+          f"card vs CPU bf16 agreement {agree / total} < {BF16_AGREE_MIN}")
+    check(all(f["gap"] < 2 * BF16_CARD_CPU_TOL for f in flips),
+          f"a card vs CPU bf16 disagreement on a gap >= "
+          f"{2 * BF16_CARD_CPU_TOL}: {flips}")
+    return main
 
 
 def _paged_prompts(rng, vocab):
@@ -897,15 +1328,18 @@ def _gpt2_small(seed=0):
     return GPTModel(**PAGED_MODEL, device="cuda").initialize(seed=seed)
 
 
-def _serve_paged_traffic(torch, eng, prompts, repeats, submit_kw=None):
-    """Serve ``prompts`` from 4 client threads, each sending its 6 back
-    to back, except that a repeat is sent once its original's result is
-    in (a user re-sending a prompt); ``submit_kw[j]`` adds request j's
-    sampling knobs. The launch counters and telemetry cover exactly
-    this run. Returns (results, metrics)."""
+def _serve_traffic(torch, eng, prompts, repeats=None, submit_kw=None):
+    """Serve ``prompts`` from 4 client threads, each sending its share
+    back to back, except that a repeat (``repeats``: index -> its
+    original) is sent once its original's result is in (a user
+    re-sending a prompt); ``submit_kw[j]`` adds request j's sampling
+    knobs. The launch counters and telemetry cover exactly this run.
+    ``decode_steps`` counts the engine's decode ticks (host syncs), each
+    of ``ticks_per_sync`` steps. Returns (results, metrics, telemetry
+    snapshot)."""
     from mxnet_tpu_torch import ops, telemetry
     n_req = len(prompts)
-    submit_kw = submit_kw or {}
+    repeats, submit_kw = repeats or {}, submit_kw or {}
     results, ttft, errors = [None] * n_req, [None] * n_req, []
     streams, sent = [None] * n_req, [threading.Event() for _ in prompts]
 
@@ -937,8 +1371,7 @@ def _serve_paged_traffic(torch, eng, prompts, repeats, submit_kw=None):
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()     # ... and ends here
     snap = telemetry.snapshot()
-    cnt = snap["counters"]
-    steps = int(cnt.get("serving.generate.host_syncs", 0))
+    steps = int(snap["counters"].get("serving.generate.host_syncs", 0))
     decode_hist = telemetry.hist_quantiles("serving.generate.decode")
     if errors:
         raise errors[0]
@@ -955,26 +1388,41 @@ def _serve_paged_traffic(torch, eng, prompts, repeats, submit_kw=None):
            "decode_steps": steps,
            "decode_step_ms_p50": decode_hist["p50"],
            "decode_step_ms_avg": decode_hist["avg"],
-           "prefix_hits": int(cnt.get("serving.generate.prefix_hits", 0)),
-           "cow_copies": int(cnt.get("serving.generate.pages.cow_copies",
-                                     0)),
-           "pages_shared": int(cnt.get("serving.generate.pages.shared", 0)),
-           "prefill_chunks": int(cnt.get("serving.generate.prefill_chunks",
-                                         0)),
-           "prefill_chunks_per_iter_peak": snap["gauges"][
-               "serving.generate.prefill_chunks_per_iter"]["peak"],
+           "ticks_per_sync": snap["gauges"].get(
+               "serving.generate.ticks_per_sync", {}).get("value"),
+           "host_syncs_per_token": steps / gen_tokens,
            "launches": launches,
            "launches_per_decode_step": {
                k: v / steps for k, v in launches.items()} if steps else {},
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return results, res, snap
+
+
+def _serve_paged_traffic(torch, eng, prompts, repeats, submit_kw=None):
+    """``_serve_traffic`` on a paged engine, with its page counters and
+    the checks its traffic must pass: one prefill chunk an iteration at
+    most, a prefix hit, a copy-on-write and K4 on every projection.
+    Returns (results, metrics)."""
+    results, res, snap = _serve_traffic(torch, eng, prompts, repeats,
+                                        submit_kw)
+    cnt = snap["counters"]
+    res.update(
+        prefix_hits=int(cnt.get("serving.generate.prefix_hits", 0)),
+        cow_copies=int(cnt.get("serving.generate.pages.cow_copies", 0)),
+        pages_shared=int(cnt.get("serving.generate.pages.shared", 0)),
+        prefill_chunks=int(cnt.get("serving.generate.prefill_chunks", 0)),
+        prefill_chunks_per_iter_peak=snap["gauges"][
+            "serving.generate.prefill_chunks_per_iter"]["peak"])
     check(res["prefill_chunks_per_iter_peak"] == 1,
           f"prefill chunks per iteration peak "
           f"{res['prefill_chunks_per_iter_peak']} != 1")
     check(res["prefix_hits"] > 0, "no prefix hit (peek) ran")
     check(res["cow_copies"] > 0, "no copy-on-write ran")
-    check(launches["dequant_matmul"] >= 6 * PAGED_MODEL["num_layers"] * steps,
-          f"K4 launched {launches['dequant_matmul']} times for {steps} "
-          f"decode steps")
+    steps = res["decode_steps"]
+    check(res["launches"]["dequant_matmul"]
+          >= 6 * PAGED_MODEL["num_layers"] * steps,
+          f"K4 launched {res['launches']['dequant_matmul']} times for "
+          f"{steps} decode steps")
     return results, res
 
 
@@ -1103,6 +1551,70 @@ def phase_int8_kv_engine(torch, model, prompts, repeats):
           f"{kv['kv_logit_max_abs_err']} > {QNT_KV_TOL}")
     torch.cuda.empty_cache()
     return res, results, card
+
+
+def phase_paged_bf16_engine(torch, model, prompts, repeats, fp32_results):
+    """The ``paged_engine`` traffic (int8 weights, ``model`` of seed 0,
+    the same 24 prompts) with ``compute_dtype="bfloat16",
+    decode_ticks=TICKS``, then at ``decode_ticks=1`` (the same tokens):
+    a bf16 page pool read by K3's bf16 instance, the int8 projections
+    (K4) on widened inputs. Then the reference's bf16 contract on the
+    card, teacher-forced through the paged calls on the fp32 int8-weight
+    engine's tokens (``fp32_results``)."""
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    n_layers = PAGED_MODEL["num_layers"]
+    runs = {}
+    for k in (TICKS, 1):
+        torch.cuda.reset_peak_memory_stats()
+        eng = GenerationEngine(model, max_slots=8, max_new_tokens=64,
+                               eos_id=50256, paged=True, page_size=16,
+                               quantize="int8_weights",
+                               compute_dtype="bfloat16", decode_ticks=k)
+        check(eng.precision == "bf16+int8_weights",
+              f"precision {eng.precision!r}")
+        t0 = time.perf_counter()
+        eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        results, res = _serve_paged_traffic(torch, eng, prompts, repeats)
+        pool = _kv_pool_bytes(eng._cache)
+        res.update(warmup_s=warmup_s, decode_ticks_knob=k,
+                   kv_pool_bytes=pool, kv_pool_bytes_fp32=2 * pool,
+                   host_syncs_per_token=res["decode_steps"]
+                   / res["generated_tokens"])
+        eng.close()
+        del eng
+        launches, ticks = res["launches"], res["decode_steps"]
+        check(launches["paged_decode_attention_bf16"] >= ticks * n_layers > 0,
+              f"K3-bf16 launched {launches['paged_decode_attention_bf16']} "
+              f"times for {ticks} ticks")
+        check(launches["paged_decode_attention"] == 0,
+              "the fp32 K3 ran on the bf16 path")
+        runs[k] = (results, res)
+    results, res = runs[TICKS]
+    same = [r.tokens for r in results] == [r.tokens for r in runs[1][0]]
+    res["tokens_equal_k1"] = same
+    res["k1"] = {key: runs[1][1][key] for key in (
+        "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "decode_steps",
+        "decode_step_ms_p50", "host_syncs_per_token", "wall_s")}
+    check(same, f"decode_ticks={TICKS} tokens differ from decode_ticks=1")
+    picks = list(CPU_PICKS)
+    ps_ = [prompts[j] for j in picks]
+    g32 = [fp32_results[j].tokens for j in picks]
+    bf = _teacher_forced(model, ps_, g32, kv_dtype="bfloat16")
+    model.cast_compute_params(None)    # the later phases run fp32
+    fp = _teacher_forced(model, ps_, g32)
+    contract = _bf16_contract(bf, fp, g32)
+    res["bf16_vs_fp32_on_card"] = dict(contract, requests=picks)
+    emit("paged_bf16_engine", **res)
+    check(contract["logit_max_abs_err"] <= BF16_TOL,
+          f"paged bf16 vs fp32 logits {contract['logit_max_abs_err']} > "
+          f"{BF16_TOL}")
+    check(contract["agreement"] >= BF16_AGREE_MIN,
+          f"paged bf16 vs fp32 agreement {contract['agreement']} < "
+          f"{BF16_AGREE_MIN}")
+    torch.cuda.empty_cache()
+    return res
 
 
 def _kv_contract(runs):
@@ -1723,6 +2235,16 @@ KERNELS = [
      "paged_decode_attention_pallas (k_scale/v_scale)", "k3i"),
     ("dequant_matmul", "dequant_matmul.cu",
      "mxnet_tpu/ops/quantized.py:151", "dequant_matmul_pallas", "k4"),
+    ("flash_attention_fwd_bf16", "flash_attention.cu",
+     "mxnet_tpu/ops/attention.py:141",
+     "flash_attention_pallas on bf16 q/k/v", "k1b"),
+    ("decode_attention_bf16", "decode_attention.cu",
+     "mxnet_tpu/ops/attention.py:474",
+     "decode_attention_pallas on a bf16 cache (body _decode_fwd_kernel, "
+     ":402)", "k2b"),
+    ("paged_decode_attention_bf16", "paged_decode_attention.cu",
+     "mxnet_tpu/ops/attention.py:566",
+     "paged_decode_attention_pallas on a bf16 pool", "k3b"),
 ]
 
 
@@ -1744,18 +2266,27 @@ def main(argv=None):
     k3, k3i = phase_paged_decode(torch, timer)
     k4 = phase_dequant(torch, timer)
     k5 = phase_rtc(torch, timer)
+    k1b = phase_flash_bf16(torch, timer)
+    k2b = phase_decode_bf16(torch, timer)
+    k3b = phase_paged_decode_bf16(torch, timer)
     if args.kernels_only:
         return 0
     from mxnet_tpu_torch import ops
     kernel_res = {"k1": k1, "k2": k2, "k2i": k2i, "k3": k3, "k3i": k3i,
-                  "k4": k4}
+                  "k4": k4, "k1b": k1b, "k2b": k2b, "k3b": k3b}
     phases = {"custom_op": phase_custom_op(torch)}
-    phases["engine"] = phase_engine(torch)
+    phases["engine"], cpu_model, dense_prompts, dense_results = \
+        phase_engine(torch)
+    phases["bf16_engine"] = phase_bf16_engine(torch, cpu_model,
+                                              dense_prompts, dense_results)
+    del cpu_model
     paged, model, prompts, results, repeats = phase_paged_engine(torch)
     phases["paged_engine"] = paged
     kv8, kv8_results, card8 = phase_int8_kv_engine(torch, model, prompts,
                                                    repeats)
     phases["int8_kv_engine"] = kv8
+    phases["paged_bf16_engine"] = phase_paged_bf16_engine(
+        torch, model, prompts, repeats, results)
     phase_paged_cpu_reference(torch, model, prompts, results)
     phase_int8_kv_cpu_reference(torch, model, prompts, kv8_results, card8)
     del model

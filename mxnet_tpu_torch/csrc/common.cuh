@@ -6,6 +6,7 @@
 // exported symbol: header-only, inline, device-side.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // The reference's masked score (ops/attention.py NEG_INF): a large
@@ -40,6 +41,34 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.z, b.z, acc);
   acc = fmaf(a.w, b.w, acc);
   return acc;
+}
+
+// ---- bf16 ---------------------------------------------------------------
+// A bf16 value is the top half of an fp32 one, so widening it is a
+// shift (or a mask) and exact; two bf16 values packed in a 32-bit word
+// (the lower address in the low half) widen to lo and hi.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// four consecutive bf16 values (8 bytes, 8-byte aligned), widened
+__device__ __forceinline__ float4 bf16x4_widen(uint2 w) {
+  return make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+}
+
+// fp32 -> bf16 bits, rounded to nearest even (torch's .to(bfloat16))
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ unsigned bf16_pack(float lo, float hi) {
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
 }
 
 // ---- TF32 tensor cores (mma.sync m16n8k8) ------------------------------

@@ -1,20 +1,24 @@
-// K2 — decode attention over a dense KV cache, fp32 or int8, for Hopper
-// (sm_90a): a split-KV (flash-decoding) kernel in one launch, each
+// K2 — decode attention over a dense KV cache, fp32, int8 or bf16, for
+// Hopper (sm_90a): a split-KV (flash-decoding) kernel in one launch, each
 // (slot, head, group of query rows) split across a thread-block cluster.
 //
 // Replaces: mxnet_tpu/ops/attention.py decode_attention_pallas (kernel
-// body _decode_fwd_kernel), both variants: fp32, and int8 K/V with
-// (B, H) fp32 scales (quant=True). Same function: every query row of
-// slot b attends keys [0, lengths[b]) of its cache row, with no causal
-// structure among the queries; lengths[b] == 0 gives zeros. The int8
-// instance attends K = k * k_scale[b, h] and V = v * v_scale[b, h].
+// body _decode_fwd_kernel), every variant: fp32, int8 K/V with (B, H)
+// fp32 scales (quant=True), and bf16 K/V (the reference's kernel is
+// dtype-generic: it loads the bf16 block and widens it to fp32). Same
+// function: every query row of slot b attends keys [0, lengths[b]) of
+// its cache row, with no causal structure among the queries;
+// lengths[b] == 0 gives zeros. The int8 instance attends
+// K = k * k_scale[b, h] and V = v * v_scale[b, h]; the bf16 instance
+// reads the bf16 rows (half the bytes of fp32), widens them in
+// registers, takes q as fp32 or bf16 and writes a bf16 output.
 //
-// What bounds it on the H100: bytes. One decode step reads each valid
-// K and V row once — 2 * sum(len) * H * D * 4 bytes per layer in fp32,
-// a quarter of that in int8 — and does 4 * D FLOP per (query, key)
-// pair, one to four FLOP per byte, far below the card's ~20 FLOP per
-// byte for fp32. At 8 slots x 12 heads x lengths up to 1024 that is
-// 16 MB, 5 us at 3.35 TB/s.
+// What bounds it on the H100: bytes. One decode step reads each valid K and
+// V row once — 2 * sum(len) * H * D * 4 bytes per layer in fp32, half of
+// that in bf16, a quarter in int8 — and does 4 * D FLOP per (query, key)
+// pair, one to four FLOP per byte, far below the card's ~20 FLOP per byte
+// for fp32. At 8 slots x 12 heads x lengths up to 1024 that is 16 MB, 5 us
+// at 3.35 TB/s.
 //
 // What the design does about it. The earlier kernel ran one block per
 // (slot, head): 96 blocks on 132 SMs, each walking its slot's whole
@@ -43,7 +47,7 @@
 //   second launch, no global scratch, no atomics: deterministic).
 // - A rank holds at most kBudget bytes of rows; a longer range runs in
 //   batches through the same buffers. At the engine's shapes one batch
-//   holds all (64 KB fp32, 16 KB int8).
+//   holds all (64 KB fp32, 32 KB bf16, 16 KB int8).
 // - Decode (one query per slot) runs a one-row instance; 2..R queries
 //   run four rows per cluster, so the rows are read once for the four.
 #include <stdint.h>
@@ -139,15 +143,16 @@ struct DenseRows {
 };
 
 // k_scale / v_scale: (B, H) contiguous fp32 for an int8 cache, unused
-// (null) for fp32.
+// (null) otherwise. q is fp32, or bf16 where q_bf16 (a bf16 cache only);
+// out is split_out_t<T>.
 template <int D, int NR, class T>
 __global__ void __launch_bounds__(mxtt::kSplitThreads,
-                                  mxtt::kSplitMinBlocks<T>)
-decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
+                                  mxtt::kSplitMinBlocks<T, NR>)
+decode_split_kernel(const void* __restrict__ q, int q_bf16,
+                    const T* __restrict__ k, const T* __restrict__ v,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
-                    const int* __restrict__ lengths, float* __restrict__ out,
+                    const int* __restrict__ lengths, void* __restrict__ out,
                     int H, int Sq, int S_max, int rows, int batch,
                     float scale, long long q_sb, long long q_sh,
                     long long q_ss, long long k_sb, long long k_sh,
@@ -163,57 +168,58 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
                       kInt8 ? k_scale + bh : nullptr,
                       kInt8 ? v_scale + bh : nullptr, lengths, k_ss, v_ss, b,
                       S_max};
-  mxtt::split_decode<D, NR, T>(src, q + b * q_sb + h * q_sh, q_ss, r0,
-                               min(NR, Sq - r0), rows, batch, scale,
-                               out + (bh * Sq + r0) * D);
+  mxtt::split_decode<D, NR, T>(
+      src, mxtt::q_at<T>(q, q_bf16, b * q_sb + h * q_sh), q_bf16, q_ss, r0,
+      min(NR, Sq - r0), rows, batch, scale,
+      static_cast<mxtt::split_out_t<T>*>(out) + (bh * Sq + r0) * D);
 }
 
 template <int D, int NR, class T>
-cudaError_t launch_rows(const float* q, const T* k, const T* v,
+cudaError_t launch_rows(const void* q, int q_bf16, const T* k, const T* v,
                         const float* k_scale, const float* v_scale,
-                        const int* lengths, float* out, int B, int H, int Sq,
+                        const int* lengths, void* out, int B, int H, int Sq,
                         int S_max, float scale, const long long* st,
                         cudaStream_t stream) {
   const Plan p = plan(S_max, D, (int)sizeof(T));
   return mxtt::launch_split<decode_split_kernel<D, NR, T>>(
-      dim3(H * p.S, B, (Sq + NR - 1) / NR), p.S, p.smem, stream, q, k, v,
-      k_scale, v_scale, lengths, out, H, Sq, S_max, p.rows, p.batch, scale,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+      dim3(H * p.S, B, (Sq + NR - 1) / NR), p.S, p.smem, stream, q, q_bf16,
+      k, v, k_scale, v_scale, lengths, out, H, Sq, S_max, p.rows, p.batch,
+      scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
 }
 
 template <int D, class T>
-cudaError_t launch(const float* q, const T* k, const T* v,
+cudaError_t launch(const void* q, int q_bf16, const T* k, const T* v,
                    const float* k_scale, const float* v_scale,
-                   const int* lengths, float* out, int B, int H, int Sq,
+                   const int* lengths, void* out, int B, int H, int Sq,
                    int S_max, float scale, const long long* st,
                    cudaStream_t stream) {
   if (Sq == 1)
-    return launch_rows<D, 1, T>(q, k, v, k_scale, v_scale, lengths, out, B,
-                                H, Sq, S_max, scale, st, stream);
-  return launch_rows<D, 4, T>(q, k, v, k_scale, v_scale, lengths, out, B, H,
-                              Sq, S_max, scale, st, stream);
+    return launch_rows<D, 1, T>(q, q_bf16, k, v, k_scale, v_scale, lengths,
+                                out, B, H, Sq, S_max, scale, st, stream);
+  return launch_rows<D, 4, T>(q, q_bf16, k, v, k_scale, v_scale, lengths,
+                              out, B, H, Sq, S_max, scale, st, stream);
 }
 
 template <class T>
-int dispatch(const float* q, const T* k, const T* v, const float* k_scale,
-             const float* v_scale, const int* lengths, float* out, int B,
-             int H, int Sq, int S, int D, float scale,
+int dispatch(const void* q, int q_bf16, const T* k, const T* v,
+             const float* k_scale, const float* v_scale, const int* lengths,
+             void* out, int B, int H, int Sq, int S, int D, float scale,
              const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * H == 0 || Sq == 0) return cudaSuccess;
   switch (D) {
     case 16:
-      return launch<16>(q, k, v, k_scale, v_scale, lengths, out, B, H, Sq, S,
-                        scale, strides, s);
+      return launch<16>(q, q_bf16, k, v, k_scale, v_scale, lengths, out, B, H,
+                        Sq, S, scale, strides, s);
     case 32:
-      return launch<32>(q, k, v, k_scale, v_scale, lengths, out, B, H, Sq, S,
-                        scale, strides, s);
+      return launch<32>(q, q_bf16, k, v, k_scale, v_scale, lengths, out, B, H,
+                        Sq, S, scale, strides, s);
     case 64:
-      return launch<64>(q, k, v, k_scale, v_scale, lengths, out, B, H, Sq, S,
-                        scale, strides, s);
+      return launch<64>(q, q_bf16, k, v, k_scale, v_scale, lengths, out, B, H,
+                        Sq, S, scale, strides, s);
     case 128:
-      return launch<128>(q, k, v, k_scale, v_scale, lengths, out, B, H, Sq, S,
-                         scale, strides, s);
+      return launch<128>(q, q_bf16, k, v, k_scale, v_scale, lengths, out, B,
+                         H, Sq, S, scale, strides, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -232,8 +238,8 @@ int mxtt_decode_attention(const float* q, const float* k, const float* v,
                           const int* lengths, float* out, int B, int H,
                           int Sq, int S, int D, float scale,
                           const long long* strides, void* stream) {
-  return dispatch<float>(q, k, v, nullptr, nullptr, lengths, out, B, H, Sq, S,
-                         D, scale, strides, stream);
+  return dispatch<float>(q, 0, k, v, nullptr, nullptr, lengths, out, B, H, Sq,
+                         S, D, scale, strides, stream);
 }
 
 // The int8 instance: k / v are (B, H, S, D) int8 with a contiguous last
@@ -246,8 +252,22 @@ int mxtt_decode_attention_int8(const float* q, const int8_t* k,
                                float* out, int B, int H, int Sq, int S, int D,
                                float scale, const long long* strides,
                                void* stream) {
-  return dispatch<int8_t>(q, k, v, k_scale, v_scale, lengths, out, B, H, Sq,
-                          S, D, scale, strides, stream);
+  return dispatch<int8_t>(q, 0, k, v, k_scale, v_scale, lengths, out, B, H,
+                          Sq, S, D, scale, strides, stream);
+}
+
+// The bf16 instance: k / v are (B, H, S, D) bf16 with a contiguous last
+// axis and 16-byte aligned rows; q is fp32, or bf16 where ``q_bf16`` is
+// non-zero (its rows 16-byte aligned), ``strides`` in elements of each
+// tensor's own type. out: (B, H, Sq, D) contiguous bf16. The rest as
+// above.
+int mxtt_decode_attention_bf16(const void* q, int q_bf16, const mxtt::bf16* k,
+                               const mxtt::bf16* v, const int* lengths,
+                               mxtt::bf16* out, int B, int H, int Sq, int S,
+                               int D, float scale, const long long* strides,
+                               void* stream) {
+  return dispatch<mxtt::bf16>(q, q_bf16, k, v, nullptr, nullptr, lengths, out,
+                              B, H, Sq, S, D, scale, strides, stream);
 }
 
 const char* mxtt_error_string(int code) {

@@ -1,4 +1,4 @@
-// K1 — flash attention forward (fp32) for Hopper (sm_90a).
+// K1 — flash attention forward (fp32 and bf16) for Hopper (sm_90a).
 //
 // Replaces: mxnet_tpu/ops/attention.py flash_attention_pallas
 // (kernel body _flash_fwd_kernel). Same function: blockwise
@@ -64,6 +64,16 @@
 //   lightest.
 // - The dynamic shared-memory limit is raised once per device and
 //   instance, not on every launch.
+// - The bf16 instance (q, k, v and out bf16, lse fp32; the reference's
+//   kernel is dtype-generic: it widens the bf16 blocks to fp32 and
+//   rounds its fp32 result to q's type) is the same kernel on bf16
+//   tiles: the K/V ring holds half the bytes, and a bf16 value widened
+//   by a shift is exact in TF32, so Q K^T is one TF32 product (exact
+//   products, fp32 sums) with the scale applied to the fp32 scores
+//   (the reference scales q in fp32 first: the two differ by fp32
+//   rounding only), and P V two (P, fp32, in 2xTF32: big and small
+//   times the exact V). Its bound is those 3 products at 495 TFLOP/s,
+//   or the bf16 FLOP at 989 TFLOP/s on bf16 tensor cores.
 // Later work (ROADMAP.md): wgmma / TMA tiles on bf16 inputs.
 #include "common.cuh"
 
@@ -75,56 +85,71 @@ constexpr int kBlockQ = kRowWarps * kRows;  // query rows per block
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// A block of G key groups walking K/V tiles of BK keys.
-template <int D, int G, int BK>
+// A block of G key groups walking K/V tiles of BK keys of element type
+// T (float or bf16; shared memory holds the tiles in T).
+template <int D, int G, int BK, class T>
 struct FlashSmem {
+  static constexpr bool kBf16 = sizeof(T) == 2;
   static constexpr int kGroups = G;          // warp groups splitting keys
   static constexpr int kBlockK = BK;         // keys per K/V tile
   static constexpr int kStages = 2 * G;      // K/V ring depth
   static constexpr int kThreads = kRowWarps * G * 32;
-  // Q and K rows: 16 mod 32 floats (16-byte fragment loads)
+  // Q and K rows: 16 mod 32 elements (16-byte fp32 or 8-byte bf16
+  // fragment loads on distinct bank groups)
   static constexpr int kPadK = (D + 16) % 32 == 16 ? D + 16 : D + 32;
-  // V rows: 4 mod 32 floats (16-byte loads of rows 2t and 2t + 1)
-  static constexpr int kPadV = D + 4;
+  // V rows: 4 mod 32 floats, 8 mod 32 bf16 (loads of rows 2t and 2t + 1)
+  static constexpr int kPadV = kBf16 ? D + 8 : D + 4;
   static constexpr int kTileK = kBlockK * kPadK;
   static constexpr int kTileV = kBlockK * kPadV;
-  static constexpr int kFloats =
+  static constexpr int kElems =
       kBlockQ * kPadK + kStages * (kTileK + kTileV);
-  static constexpr size_t kBytes = kFloats * sizeof(float);
+  static constexpr size_t kBytes = kElems * sizeof(T);
   static constexpr bool kQInRegs = D <= 64;
   // n tiles of O per 16-byte (or 8-byte) V load
   static constexpr int kVec = D >= 32 ? 4 : 2;
   // floats a lane hands over when the key groups meet
   static constexpr int kXch = 4 + D / 2;
-  static_assert((kGroups - 1) * kRowWarps * kXch * 32 <=
-                    kStages * (kTileK + kTileV),
+  static_assert((kGroups - 1) * kRowWarps * kXch * 32 * sizeof(float) <=
+                    kStages * (kTileK + kTileV) * sizeof(T),
                 "the exchange fits in the ring");
+  static_assert(kBlockQ * kPadK * sizeof(T) % 16 == 0 &&
+                    kPadK * sizeof(T) % 16 == 0 &&
+                    kPadV * sizeof(T) % 16 == 0,
+                "rows start on 16-byte boundaries");
 };
 
-template <int D, int G, int BK>
+// A fragment operand as the tensor core reads it: fp32 bits of a value
+// that is exact in TF32 (a widened bf16)
+__device__ __forceinline__ unsigned tf32_exact(float x) {
+  return __float_as_uint(x);
+}
+
+template <int D, int G, int BK, class T>
 __global__ void __launch_bounds__(kRowWarps * G * 32)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int H, int Sq, int kv_len,
                  int causal, float scale, long long q_sb, long long q_sh,
                  long long q_ss, long long k_sb, long long k_sh,
                  long long k_ss, long long v_sb, long long v_sh,
                  long long v_ss) {
-  using S = FlashSmem<D, G, BK>;
+  using S = FlashSmem<D, G, BK, T>;
+  constexpr bool kBf16 = S::kBf16;
   constexpr int kGroups = S::kGroups;
   constexpr int kBlockK = S::kBlockK;
   constexpr int kStages = S::kStages;
   constexpr int kThreads = S::kThreads;
   constexpr int PK = S::kPadK;
   constexpr int PV = S::kPadV;
-  constexpr int V4 = D / 4;          // 16-byte chunks per row
+  constexpr int EC = 16 / (int)sizeof(T);   // elements per 16-byte copy
+  constexpr int V4 = D / EC;         // 16-byte chunks per row
   constexpr int KD = D / 8;          // mma k steps over the head dim
   constexpr int NK = kBlockK / 8;    // 8-key slices per tile
   constexpr int VEC = S::kVec;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // [kBlockQ][PK]
-  float* k_s = q_s + kBlockQ * PK;                // [kStages][kBlockK][PK]
-  float* v_s = k_s + kStages * S::kTileK;         // [kStages][kBlockK][PV]
+  T* q_s = reinterpret_cast<T*>(smem4);   // [kBlockQ][PK]
+  T* k_s = q_s + kBlockQ * PK;            // [kStages][kBlockK][PK]
+  T* v_s = k_s + kStages * S::kTileK;     // [kStages][kBlockK][PV]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -141,9 +166,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (causal ? n_q - 1 - (int)blockIdx.y : (int)blockIdx.y) *
                  kBlockQ;
   const int offset = kv_len - Sq;
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + h * k_sh;
-  const float* vb = v + b * v_sb + h * v_sh;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + h * k_sh;
+  const T* vb = v + b * v_sb + h * v_sh;
 
   // last key any row of this block (and of this warp) may see
   int last = kv_len - 1;
@@ -156,11 +181,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto load_kv = [&](int tile) {
     const int k0 = tile * kBlockK;
-    float* ks = k_s + (tile % kStages) * S::kTileK;
-    float* vs = v_s + (tile % kStages) * S::kTileV;
+    T* ks = k_s + (tile % kStages) * S::kTileK;
+    T* vs = v_s + (tile % kStages) * S::kTileV;
     for (int i = tid; i < kBlockK * V4; i += kThreads) {
       const int r = i / V4;
-      const int c = (i - r * V4) * 4;
+      const int c = (i - r * V4) * EC;
       const bool live = k0 + r < kv_len;   // never read past kv_len
       const long long row = live ? k0 + r : 0;
       mxtt::cp_async16(ks + r * PK + c, kb + row * k_ss + c, live);
@@ -172,7 +197,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // of round 0; copy group 1: those of round 1
   for (int i = tid; i < kBlockQ * V4; i += kThreads) {
     const int r = i / V4;
-    const int c = (i - r * V4) * 4;
+    const int c = (i - r * V4) * EC;
     const bool live = q0 + r < Sq;
     mxtt::cp_async16(q_s + r * PK + c,
                      qb + (long long)(live ? q0 + r : 0) * q_ss + c, live);
@@ -182,26 +207,44 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (i % kGroups == kGroups - 1) mxtt::cp_async_commit();
   }
 
-  // this warp's 16 query rows, scaled into the log2 domain and split:
-  // A fragments of k steps 2c (head dims 16c + 4t, +1) and 2c + 1
-  // (16c + 4t + 2, +3)
-  const float* qw = q_s + wr * kRows * PK;
+  // four consecutive elements of a shared row, as fp32
+  auto row4 = [](const T* p) -> float4 {
+    if constexpr (S::kBf16)
+      return mxtt::bf16x4_widen(*reinterpret_cast<const uint2*>(p));
+    else
+      return *reinterpret_cast<const float4*>(p);
+  };
+
+  // this warp's 16 query rows as A fragments of k steps 2c (head dims
+  // 16c + 4t, +1) and 2c + 1 (16c + 4t + 2, +3): fp32 q scaled into the
+  // log2 domain and split; bf16 q as it is (exact in TF32; the scale
+  // goes on the scores), with no small part
+  const T* qw = q_s + wr * kRows * PK;
   const float qscale = scale * kLog2e;
   unsigned qa_big[S::kQInRegs ? KD : 1][4];
-  unsigned qa_small[S::kQInRegs ? KD : 1][4];
+  unsigned qa_small[S::kQInRegs && !kBf16 ? KD : 1][4];
   auto q_frags = [&](int c, unsigned (&big)[2][4], unsigned (&small)[2][4]) {
-    const float4 lo = *reinterpret_cast<const float4*>(qw + g * PK +
-                                                       16 * c + 4 * t);
-    const float4 hi = *reinterpret_cast<const float4*>(
-        qw + (g + 8) * PK + 16 * c + 4 * t);
-    mxtt::split_tf32(lo.x * qscale, big[0][0], small[0][0]);
-    mxtt::split_tf32(hi.x * qscale, big[0][1], small[0][1]);
-    mxtt::split_tf32(lo.y * qscale, big[0][2], small[0][2]);
-    mxtt::split_tf32(hi.y * qscale, big[0][3], small[0][3]);
-    mxtt::split_tf32(lo.z * qscale, big[1][0], small[1][0]);
-    mxtt::split_tf32(hi.z * qscale, big[1][1], small[1][1]);
-    mxtt::split_tf32(lo.w * qscale, big[1][2], small[1][2]);
-    mxtt::split_tf32(hi.w * qscale, big[1][3], small[1][3]);
+    const float4 lo = row4(qw + g * PK + 16 * c + 4 * t);
+    const float4 hi = row4(qw + (g + 8) * PK + 16 * c + 4 * t);
+    if constexpr (S::kBf16) {
+      big[0][0] = tf32_exact(lo.x);
+      big[0][1] = tf32_exact(hi.x);
+      big[0][2] = tf32_exact(lo.y);
+      big[0][3] = tf32_exact(hi.y);
+      big[1][0] = tf32_exact(lo.z);
+      big[1][1] = tf32_exact(hi.z);
+      big[1][2] = tf32_exact(lo.w);
+      big[1][3] = tf32_exact(hi.w);
+    } else {
+      mxtt::split_tf32(lo.x * qscale, big[0][0], small[0][0]);
+      mxtt::split_tf32(hi.x * qscale, big[0][1], small[0][1]);
+      mxtt::split_tf32(lo.y * qscale, big[0][2], small[0][2]);
+      mxtt::split_tf32(hi.y * qscale, big[0][3], small[0][3]);
+      mxtt::split_tf32(lo.z * qscale, big[1][0], small[1][0]);
+      mxtt::split_tf32(hi.z * qscale, big[1][1], small[1][1]);
+      mxtt::split_tf32(lo.w * qscale, big[1][2], small[1][2]);
+      mxtt::split_tf32(hi.w * qscale, big[1][3], small[1][3]);
+    }
   };
   if constexpr (S::kQInRegs) {
     mxtt::cp_async_wait<1>();
@@ -213,9 +256,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qa_big[2 * c][i] = bg[0][i];
-        qa_small[2 * c][i] = sm[0][i];
         qa_big[2 * c + 1][i] = bg[1][i];
-        qa_small[2 * c + 1][i] = sm[1][i];
+        if constexpr (!kBf16) {
+          qa_small[2 * c][i] = sm[0][i];
+          qa_small[2 * c + 1][i] = sm[1][i];
+        }
       }
     }
   }
@@ -236,8 +281,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = tile * kBlockK;
     // a warp computes when its tile exists and one of its rows sees it
     if (tile < n_tiles && k0 <= warp_last) {
-      const float* ks = k_s + (tile % kStages) * S::kTileK;
-      const float* vs = v_s + (tile % kStages) * S::kTileV;
+      const T* ks = k_s + (tile % kStages) * S::kTileK;
+      const T* vs = v_s + (tile % kStages) * S::kTileV;
 
       // S = (scale log2e Q) K^T: 16 rows x 32 keys in 4 accumulators
       float s[NK][4];
@@ -250,25 +295,42 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             ab[0][i] = qa_big[2 * c][i];
-            as[0][i] = qa_small[2 * c][i];
             ab[1][i] = qa_big[2 * c + 1][i];
-            as[1][i] = qa_small[2 * c + 1][i];
+            if constexpr (!kBf16) {
+              as[0][i] = qa_small[2 * c][i];
+              as[1][i] = qa_small[2 * c + 1][i];
+            }
           }
         } else {
           q_frags(c, ab, as);
         }
 #pragma unroll
         for (int j = 0; j < NK; ++j) {
-          const float4 kx = *reinterpret_cast<const float4*>(
-              ks + (j * 8 + g) * PK + 16 * c + 4 * t);
+          const float4 kx = row4(ks + (j * 8 + g) * PK + 16 * c + 4 * t);
           unsigned bb[2][2], bs[2][2];
-          mxtt::split_tf32(kx.x, bb[0][0], bs[0][0]);
-          mxtt::split_tf32(kx.y, bb[0][1], bs[0][1]);
-          mxtt::split_tf32(kx.z, bb[1][0], bs[1][0]);
-          mxtt::split_tf32(kx.w, bb[1][1], bs[1][1]);
-          mxtt::mma_3xtf32(s[j], ab[0], as[0], bb[0], bs[0]);
-          mxtt::mma_3xtf32(s[j], ab[1], as[1], bb[1], bs[1]);
+          if constexpr (kBf16) {
+            bb[0][0] = tf32_exact(kx.x);
+            bb[0][1] = tf32_exact(kx.y);
+            bb[1][0] = tf32_exact(kx.z);
+            bb[1][1] = tf32_exact(kx.w);
+            mxtt::mma_tf32(s[j], ab[0], bb[0]);
+            mxtt::mma_tf32(s[j], ab[1], bb[1]);
+          } else {
+            mxtt::split_tf32(kx.x, bb[0][0], bs[0][0]);
+            mxtt::split_tf32(kx.y, bb[0][1], bs[0][1]);
+            mxtt::split_tf32(kx.z, bb[1][0], bs[1][0]);
+            mxtt::split_tf32(kx.w, bb[1][1], bs[1][1]);
+            mxtt::mma_3xtf32(s[j], ab[0], as[0], bb[0], bs[0]);
+            mxtt::mma_3xtf32(s[j], ab[1], as[1], bb[1], bs[1]);
+          }
         }
+      }
+      if constexpr (kBf16) {
+        // the scale, into the log2 domain, on the fp32 scores
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[j][i] *= qscale;
       }
 
       // mask (only tiles that cross kv_len or the diagonal), then the
@@ -336,16 +398,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         mxtt::split_tf32(s[j][2], pb[1], ps[1]);
         mxtt::split_tf32(s[j][1], pb[2], ps[2]);
         mxtt::split_tf32(s[j][3], pb[3], ps[3]);
-        const float* v0 = vs + (j * 8 + 2 * t) * PV + VEC * g;
+        const T* v0 = vs + (j * 8 + 2 * t) * PV + VEC * g;
 #pragma unroll
         for (int c = 0; c < KD / VEC; ++c) {
           float va[VEC], vb2[VEC];
           if constexpr (VEC == 4) {
-            const float4 x0 = *reinterpret_cast<const float4*>(v0 + 32 * c);
-            const float4 x1 =
-                *reinterpret_cast<const float4*>(v0 + PV + 32 * c);
+            const float4 x0 = row4(v0 + 32 * c);
+            const float4 x1 = row4(v0 + PV + 32 * c);
             va[0] = x0.x; va[1] = x0.y; va[2] = x0.z; va[3] = x0.w;
             vb2[0] = x1.x; vb2[1] = x1.y; vb2[2] = x1.z; vb2[3] = x1.w;
+          } else if constexpr (kBf16) {
+            const unsigned x0 =
+                *reinterpret_cast<const unsigned*>(v0 + 16 * c);
+            const unsigned x1 =
+                *reinterpret_cast<const unsigned*>(v0 + PV + 16 * c);
+            va[0] = mxtt::bf16_lo(x0); va[1] = mxtt::bf16_hi(x0);
+            vb2[0] = mxtt::bf16_lo(x1); vb2[1] = mxtt::bf16_hi(x1);
           } else {
             const float2 x0 = *reinterpret_cast<const float2*>(v0 + 16 * c);
             const float2 x1 =
@@ -356,9 +424,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int r = 0; r < VEC; ++r) {
             unsigned bb[2], bs[2];
-            mxtt::split_tf32(va[r], bb[0], bs[0]);
-            mxtt::split_tf32(vb2[r], bb[1], bs[1]);
-            mxtt::mma_3xtf32(o[VEC * c + r], pb, ps, bb, bs);
+            if constexpr (kBf16) {
+              // V exact in TF32: P's big and small parts times it
+              bb[0] = tf32_exact(va[r]);
+              bb[1] = tf32_exact(vb2[r]);
+              mxtt::mma_tf32(o[VEC * c + r], ps, bb);
+              mxtt::mma_tf32(o[VEC * c + r], pb, bb);
+            } else {
+              mxtt::split_tf32(va[r], bb[0], bs[0]);
+              mxtt::split_tf32(vb2[r], bb[1], bs[1]);
+              mxtt::mma_3xtf32(o[VEC * c + r], pb, ps, bb, bs);
+            }
           }
         }
       }
@@ -375,8 +451,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // each lane to the same lane of group 0's warp over the same rows,
   // which folds them in in group order
   __syncthreads();              // the ring is free
-  float* xch = k_s + ((grp > 0 ? grp - 1 : 0) * kRowWarps + wr) *
-                         S::kXch * 32 + lane;
+  float* xch = reinterpret_cast<float*>(k_s) +
+               ((grp > 0 ? grp - 1 : 0) * kRowWarps + wr) * S::kXch * 32 +
+               lane;
   if (grp > 0) {
     xch[0] = m0;
     xch[32] = m1;
@@ -408,9 +485,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // epilogue: out = o / l_safe, lse = m ln 2 + log(l_safe) (a row that
-  // saw no key keeps m = -1e30); o[VEC c + r][e] (and [2 + e] for row
-  // g + 8) is head dim 8 VEC c + VEC (2t + e) + r
+  // epilogue: out = o / l_safe (rounded to bf16 in the bf16 instance),
+  // lse = m ln 2 + log(l_safe) (a row that saw no key keeps m = -1e30);
+  // o[VEC c + r][e] (and [2 + e] for row g + 8) is head dim
+  // 8 VEC c + VEC (2t + e) + r
 #pragma unroll
   for (int sh = 1; sh <= 2; sh <<= 1) {
     l0 += __shfl_xor_sync(mxtt::kFullMask, l0, sh);
@@ -425,14 +503,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = half ? row1 : row0;
     if (row >= Sq) continue;
     const float inv = half ? inv1 : inv0;
-    float* orow = out + (base + row) * D;
+    T* orow = out + (base + row) * D;
 #pragma unroll
     for (int c = 0; c < KD / VEC; ++c)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float* dst = orow + 8 * VEC * c + VEC * (2 * t + e);
+        T* dst = orow + 8 * VEC * c + VEC * (2 * t + e);
         const int i = 2 * half + e;
-        if constexpr (VEC == 4) {
+        if constexpr (kBf16 && VEC == 4) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(
+              mxtt::bf16_pack(o[4 * c][i] * inv, o[4 * c + 1][i] * inv),
+              mxtt::bf16_pack(o[4 * c + 2][i] * inv, o[4 * c + 3][i] * inv));
+        } else if constexpr (kBf16) {
+          *reinterpret_cast<unsigned*>(dst) =
+              mxtt::bf16_pack(o[2 * c][i] * inv, o[2 * c + 1][i] * inv);
+        } else if constexpr (VEC == 4) {
           *reinterpret_cast<float4*>(dst) = make_float4(
               o[4 * c][i] * inv, o[4 * c + 1][i] * inv,
               o[4 * c + 2][i] * inv, o[4 * c + 3][i] * inv);
@@ -452,13 +537,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int kMaxDevices = 64;
 
 // The dynamic shared-memory limit of an instance, raised once per device.
-template <int D, int G, int BK>
+template <int D, int G, int BK, class T>
 cudaError_t raise_smem_limit(int dev) {
   static int raised[kMaxDevices] = {};   // 0: not yet, 1: done
   if (dev < kMaxDevices && raised[dev]) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, G, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)FlashSmem<D, G, BK>::kBytes);
+      flash_fwd_kernel<D, G, BK, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FlashSmem<D, G, BK, T>::kBytes);
   if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = 1;
   return err;
 }
@@ -476,16 +562,16 @@ cudaError_t sm_count(int dev, int* n) {
   return err;
 }
 
-template <int D, int G, int BK>
-cudaError_t launch_shape(const float* q, const float* k, const float* v,
-                         float* out, float* lse, int dev, int B, int H,
-                         int Sq, int kv_len, int causal, float scale,
+template <int D, int G, int BK, class T>
+cudaError_t launch_shape(const T* q, const T* k, const T* v, T* out,
+                         float* lse, int dev, int B, int H, int Sq,
+                         int kv_len, int causal, float scale,
                          const long long* st, cudaStream_t stream) {
-  using S = FlashSmem<D, G, BK>;
-  const cudaError_t err = raise_smem_limit<D, G, BK>(dev);
+  using S = FlashSmem<D, G, BK, T>;
+  const cudaError_t err = raise_smem_limit<D, G, BK, T>(dev);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<D, G, BK><<<grid, S::kThreads, S::kBytes, stream>>>(
+  flash_fwd_kernel<D, G, BK, T><<<grid, S::kThreads, S::kBytes, stream>>>(
       q, k, v, out, lse, H, Sq, kv_len, causal, scale, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8]);
   return cudaGetLastError();
@@ -496,10 +582,10 @@ cudaError_t launch_shape(const float* q, const float* k, const float* v,
 // block then sets the time, and splitting its keys four ways shortens
 // it. Past that (1024 tokens: 384 blocks) two groups on 32-key tiles do
 // less work per key and win.
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, float* out,
-                   float* lse, int B, int H, int Sq, int kv_len, int causal,
-                   float scale, const long long* st, cudaStream_t stream) {
+template <int D, class T>
+cudaError_t launch(const T* q, const T* k, const T* v, T* out, float* lse,
+                   int B, int H, int Sq, int kv_len, int causal, float scale,
+                   const long long* st, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = sm_count(dev, &sms);
@@ -513,19 +599,10 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                                 causal, scale, st, stream);
 }
 
-}  // namespace
-
-extern "C" {
-
-// q: (B, H, Sq, D), k / v: (B, H, Sk, D), all fp32 with a contiguous
-// last axis and 16-byte aligned rows; ``strides`` holds the (b, h, s)
-// element strides of q, k and v in that order. out: (B, H, Sq, D) and
-// lse: (B, H, Sq), contiguous fp32. Returns the cudaError_t of the
-// launch.
-int mxtt_flash_attention_fwd(const float* q, const float* k, const float* v,
-                             float* out, float* lse, int B, int H, int Sq,
-                             int D, int kv_len, int causal, float scale,
-                             const long long* strides, void* stream) {
+template <class T>
+int dispatch(const T* q, const T* k, const T* v, T* out, float* lse, int B,
+             int H, int Sq, int D, int kv_len, int causal, float scale,
+             const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * H == 0 || Sq == 0) return cudaSuccess;
   if ((Sq + kBlockQ - 1) / kBlockQ > 65535) return cudaErrorInvalidValue;
@@ -545,6 +622,34 @@ int mxtt_flash_attention_fwd(const float* q, const float* k, const float* v,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// q: (B, H, Sq, D), k / v: (B, H, Sk, D), all fp32 with a contiguous
+// last axis and 16-byte aligned rows; ``strides`` holds the (b, h, s)
+// element strides of q, k and v in that order. out: (B, H, Sq, D) and
+// lse: (B, H, Sq), contiguous fp32. Returns the cudaError_t of the
+// launch.
+int mxtt_flash_attention_fwd(const float* q, const float* k, const float* v,
+                             float* out, float* lse, int B, int H, int Sq,
+                             int D, int kv_len, int causal, float scale,
+                             const long long* strides, void* stream) {
+  return dispatch<float>(q, k, v, out, lse, B, H, Sq, D, kv_len, causal,
+                         scale, strides, stream);
+}
+
+// The bf16 instance: q, k, v and out bf16 (the same layouts, strides in
+// bf16 elements), lse fp32.
+int mxtt_flash_attention_fwd_bf16(const mxtt::bf16* q, const mxtt::bf16* k,
+                                  const mxtt::bf16* v, mxtt::bf16* out,
+                                  float* lse, int B, int H, int Sq, int D,
+                                  int kv_len, int causal, float scale,
+                                  const long long* strides, void* stream) {
+  return dispatch<mxtt::bf16>(q, k, v, out, lse, B, H, Sq, D, kv_len, causal,
+                              scale, strides, stream);
 }
 
 const char* mxtt_error_string(int code) {

@@ -1,23 +1,23 @@
-// K3 — decode attention over a PAGED KV cache, fp32 or int8, for Hopper
-// (sm_90a): a split-KV (flash-decoding) kernel in one launch, each
+// K3 — decode attention over a PAGED KV cache, fp32, int8 or bf16, for
+// Hopper (sm_90a): a split-KV (flash-decoding) kernel in one launch, each
 // (slot, head, group of query rows) split across a thread-block cluster.
 //
 // Replaces: mxnet_tpu/ops/attention.py paged_decode_attention_pallas
-// (kernel body _paged_decode_fwd_kernel -> _decode_fwd_kernel), both
-// variants: an fp32 pool, and an int8 pool with (n_pages, H) fp32
-// scales. Same function: every query row of slot b attends the slot's
-// keys [0, lengths[b]), where logical key t lives in pool page
+// (kernel body _paged_decode_fwd_kernel -> _decode_fwd_kernel), every
+// variant: an fp32 pool, an int8 pool with (n_pages, H) fp32 scales, and a
+// bf16 pool (widened in registers; q fp32 or bf16, a bf16 output, as K2's
+// bf16 instance). Same function: every query row of slot b attends the
+// slot's keys [0, lengths[b]), where logical key t lives in pool page
 // table[b, t / ps] at row t % ps (dequantized with that page's per-head
 // scales in the int8 instance); lengths[b] == 0 gives zeros. It equals
-// decode attention over the gathered (and dequantized) view
-// (gather_pages, expand_page_scales), which is the plain version it is
-// held to.
+// decode attention over the gathered (and dequantized) view (gather_pages,
+// expand_page_scales), which is the plain version it is held to.
 //
-// What bounds it on the H100: bytes. Each valid page's K and V rows of
-// one head are read once, 2 * sum(len) * H * D * 4 bytes per layer in
-// fp32 (a quarter of that in int8), plus q, the table and the output,
-// at one to four FLOP per byte; at 8 slots x 12 heads x lengths up to
-// 1024 that is 16 MB, 4.8 us at 3.35 TB/s.
+// What bounds it on the H100: bytes. Each valid page's K and V rows of one
+// head are read once, 2 * sum(len) * H * D * 4 bytes per layer in fp32
+// (half of that in bf16, a quarter in int8), plus q, the table and the
+// output, at one to four FLOP per byte; at 8 slots x 12 heads x lengths up
+// to 1024 that is 16 MB, 4.8 us at 3.35 TB/s.
 //
 // What the design does about it. The earlier kernel ran one block per
 // (slot, head): 96 blocks on 132 SMs, a few hundred bytes in flight per
@@ -37,7 +37,8 @@
 //   per page, loaded ahead of the copies so they do not queue behind
 //   them), and the page's K and V copies into shared memory with
 //   cp.async.bulk (the TMA's 1D form: one instruction per head page of
-//   ps x D contiguous elements, 4 KB fp32 or 1 KB int8 at 16 x 64), all
+//   ps x D contiguous elements, 4 KB fp32, 2 KB bf16 or 1 KB int8 at
+//   16 x 64), all
 //   completing on one mbarrier; 64 KB in flight per rank at the
 //   engine's fp32 shapes.
 // - The cluster body is split_decode.cuh's, shared with K2 (the dense
@@ -175,15 +176,18 @@ struct PagedRows {
   }
 };
 
+// q is fp32, or bf16 where q_bf16 (a bf16 pool only); out is
+// split_out_t<T>.
 template <int D, int NR, class T>
 __global__ void __launch_bounds__(mxtt::kSplitThreads,
-                                  mxtt::kSplitMinBlocks<T>)
-paged_split_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
+                                  mxtt::kSplitMinBlocks<T, NR>)
+paged_split_kernel(const void* __restrict__ q, int q_bf16,
+                   const T* __restrict__ k_pool,
                    const T* __restrict__ v_pool,
                    const float* __restrict__ k_scale,
                    const float* __restrict__ v_scale,
                    const int* __restrict__ table,
-                   const int* __restrict__ lengths, float* __restrict__ out,
+                   const int* __restrict__ lengths, void* __restrict__ out,
                    int H, int Sq, int ps, int P_max, int n_pages, int parts,
                    int upr, int batch, float scale, long long q_sb,
                    long long q_sh, long long q_ss) {
@@ -199,43 +203,46 @@ paged_split_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
                       table + (long long)b * P_max, lengths, b, h, H, ps,
                       P_max, n_pages, parts, unit, upr, batch, rank * upr};
   mxtt::split_decode<D, NR, T>(
-      src, q + b * q_sb + h * q_sh, q_ss, r0, min(NR, Sq - r0), upr * unit,
-      batch * unit, scale, out + (((long long)b * H + h) * Sq + r0) * D);
+      src, mxtt::q_at<T>(q, q_bf16, b * q_sb + h * q_sh), q_bf16, q_ss, r0,
+      min(NR, Sq - r0), upr * unit, batch * unit, scale,
+      static_cast<mxtt::split_out_t<T>*>(out) +
+          (((long long)b * H + h) * Sq + r0) * D);
 }
 
 template <int D, int NR, class T>
-cudaError_t launch_rows(const float* q, const T* k_pool, const T* v_pool,
-                        const float* k_scale, const float* v_scale,
-                        const int* table, const int* lengths, float* out,
-                        int B, int H, int Sq, int ps, int P_max, int n_pages,
-                        float scale, const long long* st,
-                        cudaStream_t stream) {
+cudaError_t launch_rows(const void* q, int q_bf16, const T* k_pool,
+                        const T* v_pool, const float* k_scale,
+                        const float* v_scale, const int* table,
+                        const int* lengths, void* out, int B, int H, int Sq,
+                        int ps, int P_max, int n_pages, float scale,
+                        const long long* st, cudaStream_t stream) {
   const Plan p = plan(P_max, ps, D, (int)sizeof(T), NR);
   return mxtt::launch_split<paged_split_kernel<D, NR, T>>(
-      dim3(H * p.S, B, (Sq + NR - 1) / NR), p.S, p.smem, stream, q, k_pool,
-      v_pool, k_scale, v_scale, table, lengths, out, H, Sq, ps, P_max,
+      dim3(H * p.S, B, (Sq + NR - 1) / NR), p.S, p.smem, stream, q, q_bf16,
+      k_pool, v_pool, k_scale, v_scale, table, lengths, out, H, Sq, ps, P_max,
       n_pages, p.parts, p.upr, p.batch, scale, st[0], st[1], st[2]);
 }
 
 template <int D, class T>
-cudaError_t launch(const float* q, const T* k_pool, const T* v_pool,
-                   const float* k_scale, const float* v_scale,
-                   const int* table, const int* lengths, float* out, int B,
-                   int H, int Sq, int ps, int P_max, int n_pages, float scale,
-                   const long long* st, cudaStream_t stream) {
+cudaError_t launch(const void* q, int q_bf16, const T* k_pool,
+                   const T* v_pool, const float* k_scale,
+                   const float* v_scale, const int* table, const int* lengths,
+                   void* out, int B, int H, int Sq, int ps, int P_max,
+                   int n_pages, float scale, const long long* st,
+                   cudaStream_t stream) {
   if (Sq == 1)
-    return launch_rows<D, 1, T>(q, k_pool, v_pool, k_scale, v_scale, table,
-                                lengths, out, B, H, Sq, ps, P_max, n_pages,
-                                scale, st, stream);
-  return launch_rows<D, 4, T>(q, k_pool, v_pool, k_scale, v_scale, table,
-                              lengths, out, B, H, Sq, ps, P_max, n_pages,
-                              scale, st, stream);
+    return launch_rows<D, 1, T>(q, q_bf16, k_pool, v_pool, k_scale, v_scale,
+                                table, lengths, out, B, H, Sq, ps, P_max,
+                                n_pages, scale, st, stream);
+  return launch_rows<D, 4, T>(q, q_bf16, k_pool, v_pool, k_scale, v_scale,
+                              table, lengths, out, B, H, Sq, ps, P_max,
+                              n_pages, scale, st, stream);
 }
 
 template <class T>
-int dispatch(const float* q, const T* k_pool, const T* v_pool,
+int dispatch(const void* q, int q_bf16, const T* k_pool, const T* v_pool,
              const float* k_scale, const float* v_scale, const int* table,
-             const int* lengths, float* out, int B, int H, int Sq, int D,
+             const int* lengths, void* out, int B, int H, int Sq, int D,
              int ps, int P_max, int n_pages, float scale,
              const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -243,17 +250,21 @@ int dispatch(const float* q, const T* k_pool, const T* v_pool,
   if (ps < 1 || P_max < 1 || n_pages < 1) return cudaErrorInvalidValue;
   switch (D) {
     case 16:
-      return launch<16>(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                        out, B, H, Sq, ps, P_max, n_pages, scale, strides, s);
+      return launch<16>(q, q_bf16, k_pool, v_pool, k_scale, v_scale, table,
+                        lengths, out, B, H, Sq, ps, P_max, n_pages, scale,
+                        strides, s);
     case 32:
-      return launch<32>(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                        out, B, H, Sq, ps, P_max, n_pages, scale, strides, s);
+      return launch<32>(q, q_bf16, k_pool, v_pool, k_scale, v_scale, table,
+                        lengths, out, B, H, Sq, ps, P_max, n_pages, scale,
+                        strides, s);
     case 64:
-      return launch<64>(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                        out, B, H, Sq, ps, P_max, n_pages, scale, strides, s);
+      return launch<64>(q, q_bf16, k_pool, v_pool, k_scale, v_scale, table,
+                        lengths, out, B, H, Sq, ps, P_max, n_pages, scale,
+                        strides, s);
     case 128:
-      return launch<128>(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                         out, B, H, Sq, ps, P_max, n_pages, scale, strides, s);
+      return launch<128>(q, q_bf16, k_pool, v_pool, k_scale, v_scale, table,
+                         lengths, out, B, H, Sq, ps, P_max, n_pages, scale,
+                         strides, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -274,9 +285,9 @@ int mxtt_paged_decode_attention(const float* q, const float* k_pool,
                                 int Sq, int D, int ps, int P_max, int n_pages,
                                 float scale, const long long* strides,
                                 void* stream) {
-  return dispatch<float>(q, k_pool, v_pool, nullptr, nullptr, table, lengths,
-                         out, B, H, Sq, D, ps, P_max, n_pages, scale, strides,
-                         stream);
+  return dispatch<float>(q, 0, k_pool, v_pool, nullptr, nullptr, table,
+                         lengths, out, B, H, Sq, D, ps, P_max, n_pages, scale,
+                         strides, stream);
 }
 
 // The int8 instance: k_pool / v_pool are contiguous (n_pages, H, ps, D)
@@ -288,9 +299,23 @@ int mxtt_paged_decode_attention_int8(
     const int* lengths, float* out, int B, int H, int Sq, int D, int ps,
     int P_max, int n_pages, float scale, const long long* strides,
     void* stream) {
-  return dispatch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                          out, B, H, Sq, D, ps, P_max, n_pages, scale, strides,
-                          stream);
+  return dispatch<int8_t>(q, 0, k_pool, v_pool, k_scale, v_scale, table,
+                          lengths, out, B, H, Sq, D, ps, P_max, n_pages, scale,
+                          strides, stream);
+}
+
+// The bf16 instance: k_pool / v_pool are contiguous (n_pages, H, ps, D)
+// bf16, 16-byte aligned; q is fp32, or bf16 where ``q_bf16`` is non-zero
+// (``strides`` in its elements); out: (B, H, Sq, D) contiguous bf16. The
+// rest as above.
+int mxtt_paged_decode_attention_bf16(
+    const void* q, int q_bf16, const mxtt::bf16* k_pool,
+    const mxtt::bf16* v_pool, const int* table, const int* lengths,
+    mxtt::bf16* out, int B, int H, int Sq, int D, int ps, int P_max,
+    int n_pages, float scale, const long long* strides, void* stream) {
+  return dispatch<mxtt::bf16>(q, q_bf16, k_pool, v_pool, nullptr, nullptr,
+                              table, lengths, out, B, H, Sq, D, ps, P_max,
+                              n_pages, scale, strides, stream);
 }
 
 const char* mxtt_error_string(int code) {

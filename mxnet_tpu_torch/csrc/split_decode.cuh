@@ -1,8 +1,9 @@
 // The split-KV decode-attention body that K2 (decode_attention.cu, a
 // dense cache) and K3 (paged_decode_attention.cu, a page pool) instance,
-// each in an fp32 and an int8 instance, and the Hopper primitives it is
-// built from: mbarriers, 1D bulk copies (cp.async.bulk), mapa, st.async
-// and the two halves of the cluster barrier.
+// each in an fp32, an int8 and a bf16 instance, and the Hopper
+// primitives it is built from: mbarriers, 1D bulk copies
+// (cp.async.bulk), mapa, st.async and the two halves of the cluster
+// barrier.
 //
 // One cluster of S <= kMaxRanks blocks computes NR query rows of one
 // (slot, head) against the slot's keys [0, len). Rank r owns the
@@ -40,10 +41,15 @@
 //   block-wide barrier in the loop: a key a lane for the scores
 //   (16-byte loads, columns rotated per lane so the lanes of a load
 //   phase hit different bank groups), then P.V with each lane on 4
-//   columns of every (32 / (D / 4))-th key (16-byte fp32 or 4-byte
-//   int8 loads along a row, p by shuffle). int8 is widened in registers
-//   by byte permutes; the K scale multiplies the score and the V scale
-//   p, once per key.
+//   columns of every (32 / (D / 4))-th key (16-byte fp32, 8-byte bf16
+//   or 4-byte int8 loads along a row, p by shuffle). int8 is widened in
+//   registers by byte permutes; the K scale multiplies the score and
+//   the V scale p, once per key. bf16 is widened by a shift, with no
+//   scale: every product and sum is fp32, so the bf16 instance equals
+//   the fp32 one on the widened cache.
+// - q and the output: q is read as fp32, or (bf16 instance, ``q_bf16``)
+//   as bf16 and widened; the bf16 instance writes its output rounded to
+//   bf16, the others fp32.
 // - Rows at or past the length never reach a sum: no score is computed
 //   for them and no V row of them is read (skipped, not multiplied by
 //   0: 0 x NaN is NaN), whether or not the source copied them.
@@ -62,6 +68,8 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace mxtt {
@@ -78,8 +86,29 @@ constexpr int kBudget = 112 * 1024;
 // its registers are left free (no spills); an int8 instance's rows take
 // a quarter of that, and five blocks an SM (at most 102 registers) timed
 // best of 1, 5, 6 and 8 (scripts/torch_kernel_ab.py, PERF.md).
+// A bf16 instance's rows take half an fp32 one's (32 KB at the engine's
+// shapes), so its one-row instances take the int8 rule; its four-row
+// instances spilled under that cap (96 registers) and take four blocks
+// (at most 128 registers).
+template <class T, int NR>
+constexpr int kSplitMinBlocks =
+    sizeof(T) == 4 ? 1 : (sizeof(T) == 2 && NR > 1 ? 4 : 5);
+
+// the output's element type: bf16 for a bf16 cache (the attended V's
+// type, as the reference's jnp path gives), fp32 otherwise
 template <class T>
-constexpr int kSplitMinBlocks = sizeof(T) == 1 ? 5 : 1;
+using split_out_t = std::conditional_t<sizeof(T) == 2, bf16, float>;
+
+// q of one (slot, head) at element offset ``off``: fp32, or bf16 where
+// ``q_bf16`` (a bf16 instance only)
+template <class T>
+__device__ __forceinline__ const void* q_at(const void* q, bool q_bf16,
+                                            long long off) {
+  if constexpr (sizeof(T) == 2) {
+    if (q_bf16) return static_cast<const bf16*>(q) + off;
+  }
+  return static_cast<const float*>(q) + off;
+}
 
 // ---- mbarrier and 1D bulk copies (cp.async.bulk, sm_90) -----------------
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -276,6 +305,33 @@ __device__ __forceinline__ void score_row(const int8_t* __restrict__ krow,
   for (int r = 0; r < NR; ++r) s[r] += t[r];
 }
 
+template <int D, int NR>
+__device__ __forceinline__ void score_row(const bf16* __restrict__ krow,
+                                          const float (&q_s)[NR][D], int rot,
+                                          float (&s)[NR]) {
+  static_assert(D % 8 == 0, "bf16 K rows are read 16 bytes at a time");
+  constexpr int C8 = D / 8;
+  float t[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) t[r] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < C8; ++c) {
+    const int cc = (c + rot) & (C8 - 1);
+    const uint4 raw = *reinterpret_cast<const uint4*>(krow + 8 * cc);
+    const float4 k0 = bf16x4_widen(make_uint2(raw.x, raw.y));
+    const float4 k1 = bf16x4_widen(make_uint2(raw.z, raw.w));
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      s[r] = dot4(*reinterpret_cast<const float4*>(&q_s[r][8 * cc]), k0,
+                  s[r]);
+      t[r] = dot4(*reinterpret_cast<const float4*>(&q_s[r][8 * cc + 4]), k1,
+                  t[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < NR; ++r) s[r] += t[r];
+}
+
 // 4 consecutive elements of a V row, widened to fp32
 __device__ __forceinline__ float4 load_v4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -285,25 +341,45 @@ __device__ __forceinline__ float4 load_v4(const int8_t* p) {
   return s8x4_widen(*reinterpret_cast<const unsigned*>(p));
 }
 
+__device__ __forceinline__ float4 load_v4(const bf16* p) {
+  return bf16x4_widen(*reinterpret_cast<const uint2*>(p));
+}
+
+// four consecutive query elements, fp32 or bf16, widened
+__device__ __forceinline__ float4 load_q4(const void* p, bool bf) {
+  return bf ? bf16x4_widen(__ldg(reinterpret_cast<const uint2*>(p)))
+            : load4(static_cast<const float*>(p));
+}
+
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+
+__device__ __forceinline__ void store_out(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
 // ---- the cluster body ----------------------------------------------------
-// qb: this (slot, head)'s first query row, q_ss its row stride; r0/nr:
-// the cluster's first query row and its count (<= NR); ob: the output
-// rows, contiguous (nr, D). Launched with kSplitThreads threads a block
-// in clusters along x.
-template <int D, int NR, class T, class Src>
+// qb: this (slot, head)'s first query row, q_ss its row stride, both in
+// elements of q's type (bf16 where ``q_bf16``, which only a bf16
+// instance takes; fp32 otherwise); r0/nr: the cluster's first query row
+// and its count (<= NR); ob: the output rows, contiguous (nr, D), fp32
+// or bf16. Launched with kSplitThreads threads a block in clusters
+// along x.
+template <int D, int NR, class T, class Src, class TO>
 __device__ __forceinline__ void split_decode(Src& src,
-                                             const float* __restrict__ qb,
-                                             long long q_ss, int r0, int nr,
+                                             const void* __restrict__ qb,
+                                             bool q_bf16, long long q_ss,
+                                             int r0, int nr,
                                              int rows_per_rank, int batch_rows,
                                              float scale,
-                                             float* __restrict__ ob) {
+                                             TO* __restrict__ ob) {
   constexpr bool kInt8 = sizeof(T) == 1;
+  constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kThreads = kSplitThreads;
   constexpr int kWarps = kSplitWarps;
   constexpr int C4 = D / 4;    // 4-column groups of a row
   constexpr int LPR = C4;      // P.V: lanes on one V row, 4 columns each
   constexpr int KPI = 32 / LPR;   // P.V: keys a warp takes per step
-  constexpr int kRot = kInt8 ? D / 16 : C4;
+  constexpr int kRot = kInt8 ? D / 16 : kBf16 ? D / 8 : C4;
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
   const int S = (int)cluster.num_blocks();
@@ -345,7 +421,15 @@ __device__ __forceinline__ void split_decode(Src& src,
       const int c = (i - r * C4) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < nr) {
-        x = load4(qb + (long long)(r0 + r) * q_ss + c);
+        const long long e = (long long)(r0 + r) * q_ss + c;
+        if constexpr (kBf16)
+          x = load_q4(q_bf16 ? static_cast<const void*>(
+                                   static_cast<const bf16*>(qb) + e)
+                             : static_cast<const void*>(
+                                   static_cast<const float*>(qb) + e),
+                      q_bf16);
+        else
+          x = load4(static_cast<const float*>(qb) + e);
         x.x *= scale;
         x.y *= scale;
         x.z *= scale;
@@ -541,7 +625,7 @@ __device__ __forceinline__ void split_decode(Src& src,
       float o = 0.f;
       for (int k = 0; k < n_active; ++k)
         o = fmaf(mrg_acc[k][r][d], mrg_m[k][r], o);
-      ob[i] = o * wst_l[0][r];
+      store_out(ob + i, o * wst_l[0][r]);
     }
   }
 }

@@ -1,5 +1,6 @@
 """GPT — the causal decoder family: dense and paged generation over an
-fp32 or int8 KV cache, with optional weight-only int8 projections.
+fp32, bf16 or int8 KV cache, with optional weight-only int8 projections,
+bf16 compute and multi-tick decode.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/gpt.py``: token plus learned
 position embedding, N pre-LayerNorm blocks (q/k/v/out projections, an
@@ -59,10 +60,28 @@ instance over an int8 cache; the int8 projections launch K4
 The chunked-prefill attention is plain PyTorch, as it is plain jnp in
 the reference.
 
-The reference's other generation modes (bf16 compute, LoRA, speculative
-verify, multi-tick decode, tensor-parallel sharding) are later slices; a
-bf16 model or cache raises ``NotImplementedError`` naming the ROADMAP.md
-item.
+``cast_compute_params("bfloat16")`` arms bf16 compute: every floating
+parameter gets a bf16 copy, which the generation calls read in place of
+the fp32 masters (bound per call and per thread, ``bind_shadows``); the
+masters stay the source of truth, and ``forward`` reads them. Types
+then flow as in the reference, tensor by tensor: bf16 activations,
+LayerNorm and softmax statistics in fp32, fp32 logits out; an int8
+projection widens its input to fp32 and gives fp32, which promotes the
+residual stream to fp32 from there on. ``init_cache``/
+``init_paged_cache(dtype="bfloat16")`` hold bf16 K/V (the cache
+default of a bf16 model), read by the bf16 instances of K2 and K3; K1
+runs its bf16 instance on bf16 q/k/v. ``GPTModel(dtype="bfloat16")``
+keeps bf16 parameters (LayerNorms fp32, as in the reference). float16
+compute raises ``NotImplementedError`` naming its ROADMAP.md item.
+
+``decode_multi``/``decode_multi_paged`` run k decode steps in one call
+with no host sync between them: a row stops on the device when it emits
+its eos id or spends its budget (its ``len`` then stands still, its
+write lands at the frozen waterline or in scrap page 0, it re-feeds its
+last token and its picks are masked out of ``emitted``).
+
+The reference's other generation modes (LoRA, speculative verify,
+tensor-parallel sharding) are later slices.
 """
 from __future__ import annotations
 
@@ -77,8 +96,9 @@ from ...context import resolve_device
 from ...ops import attention as _att
 from ...ops import quantized as _qz
 from ...ops import nn as _nn
+from ...ops import sampling as _smp
 from ..block import HybridBlock
-from ..parameter import Parameter
+from ..parameter import Parameter, bind_shadows
 from ..nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
 
 __all__ = ["GPTBlock", "GPTModel", "gpt_small", "load_jax_params"]
@@ -97,19 +117,26 @@ def _to_pages(a, page_size):
     return a[0].reshape(h, c // page_size, page_size, d).transpose(0, 1)
 
 
-def _cache_dtype(dtype):
-    """The cache's element type: float32 (the default) or int8; any
-    other layout is a later slice."""
+def _dtype_name(dtype) -> str:
+    """The name of a dtype given as a string, a numpy or a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
     try:
-        name = str(dtype).replace("torch.", "") \
-            if isinstance(dtype, torch.dtype) else onp.dtype(dtype).name
+        return onp.dtype(dtype).name
     except TypeError:
-        name = str(dtype)
-    if dtype is None or name == "float32":
-        return torch.float32
-    if name == "int8":
-        return torch.int8
-    raise not_ported(f"a {dtype} KV cache", "10 (bf16)")
+        return str(dtype)
+
+
+def _cache_dtype(dtype):
+    """The cache's element type: float32, bfloat16 or int8. A float16
+    cache would need float16 kernel instances (a later slice)."""
+    name = _dtype_name(dtype)
+    if name in ("float32", "bfloat16", "int8"):
+        return getattr(torch, name)
+    if name == "float16":
+        raise not_ported("a float16 KV cache", "10 (float16 compute)")
+    raise ValueError(f"unsupported KV cache dtype {dtype!r} (float32, "
+                     f"bfloat16 or int8)")
 
 
 def _write_quantized(pool, scales, a, idx):
@@ -147,8 +174,8 @@ class GPTBlock(HybridBlock):
         self.ffn2 = Dense(units, flatten=False, dtype=dtype, in_units=hidden)
         self.drop = Dropout(dropout) if dropout else None
         #: ``{proj_name: (int8 weight, fp32 scales)}`` while a generation
-        #: call of a quantized model runs (``GPTModel._quant_bound``);
-        #: None keeps every projection on its fp32 Dense
+        #: call of a quantized model runs (``GPTModel._bound``); None
+        #: keeps every projection on its Dense
         self._qbind = None
 
     def _split(self, x):
@@ -162,11 +189,13 @@ class GPTBlock(HybridBlock):
         return out.transpose(1, 2).reshape(b, s, h * d)
 
     def _proj(self, name, x):
-        """One projection: the fp32 Dense, or — when the bound quant
-        table carries ``name`` — the fused dequant-matmul over its int8
-        weight (K4 on the card, which adds the Dense's bias in its
-        epilogue). The activation follows the Dense's own, after the
-        product, so the two paths differ only in the weight rounding."""
+        """One projection: the Dense, or — when the bound quant table
+        carries ``name`` — the fused dequant-matmul over its int8 weight
+        (K4 on the card, which adds the Dense's bias in its epilogue).
+        The activation follows the Dense's own, after the product, so
+        the two paths differ only in the weight rounding. The int8 path
+        computes in fp32 whatever x's type (the reference casts x to
+        fp32), and a bf16 bias joins it widened, as jnp promotes it."""
         layer = getattr(self, name)
         q = self._qbind.get(name) if self._qbind else None
         if q is None:
@@ -318,9 +347,10 @@ class GPTModel(HybridBlock):
     def __init__(self, vocab_size, units=256, num_layers=4, num_heads=4,
                  hidden_size=None, max_length=256, dropout=0.0,
                  dtype="float32", device=None):
-        if str(dtype) != "float32":
+        if _dtype_name(dtype) == "float16":
             raise not_ported(f"GPTModel(dtype={dtype!r})",
-                             "10 (bf16 compute)")
+                             "10 (float16 compute)")
+        dtype = _dtype_name(dtype)
         dev = resolve_device(device)
         super().__init__()
         self._vocab_size = vocab_size
@@ -333,6 +363,9 @@ class GPTModel(HybridBlock):
         #: per-block ``{proj_name: (int8 weight, fp32 scales)}`` once
         #: ``quantize_params`` armed weight-only int8, else None
         self._quant = None
+        #: ``{Parameter: bf16 copy}`` once ``cast_compute_params`` armed
+        #: bf16 compute, else None
+        self._cast = None
         with dev:
             self.word_embed = Embedding(vocab_size, units, dtype=dtype)
             self.position_weight = Parameter(
@@ -383,6 +416,55 @@ class GPTModel(HybridBlock):
                 tab[name] = _qz.quantize_channelwise(layer.weight.data())
             tabs.append(tab)
         self._quant = tabs
+        if self._cast is not None:   # which biases it widens follows _quant
+            self.cast_compute_params("bfloat16")
+        return self
+
+    @property
+    def compute_dtype(self) -> str:
+        """The generation calls' parameter and activation type:
+        ``"float32"`` (the parameters as they are) or ``"bfloat16"``
+        once :meth:`cast_compute_params` armed it."""
+        return "bfloat16" if self._cast is not None else "float32"
+
+    def cast_compute_params(self, dtype="bfloat16"):
+        """Arm (or refresh) bf16 compute: cast every floating parameter
+        to bf16 into copies that the generation calls read in place of
+        the fp32 masters, which stay the source of truth (``forward``,
+        ``quantize_params`` and re-casts read them). Call it again after
+        changing the weights. LayerNorm and softmax statistics still
+        accumulate in fp32 and every generation call returns fp32
+        logits. Composes with an int8 KV cache and with weight-only int8
+        (the quantized projections keep their tables; the other
+        parameters are what this casts, and a quantized projection's
+        bias, which only its fp32 product reads, is held rounded to bf16
+        and widened back, so K4 adds it in its epilogue as jnp adds a
+        bf16 bias to an fp32 product). ``None`` disarms, after which
+        the generation calls are bitwise what they were. float16 (which
+        the reference's model accepts and its engine refuses) raises
+        ``NotImplementedError``: it needs float16 kernel instances.
+        Returns self."""
+        if dtype is None:
+            self._cast = None
+            return self
+        name = _dtype_name(dtype)
+        if name == "float16":
+            raise not_ported("cast_compute_params('float16')",
+                             "10 (float16 compute)")
+        if name != "bfloat16":
+            raise ValueError(f"compute dtype {dtype!r} not supported "
+                             f"(bfloat16 or float16)")
+        widened = {getattr(blk, n).bias for blk, tab in
+                   zip(self._blocks(), self._quant or ()) for n in tab}
+        cast = {}
+        for p in self.collect_params().values():
+            t = p.data()
+            if t.is_floating_point():
+                t = t.to(torch.bfloat16)
+                if p in widened:
+                    t = t.float()
+            cast[p] = t
+        self._cast = cast
         return self
 
     def quantized_param_stats(self):
@@ -397,21 +479,23 @@ class GPTModel(HybridBlock):
         return n, n * 3 - scale_bytes
 
     @contextlib.contextmanager
-    def _quant_bound(self):
-        """Bind each block's int8 tables for the duration of one
-        generation call (the reference's ``_make_bind`` quant binding);
-        an fp32 model binds nothing."""
-        if self._quant is None:
-            yield
-            return
-        blocks = self._blocks()
-        for blk, tab in zip(blocks, self._quant):
-            blk._qbind = tab
-        try:
-            yield
-        finally:
-            for blk in blocks:
-                blk._qbind = None
+    def _bound(self):
+        """Bind, for the duration of one generation call (the
+        reference's ``_make_bind``): the bf16 copies of the parameters
+        under bf16 compute (on this thread only), and each block's int8
+        tables. An fp32 model binds nothing."""
+        with bind_shadows(self._cast):
+            if self._quant is None:
+                yield
+                return
+            blocks = self._blocks()
+            for blk, tab in zip(blocks, self._quant):
+                blk._qbind = tab
+            try:
+                yield
+            finally:
+                for blk in blocks:
+                    blk._qbind = None
 
     def _blocks(self):
         return list(self.layers._modules.values())
@@ -461,7 +545,8 @@ class GPTModel(HybridBlock):
         """Preallocated fixed-shape KV cache for ``batch_size`` slots:
         ``{"k": tuple of L (B, H, S_max, Dh) tensors, "v": same, "len":
         (B,) int32}`` on the model's device, all zeros. ``prefill`` and
-        ``decode_step`` update it in place.
+        ``decode_step`` update it in place. ``dtype`` defaults to the
+        model's parameter type; ``"bfloat16"`` holds bf16 K/V.
 
         ``dtype="int8"`` allocates a QUANTIZED cache (a quarter of the
         K/V bytes of fp32) with ``k_scale``/``v_scale`` tuples of L
@@ -473,7 +558,7 @@ class GPTModel(HybridBlock):
             raise ValueError(
                 f"cache max_length {s} out of range (position table "
                 f"holds {self._max_length})")
-        dt = _cache_dtype(dtype)
+        dt = _cache_dtype(dtype if dtype is not None else self._dtype)
         b = int(batch_size)
         shape = (b, self._num_heads, s, self._head_dim)
         cache = {"k": self._zeros(shape, dt), "v": self._zeros(shape, dt),
@@ -518,8 +603,8 @@ class GPTModel(HybridBlock):
             dev, torch.int32).reshape(b)
         slots = torch.arange(b, device=dev) if slots is None else \
             torch.as_tensor(onp.asarray(slots)).to(dev, torch.long)
-        x = self._embed(tokens)
-        with self._quant_bound():
+        with self._bound():
+            x = self._embed(tokens)
             for blk, kc, vc, ks, vs in zip(self._blocks(), cache["k"],
                                            cache["v"],
                                            *self._kv_scales(cache)):
@@ -534,10 +619,10 @@ class GPTModel(HybridBlock):
                     idx = (slots, slice(None), slice(None, sb))
                     _write_quantized(kc, ks, k, idx)
                     _write_quantized(vc, vs, v, idx)
-        # logits of the LAST VALID prompt token (predicts token 1)
-        idx = (valid_len.long() - 1).clamp(0, sb - 1)
-        last = x[torch.arange(b, device=dev), idx][:, None, :]
-        logits = self.lm_head(self.ln_f(last))
+            # logits of the LAST VALID prompt token (predicts token 1)
+            idx = (valid_len.long() - 1).clamp(0, sb - 1)
+            last = x[torch.arange(b, device=dev), idx][:, None, :]
+            logits = self.lm_head(self.ln_f(last))
         cache["len"][slots] = valid_len
         return logits[:, 0, :].float(), cache
 
@@ -549,7 +634,16 @@ class GPTModel(HybridBlock):
         fp32 ``(B, vocab)`` next-token logits and the same cache,
         updated in place. Rows of free slots produce logits that callers
         ignore: the batch shape never changes with occupancy."""
-        tokens = self._as_tokens(tokens)
+        with self._bound():
+            return self._decode_body(self._as_tokens(tokens), cache)
+
+    def _decode_body(self, tokens, cache, live=None):
+        """One decode step's computation, under ``_bound`` (shared by
+        ``decode_step`` and ``decode_multi``'s loop). ``live`` (B,) bool,
+        when given, freezes dead rows: their ``len`` stands still, so
+        their (fixed-shape) cache write lands at the frozen waterline,
+        above which nothing is attended; without it every row
+        advances."""
         s_max = cache["k"][0].shape[2]
         ln = cache["len"]
         pos = ln.clamp(max=s_max - 1).long()   # clamped write position
@@ -558,14 +652,76 @@ class GPTModel(HybridBlock):
         x = (emb + self.position_weight.data()[pos])[:, None, :]
         if self.embed_drop is not None:
             x = self.embed_drop(x)
-        with self._quant_bound():
-            for blk, kc, vc, ks, vs in zip(self._blocks(), cache["k"],
-                                           cache["v"],
-                                           *self._kv_scales(cache)):
-                x, _, _ = blk.decode(x, kc, vc, pos, att_len, ks, vs)
+        for blk, kc, vc, ks, vs in zip(self._blocks(), cache["k"],
+                                       cache["v"], *self._kv_scales(cache)):
+            x, _, _ = blk.decode(x, kc, vc, pos, att_len, ks, vs)
         logits = self.lm_head(self.ln_f(x))    # (B, 1, V)
-        ln += 1
+        ln += 1 if live is None else live.to(torch.int32)
         return logits[:, 0, :].float(), cache
+
+    # -- multi-tick decode ---------------------------------------------
+    @torch.no_grad()
+    def decode_multi(self, tokens, budgets, cache, k, generators, temps,
+                     top_ks, top_ps, eos_ids):
+        """``k`` decode steps for every cache slot in one call, with no
+        host sync between them (the reference's fused scan). A row stops
+        on the device once it emits ``eos_ids[row]`` (-1: no eos) or its
+        ``budgets[row]`` runs out; a stopped row rides along in the
+        fixed-shape batch with its ``len`` frozen (its write lands at the
+        frozen waterline, never attended), re-feeds its last token, and
+        its picks are masked out of ``emitted``. A row whose budget is 0
+        on entry never runs (a free slot). Greedy rows (``temps <= 0``)
+        take the argmax of the raw logits, as ``decode_step``'s caller
+        does; when a row samples, every step calls
+        ``ops.sampling.sample_tokens``, which advances each sampled
+        row's ``generators[row]`` once per step, as one engine tick at
+        k = 1 does, so a seeded stream is the same for every k. The
+        knobs (``temps``, ``top_ks``, ``top_ps``, ``budgets``,
+        ``eos_ids``) are host arrays (B,). Returns ``(tokens (B, k)
+        int32, emitted (B, k) bool, generators, cache)``: row i emitted
+        ``tokens[i, :emitted[i].sum()]`` (the live mask is monotone);
+        the cache is updated in place."""
+        return self._multi(False, tokens, budgets, cache, k, generators,
+                           temps, top_ks, top_ps, eos_ids)
+
+    @torch.no_grad()
+    def decode_multi_paged(self, tokens, budgets, cache, k, generators,
+                           temps, top_ks, top_ps, eos_ids):
+        """Paged-cache :meth:`decode_multi`: the same steps and stop
+        rule, a stopped row's write redirected into scrap page 0 as
+        ``decode_step_paged`` does for an inactive row (``len`` frozen,
+        table untouched)."""
+        return self._multi(True, tokens, budgets, cache, k, generators,
+                           temps, top_ks, top_ps, eos_ids)
+
+    def _multi(self, paged, tokens, budgets, cache, k, generators, temps,
+               top_ks, top_ps, eos_ids):
+        dev = self.device
+        cur = self._as_tokens(tokens)
+        budget = torch.as_tensor(onp.asarray(budgets, "i4")).to(dev)
+        eos = torch.as_tensor(onp.asarray(eos_ids, "i4")).to(dev)
+        temps = onp.asarray(temps, "f4").reshape(-1)
+        sampled = bool((temps > 0).any())
+        live = budget > 0
+        toks, emits = [], []
+        with self._bound():
+            for _ in range(int(k)):
+                if paged:
+                    logits, cache = self._decode_body_paged(cur, live, cache)
+                else:
+                    logits, cache = self._decode_body(cur, cache, live)
+                tok = _smp.sample_tokens(generators, logits, temps, top_ks,
+                                         top_ps) if sampled \
+                    else logits.argmax(dim=-1)
+                # a stopped row re-feeds its last token
+                tok = torch.where(live, tok, cur)
+                emits.append(live)
+                budget = budget - live.to(torch.int32)
+                live = live & (tok != eos) & (budget > 0)
+                toks.append(tok)
+                cur = tok
+        return (torch.stack(toks, 1).to(torch.int32), torch.stack(emits, 1),
+                generators, cache)
 
     # -- paged-cache generation API ------------------------------------
     def init_paged_cache(self, batch_size, n_pages, page_size,
@@ -596,7 +752,7 @@ class GPTModel(HybridBlock):
         if int(n_pages) < 2:
             raise ValueError("n_pages must be >= 2 (page 0 is the "
                              "reserved scrap page)")
-        dt = _cache_dtype(dtype)
+        dt = _cache_dtype(dtype if dtype is not None else self._dtype)
         shape = (int(n_pages), self._num_heads, ps, self._head_dim)
         dev = self.device
         cache = {"k": self._zeros(shape, dt), "v": self._zeros(shape, dt),
@@ -651,7 +807,7 @@ class GPTModel(HybridBlock):
         page_ids = pages[start // ps:(start + w) // ps].long()
         layers = list(zip(self._blocks(), cache["k"], cache["v"],
                           *self._kv_scales(cache)))
-        with self._quant_bound():
+        with self._bound():
             if fresh:
                 x = self._embed(tokens)
                 for blk, kp, vp, ks, vs in layers:
@@ -672,8 +828,8 @@ class GPTModel(HybridBlock):
                 for blk, kp, vp, ks, vs in layers:
                     x = blk.prefill_chunk(x, kp, vp, pages, page_ids, start,
                                           ks, vs)
-        idx = min(max(n_valid - 1, 0), w - 1)
-        logits = self.lm_head(self.ln_f(x[:, idx:idx + 1]))
+            idx = min(max(n_valid - 1, 0), w - 1)
+            logits = self.lm_head(self.ln_f(x[:, idx:idx + 1]))
         cache["table"][slot] = pages
         cache["len"][slot] = start + n_valid
         return logits[:, 0, :].float(), cache
@@ -688,8 +844,16 @@ class GPTModel(HybridBlock):
         freed slot's table row may alias pages someone else owns).
         Returns ``(logits (B, V), cache)``, the cache updated in
         place."""
-        tokens = self._as_tokens(tokens)
         live = torch.as_tensor(onp.asarray(active)).to(self.device) > 0
+        with self._bound():
+            return self._decode_body_paged(self._as_tokens(tokens), live,
+                                           cache)
+
+    def _decode_body_paged(self, tokens, live, cache):
+        """One paged decode step's computation, under ``_bound`` (shared
+        by ``decode_step_paged`` and ``decode_multi_paged``'s loop):
+        ``live`` (B,) bool masks rows, whose writes go to scrap page 0
+        and whose ``len`` stands still."""
         ps = cache["k"][0].shape[2]
         table, ln = cache["table"], cache["len"]
         s_max = table.shape[1] * ps
@@ -709,12 +873,10 @@ class GPTModel(HybridBlock):
             :, None, :]
         if self.embed_drop is not None:
             x = self.embed_drop(x)
-        with self._quant_bound():
-            for blk, kp, vp, ks, vs in zip(self._blocks(), cache["k"],
-                                           cache["v"],
-                                           *self._kv_scales(cache)):
-                x = blk.decode_paged(x, kp, vp, table, page, offset, att_len,
-                                     ks, vs, prev_page)
+        for blk, kp, vp, ks, vs in zip(self._blocks(), cache["k"],
+                                       cache["v"], *self._kv_scales(cache)):
+            x = blk.decode_paged(x, kp, vp, table, page, offset, att_len,
+                                 ks, vs, prev_page)
         logits = self.lm_head(self.ln_f(x))
         ln += live.to(torch.int32)
         return logits[:, 0, :].float(), cache
@@ -729,17 +891,17 @@ class GPTModel(HybridBlock):
         ln = cache["len"][slot:slot + 1]
         pos = (ln - 1).long()
         tok = self._as_tokens([int(token)])
-        x = (self.word_embed(tok) + self.position_weight.data()[pos])[
-            :, None, :]
-        if self.embed_drop is not None:
-            x = self.embed_drop(x)
         table1 = cache["table"][slot:slot + 1]
-        with self._quant_bound():
+        with self._bound():
+            x = (self.word_embed(tok) + self.position_weight.data()[pos])[
+                :, None, :]
+            if self.embed_drop is not None:
+                x = self.embed_drop(x)
             for blk, kp, vp, ks, vs in zip(self._blocks(), cache["k"],
                                            cache["v"],
                                            *self._kv_scales(cache)):
                 x = blk.peek_paged(x, kp, vp, table1, ln, ks, vs)
-        return self.lm_head(self.ln_f(x))[0, 0].float()
+            return self.lm_head(self.ln_f(x))[0, 0].float()
 
     @torch.no_grad()
     def bind_slot_paged(self, slot, pages, length, cache):

@@ -5,23 +5,48 @@ named, shaped, typed tensor with ``data()`` and ``set_data``. The
 tensor itself is a ``torch.nn.Parameter`` registered on the owning
 ``HybridBlock`` (an ``nn.Module``) under the same attribute name, so
 ``Module.to(device)`` moves it and ``state_dict`` sees it; ``data()``
-always reads the owner's current tensor.
+always reads the owner's current tensor — or, inside
+``bind_shadows``, on the binding thread, the tensor bound in its place
+(the GPT model's bf16 compute copies).
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as onp
 import torch
 
-__all__ = ["Parameter"]
+__all__ = ["Parameter", "bind_shadows"]
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """The slice is fp32 throughout: "float32" (or its numpy / torch
-    spelling) is the one dtype a parameter takes."""
+    """A parameter is float32 (the default) or bfloat16, in the numpy,
+    torch or string spelling."""
     if dtype in ("float32", onp.float32, torch.float32):
         return torch.float32
-    raise TypeError(f"unsupported parameter dtype {dtype!r} (the port "
-                    f"is fp32; bf16 is ROADMAP.md queue 1, item 10)")
+    if dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise TypeError(f"unsupported parameter dtype {dtype!r} (float32 or "
+                    f"bfloat16)")
+
+
+#: this thread's ``{Parameter: tensor}`` binding, or None
+_BOUND = threading.local()
+
+
+@contextlib.contextmanager
+def bind_shadows(mapping):
+    """Within the block, on this thread only, ``data()`` of every
+    parameter in ``mapping`` returns its tensor there instead of the
+    parameter's own; ``None`` binds nothing. Other threads keep reading
+    the parameters themselves."""
+    prev = getattr(_BOUND, "map", None)
+    _BOUND.map = mapping
+    try:
+        yield
+    finally:
+        _BOUND.map = prev
 
 
 class Parameter:
@@ -53,6 +78,11 @@ class Parameter:
             raise RuntimeError(
                 f"Parameter '{self.name}' has not been initialized: call "
                 f"initialize() on the model or set_data() first")
+        bound = getattr(_BOUND, "map", None)
+        if bound:
+            shadow = bound.get(self)
+            if shadow is not None:
+                return shadow
         return self._var()
 
     def set_data(self, value):

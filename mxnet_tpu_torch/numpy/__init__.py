@@ -145,6 +145,21 @@ def _int64_route(tfn, res=None):
     return f
 
 
+def _bool_route(tfn, res=None):
+    """``tfn`` of one tensor (further arguments passed on) where torch
+    refuses a bool input (``relu``, ``abs``, ``argmax``/``argmin``,
+    ``topk``): a bool tensor is computed on as int32, and the result is
+    cast to ``res`` when given (``abs`` gives the bool input back, as
+    the reference does) or else keeps the dtype ``tfn`` gives it
+    (``relu`` int32, an index its own)."""
+    def f(x, *args):
+        if x.dtype != torch.bool:
+            return tfn(x, *args)
+        r = tfn(x.to(torch.int32), *args)
+        return r if res is None else r.to(res)
+    return f
+
+
 def _binary(tfn, a, b, out=None, name=None):
     a, b = _coerce(a), _coerce(b)
     res = _unsigned_result(a, b)
@@ -404,7 +419,7 @@ def _abs(x):
     return torch.abs(x)
 
 
-abs = _mkunary(_abs, "abs")
+abs = _mkunary(_bool_route(_abs, torch.bool), "abs")
 absolute = abs
 sign = _mkunary(torch.sign, "sign")
 square = _mkunary(torch.square, "square")
@@ -536,13 +551,15 @@ amin = min
 
 
 def argmax(a, axis=None, out=None):
-    return _unary(_int64_route(lambda x: torch.argmax(x, dim=axis),
-                               torch.int64), a, out=out, name="argmax")
+    return _unary(_bool_route(_int64_route(
+        lambda x: torch.argmax(x, dim=axis), torch.int64)), a, out=out,
+        name="argmax")
 
 
 def argmin(a, axis=None, out=None):
-    return _unary(_int64_route(lambda x: torch.argmin(x, dim=axis),
-                               torch.int64), a, out=out, name="argmin")
+    return _unary(_bool_route(_int64_route(
+        lambda x: torch.argmin(x, dim=axis), torch.int64)), a, out=out,
+        name="argmin")
 
 
 # ---------------------------------------------------------------------------

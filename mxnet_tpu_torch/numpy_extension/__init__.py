@@ -37,8 +37,10 @@ def _c(x):
 # activations
 # ---------------------------------------------------------------------------
 def relu(data, **kwargs):
-    from ..numpy import _int64_route
-    return apply_op(_int64_route(torch.relu), _c(data), name="relu")
+    from ..numpy import _bool_route, _int64_route
+    # a bool input gives int32, as in the reference
+    return apply_op(_bool_route(_int64_route(torch.relu)), _c(data),
+                    name="relu")
 
 
 def sigmoid(data, **kwargs):
@@ -129,11 +131,19 @@ def topk(data, k=1, axis=-1, ret_typ="indices", is_ascend=False,
     def f(x):
         ax = axis % x.dim()
         src = x.dtype
-        # torch ranks no uint16/32/64: rank their int64 values
+        # torch ranks no uint16/32/64 and no bool: rank their int64
+        # (int32) values
         xm = x.movedim(ax, -1)
         if src in _WIDE_UNSIGNED:
             xm = xm.to(torch.int64)
-        if is_ascend:
+        elif src == torch.bool:
+            xm = xm.to(torch.int32)
+        if src == torch.bool and not is_ascend:
+            # a bool axis is mostly ties: the reference's top_k keeps
+            # the lower index first, as a stable descending sort does
+            vals, idx = torch.sort(xm, dim=-1, descending=True, stable=True)
+            vals, idx = vals[..., :k], idx[..., :k]
+        elif is_ascend:
             # bottom-k by a stable ascending sort, as the reference
             vals, idx = torch.sort(xm, dim=-1, stable=True)
             vals, idx = vals[..., :k], idx[..., :k]

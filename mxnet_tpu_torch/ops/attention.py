@@ -8,10 +8,11 @@ that the reference ran as a Pallas kernel has a plain PyTorch version
 ``_decode_fwd_torch``) and a CUDA kernel written for Hopper
 (``csrc/flash_attention.cu``, ``csrc/decode_attention.cu``,
 ``csrc/paged_decode_attention.cu``). The two decode kernels come in an
-fp32 and an int8 instance: an int8 cache (``k_scale``/``v_scale``
-given) is dequantized before the masked softmax in the plain version
-and in registers, after the int8 load, in the kernel. The public
-functions dispatch on
+fp32, an int8 and a bf16 instance: an int8 cache (``k_scale``/
+``v_scale`` given) is dequantized before the masked softmax in the
+plain version and in registers, after the int8 load, in the kernel; a
+bf16 cache is read as bf16 and widened in registers. K1 comes in an
+fp32 and a bf16 instance. The public functions dispatch on
 the device of their inputs: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises — there is no fallback from
 the kernel to the plain version. ``chunked_prefill_attention`` is plain
@@ -21,6 +22,16 @@ All shapes are (batch, heads, seq, head_dim). ``kv_len`` means "only
 the first kv_len entries of the key/value buffer are real": keys at or
 past it never receive attention mass, and the causal diagonal is
 end-aligned against the valid prefix (``offset = kv_len - seq_q``).
+
+Types follow the reference's jnp path, which the plain versions are:
+bf16 scores and P where q and K are bf16, an output in q's type from
+flash attention (lse fp32), and an output in the attended V's type from
+the decode paths (bf16 for a bf16 cache, fp32 for an fp32 or int8 one);
+mixed operands promote as jnp does (fp32 q against a bf16 cache scores
+in fp32). The kernels compute in fp32 from the widened inputs, which
+the reference's Pallas kernels do too, and round the output to the same
+type as the plain version. No wrapper widens a cache to call an fp32
+instance: a dtype without an instance raises.
 
 Numerical rules kept from the reference: the masked score is
 ``NEG_INF = -1e30`` (finite, never -inf), p is re-masked to 0 after
@@ -51,9 +62,11 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 #: launches of each CUDA kernel since the last reset — bumped by the
 #: wrappers right where they launch, and nowhere else
-_launches = {"flash_attention_fwd": 0, "decode_attention": 0,
-             "decode_attention_int8": 0, "paged_decode_attention": 0,
-             "paged_decode_attention_int8": 0}
+_launches = {"flash_attention_fwd": 0, "flash_attention_fwd_bf16": 0,
+             "decode_attention": 0, "decode_attention_int8": 0,
+             "decode_attention_bf16": 0, "paged_decode_attention": 0,
+             "paged_decode_attention_int8": 0,
+             "paged_decode_attention_bf16": 0}
 
 
 def launch_counts() -> dict:
@@ -130,9 +143,9 @@ def _blockwise_fwd(q, k, v, causal, scale, block=512, kv_len=None):
 def _kernel_strides(name, x, ndim=4):
     """The (b, h, s) element strides of ``x`` for a kernel that reads
     rows with 16-byte loads: the last axis must be contiguous, the base
-    16-byte aligned and every row start 16 bytes after the last (4 fp32
-    or 16 int8 elements). Any other layout raises — the wrappers never
-    copy an input."""
+    16-byte aligned and every row start 16 bytes after the last (4 fp32,
+    8 bf16 or 16 int8 elements). Any other layout raises — the wrappers
+    never copy an input."""
     if x.dim() != ndim:
         raise ValueError(f"{name}: expected a {ndim}-d tensor, got shape "
                          f"{tuple(x.shape)}")
@@ -147,15 +160,23 @@ def _kernel_strides(name, x, ndim=4):
     return st[:-1]
 
 
-def _check_cuda_f32(name, *tensors):
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
+#: the element types the kernels have instances for
+_KERNEL_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _check_flash_inputs(name, q, k, v):
+    """q, k and v on one device, all fp32 or all bf16 (K1's two
+    instances); returns that dtype."""
+    for t in (k, v):
+        if t.device != q.device:
             raise ValueError(f"{name}: inputs on different devices "
-                             f"({dev} vs {t.device})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32 inputs, got "
-                            f"{t.dtype}")
+                             f"({q.device} vs {t.device})")
+    if q.dtype not in _KERNEL_FLOATS or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16 "
+                        f"q, k and v of one type, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    return q.dtype
 
 
 #: q, k, v, out, lse; B, H, Sq, D, kv_len, causal; scale; strides; stream
@@ -168,12 +189,15 @@ _FLASH_BLOCK_Q, _GRID_Y_MAX = 32, 65535
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale, kv_len):
-    """Launch K1 (``csrc/flash_attention.cu``). q/k/v may be strided
-    views — the prefill's come straight out of the head split's
-    transpose — as long as each row is contiguous and 16-byte aligned;
-    their strides are passed to the kernel and nothing is copied."""
-    name = "flash_attention_fwd"
-    _check_cuda_f32(name, q, k, v)
+    """Launch K1 (``csrc/flash_attention.cu``): its fp32 instance, or
+    its bf16 instance on bf16 q/k/v (a bf16 output, lse fp32). q/k/v
+    may be strided views — the prefill's come straight out of the head
+    split's transpose — as long as each row is contiguous and 16-byte
+    aligned; their strides are passed to the kernel and nothing is
+    copied."""
+    bf16 = _check_flash_inputs("flash_attention_fwd", q, k, v) \
+        == torch.bfloat16
+    name = "flash_attention_fwd_bf16" if bf16 else "flash_attention_fwd"
     b, h, sq, d = q.shape
     if k.shape[:2] != (b, h) or k.shape[-1] != d or v.shape != k.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
@@ -184,10 +208,9 @@ def _flash_fwd_cuda(q, k, v, causal, scale, kv_len):
         raise ValueError(f"{name}: {sq} query rows exceed the grid")
     strides = _Strides9(*_kernel_strides(name, q), *_kernel_strides(name, k),
                         *_kernel_strides(name, v))
-    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _build.function("flash_attention", "mxtt_flash_attention_fwd",
-                         _FLASH_ARGTYPES)
+    fn = _build.function("flash_attention", f"mxtt_{name}", _FLASH_ARGTYPES)
     err = _build.launch_on(q, fn, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, h, sq, d, kv_len, int(bool(causal)),
@@ -246,8 +269,11 @@ def _masked_attend(q, k, v, valid, scale):
     """Single-pass masked-softmax attention with the two guards the
     cache paths need: RE-MASK after the exp (a fully-masked row's
     scores are all NEG_INF, so exp(s - m) would be 1 across the board)
-    and an l_safe denominator (an empty slot returns zeros, not NaN)."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    and an l_safe denominator (an empty slot returns zeros, not NaN).
+    q and k of two float types promote as jnp promotes them; p takes
+    v's type, and so does the result."""
+    dt = torch.promote_types(q.dtype, k.dtype)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(dt), k.to(dt)).float() * scale
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
@@ -270,9 +296,9 @@ def _decode_fwd_torch(q, k, v, lengths, scale):
 
 
 def _check_decode_inputs(name, q, k, v, k_scale, v_scale, scale_rows):
-    """The checks K2 and K3 share: every input on q's device, q fp32,
-    K/V fp32 — or, with scales, int8 K/V and contiguous
-    (``scale_rows``, H) fp32 scales."""
+    """The checks K2 and K3 share: every input on q's device, q fp32 or
+    bf16, K/V both fp32 or both bf16 — or, with scales, int8 K/V and
+    contiguous (``scale_rows``, H) fp32 scales."""
     quant = k_scale is not None
     if quant != (v_scale is not None):
         raise ValueError(f"{name}: k_scale and v_scale come together")
@@ -281,14 +307,13 @@ def _check_decode_inputs(name, q, k, v, k_scale, v_scale, scale_rows):
         if t.device != q.device:
             raise ValueError(f"{name}: inputs on different devices "
                              f"({q.device} vs {t.device})")
-    if q.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32 queries, got "
-                        f"{q.dtype}")
-    want = torch.int8 if quant else torch.float32
-    for t in (k, v):
-        if t.dtype != want:
-            raise TypeError(f"{name}: the kernel takes {want} K/V here, "
-                            f"got {t.dtype}")
+    if q.dtype not in _KERNEL_FLOATS:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16 "
+                        f"queries, got {q.dtype}")
+    want = (torch.int8,) if quant else _KERNEL_FLOATS
+    if k.dtype not in want or v.dtype != k.dtype:
+        raise TypeError(f"{name}: the kernel takes K/V of one type in "
+                        f"{want} here, got {k.dtype} and {v.dtype}")
     if quant:
         shape = (scale_rows, q.shape[1])
         for t in (k_scale, v_scale):
@@ -312,18 +337,36 @@ _DECODE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
 #: the int8 instance: q, k, v, k_scale, v_scale, lengths, out; the rest
 _DECODE_INT8_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+#: the bf16 instance: q, q_bf16, k, v, lengths, out; the rest
+_DECODE_BF16_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [
+    ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _decode_instance(kind, q, k_dtype):
+    """The decode kernel instance for a cache of ``k_dtype``: its name,
+    the query it reads and the output's type. The bf16 instance reads
+    an fp32 or bf16 q as it is and writes bf16 (the attended V's type);
+    the fp32 and int8 instances read fp32, so a bf16 q is widened
+    first (exact), and write fp32."""
+    if k_dtype == torch.bfloat16:
+        return f"{kind}_bf16", q, torch.bfloat16
+    if q.dtype != torch.float32:
+        q = q.float()
+    return (f"{kind}_int8" if k_dtype == torch.int8 else kind), q, \
+        torch.float32
 
 
 def _decode_cuda(q, k, v, lengths, scale, k_scale=None, v_scale=None):
-    """Launch K2 (``csrc/decode_attention.cu``): its fp32 instance, or
-    with ``k_scale``/``v_scale`` (B, H) its int8 instance over an int8
-    cache. q may be a strided view (the decode step's head split); k/v
+    """Launch K2 (``csrc/decode_attention.cu``): the instance of the
+    cache's type — fp32, bf16, or with ``k_scale``/``v_scale`` (B, H)
+    int8. q may be a strided view (the decode step's head split); k/v
     are the cache buffers; lengths is a (B,) int32 tensor on the same
     card."""
     quant = k_scale is not None
-    name = "decode_attention_int8" if quant else "decode_attention"
     b, h, sq, d = q.shape
-    _check_decode_inputs(name, q, k, v, k_scale, v_scale, b)
+    _check_decode_inputs("decode_attention", q, k, v, k_scale, v_scale, b)
+    name, q, out_dtype = _decode_instance("decode_attention", q, k.dtype)
     if k.shape[:2] != (b, h) or k.shape[-1] != d or v.shape != k.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
@@ -339,13 +382,17 @@ def _decode_cuda(q, k, v, lengths, scale, k_scale=None, v_scale=None):
         raise ValueError(f"{name}: batch {b} / queries {sq} exceed the grid")
     strides = _Strides9(*_kernel_strides(name, q), *_kernel_strides(name, k),
                         *_kernel_strides(name, v))
-    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, sq, d), dtype=out_dtype, device=q.device)
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quant else ()
+    bf16 = out_dtype == torch.bfloat16
+    q_args = (q.data_ptr(), int(q.dtype == torch.bfloat16)) if bf16 \
+        else (q.data_ptr(),)
     fn = _build.function(
         "decode_attention", f"mxtt_{name}",
-        _DECODE_INT8_ARGTYPES if quant else _DECODE_ARGTYPES)
+        _DECODE_BF16_ARGTYPES if bf16
+        else _DECODE_INT8_ARGTYPES if quant else _DECODE_ARGTYPES)
     err = _build.launch_on(q, fn, (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
+        *q_args, k.data_ptr(), v.data_ptr(), *scales,
         lengths.data_ptr(), out.data_ptr(), b, h, sq, k.shape[2], d,
         float(scale), ctypes.addressof(strides)))
     _launches[name] += 1
@@ -365,9 +412,11 @@ def decode_attention(q, k, v, lengths, scale=None, k_scale=None,
     fixed-shape batch) returns zeros.
 
     ``k_scale``/``v_scale`` (B, H) fp32 mark an INT8 cache: the stored
-    int8 K/V dequantize with each slot's per-head scale. CUDA inputs
-    launch K2 (its int8 instance for an int8 cache); CPU inputs take the
-    plain version (dequantize, then ``_decode_fwd_torch``)."""
+    int8 K/V dequantize with each slot's per-head scale. A bf16 cache
+    gives a bf16 result, an fp32 or int8 one fp32 (the module's type
+    rule). CUDA inputs launch K2 (the instance of the cache's type); CPU
+    inputs take the plain version (dequantize, then
+    ``_decode_fwd_torch``)."""
     scale = _scale(q, scale)
     if not torch.is_tensor(lengths):
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
@@ -412,20 +461,24 @@ _PAGED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
 #: lengths, out; the rest
 _PAGED_INT8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+#: the bf16 instance: q, q_bf16, k_pool, v_pool, table, lengths, out;
+#: the rest
+_PAGED_BF16_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [
+    ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale,
                        k_scale=None, v_scale=None):
-    """Launch K3 (``csrc/paged_decode_attention.cu``): its fp32
-    instance, or with ``k_scale``/``v_scale`` (n_pages, H) its int8
-    instance over an int8 pool. q may be a strided view (the decode
-    step's head split); the pools must be contiguous (n_pages, H, ps,
-    D) and 16-byte aligned; table (B, P_max) and lengths (B,)
-    contiguous int32, all on one card. Anything else raises — nothing
-    is copied."""
+    """Launch K3 (``csrc/paged_decode_attention.cu``): the instance of
+    the pool's type — fp32, bf16, or with ``k_scale``/``v_scale``
+    (n_pages, H) int8. q may be a strided view (the decode step's head
+    split); the pools must be contiguous (n_pages, H, ps, D) and 16-byte
+    aligned; table (B, P_max) and lengths (B,) contiguous int32, all on
+    one card. Anything else raises — nothing is copied but a bf16 q for
+    the fp32 and int8 instances, which read fp32."""
     quant = k_scale is not None
-    name = "paged_decode_attention_int8" if quant \
-        else "paged_decode_attention"
+    name = "paged_decode_attention"
     b, h, sq, d = q.shape
     if k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
             or (k_pool.shape[1], k_pool.shape[3]) != (h, d):
@@ -453,14 +506,19 @@ def _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if b > 65535 or sq > 65535 * 4:
         raise ValueError(f"{name}: batch {b} / queries {sq} exceed the grid")
+    name, q, out_dtype = _decode_instance(name, q, k_pool.dtype)
     q_strides = (ctypes.c_longlong * 3)(*_kernel_strides(name, q))
-    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, sq, d), dtype=out_dtype, device=q.device)
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quant else ()
+    bf16 = out_dtype == torch.bfloat16
+    q_args = (q.data_ptr(), int(q.dtype == torch.bfloat16)) if bf16 \
+        else (q.data_ptr(),)
     fn = _build.function(
         "paged_decode_attention", f"mxtt_{name}",
-        _PAGED_INT8_ARGTYPES if quant else _PAGED_ARGTYPES)
+        _PAGED_BF16_ARGTYPES if bf16
+        else _PAGED_INT8_ARGTYPES if quant else _PAGED_ARGTYPES)
     err = _build.launch_on(q, fn, (
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+        *q_args, k_pool.data_ptr(), v_pool.data_ptr(), *scales,
         table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, sq, d,
         ps, table.shape[1], n_pages, float(scale),
         ctypes.addressof(q_strides)))
@@ -486,7 +544,8 @@ def paged_decode_attention(q, k_pool, v_pool, table, lengths, scale=None,
     ``k_scale``/``v_scale`` (n_pages, H) fp32 mark an INT8 pool: the
     plain version dequantizes the gathered view with each page's
     per-head scale (``expand_page_scales``); K3's int8 instance
-    dequantizes each key in registers with its page's scales."""
+    dequantizes each key in registers with its page's scales. A bf16
+    pool gives a bf16 result and runs K3's bf16 instance on the card."""
     scale = _scale(q, scale)
     if not torch.is_tensor(lengths):
         lengths = torch.as_tensor(lengths, dtype=torch.int32,

@@ -19,10 +19,16 @@ __all__ = ["fully_connected", "accum_dtype", "layer_norm", "gelu",
 
 
 def fully_connected(x, weight, bias=None, flatten=True):
-    """y = x @ W^T + b, weight layout (out_units, in_units)."""
+    """y = x @ W^T + b, weight layout (out_units, in_units). Operands of
+    two float types promote as jnp promotes them (an fp32 activation
+    against a bf16 weight computes in fp32)."""
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
-    return F.linear(x, weight, bias)
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    if bias is not None:
+        dt = torch.promote_types(dt, bias.dtype)
+        bias = bias.to(dt)
+    return F.linear(x.to(dt), weight.to(dt), bias)
 
 
 def accum_dtype(dtype):

@@ -1,6 +1,7 @@
 """GenerationEngine — slot-based continuous batching for autoregressive
 decoding, greedy or sampled per request, over a dense or a paged KV
-cache (fp32 or int8), with fp32 or weight-only int8 projections.
+cache (fp32, bf16 or int8), with fp32, bf16 or weight-only int8
+projections, one or k decode steps per host sync.
 
 Counterpart of ``mxnet_tpu/serving/generate.py``'s single-step engine.
 Iteration-level scheduling (Orca, OSDI'22; vLLM's continuous batching)
@@ -60,17 +61,29 @@ weight-only int8 projections (``GPTModel.quantize_params``);
 ``kv_dtype="int8"`` (alias ``cache_dtype="int8"``, dense or paged)
 keeps the KV cache as int8 with per-head scales (per slot, or per page)
 and decodes through the int8 instances of the decode kernels.
+``compute_dtype="bfloat16"`` arms the model's bf16 compute
+(``GPTModel.cast_compute_params``: bf16 copies of the fp32 masters,
+fp32 statistics and logits) and defaults the KV cache to bf16; it
+composes with ``kv_dtype="int8"`` and ``quantize="int8_weights"``.
+``decode_ticks=k`` runs k decode steps per engine tick
+(``GPTModel.decode_multi``): eos and budget stops happen on the device,
+and the tick's (B, k) tokens and their emission mask reach the host in
+one sync; greedy output is the same as at k = 1, seeded sampled streams
+too, and deadlines and evictions act once per tick.
 ``load_weights`` swaps the model's weights in place between steps
-(re-quantizing an int8 engine's tables inside the swap).
+(re-quantizing an int8 engine's tables and re-casting a bf16 engine's
+copies inside the swap).
 
-The reference engine's other modes — speculative decoding, multi-tick
-decode, bf16 compute, LoRA and tensor parallelism, and weight rollover
-from a checkpoint path — are later slices of the port; asking for one
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+The reference engine's other modes — speculative decoding, LoRA and
+tensor parallelism, float16 compute, and weight rollover from a
+checkpoint path — are later slices of the port; asking for one raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 Telemetry: counters ``serving.generate.{requests,tokens,prefills,
 evictions,rejected_full,rejected_closed,timeouts,errors,host_syncs,
-dispatches,weight_swaps,sampling.requests}``, in paged mode
+dispatches,weight_swaps,sampling.requests}`` (one host sync and one
+dispatch per decode tick, whatever k), the gauge
+``serving.generate.ticks_per_sync`` (k), in paged mode
 ``serving.generate.{prefix_hits,prefill_chunks}`` and
 ``serving.generate.pages.{allocated,shared,cow_copies,freed}``, with
 ``quantize`` ``serving.generate.quant.{params,bytes_saved}``; gauges
@@ -79,7 +92,8 @@ int8 KV cache ``serving.generate.quant.kv_bytes_per_slot``, in paged
 mode ``serving.generate.pages.free`` and
 ``serving.generate.prefill_chunks_per_iter``; histograms
 ``serving.generate.{queue_wait,prefill,decode,ttft,swap}`` and
-``serving.generate.quant.{quantize,requantize}``. The ``prefill``
+``serving.generate.quant.{quantize,requantize}`` and
+``serving.generate.cast.{cast,recast}``. The ``prefill``
 and ``decode`` histograms end at the host's read of the step's tokens,
 so on the card they include the device time (PyTorch returns before
 the device finishes; the reference's XLA histograms timed the
@@ -185,14 +199,22 @@ class GenerationStream:
 
     # -- producer side (generator thread) ------------------------------
     def _emit(self, token: int):
+        self._emit_many((token,))
+
+    def _emit_many(self, tokens):
+        """Append a sequence of tokens (a multi-tick block) under one
+        lock and one wakeup."""
+        if not tokens:
+            return
         with self._cv:
             if self._reason is not None or self._exc is not None:
                 return  # finished streams take no more tokens
             if not self._tokens:
                 self.first_token_at = time.perf_counter()
-            self._tokens.append(int(token))
+            self._tokens.extend(int(t) for t in tokens)
             if self._trace is not None:
-                self._trace.event("emit", n=1, total=len(self._tokens))
+                self._trace.event("emit", n=len(tokens),
+                                  total=len(self._tokens))
             self._cv.notify_all()
 
     def _finish(self, reason=None, exc=None):
@@ -443,11 +465,18 @@ class GenerationEngine:
     kv_dtype : str, optional
         ``"int8"`` keeps the KV cache (dense or paged) as int8 with
         fp32 per-head scales; ``cache_dtype="int8"`` is the same.
+    cache_dtype : str, optional
+        The KV cache's type: ``"float32"``, ``"bfloat16"`` or
+        ``"int8"`` (default: the compute type's, float32 or bfloat16).
+    decode_ticks : int
+        Decode steps per engine tick and host sync (default 1).
+    compute_dtype : str, optional
+        ``"bfloat16"`` runs the generation calls on bf16 copies of the
+        fp32 master weights (``cast_compute_params``); ``"float32"`` or
+        None leaves them as they are.
 
     The reference's other keyword arguments (``draft_model``,
-    ``decode_ticks > 1``, ``compute_dtype="bfloat16"``, ``lora_rank``,
-    ``mesh_layout``, a bf16 ``cache_dtype``) raise
-    ``NotImplementedError``.
+    ``lora_rank``, ``mesh_layout``) raise ``NotImplementedError``.
     """
 
     def __init__(self, model, max_slots: int = 8, max_length=None,
@@ -459,6 +488,23 @@ class GenerationEngine:
                  quantize=None, kv_dtype=None, draft_model=None,
                  speculative=None, mesh_layout=None, lora_rank=None,
                  decode_ticks: int = 1, compute_dtype=None, device=None):
+        self.decode_ticks = int(decode_ticks)
+        if self.decode_ticks < 1:
+            raise ValueError(f"decode_ticks must be >= 1, got "
+                             f"{decode_ticks}")
+        if self.decode_ticks > 1 and (draft_model is not None
+                                      or speculative):
+            raise ValueError(
+                "decode_ticks > 1 does not compose with speculative "
+                "decoding: the speculative iteration already amortizes "
+                "one host sync over up to spec_k+1 tokens — pick one "
+                "amortization scheme")
+        if compute_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(
+                f"unsupported compute_dtype={compute_dtype!r} (only "
+                f"'float32' or 'bfloat16')")
+        self.compute_dtype = "float32" if compute_dtype is None \
+            else str(compute_dtype)
         if quantize not in (None, "int8_weights"):
             raise ValueError(f"unsupported quantize={quantize!r} (only "
                              f"'int8_weights')")
@@ -472,18 +518,17 @@ class GenerationEngine:
                     f"unsupported kv_dtype={kv_dtype!r} (only 'int8'; use "
                     f"cache_dtype for plain float layouts)")
             cache_dtype = kv_dtype
-        if cache_dtype is not None \
-                and str(cache_dtype) not in ("float32", "int8"):
-            raise not_ported(f"cache_dtype={cache_dtype!r}", "10 (bf16)")
+        if cache_dtype is None and self.compute_dtype == "bfloat16":
+            # bf16 compute writes bf16 K/V: the cache defaults to match
+            # (half the bytes); int8 KV still composes
+            cache_dtype = "bfloat16"
+        if cache_dtype is not None and str(cache_dtype) \
+                not in ("float32", "bfloat16", "int8"):
+            raise not_ported(f"cache_dtype={cache_dtype!r}",
+                             "10 (float16 compute)")
         if draft_model is not None or speculative:
             raise not_ported("speculative decoding (draft_model=)",
                              "9 (speculative decoding)")
-        if int(decode_ticks) != 1:
-            raise not_ported(f"decode_ticks={decode_ticks}",
-                             "10 (multi-tick decode and bf16)")
-        if compute_dtype not in (None, "float32"):
-            raise not_ported(f"compute_dtype={compute_dtype!r}",
-                             "10 (multi-tick decode and bf16)")
         if lora_rank is not None:
             raise not_ported("lora_rank=", "11 (batched LoRA)")
         if mesh_layout is not None:
@@ -497,6 +542,11 @@ class GenerationEngine:
             else ("init_cache", "prefill", "decode_step")
         if quantize is not None:
             api += ("quantize_params",)
+        if self.decode_ticks > 1:
+            api += ("decode_multi_paged",) if self.paged \
+                else ("decode_multi",)
+        if self.compute_dtype == "bfloat16":
+            api += ("cast_compute_params",)
         for attr in api:
             if not callable(getattr(model, attr, None)):
                 raise TypeError(
@@ -523,6 +573,12 @@ class GenerationEngine:
                                     None)) else (0, 0)
             telemetry.counter("serving.generate.quant.params", n)
             telemetry.counter("serving.generate.quant.bytes_saved", saved)
+        if self.compute_dtype == "bfloat16":
+            # the fp32 masters stay; the generation calls read bf16
+            # copies of them
+            t0 = telemetry.clock()
+            model.cast_compute_params("bfloat16")
+            telemetry.hist_since("serving.generate.cast.cast", t0)
         self.max_slots = int(max_slots)
         self._cache_dtype = cache_dtype
         self.max_new_tokens = int(max_new_tokens)
@@ -636,10 +692,11 @@ class GenerationEngine:
     def warmup(self):
         """Run every shape the steady state will see once ahead of
         traffic — one prefill per sequence bucket the policy can
-        produce, plus the decode step (paged mode: ``_warmup_paged``) —
-        against a THROWAWAY cache of the live cache's shape. On the card
-        the first call also builds the CUDA kernels, so no request pays
-        for that."""
+        produce, plus the decode step and, with ``decode_ticks > 1``,
+        the multi-tick call (paged mode: ``_warmup_paged``) — against a
+        THROWAWAY cache of the live cache's shape. On the card the first
+        call also builds the CUDA kernels, so no request pays for
+        that."""
         with self._gen_exclusive():
             if self._closed:
                 return self
@@ -653,6 +710,7 @@ class GenerationEngine:
                         onp.zeros((1, sb), "i4"), [sb], cache, slots=[0])
                 lg, cache = self.model.decode_step(
                     onp.zeros((self.max_slots,), "i4"), cache)
+                self._warmup_multi(cache)
                 del cache
             self._warm_sampler(lg)
             self._warmup_telemetry()
@@ -688,11 +746,25 @@ class GenerationEngine:
         lg, cache = self.model.decode_step_paged(
             onp.zeros((self.max_slots,), "i4"),
             onp.ones((self.max_slots,), "i4"), cache)
+        self._warmup_multi(cache)
         self.model.peek_logits_paged(0, 0, cache)
         cache = self.model.bind_slot_paged(0, row, 1, cache)
         self.model.copy_page_paged(1, 1, cache)
         del cache
         return lg
+
+    def _warmup_multi(self, cache):
+        """One greedy multi-tick call against the throwaway cache (a
+        no-op at ``decode_ticks == 1``); every traffic mix runs the same
+        call, the knobs being data."""
+        b, k = self.max_slots, self.decode_ticks
+        if k == 1:
+            return
+        fn = self.model.decode_multi_paged if self.paged \
+            else self.model.decode_multi
+        fn(onp.zeros((b,), "i4"), onp.full((b,), k, "i4"), cache, k,
+           [None] * b, onp.zeros((b,), "f4"), onp.zeros((b,), "i4"),
+           onp.ones((b,), "f4"), onp.full((b,), -1, "i4"))
 
     def _cache_tensors(self):
         out = []
@@ -715,9 +787,11 @@ class GenerationEngine:
     @property
     def precision(self) -> str:
         """The replica's numeric configuration, as the reference names
-        it: ``"fp32"``, ``"int8_weights"``, ``"int8_kv"`` or
-        ``"int8_weights+int8_kv"``."""
-        parts = [self.quantize] if self.quantize is not None else []
+        it: ``"fp32"``, or a ``+``-join of ``"bf16"``,
+        ``"int8_weights"`` and ``"int8_kv"``."""
+        parts = ["bf16"] if self.compute_dtype == "bfloat16" else []
+        if self.quantize is not None:
+            parts.append(self.quantize)
         if self._kv_int8:
             parts.append("int8_kv")
         return "+".join(parts) if parts else "fp32"
@@ -736,8 +810,9 @@ class GenerationEngine:
         inside the same window (a step never sees new fp32 weights with
         stale int8 tables), and a paged engine flushes its prefix index
         and stops in-flight prompts from registering, since their K/V
-        came from the old weights. In-flight requests keep their KV
-        cache and continue on the new weights. Returns self."""
+        came from the old weights. A bf16 engine re-casts its copies in
+        the same window. In-flight requests keep their KV cache and
+        continue on the new weights. Returns self."""
         if self._closed:
             raise EngineClosedError("load_weights on a closed engine")
         if not isinstance(source, dict):
@@ -750,6 +825,10 @@ class GenerationEngine:
                 tq = telemetry.clock()
                 self.model.quantize_params()
                 telemetry.hist_since("serving.generate.quant.requantize", tq)
+            if self.compute_dtype == "bfloat16":
+                tc = telemetry.clock()
+                self.model.cast_compute_params("bfloat16")
+                telemetry.hist_since("serving.generate.cast.recast", tc)
             if self.paged and self._prefix is not None:
                 self._prefix.release_all()
                 for s in self._slots:
@@ -1322,30 +1401,30 @@ class GenerationEngine:
         self._decode_tick()
 
     def _decode_tick(self):
-        """One decode step over every DECODING slot (free rows, and in
+        """One decode tick over every DECODING slot (free rows, and in
         paged mode prefilling rows, ride along in the fixed-shape batch:
         paged writes of those rows go to the scrap page and their
         ``len`` stands still), the argmax of every row taken on the
-        device and the (B,) tokens brought to the host — the step's one
-        sync — then one token per live slot and the eviction ladder:
-        eos first, then budget/capacity, then deadline. Freed rows admit
-        the next prompts mid-sequence."""
+        device and the (B,) tokens brought to the host — the tick's one
+        sync — then one token per live slot and the eviction ladder
+        (``_commit_outputs``). With ``decode_ticks > 1`` the tick runs
+        k steps instead (``_decode_tick_multi``). Freed rows admit the
+        next prompts mid-sequence."""
         if self.paged:
             self._cow_sweep()
         idxs = [i for i, s in enumerate(self._slots)
                 if s is not None and (not self.paged or s.state == "decode")]
         if not idxs:
             return
+        if self.decode_ticks > 1:
+            self._decode_tick_multi(idxs)
+            return
         toks = onp.zeros((self.max_slots,), "i4")
         active = onp.zeros((self.max_slots,), "i4")
-        any_trace = False
         for i in idxs:
-            s = self._slots[i]
-            toks[i] = s.last
+            toks[i] = self._slots[i].last
             active[i] = 1
-            if s.stream._trace is not None:
-                any_trace = True
-        tt0 = time.perf_counter() if any_trace else 0.0
+        tt0 = self._span_start(idxs)
         t0 = telemetry.clock()
         if self.paged:
             logits, self._cache = self.model.decode_step_paged(
@@ -1354,26 +1433,91 @@ class GenerationEngine:
             logits, self._cache = self.model.decode_step(toks, self._cache)
         step_toks = self._pick_step_tokens(logits)
         telemetry.hist_since("serving.generate.decode", t0)
-        telemetry.counter("serving.generate.host_syncs")
-        telemetry.counter("serving.generate.dispatches")
-        now = time.monotonic()
+        self._tick_counters(1)
+
+        def span(i, s, out):
+            s.stream._trace.add("decode", tt0, slot=i, token=out[-1])
+        self._commit_outputs(idxs, {i: [int(step_toks[i])] for i in idxs},
+                             span)
+
+    def _decode_tick_multi(self, idxs):
+        """One multi-tick decode tick: ``decode_ticks`` steps in one
+        model call (``decode_multi``), committed through one host sync.
+        Each slot's budget is clamped to its remaining tokens and its
+        capacity headroom, so the call never over-emits; eos and budget
+        stops run on the device, and the host receives the (B, k) token
+        block with its emission mask (one copy) and commits each slot's
+        emitted prefix."""
+        k, b = self.decode_ticks, self.max_slots
+        toks = onp.zeros((b,), "i4")
+        budgets = onp.zeros((b,), "i4")
+        eos_ids = onp.full((b,), -1, "i4")
         for i in idxs:
             s = self._slots[i]
-            tok = int(step_toks[i])
+            toks[i] = s.last
+            budgets[i] = min(k, s.left, self._s_cap - s.n_ctx)
+            if s.eos_id is not None:
+                eos_ids[i] = s.eos_id
+        tt0 = self._span_start(idxs)
+        t0 = telemetry.clock()
+        fn = self.model.decode_multi_paged if self.paged \
+            else self.model.decode_multi
+        tok_blk, emit_blk, _, self._cache = fn(
+            toks, budgets, self._cache, k, self._gens, self._temps,
+            self._topks, self._topps, eos_ids)
+        blk = torch.cat((tok_blk, emit_blk.to(torch.int32)), dim=1) \
+            .cpu().numpy()   # the tick's one sync
+        telemetry.hist_since("serving.generate.decode", t0)
+        self._tick_counters(k)
+        outs = {i: [int(t) for t in blk[i, :int(blk[i, k:].sum())]]
+                for i in idxs}
+
+        def span(i, s, out):
+            # one span for the whole block, with its token count
+            s.stream._trace.add("decode", tt0, slot=i, tokens=len(out))
+        self._commit_outputs(idxs, outs, span)
+
+    def _span_start(self, idxs):
+        """The tick's start stamp when a slot in it is traced, else 0."""
+        if any(self._slots[i].stream._trace is not None for i in idxs):
+            return time.perf_counter()
+        return 0.0
+
+    def _tick_counters(self, fused):
+        """Once per decode tick: one host sync, one dispatch, and the
+        steps behind them (``ticks_per_sync``)."""
+        telemetry.counter("serving.generate.host_syncs")
+        telemetry.counter("serving.generate.dispatches")
+        telemetry.gauge("serving.generate.ticks_per_sync", int(fused))
+
+    def _commit_outputs(self, idxs, outs, span_cb):
+        """Emit each slot's tokens of the tick (``outs[slot]``), record
+        its span (``span_cb``, traced slots only), advance its budget
+        and length, then the eviction ladder: eos first, then
+        budget/capacity, then the deadline (checked once per tick)."""
+        now = time.monotonic()
+        n_emitted = 0
+        for i in idxs:
+            s = self._slots[i]
+            out = outs[i]
             if s.stream._trace is not None:
-                s.stream._trace.add("decode", tt0, slot=i, token=tok)
-            s.stream._emit(tok)
-            s.last = tok
-            s.left -= 1
-            s.n_ctx += 1
-            if s.eos_id is not None and tok == s.eos_id:
+                span_cb(i, s, out)
+            s.stream._emit_many(out)
+            n_emitted += len(out)
+            if not out:   # an exhausted slot the checks below would
+                self._evict(i, "length")   # have caught last tick
+                continue
+            s.last = out[-1]
+            s.left -= len(out)
+            s.n_ctx += len(out)
+            if s.eos_id is not None and out[-1] == s.eos_id:
                 self._evict(i, "eos")
             elif s.left <= 0 or s.n_ctx >= self._s_cap:
                 self._evict(i, "length")
             elif s.deadline is not None and now > s.deadline:
                 telemetry.counter("serving.generate.timeouts")
                 self._evict(i, "timeout")
-        telemetry.counter("serving.generate.tokens", len(idxs))
+        telemetry.counter("serving.generate.tokens", n_emitted)
         telemetry.gauge("serving.generate.slots", self._n_active)
 
     def _release_slot_refs(self, s):

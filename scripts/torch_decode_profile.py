@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the port's generation time goes on the card: one decode step
 and one prefill of ``mxnet_tpu_torch`` at GPT-2-small widths, on the
-dense fp32 cache, the dense int8 KV cache, and the paged cache with
-int8 weights over an fp32 and an int8 pool.
+dense fp32 cache, the dense int8 KV cache, the dense bf16 model over a
+bf16 cache (one step, and one ``decode_multi`` tick of 4 steps), and
+the paged cache with int8 weights over an fp32, an int8 and (bf16
+compute) a bf16 pool.
 
 Run from the repository root on a machine with an NVIDIA card::
 
@@ -13,11 +15,15 @@ wide, 12 layers, 12 heads, 1024 positions, random weights from seed 0),
 prefills all 8 slots of a 1024-row cache with prompts of 16..512 tokens
 and then runs decode steps exactly as ``GenerationEngine`` does
 (``decode_step``, argmax on the card, the (8,) tokens read by the host),
-and the same over an int8 KV cache (``dtype="int8"``). Then it arms the
-int8 weights (``quantize_params``), fills a paged pool (page 16) with
-the same prompts through 32-token prefill chunks, as the paged engine
-does, and profiles the paged decode step (``decode_step_paged``, all 8
-slots active) over an fp32 and an int8 pool, and one 32-token chunk.
+and the same over an int8 KV cache (``dtype="int8"``); then, with bf16
+compute armed (``cast_compute_params``), over a bf16 cache: the decode
+step, a ``decode_multi`` tick of 4 steps (greedy, one host read a tick)
+and a 512-token prefill. Then it arms the int8 weights
+(``quantize_params``), fills a paged pool (page 16) with the same
+prompts through 32-token prefill chunks, as the paged engine does, and
+profiles the paged decode step (``decode_step_paged``, all 8 slots
+active) over an fp32, an int8 and (bf16 compute) a bf16 pool, and one
+32-token chunk.
 For each it prints one JSON line with:
 
 - ``wall_ms``: host clock per step, ending in the host's read;
@@ -116,7 +122,7 @@ def main(argv=None):
     lengths = [int(n) for n in rng.randint(16, 513, size=8)]
     prompts = [rng.randint(0, 50256, size=n).astype("i4") for n in lengths]
 
-    def dense_step(dtype, phase):
+    def dense_step(dtype, phase, ticks=1):
         cache = model.init_cache(8, 1024, dtype=dtype)
         last = np.zeros(8, "i4")
         for slot, p in enumerate(prompts):
@@ -131,26 +137,48 @@ def main(argv=None):
             lg, _ = model.decode_step(state["toks"], cache)
             state["toks"] = lg.argmax(dim=-1).cpu().numpy().astype("i4")
 
+        greedy = (np.full(8, ticks, "i4"), [None] * 8, np.zeros(8, "f4"),
+                  np.zeros(8, "i4"), np.ones(8, "f4"), np.full(8, -1, "i4"))
+
+        def decode_multi():
+            toks, _emit, _g, _c = model.decode_multi(
+                state["toks"], greedy[0], cache, ticks, *greedy[1:])
+            state["toks"] = toks[:, -1].cpu().numpy().astype("i4")
+
         ops.reset_launch_counts()
-        dec = profile(decode, args.steps)
+        dec = profile(decode if ticks == 1 else decode_multi, args.steps)
+        calls = args.steps + 1
         dec["kernel_launches_per_step"] = {
-            k: v / (args.steps + 1) for k, v in ops.launch_counts().items()}
+            k: v / calls / ticks for k, v in ops.launch_counts().items()}
+        if ticks > 1:   # per decode step, beside the tick's figures
+            dec["steps_per_call"] = ticks
+            dec["per_step"] = {k: dec[k] / ticks for k in (
+                "wall_ms", "device_busy_ms", "kernels_per_step")
+                if dec[k] is not None}
         print(json.dumps({"phase": phase, "slots": 8, "cache_rows": 1024,
                           **dec}), flush=True)
 
+    def prefill_512(phase):
+        pcache = model.init_cache(1, 1024)
+        ptoks = np.random.RandomState(3).randint(0, 50256, size=(1, 512)) \
+            .astype("i4")
+
+        def prefill():
+            lg, _ = model.prefill(ptoks, [512], pcache, slots=[0])
+            int(lg[0].argmax())
+
+        pre = profile(prefill, max(1, args.steps // 4))
+        print(json.dumps({"phase": phase, "tokens": 512, **pre}),
+              flush=True)
+
     dense_step(None, "decode_step")
     dense_step("int8", "decode_step_int8_kv")
-
-    pcache = model.init_cache(1, 1024)
-    ptoks = rng.randint(0, 50256, size=(1, 512)).astype("i4")
-
-    def prefill():
-        lg, _ = model.prefill(ptoks, [512], pcache, slots=[0])
-        int(lg[0].argmax())
-
-    pre = profile(prefill, max(1, args.steps // 4))
-    print(json.dumps({"phase": "prefill", "tokens": 512, **pre}),
-          flush=True)
+    prefill_512("prefill")
+    model.cast_compute_params("bfloat16")
+    dense_step("bfloat16", "decode_step_bf16")
+    dense_step("bfloat16", "decode_multi_bf16", ticks=4)
+    prefill_512("prefill_bf16")
+    model.cast_compute_params(None)
 
     # the paged engine's step: int8 projections (K4), paged attention (K3)
     model.quantize_params()
@@ -186,6 +214,9 @@ def main(argv=None):
 
     paged_step(None, "decode_step_paged_int8")
     paged_step("int8", "decode_step_paged_int8_kv")
+    model.cast_compute_params("bfloat16")
+    paged_step("bfloat16", "decode_step_paged_int8_bf16")
+    model.cast_compute_params(None)
 
     ccache = model.init_paged_cache(1, p_max + 1, ps, 1024)
     crow = np.arange(1, p_max + 1, dtype="i4")

@@ -71,9 +71,16 @@ builds agree.
    ``mxnet_tpu_torch``), for that tree's wrappers in a child process
    (``--host-probe ROOT``).
 
+7. ``bf16_kernel_us``: this checkout's bf16 instances alone (the
+   parent revision has none): K1-bf16 at the prefill shape (and SDPA
+   on the same bf16 tensors), K2-bf16 and K3-bf16 at the decode shapes
+   above over bf16 caches, each with a bf16 and an fp32 q: the kernels'
+   own run time from ``torch.profiler`` and the device ms with L2
+   flushed and left warm.
+
 ``--only NAME`` (repeatable) runs just those: ``flash``, ``dequant``,
 ``decode``, ``paged``, ``int8_dense_vs_paged``, ``wrapper_cost``,
-``wrapper_host_us``.
+``wrapper_host_us``, ``bf16``.
 
 The first line printed is ``nvidia-smi``'s name and power limit; each
 measurement prints one JSON line.
@@ -330,6 +337,41 @@ def _kernel_us(fn, name_part, reps=10, flush=None):
     if not kern:
         return None                     # the profiler saw no kernel
     return float(sum(kern) / reps)
+
+
+def bf16_kernel_us(timer):
+    """Kernel-only µs (profiler) and device ms of the bf16 instances at
+    ``chip_smoke.py``'s shapes, beside SDPA's for K1-bf16."""
+    import torch.nn.functional as F
+    rng = np.random.RandomState(5)
+    q, k, v = (cs._split_view(torch, rng, 1, 512, 12, 64).bfloat16()
+               for _ in range(3))
+    runs = {"flash_attention_fwd_bf16": (
+                lambda: at.flash_attention_fwd(q, k, v, True), "flash_fwd"),
+            "sdpa_bf16": (
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                "")}
+    qd, kn, vn, lens, _, _ = _decode_inputs(rng)
+    kb, vb = kn.bfloat16(), vn.bfloat16()
+    qp, kp, vp, plens, _, _ = _decode_inputs(rng, PAGED_LENGTHS)
+    kpb, table = _to_pool(kp.bfloat16(), 16)
+    vpb, _ = _to_pool(vp.bfloat16(), 16)
+    for tag, qq, qpp in (("q_bf16", qd.bfloat16(), qp.bfloat16()),
+                         ("q_fp32", qd, qp)):
+        runs[f"decode_attention_bf16 {tag}"] = (
+            lambda qq=qq: at.decode_attention(qq, kb, vb, lens), "decode")
+        runs[f"paged_decode_attention_bf16 {tag}"] = (
+            lambda qpp=qpp: at.paged_decode_attention(qpp, kpb, vpb, table,
+                                                      plens), "paged_")
+    for name, (fn, part) in runs.items():
+        # SDPA's kernels go by several names: every kernel of its call
+        # counts, so no flush runs inside its profile
+        cs.emit("bf16_kernel_us", kernel=name,
+                kernel_us_profiler=_kernel_us(
+                    fn, part, flush=timer.buf.zero_ if part else None),
+                ms_device=timer(fn, flush=True, device=True),
+                ms_device_warm=timer(fn, device=True))
 
 
 def flash_ab(timer, other_csrc, rounds):
@@ -615,7 +657,7 @@ def wrapper_cost(timer):
 
 #: the measurements --only selects from
 ONLY = ("flash", "dequant", "decode", "paged", "int8_dense_vs_paged",
-        "wrapper_cost", "wrapper_host_us")
+        "wrapper_cost", "wrapper_host_us", "bf16")
 
 
 def main(argv=None):
@@ -660,6 +702,8 @@ def main(argv=None):
         wrapper_cost(timer)
     if "wrapper_host_us" in only:
         wrapper_host_us(args.other_csrc)
+    if "bf16" in only:
+        bf16_kernel_us(timer)
     return 0
 
 

@@ -166,11 +166,19 @@ def test_cache_validation_and_unported_modes(pair):
     int8 = tnet.init_cache(2, 16, dtype="int8")
     assert int8["k"][0].dtype == int8["v"][1].dtype == torch.int8
     assert [tuple(t.shape) for t in int8["v_scale"]] == [(2, 4)] * 2
+    bf16 = tnet.init_cache(2, 16, dtype="bfloat16")
+    assert bf16["k"][1].dtype == bf16["v"][0].dtype == torch.bfloat16
+    assert "k_scale" not in bf16
+    # float16 needs float16 kernel instances: a later part of item 10
     with pytest.raises(NotImplementedError, match="item 10"):
-        tnet.init_cache(2, 16, dtype="bfloat16")
+        tnet.init_cache(2, 16, dtype="float16")
     with pytest.raises(NotImplementedError, match="item 10"):
         tgpt.GPTModel(VOCAB, units=32, num_layers=1, num_heads=4,
-                      dtype="bfloat16", device="cpu")
+                      dtype="float16", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tnet.cast_compute_params("float16")
+    with pytest.raises(ValueError, match="not supported"):
+        tnet.cast_compute_params("int8")
 
 
 def test_initialize_is_seeded(pair):

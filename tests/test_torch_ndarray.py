@@ -196,6 +196,27 @@ def test_wide_unsigned_operator_forms(fn, dt):
     onp.testing.assert_array_equal(t.asnumpy(), j.asnumpy())
 
 
+#: the NDArray forms of the ops torch refuses on a bool array
+BOOL_FORMS = [
+    ("argmax", lambda a: a.argmax()),
+    ("argmax_axis0", lambda a: a.argmax(axis=0)),
+    ("argmin", lambda a: a.argmin()),
+    ("argmin_axis1", lambda a: a.argmin(axis=1)),
+    ("abs_dunder", abs), ("abs_method", lambda a: a.abs()),
+    ("relu_method", lambda a: a.relu()),
+]
+
+
+@pytest.mark.parametrize("fn", [f for _, f in BOOL_FORMS],
+                         ids=[n for n, _ in BOOL_FORMS])
+def test_bool_operator_forms(fn):
+    a = onp.array([[True, False, True], [False, False, True]])
+    t, j = fn(tmx.np.array(a)), fn(jmx.np.array(a))
+    assert t.dtype == j.dtype, (t.dtype, j.dtype)
+    assert t.shape == j.shape
+    onp.testing.assert_array_equal(t.asnumpy(), j.asnumpy())
+
+
 def test_inplace_dunders_bump_version():
     t, j = tmx.np.array(X), jmx.np.array(X)
     v = t._version

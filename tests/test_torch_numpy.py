@@ -411,6 +411,50 @@ def test_topk_mask_takes_sum_dtype(dt):
           jmx.npx.topk(jmx.np.array(a), **kw), RED)
 
 
+#: a bool operand, which torch's relu, topk, argmax/argmin and abs
+#: refuse: the port computes on an int32 copy and gives each result the
+#: reference's dtype
+BOOL = onp.array([[True, False, True], [False, False, True]])
+
+
+@pytest.mark.parametrize("a", [BOOL, BOOL[0]], ids=["2d", "1d"])
+def test_bool_relu(a):
+    _same(tmx.npx.relu(tmx.np.array(a)), jmx.npx.relu(jmx.np.array(a)), EW)
+
+
+BOOL_TOPK = [
+    {"k": 2, "ret_typ": "value"}, {"k": 2, "ret_typ": "mask"},
+    {"k": 1, "axis": 0, "ret_typ": "indices"},
+    {"k": 2, "ret_typ": "indices", "dtype": "int32"},
+    {"k": 2, "ret_typ": "both"},
+    {"k": 2, "ret_typ": "value", "is_ascend": True},
+]
+
+
+@pytest.mark.parametrize("a", [BOOL, BOOL[0]], ids=["2d", "1d"])
+@pytest.mark.parametrize("kw", BOOL_TOPK,
+                         ids=[f"{c['ret_typ']}-{i}"
+                              for i, c in enumerate(BOOL_TOPK)])
+def test_bool_topk(a, kw):
+    if a.ndim == 1 and kw.get("axis") == 0:
+        kw = dict(kw, k=2)
+    _same(tmx.npx.topk(tmx.np.array(a), **kw),
+          jmx.npx.topk(jmx.np.array(a), **kw), EW)
+
+
+@pytest.mark.parametrize("fn", ["argmax", "argmin"])
+@pytest.mark.parametrize("axis", [None, 0, -1])
+def test_bool_argmax_argmin(fn, axis):
+    _same(_run(tmx, fn, (BOOL,), {"axis": axis}),
+          _run(jmx, fn, (BOOL,), {"axis": axis}), EW)
+
+
+@pytest.mark.parametrize("fn", ["abs", "absolute"])
+@pytest.mark.parametrize("a", [BOOL, BOOL[0]], ids=["2d", "1d"])
+def test_bool_abs(fn, a):
+    _same(_run(tmx, fn, (a,), {}), _run(jmx, fn, (a,), {}), EW)
+
+
 def test_npx_helpers():
     assert tmx.npx.current_device() == tmx.cpu()
     assert tmx.npx.num_gpus() == tmx.num_gpus()
