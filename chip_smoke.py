@@ -17,7 +17,8 @@ their cluster ranks' ranges, K3 at a P_max that is not a multiple of
 its cluster size, K2 at S = 1000, on a cache sliced from a longer
 buffer and on a row-strided view), K4 int8 dequant-matmul (M = 1 to 512,
 with and without the bias it adds in its epilogue), the bf16 instances
-of K1, K2 and K3 (every case of the fp32 phases on bf16 inputs; K2 and
+of K1 (its own kernel: wgmma on tiles brought by TMA), K2 and K3
+(every case of the fp32 phases on bf16 inputs; K2 and
 K3 with a bf16 and an fp32 q over bf16 caches) and K5, the
 runtime-compiled user kernels: one ``rtc.CudaModule`` compiled by NVRTC
 for sm_90a (the JAX rtc tests' kernels, the example's ``scale2`` and a
@@ -28,7 +29,9 @@ at GPT-2-small widths through ``GenerationEngine``:
 - ``custom_op``: the flow of ``examples/custom_op.py`` on the card
   (a CustomOp through ``npx.custom``, an ``autograd.Function``,
   ``backward``, ``scale2`` through rtc), a kernel with ``grad=``, an
-  opaque one and a numpy-backed CustomOp, held against closed forms;
+  opaque one and a numpy-backed CustomOp, held against closed forms,
+  and ``np.matmul``/``np.dot`` of integer, bool and mixed-dtype
+  operands held against the same calls on the CPU (``CARD_PRODUCTS``);
 
 - ``engine``: the dense fp32 engine, 24 greedy requests;
 - ``bf16_engine``: the same requests on the dense engine with
@@ -687,11 +690,11 @@ def phase_flash_bf16(torch, timer):
     scale = 1.0 / math.sqrt(d)
     cases, worst, err_o, err_l, gap_plain = [], 0.0, 0.0, 0.0, 0.0
 
-    def compare(q, k, v, causal, kv_len, tag):
+    def compare(q, k, v, causal, kv_len, tag, scale=None):
         nonlocal worst, err_o, err_l, gap_plain
-        out, lse = at.flash_attention_fwd(q, k, v, causal, None, kv_len)
+        out, lse = at.flash_attention_fwd(q, k, v, causal, scale, kv_len)
         k, v = torch.nan_to_num(k), torch.nan_to_num(v)
-        sc = 1.0 / math.sqrt(q.shape[-1])
+        sc = scale or 1.0 / math.sqrt(q.shape[-1])
         ref, ref_lse = at._blockwise_fwd(q.float(), k.float(), v.float(),
                                          causal, sc, kv_len=kv_len)
         plain = at._blockwise_fwd(q, k, v, causal, sc, kv_len=kv_len)[0]
@@ -734,6 +737,12 @@ def phase_flash_bf16(torch, timer):
                for _ in range(3))
     check(not q.is_contiguous(), "strided case is contiguous")
     compare(q, k, v, True, None, f"strided s={sp} causal")
+    # a negative scale takes the kernel's other softmax path (scale, mask
+    # to -1e30, re-mask after the exp)
+    qn, kn2, vn2 = (_rand(torch, rng, b, 4, n, d).bfloat16()
+                    for n in (200, 300, 300))
+    compare(qn, kn2, vn2, True, 250, "scale=-0.2 sq=200 kv_len=250",
+            scale=-0.2)
     emit("flash_attention_bf16_check", cases=cases)
     check(worst <= 1.0, f"K1-bf16 off its widened plain version by "
           f"{worst} bf16 tolerances")
@@ -748,7 +757,8 @@ def phase_flash_bf16(torch, timer):
     n_flops = 4 * d * b * h * pairs
     n_bytes = 2 * 4 * b * h * sp * d + 4 * b * h * sp   # q k v out; lse
     bound_ms, bound_by = bound(n_bytes, n_flops, PEAK_BF16_FLOPS)
-    tf32_ms, _ = bound(n_bytes, 3 * n_flops, PEAK_TF32_FLOPS)
+    # the kernel's own products: Q K^T once, P V twice (P in bf16 hi + lo)
+    products_ms, _ = bound(n_bytes, 1.5 * n_flops, PEAK_BF16_FLOPS)
     kk = full
     per_shape = [{
         "shape": [b, h, 1024, d], "causal": True,
@@ -763,10 +773,10 @@ def phase_flash_bf16(torch, timer):
     res = {"max_abs_err": err_o, "max_tol_ratio": worst,
            "max_abs_err_lse": err_l, "max_gap_to_plain_bf16": gap_plain,
            **times, "bound_ms": bound_ms, "bound_by": bound_by,
-           "bound_ms_tf32_products": tf32_ms,
+           "bound_ms_kernel_products": products_ms,
            "bound_rule": "bf16 FLOP at 989 TFLOP/s vs bytes at 3.35 TB/s "
-                         "(the kernel's 3 TF32 products at 495 TFLOP/s: "
-                         "bound_ms_tf32_products)",
+                         "(the kernel's products, Q K^T once and P V "
+                         "twice, 1.5 x FLOP: bound_ms_kernel_products)",
            "library": "scaled_dot_product_attention on the same bf16 "
                       "tensors, causal",
            "shape": [b, h, sp, d], "per_shape": per_shape}
@@ -2090,6 +2100,58 @@ def phase_rtc(torch, timer):
     return res
 
 
+#: the front end's products held on the card against the CPU: integer
+#: operands (the card has no integer matrix product: the exact int64
+#: route), two dtypes (promoted to the reference's result type) and
+#: dot's tensordot form. (tag, function, a's dtype and shape, b's)
+CARD_PRODUCTS = [
+    ("int32@int32", "matmul", ("i4", (33, 70)), ("i4", (70, 17))),
+    ("uint8@int8", "matmul", ("u1", (8, 40)), ("i1", (40, 9))),
+    ("bool@bool", "matmul", ("?", (6, 20)), ("?", (20, 5))),
+    ("int16@int32 dot 3d", "dot", ("i2", (2, 3, 30)), ("i4", (30, 4))),
+    ("int32@float16", "matmul", ("i4", (16, 24)), ("f2", (24, 8))),
+    ("float16@float32", "matmul", ("f2", (16, 64)), ("f4", (64, 32))),
+    ("bool@float32", "dot", ("?", (12, 32)), ("f4", (32, 6))),
+]
+
+
+def _card_products(torch, mx):
+    """Each of CARD_PRODUCTS on the card and on the CPU, on the same
+    numpy-seeded operands: the same dtype, integer and bool results
+    equal, float ones within 2^-10 (a float16 result's step) or 1e-5
+    (float32, another summation order) of max(1, max|cpu|)."""
+    rs = np.random.RandomState(14)
+
+    def operand(dt, shape):
+        if dt == "?":
+            return rs.rand(*shape) > 0.5
+        if dt[0] == "f":
+            return rs.uniform(-1, 1, shape).astype(dt)
+        return rs.randint(0 if dt[0] == "u" else -60, 60, shape).astype(dt)
+
+    out = {}
+    for tag, fn, (da, sa), (db, sb) in CARD_PRODUCTS:
+        a, b = operand(da, sa), operand(db, sb)
+        card = getattr(mx.np, fn)(mx.np.array(a), mx.np.array(b))
+        with mx.cpu():
+            host = getattr(mx.np, fn)(mx.np.array(a), mx.np.array(b))
+        check(card._data.is_cuda, f"product {tag} is not on the card")
+        check(card.dtype == host.dtype and card.shape == host.shape,
+              f"product {tag}: card {card.dtype}{card.shape} vs CPU "
+              f"{host.dtype}{host.shape}")
+        c, h = card.asnumpy().astype("f8"), host.asnumpy().astype("f8")
+        err = float(np.abs(c - h).max())
+        kind = np.dtype(card.dtype).kind
+        tol = (0.0 if kind in "biu" else
+               (2.0 ** -10 if card.dtype == np.float16 else 1e-5)
+               * max(1.0, float(np.abs(h).max())))
+        out[tag] = {"dtype": str(np.dtype(card.dtype)),
+                    "shape": list(card.shape), "max_abs_err": err,
+                    "tol": tol}
+        check(err <= tol, f"product {tag} on the card off the CPU by {err}")
+    return out
+
+
 def phase_custom_op(torch):
     """The flow of examples/custom_op.py on the card through
     ``import mxnet_tpu_torch as mx``: the softsign CustomOp via
@@ -2204,7 +2266,9 @@ def phase_custom_op(torch):
         "sigmoid_x2.grad_rel": float(np.abs(
             g.grad.asnumpy() / (2 * sig * (1 - sig)) - 1).max()),
     }
-    res = {"launches": launches, "on_card": on_card, "errors": errs}
+    prods = _card_products(torch, mx)
+    res = {"launches": launches, "on_card": on_card, "errors": errs,
+           "products": prods}
     emit("custom_op", **res)
     for key in ("softsign", "clip_forward", "scale2", "double.grad",
                 "ident.grad"):

@@ -76,8 +76,11 @@ def _digest(src: Path) -> str:
 
 
 def _ptxas_lines(log: str):
+    """The compiler's resource and spill lines, and its performance
+    warnings (``wgmma`` serialized: C7520)."""
     return [ln.strip() for ln in log.splitlines()
-            if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
+            if "Used" in ln or "Compiling entry" in ln or "spill" in ln
+            or "Performance Loss" in ln]
 
 
 def build_all() -> dict:

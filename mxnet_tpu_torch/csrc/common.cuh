@@ -43,6 +43,15 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return acc;
 }
 
+// 2^x on the SFU alone (ex2.approx.ftz: about 2 ulp; a result below
+// 2^-126 flushes to 0, which no sum of terms near 1 can see). exp2f adds
+// the instructions that keep such results subnormal.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---- bf16 ---------------------------------------------------------------
 // A bf16 value is the top half of an fp32 one, so widening it is a
 // shift (or a mask) and exact; two bf16 values packed in a 32-bit word
@@ -145,6 +154,230 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+
+// ---- mbarriers (sm_90) ----------------------------------------------------
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Make this thread's earlier mbarrier inits visible to the block and to
+// the async proxy (TMA, bulk copies): once after a thread's inits (the
+// fence costs hundreds of cycles).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// ``fence`` false leaves the fence to one mbar_init_fence after several
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count,
+                                          bool fence = true) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  if (fence) mbar_init_fence();
+}
+
+// announce ``bytes`` of copies completing on the barrier's current phase
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// arrive, announcing ``bytes`` of transfers completing on this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar,
+                                                      unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the barrier's phase ``phase`` to complete; kCluster acquires
+// at cluster scope (arrivals from other blocks). A phase that never
+// completes faults the launch (after ~2^34 cycles, about 9 s) instead
+// of hanging the card.
+template <bool kCluster>
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned phase) {
+  const long long t0 = clock64();
+  unsigned done = 0;
+  while (!done) {
+    if constexpr (kCluster) {
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+          "%2;\n"
+          "selp.u32 %0, 1, 0, p;\n"
+          "}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(phase)
+          : "memory");
+    } else {
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n"
+          "}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(phase)
+          : "memory");
+    }
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// ---- TMA tile loads (cp.async.bulk.tensor, sm_90) -------------------------
+// One box of a 4-d tensor map (``map``: the generic address of a
+// __grid_constant__ CUtensorMap) at coordinates (c0, c1, c2, c3),
+// innermost first, into shared memory at ``dst``, completing its bytes
+// on ``bar``. Elements outside the map's extents arrive as zeros and
+// are not read; the box's full size still counts.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// Fetch a tensor map (the generic address of a __grid_constant__
+// CUtensorMap) into the descriptor cache ahead of its first copy.
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
+}
+
+// ---- warpgroup products (wgmma, sm_90a) -----------------------------------
+// A shared-memory operand descriptor: the tile's address, the leading and
+// stride byte offsets and the swizzle of the layout TMA wrote (kSwizzle
+// 128, 64 or 32 bytes). K-major (rows of the contracted axis contiguous):
+// SBO steps between 8-row groups, LBO is unused. MN-major (the transpose
+// bit): SBO steps between 8-row groups along the contracted axis, LBO
+// between swizzle-wide column blocks.
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned lbo,
+                                               unsigned sbo) {
+  constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (kLayout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N of the warpgroup's committed products are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of an accumulator across the
+// asynchronous products that write it (after wgmma_wait).
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Fragments, lane = 4 g + t of warp w of the warpgroup: accumulator entry
+// d[4 i + e] is row 16 w + g + 8 (e / 2), column 8 i + 2 t + (e % 2); a
+// register A fragment of k step j holds rows 16 w + g (a[0], a[2]) and
+// + 8 (a[1], a[3]), columns 16 j + 2 t, + 1 (a[0], a[1]) and + 8 (a[2],
+// a[3]), two bf16 a register (the lower column in the low half): the
+// accumulator's entries 8 j .. 8 j + 7, rounded and packed in order.
+// d (64 x 64, fp32) += A (64 x 16, shared, K-major) * B (16 x 64, shared,
+// K-major), both bf16 through smem descriptors; ``acc`` false overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 16, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x
+// 16, shared, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const unsigned (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x
+// 32, shared, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const unsigned (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x
+// 64, shared, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const unsigned (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 }  // namespace mxtt

@@ -110,40 +110,7 @@ __device__ __forceinline__ const void* q_at(const void* q, bool q_bf16,
   return static_cast<const float*>(q) + off;
 }
 
-// ---- mbarrier and 1D bulk copies (cp.async.bulk, sm_90) -----------------
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// announce ``bytes`` of copies completing on the barrier's current phase
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// arrive, announcing ``bytes`` of transfers completing on this phase
-__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar,
-                                                      unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
+// ---- 1D bulk copies (cp.async.bulk, sm_90); the mbarriers are common.cuh's
 // the shared::cluster address of ``addr`` (a shared::cta address) in
 // block ``rank`` of the cluster
 __device__ __forceinline__ unsigned mapa(unsigned addr, unsigned rank) {
@@ -184,41 +151,6 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// Wait for the barrier's phase ``phase`` to complete; kCluster acquires
-// at cluster scope (arrivals from other blocks). A phase that never
-// completes faults the launch (after ~2^34 cycles, about 9 s) instead
-// of hanging the card.
-template <bool kCluster>
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned phase) {
-  const long long t0 = clock64();
-  unsigned done = 0;
-  while (!done) {
-    if constexpr (kCluster) {
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-          "%2;\n"
-          "selp.u32 %0, 1, 0, p;\n"
-          "}\n"
-          : "=r"(done)
-          : "r"(bar), "r"(phase)
-          : "memory");
-    } else {
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-          "selp.u32 %0, 1, 0, p;\n"
-          "}\n"
-          : "=r"(done)
-          : "r"(bar), "r"(phase)
-          : "memory");
-    }
-    if (!done && clock64() - t0 > (1ll << 34)) __trap();
-  }
 }
 
 // ``bytes`` (a multiple of 16, both addresses 16-byte aligned) from

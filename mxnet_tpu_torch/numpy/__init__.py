@@ -160,6 +160,27 @@ def _bool_route(tfn, res=None):
     return f
 
 
+def _bool_operands(tfn, pair=None):
+    """``tfn`` of two tensors where torch refuses bool operands. A bool
+    operand beside a non-bool one computes in their result type
+    (``subtract``: ``bool - x`` takes x's type, a Python int gives
+    int32 after narrowing, as in the reference). Two bool operands
+    compute on ``pair`` copies where given (int32 for ``floor_divide``,
+    ``mod``, ``power`` and the shifts, the reference's result type);
+    without ``pair`` torch's refusal stands (``bool - bool`` raises in
+    the reference too)."""
+    def f(x, y):
+        bx, by = x.dtype == torch.bool, y.dtype == torch.bool
+        if bx and by:
+            if pair is not None:
+                x, y = x.to(pair), y.to(pair)
+        elif bx or by:
+            dt = torch.result_type(x, y)
+            x, y = x.to(dt), y.to(dt)
+        return tfn(x, y)
+    return f
+
+
 def _binary(tfn, a, b, out=None, name=None):
     a, b = _coerce(a), _coerce(b)
     res = _unsigned_result(a, b)
@@ -356,12 +377,13 @@ def copy(a):
 # elementwise binary
 # ---------------------------------------------------------------------------
 add = _mkbin(torch.add, "add")
-subtract = _mkbin(torch.sub, "subtract")
+subtract = _mkbin(_bool_operands(torch.sub), "subtract")
 multiply = _mkbin(torch.mul, "multiply")
 divide = _mkbin(torch.true_divide, "divide")
 true_divide = _mkbin(torch.true_divide, "true_divide")
-floor_divide = _mkbin(torch.floor_divide, "floor_divide")
-mod = _mkbin(torch.remainder, "mod")
+floor_divide = _mkbin(_bool_operands(torch.floor_divide, torch.int32),
+                      "floor_divide")
+mod = _mkbin(_bool_operands(torch.remainder, torch.int32), "mod")
 remainder = mod
 
 
@@ -374,7 +396,8 @@ def power(x1, x2, out=None, **kwargs):
         raise TypeError(
             f"Integers cannot be raised to negative powers, got "
             f"integer_pow({base.dtype}{list(base.shape)}, {int(x2)})")
-    return _binary(torch.pow, base, x2, out=out, name="power")
+    return _binary(_bool_operands(torch.pow, torch.int32), base, x2,
+                   out=out, name="power")
 
 
 maximum = _mkbin(torch.maximum, "maximum")
@@ -382,8 +405,10 @@ minimum = _mkbin(torch.minimum, "minimum")
 bitwise_and = _mkbin(torch.bitwise_and, "bitwise_and")
 bitwise_or = _mkbin(torch.bitwise_or, "bitwise_or")
 bitwise_xor = _mkbin(torch.bitwise_xor, "bitwise_xor")
-left_shift = _mkbin(torch.bitwise_left_shift, "left_shift")
-right_shift = _mkbin(torch.bitwise_right_shift, "right_shift")
+left_shift = _mkbin(_bool_operands(torch.bitwise_left_shift, torch.int32),
+                    "left_shift")
+right_shift = _mkbin(_bool_operands(torch.bitwise_right_shift, torch.int32),
+                     "right_shift")
 
 equal = _mkbin(torch.eq, "equal")
 not_equal = _mkbin(torch.ne, "not_equal")
@@ -663,12 +688,54 @@ def flip(m, axis=None):
 # ---------------------------------------------------------------------------
 # linear algebra (top-level)
 # ---------------------------------------------------------------------------
+#: int64 elements of one partial product in ``_exact_matmul``
+_EXACT_CHUNK = 1 << 22
+
+
+def _exact_matmul(x, y):
+    """``torch.matmul`` of int64 operands (1-d ones promoted as matmul
+    does) as a sum of int64 products over chunks of the contracted
+    axis: exact, and on the card as on the CPU (the card has no integer
+    matrix product)."""
+    vx, vy = x.dim() == 1, y.dim() == 1
+    x = x[None] if vx else x
+    y = y[:, None] if vy else y
+    k = x.shape[-1]
+    if y.shape[-2] != k:
+        raise ValueError(f"matmul: contracted axes differ, shapes "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    rows = builtins.max(1, x[..., 0].numel() * y.shape[-1])
+    step = builtins.max(1, _EXACT_CHUNK // rows)
+    r = None
+    for k0 in range(0, builtins.max(k, 1), step):
+        part = (x[..., :, k0:k0 + step, None]
+                * y[..., None, k0:k0 + step, :]).sum(-2)
+        r = part if r is None else r + part
+    r = r.squeeze(-1) if vy else r
+    return r.squeeze(-1 if vy else -2) if vx else r
+
+
+def _matmul(a, b):
+    """``a @ b`` in the operands' promoted type (JAX's table: int32 with
+    float16 gives float16, uint8 with int8 int16, bool with x x's type).
+    Integer and bool operands take the exact int64 route, cast back to
+    the promoted type: an integer wraps as the reference's does, and a
+    bool result is whether any product was true."""
+    res = torch.promote_types(a.dtype, b.dtype)
+    if res.is_floating_point or res.is_complex:
+        return torch.matmul(a.to(res), b.to(res))
+    return _exact_matmul(a.to(torch.int64), b.to(torch.int64)).to(res)
+
+
 def _dot(a, b):
     if a.dim() == 0 or b.dim() == 0:
         return a * b
     if b.dim() == 1 or (a.dim() <= 2 and b.dim() <= 2):
-        return torch.matmul(a, b)
-    return torch.tensordot(a, b, dims=([-1], [-2]))
+        return _matmul(a, b)
+    # the sum over a's last axis and b's second-to-last (tensordot), as a
+    # matmul against b with that axis in front
+    r = _matmul(a, b.movedim(-2, 0).reshape(b.shape[-2], -1))
+    return r.reshape(*a.shape[:-1], *b.shape[:-2], b.shape[-1])
 
 
 def dot(a, b, out=None):
@@ -676,7 +743,7 @@ def dot(a, b, out=None):
 
 
 def matmul(a, b, out=None):
-    return _binary(torch.matmul, a, b, out=out, name="matmul")
+    return _binary(_matmul, a, b, out=out, name="matmul")
 
 
 def __getattr__(name):

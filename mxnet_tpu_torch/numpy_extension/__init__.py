@@ -59,12 +59,27 @@ def _mask_by_length(x, length, axis):
     return torch.where(idx < ln, x, float("-inf"))
 
 
+def _int_softmax(x, axis, log):
+    """(log-)softmax of an integer tensor as the reference's
+    ``jax.nn.softmax``/``log_softmax`` compute it: x less its max in x's
+    own type (below the max an unsigned type wraps, and a signed one
+    whose range overflows it), then exp, the sum and the division (or
+    log) in float32, with no second shift. A wrapped difference
+    overflows exp, and the reference's inf and NaN come out here too."""
+    x64 = x.to(torch.int64)
+    s = (x64 - x64.amax(dim=axis, keepdim=True)).to(x.dtype).float()
+    tot = torch.exp(s).sum(dim=axis, keepdim=True)
+    return s - torch.log(tot) if log else torch.exp(s) / tot
+
+
 def _softmax_fn(tfn, axis, temperature, masked):
     def f(x, *length):
         if temperature is not None and temperature != 1.0:
             x = x / temperature
         if masked:
             x = _mask_by_length(x, length[0], axis)
+        if x.dtype != torch.bool and not x.is_floating_point():
+            return _int_softmax(x, axis, tfn is torch.log_softmax)
         return tfn(x, dim=axis)
     return f
 

@@ -184,7 +184,8 @@ _FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 #: the (b, h, s) strides of q, k and v, as the kernel reads them
 _Strides9 = ctypes.c_longlong * 9
-#: K1's rows per query tile, and its grid's limit on query tiles
+#: K1's rows per query tile (the fp32 instance's; the bf16 one's are
+#: 64, so the check holds for both), and its grid's limit on query tiles
 _FLASH_BLOCK_Q, _GRID_Y_MAX = 32, 65535
 
 

@@ -11,13 +11,15 @@ e.g. with the parent commit unpacked into ``_tree/`` (``.gitignore``
 lists it): ``git archive HEAD~1 | tar -x -C _tree`` and
 ``--other-csrc _tree/mxnet_tpu_torch/csrc``.
 
-1. ``flash_attention_ab``: K1 (flash prefill) built from ``DIR`` —
+1. ``flash_attention_ab`` and ``flash_attention_bf16_ab``: K1 (flash
+   prefill), its fp32 and its bf16 instance, built from ``DIR`` —
    another revision's ``csrc/``, e.g. a ``git archive`` of an earlier
    commit — against K1 built from this checkout, through the same
    wrapper (the C entry point swapped), at ``chip_smoke.py``'s prefill
    shape (1, 12, 512, 64), causal, on strided views, and at the full
-   context (1, 12, 1024, 64). ``chip_smoke.Timer``: enqueue-inclusive
-   and device-only ms.
+   context (1, 12, 1024, 64); the bf16 one with SDPA on the same bf16
+   tensors beside it (device ms and kernel-only µs).
+   ``chip_smoke.Timer``: enqueue-inclusive and device-only ms.
 2. ``dequant_matmul_ab``: K4 from ``DIR`` against this checkout's, at
    ``chip_smoke.py``'s shapes (one GPT-2-small layer's six projections
    at M = 1, 8 and 32, L2 flushed before every call), ``bias=None``
@@ -374,40 +376,68 @@ def bf16_kernel_us(timer):
                 ms_device_warm=timer(fn, device=True))
 
 
+#: K1's entry points: the fp32 instance and the bf16 one (the input type)
+FLASH_ENTRIES = (("mxtt_flash_attention_fwd", torch.float32),
+                 ("mxtt_flash_attention_fwd_bf16", torch.bfloat16))
+
+
 def flash_ab(timer, other_csrc, rounds):
-    """K1 from ``other_csrc`` against this checkout's, through the same
-    wrapper (the cached entry point swapped), prefill shape and full
-    context."""
+    """K1's fp32 and bf16 instances from ``other_csrc`` against this
+    checkout's, through the same wrapper (the cached entry point
+    swapped), prefill shape and full context; the bf16 one beside SDPA
+    on the same bf16 tensors. An entry point the other revision lacks is
+    skipped."""
+    import torch.nn.functional as F
     other = _compile(os.path.join(other_csrc, "flash_attention.cu"),
                      other_csrc, "flash_attention-other")
-    other_fn = other.mxtt_flash_attention_fwd
-    other_fn.restype = ctypes.c_int
-    other_fn.argtypes = at._FLASH_ARGTYPES
-    key = ("flash_attention", "mxtt_flash_attention_fwd")
-    fns = {"other": other_fn,
-           "this": _build.function(*key, at._FLASH_ARGTYPES)}
-    rng = np.random.RandomState(3)
-    for s in (512, 1024):
-        q, k, v = (cs._split_view(torch, rng, 1, s, 12, 64) for _ in range(3))
+    for sym, dt in FLASH_ENTRIES:
+        tag = ("flash_attention_ab" if dt == torch.float32
+               else "flash_attention_bf16_ab")
+        if not hasattr(other, sym):
+            cs.emit(tag, other_csrc=other_csrc,
+                    skipped=f"no {sym} in the other revision")
+            continue
+        other_fn = getattr(other, sym)
+        other_fn.restype = ctypes.c_int
+        other_fn.argtypes = at._FLASH_ARGTYPES
+        key = ("flash_attention", sym)
+        fns = {"other": other_fn,
+               "this": _build.function(*key, at._FLASH_ARGTYPES)}
+        rng = np.random.RandomState(3)
+        for s in (512, 1024):
+            q, k, v = (cs._split_view(torch, rng, 1, s, 12, 64).to(dt)
+                       for _ in range(3))
 
-        def run(which):
-            _build._fns[key] = fns[which]
-            return at.flash_attention_fwd(q, k, v, True)
-        ref, ref_lse = run("this")
-        out, lse = run("other")
-        diff = float((out - ref).abs().max())
-        cs.check(diff <= 2 * cs.OUT_TOL,
-                 f"the two K1 builds differ by {diff}")
-        times = _turns(timer, {w: (lambda w=w: run(w)) for w in fns},
-                       rounds, False)
-        kernel_us = {w: _kernel_us(lambda w=w: run(w), "flash_fwd")
-                     for w in fns}
-        _build._fns[key] = fns["this"]
-        cs.emit("flash_attention_ab", shape=[1, 12, s, 64], causal=True,
-                strided=True, other_csrc=other_csrc, max_abs_diff=diff,
-                max_abs_diff_lse=float((lse - ref_lse).abs().max()),
-                order="other, this, this, other", rounds=rounds,
-                kernel_us_profiler=kernel_us, **_summary(times))
+            def run(which):
+                _build._fns[key] = fns[which]
+                return at.flash_attention_fwd(q, k, v, True)
+            ref, ref_lse = run("this")
+            out, lse = run("other")
+            diff = float((out.float() - ref.float()).abs().max())
+            # fp32: both within OUT_TOL of the plain version; bf16: both
+            # round fp32 results that differ by fp32 rounding
+            tol = (2 * cs.OUT_TOL if dt == torch.float32
+                   else cs._bf16_err(out, ref)[1])
+            cs.check(diff <= tol, f"the two {sym} builds differ by {diff}")
+            times = _turns(timer, {w: (lambda w=w: run(w)) for w in fns},
+                           rounds, False)
+            kernel_us = {w: _kernel_us(lambda w=w: run(w), "flash_fwd")
+                         for w in fns}
+            _build._fns[key] = fns["this"]
+            extra = {}
+            if dt == torch.bfloat16:
+                def sdpa():
+                    return F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True)
+                extra["sdpa_bf16"] = {
+                    "ms_device": timer(sdpa, device=True),
+                    "kernel_us_profiler": _kernel_us(sdpa, "")}
+            cs.emit(tag, shape=[1, 12, s, 64], causal=True, strided=True,
+                    other_csrc=other_csrc, max_abs_diff=diff,
+                    max_abs_diff_lse=float((lse - ref_lse).abs().max()),
+                    order="other, this, this, other", rounds=rounds,
+                    kernel_us_profiler=kernel_us, **extra,
+                    **_summary(times))
 
 
 #: K4's entry point before it took a bias: x, wq, scales, out; M, N, K;

@@ -217,6 +217,41 @@ def test_bool_operator_forms(fn):
     onp.testing.assert_array_equal(t.asnumpy(), j.asnumpy())
 
 
+#: the operator forms of products of two dtypes and of bool arithmetic
+#: (``@``, ``-``, ``//``, ``%``, ``**``, ``<<``, ``>>``): they take the
+#: mx.np functions' promotion and int32 routes
+BM = R.rand(3, 4) > 0.5
+BN = R.rand(3, 4) > 0.5
+MIXED_FORMS = [
+    ("matmul_f16_f32", op.matmul, X.astype("f2"), Y.T),
+    ("matmul_i32_f32", op.matmul, I, Y.T),
+    ("matmul_u8_i8", op.matmul, I.astype("u1"), (I - 4).T.astype("i1")),
+    ("matmul_i32", op.matmul, I, I.T),
+    ("matmul_bool", op.matmul, BM, BN.T),
+    ("matmul_bool_i32", op.matmul, BM, I.T),
+    ("sub_bool_i32", op.sub, BM, I), ("rsub_bool_f32", op.sub, X, BM),
+    ("sub_bool_int", op.sub, BM, 3), ("rsub_bool_int", op.sub, 3, BM),
+    ("floordiv_bool", op.floordiv, BM, onp.ones_like(BM)),
+    ("mod_bool", op.mod, BM, onp.ones_like(BM)),
+    ("pow_bool", op.pow, BM, BN), ("lshift_bool", op.lshift, BM, BN),
+    ("rshift_bool", op.rshift, BM, BN),
+]
+
+
+@pytest.mark.parametrize("fn,a,b", [c[1:] for c in MIXED_FORMS],
+                         ids=[c[0] for c in MIXED_FORMS])
+def test_mixed_and_bool_operator_forms(fn, a, b):
+    def lift(pkg, x):
+        return pkg.np.array(x) if isinstance(x, onp.ndarray) else x
+    t, j = fn(lift(tmx, a), lift(tmx, b)), fn(lift(jmx, a), lift(jmx, b))
+    assert t.dtype == j.dtype, (t.dtype, j.dtype)
+    assert t.shape == j.shape
+    tol = dict(rtol=2e-3, atol=2e-3) if onp.asarray(a).dtype == onp.float16 \
+        else dict(rtol=1e-5, atol=1e-5)
+    onp.testing.assert_allclose(t.asnumpy().astype("f8"),
+                                j.asnumpy().astype("f8"), **tol)
+
+
 def test_inplace_dunders_bump_version():
     t, j = tmx.np.array(X), jmx.np.array(X)
     v = t._version

@@ -279,6 +279,73 @@ def test_matmul_dot(fn, a, b):
     _same(_run(tmx, fn, (a, b), {}), _run(jmx, fn, (a, b), {}), RED)
 
 
+def _typed(dt, shape, seed):
+    """numpy-seeded ``dt`` values: floats in [-2, 2), signed integers in
+    [-5, 6), uint8 in [0, 6), bools."""
+    rs = onp.random.RandomState(seed)
+    if dt == "bool":
+        return rs.rand(*shape) > 0.5
+    if dt.startswith("float"):
+        return rs.uniform(-2, 2, shape).astype(dt)
+    return rs.randint(0 if dt.startswith("u") else -5, 6, shape).astype(dt)
+
+
+#: operand pairs of two dtypes (and a bool and an int product): the
+#: reference promotes (int32 with float16 -> float16, uint8 with int8 ->
+#: int16, bool with x -> x's type); integer and bool products are exact
+MIXED_PAIRS = [
+    ("float16", "float32"), ("int32", "float32"), ("int32", "float16"),
+    ("int32", "int8"), ("uint8", "int8"), ("int16", "uint8"),
+    ("bool", "float32"), ("int8", "bool"), ("bool", "bool"),
+    ("int32", "int32"),
+]
+#: (a's shape, b's shape): vectors, a batch broadcast, dot's tensordot
+MIXED_SHAPES = [((3, 4), (4, 2)), ((4,), (4,)), ((2, 3, 4), (1, 4, 2)),
+                ((2, 3, 4), (4,)), ((2, 3, 4), (5, 4, 2))]
+
+
+@pytest.mark.parametrize("fn", ["matmul", "dot"])
+@pytest.mark.parametrize("shapes", MIXED_SHAPES,
+                         ids=[f"{len(a)}d-{len(b)}d" for a, b in MIXED_SHAPES])
+@pytest.mark.parametrize("da,db", MIXED_PAIRS,
+                         ids=[f"{a}-{b}" for a, b in MIXED_PAIRS])
+def test_mixed_dtype_products(fn, shapes, da, db):
+    if fn == "matmul" and shapes == ((2, 3, 4), (5, 4, 2)):
+        shapes = ((5, 3, 4), (5, 4, 2))
+    a, b = _typed(da, shapes[0], 21), _typed(db, shapes[1], 22)
+    _same(_run(tmx, fn, (a, b), {}), _run(jmx, fn, (a, b), {}),
+          dict(rtol=2e-3, atol=2e-3) if "float16" in (da, db) else RED)
+
+
+def test_integer_product_wraps_like_reference():
+    a = onp.full((2, 300), 30000, "i4")
+    _same(_run(tmx, "matmul", (a, a.T), {}), _run(jmx, "matmul", (a, a.T), {}),
+          EW)
+
+
+#: bool operands of the ops torch refuses on bool: ``subtract`` with one
+#: bool operand computes in the other's type (a Python int gives int32),
+#: the others of two bool arrays compute in int32
+BM = _typed("bool", (3, 4), 23)
+BN = _typed("bool", (3, 4), 24)
+BOOL_ARITH = [
+    ("subtract", BM, I), ("subtract", I, BM), ("subtract", BM, X),
+    ("subtract", X, BM), ("subtract", BM, _typed("int8", (3, 4), 25)),
+    ("subtract", _typed("uint8", (3, 4), 26), BM),
+    ("subtract", _typed("float16", (3, 4), 27), BM),
+    ("subtract", BM, 2), ("subtract", 2, BM), ("subtract", BM, 1.5),
+    ("floor_divide", BM, onp.ones_like(BM)), ("mod", BM, onp.ones_like(BM)),
+    ("remainder", BN, onp.ones_like(BN)), ("power", BM, BN),
+    ("left_shift", BM, BN), ("right_shift", BM, BN),
+]
+
+
+@pytest.mark.parametrize("fn,a,b", BOOL_ARITH,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(BOOL_ARITH)])
+def test_bool_arithmetic(fn, a, b):
+    _same(_run(tmx, fn, (a, b), {}), _run(jmx, fn, (a, b), {}), EW)
+
+
 CREATE = [
     ("zeros", ((2, 3),), {}), ("zeros", (4,), {"dtype": "int32"}),
     ("ones", ((2, 3),), {"dtype": "int64"}), ("empty", ((3,),), {}),
@@ -390,6 +457,33 @@ WIDE_NPX = [
     ("topk", {"k": 2, "ret_typ": "mask"}),
     ("topk", {"k": 2, "is_ascend": True, "ret_typ": "both"}),
 ]
+
+
+#: softmax of an integer array: float32. The reference shifts by the
+#: max in the input's own type, so an unsigned input wraps below its max
+#: and gives inf / NaN, which the port gives too (equal_nan)
+INT_SOFTMAX = [("softmax", {}), ("softmax", {"axis": 0}),
+               ("softmax", {"temperature": 2.0}),
+               ("log_softmax", {}), ("log_softmax", {"axis": 0})]
+
+
+@pytest.mark.parametrize("dt", ["int8", "uint8", "int16", "int32",
+                                "uint16", "uint32"])
+@pytest.mark.parametrize("fn,kw", INT_SOFTMAX,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(INT_SOFTMAX)])
+def test_integer_softmax(fn, kw, dt):
+    a = _typed(dt, (3, 5), 28)
+    _same(getattr(tmx.npx, fn)(tmx.np.array(a), **kw),
+          getattr(jmx.npx, fn)(jmx.np.array(a), **kw), RED)
+
+
+@pytest.mark.parametrize("fn", ["softmax", "log_softmax"])
+def test_integer_softmax_by_length(fn):
+    a = _typed("int32", (3, 5), 29)
+    _same(getattr(tmx.npx, fn)(tmx.np.array(a), length=tmx.np.array(L),
+                               use_length=True),
+          getattr(jmx.npx, fn)(jmx.np.array(a), length=jmx.np.array(L),
+                               use_length=True), RED)
 
 
 @pytest.mark.parametrize("dt", ["uint16", "uint32"])
