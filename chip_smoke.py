@@ -50,6 +50,16 @@ at GPT-2-small widths through ``GenerationEngine``:
 - ``dense_int8_kv_engine``: a dense int8-KV engine with fp32 weights, 8
   requests, then ``load_weights`` to another seed's weights and a
   second wave held against a fresh engine on those weights;
+- ``spec_engine``, ``spec_paged_engine``, ``spec_sampled``: speculative
+  decoding (``draft_model=``, ``spec_k=4``) with a damped 12-layer
+  target and a 1-layer draft holding its embeddings, head and first
+  block (``bench.py --spec``'s models): the model-level verify held to
+  the decode chain (LOGIT_TOL; QNT_KV_TOL over an int8 pool) and one
+  iteration's calls audited for host syncs and off-card tensors; 16 of
+  the ``engine`` prompts on the dense engine and the paged int8-weight
+  traffic, each against the non-speculative engine on the same target
+  (every first divergence on a near-tie, below FLIP_GAP); 4 seeded
+  sampled requests on two fresh engines (the same streams);
 
 and holds the engines' tokens and logits against the same weights (and
 int8 tables) run on the CPU. Every phase prints one JSON line; any
@@ -992,7 +1002,7 @@ def phase_dequant(torch, timer):
         biases[(n, k)] = _rand(torch, rng, n)
         wq, sc = tables[(n, k)]
         check(int(wq[n // 3].abs().max()) == 0, "zero channel not zero")
-        for m in (1, 3, 8, 9, 32, 512):
+        for m in (1, 3, 8, 9, 32, 40, 512):
             x = _rand(torch, rng, m, k)
             for bias in (None, biases[(n, k)]):
                 out = qz.dequant_matmul(x, wq, sc, bias=bias)
@@ -1011,11 +1021,12 @@ def phase_dequant(torch, timer):
           f"K4 max-abs-err {err_rel} x max|ref| > {DEQUANT_REL_TOL}")
 
     # timing at the decode shape, M = 8 (the kernels line), and at M = 1
-    # (peek) and M = 32 (a prefill chunk), each projection of one layer;
+    # (peek), M = 32 (a prefill chunk) and M = 40 (a speculative verify
+    # of 8 slots x (SPEC_K + 1) positions), each projection of one layer;
     # bias=None, as the library call and earlier kernels had none, with
     # the path's bias epilogue timed beside it
     per_shape, lib_name = {}, None
-    for m in (1, 8, 32):
+    for m in (1, 8, 32, 40):
         for n, k in sorted(set(LAYER_PROJECTIONS)):
             wq, sc = tables[(n, k)]
             bias = biases[(n, k)]
@@ -1048,8 +1059,10 @@ def phase_dequant(torch, timer):
            "per_m": {mm: {"kernel_ms": layer(mm, "kernel_ms"),
                           "kernel_ms_device": layer(mm, "kernel_ms_device"),
                           "library_ms_device": layer(mm, "library_ms_device"),
-                          "bound_ms": layer_bound(mm)[0]}
-                     for mm in (1, 8, 32)},
+                          "plain_ms_device": layer(mm, "plain_ms_device"),
+                          "bound_ms": layer_bound(mm)[0],
+                          "bound_by": layer_bound(mm)[1]}
+                     for mm in (1, 8, 32, 40)},
            "per_shape": [{"M": mm, "N": n, "K": k,
                           **{kk: vv for kk, vv in r.items()
                              if kk != "bound"},
@@ -1889,6 +1902,403 @@ def phase_dense_int8_kv(torch):
     return res
 
 
+#: speculative decoding (docs/SERVING.md "Speculative decoding &
+#: sampling"): draft tokens an iteration, and the factor on every block
+#: weight and bias of the target and the draft (``bench.py --spec``'s
+#: models, ``_spc_models``: damped blocks give peaky logits, a real
+#: greedy gap, and a draft holding the target's embeddings, head and
+#: first block gives a real acceptance rate)
+SPEC_K = 4
+SPEC_DAMP = 0.3
+#: the dense speculative traffic: the first 16 of the engine phase's
+#: prompts (16..512 tokens), from 4 client threads
+SPEC_DENSE_REQUESTS = 16
+
+
+def _spec_models(torch):
+    """(target, draft) at GPT-2-small widths: the target of 12 layers
+    from seed 0, the draft of 1 layer from seed 1, each block weight and
+    bias of both times ``SPEC_DAMP``, ``lm_head`` a copy of
+    ``word_embed``; then the target's embeddings, position weights,
+    block 0, ``ln_f`` and head copied into the draft."""
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
+
+    def build(layers, seed):
+        net = GPTModel(**dict(PAGED_MODEL, num_layers=layers),
+                       device="cuda").initialize(seed=seed)
+        params = net.collect_params()
+        params["lm_head.weight"].set_data(params["word_embed.weight"].data())
+        for name, p in params.items():
+            if name.startswith("layers.") and name.endswith((".weight",
+                                                             ".bias")):
+                p.set_data(p.data() * SPEC_DAMP)
+        return net
+
+    target, draft = build(PAGED_MODEL["num_layers"], 0), build(1, 1)
+    tp = target.collect_params()
+    for name, p in draft.collect_params().items():
+        p.set_data(tp[name].data())
+    return target, draft
+
+
+def _audit(torch, dev, fn):
+    """Run ``fn()`` under a dispatch mode that counts, per aten op, the
+    host syncs (a scalar read, a copy from ``dev`` to the host) and the
+    calls that touch a tensor off ``dev`` other than staging a host
+    array onto it. Returns (fn's result, syncs, off-device calls)."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+    staging = ("aten.lift_fresh", "aten._to_copy", "aten.copy_",
+               "aten.detach", "aten.alias", "aten.view")
+    syncs, off = collections.Counter(), collections.Counter()
+
+    class Audit(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            ins = [t for t in tree_flatten((args, kwargs))[0]
+                   if isinstance(t, torch.Tensor)]
+            outs = [t for t in tree_flatten(out)[0]
+                    if isinstance(t, torch.Tensor)]
+            on = [t.device == dev for t in ins + outs]
+            if name.startswith("aten._local_scalar_dense") or (
+                    any(t.device == dev for t in ins)
+                    and any(t.device != dev for t in outs)):
+                syncs[name] += 1
+            elif not all(on) and not name.startswith(staging):
+                off[name] += 1
+            return out
+
+    with Audit():
+        res = fn()
+    return res, dict(syncs), dict(off)
+
+
+def _spec_model_parity(torch, target, draft, paged, kv_dtype=None,
+                       lengths=(94, 45)):
+    """Model-level speculative calls on the card, two prompts whose
+    ``SPEC_K + 1`` verified positions cross a page boundary: the verify
+    logits at every position against the decode chain of the same
+    tokens, one more decode step after a full commit against the
+    never-speculated cache, and one greedy and one sampled iteration
+    (``propose_tokens``, ``verify_commit[_paged]``, the draft's
+    rollback) audited for host syncs and off-card tensors. Returns the
+    measures."""
+    rng = np.random.RandomState(11)
+    vocab, s_max, ps = (PAGED_MODEL["vocab_size"],
+                        PAGED_MODEL["max_length"], 16)
+    b, r, p_max = len(lengths), SPEC_K + 1, s_max // ps
+    prompts = [rng.randint(0, vocab - 1, size=n).astype("i4")
+               for n in lengths]
+    act = np.ones(b, "i4")
+
+    def prefilled(net, dense=False):
+        if paged and not dense:
+            cache = net.init_paged_cache(b, b * p_max + 1, ps, s_max,
+                                         dtype=kv_dtype)
+        else:
+            cache = net.init_cache(b, s_max,
+                                   dtype=None if dense else kv_dtype)
+        firsts = []
+        for j, p in enumerate(prompts):
+            toks = np.zeros((1, max(ps, 1 << (len(p) - 1).bit_length())),
+                            "i4")
+            toks[0, :len(p)] = p
+            if paged and not dense:
+                row = np.arange(1 + j * p_max, 1 + (j + 1) * p_max,
+                                dtype="i4")
+                lg, cache = net.prefill_paged(toks, len(p), j, row, cache,
+                                              fresh=True)
+            else:
+                lg, cache = net.prefill(toks, [len(p)], cache, slots=[j])
+            firsts.append(int(lg[0].argmax()))
+        return cache, np.asarray(firsts, "i4")
+
+    def decode(toks, cache):
+        if paged:
+            return target.decode_step_paged(toks, act, cache)
+        return target.decode_step(toks, cache)
+
+    cache_a, firsts = prefilled(target)
+    chain = np.concatenate([firsts[:, None], rng.randint(
+        0, vocab - 1, size=(b, r - 1)).astype("i4")], axis=1)
+    ref = []
+    for t in range(r):
+        lg, cache_a = decode(chain[:, t], cache_a)
+        ref.append(lg)
+    ref = torch.stack(ref, 1)
+    cache_b, _ = prefilled(target)
+    verify = target.verify_step_paged if paged else target.verify_step
+    vl, cache_b = verify(chain, act, cache_b) if paged \
+        else verify(chain, cache_b)
+    err = float((vl - ref).abs().max())
+    cache_b = target.advance_len(np.full(b, r, "i4"), cache_b)
+    lens_equal = cache_b["len"].tolist() == cache_a["len"].tolist()
+    nxt = ref[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
+    la, _ = decode(nxt, cache_a)
+    lb, _ = decode(nxt, cache_b)
+    err_next = float((la - lb).abs().max())
+
+    # one greedy and one sampled iteration, audited
+    dcache, dfirsts = prefilled(draft, dense=True)
+    vcommit = target.verify_commit_paged if paged else target.verify_commit
+    dev = target.device
+    gens = [torch.Generator(device=dev).manual_seed(j) for j in range(b)]
+    knobs = dict(temps=np.full(b, SAMPLING["temperature"], "f4"),
+                 top_ks=np.full(b, SAMPLING["top_k"], "i4"),
+                 top_ps=np.full(b, SAMPLING["top_p"], "f4"))
+
+    def iteration(sampled):
+        kw = dict(generators=gens, **knobs) if sampled else {}
+        out = draft.propose_tokens(dfirsts, dcache, SPEC_K, **kw)
+        vkw = dict(q=out[1], **kw) if sampled else {}
+        res = vcommit(firsts, out[0], act, cache_b, **vkw)
+        draft.advance_len(np.full(b, -SPEC_K, "i4"), dcache)
+        return res[1]
+    audit = {}
+    n_commit = []
+    for sampled in (False, True):
+        n, syncs, off = _audit(torch, dev, lambda: iteration(sampled))
+        n_commit.append(n.tolist())
+        audit["sampled" if sampled else "greedy"] = {
+            "host_syncs": syncs, "off_card_ops": off}
+    return {"lengths": list(lengths), "kv_dtype": kv_dtype or "float32",
+            "verify_vs_decode_chain_max_abs_err": err,
+            "after_commit_max_abs_err": err_next,
+            "lens_equal_after_commit": lens_equal,
+            "n_commit_greedy_sampled": n_commit, "audit": audit}
+
+
+def _check_spec_model(res, tol, what):
+    check(res["verify_vs_decode_chain_max_abs_err"] <= tol,
+          f"{what}: verify vs decode chain "
+          f"{res['verify_vs_decode_chain_max_abs_err']} > {tol}")
+    check(res["after_commit_max_abs_err"] <= tol,
+          f"{what}: decode after a full commit "
+          f"{res['after_commit_max_abs_err']} > {tol}")
+    check(res["lens_equal_after_commit"], f"{what}: lengths after commit")
+    check(all(1 <= n <= SPEC_K + 1 for ns in res["n_commit_greedy_sampled"]
+              for n in ns), f"{what}: n_commit outside [1, k + 1]")
+    for kind, a in res["audit"].items():
+        check(not a["host_syncs"], f"{what} {kind}: host syncs inside an "
+              f"iteration's calls: {a['host_syncs']}")
+        check(not a["off_card_ops"], f"{what} {kind}: off-card tensors on "
+              f"the path: {a['off_card_ops']}")
+
+
+def _spec_divergences(forced_fn, prompts, spec, plain):
+    """The card's greedy identity rule: for every request whose
+    speculative tokens differ from its non-speculative ones, the
+    non-speculative logits at the first difference (teacher-forced
+    through ``forced_fn(prompts, gens)``) and their top-2 gap. Returns
+    one row per diverging request."""
+    rows = []
+    for j, (a, b) in enumerate(zip(spec, plain)):
+        if a == b:
+            continue
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)) - 1)
+        lg = forced_fn([prompts[j]], [b])[0][i]
+        top2 = lg.topk(2).values
+        rows.append({"request": j, "pos": i, "spec": a[i], "plain": b[i],
+                     "gap": float(top2[0] - top2[1])})
+    return rows
+
+
+def _spec_run(torch, eng, prompts, paged, repeats=None):
+    """Serve ``prompts`` through ``eng`` (4 client threads) and add the
+    speculative measures from its telemetry."""
+    if paged:
+        results, res = _serve_paged_traffic(torch, eng, prompts, repeats)
+        snap = None
+    else:
+        results, res, snap = _serve_traffic(torch, eng, prompts)
+    if eng.speculative:
+        from mxnet_tpu_torch import telemetry
+        c = telemetry.snapshot()["counters"] if snap is None \
+            else snap["counters"]
+        prop = c["serving.generate.spec.proposed"]
+        acc = c["serving.generate.spec.accepted"]
+        iters = res["decode_steps"]
+        res.update(
+            accept_rate=acc / prop, proposed=prop, accepted=acc,
+            iterations=iters,
+            committed_per_slot_iteration=(prop / SPEC_K + acc)
+            / (prop / SPEC_K),
+            decode_tokens_per_iteration=(res["generated_tokens"]
+                                         - len(prompts)) / iters,
+            launches_per_iteration=res.pop("launches_per_decode_step"))
+    return results, res
+
+
+def phase_spec_engine(torch, dense_prompts):
+    """Speculative decoding at GPT-2-small widths (``_spec_models``: a
+    damped 12-layer target and a 1-layer draft sharing its embeddings,
+    head and first block), ``spec_k=SPEC_K``, 8 slots, 64 new tokens:
+
+    - model level, dense fp32 and then paged with int8 weights:
+      ``verify_step[_paged]`` against the decode chain and a full commit
+      continued, within LOGIT_TOL, and one iteration's calls audited
+      (no host sync, no off-card tensor); then over an int8 KV pool
+      across a page boundary, within QNT_KV_TOL;
+    - the dense fp32 engine, greedy, the first SPEC_DENSE_REQUESTS of
+      the engine phase's prompts, non-speculative and speculative;
+    - the paged int8-weight engine, greedy, ``_paged_prompts``'s traffic
+      (prefix sharing, repeats: K3's peek, K4's verify at M = 40, the
+      draft's dense prefill at decode entry), non-speculative and
+      speculative;
+    - the SAMPLED requests with the SAMPLING knobs on two fresh
+      speculative paged engines: the same streams, and every commit
+      count in [1, SPEC_K + 1].
+
+    Greedy identity on the card: verify runs the plain masked attention
+    and products at M = 8 x (SPEC_K + 1), decode K2 and products at
+    M = 8, so a near-tie may flip: every first divergence between a
+    request's two streams must sit on a non-speculative top-2 gap below
+    FLIP_GAP (teacher-forced on the card). Returns (dense phase
+    result, paged phase result, sampled phase result)."""
+    import collections
+    from mxnet_tpu_torch.ops import quantized as qz
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    n_layers = PAGED_MODEL["num_layers"]
+    t0 = time.perf_counter()
+    target, draft = _spec_models(torch)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spec_kw = dict(draft_model=draft, spec_k=SPEC_K)
+    cfg = dict(max_slots=8, max_new_tokens=64, eos_id=50256)
+    dense_model = _spec_model_parity(torch, target, draft, paged=False)
+    _check_spec_model(dense_model, LOGIT_TOL, "dense fp32")
+
+    def serve(prompts, spec, repeats=None, warm=None, **kw):
+        eng = GenerationEngine(target, **cfg, **kw,
+                               **(spec_kw if spec else {}))
+        t0 = time.perf_counter()
+        eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        if warm is not None:
+            warm()
+        results, res = _spec_run(torch, eng, prompts, eng.paged, repeats)
+        res["warmup_s"] = warmup_s
+        if spec:
+            check(eng.speculation == f"k={SPEC_K}:draft=GPTModel:1L-768u",
+                  f"speculation {eng.speculation!r}")
+        policy = eng.policy
+        eng.close()
+        return [r.tokens for r in results], res, policy
+
+    prompts = dense_prompts[:SPEC_DENSE_REQUESTS]
+    plain, plain_res, policy = serve(prompts, False)
+    spec, dense, _ = serve(prompts, True)
+    launches, iters = dense["launches"], dense["iterations"]
+    check(launches["decode_attention"] == SPEC_K * 1 * iters > 0,
+          f"K2 launched {launches['decode_attention']} times for {iters} "
+          f"iterations of {SPEC_K} one-layer draft steps")
+    check(launches["flash_attention_fwd"] >= (n_layers + 1) * len(prompts),
+          f"K1 launched {launches['flash_attention_fwd']} times")
+    div = _spec_divergences(
+        lambda p, g: _teacher_forced_dense(target, p, g, policy),
+        prompts, spec, plain)
+    dense.update(init_s=init_s, model_level=dense_model,
+                 requests_diverged=len(div), divergences=div,
+                 flip_gap=FLIP_GAP,
+                 non_spec={k: plain_res[k] for k in (
+                     "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99",
+                     "decode_steps", "host_syncs_per_token", "wall_s",
+                     "launches_per_decode_step")})
+    emit("spec_engine", **dense)
+    check(all(d["gap"] < FLIP_GAP for d in div),
+          f"a spec vs non-spec divergence on a gap >= {FLIP_GAP}: {div}")
+
+    # paged, int8 weights
+    pcfg = dict(paged=True, page_size=16, quantize="int8_weights")
+    target.quantize_params()
+    paged_model = _spec_model_parity(torch, target, draft, paged=True)
+    _check_spec_model(paged_model, LOGIT_TOL, "paged int8 weights")
+    kv8_model = _spec_model_parity(torch, target, draft, paged=True,
+                                   kv_dtype="int8")
+    _check_spec_model(kv8_model, QNT_KV_TOL, "paged int8 weights, int8 KV")
+    pprompts, repeats = _paged_prompts(np.random.RandomState(5),
+                                       PAGED_MODEL["vocab_size"])
+    plain, plain_res, _ = serve(pprompts, False, repeats, **pcfg)
+    k4_rows = collections.Counter()
+    k4 = qz._dequant_matmul_cuda
+
+    def counted(x2, *a, **kw):
+        k4_rows[int(x2.shape[0])] += 1
+        return k4(x2, *a, **kw)
+    qz._dequant_matmul_cuda = counted
+    try:
+        spec, paged, _ = serve(pprompts, True, repeats, warm=k4_rows.clear,
+                               **pcfg)
+    finally:
+        qz._dequant_matmul_cuda = k4
+    launches, iters = paged["launches"], paged["iterations"]
+    m_verify = 8 * (SPEC_K + 1)
+    check(launches["decode_attention"] == SPEC_K * 1 * iters > 0,
+          f"K2 launched {launches['decode_attention']} times for {iters} "
+          f"iterations")
+    check(launches["paged_decode_attention"]
+          == n_layers * paged["prefix_hits"],
+          f"K3 launched {launches['paged_decode_attention']} times for "
+          f"{paged['prefix_hits']} whole-prompt hits")
+    check(k4_rows[m_verify] == 6 * n_layers * iters,
+          f"K4 at M = {m_verify}: {k4_rows[m_verify]} launches for {iters} "
+          f"verifies")
+    check(launches["flash_attention_fwd"] >= len(pprompts),
+          f"K1 launched {launches['flash_attention_fwd']} times")
+    div = _spec_divergences(
+        lambda p, g: _teacher_forced(target, p, g), pprompts, spec, plain)
+    paged.update(model_level=paged_model, model_level_int8_kv=kv8_model,
+                 k4_launches_by_rows=dict(sorted(k4_rows.items())),
+                 requests_diverged=len(div), divergences=div,
+                 flip_gap=FLIP_GAP,
+                 non_spec={k: plain_res[k] for k in (
+                     "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99",
+                     "decode_steps", "host_syncs_per_token", "wall_s",
+                     "launches_per_decode_step")})
+    emit("spec_paged_engine", **paged)
+    check(all(d["gap"] < FLIP_GAP for d in div),
+          f"a spec vs non-spec divergence on a gap >= {FLIP_GAP}: {div}")
+
+    # sampled: the same seeds on two fresh engines
+    n_commits, streams = [], []
+    inner = target.verify_commit_paged
+
+    def recorded(*a, **kw):
+        out = inner(*a, **kw)
+        n_commits.append(out[1])
+        return out
+    target.verify_commit_paged = recorded
+    try:
+        for _ in range(2):
+            eng = GenerationEngine(target, **cfg, **pcfg, **spec_kw)
+            sts = {j: eng.submit(pprompts[j], **SAMPLING, seed=seed)
+                   for j, seed in SAMPLED.items()}
+            streams.append({j: st.result(timeout=600).tokens
+                            for j, st in sts.items()})
+            eng.close()
+    finally:
+        del target.verify_commit_paged
+    n_all = torch.cat(n_commits)
+    sampled = {"requests": sorted(SAMPLED), "sampling": SAMPLING,
+               "streams_identical": streams[0] == streams[1],
+               "tokens": sum(len(t) for t in streams[0].values()),
+               "n_commit_min": int(n_all.min()),
+               "n_commit_max": int(n_all.max()),
+               "n_commit_mean": float(n_all.float().mean())}
+    emit("spec_sampled", **sampled)
+    check(sampled["streams_identical"],
+          "a seeded sampled speculative stream did not repeat")
+    check(1 <= sampled["n_commit_min"] and sampled["n_commit_max"]
+          <= SPEC_K + 1, f"n_commit outside [1, {SPEC_K + 1}]")
+    del target, draft
+    torch.cuda.empty_cache()
+    return dense, paged, sampled
+
+
 #: the rtc module of the K5 phases: the JAX rtc tests' kernels
 #: (tests/test_extensions.py: scale_add, negate, double, ident), the
 #: example's scale2 (examples/custom_op.py), and row_softmax — one
@@ -2355,6 +2765,8 @@ def main(argv=None):
     phase_int8_kv_cpu_reference(torch, model, prompts, kv8_results, card8)
     del model
     phases["dense_int8_kv_engine"] = phase_dense_int8_kv(torch)
+    (phases["spec_engine"], phases["spec_paged_engine"],
+     _sampled) = phase_spec_engine(torch, dense_prompts)
     rows = []
     for name, src, replaces, fn, key in KERNELS:
         res = kernel_res[key]

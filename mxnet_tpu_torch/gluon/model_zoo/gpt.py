@@ -80,8 +80,19 @@ its eos id or spends its budget (its ``len`` then stands still, its
 write lands at the frozen waterline or in scrap page 0, it re-feeds its
 last token and its picks are masked out of ``emitted``).
 
-The reference's other generation modes (LoRA, speculative verify,
-tensor-parallel sharding) are later slices.
+Speculative decoding (the reference's verify closures):
+``verify_step``/``verify_step_paged`` write R tokens per row above the
+``len`` waterline and return the logits at all R positions (the
+chunked-prefill attention with per-row ``start``; the projections take
+``_proj``, so an int8 target runs K4 at M = B x R);
+``advance_len``/``advance_len_paged`` move the waterline (commit, and
+the draft's rollback); ``propose_tokens`` runs a draft's k chained
+decode steps (K2 on the card), tokens fed on the device; and
+``verify_commit``/``verify_commit_paged`` verify, apply the accept rule
+(``ops.sampling``) and advance ``len`` in one call with no host sync.
+
+The reference's other generation modes (LoRA, tensor-parallel sharding)
+are later slices.
 """
 from __future__ import annotations
 
@@ -256,6 +267,37 @@ class GPTBlock(HybridBlock):
                                      k_scale=k_scale, v_scale=v_scale)
         return self._finish(x, attn), k_cache, v_cache
 
+    def verify(self, x, k_cache, v_cache, pos, start, k_scale=None,
+               v_scale=None):
+        """One speculative VERIFY step: write R tokens' K/V IN PLACE at
+        the contiguous positions ``[pos, pos + R)`` of each row, then
+        attend all R queries over the global causal mask in one pass
+        (``chunked_prefill_attention`` with per-row ``start``, each
+        row's committed length). The caller keeps ``pos + R <= S_max``
+        (the engine's ``spec_k`` margin); past it the write starts at
+        ``S_max - R``, as the reference's dynamic update slice clamps.
+        ``k_scale``/``v_scale`` (B, H) mark an INT8 cache: the writes
+        quantize against the slot's prefill scale and the attention
+        view dequantizes with it. Returns the block output and the
+        (same) buffers."""
+        q, k, v = self._qkv(x)
+        b, r = x.shape[0], x.shape[1]
+        rows = torch.arange(b, device=x.device)[:, None]
+        cols = pos.long().clamp(max=k_cache.shape[2] - r)[:, None] \
+            + torch.arange(r, device=x.device)
+        if k_scale is None:
+            k_cache[rows, :, cols] = k.transpose(1, 2).to(k_cache.dtype)
+            v_cache[rows, :, cols] = v.transpose(1, 2).to(v_cache.dtype)
+            kf, vf = k_cache, v_cache
+        else:
+            ks, vs = k_scale[:, :, None, None], v_scale[:, :, None, None]
+            k_cache[rows, :, cols] = _qz.kv_quantize(k, ks).transpose(1, 2)
+            v_cache[rows, :, cols] = _qz.kv_quantize(v, vs).transpose(1, 2)
+            kf, vf = k_cache.float() * ks, v_cache.float() * vs
+        attn = _att.chunked_prefill_attention(q, kf.to(q.dtype),
+                                              vf.to(q.dtype), start)
+        return self._finish(x, attn), k_cache, v_cache
+
     # -- paged-cache generation ----------------------------------------
     def decode_paged(self, x, k_pool, v_pool, table, page, offset,
                      att_len, k_scale=None, v_scale=None, prev_page=None):
@@ -317,6 +359,44 @@ class GPTBlock(HybridBlock):
             kg, vg = (_att.gather_pages(pool, pages[None]).float()
                       * _att.expand_page_scales(sc, pages[None], ps)[
                           ..., None]
+                      for pool, sc in ((k_pool, k_scale), (v_pool, v_scale)))
+        attn = _att.chunked_prefill_attention(q, kg, vg, start)
+        return self._finish(x, attn)
+
+    def verify_paged(self, x, k_pool, v_pool, table, page, offset, start,
+                     k_scale=None, v_scale=None, fresh=None,
+                     anchor_page=None):
+        """Speculative VERIFY against a PAGED cache: scatter R tokens'
+        K/V per row IN PLACE into pool pages ``page``/``offset`` (B, R)
+        — inactive rows and positions past a slot's reservation arrive
+        redirected to scrap page 0, the decode-write discipline — then
+        attend the R queries over each row's gathered table view under
+        the global causal mask (``chunked_prefill_attention`` with
+        per-row ``start``).
+
+        ``k_scale``/``v_scale`` (n_pages, H) mark an INT8 pool:
+        ``fresh`` (B, R) flags positions whose page holds no committed
+        token yet — they quantize (and stamp the page) with
+        ``anchor_page``'s scale (the page of the row's last committed
+        token), ``decode_paged``'s predecessor rule for a
+        multi-position write; the other positions reuse their page's
+        scale. Both scales are read before any is written."""
+        q, k, v = self._qkv(x)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)    # (B, R, H, Dh)
+        ps = k_pool.shape[2]
+        if k_scale is None:
+            k_pool[page, :, offset] = kt.to(k_pool.dtype)
+            v_pool[page, :, offset] = vt.to(v_pool.dtype)
+            kg = _att.gather_pages(k_pool, table).to(q.dtype)
+            vg = _att.gather_pages(v_pool, table).to(q.dtype)
+        else:
+            for pool, sc, a in ((k_pool, k_scale, kt), (v_pool, v_scale, vt)):
+                eff = torch.where(fresh[..., None],
+                                  sc[anchor_page][:, None, :], sc[page])
+                sc[page] = eff
+                pool[page, :, offset] = _qz.kv_quantize(a, eff[..., None])
+            kg, vg = (_att.gather_pages(pool, table).float()
+                      * _att.expand_page_scales(sc, table, ps)[..., None]
                       for pool, sc in ((k_pool, k_scale), (v_pool, v_scale)))
         attn = _att.chunked_prefill_attention(q, kg, vg, start)
         return self._finish(x, attn)
@@ -723,6 +803,191 @@ class GPTModel(HybridBlock):
         return (torch.stack(toks, 1).to(torch.int32), torch.stack(emits, 1),
                 generators, cache)
 
+    # -- speculative decoding ------------------------------------------
+    def _verify_embed(self, tokens, pos):
+        x = self.word_embed(tokens) + self.position_weight.data()[pos]
+        if self.embed_drop is not None:
+            x = self.embed_drop(x)
+        return x
+
+    def _verify_body(self, tokens, cache):
+        """The dense R-token verify computation, under ``_bound``: write
+        R tokens per row at ``[len, len + R)``, attend all R queries
+        under the global causal mask; returns (B, R, V) fp32 logits with
+        ``len`` unchanged."""
+        r = tokens.shape[1]
+        ln = cache["len"]
+        # a dead row's len may sit past the margin: its (unread) logits
+        # take the last position's embedding instead of reading past
+        # the table
+        pos = (ln.long()[:, None] + torch.arange(r, device=ln.device)) \
+            .clamp(max=cache["k"][0].shape[2] - 1)
+        x = self._verify_embed(tokens, pos)
+        for blk, kc, vc, ks, vs in zip(self._blocks(), cache["k"],
+                                       cache["v"], *self._kv_scales(cache)):
+            x, _, _ = blk.verify(x, kc, vc, ln, ln, ks, vs)
+        return self.lm_head(self.ln_f(x)).float()
+
+    def _verify_body_paged(self, tokens, live, cache):
+        """The paged R-token verify computation, under ``_bound``:
+        scatter each live row's R tokens through its page table (other
+        rows write scrap page 0), attend the gathered view; returns
+        (B, R, V) fp32 logits with ``len`` unchanged."""
+        b, r = tokens.shape
+        ps = cache["k"][0].shape[2]
+        table, ln = cache["table"], cache["len"]
+        s_max = table.shape[1] * ps
+        rows = torch.arange(b, device=ln.device)
+        pos = (ln.long()[:, None] + torch.arange(r, device=ln.device)) \
+            .clamp(max=s_max - 1)
+        lpage = pos // ps
+        live2 = live[:, None]
+        zero = torch.zeros_like(pos)
+        page = torch.where(live2, table[rows[:, None], lpage].long(), zero)
+        offset = torch.where(live2, pos % ps, zero)
+        fresh = anchor = None
+        if "k_scale" in cache:
+            # a page with no committed token yet inherits the scale of
+            # the page holding the row's last committed token
+            anchor = torch.where(
+                live, table[rows, (ln.long() - 1).clamp(min=0) // ps].long(),
+                torch.zeros_like(rows))
+            fresh = lpage * ps >= ln.long()[:, None]
+        x = self._verify_embed(tokens, pos)
+        for blk, kp, vp, ks, vs in zip(self._blocks(), cache["k"],
+                                       cache["v"], *self._kv_scales(cache)):
+            x = blk.verify_paged(x, kp, vp, table, page, offset, ln, ks, vs,
+                                 fresh, anchor)
+        return self.lm_head(self.ln_f(x)).float()
+
+    def _live(self, active):
+        """A host (B,) activity mask as a bool tensor on the device."""
+        return torch.as_tensor(onp.asarray(active)).to(
+            self.device, non_blocking=True) > 0
+
+    @torch.no_grad()
+    def verify_step(self, tokens, cache):
+        """Speculative VERIFY over every dense cache slot: write the K/V
+        of ``tokens`` (B, R) — per row ``[last, d_1 .. d_{R-1}]``, the
+        committed tail token and the draft's proposals — at positions
+        ``[len, len + R)`` and return the logits at all R positions
+        ``(B, R, V)`` fp32 and the cache, updated in place. ``len`` is
+        unchanged: :meth:`advance_len` commits the accepted prefix and
+        so rolls the rejected tail back (it sits above ``len``, is never
+        attended, and the next verify overwrites it). Rows must keep
+        ``len + R <=`` the cache capacity (the engine's ``spec_k``
+        margin)."""
+        tokens = self._as_tokens(tokens)
+        if tokens.dim() != 2:
+            raise ValueError(f"verify tokens must be (batch, R), got "
+                             f"shape {tuple(tokens.shape)}")
+        with self._bound():
+            return self._verify_body(tokens, cache), cache
+
+    @torch.no_grad()
+    def verify_step_paged(self, tokens, active, cache):
+        """Speculative VERIFY for every slot of a PAGED cache: write each
+        active row's ``tokens`` (B, R) at positions ``[len, len + R)``
+        through its page table and return the logits at all R positions
+        ``(B, R, V)`` fp32 and the cache, updated in place. Inactive rows
+        (``active == 0``) and positions past a slot's page reservation
+        write into the scrap page; ``len`` is unchanged (commit with
+        :meth:`advance_len_paged`)."""
+        tokens = self._as_tokens(tokens)
+        if tokens.dim() != 2:
+            raise ValueError(f"verify tokens must be (batch, R), got "
+                             f"shape {tuple(tokens.shape)}")
+        with self._bound():
+            return self._verify_body_paged(tokens, self._live(active),
+                                           cache), cache
+
+    @torch.no_grad()
+    def advance_len(self, delta, cache):
+        """Advance each row's valid length by ``delta`` (B,) — the
+        speculative COMMIT and ROLLBACK primitive (0 leaves a row put; a
+        draft's cache rolls back to the accept point with a negative
+        delta). In place; returns the cache."""
+        cache["len"] += torch.as_tensor(onp.asarray(delta, "i4")).to(
+            self.device, non_blocking=True)
+        return cache
+
+    advance_len_paged = advance_len
+
+    @torch.no_grad()
+    def propose_tokens(self, tokens, cache, k, generators=None, temps=None,
+                       top_ks=None, top_ps=None):
+        """DRAFT side of one speculative iteration: ``k`` chained decode
+        steps over every dense cache slot, each feeding its token to the
+        next on the device (no host sync). Greedy (no ``temps``):
+        returns ``(draft_tokens (B, k) int32, cache)``. Sampled (per-row
+        ``generators`` and host knob arrays (B,), as
+        ``ops.sampling.sample_tokens`` takes them): every step draws with
+        ``sample_with_probs``; returns ``(draft_tokens, warped probs (B,
+        k, V), generators, cache)`` — what the accept rule needs. ``len``
+        advances by k on every row; :meth:`advance_len` rolls it back to
+        the accept point."""
+        cur = self._as_tokens(tokens)
+        toks, qs = [], []
+        with self._bound():
+            for _ in range(int(k)):
+                logits, cache = self._decode_body(cur, cache)
+                if temps is None:
+                    cur = logits.argmax(dim=-1)
+                else:
+                    cur, q = _smp.sample_with_probs(generators, logits, temps,
+                                                    top_ks, top_ps)
+                    qs.append(q)
+                toks.append(cur)
+        d = torch.stack(toks, 1).to(torch.int32)
+        if temps is None:
+            return d, cache
+        return d, torch.stack(qs, 1), generators, cache
+
+    @torch.no_grad()
+    def verify_commit(self, last, d_toks, active, cache, q=None,
+                      generators=None, temps=None, top_ks=None, top_ps=None):
+        """TARGET side of one speculative iteration, in one call with no
+        host sync: verify the ``k + 1`` positions ``[last, d_1 .. d_k]``
+        (``verify_step``'s computation), apply the accept rule, and
+        advance every active row's ``len`` by its commit count. Greedy
+        (no ``q``): ``greedy_accept``, returns ``(commit (B, k+1) int32,
+        n_commit (B,) int32, cache)``; sampled (``q`` the draft's warped
+        probabilities, per-row ``generators`` and host knobs):
+        ``speculative_accept``, returns ``(commit, n_commit, generators,
+        cache)``. A row the engine then clips (eos, budget, capacity)
+        keeps the full-commit ``len``: it is evicted, and nobody reads
+        its counter."""
+        return self._verify_commit(False, last, d_toks, active, cache, q,
+                                   generators, temps, top_ks, top_ps)
+
+    @torch.no_grad()
+    def verify_commit_paged(self, last, d_toks, active, cache, q=None,
+                            generators=None, temps=None, top_ks=None,
+                            top_ps=None):
+        """Paged-cache :meth:`verify_commit` (the verify of
+        ``verify_step_paged``; the accept rule and the ``len`` advance
+        are the same)."""
+        return self._verify_commit(True, last, d_toks, active, cache, q,
+                                   generators, temps, top_ks, top_ps)
+
+    def _verify_commit(self, paged, last, d_toks, active, cache, q,
+                       generators, temps, top_ks, top_ps):
+        last, d_toks = self._as_tokens(last), self._as_tokens(d_toks)
+        live = self._live(active)
+        vt = torch.cat([last[:, None], d_toks], dim=1)
+        with self._bound():
+            logits = self._verify_body_paged(vt, live, cache) if paged \
+                else self._verify_body(vt, cache)
+        if q is None:
+            commit, n_commit = _smp.greedy_accept(logits, d_toks)
+        else:
+            commit, n_commit = _smp.speculative_accept(
+                generators, logits, d_toks, q, temps, top_ks, top_ps)
+        cache["len"] += n_commit * live.to(torch.int32)
+        if q is None:
+            return commit, n_commit, cache
+        return commit, n_commit, generators, cache
+
     # -- paged-cache generation API ------------------------------------
     def init_paged_cache(self, batch_size, n_pages, page_size,
                          max_length=None, dtype=None):
@@ -844,10 +1109,9 @@ class GPTModel(HybridBlock):
         freed slot's table row may alias pages someone else owns).
         Returns ``(logits (B, V), cache)``, the cache updated in
         place."""
-        live = torch.as_tensor(onp.asarray(active)).to(self.device) > 0
         with self._bound():
-            return self._decode_body_paged(self._as_tokens(tokens), live,
-                                           cache)
+            return self._decode_body_paged(self._as_tokens(tokens),
+                                           self._live(active), cache)
 
     def _decode_body_paged(self, tokens, live, cache):
         """One paged decode step's computation, under ``_bound`` (shared

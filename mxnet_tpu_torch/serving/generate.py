@@ -70,20 +70,36 @@ composes with ``kv_dtype="int8"`` and ``quantize="int8_weights"``.
 and the tick's (B, k) tokens and their emission mask reach the host in
 one sync; greedy output is the same as at k = 1, seeded sampled streams
 too, and deadlines and evictions act once per tick.
+``draft_model=`` (with ``spec_k``, default 4) serves by speculative
+decoding (docs/SERVING.md "Speculative decoding & sampling"): each
+iteration the draft proposes ``spec_k`` tokens per decoding slot
+(``propose_tokens``: k chained decode steps of the draft over its own
+dense fp32 cache), the target verifies all ``spec_k + 1`` positions and
+applies the accept rule in one call (``verify_commit[_paged]``), the
+commit block reaches the host in the iteration's one sync, and the
+draft rolls back to the accept point (``advance_len``). Greedy slots
+commit exactly the tokens the non-speculative engine would; sampled
+slots commit draws from the warped target distribution. Each cache row
+keeps a ``spec_k`` scratch margin (usable capacity ``max_length -
+spec_k``). It composes with the paged cache, int8 weights, the int8 KV
+cache and bf16 target compute (the draft stays fp32).
 ``load_weights`` swaps the model's weights in place between steps
 (re-quantizing an int8 engine's tables and re-casting a bf16 engine's
-copies inside the swap).
+copies inside the swap); a speculative engine's draft keeps its own.
 
-The reference engine's other modes — speculative decoding, LoRA and
-tensor parallelism, float16 compute, and weight rollover from a
-checkpoint path — are later slices of the port; asking for one raises
-``NotImplementedError`` naming its ROADMAP.md item.
+The reference engine's other modes — LoRA and tensor parallelism,
+float16 compute, and weight rollover from a checkpoint path — are later
+slices of the port; asking for one raises ``NotImplementedError``
+naming its ROADMAP.md item.
 
 Telemetry: counters ``serving.generate.{requests,tokens,prefills,
 evictions,rejected_full,rejected_closed,timeouts,errors,host_syncs,
 dispatches,weight_swaps,sampling.requests}`` (one host sync and one
-dispatch per decode tick, whatever k), the gauge
-``serving.generate.ticks_per_sync`` (k), in paged mode
+dispatch per decode tick, whatever k; three dispatches per speculative
+iteration), the gauge ``serving.generate.ticks_per_sync`` (k, or
+``spec_k + 1``), with a draft ``serving.generate.spec.{proposed,
+accepted,rejected}`` and the gauges ``serving.generate.spec.
+{accept_rate,tokens_per_step}``, in paged mode
 ``serving.generate.{prefix_hits,prefill_chunks}`` and
 ``serving.generate.pages.{allocated,shared,cow_copies,freed}``, with
 ``quantize`` ``serving.generate.quant.{params,bytes_saved}``; gauges
@@ -321,7 +337,7 @@ class _PagedSlot:
 
     __slots__ = ("stream", "last", "left", "eos_id", "deadline", "n_ctx",
                  "state", "chunks", "row", "page_refs", "cow_pending",
-                 "prompt", "seq", "t_submit", "sampling")
+                 "prompt", "seq", "t_submit", "sampling", "draft_prompt")
 
     def __init__(self, stream, left, eos_id, deadline, n_ctx, row,
                  page_refs, prompt, seq, t_submit, sampling):
@@ -341,6 +357,10 @@ class _PagedSlot:
         self.t_submit = t_submit
         #: the request's sampling knobs, armed when it enters decode
         self.sampling = sampling
+        #: a speculative engine's prompt for the draft's dense prefill
+        #: when the slot enters decode (``prompt`` is dropped once the
+        #: prefix index holds it)
+        self.draft_prompt = None
 
 
 class _GenWorker(BoundedQueueWorker):
@@ -474,9 +494,20 @@ class GenerationEngine:
         ``"bfloat16"`` runs the generation calls on bf16 copies of the
         fp32 master weights (``cast_compute_params``); ``"float32"`` or
         None leaves them as they are.
+    draft_model
+        Enables speculative decoding: a smaller decoder with the same
+        vocabulary and the dense explicit-cache API (``init_cache``,
+        ``prefill``, ``propose_tokens``, ``advance_len``) on the same
+        device, with a dense fp32 cache of its own.
+    spec_k : int
+        Draft tokens per slot per iteration (default 4); each cache row
+        reserves ``spec_k`` rows at its top for the verify's writes.
+    speculative : bool, optional
+        Defaults to ``draft_model is not None``; ``True`` without a
+        draft raises, as does a draft with ``False``.
 
-    The reference's other keyword arguments (``draft_model``,
-    ``lora_rank``, ``mesh_layout``) raise ``NotImplementedError``.
+    The reference's other keyword arguments (``lora_rank``,
+    ``mesh_layout``) raise ``NotImplementedError``.
     """
 
     def __init__(self, model, max_slots: int = 8, max_length=None,
@@ -486,14 +517,27 @@ class GenerationEngine:
                  paged: bool = False, page_size: int = 16, n_pages=None,
                  prefill_chunk=None, prefix_cache: bool = True,
                  quantize=None, kv_dtype=None, draft_model=None,
-                 speculative=None, mesh_layout=None, lora_rank=None,
-                 decode_ticks: int = 1, compute_dtype=None, device=None):
+                 spec_k: int = 4, speculative=None, mesh_layout=None,
+                 lora_rank=None, decode_ticks: int = 1, compute_dtype=None,
+                 device=None):
+        if speculative is None:
+            speculative = draft_model is not None
+        self.speculative = bool(speculative)
+        if self.speculative and draft_model is None:
+            raise ValueError(
+                "speculative=True needs a draft_model (a second, smaller "
+                "decoder from the same model_zoo family)")
+        if draft_model is not None and not self.speculative:
+            raise ValueError(
+                "draft_model without speculative decoding is inert; drop "
+                "it or pass speculative=True")
+        self.draft = draft_model
+        self.spec_k = int(spec_k)
         self.decode_ticks = int(decode_ticks)
         if self.decode_ticks < 1:
             raise ValueError(f"decode_ticks must be >= 1, got "
                              f"{decode_ticks}")
-        if self.decode_ticks > 1 and (draft_model is not None
-                                      or speculative):
+        if self.decode_ticks > 1 and self.speculative:
             raise ValueError(
                 "decode_ticks > 1 does not compose with speculative "
                 "decoding: the speculative iteration already amortizes "
@@ -526,9 +570,6 @@ class GenerationEngine:
                 not in ("float32", "bfloat16", "int8"):
             raise not_ported(f"cache_dtype={cache_dtype!r}",
                              "10 (float16 compute)")
-        if draft_model is not None or speculative:
-            raise not_ported("speculative decoding (draft_model=)",
-                             "9 (speculative decoding)")
         if lora_rank is not None:
             raise not_ported("lora_rank=", "11 (batched LoRA)")
         if mesh_layout is not None:
@@ -547,16 +588,37 @@ class GenerationEngine:
                 else ("decode_multi",)
         if self.compute_dtype == "bfloat16":
             api += ("cast_compute_params",)
+        if self.speculative:
+            api += ("verify_commit_paged",) if self.paged \
+                else ("verify_commit",)
         for attr in api:
             if not callable(getattr(model, attr, None)):
                 raise TypeError(
                     f"GenerationEngine needs a decoder with the "
                     f"explicit-cache generation API (missing {attr!r}); "
                     f"see gluon.model_zoo.gpt.GPTModel")
-        model_dev = getattr(model, "device", dev)
-        if torch.device(model_dev) != dev:
-            raise ValueError(f"the model lives on {model_dev}, the engine "
-                             f"was asked to run on {dev}")
+        if self.speculative:
+            if self.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            for attr in ("init_cache", "prefill", "propose_tokens",
+                         "advance_len"):
+                if not callable(getattr(draft_model, attr, None)):
+                    raise TypeError(
+                        f"draft_model needs the dense explicit-cache "
+                        f"generation API (missing {attr!r}); see "
+                        f"gluon.model_zoo.gpt.GPTModel")
+            tv = getattr(model, "_vocab_size", None)
+            dv = getattr(draft_model, "_vocab_size", None)
+            if tv is not None and dv is not None and tv != dv:
+                raise TypeError(
+                    f"draft vocab {dv} != target vocab {tv}: speculative "
+                    f"decoding needs one tokenizer — the draft proposes "
+                    f"TARGET token ids")
+        for what, m in (("model", model), ("draft_model", draft_model)):
+            m_dev = getattr(m, "device", dev) if m is not None else dev
+            if torch.device(m_dev) != dev:
+                raise ValueError(f"the {what} lives on {m_dev}, the engine "
+                                 f"was asked to run on {dev}")
         if int(max_slots) < 1:
             raise ValueError("max_slots must be >= 1")
         if int(max_new_tokens) < 1:
@@ -587,12 +649,19 @@ class GenerationEngine:
         self.timeout_ms = timeout_ms
         self._s_max = int(max_length) if max_length is not None \
             else int(model.max_length)
-        #: usable sequence capacity (the speculative verify margin of
-        #: the reference does not apply to this engine)
-        self._s_cap = self._s_max
+        #: usable sequence capacity. A speculative engine reserves a
+        #: ``spec_k`` scratch margin at the top of every cache row: a
+        #: verify writes ``len .. len + spec_k`` before knowing how many
+        #: commit, and that write must never clamp; rejected entries sit
+        #: above the ``len`` waterline (never attended, overwritten next
+        #: iteration)
+        self._s_cap = self._s_max - self.spec_k if self.speculative \
+            else self._s_max
         if self._s_cap < 2:
             raise ValueError(
-                f"max_length {self._s_max} leaves no usable capacity")
+                f"max_length {self._s_max} leaves no usable capacity"
+                + (f" after the spec_k={self.spec_k} verify margin"
+                   if self.speculative else ""))
         policy = as_policy(prefill_bucketing)
         if self.paged:
             ps = int(page_size)
@@ -641,6 +710,11 @@ class GenerationEngine:
             self.policy = policy.clamped(self._s_max)
             self._cache = model.init_cache(self.max_slots, self._s_max,
                                            dtype=cache_dtype)
+        #: the draft's OWN cache: dense under a paged target too (the
+        #: draft is small) and of the draft's own type (fp32 under a
+        #: bf16 target: its logits only steer proposals)
+        self._draft_cache = draft_model.init_cache(
+            self.max_slots, self._s_max) if self.speculative else None
         self._kv_int8 = "k_scale" in self._cache
         if self._kv_int8:   # quant.* telemetry only for quantized engines
             kv_bytes = sum(t.numel() * t.element_size()
@@ -693,10 +767,11 @@ class GenerationEngine:
         """Run every shape the steady state will see once ahead of
         traffic — one prefill per sequence bucket the policy can
         produce, plus the decode step and, with ``decode_ticks > 1``,
-        the multi-tick call (paged mode: ``_warmup_paged``) — against a
-        THROWAWAY cache of the live cache's shape. On the card the first
-        call also builds the CUDA kernels, so no request pays for
-        that."""
+        the multi-tick call (paged mode: ``_warmup_paged``), and a
+        speculative engine's draft prefills, proposals, verify and
+        rollback (``_warmup_spec``) — against THROWAWAY caches of the
+        live caches' shapes. On the card the first call also builds the
+        CUDA kernels, so no request pays for that."""
         with self._gen_exclusive():
             if self._closed:
                 return self
@@ -711,6 +786,7 @@ class GenerationEngine:
                 lg, cache = self.model.decode_step(
                     onp.zeros((self.max_slots,), "i4"), cache)
                 self._warmup_multi(cache)
+                self._warmup_spec(cache)
                 del cache
             self._warm_sampler(lg)
             self._warmup_telemetry()
@@ -750,6 +826,7 @@ class GenerationEngine:
         self.model.peek_logits_paged(0, 0, cache)
         cache = self.model.bind_slot_paged(0, row, 1, cache)
         self.model.copy_page_paged(1, 1, cache)
+        self._warmup_spec(cache)
         del cache
         return lg
 
@@ -765,6 +842,34 @@ class GenerationEngine:
         fn(onp.zeros((b,), "i4"), onp.full((b,), k, "i4"), cache, k,
            [None] * b, onp.zeros((b,), "f4"), onp.zeros((b,), "i4"),
            onp.ones((b,), "f4"), onp.full((b,), -1, "i4"))
+
+    def _warmup_spec(self, cache):
+        """The speculative steady state against the throwaway target
+        cache and a throwaway draft cache (a no-op without a draft): the
+        draft's prefill per bucket, its greedy and sampled proposals,
+        the greedy and sampled verify-and-commit, and the rollback."""
+        if not self.speculative:
+            return
+        b, k = self.max_slots, self.spec_k
+        zb, ones = onp.zeros((b,), "i4"), onp.ones((b,), "i4")
+        gens = [torch.Generator(device=self.device)] * b
+        knobs = dict(temps=onp.ones((b,), "f4"),
+                     top_ks=onp.full((b,), 50, "i4"),
+                     top_ps=onp.full((b,), 0.9, "f4"))
+        dcache = self.draft.init_cache(b, self._s_max)
+        for sb in self.policy.sizes(self._s_cap - 1):
+            _, dcache = self.draft.prefill(onp.zeros((1, sb), "i4"), [sb],
+                                           dcache, slots=[0])
+        dt, dcache = self.draft.propose_tokens(zb, dcache, k)
+        dt, q, _, dcache = self.draft.propose_tokens(
+            zb, dcache, k, generators=gens, **knobs)
+        dcache = self.draft.advance_len(onp.full((b,), -2 * k, "i4"),
+                                        dcache)
+        vc = self.model.verify_commit_paged if self.paged \
+            else self.model.verify_commit
+        vc(zb, dt, ones, cache)
+        vc(zb, dt, ones, cache, q=q, generators=gens, **knobs)[0].cpu()
+        del dcache
 
     def _cache_tensors(self):
         out = []
@@ -796,6 +901,21 @@ class GenerationEngine:
             parts.append("int8_kv")
         return "+".join(parts) if parts else "fp32"
 
+    @property
+    def speculation(self) -> str:
+        """The replica's speculative-decoding configuration, as the
+        reference names it: ``"off"`` or
+        ``"k=<spec_k>:draft=<type>:<layers>L-<units>u"``. A seeded
+        sampled stream depends on it (the draft and ``spec_k`` set what
+        each iteration draws), so replicas that retry each other's
+        requests must agree on it."""
+        if not self.speculative:
+            return "off"
+        d = self.draft
+        return (f"k={self.spec_k}:draft={type(d).__name__}:"
+                f"{getattr(d, '_num_layers', '?')}L-"
+                f"{getattr(d, '_units', '?')}u")
+
     def load_weights(self, source, strict: bool = True):
         """Weight rollover: install new parameter values into the live
         model while traffic runs.
@@ -812,7 +932,10 @@ class GenerationEngine:
         and stops in-flight prompts from registering, since their K/V
         came from the old weights. A bf16 engine re-casts its copies in
         the same window. In-flight requests keep their KV cache and
-        continue on the new weights. Returns self."""
+        continue on the new weights. A speculative engine swaps the
+        target only: the draft keeps its weights (greedy output follows
+        the live target whatever the draft; a stale draft only lowers
+        the acceptance rate). Returns self."""
         if self._closed:
             raise EngineClosedError("load_weights on a closed engine")
         if not isinstance(source, dict):
@@ -884,9 +1007,11 @@ class GenerationEngine:
             raise ValueError(f"prompt must hold token ids, got dtype "
                              f"{prompt.dtype}")
         if prompt.size > self._s_cap - 1:
+            margin = f" minus the spec_k={self.spec_k} verify margin" \
+                if self.speculative else ""
             raise ValueError(
                 f"prompt length {prompt.size} leaves no room to "
-                f"generate (cache capacity {self._s_max})")
+                f"generate (cache capacity {self._s_max}{margin})")
         max_new = self.max_new_tokens if max_new_tokens is None \
             else int(max_new_tokens)
         if max_new < 1:
@@ -1095,6 +1220,10 @@ class GenerationEngine:
         logits, self._cache = self.model.prefill(
             padded, onp.asarray([n], "i4"), self._cache,
             slots=onp.asarray([slot], "i4"))
+        if self.speculative:
+            # the draft mirrors the target's committed prefix from the
+            # slot's first moment
+            self._draft_prefill(slot, r.prompt)
         self._arm_sampling(slot, r.sampling)
         tok = self._pick_first(slot, logits[0])   # the admission's sync
         telemetry.hist_since("serving.generate.prefill", t0)
@@ -1135,6 +1264,23 @@ class GenerationEngine:
             self._n_sampling -= 1
         self._temps[slot], self._topks[slot], self._topps[slot] = 0, 0, 1
         self._gens[slot] = None
+
+    def _draft_prefill(self, slot: int, prompt):
+        """The draft's dense prefill of ``prompt`` into its row ``slot``,
+        at the target's bucket. The row is zeroed first. The rollback
+        (``n_commit - k``, as in the reference) leaves the draft without
+        the K/V of its last proposal after a full accept, and the draft
+        then attends that position as it stands: it must hold nothing a
+        previous tenant of the slot wrote, or a seeded sampled stream
+        would depend on the slot's history."""
+        for t in (*self._draft_cache["k"], *self._draft_cache["v"]):
+            t[slot].zero_()
+        n = int(prompt.size)
+        padded = onp.zeros((1, self.policy.bucket(n)), "i4")
+        padded[0, :n] = prompt
+        _, self._draft_cache = self.draft.prefill(
+            padded, onp.asarray([n], "i4"), self._draft_cache,
+            slots=onp.asarray([slot], "i4"))
 
     def _pick_first(self, slot: int, logits_row) -> int:
         """First token of a fresh admission, from its prefill or peek
@@ -1230,6 +1376,10 @@ class GenerationEngine:
                        n_ctx=length, row=row, page_refs=refs,
                        prompt=r.prompt, seq=self._seq, t_submit=r.t_submit,
                        sampling=r.sampling)
+        if self.speculative:
+            # the draft (no pages, no prefix cache) prefills the whole
+            # prompt when the slot enters decode, prefix hit or not
+            s.draft_prompt = r.prompt
         self._seq += 1
         if peek:
             if length % ps:
@@ -1306,7 +1456,12 @@ class GenerationEngine:
         """Pick and emit a freshly admitted request's first token from
         its last prefill chunk's logits or the prefix-hit peek's (V,) —
         the paged analog of the dense admission's tail. The request's
-        sampling knobs go live here, at its entry into decode."""
+        sampling knobs go live here, at its entry into decode, and a
+        speculative engine's draft catches up: one dense prefill of the
+        full prompt."""
+        if s.draft_prompt is not None:
+            self._draft_prefill(slot, s.draft_prompt)
+            s.draft_prompt = None
         self._arm_sampling(slot, s.sampling)
         tok = self._pick_first(slot, logits_row)
         s.last = tok
@@ -1396,9 +1551,21 @@ class GenerationEngine:
                             self._chunks_this_iter)
             if any(s is not None and s.state == "decode"
                    for s in self._slots):
-                self._decode_tick()
+                self._tick()
             return
-        self._decode_tick()
+        self._tick()
+
+    def _tick(self):
+        if self.speculative:
+            self._spec_tick()
+        else:
+            self._decode_tick()
+
+    def _decode_idxs(self):
+        """The slots that take part in a decode tick: every occupied
+        slot, in paged mode only those past their prefill."""
+        return [i for i, s in enumerate(self._slots)
+                if s is not None and (not self.paged or s.state == "decode")]
 
     def _decode_tick(self):
         """One decode tick over every DECODING slot (free rows, and in
@@ -1412,8 +1579,7 @@ class GenerationEngine:
         next prompts mid-sequence."""
         if self.paged:
             self._cow_sweep()
-        idxs = [i for i, s in enumerate(self._slots)
-                if s is not None and (not self.paged or s.state == "decode")]
+        idxs = self._decode_idxs()
         if not idxs:
             return
         if self.decode_ticks > 1:
@@ -1433,7 +1599,7 @@ class GenerationEngine:
             logits, self._cache = self.model.decode_step(toks, self._cache)
         step_toks = self._pick_step_tokens(logits)
         telemetry.hist_since("serving.generate.decode", t0)
-        self._tick_counters(1)
+        self._tick_counters(1, 1)
 
         def span(i, s, out):
             s.stream._trace.add("decode", tt0, slot=i, token=out[-1])
@@ -1468,7 +1634,7 @@ class GenerationEngine:
         blk = torch.cat((tok_blk, emit_blk.to(torch.int32)), dim=1) \
             .cpu().numpy()   # the tick's one sync
         telemetry.hist_since("serving.generate.decode", t0)
-        self._tick_counters(k)
+        self._tick_counters(1, k)
         outs = {i: [int(t) for t in blk[i, :int(blk[i, k:].sum())]]
                 for i in idxs}
 
@@ -1483,18 +1649,96 @@ class GenerationEngine:
             return time.perf_counter()
         return 0.0
 
-    def _tick_counters(self, fused):
-        """Once per decode tick: one host sync, one dispatch, and the
-        steps behind them (``ticks_per_sync``)."""
+    def _spec_tick(self):
+        """One speculative iteration over every decoding slot: the draft
+        proposes ``spec_k`` tokens per slot (its k chained steps, tokens
+        fed on the device), the target verifies all ``k + 1`` positions,
+        applies the accept rule and advances its ``len`` in one call,
+        and the (B, k + 1) commit block with its counts reaches the host
+        in the iteration's one sync. The host then cuts each slot's
+        emission at its eos and clips it to its budget and capacity (a
+        clipped slot is evicted, so the target's full-commit ``len`` is
+        a dead row's), and the draft, which ran k steps on every row,
+        rolls back to the accept point (``advance_len`` by ``n_commit -
+        k``; rows not decoding by ``-k``). Greedy slots commit exactly
+        the tokens the non-speculative engine would."""
+        if self.paged:
+            self._cow_sweep()
+        idxs = self._decode_idxs()
+        if not idxs:
+            return
+        k, b = self.spec_k, self.max_slots
+        toks = onp.zeros((b,), "i4")
+        active = onp.zeros((b,), "i4")
+        for i in idxs:
+            toks[i] = self._slots[i].last
+            active[i] = 1
+        tt0 = self._span_start(idxs)
+        t0 = telemetry.clock()
+        verify = self.model.verify_commit_paged if self.paged \
+            else self.model.verify_commit
+        if self._n_sampling:
+            knobs = dict(temps=self._temps, top_ks=self._topks,
+                         top_ps=self._topps)
+            dt, q, _, self._draft_cache = self.draft.propose_tokens(
+                toks, self._draft_cache, k, generators=self._gens, **knobs)
+            commit, n_commit, _, self._cache = verify(
+                toks, dt, active, self._cache, q=q, generators=self._gens,
+                **knobs)
+        else:
+            dt, self._draft_cache = self.draft.propose_tokens(
+                toks, self._draft_cache, k)
+            commit, n_commit, self._cache = verify(toks, dt, active,
+                                                   self._cache)
+        blk = torch.cat((commit, n_commit[:, None]), dim=1).cpu().numpy()
+        telemetry.hist_since("serving.generate.decode", t0)
+        ddelta = onp.full((b,), -k, "i4")
+        outs, clipped = {}, {}
+        proposed, accepted = len(idxs) * k, 0
+        for i in idxs:
+            s = self._slots[i]
+            m = int(blk[i, k + 1])
+            accepted += m - 1
+            out = [int(t) for t in blk[i, :m]]
+            if s.eos_id is not None and s.eos_id in out:
+                out = out[:out.index(s.eos_id) + 1]
+            out = out[:min(len(out), s.left, self._s_cap - s.n_ctx)]
+            outs[i] = out
+            clipped[i] = len(out) < m
+            ddelta[i] += m
+        self._draft_cache = self.draft.advance_len(ddelta, self._draft_cache)
+        telemetry.counter("serving.generate.spec.proposed", proposed)
+        telemetry.counter("serving.generate.spec.accepted", accepted)
+        telemetry.counter("serving.generate.spec.rejected",
+                          proposed - accepted)
+        telemetry.gauge("serving.generate.spec.accept_rate",
+                        accepted / proposed)
+        # propose, verify-and-commit and the rollback: three calls and
+        # one host sync for up to k + 1 tokens a slot
+        self._tick_counters(3, k + 1)
+
+        def span(i, s, out):
+            s.stream._trace.add("verify", tt0, slot=i, proposed=k,
+                                committed=len(out))
+        n_emitted = self._commit_outputs(idxs, outs, span, clipped)
+        telemetry.gauge("serving.generate.spec.tokens_per_step", n_emitted)
+
+    def _tick_counters(self, dispatches, fused):
+        """Once per decode tick: one host sync, the model calls
+        (``dispatches``) behind it, and the steps it covers
+        (``ticks_per_sync``: k, or ``spec_k + 1`` at most)."""
         telemetry.counter("serving.generate.host_syncs")
-        telemetry.counter("serving.generate.dispatches")
+        telemetry.counter("serving.generate.dispatches", int(dispatches))
         telemetry.gauge("serving.generate.ticks_per_sync", int(fused))
 
-    def _commit_outputs(self, idxs, outs, span_cb):
+    def _commit_outputs(self, idxs, outs, span_cb, clipped=None):
         """Emit each slot's tokens of the tick (``outs[slot]``), record
         its span (``span_cb``, traced slots only), advance its budget
         and length, then the eviction ladder: eos first, then
-        budget/capacity, then the deadline (checked once per tick)."""
+        budget/capacity (``clipped`` marks speculative slots whose
+        emission was cut short of their commit: evicted even when the
+        counters alone would not say so), then the deadline (checked
+        once per tick). Returns the number of tokens emitted."""
         now = time.monotonic()
         n_emitted = 0
         for i in idxs:
@@ -1512,13 +1756,15 @@ class GenerationEngine:
             s.n_ctx += len(out)
             if s.eos_id is not None and out[-1] == s.eos_id:
                 self._evict(i, "eos")
-            elif s.left <= 0 or s.n_ctx >= self._s_cap:
+            elif s.left <= 0 or s.n_ctx >= self._s_cap \
+                    or (clipped is not None and clipped[i]):
                 self._evict(i, "length")
             elif s.deadline is not None and now > s.deadline:
                 telemetry.counter("serving.generate.timeouts")
                 self._evict(i, "timeout")
         telemetry.counter("serving.generate.tokens", n_emitted)
         telemetry.gauge("serving.generate.slots", self._n_active)
+        return n_emitted
 
     def _release_slot_refs(self, s):
         if self.paged and s.page_refs:

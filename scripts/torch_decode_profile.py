@@ -23,7 +23,12 @@ and a 512-token prefill. Then it arms the int8 weights
 prompts through 32-token prefill chunks, as the paged engine does, and
 profiles the paged decode step (``decode_step_paged``, all 8 slots
 active) over an fp32, an int8 and (bf16 compute) a bf16 pool, and one
-32-token chunk.
+32-token chunk. A speculative iteration as ``GenerationEngine`` runs it
+at ``spec_k=4`` (a 1-layer draft holding the model's embeddings, head
+and first block: ``propose_tokens``, ``verify_commit[_paged]``, the
+host's read of the commit block, the draft's rollback) is profiled on
+the dense fp32 cache and on the paged int8-weight pool, whole and in its
+two halves (``spec_iteration*``, ``.propose``, ``.verify_commit``).
 For each it prints one JSON line with:
 
 - ``wall_ms``: host clock per step, ending in the host's read;
@@ -171,6 +176,68 @@ def main(argv=None):
         print(json.dumps({"phase": phase, "tokens": 512, **pre}),
               flush=True)
 
+    k_spec = 4
+    draft = GPTModel(vocab_size=50257, units=768, num_layers=1,
+                     num_heads=12, max_length=1024)
+    mine = model.collect_params()
+    for name, p in draft.collect_params().items():
+        p.set_data(mine[name].data())
+
+    def spec_iteration(phase, paged):
+        """One speculative iteration of the engine over 8 decoding
+        slots, after the same prefills; the draft's cache is dense."""
+        dcache = draft.init_cache(8, 1024)
+        if paged:
+            cache = model.init_paged_cache(8, 8 * p_max + 1, ps, 1024)
+        else:
+            cache = model.init_cache(8, 1024)
+        last = np.zeros(8, "i4")
+        for slot, p in enumerate(prompts):
+            toks = np.zeros((1, max(ps, 1 << (len(p) - 1).bit_length())),
+                            "i4")
+            toks[0, :len(p)] = p
+            if paged:
+                row = np.arange(1 + slot * p_max, 1 + (slot + 1) * p_max,
+                                dtype="i4")
+                lg, cache = model.prefill_paged(toks, len(p), slot, row,
+                                                cache, fresh=True)
+            else:
+                lg, cache = model.prefill(toks, [len(p)], cache,
+                                          slots=[slot])
+            draft.prefill(toks, [len(p)], dcache, slots=[slot])
+            last[slot] = int(lg[0].argmax())
+        active = np.ones(8, "i4")
+        verify = model.verify_commit_paged if paged else model.verify_commit
+        st = {"toks": last, "dt": None}
+
+        def propose():
+            st["dt"], _ = draft.propose_tokens(st["toks"], dcache, k_spec)
+
+        def commit():
+            c, n, _ = verify(st["toks"], st["dt"], active, cache)
+            blk = torch.cat((c, n[:, None]), 1).cpu().numpy()
+            st["toks"] = blk[np.arange(8), blk[:, -1] - 1].astype("i4")
+            return blk[:, -1]
+
+        def iteration():
+            propose()
+            draft.advance_len(commit() - k_spec, dcache)
+
+        ops.reset_launch_counts()
+        it = profile(iteration, args.steps)
+        it["kernel_launches_per_iteration"] = {
+            k: v / (args.steps + 1) for k, v in ops.launch_counts().items()}
+
+        it["propose"] = profile(propose, args.steps)
+        # each timed propose left the draft k ahead: roll it back
+        dcache["len"] -= k_spec * (args.steps + 1)
+        propose()
+        it["verify_commit"] = profile(commit, args.steps)
+        print(json.dumps({"phase": phase, "slots": 8, "spec_k": k_spec,
+                          "draft_layers": 1, **it}), flush=True)
+
+    ps, p_max = 16, 1024 // 16
+    spec_iteration("spec_iteration", paged=False)
     dense_step(None, "decode_step")
     dense_step("int8", "decode_step_int8_kv")
     prefill_512("prefill")
@@ -182,7 +249,8 @@ def main(argv=None):
 
     # the paged engine's step: int8 projections (K4), paged attention (K3)
     model.quantize_params()
-    ps, p_max, chunk = 16, 1024 // 16, 32
+    chunk = 32
+    spec_iteration("spec_iteration_paged_int8", paged=True)
 
     def paged_step(dtype, phase):
         gcache = model.init_paged_cache(8, 8 * p_max + 1, ps, 1024,

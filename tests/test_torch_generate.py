@@ -6,8 +6,9 @@ control and shutdown follow the reference engine's contract; sampled
 requests are seeded, row-independent and leave greedy co-tenants
 untouched; ``load_weights`` swaps weights in place and serves as a fresh
 engine on the new weights would; modes the port does not have yet raise
-NotImplementedError naming their ROADMAP.md item (multi-tick decode and
-bf16 compute: tests/test_torch_multitick.py, tests/test_torch_bf16.py).
+NotImplementedError naming their ROADMAP.md item (multi-tick decode,
+bf16 compute and speculative decoding: tests/test_torch_multitick.py,
+tests/test_torch_bf16.py, tests/test_torch_spec.py).
 """
 import time
 
@@ -345,7 +346,6 @@ def test_kv_dtype_validation(net):
 
 UNPORTED = [
     ("cache_dtype_fp16", dict(cache_dtype="float16"), "10"),
-    ("draft_model", dict(draft_model=object()), "9"),
     ("lora_rank", dict(lora_rank=4), "11"),
     ("mesh_layout", dict(mesh_layout="tp"), "20"),
 ]
