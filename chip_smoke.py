@@ -16,10 +16,11 @@ page and their int8 scales; both also at lengths on either side of
 their cluster ranks' ranges, K3 at a P_max that is not a multiple of
 its cluster size, K2 at S = 1000, on a cache sliced from a longer
 buffer and on a row-strided view), K4 int8 dequant-matmul (M = 1 to 512,
-with and without the bias it adds in its epilogue), the bf16 instances
-of K1 (its own kernel: wgmma on tiles brought by TMA), K2 and K3
-(every case of the fp32 phases on bf16 inputs; K2 and
-K3 with a bf16 and an fp32 q over bf16 caches) and K5, the
+with and without the bias it adds in its epilogue), the bf16 and the
+float16 instances of K1 (its own kernel, templated on the element
+type: wgmma on tiles brought by TMA), K2 and K3 (every case of the fp32
+phases on 16-bit inputs; K2 and K3 with a 16-bit and an fp32 q over
+16-bit caches) and K5, the
 runtime-compiled user kernels: one ``rtc.CudaModule`` compiled by NVRTC
 for sm_90a (the JAX rtc tests' kernels, the example's ``scale2`` and a
 shared-memory ``row_softmax``), each held against its plain torch
@@ -31,7 +32,10 @@ at GPT-2-small widths through ``GenerationEngine``:
   ``backward``, ``scale2`` through rtc), a kernel with ``grad=``, an
   opaque one and a numpy-backed CustomOp, held against closed forms,
   and ``np.matmul``/``np.dot`` of integer, bool and mixed-dtype
-  operands held against the same calls on the CPU (``CARD_PRODUCTS``);
+  operands held against the same calls on the CPU (``CARD_PRODUCTS``),
+  and ``npx.topk`` on rows full of ties and the data movement of
+  uint16/uint32 arrays in every dtype against the CPU
+  (``_card_moves``);
 
 - ``engine``: the dense fp32 engine, 24 greedy requests;
 - ``bf16_engine``: the same requests on the dense engine with
@@ -60,6 +64,18 @@ at GPT-2-small widths through ``GenerationEngine``:
   traffic, each against the non-speculative engine on the same target
   (every first divergence on a near-tie, below FLIP_GAP); 4 seeded
   sampled requests on two fresh engines (the same streams);
+- ``lora_engine``: batched multi-tenant LoRA (``lora_rank=8,
+  max_adapters=4``) on 16 of the ``engine`` prompts cycling base and
+  three tenants, one refreshed and one unloaded while pinned during the
+  traffic: base tokens equal the ``engine`` phase's, adapted ones
+  against the CPU port (LOGIT_TOL, AGREE_MIN), the banks unmoved, a
+  decode step profiled with and without LoRA;
+- ``lora_paged_engine``: the paged int8-weight traffic with adapters
+  on about half the requests: no adapted request reuses cached prefix
+  pages, base ones do and keep the ``paged_engine`` phase's tokens;
+- ``fp16_engine``: 16 of the ``engine`` prompts on
+  ``GPTModel(dtype="float16")`` and the paged traffic at
+  ``cache_dtype="float16"``, each against fp32 by the bf16 contract;
 
 and holds the engines' tokens and logits against the same weights (and
 int8 tables) run on the CPU. Every phase prints one JSON line; any
@@ -79,9 +95,10 @@ Tolerances, with their reasons:
   carries ~1e-6 per rounding, and exp/log add a few); K4's max-abs-err
   <= 2e-5 x max|ref| (fp32 sums of 768-3072 terms in another order;
   at M <= 8 x is split for the tensor cores as K1's operands are);
-- a bf16 kernel vs its plain version run in fp32 on the widened inputs
-  and rounded to bf16: one bf16 step, 2^-8 x max(1, max|ref|) (both
-  compute in fp32 before one rounding to bf16; see BF16_ULP);
+- a bf16 (float16) kernel vs its plain version run in fp32 on the
+  widened inputs and rounded to its type: one step of the type, 2^-8
+  (2^-10) x max(1, max|ref|) (both compute in fp32 before one rounding;
+  see BF16_ULP, F16_ULP);
 - a bf16 engine vs the fp32 model, teacher-forced: the reference's
   bounded-divergence contract, per-step logits within 0.25 and >= 90 %
   argmax agreement; the card's bf16 logits vs the CPU port's, both
@@ -672,30 +689,38 @@ def _int8_view(at, pool, scales, table, ps):
                           at.expand_page_scales(scales, table, ps))
 
 
-# ---- the bf16 instances of K1, K2 and K3 ---------------------------------
-#: bf16 kernel vs its plain version run in fp32 on the widened inputs
-#: and rounded to bf16: the kernels compute in fp32 from the bf16 bytes
-#: (as the reference's Pallas kernels do), so the two differ by fp32
-#: rounding before the output's one bf16 rounding, which may then land
-#: one bf16 step apart: at most 2^-8 of the output's magnitude (bf16
-#: keeps 8 significant bits), taken as max(1, max|ref|). The lse stays
-#: fp32 (LSE_TOL).
+# ---- the 16-bit (bf16 and float16) instances of K1, K2 and K3 -----------
+#: a 16-bit kernel (bf16 or float16) vs its plain version run in fp32
+#: on the widened inputs and rounded to the 16-bit type: the kernels
+#: compute in fp32 from the 16-bit bytes (as the reference's Pallas
+#: kernels do), so the two differ by fp32 rounding before the output's
+#: one rounding, which may then land one step apart: at most 2^-8 of the
+#: output's magnitude in bf16 (8 significant bits), 2^-10 in float16
+#: (11), taken as max(1, max|ref|). The lse stays fp32 (LSE_TOL).
 BF16_ULP = 2.0 ** -8
+F16_ULP = 2.0 ** -10
+#: the 16-bit instances: their tag in kernel and phase names, and ULP
+HALF_TYPES = {"bf16": ("bfloat16", BF16_ULP), "f16": ("float16", F16_ULP)}
 
 
-def _bf16_err(out, ref):
-    """max|out - ref| over the bf16 tolerance of ``ref``'s magnitude."""
+def _half_err(out, ref, ulp):
+    """max|out - ref| over the 16-bit tolerance of ``ref``'s
+    magnitude."""
     e = float((out.float() - ref.float()).abs().max())
-    return e, BF16_ULP * max(1.0, float(ref.float().abs().max()))
+    return e, ulp * max(1.0, float(ref.float().abs().max()))
 
 
-def phase_flash_bf16(torch, timer):
-    """K1's bf16 instance: the fp32 phase's cases on bf16 q/k/v, each
-    against the plain version on the widened inputs rounded to bf16
-    (and, reported, against the plain version run in bf16)."""
+def phase_flash_half(torch, timer, tag):
+    """K1's bf16 or float16 instance (``tag``): the fp32 phase's cases on
+    16-bit q/k/v, each against the plain version on the widened inputs
+    rounded to the 16-bit type (and, reported, against the plain version
+    run on the 16-bit inputs)."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as at
+    name, ulp = HALF_TYPES[tag]
+    dt = getattr(torch, name)
     rng = np.random.RandomState(10)
+    kind = tag
     b, h, d = 1, 12, 64
     scale = 1.0 / math.sqrt(d)
     cases, worst, err_o, err_l, gap_plain = [], 0.0, 0.0, 0.0, 0.0
@@ -709,54 +734,54 @@ def phase_flash_bf16(torch, timer):
                                          causal, sc, kv_len=kv_len)
         plain = at._blockwise_fwd(q, k, v, causal, sc, kv_len=kv_len)[0]
         torch.cuda.synchronize()
-        check(out.dtype == torch.bfloat16 and lse.dtype == torch.float32,
-              f"K1-bf16 output types {out.dtype}, {lse.dtype}")
-        check(bool(torch.isfinite(out).all()), f"K1-bf16 non-finite {tag}")
-        eo, tol = _bf16_err(out, ref.bfloat16())
+        check(out.dtype == dt and lse.dtype == torch.float32,
+              f"K1-{kind} output types {out.dtype}, {lse.dtype}")
+        check(bool(torch.isfinite(out).all()), f"K1-{kind} non-finite {tag}")
+        eo, tol = _half_err(out, ref.to(dt), ulp)
         el = float((lse - ref_lse).abs().max())
         ep = float((out.float() - plain.float()).abs().max())
         cases.append({"case": tag, "out_err": eo, "tol": tol, "lse_err": el,
-                      "vs_plain_bf16": ep})
+                      "vs_plain_16bit": ep})
         worst, err_o = max(worst, eo / tol), max(err_o, eo)
         err_l, gap_plain = max(err_l, el), max(gap_plain, ep)
 
     for s in (1, 37, 128, 512, 1000):
         for causal in (False, True):
-            q, k, v = (_rand(torch, rng, b, h, s, d).bfloat16()
+            q, k, v = (_rand(torch, rng, b, h, s, d).to(dt)
                        for _ in range(3))
             compare(q, k, v, causal, None, f"s={s} causal={causal}")
-    kbuf, vbuf = (_rand(torch, rng, b, h, 96, d).bfloat16() for _ in range(2))
+    kbuf, vbuf = (_rand(torch, rng, b, h, 96, d).to(dt) for _ in range(2))
     for sq, kvl in ((16, 70), (1, 33), (70, 70)):
-        q = _rand(torch, rng, b, h, sq, d).bfloat16()
+        q = _rand(torch, rng, b, h, sq, d).to(dt)
         compare(q, kbuf, vbuf, True, kvl, f"sq={sq} kv_len={kvl}")
     for hd in (16, 32, 128):
-        q, k, v = (_rand(torch, rng, 2, 3, 77, hd).bfloat16()
+        q, k, v = (_rand(torch, rng, 2, 3, 77, hd).to(dt)
                    for _ in range(3))
         compare(q, k, v, True, None, f"head_dim={hd}")
-    full = [_rand(torch, rng, b, h, 1024, d).bfloat16() for _ in range(3)]
+    full = [_rand(torch, rng, b, h, 1024, d).to(dt) for _ in range(3)]
     compare(*full, True, None, "s=1024 causal")
-    kn, vn = (_rand(torch, rng, b, h, 1000, d).bfloat16() for _ in range(2))
+    kn, vn = (_rand(torch, rng, b, h, 1000, d).to(dt) for _ in range(2))
     kn[:, :, 999:], vn[:, :, 999:] = float("nan"), float("nan")
-    q = _rand(torch, rng, b, h, 300, d).bfloat16()
+    q = _rand(torch, rng, b, h, 300, d).to(dt)
     compare(q, kn, vn, True, 999, "sq=300 kv_len=999 NaN past it")
     sp = 512
-    q, k, v = (_split_view(torch, rng, b, sp, h, 128).bfloat16()
+    q, k, v = (_split_view(torch, rng, b, sp, h, 128).to(dt)
                for _ in range(3))
     compare(q, k, v, True, None, f"strided s={sp} head_dim=128 causal")
-    q, k, v = (_split_view(torch, rng, b, sp, h, d).bfloat16()
+    q, k, v = (_split_view(torch, rng, b, sp, h, d).to(dt)
                for _ in range(3))
     check(not q.is_contiguous(), "strided case is contiguous")
     compare(q, k, v, True, None, f"strided s={sp} causal")
     # a negative scale takes the kernel's other softmax path (scale, mask
     # to -1e30, re-mask after the exp)
-    qn, kn2, vn2 = (_rand(torch, rng, b, 4, n, d).bfloat16()
+    qn, kn2, vn2 = (_rand(torch, rng, b, 4, n, d).to(dt)
                     for n in (200, 300, 300))
     compare(qn, kn2, vn2, True, 250, "scale=-0.2 sq=200 kv_len=250",
             scale=-0.2)
-    emit("flash_attention_bf16_check", cases=cases)
-    check(worst <= 1.0, f"K1-bf16 off its widened plain version by "
-          f"{worst} bf16 tolerances")
-    check(err_l <= LSE_TOL, f"K1-bf16 lse max-abs-err {err_l} > {LSE_TOL}")
+    emit(f"flash_attention_{tag}_check", cases=cases)
+    check(worst <= 1.0, f"K1-{tag} off its widened plain version by "
+          f"{worst} {tag} tolerances")
+    check(err_l <= LSE_TOL, f"K1-{tag} lse max-abs-err {err_l} > {LSE_TOL}")
 
     times = timings(
         timer, False,
@@ -767,7 +792,8 @@ def phase_flash_bf16(torch, timer):
     n_flops = 4 * d * b * h * pairs
     n_bytes = 2 * 4 * b * h * sp * d + 4 * b * h * sp   # q k v out; lse
     bound_ms, bound_by = bound(n_bytes, n_flops, PEAK_BF16_FLOPS)
-    # the kernel's own products: Q K^T once, P V twice (P in bf16 hi + lo)
+    # the kernel's own products: Q K^T once, P V twice (P in 16-bit hi +
+    # lo)
     products_ms, _ = bound(n_bytes, 1.5 * n_flops, PEAK_BF16_FLOPS)
     kk = full
     per_shape = [{
@@ -781,95 +807,101 @@ def phase_flash_bf16(torch, timer):
                           4 * d * b * h * 1024 * 1025 // 2,
                           PEAK_BF16_FLOPS)[0]}]
     res = {"max_abs_err": err_o, "max_tol_ratio": worst,
-           "max_abs_err_lse": err_l, "max_gap_to_plain_bf16": gap_plain,
+           "max_abs_err_lse": err_l, f"max_gap_to_plain_{tag}": gap_plain,
            **times, "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_ms_kernel_products": products_ms,
-           "bound_rule": "bf16 FLOP at 989 TFLOP/s vs bytes at 3.35 TB/s "
-                         "(the kernel's products, Q K^T once and P V "
-                         "twice, 1.5 x FLOP: bound_ms_kernel_products)",
-           "library": "scaled_dot_product_attention on the same bf16 "
-                      "tensors, causal",
+           "bound_rule": f"{tag} FLOP at 989 TFLOP/s vs bytes at 3.35 "
+                         f"TB/s (the kernel's products, Q K^T once and P "
+                         f"V twice, 1.5 x FLOP: bound_ms_kernel_products)",
+           "library": f"scaled_dot_product_attention on the same {tag} "
+                      f"tensors, causal",
            "shape": [b, h, sp, d], "per_shape": per_shape}
-    emit("flash_attention_bf16", **res)
+    emit(f"flash_attention_{tag}", **res)
     return res
 
 
-def _decode_bf16_check(torch, at, kern, plain_fp32, plain_bf16, q, ln, tag,
-                       cases):
-    """One bf16 decode case: the kernel's output type and finiteness,
-    exact zeros at len 0, and its distance to the widened plain version
-    rounded to bf16 (in bf16 tolerances) and to the bf16 plain path."""
+def _decode_half_check(torch, dt, ulp, kern, plain_fp32, plain_half, q, ln,
+                       tag, cases):
+    """One 16-bit decode case: the kernel's output type (``dt``, the
+    cache's) and finiteness, exact zeros at len 0, and its distance to
+    the widened plain version rounded to ``dt`` (in ``ulp`` tolerances)
+    and to the plain path on the 16-bit inputs."""
     out = kern(q)
-    ref = plain_fp32(q.float()).bfloat16()
-    pl = plain_bf16(q)
+    ref = plain_fp32(q.float()).to(dt)
+    pl = plain_half(q)
     torch.cuda.synchronize()
-    check(out.dtype == torch.bfloat16, f"{tag}: output {out.dtype}")
+    check(out.dtype == dt, f"{tag}: output {out.dtype}")
     check(bool(torch.isfinite(out).all()), f"{tag}: non-finite output "
           "with NaN past the lengths")
     zero = [i for i, n in enumerate(ln.tolist()) if n == 0]
     check(all(float(out[i].abs().max()) == 0.0 for i in zero),
           f"{tag}: len=0 row not zero")
-    e, tol = _bf16_err(out, ref)
+    e, tol = _half_err(out, ref, ulp)
     cases.append({"case": tag, "q": str(q.dtype).replace("torch.", ""),
                   "out_err": e, "tol": tol,
-                  "vs_plain_bf16": float((out.float() - pl.float())
-                                         .abs().max()),
+                  "vs_plain_16bit": float((out.float() - pl.float())
+                                          .abs().max()),
                   "lengths": ln.tolist()})
 
 
-def _bf16_summary(cases):
-    """The worst case of a bf16 check: its max-abs-err, its ratio to the
-    tolerance and the widest gap to the plain bf16 path."""
+def _half_summary(cases, tag):
+    """The worst case of a 16-bit check: its max-abs-err, its ratio to
+    the tolerance and the widest gap to the plain 16-bit path."""
     return {"max_abs_err": max(c["out_err"] for c in cases),
             "max_tol_ratio": max(c["out_err"] / c["tol"] for c in cases),
-            "max_gap_to_plain_bf16": max(c["vs_plain_bf16"] for c in cases)}
+            f"max_gap_to_plain_{tag}": max(c["vs_plain_16bit"]
+                                           for c in cases)}
 
 
-def phase_decode_bf16(torch, timer):
-    """K2's bf16 instance over bf16 caches: the fp32 phase's cases (the
-    timed shape at sq = 1, 4, 5 and every check set at sq = 1, 4), each
-    with a bf16 q (the bf16 model) and an fp32 q (int8 weights over a
-    bf16 cache)."""
+def phase_decode_half(torch, timer, tag):
+    """K2's bf16 or float16 instance (``tag``) over caches of that type:
+    the fp32 phase's cases (the timed shape at sq = 1, 4, 5 and every
+    check set at sq = 1, 4), each with a q of the cache's type (the
+    16-bit model) and an fp32 q (int8 weights, or an fp32 model, over a
+    16-bit cache)."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as at
+    name, ulp = HALF_TYPES[tag]
+    dt = getattr(torch, name)
     rng = np.random.RandomState(11)
+    kind = tag
     b, h, s, d = 8, 12, 1024, 64
     scale = 1.0 / math.sqrt(d)
     lengths = [0, 1, 63, 64, 65, 500, 1023, 1024]
     lens, live, (kn, vn), _, _ = _dense_cache(torch, rng, lengths, h, s, d)
-    kb, vb = kn.bfloat16(), vn.bfloat16()
+    kb, vb = kn.to(dt), vn.to(dt)
     sets = [(lens, (kb, vb), [(f"sq={sq}", _split_view(torch, rng, b, sq, h,
                                                        d))
                               for sq in (1, 4, 5)])]
     for tag, lns, s2, layout in DENSE_CHECK_SETS:
         l2, _, (k2, v2), _, _ = _dense_cache(torch, rng, lns, h, s2, d,
                                              layout)
-        if layout != "dense":   # the same view of a bf16 buffer
-            k2, v2 = (t._base.bfloat16().as_strided(t.shape, t.stride(),
+        if layout != "dense":   # the same view of a 16-bit buffer
+            k2, v2 = (t._base.to(dt).as_strided(t.shape, t.stride(),
                                                 t.storage_offset())
                       for t in (k2, v2))
         else:
-            k2, v2 = k2.bfloat16(), v2.bfloat16()
+            k2, v2 = k2.to(dt), v2.to(dt)
         sets.append((l2, (k2, v2), [
             (f"{tag} sq={sq}", _split_view(torch, rng, len(lns), sq, h, d))
             for sq in (1, 4)]))
     cases = []
     for ln, (k2, v2), runs in sets:
         for tag, q in runs:
-            for qq in (q.bfloat16(), q):
-                _decode_bf16_check(
-                    torch, at,
+            for qq in (q.to(dt), q):
+                _decode_half_check(
+                    torch, dt, ulp,
                     lambda x: at.decode_attention(x, k2, v2, ln),
                     lambda x: at._decode_fwd_torch(x, k2.float(), v2.float(),
                                                    ln, scale),
                     lambda x: at._decode_fwd_torch(x, k2, v2, ln, scale),
-                    qq, ln, f"K2-bf16 {tag}", cases)
-    emit("decode_attention_bf16_check", cases=cases)
-    summary = _bf16_summary(cases)
-    check(summary["max_tol_ratio"] <= 1.0, f"K2-bf16 off its widened plain "
-          f"version by {summary['max_tol_ratio']} bf16 tolerances")
+                    qq, ln, f"K2-{kind} {tag}", cases)
+    emit(f"decode_attention_{kind}_check", cases=cases)
+    summary = _half_summary(cases, kind)
+    check(summary["max_tol_ratio"] <= 1.0, f"K2-{kind} off its widened "
+          f"plain version by {summary['max_tol_ratio']} {kind} tolerances")
 
-    q = _split_view(torch, rng, b, 1, h, d).bfloat16()
+    q = _split_view(torch, rng, b, 1, h, d).to(dt)
     mask = live[:, :, :, 0][:, :, None, :]
     kz, vz = kb.nan_to_num(0.0), vb.nan_to_num(0.0)
     times = timings(
@@ -886,27 +918,30 @@ def phase_decode_bf16(torch, timer):
                lambda: at.decode_attention(q32, kb, vb, lens), flush=True,
                device=True),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "library": "scaled_dot_product_attention on the bf16 cache "
-                      "with a bool mask",
+           "library": f"scaled_dot_product_attention on the {kind} cache "
+                      f"with a bool mask",
            "shape": [b, h, s, d], "lengths": lengths}
-    emit("decode_attention_bf16", **res)
+    emit(f"decode_attention_{kind}", **res)
     return res
 
 
-def phase_paged_decode_bf16(torch, timer):
-    """K3's bf16 instance over bf16 pools: the fp32 phase's cases (sq =
-    1 and 4, the peek, every check set), each with a bf16 q and an fp32
-    q, NaN in the scrap page, every unreferenced page and past every
-    length."""
+def phase_paged_decode_half(torch, timer, tag):
+    """K3's bf16 or float16 instance (``tag``) over pools of that type:
+    the fp32 phase's cases (sq = 1 and 4, the peek, every check set),
+    each with a q of the pool's type and an fp32 q, NaN in the scrap
+    page, every unreferenced page and past every length."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import attention as at
+    name, ulp = HALF_TYPES[tag]
+    dt = getattr(torch, name)
+    kind = tag
     rng = np.random.RandomState(13)
     b, h, ps, d, p_max, n_pages = 8, 12, 16, 64, 64, 513
     scale = 1.0 / math.sqrt(d)
     lengths = [0, 1, 15, 16, 17, 500, 1023, 1024]
     tbl, lens, kn, vn = _paged_inputs(torch, rng, lengths, h, ps, d, p_max,
                                       n_pages)
-    kb, vb = kn.bfloat16(), vn.bfloat16()
+    kb, vb = kn.to(dt), vn.to(dt)
     sets = [((kb, vb), [
         ("sq=1", _split_view(torch, rng, b, 1, h, d), tbl, lens),
         ("sq=4", _split_view(torch, rng, b, 4, h, d), tbl, lens),
@@ -915,28 +950,28 @@ def phase_paged_decode_bf16(torch, timer):
     for tag, lns, pm in PAGED_CHECK_SETS:
         t2, l2, k2, v2 = _paged_inputs(torch, rng, lns, h, ps, d, pm,
                                        n_pages)
-        sets.append(((k2.bfloat16(), v2.bfloat16()), [
+        sets.append(((k2.to(dt), v2.to(dt)), [
             (f"{tag} sq={sq}", _split_view(torch, rng, len(lns), sq, h, d),
              t2, l2) for sq in (1, 4)]))
     cases = []
     for (kp, vp), runs in sets:
         for tag, q, table, ln in runs:
             kg, vg = at.gather_pages(kp, table), at.gather_pages(vp, table)
-            for qq in (q.bfloat16(), q):
-                _decode_bf16_check(
-                    torch, at,
+            for qq in (q.to(dt), q):
+                _decode_half_check(
+                    torch, dt, ulp,
                     lambda x: at.paged_decode_attention(x, kp, vp, table,
                                                         ln),
                     lambda x: at._decode_fwd_torch(x, kg.float(),
                                                    vg.float(), ln, scale),
                     lambda x: at._decode_fwd_torch(x, kg, vg, ln, scale),
-                    qq, ln, f"K3-bf16 {tag}", cases)
-    emit("paged_decode_attention_bf16_check", cases=cases)
-    summary = _bf16_summary(cases)
-    check(summary["max_tol_ratio"] <= 1.0, f"K3-bf16 off its widened plain "
-          f"version by {summary['max_tol_ratio']} bf16 tolerances")
+                    qq, ln, f"K3-{kind} {tag}", cases)
+    emit(f"paged_decode_attention_{kind}_check", cases=cases)
+    summary = _half_summary(cases, kind)
+    check(summary["max_tol_ratio"] <= 1.0, f"K3-{kind} off its widened "
+          f"plain version by {summary['max_tol_ratio']} {kind} tolerances")
 
-    q = _split_view(torch, rng, b, 1, h, d).bfloat16()
+    q = _split_view(torch, rng, b, 1, h, d).to(dt)
     kz = torch.nan_to_num(at.gather_pages(kb, tbl), nan=0.0)
     vz = torch.nan_to_num(at.gather_pages(vb, tbl), nan=0.0)
     live = torch.arange(p_max * ps, device="cuda")[None, :] \
@@ -957,12 +992,12 @@ def phase_paged_decode_bf16(torch, timer):
                lambda: at.paged_decode_attention(q32, kb, vb, tbl, lens),
                flush=True, device=True),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "library": "scaled_dot_product_attention on the pre-gathered "
-                      "bf16 view with a bool mask (gather not timed)",
+           "library": f"scaled_dot_product_attention on the pre-gathered "
+                      f"{kind} view with a bool mask (gather not timed)",
            "shape": {"B": b, "H": h, "page_size": ps, "D": d,
                      "P_max": p_max, "n_pages": n_pages},
            "lengths": lengths}
-    emit("paged_decode_attention_bf16", **res)
+    emit(f"paged_decode_attention_{kind}", **res)
     return res
 
 
@@ -1170,23 +1205,27 @@ BF16_CPU_REQUESTS = (0, 1)
 TICKS = 4
 
 
-def _teacher_forced_dense(model, prompts, gens, policy):
+def _teacher_forced_dense(model, prompts, gens, policy, adapters=None):
     """Logits of every generated position of several requests through
     the dense generation calls, teacher-forced on their tokens ``gens``:
     each prompt prefilled into its own slot at the engine's bucket, then
     decode steps over all slots at once (a slot whose tokens ran out
-    idles). Returns one (len(gen), V) CPU tensor per request."""
+    idles). ``adapters`` gives each request's LoRA bank slot on an armed
+    model. Returns one (len(gen), V) CPU tensor per request."""
     import torch
     cache = model.init_cache(len(prompts), PAGED_MODEL["max_length"])
+    akw = (lambda sl: {"adapters": np.asarray(adapters, "i4")[sl]}) \
+        if adapters is not None else (lambda sl: {})
     out = []
     for b, p in enumerate(prompts):
         padded = np.zeros((1, policy.bucket(len(p))), "i4")
         padded[0, :len(p)] = p
-        lg, cache = model.prefill(padded, [len(p)], cache, slots=[b])
+        lg, cache = model.prefill(padded, [len(p)], cache, slots=[b],
+                                  **akw(slice(b, b + 1)))
         out.append([lg[0].cpu()])
     for t in range(max(len(g) for g in gens) - 1):
         toks = np.array([g[t] if t < len(g) - 1 else 0 for g in gens], "i4")
-        lg, cache = model.decode_step(toks, cache)
+        lg, cache = model.decode_step(toks, cache, **akw(slice(None)))
         lg = lg.cpu()
         for b, g in enumerate(gens):
             if t < len(g) - 1:
@@ -1351,12 +1390,16 @@ def _gpt2_small(seed=0):
     return GPTModel(**PAGED_MODEL, device="cuda").initialize(seed=seed)
 
 
-def _serve_traffic(torch, eng, prompts, repeats=None, submit_kw=None):
+def _serve_traffic(torch, eng, prompts, repeats=None, submit_kw=None,
+                   during=None):
     """Serve ``prompts`` from 4 client threads, each sending its share
     back to back, except that a repeat (``repeats``: index -> its
     original) is sent once its original's result is in (a user
-    re-sending a prompt); ``submit_kw[j]`` adds request j's sampling
-    knobs. The launch counters and telemetry cover exactly this run.
+    re-sending a prompt); ``submit_kw[j]`` adds request j's keywords
+    (sampling knobs, an adapter, a trace); ``during()``, when given,
+    runs on this thread while the clients do (an operator's action on
+    the live engine). The launch counters and telemetry cover exactly
+    this run.
     ``decode_steps`` counts the engine's decode ticks (host syncs), each
     of ``ticks_per_sync`` steps. Returns (results, metrics, telemetry
     snapshot)."""
@@ -1389,6 +1432,8 @@ def _serve_traffic(torch, eng, prompts, repeats=None, submit_kw=None):
     clients = [threading.Thread(target=client, args=(c,)) for c in range(4)]
     for th in clients:
         th.start()
+    if during is not None:
+        during()
     for th in clients:
         th.join(timeout=900)
     wall = time.perf_counter() - t0
@@ -1424,8 +1469,8 @@ def _serve_traffic(torch, eng, prompts, repeats=None, submit_kw=None):
 def _serve_paged_traffic(torch, eng, prompts, repeats, submit_kw=None):
     """``_serve_traffic`` on a paged engine, with its page counters and
     the checks its traffic must pass: one prefill chunk an iteration at
-    most, a prefix hit, a copy-on-write and K4 on every projection.
-    Returns (results, metrics)."""
+    most, a prefix hit, a copy-on-write and K4 on every projection (on
+    an int8-weight engine). Returns (results, metrics)."""
     results, res, snap = _serve_traffic(torch, eng, prompts, repeats,
                                         submit_kw)
     cnt = snap["counters"]
@@ -1442,7 +1487,7 @@ def _serve_paged_traffic(torch, eng, prompts, repeats, submit_kw=None):
     check(res["prefix_hits"] > 0, "no prefix hit (peek) ran")
     check(res["cow_copies"] > 0, "no copy-on-write ran")
     steps = res["decode_steps"]
-    check(res["launches"]["dequant_matmul"]
+    check(eng.quantize is None or res["launches"]["dequant_matmul"]
           >= 6 * PAGED_MODEL["num_layers"] * steps,
           f"K4 launched {res['launches']['dequant_matmul']} times for "
           f"{steps} decode steps")
@@ -2299,6 +2344,404 @@ def phase_spec_engine(torch, dense_prompts):
     return dense, paged, sampled
 
 
+# ---- batched multi-tenant LoRA and float16 serving --------------------------
+#: the LoRA phases: the engine's rank and bank (adapters beside the base
+#: slot), the seeded tenants (factors ~ N(0, LORA_SCALE^2), alpha = rank,
+#: so each moves an attention projection's output by about a fifth of its
+#: own size at GPT-2-small widths), the dense traffic's tenants in turn
+#: (None: the base model) and its adapted requests replayed on the CPU
+LORA_RANK, LORA_MAX, LORA_SCALE = 8, 4, 0.05
+LORA_SEEDS = {"t1": 201, "t2": 202, "t3": 203, "t4": 204}
+LORA_TENANTS = (None, "t1", "t2", "t3")
+LORA_REQUESTS = 16
+LORA_CPU_PICKS = (1, 3)
+#: decode steps each profile of ``_step_profile`` times
+PROFILE_STEPS = 10
+
+
+def _lora_factors(model, name):
+    """Seeded factors of tenant ``name`` for every armed projection."""
+    rng = np.random.RandomState(LORA_SEEDS[name])
+    out = {}
+    for li, tab in enumerate(model._lora):
+        for proj in sorted(tab):
+            for half in ("A", "B"):
+                shape = tuple(tab[proj][half].shape[1:])
+                out[f"layers.{li}.{proj}.{half}"] = (
+                    rng.standard_normal(shape) * LORA_SCALE).astype("f4")
+    return out
+
+
+def _bank_ptrs(model):
+    return [t.data_ptr() for st in model._lora_stack.values()
+            for t in st.values()]
+
+
+def _busy_ms(intervals):
+    """The union length of [start, end) intervals (microseconds in, ms
+    out)."""
+    total, cur = 0.0, None
+    for s0, e0 in sorted(intervals):
+        if cur is None or s0 > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [s0, e0]
+        else:
+            cur[1] = max(cur[1], e0)
+    if cur is not None:
+        total += cur[1] - cur[0]
+    return total / 1e3
+
+
+def _step_profile(torch, model, prompts, adapters=None):
+    """One dense decode step over 8 slots (the engine's: ``decode_step``,
+    argmax on the card, the tokens read by the host), ``PROFILE_STEPS``
+    of them under ``torch.profiler``: wall ms, device-busy ms (the union
+    of the card's kernel intervals; None when the profiler sees no
+    device activity) and the kernels a step launches."""
+    from torch.profiler import ProfilerActivity, profile
+    cache = model.init_cache(8, PAGED_MODEL["max_length"])
+    akw = {} if adapters is None else {"adapters": adapters}
+    last = np.zeros(8, "i4")
+    for b, p in enumerate(prompts[:8]):
+        toks = np.zeros((1, 1 << (len(p) - 1).bit_length()), "i4")
+        toks[0, :len(p)] = p
+        lg, cache = model.prefill(toks, [len(p)], cache, slots=[b],
+                                  **({} if adapters is None else
+                                     {"adapters": adapters[b:b + 1]}))
+        last[b] = int(lg[0].argmax())
+    state = {"toks": last}
+
+    def step():
+        lg, _ = model.decode_step(state["toks"], cache, **akw)
+        state["toks"] = lg.argmax(dim=-1).cpu().numpy().astype("i4")
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in kern])
+    return {"wall_ms": wall,
+            "device_busy_ms": busy / PROFILE_STEPS if kern else None,
+            "kernels_per_step": len(kern) / PROFILE_STEPS}
+
+
+def phase_lora_engine(torch, cpu_model, prompts, fp32_results):
+    """Batched multi-tenant LoRA on the dense engine at GPT-2-small
+    widths (seed 0, the ``engine`` phase's weights and its first
+    LORA_REQUESTS prompts), ``lora_rank=LORA_RANK,
+    max_adapters=LORA_MAX``, three seeded tenants, the requests cycling
+    base, t1, t2, t3. While the traffic runs, t1 is refreshed (with the
+    same factors, so its streams stay comparable) and t2 is unloaded
+    while requests pin it (deferred until they finish); a fourth tenant
+    loads afterwards into the freed slot. Checks: the base requests'
+    tokens are the ``engine`` phase's; the adapted ones agree with the
+    CPU port under teacher forcing (LOGIT_TOL, AGREE_MIN, flips below
+    2 x LOGIT_TOL), the card's logits too; the banks never move
+    (``data_ptr()``). The same prompts first go through a LoRA-free
+    engine (the same-traffic baseline, also the float16 phase's), and a
+    decode step is profiled with and without LoRA."""
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    n_layers = PAGED_MODEL["num_layers"]
+    ps = prompts[:LORA_REQUESTS]
+    model = _gpt2_small(seed=0)
+    eng = GenerationEngine(model, max_slots=8, max_new_tokens=64,
+                           eos_id=50256)
+    eng.warmup()
+    _, plain, _ = _serve_traffic(torch, eng, ps)
+    eng.close()
+    del eng
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(model, max_slots=8, max_new_tokens=64,
+                           eos_id=50256, lora_rank=LORA_RANK,
+                           max_adapters=LORA_MAX)
+    banks = _bank_ptrs(model)
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    alpha = float(LORA_RANK)
+    factors = {n: _lora_factors(model, n) for n in LORA_TENANTS if n}
+    for n, f in factors.items():
+        eng.load_adapter(n, f, alpha=alpha)
+    slot = {n: eng._lora_reg[n].idx for n in factors}
+    tenant = [LORA_TENANTS[j % len(LORA_TENANTS)] for j in range(len(ps))]
+    live = {}
+
+    def operate():
+        # once t2 is pinned by a request in flight: refresh t1, unload t2
+        deadline = time.monotonic() + 60
+        while eng._lora_reg["t2"].refs == 0 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        live["t2_pins"] = eng._lora_reg["t2"].refs
+        eng.load_adapter("t1", factors["t1"], alpha=alpha)
+        live["t2_unload_immediate"] = eng.unload_adapter("t2")
+        live["t2_after_unload"] = eng.adapters
+
+    results, res, snap = _serve_traffic(
+        torch, eng, ps, submit_kw={j: {"adapter": t}
+                                   for j, t in enumerate(tenant) if t},
+        during=operate)
+    t2_evicted = "t2" not in eng._lora_reg
+    eng.load_adapter("t4", _lora_factors(model, "t4"), alpha=alpha)
+    pol = eng.policy
+    cnt = snap["counters"]
+    res.update(warmup_s=warmup_s, live_actions=live,
+               plain_same_traffic={k: plain[k] for k in (
+                   "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99",
+                   "decode_steps", "decode_step_ms_p50", "wall_s")},
+               t2_evicted_after_traffic=t2_evicted,
+               t4_slot=eng._lora_reg["t4"].idx, t2_slot=slot["t2"],
+               lora_requests=int(cnt.get("serving.generate.lora.requests",
+                                         0)),
+               adapters_loaded=int(cnt.get(
+                   "serving.generate.lora.adapters_loaded", 0)),
+               adapters_evicted=int(cnt.get(
+                   "serving.generate.lora.adapters_evicted", 0)),
+               lora_bank_bytes=model.lora_bank_bytes(),
+               banks_unmoved=_bank_ptrs(model) == banks)
+    eng.close()
+    del eng
+    launches, steps = res["launches"], res["decode_steps"]
+    check(launches["flash_attention_fwd"] >= n_layers * len(ps),
+          f"K1 launched {launches['flash_attention_fwd']} times")
+    check(launches["decode_attention"] >= steps * n_layers > 0,
+          f"K2 launched {launches['decode_attention']} times for "
+          f"{steps} decode steps")
+    base = [j for j, t in enumerate(tenant) if t is None]
+    res["base_tokens_equal_engine"] = all(
+        results[j].tokens == fp32_results[j].tokens for j in base)
+    res["adapted_tokens_differ_from_base_model"] = sum(
+        results[j].tokens != fp32_results[j].tokens
+        for j, t in enumerate(tenant) if t)
+
+    # the adapted requests teacher-forced on the card and on the CPU
+    picks = list(LORA_CPU_PICKS)
+    pp, gg = [ps[j] for j in picks], [results[j].tokens for j in picks]
+    ad = [slot[tenant[j]] for j in picks]
+    card = _teacher_forced_dense(model, pp, gg, pol, adapters=ad)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_model.arm_lora(LORA_MAX + 1, LORA_RANK)
+    for j in picks:
+        cpu_model.set_adapter(slot[tenant[j]], factors[tenant[j]],
+                              alpha=alpha)
+    cpu = _teacher_forced_dense(cpu_model, pp, gg, pol, adapters=ad)
+    cpu_s = time.perf_counter() - t0
+    flips, agree, total, err = [], 0, 0, 0.0
+    for j, lc, lp, g in zip(picks, card, cpu, gg):
+        err = max(err, float((lc - lp).abs().max()))
+        pred = lp.argmax(-1).numpy()
+        for i, tok in enumerate(g):
+            total += 1
+            if pred[i] == tok:
+                agree += 1
+            else:
+                flips.append({"request": j, "pos": i,
+                              "gap": float(lp[i].max() - lp[i, tok])})
+    res["card_vs_cpu"] = {"requests": picks, "tenants":
+                          [tenant[j] for j in picks], "tokens": total,
+                          "agreement": agree / total,
+                          "disagreements": flips,
+                          "logit_max_abs_err": err, "logit_tol": LOGIT_TOL,
+                          "cpu_s": cpu_s}
+
+    # a decode step with and without LoRA, on the card
+    armed = _gpt2_small(seed=0)
+    armed.arm_lora(LORA_MAX + 1, LORA_RANK)
+    for n in ("t1", "t3"):
+        armed.set_adapter(slot[n], factors[n], alpha=alpha)
+    mix = np.array([0, slot["t1"], slot["t3"], 0, slot["t1"], 0,
+                    slot["t3"], 0], "i4")
+    res["decode_step_profile"] = {
+        "lora": _step_profile(torch, armed, prompts, adapters=mix),
+        "lora_all_base": _step_profile(torch, armed, prompts,
+                                       adapters=np.zeros(8, "i4"))}
+    del armed
+    plain = _gpt2_small(seed=0)
+    res["decode_step_profile"]["no_lora"] = _step_profile(torch, plain,
+                                                          prompts)
+    del plain
+    torch.cuda.empty_cache()
+    emit("lora_engine", **res)
+    check(res["banks_unmoved"], "the LoRA banks moved (data_ptr changed)")
+    check(live["t2_unload_immediate"] is False,
+          f"t2 unloaded at once with {live['t2_pins']} pins")
+    check("t2" not in live["t2_after_unload"], "an unloading t2 still listed")
+    check(t2_evicted, "t2's deferred unload never completed")
+    check(res["base_tokens_equal_engine"],
+          "a base request's tokens differ from the LoRA-free engine's")
+    check(res["adapted_tokens_differ_from_base_model"] > 0,
+          "no adapter changed a token")
+    check(agree / total >= AGREE_MIN,
+          f"LoRA card vs CPU agreement {agree / total} < {AGREE_MIN}")
+    check(all(f["gap"] < 2 * LOGIT_TOL for f in flips),
+          f"a LoRA disagreement on a gap >= {2 * LOGIT_TOL}: {flips}")
+    check(err <= LOGIT_TOL, f"LoRA card vs CPU logits {err} > {LOGIT_TOL}")
+    return res
+
+
+def _trace_prefix_tokens(trace):
+    """The cached prefix tokens a request's admission reused (its trace's
+    ``admission`` event)."""
+    for sp in trace.spans():
+        if sp["name"] == "admission":
+            return int(sp.get("attrs", {}).get("prefix_tokens", 0))
+    raise AssertionError("a traced request has no admission event")
+
+
+def phase_lora_paged_engine(torch, prompts, repeats, fp32_results):
+    """The ``paged_engine`` traffic (int8 weights, page 16, the same 24
+    prompts) with ``lora_rank=LORA_RANK`` and an adapter on about half
+    the requests (the odd ones, repeats and their originals left base so
+    the prefix hits and copy-on-write still run), every request traced.
+    Checks: no adapted request reuses a cached prefix (its K/V differ)
+    and base requests do; the base requests' tokens are the
+    ``paged_engine`` phase's, or each first divergence sits on a
+    near-tie (below FLIP_GAP, teacher-forced on the card: a request's
+    prefix may now be its own prefill instead of a shared page)."""
+    from mxnet_tpu_torch import tracing
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    model = _gpt2_small(seed=0)
+    eng = GenerationEngine(model, max_slots=8, max_new_tokens=64,
+                           eos_id=50256, paged=True, page_size=16,
+                           quantize="int8_weights", lora_rank=LORA_RANK,
+                           max_adapters=LORA_MAX)
+    eng.warmup()
+    alpha = float(LORA_RANK)
+    names = [n for n in LORA_TENANTS if n]
+    for n in names:
+        eng.load_adapter(n, _lora_factors(model, n), alpha=alpha)
+    pinned = set(repeats) | set(repeats.values())
+    tenant = {j: names[(j // 2) % len(names)] for j in range(len(prompts))
+              if j % 2 and j not in pinned}
+    traces = {j: tracing.Trace() for j in range(len(prompts))}
+    kw = {j: {"trace": traces[j],
+              **({"adapter": tenant[j]} if j in tenant else {})}
+          for j in range(len(prompts))}
+    results, res = _serve_paged_traffic(torch, eng, prompts, repeats, kw)
+    eng.close()
+    del eng
+    reused = {j: _trace_prefix_tokens(traces[j]) for j in traces}
+    base = [j for j in range(len(prompts)) if j not in tenant]
+    diff = [j for j in base if results[j].tokens != fp32_results[j].tokens]
+    div = _spec_divergences(
+        lambda p, g: _teacher_forced(model, p, g),
+        [prompts[j] for j in diff], [results[j].tokens for j in diff],
+        [fp32_results[j].tokens for j in diff])
+    for row in div:
+        row["request"] = diff[row["request"]]
+    del model
+    torch.cuda.empty_cache()
+    res.update(adapted_requests=sorted(tenant),
+               adapted_prefix_tokens_reused=sum(reused[j] for j in tenant),
+               base_requests_reusing_prefix=sum(reused[j] > 0 for j in base),
+               base_tokens_differing=diff, base_divergences=div,
+               flip_gap=FLIP_GAP)
+    emit("lora_paged_engine", **res)
+    check(res["adapted_prefix_tokens_reused"] == 0,
+          "an adapted request reused cached prefix pages")
+    check(res["base_requests_reusing_prefix"] > 0,
+          "no base request reused a cached prefix")
+    check(all(r["gap"] < FLIP_GAP for r in div),
+          f"a base request diverged from the LoRA-free engine off a "
+          f"near-tie: {div}")
+    return res
+
+
+def phase_fp16_engine(torch, dense_prompts, dense_results, paged_model,
+                      paged_prompts, paged_repeats, paged_results):
+    """float16 serving at GPT-2-small widths: the dense ``engine``
+    traffic (its first LORA_REQUESTS prompts) on ``GPTModel(dtype=
+    "float16")`` from seed 0's weights (K1-f16 and K2-f16), and the
+    ``paged_engine`` traffic at ``cache_dtype="float16"`` (int8 weights:
+    K3-f16 with an fp32 q). Each is held to the fp32 engine of this run
+    by the reference's bounded-divergence contract (the bf16 one: 0.25,
+    >= 90 % agreement), teacher-forced on the fp32 engine's tokens."""
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
+    from mxnet_tpu_torch.serving import GenerationEngine
+
+    n_layers = PAGED_MODEL["num_layers"]
+    ps = dense_prompts[:LORA_REQUESTS]
+    m16 = GPTModel(**PAGED_MODEL, dtype="float16",
+                   device="cuda").initialize(seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(m16, max_slots=8, max_new_tokens=64,
+                           eos_id=50256)
+    check(eng._cache["k"][0].dtype == torch.float16,
+          f"the float16 model's cache is {eng._cache['k'][0].dtype}")
+    eng.warmup()
+    _, dense, _ = _serve_traffic(torch, eng, ps)
+    pol = eng.policy
+    dense["kv_cache_bytes"] = _kv_pool_bytes(eng._cache)
+    eng.close()
+    del eng
+    launches, steps = dense["launches"], dense["decode_steps"]
+    check(launches["flash_attention_fwd_f16"] >= n_layers * len(ps),
+          f"K1-f16 launched {launches['flash_attention_fwd_f16']} times")
+    check(launches["decode_attention_f16"] >= steps * n_layers > 0,
+          f"K2-f16 launched {launches['decode_attention_f16']} times for "
+          f"{steps} decode steps")
+    check(launches["flash_attention_fwd"] == 0
+          and launches["decode_attention"] == 0,
+          "an fp32 instance ran on the float16 path")
+    picks = list(range(4))
+    g32 = [dense_results[j].tokens for j in picks]
+    f16 = _teacher_forced_dense(m16, [ps[j] for j in picks], g32, pol)
+    del m16
+    m32 = _gpt2_small(seed=0)
+    fp = _teacher_forced_dense(m32, [ps[j] for j in picks], g32, pol)
+    del m32
+    torch.cuda.empty_cache()
+    dense["f16_vs_fp32_on_card"] = dict(_bf16_contract(f16, fp, g32),
+                                        requests=picks)
+
+    eng = GenerationEngine(paged_model, max_slots=8, max_new_tokens=64,
+                           eos_id=50256, paged=True, page_size=16,
+                           quantize="int8_weights", cache_dtype="float16")
+    eng.warmup()
+    _, paged = _serve_paged_traffic(torch, eng, paged_prompts,
+                                    paged_repeats)
+    paged["kv_pool_bytes"] = _kv_pool_bytes(eng._cache)
+    eng.close()
+    del eng
+    launches, steps = paged["launches"], paged["decode_steps"]
+    check(launches["paged_decode_attention_f16"] >= steps * n_layers > 0,
+          f"K3-f16 launched {launches['paged_decode_attention_f16']} "
+          f"times for {steps} decode steps")
+    check(launches["paged_decode_attention"] == 0,
+          "the fp32 K3 ran on the float16 path")
+    picks = list(CPU_PICKS)
+    pp = [paged_prompts[j] for j in picks]
+    g32 = [paged_results[j].tokens for j in picks]
+    f16 = _teacher_forced(paged_model, pp, g32, kv_dtype="float16")
+    fp = _teacher_forced(paged_model, pp, g32)
+    paged["f16_vs_fp32_on_card"] = dict(_bf16_contract(f16, fp, g32),
+                                        requests=picks)
+    launches = {k: dense["launches"].get(k, 0) + paged["launches"].get(k, 0)
+                for k in dense["launches"]}
+    res = {"dense_f16_model": dense, "paged_f16_cache": paged,
+           "launches": launches}
+    emit("fp16_engine", **res)
+    for tag, part in (("dense", dense), ("paged", paged)):
+        c = part["f16_vs_fp32_on_card"]
+        check(c["logit_max_abs_err"] <= BF16_TOL,
+              f"{tag} float16 vs fp32 logits {c['logit_max_abs_err']} > "
+              f"{BF16_TOL}")
+        check(c["agreement"] >= BF16_AGREE_MIN,
+              f"{tag} float16 vs fp32 agreement {c['agreement']} < "
+              f"{BF16_AGREE_MIN}")
+    return res
+
+
 #: the rtc module of the K5 phases: the JAX rtc tests' kernels
 #: (tests/test_extensions.py: scale_add, negate, double, ident), the
 #: example's scale2 (examples/custom_op.py), and row_softmax — one
@@ -2562,6 +3005,77 @@ def _card_products(torch, mx):
     return out
 
 
+#: the dtypes of the data-movement checks on the card (torch's CPU and
+#: CUDA kernels differ in tie order and in dtype coverage)
+CARD_MOVE_DTYPES = ("bool", "uint8", "uint16", "uint32", "int8", "int16",
+                    "int32", "float16", "float32")
+
+
+def _card_moves(torch, mx):
+    """``npx.topk`` on rows full of ties (the reference keeps the lower
+    index first: a stable sort), and the data movement of wide unsigned
+    arrays (``flip``, negative-step slices read and written, ``pick``,
+    ``eye``; ``concatenate`` and ``where`` beside another integer type),
+    each on the card and on the CPU on the same numpy-seeded values, in
+    every dtype of CARD_MOVE_DTYPES: equal results (the same dtype,
+    shape and values). Also the row [5, 5, 0, 5] at k = 2: indices
+    [0, 1]."""
+    rs = np.random.RandomState(15)
+    out = {}
+
+    def both(fn):
+        card = fn()
+        with mx.cpu():
+            host = fn()
+        cs = card if isinstance(card, (list, tuple)) else [card]
+        hs = host if isinstance(host, (list, tuple)) else [host]
+        for c, h in zip(cs, hs):
+            check(c._data.is_cuda, "a data-movement result is not on the "
+                  "card")
+            check(c.dtype == h.dtype and c.shape == h.shape
+                  and np.array_equal(c.asnumpy(), h.asnumpy()),
+                  f"card {c.dtype}{c.shape} vs CPU {h.dtype}{h.shape}")
+        return cs[0]
+
+    for dt in CARD_MOVE_DTYPES:
+        a = rs.randint(0, 4, (6, 33)).astype(dt)    # every row has ties
+        for kw in ({"k": 5, "ret_typ": "indices"},
+                   {"k": 5, "ret_typ": "both"},
+                   {"k": 3, "ret_typ": "mask"},
+                   {"k": 4, "ret_typ": "indices", "is_ascend": True},
+                   {"k": 2, "axis": 0, "ret_typ": "indices"}):
+            both(lambda: mx.npx.topk(mx.np.array(a), **kw))
+        w = rs.randint(0, 100, (4, 6)).astype(dt)
+        if dt in ("uint16", "uint32"):
+            w[1, 2] = np.iinfo(dt).max
+
+        def written():
+            x = mx.np.array(w)
+            x[::-2, 1:] = mx.np.array(np.ascontiguousarray(w[1::2, 1:]))
+            return x
+        for fn in (lambda: mx.np.flip(mx.np.array(w), axis=0),
+                   lambda: mx.np.array(w)[::-1, ::-2],
+                   written,
+                   lambda: mx.npx.pick(mx.np.array(w), mx.np.array(
+                       np.array([0, 5, 3, 1], "i4")), axis=1),
+                   lambda: mx.np.eye(4, 6, k=1, dtype=dt)):
+            both(fn)
+        for wide in ("uint16", "uint32"):
+            u = rs.randint(0, 100, (4, 6)).astype(wide)
+            c = rs.rand(4, 6) > 0.5
+            both(lambda: mx.np.concatenate([mx.np.array(u),
+                                            mx.np.array(w)], axis=1))
+            both(lambda: mx.np.where(mx.np.array(c), mx.np.array(u),
+                                     mx.np.array(w)))
+        out[dt] = "equal"
+    tie = both(lambda: mx.npx.topk(mx.np.array(np.array([5, 5, 0, 5], "i4")),
+                                   k=2, ret_typ="indices", dtype="int32"))
+    check(tie.asnumpy().tolist() == [0, 1],
+          f"topk of [5, 5, 0, 5] gave {tie.asnumpy().tolist()}")
+    out["topk [5, 5, 0, 5] k=2"] = tie.asnumpy().tolist()
+    return out
+
+
 def phase_custom_op(torch):
     """The flow of examples/custom_op.py on the card through
     ``import mxnet_tpu_torch as mx``: the softsign CustomOp via
@@ -2677,8 +3191,9 @@ def phase_custom_op(torch):
             g.grad.asnumpy() / (2 * sig * (1 - sig)) - 1).max()),
     }
     prods = _card_products(torch, mx)
+    moves = _card_moves(torch, mx)
     res = {"launches": launches, "on_card": on_card, "errors": errs,
-           "products": prods}
+           "products": prods, "data_movement": moves}
     emit("custom_op", **res)
     for key in ("softsign", "clip_forward", "scale2", "double.grad",
                 "ident.grad"):
@@ -2719,6 +3234,16 @@ KERNELS = [
     ("paged_decode_attention_bf16", "paged_decode_attention.cu",
      "mxnet_tpu/ops/attention.py:566",
      "paged_decode_attention_pallas on a bf16 pool", "k3b"),
+    ("flash_attention_fwd_f16", "flash_attention.cu",
+     "mxnet_tpu/ops/attention.py:141",
+     "flash_attention_pallas on float16 q/k/v", "k1h"),
+    ("decode_attention_f16", "decode_attention.cu",
+     "mxnet_tpu/ops/attention.py:474",
+     "decode_attention_pallas on a float16 cache (body _decode_fwd_kernel, "
+     ":402)", "k2h"),
+    ("paged_decode_attention_f16", "paged_decode_attention.cu",
+     "mxnet_tpu/ops/attention.py:566",
+     "paged_decode_attention_pallas on a float16 pool", "k3h"),
 ]
 
 
@@ -2740,18 +3265,21 @@ def main(argv=None):
     k3, k3i = phase_paged_decode(torch, timer)
     k4 = phase_dequant(torch, timer)
     k5 = phase_rtc(torch, timer)
-    k1b = phase_flash_bf16(torch, timer)
-    k2b = phase_decode_bf16(torch, timer)
-    k3b = phase_paged_decode_bf16(torch, timer)
+    kernel_res = {"k1": k1, "k2": k2, "k2i": k2i, "k3": k3, "k3i": k3i,
+                  "k4": k4}
+    for tag, key in (("bf16", "b"), ("f16", "h")):
+        kernel_res[f"k1{key}"] = phase_flash_half(torch, timer, tag)
+        kernel_res[f"k2{key}"] = phase_decode_half(torch, timer, tag)
+        kernel_res[f"k3{key}"] = phase_paged_decode_half(torch, timer, tag)
     if args.kernels_only:
         return 0
     from mxnet_tpu_torch import ops
-    kernel_res = {"k1": k1, "k2": k2, "k2i": k2i, "k3": k3, "k3i": k3i,
-                  "k4": k4, "k1b": k1b, "k2b": k2b, "k3b": k3b}
     phases = {"custom_op": phase_custom_op(torch)}
     phases["engine"], cpu_model, dense_prompts, dense_results = \
         phase_engine(torch)
     phases["bf16_engine"] = phase_bf16_engine(torch, cpu_model,
+                                              dense_prompts, dense_results)
+    phases["lora_engine"] = phase_lora_engine(torch, cpu_model,
                                               dense_prompts, dense_results)
     del cpu_model
     paged, model, prompts, results, repeats = phase_paged_engine(torch)
@@ -2761,6 +3289,11 @@ def main(argv=None):
     phases["int8_kv_engine"] = kv8
     phases["paged_bf16_engine"] = phase_paged_bf16_engine(
         torch, model, prompts, repeats, results)
+    phases["lora_paged_engine"] = phase_lora_paged_engine(
+        torch, prompts, repeats, results)
+    phases["fp16_engine"] = phase_fp16_engine(
+        torch, dense_prompts, dense_results, model, prompts, repeats,
+        results)
     phase_paged_cpu_reference(torch, model, prompts, results)
     phase_int8_kv_cpu_reference(torch, model, prompts, kv8_results, card8)
     del model

@@ -7,7 +7,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 // The reference's masked score (ops/attention.py NEG_INF): a large
 // finite negative, never -inf, so that exp(s - m) stays 0 and
@@ -78,6 +81,46 @@ __device__ __forceinline__ unsigned bf16_bits(float x) {
 
 __device__ __forceinline__ unsigned bf16_pack(float lo, float hi) {
   return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+
+// ---- float16 --------------------------------------------------------------
+// A float16 value is not a truncated fp32 one (5 exponent bits, 10
+// mantissa bits), so it widens by a conversion (cvt.f32.f16, exact).
+using f16 = __half;
+
+__device__ __forceinline__ float2 f16x2_widen(unsigned w) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&w));
+}
+
+// four consecutive float16 values (8 bytes, 8-byte aligned), widened
+__device__ __forceinline__ float4 f16x4_widen(uint2 w) {
+  const float2 lo = f16x2_widen(w.x), hi = f16x2_widen(w.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// four consecutive values of a 16-bit type (bf16 or float16), widened
+template <class T>
+__device__ __forceinline__ float4 half4_widen(uint2 w) {
+  static_assert(std::is_same_v<T, bf16> || std::is_same_v<T, f16>,
+                "a 16-bit float type");
+  if constexpr (std::is_same_v<T, bf16>)
+    return bf16x4_widen(w);
+  else
+    return f16x4_widen(w);
+}
+
+// fp32 -> 16-bit bits of type T, rounded to nearest even
+template <class T>
+__device__ __forceinline__ unsigned half_bits(float x) {
+  if constexpr (std::is_same_v<T, bf16>)
+    return bf16_bits(x);
+  else
+    return __half_as_ushort(__float2half_rn(x));
+}
+
+template <class T>
+__device__ __forceinline__ unsigned half_pack(float lo, float hi) {
+  return half_bits<T>(lo) | (half_bits<T>(hi) << 16);
 }
 
 // ---- TF32 tensor cores (mma.sync m16n8k8) ------------------------------
@@ -300,84 +343,120 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[N]) {
 // d[4 i + e] is row 16 w + g + 8 (e / 2), column 8 i + 2 t + (e % 2); a
 // register A fragment of k step j holds rows 16 w + g (a[0], a[2]) and
 // + 8 (a[1], a[3]), columns 16 j + 2 t, + 1 (a[0], a[1]) and + 8 (a[2],
-// a[3]), two bf16 a register (the lower column in the low half): the
-// accumulator's entries 8 j .. 8 j + 7, rounded and packed in order.
+// a[3]), two 16-bit values a register (the lower column in the low
+// half): the accumulator's entries 8 j .. 8 j + 7, rounded and packed in
+// order. The products take bf16 or float16 operands (``T``), fp32
+// accumulation; the element type is part of the instruction, so each
+// wrapper holds one asm statement a type.
+#define MXTT_WGMMA_SS_N64(TY)                                              \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                          \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+        "+f"(d[30]), "+f"(d[31])                                           \
+      : "l"(a), "l"(b), "r"(acc))
+
+#define MXTT_WGMMA_RS_N16(TY)                                              \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "                                 \
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+#define MXTT_WGMMA_RS_N32(TY)                                              \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "                            \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15])                                                        \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+#define MXTT_WGMMA_RS_N64(TY)                                              \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                          \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+        "+f"(d[30]), "+f"(d[31])                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
 // d (64 x 64, fp32) += A (64 x 16, shared, K-major) * B (16 x 64, shared,
-// K-major), both bf16 through smem descriptors; ``acc`` false overwrites d
+// K-major), both T through smem descriptors; ``acc`` false overwrites d
+template <class T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                              uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
+  if constexpr (std::is_same_v<T, bf16>)
+    MXTT_WGMMA_SS_N64("bf16");
+  else
+    MXTT_WGMMA_SS_N64("f16");
 }
 
-// d (64 x 16, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x
+// d (64 x 16, fp32) += A (64 x 16, T fragments in registers) * B (16 x
 // 16, shared, MN-major: the transpose bit)
+template <class T>
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
                                              const unsigned (&a)[4],
                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same_v<T, bf16>)
+    MXTT_WGMMA_RS_N16("bf16");
+  else
+    MXTT_WGMMA_RS_N16("f16");
 }
 
-// d (64 x 32, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x
+// d (64 x 32, fp32) += A (64 x 16, T fragments in registers) * B (16 x
 // 32, shared, MN-major: the transpose bit)
+template <class T>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                              const unsigned (&a)[4],
                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same_v<T, bf16>)
+    MXTT_WGMMA_RS_N32("bf16");
+  else
+    MXTT_WGMMA_RS_N32("f16");
 }
 
-// d (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x
+// d (64 x 64, fp32) += A (64 x 16, T fragments in registers) * B (16 x
 // 64, shared, MN-major: the transpose bit)
+template <class T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const unsigned (&a)[4],
                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same_v<T, bf16>)
+    MXTT_WGMMA_RS_N64("bf16");
+  else
+    MXTT_WGMMA_RS_N64("f16");
 }
+
+#undef MXTT_WGMMA_SS_N64
+#undef MXTT_WGMMA_RS_N16
+#undef MXTT_WGMMA_RS_N32
+#undef MXTT_WGMMA_RS_N64
 
 }  // namespace mxtt

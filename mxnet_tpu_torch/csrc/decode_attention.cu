@@ -1,17 +1,20 @@
-// K2 — decode attention over a dense KV cache, fp32, int8 or bf16, for
+// K2 — decode attention over a dense KV cache, fp32, int8, bf16 or float16,
+// for
 // Hopper (sm_90a): a split-KV (flash-decoding) kernel in one launch, each
 // (slot, head, group of query rows) split across a thread-block cluster.
 //
 // Replaces: mxnet_tpu/ops/attention.py decode_attention_pallas (kernel
 // body _decode_fwd_kernel), every variant: fp32, int8 K/V with (B, H)
-// fp32 scales (quant=True), and bf16 K/V (the reference's kernel is
-// dtype-generic: it loads the bf16 block and widens it to fp32). Same
+// fp32 scales (quant=True), and bf16 or float16 K/V (the reference's
+// kernel is dtype-generic: it loads the 16-bit block and widens it to
+// fp32). Same
 // function: every query row of slot b attends keys [0, lengths[b]) of
 // its cache row, with no causal structure among the queries;
 // lengths[b] == 0 gives zeros. The int8 instance attends
-// K = k * k_scale[b, h] and V = v * v_scale[b, h]; the bf16 instance
-// reads the bf16 rows (half the bytes of fp32), widens them in
-// registers, takes q as fp32 or bf16 and writes a bf16 output.
+// K = k * k_scale[b, h] and V = v * v_scale[b, h]; the bf16 (float16)
+// instance reads the 16-bit rows (half the bytes of fp32), widens them in
+// registers, takes q as fp32 or of the cache's type and writes an output
+// of the cache's type.
 //
 // What bounds it on the H100: bytes. One decode step reads each valid K and
 // V row once — 2 * sum(len) * H * D * 4 bytes per layer in fp32, half of
@@ -143,12 +146,12 @@ struct DenseRows {
 };
 
 // k_scale / v_scale: (B, H) contiguous fp32 for an int8 cache, unused
-// (null) otherwise. q is fp32, or bf16 where q_bf16 (a bf16 cache only);
-// out is split_out_t<T>.
+// (null) otherwise. q is fp32, or of the cache's type where q_half (a
+// 16-bit cache only); out is split_out_t<T>.
 template <int D, int NR, class T>
 __global__ void __launch_bounds__(mxtt::kSplitThreads,
                                   mxtt::kSplitMinBlocks<T, NR>)
-decode_split_kernel(const void* __restrict__ q, int q_bf16,
+decode_split_kernel(const void* __restrict__ q, int q_half,
                     const T* __restrict__ k, const T* __restrict__ v,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
@@ -169,39 +172,39 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16,
                       kInt8 ? v_scale + bh : nullptr, lengths, k_ss, v_ss, b,
                       S_max};
   mxtt::split_decode<D, NR, T>(
-      src, mxtt::q_at<T>(q, q_bf16, b * q_sb + h * q_sh), q_bf16, q_ss, r0,
+      src, mxtt::q_at<T>(q, q_half, b * q_sb + h * q_sh), q_half, q_ss, r0,
       min(NR, Sq - r0), rows, batch, scale,
       static_cast<mxtt::split_out_t<T>*>(out) + (bh * Sq + r0) * D);
 }
 
 template <int D, int NR, class T>
-cudaError_t launch_rows(const void* q, int q_bf16, const T* k, const T* v,
+cudaError_t launch_rows(const void* q, int q_half, const T* k, const T* v,
                         const float* k_scale, const float* v_scale,
                         const int* lengths, void* out, int B, int H, int Sq,
                         int S_max, float scale, const long long* st,
                         cudaStream_t stream) {
   const Plan p = plan(S_max, D, (int)sizeof(T));
   return mxtt::launch_split<decode_split_kernel<D, NR, T>>(
-      dim3(H * p.S, B, (Sq + NR - 1) / NR), p.S, p.smem, stream, q, q_bf16,
+      dim3(H * p.S, B, (Sq + NR - 1) / NR), p.S, p.smem, stream, q, q_half,
       k, v, k_scale, v_scale, lengths, out, H, Sq, S_max, p.rows, p.batch,
       scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
 }
 
 template <int D, class T>
-cudaError_t launch(const void* q, int q_bf16, const T* k, const T* v,
+cudaError_t launch(const void* q, int q_half, const T* k, const T* v,
                    const float* k_scale, const float* v_scale,
                    const int* lengths, void* out, int B, int H, int Sq,
                    int S_max, float scale, const long long* st,
                    cudaStream_t stream) {
   if (Sq == 1)
-    return launch_rows<D, 1, T>(q, q_bf16, k, v, k_scale, v_scale, lengths,
+    return launch_rows<D, 1, T>(q, q_half, k, v, k_scale, v_scale, lengths,
                                 out, B, H, Sq, S_max, scale, st, stream);
-  return launch_rows<D, 4, T>(q, q_bf16, k, v, k_scale, v_scale, lengths,
+  return launch_rows<D, 4, T>(q, q_half, k, v, k_scale, v_scale, lengths,
                               out, B, H, Sq, S_max, scale, st, stream);
 }
 
 template <class T>
-int dispatch(const void* q, int q_bf16, const T* k, const T* v,
+int dispatch(const void* q, int q_half, const T* k, const T* v,
              const float* k_scale, const float* v_scale, const int* lengths,
              void* out, int B, int H, int Sq, int S, int D, float scale,
              const long long* strides, void* stream) {
@@ -209,16 +212,16 @@ int dispatch(const void* q, int q_bf16, const T* k, const T* v,
   if (B * H == 0 || Sq == 0) return cudaSuccess;
   switch (D) {
     case 16:
-      return launch<16>(q, q_bf16, k, v, k_scale, v_scale, lengths, out, B, H,
+      return launch<16>(q, q_half, k, v, k_scale, v_scale, lengths, out, B, H,
                         Sq, S, scale, strides, s);
     case 32:
-      return launch<32>(q, q_bf16, k, v, k_scale, v_scale, lengths, out, B, H,
+      return launch<32>(q, q_half, k, v, k_scale, v_scale, lengths, out, B, H,
                         Sq, S, scale, strides, s);
     case 64:
-      return launch<64>(q, q_bf16, k, v, k_scale, v_scale, lengths, out, B, H,
+      return launch<64>(q, q_half, k, v, k_scale, v_scale, lengths, out, B, H,
                         Sq, S, scale, strides, s);
     case 128:
-      return launch<128>(q, q_bf16, k, v, k_scale, v_scale, lengths, out, B,
+      return launch<128>(q, q_half, k, v, k_scale, v_scale, lengths, out, B,
                          H, Sq, S, scale, strides, s);
     default:
       return cudaErrorInvalidValue;
@@ -257,17 +260,28 @@ int mxtt_decode_attention_int8(const float* q, const int8_t* k,
 }
 
 // The bf16 instance: k / v are (B, H, S, D) bf16 with a contiguous last
-// axis and 16-byte aligned rows; q is fp32, or bf16 where ``q_bf16`` is
+// axis and 16-byte aligned rows; q is fp32, or bf16 where ``q_half`` is
 // non-zero (its rows 16-byte aligned), ``strides`` in elements of each
 // tensor's own type. out: (B, H, Sq, D) contiguous bf16. The rest as
 // above.
-int mxtt_decode_attention_bf16(const void* q, int q_bf16, const mxtt::bf16* k,
+int mxtt_decode_attention_bf16(const void* q, int q_half, const mxtt::bf16* k,
                                const mxtt::bf16* v, const int* lengths,
                                mxtt::bf16* out, int B, int H, int Sq, int S,
                                int D, float scale, const long long* strides,
                                void* stream) {
-  return dispatch<mxtt::bf16>(q, q_bf16, k, v, nullptr, nullptr, lengths, out,
+  return dispatch<mxtt::bf16>(q, q_half, k, v, nullptr, nullptr, lengths, out,
                               B, H, Sq, S, D, scale, strides, stream);
+}
+
+// The float16 instance: k / v are (B, H, S, D) float16, q fp32 or (q_half)
+// float16, out float16; otherwise as the bf16 instance.
+int mxtt_decode_attention_f16(const void* q, int q_half, const mxtt::f16* k,
+                              const mxtt::f16* v, const int* lengths,
+                              mxtt::f16* out, int B, int H, int Sq, int S,
+                              int D, float scale, const long long* strides,
+                              void* stream) {
+  return dispatch<mxtt::f16>(q, q_half, k, v, nullptr, nullptr, lengths, out,
+                             B, H, Sq, S, D, scale, strides, stream);
 }
 
 const char* mxtt_error_string(int code) {

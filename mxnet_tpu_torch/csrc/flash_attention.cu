@@ -1,4 +1,5 @@
-// K1 — flash attention forward (fp32 and bf16) for Hopper (sm_90a).
+// K1 — flash attention forward (fp32, bf16 and float16) for Hopper
+// (sm_90a).
 //
 // Replaces: mxnet_tpu/ops/attention.py flash_attention_pallas
 // (kernel body _flash_fwd_kernel). Same function: blockwise
@@ -69,7 +70,7 @@
 // The bf16 instance (q, k, v and out bf16, lse fp32; the reference's
 // kernel is dtype-generic: it widens the bf16 blocks to fp32 and rounds
 // its fp32 result to q's type) is a kernel of its own,
-// flash_fwd_bf16_kernel, on Hopper's bf16 tensor cores:
+// flash_fwd_wg_kernel<D, bf16>, on Hopper's bf16 tensor cores:
 // - Bound: the bf16 FLOP at 989 TFLOP/s against the bytes of q, k, v
 //   and out at 3.35 TB/s; at the prefill's 512 tokens the bytes set it.
 //   It runs the equivalent of three bf16 products per tile pair (below).
@@ -125,6 +126,17 @@
 //   reference's steps instead (scale, -1e30, exp, re-mask to 0).
 // - Epilogue: out = o / l_safe rounded to bf16, lse = m ln 2 +
 //   log(l_safe) in fp32.
+//
+// The float16 instance is the same kernel, flash_fwd_wg_kernel, on the
+// element type T = float16: wgmma's .f16 form (fp32 accumulation, so
+// S = Q K^T is again the fp32 product of the widened values), TMA maps
+// of type FLOAT16, and the P split hi = f16(P), lo = f16(P - hi).
+// float16 keeps 11 significant bits to bf16's 8, so the split P is
+// within about 2^-22 of fp32 where it is normal; below float16's 2^-14
+// hi and lo lose bits (subnormal), and below about 2^-24 a p becomes 0,
+// an error under 2^-24 of the row's largest p, which is 1. The epilogue
+// rounds to float16. Bound and design as the bf16 instance's (float16
+// runs at the bf16 rate).
 #include <cuda.h>
 
 #include <type_traits>
@@ -557,29 +569,43 @@ struct WgSmem {
                 "the exchange fits in the ring");
 };
 
-template <int N>
+template <int N, class T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const unsigned (&a)[4],
                                          uint64_t b) {
   if constexpr (N == 64)
-    mxtt::wgmma_rs_n64(d, a, b);
+    mxtt::wgmma_rs_n64<T>(d, a, b);
   else if constexpr (N == 32)
-    mxtt::wgmma_rs_n32(d, a, b);
+    mxtt::wgmma_rs_n32<T>(d, a, b);
   else
-    mxtt::wgmma_rs_n16(d, a, b);
+    mxtt::wgmma_rs_n16<T>(d, a, b);
 }
 
-__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<unsigned*>(&x);
+// x0, x1 split as hi + lo in the 16-bit type T, each pair packed as an
+// A fragment register (x0 in the low half): hi = T(x), lo = T(x - hi)
+template <class T>
+__device__ __forceinline__ void split_pair(float x0, float x1, unsigned& hi,
+                                           unsigned& lo) {
+  if constexpr (std::is_same_v<T, mxtt::bf16>) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    hi = *reinterpret_cast<const unsigned*>(&h);
+    lo = mxtt::bf16_pack(x0 - hf.x, x1 - hf.y);
+  } else {
+    const __half2 h = __floats2half2_rn(x0, x1);
+    const float2 hf = __half22float2(h);
+    hi = *reinterpret_cast<const unsigned*>(&h);
+    lo = mxtt::half_pack<T>(x0 - hf.x, x1 - hf.y);
+  }
 }
 
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(WgSmem<D>::kThreads, 1)
-flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
-                      const __grid_constant__ CUtensorMap k_map,
-                      const __grid_constant__ CUtensorMap v_map,
-                      mxtt::bf16* __restrict__ out, float* __restrict__ lse,
-                      int H, int Sq, int kv_len, int causal, float scale) {
+flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    T* __restrict__ out, float* __restrict__ lse, int H,
+                    int Sq, int kv_len, int causal, float scale) {
   using S = WgSmem<D>;
   constexpr int kNW = S::kNW;
   constexpr int kStages = S::kStages;
@@ -688,7 +714,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int j = 0; j < kSteps; ++j) {
       const unsigned off =
           (j / kStepsPerBox) * S::kPart + (j % kStepsPerBox) * 32;
-      mxtt::wgmma_ss_n64(
+      mxtt::wgmma_ss_n64<T>(
           s, mxtt::wgmma_desc<S::kSwizzle>(sbase + off, 16, kSbo),
           mxtt::wgmma_desc<S::kSwizzle>(k_s + off, 16, kSbo), j > 0);
     }
@@ -706,8 +732,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int c = 0; c < kNC; ++c) {
         const uint64_t dv = mxtt::wgmma_desc<S::kSwizzle>(
             v_s + c * S::kPart + j * 16 * S::kSwizzle, S::kPart, kSbo);
-        wgmma_rs<kN>(o[c], ph[j], dv);
-        wgmma_rs<kN>(o[c], pl[j], dv);
+        wgmma_rs<kN, T>(o[c], ph[j], dv);
+        wgmma_rs<kN, T>(o[c], pl[j], dv);
       }
     mxtt::wgmma_commit();
   };
@@ -808,13 +834,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int j = 0; j < kPSteps; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float x0 = s[8 * j + 2 * r], x1 = s[8 * j + 2 * r + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-        const float2 hf = __bfloat1622float2(hi);
-        ph[j][r] = bf16x2_bits(hi);
-        pl[j][r] = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-      }
+      for (int r = 0; r < 4; ++r)
+        split_pair<T>(s[8 * j + 2 * r], s[8 * j + 2 * r + 1], ph[j][r],
+                      pl[j][r]);
   };
   // tile t's stage is free: each warp arrives; warp 0 waits for the four
   // (the whole warp: a wait loop in a branch ptxas takes as divergent
@@ -895,7 +917,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       }
   }
 
-  // epilogue: out = o / l_safe in bf16 (times the reciprocal, as the
+  // epilogue: out = o / l_safe in T (times the reciprocal, as the
   // fp32 instance), lse = m ln 2 + log(l_safe) (a row that saw no key
   // keeps m = -1e30)
   const float ls0 = l0 > 0.f ? l0 : 1.f;
@@ -907,13 +929,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     if (row >= Sq) continue;
     const float ls = half ? ls1 : ls0;
     const float inv = 1.f / ls;
-    mxtt::bf16* orow = out + (base + row) * D;
+    T* orow = out + (base + row) * D;
 #pragma unroll
     for (int c = 0; c < kNC; ++c)
 #pragma unroll
       for (int i = 0; i < kN / 8; ++i)
         *reinterpret_cast<unsigned*>(orow + c * kN + 8 * i + 2 * t4) =
-            mxtt::bf16_pack(o[c][4 * i + 2 * half] * inv,
+            mxtt::half_pack<T>(o[c][4 * i + 2 * half] * inv,
                             o[c][4 * i + 2 * half + 1] * inv);
     if (t4 == 0) {
       const float m = half ? m1 : m0;
@@ -1018,12 +1040,12 @@ cudaError_t tensor_map_encoder(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// The tensor map of a (B, H, rows, D) bf16 view with (b, h, s) element
-// strides ``st``, over its first ``rows`` rows (Sq for q, kv_len for k
-// and v): boxes of kBoxD head dims x 64 rows in WgSmem's swizzle,
-// elements outside it read as zeros. An axis of extent 1 gets a stride
-// of one row (its coordinate is always 0).
-template <int D>
+// The tensor map of a (B, H, rows, D) bf16 or float16 (T) view with
+// (b, h, s) element strides ``st``, over its first ``rows`` rows (Sq for
+// q, kv_len for k and v): boxes of kBoxD head dims x 64 rows in WgSmem's
+// swizzle, elements outside it read as zeros. An axis of extent 1 gets a
+// stride of one row (its coordinate is always 0).
+template <int D, class T>
 cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int H,
                        int rows, const long long* st) {
   using S = WgSmem<D>;
@@ -1044,30 +1066,34 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int H,
       : S::kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                           : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      map,
+      std::is_same_v<T, mxtt::bf16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
-cudaError_t launch_bf16(const mxtt::bf16* q, const mxtt::bf16* k,
-                        const mxtt::bf16* v, mxtt::bf16* out, float* lse,
-                        int B, int H, int Sq, int kv_len, int causal,
-                        float scale, const long long* st,
-                        cudaStream_t stream) {
+template <int D, class T>
+cudaError_t launch_wg(const T* q, const T* k, const T* v, T* out, float* lse,
+                      int B, int H, int Sq, int kv_len, int causal,
+                      float scale, const long long* st,
+                      cudaStream_t stream) {
   using S = WgSmem<D>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
-    err = raise_smem_limit<flash_fwd_bf16_kernel<D>, S::kBytes>(dev);
+    err = raise_smem_limit<flash_fwd_wg_kernel<D, T>, S::kBytes>(dev);
   CUtensorMap qm, km, vm;
-  if (err == cudaSuccess) err = tensor_map<D>(&qm, q, B, H, Sq, st);
-  if (err == cudaSuccess) err = tensor_map<D>(&km, k, B, H, kv_len, st + 3);
-  if (err == cudaSuccess) err = tensor_map<D>(&vm, v, B, H, kv_len, st + 6);
+  if (err == cudaSuccess) err = tensor_map<D, T>(&qm, q, B, H, Sq, st);
+  if (err == cudaSuccess)
+    err = tensor_map<D, T>(&km, k, B, H, kv_len, st + 3);
+  if (err == cudaSuccess)
+    err = tensor_map<D, T>(&vm, v, B, H, kv_len, st + 6);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kWgRows - 1) / kWgRows);
-  flash_fwd_bf16_kernel<D><<<grid, S::kThreads, S::kBytes, stream>>>(
+  flash_fwd_wg_kernel<D, T><<<grid, S::kThreads, S::kBytes, stream>>>(
       qm, km, vm, out, lse, H, Sq, kv_len, causal, scale);
   return cudaGetLastError();
 }
@@ -1082,7 +1108,7 @@ int dispatch(const T* q, const T* k, const T* v, T* out, float* lse, int B,
   auto run = [&](auto d) -> cudaError_t {
     constexpr int kD = decltype(d)::value;
     if constexpr (sizeof(T) == 2)
-      return launch_bf16<kD>(q, k, v, out, lse, B, H, Sq, kv_len, causal,
+      return launch_wg<kD, T>(q, k, v, out, lse, B, H, Sq, kv_len, causal,
                              scale, strides, s);
     else
       return launch<kD>(q, k, v, out, lse, B, H, Sq, kv_len, causal, scale,
@@ -1128,6 +1154,17 @@ int mxtt_flash_attention_fwd_bf16(const mxtt::bf16* q, const mxtt::bf16* k,
                                   const long long* strides, void* stream) {
   return dispatch<mxtt::bf16>(q, k, v, out, lse, B, H, Sq, D, kv_len, causal,
                               scale, strides, stream);
+}
+
+// The float16 instance: q, k, v and out float16 (the same layouts,
+// strides in float16 elements), lse fp32.
+int mxtt_flash_attention_fwd_f16(const mxtt::f16* q, const mxtt::f16* k,
+                                 const mxtt::f16* v, mxtt::f16* out,
+                                 float* lse, int B, int H, int Sq, int D,
+                                 int kv_len, int causal, float scale,
+                                 const long long* strides, void* stream) {
+  return dispatch<mxtt::f16>(q, k, v, out, lse, B, H, Sq, D, kv_len, causal,
+                             scale, strides, stream);
 }
 
 const char* mxtt_error_string(int code) {

@@ -1,12 +1,12 @@
-// K3 — decode attention over a PAGED KV cache, fp32, int8 or bf16, for
-// Hopper (sm_90a): a split-KV (flash-decoding) kernel in one launch, each
+// K3 — decode attention over a PAGED KV cache, fp32, int8, bf16 or
+// float16, for Hopper (sm_90a): a split-KV (flash-decoding) kernel in one launch, each
 // (slot, head, group of query rows) split across a thread-block cluster.
 //
 // Replaces: mxnet_tpu/ops/attention.py paged_decode_attention_pallas
 // (kernel body _paged_decode_fwd_kernel -> _decode_fwd_kernel), every
 // variant: an fp32 pool, an int8 pool with (n_pages, H) fp32 scales, and a
-// bf16 pool (widened in registers; q fp32 or bf16, a bf16 output, as K2's
-// bf16 instance). Same function: every query row of slot b attends the
+// bf16 or float16 pool (widened in registers; q fp32 or of the pool's
+// type, an output of the pool's type, as K2's 16-bit instances). Same function: every query row of slot b attends the
 // slot's keys [0, lengths[b]), where logical key t lives in pool page
 // table[b, t / ps] at row t % ps (dequantized with that page's per-head
 // scales in the int8 instance); lengths[b] == 0 gives zeros. It equals
@@ -176,12 +176,12 @@ struct PagedRows {
   }
 };
 
-// q is fp32, or bf16 where q_bf16 (a bf16 pool only); out is
+// q is fp32, or of the pool's type where q_half (a 16-bit pool only); out is
 // split_out_t<T>.
 template <int D, int NR, class T>
 __global__ void __launch_bounds__(mxtt::kSplitThreads,
                                   mxtt::kSplitMinBlocks<T, NR>)
-paged_split_kernel(const void* __restrict__ q, int q_bf16,
+paged_split_kernel(const void* __restrict__ q, int q_half,
                    const T* __restrict__ k_pool,
                    const T* __restrict__ v_pool,
                    const float* __restrict__ k_scale,
@@ -203,14 +203,14 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16,
                       table + (long long)b * P_max, lengths, b, h, H, ps,
                       P_max, n_pages, parts, unit, upr, batch, rank * upr};
   mxtt::split_decode<D, NR, T>(
-      src, mxtt::q_at<T>(q, q_bf16, b * q_sb + h * q_sh), q_bf16, q_ss, r0,
+      src, mxtt::q_at<T>(q, q_half, b * q_sb + h * q_sh), q_half, q_ss, r0,
       min(NR, Sq - r0), upr * unit, batch * unit, scale,
       static_cast<mxtt::split_out_t<T>*>(out) +
           (((long long)b * H + h) * Sq + r0) * D);
 }
 
 template <int D, int NR, class T>
-cudaError_t launch_rows(const void* q, int q_bf16, const T* k_pool,
+cudaError_t launch_rows(const void* q, int q_half, const T* k_pool,
                         const T* v_pool, const float* k_scale,
                         const float* v_scale, const int* table,
                         const int* lengths, void* out, int B, int H, int Sq,
@@ -218,29 +218,29 @@ cudaError_t launch_rows(const void* q, int q_bf16, const T* k_pool,
                         const long long* st, cudaStream_t stream) {
   const Plan p = plan(P_max, ps, D, (int)sizeof(T), NR);
   return mxtt::launch_split<paged_split_kernel<D, NR, T>>(
-      dim3(H * p.S, B, (Sq + NR - 1) / NR), p.S, p.smem, stream, q, q_bf16,
+      dim3(H * p.S, B, (Sq + NR - 1) / NR), p.S, p.smem, stream, q, q_half,
       k_pool, v_pool, k_scale, v_scale, table, lengths, out, H, Sq, ps, P_max,
       n_pages, p.parts, p.upr, p.batch, scale, st[0], st[1], st[2]);
 }
 
 template <int D, class T>
-cudaError_t launch(const void* q, int q_bf16, const T* k_pool,
+cudaError_t launch(const void* q, int q_half, const T* k_pool,
                    const T* v_pool, const float* k_scale,
                    const float* v_scale, const int* table, const int* lengths,
                    void* out, int B, int H, int Sq, int ps, int P_max,
                    int n_pages, float scale, const long long* st,
                    cudaStream_t stream) {
   if (Sq == 1)
-    return launch_rows<D, 1, T>(q, q_bf16, k_pool, v_pool, k_scale, v_scale,
+    return launch_rows<D, 1, T>(q, q_half, k_pool, v_pool, k_scale, v_scale,
                                 table, lengths, out, B, H, Sq, ps, P_max,
                                 n_pages, scale, st, stream);
-  return launch_rows<D, 4, T>(q, q_bf16, k_pool, v_pool, k_scale, v_scale,
+  return launch_rows<D, 4, T>(q, q_half, k_pool, v_pool, k_scale, v_scale,
                               table, lengths, out, B, H, Sq, ps, P_max,
                               n_pages, scale, st, stream);
 }
 
 template <class T>
-int dispatch(const void* q, int q_bf16, const T* k_pool, const T* v_pool,
+int dispatch(const void* q, int q_half, const T* k_pool, const T* v_pool,
              const float* k_scale, const float* v_scale, const int* table,
              const int* lengths, void* out, int B, int H, int Sq, int D,
              int ps, int P_max, int n_pages, float scale,
@@ -250,19 +250,19 @@ int dispatch(const void* q, int q_bf16, const T* k_pool, const T* v_pool,
   if (ps < 1 || P_max < 1 || n_pages < 1) return cudaErrorInvalidValue;
   switch (D) {
     case 16:
-      return launch<16>(q, q_bf16, k_pool, v_pool, k_scale, v_scale, table,
+      return launch<16>(q, q_half, k_pool, v_pool, k_scale, v_scale, table,
                         lengths, out, B, H, Sq, ps, P_max, n_pages, scale,
                         strides, s);
     case 32:
-      return launch<32>(q, q_bf16, k_pool, v_pool, k_scale, v_scale, table,
+      return launch<32>(q, q_half, k_pool, v_pool, k_scale, v_scale, table,
                         lengths, out, B, H, Sq, ps, P_max, n_pages, scale,
                         strides, s);
     case 64:
-      return launch<64>(q, q_bf16, k_pool, v_pool, k_scale, v_scale, table,
+      return launch<64>(q, q_half, k_pool, v_pool, k_scale, v_scale, table,
                         lengths, out, B, H, Sq, ps, P_max, n_pages, scale,
                         strides, s);
     case 128:
-      return launch<128>(q, q_bf16, k_pool, v_pool, k_scale, v_scale, table,
+      return launch<128>(q, q_half, k_pool, v_pool, k_scale, v_scale, table,
                          lengths, out, B, H, Sq, ps, P_max, n_pages, scale,
                          strides, s);
     default:
@@ -305,17 +305,30 @@ int mxtt_paged_decode_attention_int8(
 }
 
 // The bf16 instance: k_pool / v_pool are contiguous (n_pages, H, ps, D)
-// bf16, 16-byte aligned; q is fp32, or bf16 where ``q_bf16`` is non-zero
+// bf16, 16-byte aligned; q is fp32, or bf16 where ``q_half`` is non-zero
 // (``strides`` in its elements); out: (B, H, Sq, D) contiguous bf16. The
 // rest as above.
 int mxtt_paged_decode_attention_bf16(
-    const void* q, int q_bf16, const mxtt::bf16* k_pool,
+    const void* q, int q_half, const mxtt::bf16* k_pool,
     const mxtt::bf16* v_pool, const int* table, const int* lengths,
     mxtt::bf16* out, int B, int H, int Sq, int D, int ps, int P_max,
     int n_pages, float scale, const long long* strides, void* stream) {
-  return dispatch<mxtt::bf16>(q, q_bf16, k_pool, v_pool, nullptr, nullptr,
+  return dispatch<mxtt::bf16>(q, q_half, k_pool, v_pool, nullptr, nullptr,
                               table, lengths, out, B, H, Sq, D, ps, P_max,
                               n_pages, scale, strides, stream);
+}
+
+// The float16 instance: k_pool / v_pool are contiguous (n_pages, H, ps, D)
+// float16, q fp32 or (q_half) float16, out float16; otherwise as the bf16
+// instance.
+int mxtt_paged_decode_attention_f16(
+    const void* q, int q_half, const mxtt::f16* k_pool,
+    const mxtt::f16* v_pool, const int* table, const int* lengths,
+    mxtt::f16* out, int B, int H, int Sq, int D, int ps, int P_max,
+    int n_pages, float scale, const long long* strides, void* stream) {
+  return dispatch<mxtt::f16>(q, q_half, k_pool, v_pool, nullptr, nullptr,
+                             table, lengths, out, B, H, Sq, D, ps, P_max,
+                             n_pages, scale, strides, stream);
 }
 
 const char* mxtt_error_string(int code) {

@@ -1,6 +1,6 @@
 // The split-KV decode-attention body that K2 (decode_attention.cu, a
 // dense cache) and K3 (paged_decode_attention.cu, a page pool) instance,
-// each in an fp32, an int8 and a bf16 instance, and the Hopper
+// each in an fp32, an int8, a bf16 and a float16 instance, and the Hopper
 // primitives it is built from: mbarriers, 1D bulk copies
 // (cp.async.bulk), mapa, st.async and the two halves of the cluster
 // barrier.
@@ -44,12 +44,13 @@
 //   columns of every (32 / (D / 4))-th key (16-byte fp32, 8-byte bf16
 //   or 4-byte int8 loads along a row, p by shuffle). int8 is widened in
 //   registers by byte permutes; the K scale multiplies the score and
-//   the V scale p, once per key. bf16 is widened by a shift, with no
-//   scale: every product and sum is fp32, so the bf16 instance equals
-//   the fp32 one on the widened cache.
-// - q and the output: q is read as fp32, or (bf16 instance, ``q_bf16``)
-//   as bf16 and widened; the bf16 instance writes its output rounded to
-//   bf16, the others fp32.
+//   the V scale p, once per key. bf16 is widened by a shift and float16
+//   by a conversion (cvt.f32.f16, two a word), with no scale: every
+//   product and sum is fp32, so a 16-bit instance equals the fp32 one
+//   on the widened cache.
+// - q and the output: q is read as fp32, or (a 16-bit instance,
+//   ``q_half``) in the cache's type and widened; a 16-bit instance
+//   writes its output rounded to the cache's type, the others fp32.
 // - Rows at or past the length never reach a sum: no score is computed
 //   for them and no V row of them is read (skipped, not multiplied by
 //   0: 0 x NaN is NaN), whether or not the source copied them.
@@ -86,26 +87,31 @@ constexpr int kBudget = 112 * 1024;
 // its registers are left free (no spills); an int8 instance's rows take
 // a quarter of that, and five blocks an SM (at most 102 registers) timed
 // best of 1, 5, 6 and 8 (scripts/torch_kernel_ab.py, PERF.md).
-// A bf16 instance's rows take half an fp32 one's (32 KB at the engine's
-// shapes), so its one-row instances take the int8 rule; its four-row
-// instances spilled under that cap (96 registers) and take four blocks
-// (at most 128 registers).
+// A 16-bit instance's rows (bf16 or float16) take half an fp32 one's
+// (32 KB at the engine's shapes), so its one-row instances take the int8
+// rule; its four-row instances spilled under that cap (96 registers)
+// and take four blocks (at most 128 registers).
 template <class T, int NR>
 constexpr int kSplitMinBlocks =
     sizeof(T) == 4 ? 1 : (sizeof(T) == 2 && NR > 1 ? 4 : 5);
 
-// the output's element type: bf16 for a bf16 cache (the attended V's
-// type, as the reference's jnp path gives), fp32 otherwise
+// a 16-bit float cache: bf16 or float16, told apart by type, not size
 template <class T>
-using split_out_t = std::conditional_t<sizeof(T) == 2, bf16, float>;
+constexpr bool kHalf = std::is_same_v<T, bf16> || std::is_same_v<T, f16>;
 
-// q of one (slot, head) at element offset ``off``: fp32, or bf16 where
-// ``q_bf16`` (a bf16 instance only)
+// the output's element type: the cache's for a bf16 or float16 cache
+// (the attended V's type, as the reference's jnp path gives), fp32
+// otherwise
 template <class T>
-__device__ __forceinline__ const void* q_at(const void* q, bool q_bf16,
+using split_out_t = std::conditional_t<kHalf<T>, T, float>;
+
+// q of one (slot, head) at element offset ``off``: fp32, or of the
+// cache's type where ``q_half`` (a 16-bit instance only)
+template <class T>
+__device__ __forceinline__ const void* q_at(const void* q, bool q_half,
                                             long long off) {
-  if constexpr (sizeof(T) == 2) {
-    if (q_bf16) return static_cast<const bf16*>(q) + off;
+  if constexpr (kHalf<T>) {
+    if (q_half) return static_cast<const T*>(q) + off;
   }
   return static_cast<const float*>(q) + off;
 }
@@ -237,11 +243,12 @@ __device__ __forceinline__ void score_row(const int8_t* __restrict__ krow,
   for (int r = 0; r < NR; ++r) s[r] += t[r];
 }
 
-template <int D, int NR>
-__device__ __forceinline__ void score_row(const bf16* __restrict__ krow,
+template <int D, int NR, class T,
+          std::enable_if_t<kHalf<T>, int> = 0>
+__device__ __forceinline__ void score_row(const T* __restrict__ krow,
                                           const float (&q_s)[NR][D], int rot,
                                           float (&s)[NR]) {
-  static_assert(D % 8 == 0, "bf16 K rows are read 16 bytes at a time");
+  static_assert(D % 8 == 0, "16-bit K rows are read 16 bytes at a time");
   constexpr int C8 = D / 8;
   float t[NR];
 #pragma unroll
@@ -250,8 +257,8 @@ __device__ __forceinline__ void score_row(const bf16* __restrict__ krow,
   for (int c = 0; c < C8; ++c) {
     const int cc = (c + rot) & (C8 - 1);
     const uint4 raw = *reinterpret_cast<const uint4*>(krow + 8 * cc);
-    const float4 k0 = bf16x4_widen(make_uint2(raw.x, raw.y));
-    const float4 k1 = bf16x4_widen(make_uint2(raw.z, raw.w));
+    const float4 k0 = half4_widen<T>(make_uint2(raw.x, raw.y));
+    const float4 k1 = half4_widen<T>(make_uint2(raw.z, raw.w));
 #pragma unroll
     for (int r = 0; r < NR; ++r) {
       s[r] = dot4(*reinterpret_cast<const float4*>(&q_s[r][8 * cc]), k0,
@@ -273,14 +280,17 @@ __device__ __forceinline__ float4 load_v4(const int8_t* p) {
   return s8x4_widen(*reinterpret_cast<const unsigned*>(p));
 }
 
-__device__ __forceinline__ float4 load_v4(const bf16* p) {
-  return bf16x4_widen(*reinterpret_cast<const uint2*>(p));
+template <class T, std::enable_if_t<kHalf<T>, int> = 0>
+__device__ __forceinline__ float4 load_v4(const T* p) {
+  return half4_widen<T>(*reinterpret_cast<const uint2*>(p));
 }
 
-// four consecutive query elements, fp32 or bf16, widened
-__device__ __forceinline__ float4 load_q4(const void* p, bool bf) {
-  return bf ? bf16x4_widen(__ldg(reinterpret_cast<const uint2*>(p)))
-            : load4(static_cast<const float*>(p));
+// four consecutive query elements, fp32 or (``half``) of the 16-bit type
+// T, widened
+template <class T>
+__device__ __forceinline__ float4 load_q4(const void* p, bool half) {
+  return half ? half4_widen<T>(__ldg(reinterpret_cast<const uint2*>(p)))
+              : load4(static_cast<const float*>(p));
 }
 
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
@@ -289,29 +299,33 @@ __device__ __forceinline__ void store_out(bf16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+__device__ __forceinline__ void store_out(f16* p, float x) {
+  *p = __float2half_rn(x);
+}
+
 // ---- the cluster body ----------------------------------------------------
 // qb: this (slot, head)'s first query row, q_ss its row stride, both in
-// elements of q's type (bf16 where ``q_bf16``, which only a bf16
-// instance takes; fp32 otherwise); r0/nr: the cluster's first query row
-// and its count (<= NR); ob: the output rows, contiguous (nr, D), fp32
-// or bf16. Launched with kSplitThreads threads a block in clusters
-// along x.
+// elements of q's type (the cache's where ``q_half``, which only a
+// 16-bit instance takes; fp32 otherwise); r0/nr: the cluster's first
+// query row and its count (<= NR); ob: the output rows, contiguous
+// (nr, D), split_out_t<T>. Launched with kSplitThreads threads a block
+// in clusters along x.
 template <int D, int NR, class T, class Src, class TO>
 __device__ __forceinline__ void split_decode(Src& src,
                                              const void* __restrict__ qb,
-                                             bool q_bf16, long long q_ss,
+                                             bool q_half, long long q_ss,
                                              int r0, int nr,
                                              int rows_per_rank, int batch_rows,
                                              float scale,
                                              TO* __restrict__ ob) {
   constexpr bool kInt8 = sizeof(T) == 1;
-  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr bool k16 = kHalf<T>;
   constexpr int kThreads = kSplitThreads;
   constexpr int kWarps = kSplitWarps;
   constexpr int C4 = D / 4;    // 4-column groups of a row
   constexpr int LPR = C4;      // P.V: lanes on one V row, 4 columns each
   constexpr int KPI = 32 / LPR;   // P.V: keys a warp takes per step
-  constexpr int kRot = kInt8 ? D / 16 : kBf16 ? D / 8 : C4;
+  constexpr int kRot = kInt8 ? D / 16 : k16 ? D / 8 : C4;
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
   const int S = (int)cluster.num_blocks();
@@ -354,12 +368,12 @@ __device__ __forceinline__ void split_decode(Src& src,
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < nr) {
         const long long e = (long long)(r0 + r) * q_ss + c;
-        if constexpr (kBf16)
-          x = load_q4(q_bf16 ? static_cast<const void*>(
-                                   static_cast<const bf16*>(qb) + e)
-                             : static_cast<const void*>(
-                                   static_cast<const float*>(qb) + e),
-                      q_bf16);
+        if constexpr (k16)
+          x = load_q4<T>(q_half ? static_cast<const void*>(
+                                      static_cast<const T*>(qb) + e)
+                                : static_cast<const void*>(
+                                      static_cast<const float*>(qb) + e),
+                         q_half);
         else
           x = load4(static_cast<const float*>(qb) + e);
         x.x *= scale;

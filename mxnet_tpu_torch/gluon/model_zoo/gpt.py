@@ -1,6 +1,7 @@
 """GPT — the causal decoder family: dense and paged generation over an
-fp32, bf16 or int8 KV cache, with optional weight-only int8 projections,
-bf16 compute and multi-tick decode.
+fp32, bf16, float16 or int8 KV cache, with optional weight-only int8
+projections, bf16 or float16 compute, multi-tick decode and batched
+multi-tenant LoRA.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/gpt.py``: token plus learned
 position embedding, N pre-LayerNorm blocks (q/k/v/out projections, an
@@ -72,7 +73,10 @@ residual stream to fp32 from there on. ``init_cache``/
 default of a bf16 model), read by the bf16 instances of K2 and K3; K1
 runs its bf16 instance on bf16 q/k/v. ``GPTModel(dtype="bfloat16")``
 keeps bf16 parameters (LayerNorms fp32, as in the reference). float16
-compute raises ``NotImplementedError`` naming its ROADMAP.md item.
+is the same with float16 in place of bf16: ``GPTModel(dtype="float16")``
+(its cache defaults to float16), ``cast_compute_params("float16")`` and
+``init_cache``/``init_paged_cache(dtype="float16")``, read by the
+float16 instances of K1, K2 and K3.
 
 ``decode_multi``/``decode_multi_paged`` run k decode steps in one call
 with no host sync between them: a row stops on the device when it emits
@@ -91,8 +95,15 @@ decode steps (K2 on the card), tokens fed on the device; and
 ``verify_commit``/``verify_commit_paged`` verify, apply the accept rule
 (``ops.sampling``) and advance ``len`` in one call with no host sync.
 
-The reference's other generation modes (LoRA, tensor-parallel sharding)
-are later slices.
+Batched multi-tenant LoRA (``arm_lora``, ``set_adapter``,
+``clear_adapter``): every generation call takes ``adapters=``, one bank
+slot per row (0, the reserved zero adapter, is the base model), and the
+armed projections add each row's low-rank delta after their product
+(``ops/lora.py``). The banks are allocated once per projection for all
+layers and written in place; a call gathers each row's factors once for
+every layer.
+
+The reference's tensor-parallel sharding is a later slice.
 """
 from __future__ import annotations
 
@@ -102,9 +113,9 @@ import math
 import numpy as onp
 import torch
 
-from ...base import not_ported
 from ...context import resolve_device
 from ...ops import attention as _att
+from ...ops import lora as _lora
 from ...ops import quantized as _qz
 from ...ops import nn as _nn
 from ...ops import sampling as _smp
@@ -118,6 +129,12 @@ __all__ = ["GPTBlock", "GPTModel", "gpt_small", "load_jax_params"]
 #: decode path. Embeddings, LayerNorms and the lm_head stay fp32.
 _QUANTIZED_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "out_proj",
                           "ffn1", "ffn2")
+
+#: the batched-LoRA target set (``arm_lora``): the attention projections
+#: of every block. An adapter adds to a projection's pre-activation
+#: output, so a projection with a fused activation (ffn1's gelu) cannot
+#: take one; ffn2 can.
+_LORA_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "out_proj")
 
 
 def _to_pages(a, page_size):
@@ -139,15 +156,12 @@ def _dtype_name(dtype) -> str:
 
 
 def _cache_dtype(dtype):
-    """The cache's element type: float32, bfloat16 or int8. A float16
-    cache would need float16 kernel instances (a later slice)."""
+    """The cache's element type: float32, bfloat16, float16 or int8."""
     name = _dtype_name(dtype)
-    if name in ("float32", "bfloat16", "int8"):
+    if name in ("float32", "bfloat16", "float16", "int8"):
         return getattr(torch, name)
-    if name == "float16":
-        raise not_ported("a float16 KV cache", "10 (float16 compute)")
     raise ValueError(f"unsupported KV cache dtype {dtype!r} (float32, "
-                     f"bfloat16 or int8)")
+                     f"bfloat16, float16 or int8)")
 
 
 def _write_quantized(pool, scales, a, idx):
@@ -188,6 +202,9 @@ class GPTBlock(HybridBlock):
         #: call of a quantized model runs (``GPTModel._bound``); None
         #: keeps every projection on its Dense
         self._qbind = None
+        #: ``{proj_name: (A, B, scale) gathered per row}`` while a
+        #: generation call of a LoRA-armed model runs; None adds no delta
+        self._lbind = None
 
     def _split(self, x):
         """(B, S, U) -> (B, H, S, Dh), a strided view (no copy)."""
@@ -206,16 +223,21 @@ class GPTBlock(HybridBlock):
         The activation follows the Dense's own, after the product, so
         the two paths differ only in the weight rounding. The int8 path
         computes in fp32 whatever x's type (the reference casts x to
-        fp32), and a bf16 bias joins it widened, as jnp promotes it."""
+        fp32), and a bf16 bias joins it widened, as jnp promotes it.
+        A LoRA-armed call then adds each row's low-rank delta, in fp32,
+        after the bias (``ops.lora``; the targets carry no activation),
+        where the reference adds it."""
         layer = getattr(self, name)
         q = self._qbind.get(name) if self._qbind else None
         if q is None:
-            return layer(x)
-        bias = layer.bias.data() if layer.bias is not None else None
-        y = _qz.dequant_matmul(x, *q, bias=bias)
-        if layer._act_type is not None:
-            y = _nn.activation(y, layer._act_type)
-        return y
+            y = layer(x)
+        else:
+            bias = layer.bias.data() if layer.bias is not None else None
+            y = _qz.dequant_matmul(x, *q, bias=bias)
+            if layer._act_type is not None:
+                y = _nn.activation(y, layer._act_type)
+        rows = self._lbind.get(name) if self._lbind else None
+        return y if rows is None else _lora.apply_rows(y, x, *rows)
 
     def _qkv(self, x):
         h = self.ln1(x)
@@ -427,9 +449,6 @@ class GPTModel(HybridBlock):
     def __init__(self, vocab_size, units=256, num_layers=4, num_heads=4,
                  hidden_size=None, max_length=256, dropout=0.0,
                  dtype="float32", device=None):
-        if _dtype_name(dtype) == "float16":
-            raise not_ported(f"GPTModel(dtype={dtype!r})",
-                             "10 (float16 compute)")
         dtype = _dtype_name(dtype)
         dev = resolve_device(device)
         super().__init__()
@@ -443,9 +462,21 @@ class GPTModel(HybridBlock):
         #: per-block ``{proj_name: (int8 weight, fp32 scales)}`` once
         #: ``quantize_params`` armed weight-only int8, else None
         self._quant = None
-        #: ``{Parameter: bf16 copy}`` once ``cast_compute_params`` armed
-        #: bf16 compute, else None
+        #: ``{Parameter: bf16 or float16 copy}`` once
+        #: ``cast_compute_params`` armed reduced-precision compute, else
+        #: None; ``_cast_dtype`` names its type
         self._cast = None
+        self._cast_dtype = None
+        #: batched LoRA (``arm_lora``): per projection name, the stacked
+        #: banks of every layer ``{"A": (n, L, d_in, r), "B": (n, L, r,
+        #: d_out)}`` and one ``(n,)`` scale; ``_lora`` is the reference's
+        #: per-block ``{proj: bank}`` view of them
+        self._lora_stack = None
+        self._lora_scale = None
+        self._lora = None
+        self._lora_meta = None   # (n_adapters, rank, include)
+        #: the all-base (B,) index vector, one per batch size
+        self._lora_zero_idx: dict = {}
         with dev:
             self.word_embed = Embedding(vocab_size, units, dtype=dtype)
             self.position_weight = Parameter(
@@ -497,54 +528,52 @@ class GPTModel(HybridBlock):
             tabs.append(tab)
         self._quant = tabs
         if self._cast is not None:   # which biases it widens follows _quant
-            self.cast_compute_params("bfloat16")
+            self.cast_compute_params(self._cast_dtype)
         return self
 
     @property
     def compute_dtype(self) -> str:
         """The generation calls' parameter and activation type:
-        ``"float32"`` (the parameters as they are) or ``"bfloat16"``
-        once :meth:`cast_compute_params` armed it."""
-        return "bfloat16" if self._cast is not None else "float32"
+        ``"float32"`` (the parameters as they are), or ``"bfloat16"`` /
+        ``"float16"`` once :meth:`cast_compute_params` armed it."""
+        return self._cast_dtype or "float32"
 
     def cast_compute_params(self, dtype="bfloat16"):
-        """Arm (or refresh) bf16 compute: cast every floating parameter
-        to bf16 into copies that the generation calls read in place of
-        the fp32 masters, which stay the source of truth (``forward``,
-        ``quantize_params`` and re-casts read them). Call it again after
-        changing the weights. LayerNorm and softmax statistics still
-        accumulate in fp32 and every generation call returns fp32
-        logits. Composes with an int8 KV cache and with weight-only int8
-        (the quantized projections keep their tables; the other
-        parameters are what this casts, and a quantized projection's
-        bias, which only its fp32 product reads, is held rounded to bf16
-        and widened back, so K4 adds it in its epilogue as jnp adds a
-        bf16 bias to an fp32 product). ``None`` disarms, after which
-        the generation calls are bitwise what they were. float16 (which
-        the reference's model accepts and its engine refuses) raises
-        ``NotImplementedError``: it needs float16 kernel instances.
-        Returns self."""
+        """Arm (or refresh) reduced-precision compute: cast every
+        floating parameter to ``dtype`` (bf16 or float16) into copies
+        that the generation calls read in place of the fp32 masters,
+        which stay the source of truth (``forward``, ``quantize_params``
+        and re-casts read them). Call it again after changing the
+        weights. LayerNorm and softmax statistics still accumulate in
+        fp32 and every generation call returns fp32 logits. Composes
+        with an int8 KV cache and with weight-only int8 (the quantized
+        projections keep their tables; the other parameters are what
+        this casts, and a quantized projection's bias, which only its
+        fp32 product reads, is held rounded and widened back, so K4 adds
+        it in its epilogue as jnp adds a bf16 bias to an fp32 product).
+        ``None`` disarms, after which the generation calls are bitwise
+        what they were. The reference's model takes float16 here and
+        its engine refuses it, as the port's does. Returns self."""
         if dtype is None:
-            self._cast = None
+            self._cast = self._cast_dtype = None
             return self
         name = _dtype_name(dtype)
-        if name == "float16":
-            raise not_ported("cast_compute_params('float16')",
-                             "10 (float16 compute)")
-        if name != "bfloat16":
+        if name not in ("bfloat16", "float16"):
             raise ValueError(f"compute dtype {dtype!r} not supported "
                              f"(bfloat16 or float16)")
+        dt = getattr(torch, name)
         widened = {getattr(blk, n).bias for blk, tab in
                    zip(self._blocks(), self._quant or ()) for n in tab}
         cast = {}
         for p in self.collect_params().values():
             t = p.data()
             if t.is_floating_point():
-                t = t.to(torch.bfloat16)
+                t = t.to(dt)
                 if p in widened:
                     t = t.float()
             cast[p] = t
         self._cast = cast
+        self._cast_dtype = name
         return self
 
     def quantized_param_stats(self):
@@ -559,26 +588,176 @@ class GPTModel(HybridBlock):
         return n, n * 3 - scale_bytes
 
     @contextlib.contextmanager
-    def _bound(self):
+    def _bound(self, adapters, batch):
         """Bind, for the duration of one generation call (the
-        reference's ``_make_bind``): the bf16 copies of the parameters
-        under bf16 compute (on this thread only), and each block's int8
-        tables. An fp32 model binds nothing."""
+        reference's ``_make_bind``): the reduced-precision copies of the
+        parameters (on this thread only), each block's int8 tables, and
+        on a LoRA-armed model each row's adapter factors (``adapters``,
+        one bank index per row of the call's ``batch``; None is all
+        base). The factors are gathered once per call for every layer,
+        one gather per stacked bank, and each block reads its layer's
+        view. An fp32 model binds nothing."""
         with bind_shadows(self._cast):
-            if self._quant is None:
+            if self._quant is None and self._lora is None:
                 yield
                 return
             blocks = self._blocks()
-            for blk, tab in zip(blocks, self._quant):
+            for blk, tab in zip(blocks, self._quant or ()):
                 blk._qbind = tab
+            if self._lora is not None:
+                idx = self._lora_idx(adapters, batch)
+                s = self._lora_scale[idx]
+                rows = {name: (st["A"][idx], st["B"][idx])
+                        for name, st in self._lora_stack.items()}
+                for li, blk in enumerate(blocks):
+                    blk._lbind = {name: (a[:, li], b[:, li], s)
+                                  for name, (a, b) in rows.items()}
             try:
                 yield
             finally:
                 for blk in blocks:
-                    blk._qbind = None
+                    blk._qbind = blk._lbind = None
 
     def _blocks(self):
         return list(self.layers._modules.values())
+
+    # -- batched multi-tenant LoRA (ops/lora.py; serving/generate.py) ---
+    @property
+    def lora_armed(self) -> bool:
+        """True once ``arm_lora`` allocated the stacked adapter banks."""
+        return self._lora is not None
+
+    def arm_lora(self, n_adapters, rank, include=_LORA_PROJECTIONS):
+        """Arm batched multi-tenant LoRA: allocate all-zeros stacked
+        adapter banks (``n_adapters`` slots, slot 0 reserved as the
+        base-model zero adapter) for every ``include`` projection of
+        every block on the model's device, and route the generation
+        calls' projections through the per-row delta ``y += (x @
+        A[idx]) @ B[idx] * scale[idx]`` (``ops/lora.py``). The banks are
+        allocated once: :meth:`set_adapter` and :meth:`clear_adapter`
+        write into them, and arming again with the same ``n_adapters``,
+        ``rank`` and ``include`` keeps them. The plain ``forward`` is
+        untouched. Returns self."""
+        include = tuple(include)
+        if not include:
+            raise ValueError("arm_lora needs at least one projection")
+        blk0 = self._blocks()[0]
+        for name in include:
+            probe = getattr(blk0, name, None)
+            if not isinstance(probe, Dense):
+                raise ValueError(
+                    f"unknown LoRA projection {name!r} (choose from "
+                    f"{_LORA_PROJECTIONS + ('ffn2',)}; ffn1 carries "
+                    f"a fused activation and cannot take the delta)")
+            if probe._act_type is not None:
+                raise ValueError(
+                    f"LoRA projection {name!r} carries a fused "
+                    f"activation: the low-rank delta must add to the "
+                    f"pre-activation output (choose projections "
+                    f"without one, e.g. {_LORA_PROJECTIONS})")
+        meta = (int(n_adapters), int(rank), tuple(sorted(include)))
+        if self._lora_meta == meta:
+            return self
+        n_layers = len(self._blocks())
+        stack = {}
+        for name in meta[2]:
+            d_out, d_in = getattr(blk0, name).weight.shape
+            stack[name] = _lora.init_layers(meta[0], n_layers, d_in, d_out,
+                                            meta[1], device=self.device)
+        # one scale vector (alpha / rank is per adapter) for every bank
+        scale = stack[meta[2][0]]["scale"]
+        for st in stack.values():
+            st["scale"] = scale
+        self._lora_stack, self._lora_scale = stack, scale
+        self._lora = [{name: {"A": st["A"][:, li], "B": st["B"][:, li],
+                              "scale": scale}
+                       for name, st in stack.items()}
+                      for li in range(n_layers)]
+        self._lora_meta = meta
+        return self
+
+    def set_adapter(self, idx, params, alpha=1.0):
+        """Install one tenant's LoRA factors into bank slot ``idx``
+        (1-based; slot 0 is the reserved base adapter), in place.
+        ``params`` is a flat mapping ``{"layers.<li>.<proj>.A": (d_in,
+        rank), "layers.<li>.<proj>.B": (rank, d_out)}`` covering exactly
+        the armed include set of every block; ``alpha`` is the adapter's
+        scaling numerator (applied as ``alpha / rank``). Coverage,
+        shapes and finiteness are checked on the host before any slot
+        is touched, so a bad adapter never leaves the bank half
+        written. Returns self."""
+        if self._lora is None:
+            raise RuntimeError("set_adapter before arm_lora")
+        n, rank, include = self._lora_meta
+        expect = {f"layers.{li}.{name}.{half}"
+                  for li in range(len(self._lora))
+                  for name in include for half in ("A", "B")}
+        got = set(params)
+        if got != expect:
+            missing = sorted(expect - got)[:3]
+            extra = sorted(got - expect)[:3]
+            raise ValueError(
+                f"adapter params must cover the armed include set "
+                f"exactly (missing {missing}, unexpected {extra})")
+        host = {}
+        for key in sorted(got):
+            v = params[key]
+            v = v.detach().cpu().numpy() if torch.is_tensor(v) \
+                else onp.asarray(v)
+            li, name, half = key.split(".")[1:]
+            bank = self._lora[int(li)][name]
+            want = tuple(bank[half].shape[1:])
+            if v.shape != want:
+                raise ValueError(f"adapter {half} shape {v.shape} != bank "
+                                 f"slot shape {want} ({key!r})")
+            if not bool(onp.isfinite(v).all()):
+                raise ValueError(
+                    f"adapter param {key!r} contains non-finite values "
+                    f"— a NaN/inf factor would poison every request "
+                    f"bound to this slot; rejected before any install")
+            host[key] = v
+        for li, tab in enumerate(self._lora):
+            for name in include:
+                _lora.set_slot(tab[name], idx, host[f"layers.{li}.{name}.A"],
+                               host[f"layers.{li}.{name}.B"], alpha)
+        return self
+
+    def clear_adapter(self, idx):
+        """Zero bank slot ``idx`` back to the base (no-op) adapter, in
+        place. Returns self."""
+        if self._lora is None:
+            raise RuntimeError("clear_adapter before arm_lora")
+        for tab in self._lora:
+            for bank in tab.values():
+                _lora.clear_slot(bank, idx)
+        return self
+
+    def lora_bank_bytes(self) -> int:
+        """Device bytes of the armed adapter banks as the reference
+        counts them (each bank's A, B and scale); 0 when unarmed."""
+        return _lora.bank_bytes(self._lora) if self._lora else 0
+
+    def _lora_idx(self, adapters, batch):
+        """A per-row adapter-index vector on the model's device:
+        ``None`` means all base (index 0, the reserved zero adapter; the
+        constant vector is cached per batch size, not made anew per
+        step)."""
+        b = int(batch)
+        if adapters is None:
+            z = self._lora_zero_idx.get(b)
+            if z is None:
+                z = self._lora_zero_idx.setdefault(
+                    b, torch.zeros((b,), dtype=torch.long,
+                                   device=self.device))
+            return z
+        idx = adapters if torch.is_tensor(adapters) \
+            else torch.as_tensor(onp.asarray(adapters, "i8"))
+        idx = idx.to(self.device, torch.long, non_blocking=True).reshape(-1)
+        if idx.shape[0] != b:
+            raise ValueError(
+                f"adapters must be one index per row ({b}), got shape "
+                f"{tuple(idx.shape)}")
+        return idx
 
     def initialize(self, seed=0):
         """Fill every parameter from ``numpy.random.RandomState(seed)``:
@@ -663,12 +842,15 @@ class GPTModel(HybridBlock):
         return (None,) * self._num_layers, (None,) * self._num_layers
 
     @torch.no_grad()
-    def prefill(self, tokens, valid_length, cache, slots=None):
+    def prefill(self, tokens, valid_length, cache, slots=None, adapters=None):
         """Run the (padded) prompts ``tokens`` (B_req, S_bucket) through
         the model, write their K/V into ``cache`` rows ``slots`` (default
         ``0..B_req-1``), set ``len`` to ``valid_length``. Returns
         ``(last_logits, cache)`` — fp32 ``(B_req, vocab)`` logits of each
-        row's last valid token and the same cache, updated in place."""
+        row's last valid token and the same cache, updated in place.
+        ``adapters`` (B_req,) selects each row's LoRA bank slot on an
+        armed model (every generation call takes it; None is the base
+        model)."""
         tokens = self._as_tokens(tokens)
         if tokens.dim() != 2:
             raise ValueError(f"prefill tokens must be (batch, seq), got "
@@ -683,7 +865,7 @@ class GPTModel(HybridBlock):
             dev, torch.int32).reshape(b)
         slots = torch.arange(b, device=dev) if slots is None else \
             torch.as_tensor(onp.asarray(slots)).to(dev, torch.long)
-        with self._bound():
+        with self._bound(adapters, b):
             x = self._embed(tokens)
             for blk, kc, vc, ks, vs in zip(self._blocks(), cache["k"],
                                            cache["v"],
@@ -707,15 +889,16 @@ class GPTModel(HybridBlock):
         return logits[:, 0, :].float(), cache
 
     @torch.no_grad()
-    def decode_step(self, tokens, cache):
+    def decode_step(self, tokens, cache, adapters=None):
         """One greedy-decoding step for EVERY cache slot: write the K/V
         of ``tokens`` (B,) at each row's clamped position, attend over
         the valid prefix, bump ``len``. Returns ``(logits, cache)`` —
         fp32 ``(B, vocab)`` next-token logits and the same cache,
         updated in place. Rows of free slots produce logits that callers
         ignore: the batch shape never changes with occupancy."""
-        with self._bound():
-            return self._decode_body(self._as_tokens(tokens), cache)
+        tokens = self._as_tokens(tokens)
+        with self._bound(adapters, tokens.shape[0]):
+            return self._decode_body(tokens, cache)
 
     def _decode_body(self, tokens, cache, live=None):
         """One decode step's computation, under ``_bound`` (shared by
@@ -742,7 +925,7 @@ class GPTModel(HybridBlock):
     # -- multi-tick decode ---------------------------------------------
     @torch.no_grad()
     def decode_multi(self, tokens, budgets, cache, k, generators, temps,
-                     top_ks, top_ps, eos_ids):
+                     top_ks, top_ps, eos_ids, adapters=None):
         """``k`` decode steps for every cache slot in one call, with no
         host sync between them (the reference's fused scan). A row stops
         on the device once it emits ``eos_ids[row]`` (-1: no eos) or its
@@ -762,20 +945,20 @@ class GPTModel(HybridBlock):
         ``tokens[i, :emitted[i].sum()]`` (the live mask is monotone);
         the cache is updated in place."""
         return self._multi(False, tokens, budgets, cache, k, generators,
-                           temps, top_ks, top_ps, eos_ids)
+                           temps, top_ks, top_ps, eos_ids, adapters)
 
     @torch.no_grad()
     def decode_multi_paged(self, tokens, budgets, cache, k, generators,
-                           temps, top_ks, top_ps, eos_ids):
+                           temps, top_ks, top_ps, eos_ids, adapters=None):
         """Paged-cache :meth:`decode_multi`: the same steps and stop
         rule, a stopped row's write redirected into scrap page 0 as
         ``decode_step_paged`` does for an inactive row (``len`` frozen,
         table untouched)."""
         return self._multi(True, tokens, budgets, cache, k, generators,
-                           temps, top_ks, top_ps, eos_ids)
+                           temps, top_ks, top_ps, eos_ids, adapters)
 
     def _multi(self, paged, tokens, budgets, cache, k, generators, temps,
-               top_ks, top_ps, eos_ids):
+               top_ks, top_ps, eos_ids, adapters):
         dev = self.device
         cur = self._as_tokens(tokens)
         budget = torch.as_tensor(onp.asarray(budgets, "i4")).to(dev)
@@ -784,7 +967,7 @@ class GPTModel(HybridBlock):
         sampled = bool((temps > 0).any())
         live = budget > 0
         toks, emits = [], []
-        with self._bound():
+        with self._bound(adapters, cur.shape[0]):
             for _ in range(int(k)):
                 if paged:
                     logits, cache = self._decode_body_paged(cur, live, cache)
@@ -866,7 +1049,7 @@ class GPTModel(HybridBlock):
             self.device, non_blocking=True) > 0
 
     @torch.no_grad()
-    def verify_step(self, tokens, cache):
+    def verify_step(self, tokens, cache, adapters=None):
         """Speculative VERIFY over every dense cache slot: write the K/V
         of ``tokens`` (B, R) — per row ``[last, d_1 .. d_{R-1}]``, the
         committed tail token and the draft's proposals — at positions
@@ -881,11 +1064,11 @@ class GPTModel(HybridBlock):
         if tokens.dim() != 2:
             raise ValueError(f"verify tokens must be (batch, R), got "
                              f"shape {tuple(tokens.shape)}")
-        with self._bound():
+        with self._bound(adapters, tokens.shape[0]):
             return self._verify_body(tokens, cache), cache
 
     @torch.no_grad()
-    def verify_step_paged(self, tokens, active, cache):
+    def verify_step_paged(self, tokens, active, cache, adapters=None):
         """Speculative VERIFY for every slot of a PAGED cache: write each
         active row's ``tokens`` (B, R) at positions ``[len, len + R)``
         through its page table and return the logits at all R positions
@@ -897,7 +1080,7 @@ class GPTModel(HybridBlock):
         if tokens.dim() != 2:
             raise ValueError(f"verify tokens must be (batch, R), got "
                              f"shape {tuple(tokens.shape)}")
-        with self._bound():
+        with self._bound(adapters, tokens.shape[0]):
             return self._verify_body_paged(tokens, self._live(active),
                                            cache), cache
 
@@ -928,7 +1111,7 @@ class GPTModel(HybridBlock):
         the accept point."""
         cur = self._as_tokens(tokens)
         toks, qs = [], []
-        with self._bound():
+        with self._bound(None, cur.shape[0]):
             for _ in range(int(k)):
                 logits, cache = self._decode_body(cur, cache)
                 if temps is None:
@@ -945,7 +1128,8 @@ class GPTModel(HybridBlock):
 
     @torch.no_grad()
     def verify_commit(self, last, d_toks, active, cache, q=None,
-                      generators=None, temps=None, top_ks=None, top_ps=None):
+                      generators=None, temps=None, top_ks=None, top_ps=None,
+                      adapters=None):
         """TARGET side of one speculative iteration, in one call with no
         host sync: verify the ``k + 1`` positions ``[last, d_1 .. d_k]``
         (``verify_step``'s computation), apply the accept rule, and
@@ -958,24 +1142,26 @@ class GPTModel(HybridBlock):
         keeps the full-commit ``len``: it is evicted, and nobody reads
         its counter."""
         return self._verify_commit(False, last, d_toks, active, cache, q,
-                                   generators, temps, top_ks, top_ps)
+                                   generators, temps, top_ks, top_ps,
+                                   adapters)
 
     @torch.no_grad()
     def verify_commit_paged(self, last, d_toks, active, cache, q=None,
                             generators=None, temps=None, top_ks=None,
-                            top_ps=None):
+                            top_ps=None, adapters=None):
         """Paged-cache :meth:`verify_commit` (the verify of
         ``verify_step_paged``; the accept rule and the ``len`` advance
         are the same)."""
         return self._verify_commit(True, last, d_toks, active, cache, q,
-                                   generators, temps, top_ks, top_ps)
+                                   generators, temps, top_ks, top_ps,
+                                   adapters)
 
     def _verify_commit(self, paged, last, d_toks, active, cache, q,
-                       generators, temps, top_ks, top_ps):
+                       generators, temps, top_ks, top_ps, adapters):
         last, d_toks = self._as_tokens(last), self._as_tokens(d_toks)
         live = self._live(active)
         vt = torch.cat([last[:, None], d_toks], dim=1)
-        with self._bound():
+        with self._bound(adapters, vt.shape[0]):
             logits = self._verify_body_paged(vt, live, cache) if paged \
                 else self._verify_body(vt, cache)
         if q is None:
@@ -1035,7 +1221,7 @@ class GPTModel(HybridBlock):
 
     @torch.no_grad()
     def prefill_paged(self, tokens, n_valid, slot, pages, cache, *,
-                      start=0, fresh=False):
+                      start=0, fresh=False, adapters=None):
         """Prefill one chunk (or, with ``fresh=True``, one whole short
         prompt) of ``slot`` into pool pages. ``tokens`` is (1, W) with
         W a multiple of the page size; ``pages`` is the slot's FULL
@@ -1072,7 +1258,7 @@ class GPTModel(HybridBlock):
         page_ids = pages[start // ps:(start + w) // ps].long()
         layers = list(zip(self._blocks(), cache["k"], cache["v"],
                           *self._kv_scales(cache)))
-        with self._bound():
+        with self._bound(adapters, 1):
             if fresh:
                 x = self._embed(tokens)
                 for blk, kp, vp, ks, vs in layers:
@@ -1100,7 +1286,7 @@ class GPTModel(HybridBlock):
         return logits[:, 0, :].float(), cache
 
     @torch.no_grad()
-    def decode_step_paged(self, tokens, active, cache):
+    def decode_step_paged(self, tokens, active, cache, adapters=None):
         """One decode step for every slot of a PAGED cache: write each
         active row's K/V into its current page at ``len % page_size``,
         attend its valid pages, bump its ``len``. ``active`` (B,) masks
@@ -1109,9 +1295,9 @@ class GPTModel(HybridBlock):
         freed slot's table row may alias pages someone else owns).
         Returns ``(logits (B, V), cache)``, the cache updated in
         place."""
-        with self._bound():
-            return self._decode_body_paged(self._as_tokens(tokens),
-                                           self._live(active), cache)
+        tokens = self._as_tokens(tokens)
+        with self._bound(adapters, tokens.shape[0]):
+            return self._decode_body_paged(tokens, self._live(active), cache)
 
     def _decode_body_paged(self, tokens, live, cache):
         """One paged decode step's computation, under ``_bound`` (shared
@@ -1146,7 +1332,7 @@ class GPTModel(HybridBlock):
         return logits[:, 0, :].float(), cache
 
     @torch.no_grad()
-    def peek_logits_paged(self, token, slot, cache):
+    def peek_logits_paged(self, token, slot, cache, adapters=None):
         """Next-token logits for a slot whose ENTIRE prompt is already
         cached (prefix reuse): recompute the last prompt token's query
         at position ``len - 1`` and attend the cached pages — no
@@ -1156,7 +1342,7 @@ class GPTModel(HybridBlock):
         pos = (ln - 1).long()
         tok = self._as_tokens([int(token)])
         table1 = cache["table"][slot:slot + 1]
-        with self._bound():
+        with self._bound(adapters, 1):
             x = (self.word_embed(tok) + self.position_weight.data()[pos])[
                 :, None, :]
             if self.embed_drop is not None:

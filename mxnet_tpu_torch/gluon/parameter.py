@@ -7,7 +7,7 @@ tensor itself is a ``torch.nn.Parameter`` registered on the owning
 ``Module.to(device)`` moves it and ``state_dict`` sees it; ``data()``
 always reads the owner's current tensor — or, inside
 ``bind_shadows``, on the binding thread, the tensor bound in its place
-(the GPT model's bf16 compute copies).
+(the GPT model's bf16 or float16 compute copies).
 """
 from __future__ import annotations
 
@@ -21,14 +21,16 @@ __all__ = ["Parameter", "bind_shadows"]
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """A parameter is float32 (the default) or bfloat16, in the numpy,
-    torch or string spelling."""
+    """A parameter is float32 (the default), bfloat16 or float16, in the
+    numpy, torch or string spelling."""
     if dtype in ("float32", onp.float32, torch.float32):
         return torch.float32
     if dtype in ("bfloat16", torch.bfloat16):
         return torch.bfloat16
-    raise TypeError(f"unsupported parameter dtype {dtype!r} (float32 or "
-                    f"bfloat16)")
+    if dtype in ("float16", onp.float16, torch.float16):
+        return torch.float16
+    raise TypeError(f"unsupported parameter dtype {dtype!r} (float32, "
+                    f"bfloat16 or float16)")
 
 
 #: this thread's ``{Parameter: tensor}`` binding, or None

@@ -106,6 +106,26 @@ def _reverse_steps(key, shape):
             tuple(rest) if isinstance(key, tuple) else rest[0])
 
 
+#: the signed type of each wide unsigned one's width: torch's flip,
+#: take_along_dim, triu (and, on the card, where) refuse uint16/32/64,
+#: and moving data needs no arithmetic, so such data moves as the signed
+#: type of its width, bit for bit
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
+def _signed_view(tfn):
+    """``tfn`` of one tensor (further arguments passed on) that only
+    moves data: a uint16/32/64 tensor is moved as ``_SIGNED_VIEW``'s
+    type and the result viewed back."""
+    def f(x, *args):
+        sv = _SIGNED_VIEW.get(x.dtype)
+        if sv is None:
+            return tfn(x, *args)
+        return tfn(x.view(sv), *args).view(x.dtype)
+    return f
+
+
 def _value_tensor(value, dtype, device) -> torch.Tensor:
     """A written value (NDArray data, tensor, array-like or scalar) on
     the target's device and dtype."""
@@ -360,14 +380,20 @@ class NDArray:
         with torch.no_grad():
             if rev is not None:
                 # write through the flipped copy of the cut, then put
-                # it back in place
+                # it back in place (a wide unsigned array as its signed
+                # view: torch flips none)
                 pre, dims, rest = rev
                 new = t.detach().clone()
-                cut = new[pre]
+                sv = _SIGNED_VIEW.get(t.dtype)
+                cut = new[pre] if sv is None else new.view(sv)[pre]
                 flipped = cut.flip(dims)
-                flipped[rest] = value if isinstance(
-                    value, (bool, int, float)) else _value_tensor(
-                        value, t.dtype, t.device)
+                if sv is not None:
+                    flipped[rest] = _value_tensor(value, t.dtype,
+                                                  t.device).view(sv)
+                elif isinstance(value, (bool, int, float)):
+                    flipped[rest] = value
+                else:
+                    flipped[rest] = _value_tensor(value, t.dtype, t.device)
                 cut.copy_(flipped.flip(dims))
             elif idx is Ellipsis or (isinstance(idx, slice)
                                    and idx == slice(None)) \
@@ -410,7 +436,7 @@ class NDArray:
             k = tuple(one(kk) for kk in key) if isinstance(key, tuple) \
                 else one(key)
             if rev is not None:
-                x = x[pre].flip(dims)
+                x = _signed_view(lambda t: t[pre].flip(dims))(x)
             return x[k]
 
         return apply_op(do_index, self, *nd_keys, name="getitem")

@@ -21,6 +21,8 @@ answers False).
 from __future__ import annotations
 
 import builtins
+import functools
+import math
 
 import numpy as onp
 import torch
@@ -29,7 +31,7 @@ from .. import engine
 from ..base import (default_float, narrow_dtype, not_ported, resolve_dtype,
                     to_numpy_dtype)
 from ..context import current_context
-from ..ndarray.ndarray import NDArray
+from ..ndarray.ndarray import _SIGNED_VIEW, NDArray, _signed_view
 from ..ops import apply_op
 from . import random  # noqa: F401  (mx.np.random)
 
@@ -117,6 +119,30 @@ def _unsigned_result(a, b):
         return da or db
     return resolve_dtype(onp.promote_types(to_numpy_dtype(da),
                                            to_numpy_dtype(db)))
+
+
+def _promoted(operands):
+    """The reference's result dtype of moving ``operands`` (NDArrays and
+    scalars) into one array when one of them is uint16/32/64, which
+    torch does not promote; else None. A float operand decides (floats
+    promote among themselves, integers take their type; a Python float
+    beside integer arrays gives the default float), otherwise the
+    integers promote as ``_unsigned_result`` does, pairwise. Python
+    ints and bools are weak and take the arrays' type."""
+    dts = [x._data.dtype for x in operands if isinstance(x, NDArray)]
+    if not builtins.any(d in _WIDE_UNSIGNED for d in dts):
+        return None
+    floats = [d for d in dts if d.is_floating_point]
+    if floats:
+        return functools.reduce(torch.promote_types, floats)
+    if builtins.any(isinstance(x, float) for x in operands):
+        return default_float()
+    ints = dts + [resolve_dtype(onp.asarray(x).dtype) for x in operands
+                  if isinstance(x, (onp.integer, onp.bool_))]
+    return functools.reduce(
+        lambda a, b: resolve_dtype(onp.promote_types(to_numpy_dtype(a),
+                                                     to_numpy_dtype(b))),
+        ints)
 
 
 def _via_int64(tfn, res):
@@ -365,8 +391,9 @@ def eye(N, M=None, k=0, dtype=None, ctx=None):
     ctx = ctx or current_context()
     dt = resolve_dtype(dtype) if dtype is not None else default_float()
     M = N if M is None else M
-    t = torch.ones(N, M, dtype=dt, device=ctx.torch_device)
-    return _new(t.triu(k).tril(k), ctx)
+    t = torch.ones(N, M, dtype=_SIGNED_VIEW.get(dt, dt),
+                   device=ctx.torch_device)
+    return _new(t.triu(k).tril(k).view(dt), ctx)
 
 
 def copy(a):
@@ -482,12 +509,18 @@ def where(condition, x=None, y=None):
         raise not_ported("mx.np.where(condition) (nonzero)", 13)
     parts = [_coerce(condition), _coerce(x), _coerce(y)]
     nd = [p for p in parts if isinstance(p, NDArray)]
+    res = _promoted(parts[1:])
 
     def f(*ds):
         it = iter(ds)
         c, a, b = [next(it) if isinstance(p, NDArray) else _scalar(p)
                    for p in parts]
-        return torch.where(c if c.dtype == torch.bool else c != 0, a, b)
+        c = c if c.dtype == torch.bool else c != 0
+        if res is None:
+            return torch.where(c, a, b)
+        sv = _SIGNED_VIEW.get(res, res)   # the card's where takes none
+        return torch.where(c, a.to(res).view(sv), b.to(res).view(sv)) \
+            .view(res)
 
     return apply_op(f, *nd, name="where")
 
@@ -537,19 +570,44 @@ def _prod(x, dims, keepdims):
         else torch.prod(x)
 
 
-def _mkreduce(tfn, name, has_dtype=True, res=None):
-    tfn = _int64_route(tfn, res)
+def _in_ring(tfn):
+    """A sum or product of int64 values under an integer ``dtype=``: the
+    int64 result wraps to the type as the reduction in it would."""
+    return lambda x, dims, keepdims, dt: tfn(x, dims, keepdims)
+
+
+def _mean_int(x, dims, keepdims, dt):
+    """The mean of int64 values as the reference takes it under an
+    integer ``dtype=``: their sum, wrapped to ``dt``, divided by the
+    count and truncated."""
+    n = x.numel() if not dims else math.prod(x.shape[d] for d in dims)
+    total = _sum(x, dims, keepdims).to(dt).to(torch.int64)
+    return torch.div(total, builtins.max(n, 1), rounding_mode="trunc")
+
+
+def _mkreduce(tfn, name, has_dtype=True, res=None, int_fn=None):
+    """A reduction; ``int_fn`` takes int64 values where an integer or
+    bool ``dtype=`` is given: the input is cast to it, reduced in int64
+    and the result cast back, so it wraps as the reference's reduction
+    in that type does (sum and prod in any integer ring; bool sums and
+    products are any and all)."""
+    wide = _int64_route(tfn, res)
 
     def run(x, axis, dt, keepdims):
+        fn = wide
         if dt is not None:
             x = x.to(dt)
+            if _is_int(dt):
+                x, fn = x.to(torch.int64), functools.partial(int_fn, dt=dt)
         dims = _norm_axis(axis)
         if axis is None:
-            r = tfn(x, None, False)
-            return r.reshape((1,) * x.dim()) if keepdims else r
-        if dims == ():
-            return x
-        return tfn(x, dims, keepdims)
+            r = fn(x, None, False)
+            r = r.reshape((1,) * x.dim()) if keepdims else r
+        elif dims == ():
+            r = x
+        else:
+            r = fn(x, dims, keepdims)
+        return r.to(dt) if dt is not None and _is_int(dt) else r
 
     if has_dtype:
         def f(a, axis=None, dtype=None, out=None, keepdims=False, **kw):
@@ -566,9 +624,9 @@ def _mkreduce(tfn, name, has_dtype=True, res=None):
 
 # an unsigned input sums in int64 to uint32 (torch gives int64, which
 # would narrow to int32)
-sum = _mkreduce(_sum, "sum", res=torch.uint32)
-prod = _mkreduce(_prod, "prod", res=torch.uint32)
-mean = _mkreduce(_mean, "mean")
+sum = _mkreduce(_sum, "sum", res=torch.uint32, int_fn=_in_ring(_sum))
+prod = _mkreduce(_prod, "prod", res=torch.uint32, int_fn=_in_ring(_prod))
+mean = _mkreduce(_mean, "mean", int_fn=_mean_int)
 max = _mkreduce(_max, "max", has_dtype=False)
 min = _mkreduce(_min, "min", has_dtype=False)
 amax = max
@@ -635,14 +693,24 @@ def broadcast_to(array_, shape):
                   name="broadcast_to")
 
 
+def _joined(join, res):
+    """``join`` (cat or stack) of tensors cast to ``res`` first, when
+    one of them is a wide unsigned type (``_promoted``); a wide unsigned
+    result is joined as the signed type of its width, bit for bit."""
+    if res is None:
+        return join
+    sv = _SIGNED_VIEW.get(res, res)
+    return lambda xs: join([x.to(res).view(sv) for x in xs]).view(res)
+
+
 def concatenate(seq, axis=0, out=None):
     arrs = [_coerce(a) for a in seq]
     if axis is None:
-        r = apply_op(lambda *xs: torch.cat([x.reshape(-1) for x in xs]),
-                     *arrs, name="concatenate")
+        cat = _joined(lambda xs: torch.cat([x.reshape(-1) for x in xs]),
+                      _promoted(arrs))
     else:
-        r = apply_op(lambda *xs: torch.cat(xs, dim=axis), *arrs,
-                     name="concatenate")
+        cat = _joined(lambda xs: torch.cat(xs, dim=axis), _promoted(arrs))
+    r = apply_op(lambda *xs: cat(xs), *arrs, name="concatenate")
     return _set_out(out, r)
 
 
@@ -651,7 +719,8 @@ concat = concatenate
 
 def stack(arrays, axis=0, out=None):
     arrs = [_coerce(a) for a in arrays]
-    r = apply_op(lambda *xs: torch.stack(xs, dim=axis), *arrs, name="stack")
+    join = _joined(lambda xs: torch.stack(xs, dim=axis), _promoted(arrs))
+    r = apply_op(lambda *xs: join(xs), *arrs, name="stack")
     return _set_out(out, r)
 
 
@@ -682,7 +751,7 @@ def flip(m, axis=None):
     def f(x):
         dims = tuple(range(x.dim())) if axis is None else _norm_axis(axis)
         return torch.flip(x, dims)
-    return _unary(f, m, name="flip")
+    return _unary(_signed_view(f), m, name="flip")
 
 
 # ---------------------------------------------------------------------------

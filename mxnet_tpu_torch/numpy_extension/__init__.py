@@ -20,6 +20,7 @@ import torch
 
 from .. import autograd as _ag
 from ..base import not_ported, resolve_dtype
+from ..ndarray.ndarray import _signed_view
 from ..ops import apply_op
 from ..random_state import generator
 
@@ -153,18 +154,13 @@ def topk(data, k=1, axis=-1, ret_typ="indices", is_ascend=False,
             xm = xm.to(torch.int64)
         elif src == torch.bool:
             xm = xm.to(torch.int32)
-        if src == torch.bool and not is_ascend:
-            # a bool axis is mostly ties: the reference's top_k keeps
-            # the lower index first, as a stable descending sort does
-            vals, idx = torch.sort(xm, dim=-1, descending=True, stable=True)
-            vals, idx = vals[..., :k], idx[..., :k]
-        elif is_ascend:
-            # bottom-k by a stable ascending sort, as the reference
-            vals, idx = torch.sort(xm, dim=-1, stable=True)
-            vals, idx = vals[..., :k], idx[..., :k]
-        else:
-            vals, idx = torch.topk(xm, k, dim=-1, largest=True,
-                                   sorted=True)
+        # the reference's top_k keeps the lower index first among
+        # ties, as a stable sort does (torch.topk orders ties as it
+        # likes, and the CPU and the card differ); bottom-k by a stable
+        # ascending sort, as the reference
+        vals, idx = torch.sort(xm, dim=-1, descending=not is_ascend,
+                               stable=True)
+        vals, idx = vals[..., :k], idx[..., :k]
         if ret_typ == "mask":
             # the reference sums k one-hots in the data's dtype, so the
             # mask takes sum's dtype: uint32 for an unsigned input, int32
@@ -190,6 +186,7 @@ def topk(data, k=1, axis=-1, ret_typ="indices", is_ascend=False,
 
 def pick(data, index, axis=-1, mode="clip", keepdims=False, **kwargs):
     """``mode='clip'`` clamps an index into range, ``'wrap'`` wraps it."""
+    @_signed_view
     def f(x, i):
         ax = axis % x.dim()
         i = i.to(torch.int64)

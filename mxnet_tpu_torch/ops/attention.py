@@ -8,11 +8,12 @@ that the reference ran as a Pallas kernel has a plain PyTorch version
 ``_decode_fwd_torch``) and a CUDA kernel written for Hopper
 (``csrc/flash_attention.cu``, ``csrc/decode_attention.cu``,
 ``csrc/paged_decode_attention.cu``). The two decode kernels come in an
-fp32, an int8 and a bf16 instance: an int8 cache (``k_scale``/
-``v_scale`` given) is dequantized before the masked softmax in the
-plain version and in registers, after the int8 load, in the kernel; a
-bf16 cache is read as bf16 and widened in registers. K1 comes in an
-fp32 and a bf16 instance. The public functions dispatch on
+fp32, an int8, a bf16 and a float16 instance: an int8 cache
+(``k_scale``/``v_scale`` given) is dequantized before the masked softmax
+in the plain version and in registers, after the int8 load, in the
+kernel; a bf16 or float16 cache is read as it is and widened in
+registers. K1 comes in an fp32, a bf16 and a float16 instance. The
+public functions dispatch on
 the device of their inputs: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises — there is no fallback from
 the kernel to the plain version. ``chunked_prefill_attention`` is plain
@@ -30,8 +31,11 @@ the decode paths (bf16 for a bf16 cache, fp32 for an fp32 or int8 one);
 mixed operands promote as jnp does (fp32 q against a bf16 cache scores
 in fp32). The kernels compute in fp32 from the widened inputs, which
 the reference's Pallas kernels do too, and round the output to the same
-type as the plain version. No wrapper widens a cache to call an fp32
-instance: a dtype without an instance raises.
+type as the plain version. float16 inputs take the Pallas kernels' way
+in the plain versions as well (``_widened``): q, K and V widened to
+fp32, every product and sum in fp32, the output rounded to float16 (q's
+type for flash attention, V's for decode). No wrapper widens a cache to
+call an fp32 instance: a dtype without an instance raises.
 
 Numerical rules kept from the reference: the masked score is
 ``NEG_INF = -1e30`` (finite, never -inf), p is re-masked to 0 after
@@ -63,10 +67,23 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 #: launches of each CUDA kernel since the last reset — bumped by the
 #: wrappers right where they launch, and nowhere else
 _launches = {"flash_attention_fwd": 0, "flash_attention_fwd_bf16": 0,
+             "flash_attention_fwd_f16": 0,
              "decode_attention": 0, "decode_attention_int8": 0,
-             "decode_attention_bf16": 0, "paged_decode_attention": 0,
+             "decode_attention_bf16": 0, "decode_attention_f16": 0,
+             "paged_decode_attention": 0,
              "paged_decode_attention_int8": 0,
-             "paged_decode_attention_bf16": 0}
+             "paged_decode_attention_bf16": 0,
+             "paged_decode_attention_f16": 0}
+
+#: the instance suffix of each 16-bit element type
+_HALF = {torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def _widened(fn, *ts):
+    """``fn`` of float16 tensors computed on their fp32 widening (exact),
+    its result rounded back to float16: the plain float16 versions do
+    what the reference's dtype-generic Pallas kernels do."""
+    return fn(*(t.float() for t in ts)).to(torch.float16)
 
 
 def launch_counts() -> dict:
@@ -161,20 +178,20 @@ def _kernel_strides(name, x, ndim=4):
 
 
 #: the element types the kernels have instances for
-_KERNEL_FLOATS = (torch.float32, torch.bfloat16)
+_KERNEL_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _check_flash_inputs(name, q, k, v):
-    """q, k and v on one device, all fp32 or all bf16 (K1's two
-    instances); returns that dtype."""
+    """q, k and v on one device, all fp32, all bf16 or all float16
+    (K1's three instances); returns that dtype."""
     for t in (k, v):
         if t.device != q.device:
             raise ValueError(f"{name}: inputs on different devices "
                              f"({q.device} vs {t.device})")
     if q.dtype not in _KERNEL_FLOATS or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise TypeError(f"{name}: the kernel takes float32 or bfloat16 "
-                        f"q, k and v of one type, got {q.dtype}, "
+        raise TypeError(f"{name}: the kernel takes float32, bfloat16 or "
+                        f"float16 q, k and v of one type, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     return q.dtype
 
@@ -184,21 +201,20 @@ _FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 #: the (b, h, s) strides of q, k and v, as the kernel reads them
 _Strides9 = ctypes.c_longlong * 9
-#: K1's rows per query tile (the fp32 instance's; the bf16 one's are
-#: 64, so the check holds for both), and its grid's limit on query tiles
+#: K1's rows per query tile (the fp32 instance's; the 16-bit ones' are
+#: 64, so the check holds for all), and its grid's limit on query tiles
 _FLASH_BLOCK_Q, _GRID_Y_MAX = 32, 65535
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale, kv_len):
     """Launch K1 (``csrc/flash_attention.cu``): its fp32 instance, or
-    its bf16 instance on bf16 q/k/v (a bf16 output, lse fp32). q/k/v
-    may be strided views — the prefill's come straight out of the head
-    split's transpose — as long as each row is contiguous and 16-byte
-    aligned; their strides are passed to the kernel and nothing is
-    copied."""
-    bf16 = _check_flash_inputs("flash_attention_fwd", q, k, v) \
-        == torch.bfloat16
-    name = "flash_attention_fwd_bf16" if bf16 else "flash_attention_fwd"
+    its bf16 or float16 instance on q/k/v of that type (an output of
+    that type, lse fp32). q/k/v may be strided views — the prefill's
+    come straight out of the head split's transpose — as long as each
+    row is contiguous and 16-byte aligned; their strides are passed to
+    the kernel and nothing is copied."""
+    half = _HALF.get(_check_flash_inputs("flash_attention_fwd", q, k, v))
+    name = f"flash_attention_fwd_{half}" if half else "flash_attention_fwd"
     b, h, sq, d = q.shape
     if k.shape[:2] != (b, h) or k.shape[-1] != d or v.shape != k.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
@@ -248,6 +264,10 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, kv_len=None):
     scale = _scale(q, scale)
     if q.is_cuda:
         out, lse = _flash_fwd_cuda(q, k, v, causal, scale, kv_len)
+    elif q.dtype == torch.float16:
+        out, lse = _blockwise_fwd(q.float(), k.float(), v.float(), causal,
+                                  scale, kv_len=kv_len)
+        out = out.to(torch.float16)
     else:
         out, lse = _blockwise_fwd(q, k, v, causal, scale, kv_len=kv_len)
     if causal and kv_len < q.shape[-2]:
@@ -297,9 +317,9 @@ def _decode_fwd_torch(q, k, v, lengths, scale):
 
 
 def _check_decode_inputs(name, q, k, v, k_scale, v_scale, scale_rows):
-    """The checks K2 and K3 share: every input on q's device, q fp32 or
-    bf16, K/V both fp32 or both bf16 — or, with scales, int8 K/V and
-    contiguous (``scale_rows``, H) fp32 scales."""
+    """The checks K2 and K3 share: every input on q's device, q fp32,
+    bf16 or float16, K/V both of one of those types — or, with scales,
+    int8 K/V and contiguous (``scale_rows``, H) fp32 scales."""
     quant = k_scale is not None
     if quant != (v_scale is not None):
         raise ValueError(f"{name}: k_scale and v_scale come together")
@@ -309,8 +329,8 @@ def _check_decode_inputs(name, q, k, v, k_scale, v_scale, scale_rows):
             raise ValueError(f"{name}: inputs on different devices "
                              f"({q.device} vs {t.device})")
     if q.dtype not in _KERNEL_FLOATS:
-        raise TypeError(f"{name}: the kernel takes float32 or bfloat16 "
-                        f"queries, got {q.dtype}")
+        raise TypeError(f"{name}: the kernel takes float32, bfloat16 or "
+                        f"float16 queries, got {q.dtype}")
     want = (torch.int8,) if quant else _KERNEL_FLOATS
     if k.dtype not in want or v.dtype != k.dtype:
         raise TypeError(f"{name}: the kernel takes K/V of one type in "
@@ -338,20 +358,25 @@ _DECODE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
 #: the int8 instance: q, k, v, k_scale, v_scale, lengths, out; the rest
 _DECODE_INT8_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-#: the bf16 instance: q, q_bf16, k, v, lengths, out; the rest
-_DECODE_BF16_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [
+#: the bf16 and float16 instances: q, q_half, k, v, lengths, out; the
+#: rest
+_DECODE_HALF_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [
     ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _decode_instance(kind, q, k_dtype):
     """The decode kernel instance for a cache of ``k_dtype``: its name,
-    the query it reads and the output's type. The bf16 instance reads
-    an fp32 or bf16 q as it is and writes bf16 (the attended V's type);
-    the fp32 and int8 instances read fp32, so a bf16 q is widened
-    first (exact), and write fp32."""
-    if k_dtype == torch.bfloat16:
-        return f"{kind}_bf16", q, torch.bfloat16
+    the query it reads and the output's type. A bf16 (float16) instance
+    reads an fp32 q, or one of the cache's type, as it is and writes the
+    cache's type (the attended V's); any other q is widened first
+    (exact). The fp32 and int8 instances read fp32, so a 16-bit q is
+    widened first, and write fp32."""
+    half = _HALF.get(k_dtype)
+    if half is not None:
+        if q.dtype not in (torch.float32, k_dtype):
+            q = q.float()
+        return f"{kind}_{half}", q, k_dtype
     if q.dtype != torch.float32:
         q = q.float()
     return (f"{kind}_int8" if k_dtype == torch.int8 else kind), q, \
@@ -385,12 +410,12 @@ def _decode_cuda(q, k, v, lengths, scale, k_scale=None, v_scale=None):
                         *_kernel_strides(name, v))
     out = torch.empty((b, h, sq, d), dtype=out_dtype, device=q.device)
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quant else ()
-    bf16 = out_dtype == torch.bfloat16
-    q_args = (q.data_ptr(), int(q.dtype == torch.bfloat16)) if bf16 \
+    half = out_dtype in _HALF
+    q_args = (q.data_ptr(), int(q.dtype == out_dtype)) if half \
         else (q.data_ptr(),)
     fn = _build.function(
         "decode_attention", f"mxtt_{name}",
-        _DECODE_BF16_ARGTYPES if bf16
+        _DECODE_HALF_ARGTYPES if half
         else _DECODE_INT8_ARGTYPES if quant else _DECODE_ARGTYPES)
     err = _build.launch_on(q, fn, (
         *q_args, k.data_ptr(), v.data_ptr(), *scales,
@@ -413,11 +438,11 @@ def decode_attention(q, k, v, lengths, scale=None, k_scale=None,
     fixed-shape batch) returns zeros.
 
     ``k_scale``/``v_scale`` (B, H) fp32 mark an INT8 cache: the stored
-    int8 K/V dequantize with each slot's per-head scale. A bf16 cache
-    gives a bf16 result, an fp32 or int8 one fp32 (the module's type
-    rule). CUDA inputs launch K2 (the instance of the cache's type); CPU
-    inputs take the plain version (dequantize, then
-    ``_decode_fwd_torch``)."""
+    int8 K/V dequantize with each slot's per-head scale. A bf16 or
+    float16 cache gives a result of its type, an fp32 or int8 one fp32
+    (the module's type rule). CUDA inputs launch K2 (the instance of the
+    cache's type); CPU inputs take the plain version (dequantize, then
+    ``_decode_fwd_torch``; a float16 cache ``_widened``)."""
     scale = _scale(q, scale)
     if not torch.is_tensor(lengths):
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
@@ -426,6 +451,9 @@ def decode_attention(q, k, v, lengths, scale=None, k_scale=None,
         return _decode_cuda(q, k, v, lengths, scale, k_scale, v_scale)
     if k_scale is not None:
         k, v = _dequantize(k, k_scale), _dequantize(v, v_scale)
+    if k.dtype == torch.float16:
+        return _widened(lambda *t: _decode_fwd_torch(*t, lengths, scale),
+                        q, k, v)
     return _decode_fwd_torch(q, k, v, lengths, scale)
 
 
@@ -462,9 +490,9 @@ _PAGED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
 #: lengths, out; the rest
 _PAGED_INT8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-#: the bf16 instance: q, q_bf16, k_pool, v_pool, table, lengths, out;
-#: the rest
-_PAGED_BF16_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [
+#: the bf16 and float16 instances: q, q_half, k_pool, v_pool, table,
+#: lengths, out; the rest
+_PAGED_HALF_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [
     ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 
@@ -476,8 +504,8 @@ def _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale,
     (n_pages, H) int8. q may be a strided view (the decode step's head
     split); the pools must be contiguous (n_pages, H, ps, D) and 16-byte
     aligned; table (B, P_max) and lengths (B,) contiguous int32, all on
-    one card. Anything else raises — nothing is copied but a bf16 q for
-    the fp32 and int8 instances, which read fp32."""
+    one card. Anything else raises — nothing is copied but a q that the
+    instance does not read as it is (``_decode_instance``)."""
     quant = k_scale is not None
     name = "paged_decode_attention"
     b, h, sq, d = q.shape
@@ -511,12 +539,12 @@ def _paged_decode_cuda(q, k_pool, v_pool, table, lengths, scale,
     q_strides = (ctypes.c_longlong * 3)(*_kernel_strides(name, q))
     out = torch.empty((b, h, sq, d), dtype=out_dtype, device=q.device)
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quant else ()
-    bf16 = out_dtype == torch.bfloat16
-    q_args = (q.data_ptr(), int(q.dtype == torch.bfloat16)) if bf16 \
+    half = out_dtype in _HALF
+    q_args = (q.data_ptr(), int(q.dtype == out_dtype)) if half \
         else (q.data_ptr(),)
     fn = _build.function(
         "paged_decode_attention", f"mxtt_{name}",
-        _PAGED_BF16_ARGTYPES if bf16
+        _PAGED_HALF_ARGTYPES if half
         else _PAGED_INT8_ARGTYPES if quant else _PAGED_ARGTYPES)
     err = _build.launch_on(q, fn, (
         *q_args, k_pool.data_ptr(), v_pool.data_ptr(), *scales,
@@ -545,8 +573,9 @@ def paged_decode_attention(q, k_pool, v_pool, table, lengths, scale=None,
     ``k_scale``/``v_scale`` (n_pages, H) fp32 mark an INT8 pool: the
     plain version dequantizes the gathered view with each page's
     per-head scale (``expand_page_scales``); K3's int8 instance
-    dequantizes each key in registers with its page's scales. A bf16
-    pool gives a bf16 result and runs K3's bf16 instance on the card."""
+    dequantizes each key in registers with its page's scales. A bf16 or
+    float16 pool gives a result of its type and runs K3's instance of
+    that type on the card."""
     scale = _scale(q, scale)
     if not torch.is_tensor(lengths):
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
@@ -562,6 +591,9 @@ def paged_decode_attention(q, k_pool, v_pool, table, lengths, scale=None,
         ps = k_pool.shape[2]
         k = _dequantize(k, expand_page_scales(k_scale, table, ps))
         v = _dequantize(v, expand_page_scales(v_scale, table, ps))
+    if k.dtype == torch.float16:
+        return _widened(lambda *t: _decode_fwd_torch(*t, lengths, scale),
+                        q, k, v)
     return _decode_fwd_torch(q, k, v, lengths, scale)
 
 

@@ -167,13 +167,14 @@ def _dequant_matmul_cuda(x2, wq, scales, bias=None):
 def dequant_matmul(x, wq, scales, block_n=_BLOCK_N, bias=None):
     """``x @ dequant(wq, scales).T (+ bias)``.
 
-    ``x`` is ``(..., K)`` fp32 or bf16, ``wq`` ``(N, K)`` int8 (the
-    Dense ``(out, in)`` layout), ``scales`` ``(N,)`` fp32, ``bias``
-    ``(N,)`` fp32, bf16 or None. Returns ``(..., N)`` fp32: a bf16 x and
-    bias are widened to fp32 (exact), as the reference computes. CUDA
-    inputs launch K4, which adds the bias in its epilogue (an fp32 ``x``
-    folded to ``(M, K)`` without a copy, so it must be contiguous); CPU
-    inputs take the blocked plain version and add the bias after it."""
+    ``x`` is ``(..., K)`` fp32, bf16 or float16, ``wq`` ``(N, K)`` int8
+    (the Dense ``(out, in)`` layout), ``scales`` ``(N,)`` fp32, ``bias``
+    ``(N,)`` of one of those types or None. Returns ``(..., N)`` fp32: a
+    16-bit x and bias are widened to fp32 (exact), as the reference
+    computes. CUDA inputs launch K4, which adds the bias in its epilogue
+    (an fp32 ``x`` folded to ``(M, K)`` without a copy, so it must be
+    contiguous); CPU inputs take the blocked plain version and add the
+    bias after it."""
     n, k = wq.shape
     if x.shape[-1] != k:
         raise ValueError(f"x features {x.shape[-1]} do not match "
@@ -185,9 +186,9 @@ def dequant_matmul(x, wq, scales, block_n=_BLOCK_N, bias=None):
         _check_bias(bias, n)
     lead = x.shape[:-1]
     if x.is_cuda:
-        if x.dtype == torch.bfloat16:
+        if x.dtype != torch.float32:
             x = x.float()
-        if bias is not None and bias.dtype == torch.bfloat16:
+        if bias is not None and bias.dtype != torch.float32:
             bias = bias.float()
         if not x.is_contiguous():
             raise ValueError("dequant_matmul: x must be contiguous (the "

@@ -1,7 +1,8 @@
 """GenerationEngine — slot-based continuous batching for autoregressive
 decoding, greedy or sampled per request, over a dense or a paged KV
-cache (fp32, bf16 or int8), with fp32, bf16 or weight-only int8
-projections, one or k decode steps per host sync.
+cache (fp32, bf16, float16 or int8), with fp32, bf16 or weight-only int8
+projections, one or k decode steps per host sync, and batched
+multi-tenant LoRA adapters.
 
 Counterpart of ``mxnet_tpu/serving/generate.py``'s single-step engine.
 Iteration-level scheduling (Orca, OSDI'22; vLLM's continuous batching)
@@ -86,11 +87,26 @@ cache and bf16 target compute (the draft stays fp32).
 ``load_weights`` swaps the model's weights in place between steps
 (re-quantizing an int8 engine's tables and re-casting a bf16 engine's
 copies inside the swap); a speculative engine's draft keeps its own.
+``cache_dtype="float16"`` keeps a float16 KV cache (dense or paged,
+read by the float16 instances of the decode kernels), and an engine over
+a float16 model (``GPTModel(dtype="float16")``) defaults its cache to
+float16; ``compute_dtype="float16"`` is the reference's ValueError.
+``lora_rank=`` (with ``max_adapters``, default 8) serves batched
+multi-tenant LoRA (docs/SERVING.md "Multi-tenant LoRA"): the model's
+stacked adapter banks (``GPTModel.arm_lora``) hold ``max_adapters``
+tenants beside the reserved base slot 0; ``load_adapter`` /
+``unload_adapter`` install and free them at a step boundary, writing the
+banks in place; ``submit(adapter=name)`` pins a tenant for the request's
+life (an unload while it runs is deferred) and every generation call
+takes the per-slot bank index vector. Prefix reuse is base-model only:
+an adapted request neither matches nor publishes cached pages, since its
+K/V differ. A speculative engine proposes with the base draft and
+verifies adapted, so its greedy tenants' streams equal dedicated
+non-speculative adapted engines'.
 
-The reference engine's other modes — LoRA and tensor parallelism,
-float16 compute, and weight rollover from a checkpoint path — are later
-slices of the port; asking for one raises ``NotImplementedError``
-naming its ROADMAP.md item.
+The reference engine's other modes — tensor parallelism and weight
+rollover from a checkpoint path — are later slices of the port; asking
+for one raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 Telemetry: counters ``serving.generate.{requests,tokens,prefills,
 evictions,rejected_full,rejected_closed,timeouts,errors,host_syncs,
@@ -109,7 +125,10 @@ mode ``serving.generate.pages.free`` and
 ``serving.generate.prefill_chunks_per_iter``; histograms
 ``serving.generate.{queue_wait,prefill,decode,ttft,swap}`` and
 ``serving.generate.quant.{quantize,requantize}`` and
-``serving.generate.cast.{cast,recast}``. The ``prefill``
+``serving.generate.cast.{cast,recast}``, with LoRA
+``serving.generate.lora.{adapters_loaded,adapters_evicted,requests}``,
+the gauge ``serving.generate.lora.active_adapters`` and the histogram
+``serving.generate.lora.load``. The ``prefill``
 and ``decode`` histograms end at the host's read of the step's tokens,
 so on the card they include the device time (PyTorch returns before
 the device finishes; the reference's XLA histograms timed the
@@ -212,6 +231,9 @@ class GenerationStream:
         #: the request's tracing.Trace, or None (tracing off for this
         #: request — the near-zero disabled path)
         self._trace = None
+        #: called once, with the stream lock held, when the stream
+        #: finishes (an adapted request's pin drops there)
+        self._finish_cbs: list = []
 
     # -- producer side (generator thread) ------------------------------
     def _emit(self, token: int):
@@ -243,6 +265,19 @@ class GenerationStream:
             if self._trace is not None:
                 self._trace.finish(reason=reason, error=exc)
             self._cv.notify_all()
+            for cb in self._finish_cbs:
+                cb()
+
+    def _on_finish(self, cb):
+        """Call ``cb()`` once when the stream finishes (now, if it has):
+        every stream finishes exactly once on every engine path, so this
+        is the one place a per-request resource is reliably released.
+        ``cb`` runs under the stream lock and must be quick."""
+        with self._cv:
+            if self._reason is None and self._exc is None:
+                self._finish_cbs.append(cb)
+                return
+        cb()
 
     # -- consumer side --------------------------------------------------
     def done(self) -> bool:
@@ -296,12 +331,26 @@ class GenerationStream:
                                     self.prompt_len)
 
 
+class _Adapter:
+    """Host-side registry record of one loaded LoRA adapter: its bank
+    slot, the number of requests pinning it (submitted and not yet
+    finished), and whether an unload is deferred behind those pins."""
+
+    __slots__ = ("name", "idx", "refs", "unloading")
+
+    def __init__(self, name, idx):
+        self.name = name
+        self.idx = idx
+        self.refs = 0
+        self.unloading = False
+
+
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "eos_id", "stream", "t_submit",
-                 "t_enq", "deadline", "sampling")
+                 "t_enq", "deadline", "sampling", "adapter_idx")
 
     def __init__(self, prompt, max_new, eos_id, stream, t_submit, t_enq,
-                 deadline, sampling=(0.0, 0, 1.0, None)):
+                 deadline, sampling=(0.0, 0, 1.0, None), adapter_idx=0):
         self.prompt = prompt
         self.max_new = max_new
         self.eos_id = eos_id
@@ -311,6 +360,8 @@ class _GenRequest:
         self.deadline = deadline
         #: (temperature, top_k, top_p, seed); temperature 0 is greedy
         self.sampling = sampling
+        #: the request's LoRA bank slot (0: the base model)
+        self.adapter_idx = adapter_idx
 
 
 class _Slot:
@@ -337,10 +388,11 @@ class _PagedSlot:
 
     __slots__ = ("stream", "last", "left", "eos_id", "deadline", "n_ctx",
                  "state", "chunks", "row", "page_refs", "cow_pending",
-                 "prompt", "seq", "t_submit", "sampling", "draft_prompt")
+                 "prompt", "seq", "t_submit", "sampling", "draft_prompt",
+                 "adapter_idx")
 
     def __init__(self, stream, left, eos_id, deadline, n_ctx, row,
-                 page_refs, prompt, seq, t_submit, sampling):
+                 page_refs, prompt, seq, t_submit, sampling, adapter_idx=0):
         self.stream = stream
         self.last = None
         self.left = left
@@ -361,6 +413,9 @@ class _PagedSlot:
         #: when the slot enters decode (``prompt`` is dropped once the
         #: prefix index holds it)
         self.draft_prompt = None
+        #: the request's LoRA bank slot: an adapted slot (non-zero)
+        #: never matches nor publishes prefix pages
+        self.adapter_idx = adapter_idx
 
 
 class _GenWorker(BoundedQueueWorker):
@@ -486,8 +541,9 @@ class GenerationEngine:
         ``"int8"`` keeps the KV cache (dense or paged) as int8 with
         fp32 per-head scales; ``cache_dtype="int8"`` is the same.
     cache_dtype : str, optional
-        The KV cache's type: ``"float32"``, ``"bfloat16"`` or
-        ``"int8"`` (default: the compute type's, float32 or bfloat16).
+        The KV cache's type: ``"float32"``, ``"bfloat16"``,
+        ``"float16"`` or ``"int8"`` (default: the compute type's under
+        ``compute_dtype="bfloat16"``, else the model's parameter type).
     decode_ticks : int
         Decode steps per engine tick and host sync (default 1).
     compute_dtype : str, optional
@@ -505,9 +561,15 @@ class GenerationEngine:
     speculative : bool, optional
         Defaults to ``draft_model is not None``; ``True`` without a
         draft raises, as does a draft with ``False``.
+    lora_rank : int, optional
+        Arms batched multi-tenant LoRA at this rank: the model grows a
+        stacked adapter bank per attention projection
+        (``GPTModel.arm_lora``) before warm-up.
+    max_adapters : int, optional
+        Tenants the bank holds beside the reserved base slot (default
+        8); only with ``lora_rank``.
 
-    The reference's other keyword arguments (``lora_rank``,
-    ``mesh_layout``) raise ``NotImplementedError``.
+    The reference's ``mesh_layout`` raises ``NotImplementedError``.
     """
 
     def __init__(self, model, max_slots: int = 8, max_length=None,
@@ -518,8 +580,8 @@ class GenerationEngine:
                  prefill_chunk=None, prefix_cache: bool = True,
                  quantize=None, kv_dtype=None, draft_model=None,
                  spec_k: int = 4, speculative=None, mesh_layout=None,
-                 lora_rank=None, decode_ticks: int = 1, compute_dtype=None,
-                 device=None):
+                 lora_rank=None, max_adapters=None, decode_ticks: int = 1,
+                 compute_dtype=None, device=None):
         if speculative is None:
             speculative = draft_model is not None
         self.speculative = bool(speculative)
@@ -567,11 +629,9 @@ class GenerationEngine:
             # (half the bytes); int8 KV still composes
             cache_dtype = "bfloat16"
         if cache_dtype is not None and str(cache_dtype) \
-                not in ("float32", "bfloat16", "int8"):
-            raise not_ported(f"cache_dtype={cache_dtype!r}",
-                             "10 (float16 compute)")
-        if lora_rank is not None:
-            raise not_ported("lora_rank=", "11 (batched LoRA)")
+                not in ("float32", "bfloat16", "float16", "int8"):
+            raise ValueError(f"unsupported cache_dtype={cache_dtype!r} "
+                             f"(float32, bfloat16, float16 or int8)")
         if mesh_layout is not None:
             raise not_ported(f"mesh_layout={mesh_layout!r}",
                              "20 (parallelism over torch.distributed)")
@@ -641,6 +701,31 @@ class GenerationEngine:
             t0 = telemetry.clock()
             model.cast_compute_params("bfloat16")
             telemetry.hist_since("serving.generate.cast.cast", t0)
+        self.lora_enabled = lora_rank is not None
+        if max_adapters is not None and not self.lora_enabled:
+            raise ValueError(
+                "max_adapters without lora_rank is inert; pass "
+                "lora_rank= to arm the batched adapter bank")
+        self.lora_rank, self.max_adapters = None, 0
+        if self.lora_enabled:
+            self.lora_rank = int(lora_rank)
+            if self.lora_rank < 1:
+                raise ValueError(f"lora_rank must be >= 1, got "
+                                 f"{lora_rank}")
+            self.max_adapters = 8 if max_adapters is None \
+                else int(max_adapters)
+            if self.max_adapters < 1:
+                raise ValueError(f"max_adapters must be >= 1, got "
+                                 f"{max_adapters}")
+            for attr in ("arm_lora", "set_adapter", "clear_adapter"):
+                if not callable(getattr(model, attr, None)):
+                    raise TypeError(
+                        f"lora_rank= needs a model exposing the "
+                        f"batched-LoRA API (missing {attr!r}); see "
+                        f"gluon.model_zoo.gpt.GPTModel")
+            # bank slot 0 is the reserved all-zeros base adapter, so the
+            # bank holds max_adapters + 1 slots, allocated here, once
+            model.arm_lora(self.max_adapters + 1, self.lora_rank)
         self.max_slots = int(max_slots)
         self._cache_dtype = cache_dtype
         self.max_new_tokens = int(max_new_tokens)
@@ -730,6 +815,24 @@ class GenerationEngine:
         self._topps = onp.ones((self.max_slots,), "f4")
         self._gens: list = [None] * self.max_slots
         self._n_sampling = 0   # active slots with temperature > 0
+        #: per-slot LoRA bank indices, passed as a (B,) vector to every
+        #: generation call of a LoRA engine: a batch mixing any tenants
+        #: (base rows included) runs the same step
+        self._adapter_idx = onp.zeros((self.max_slots,), "i4")
+        #: host-side adapter registry: name -> _Adapter (bank slot, pin
+        #: count, deferred-unload flag). _lora_lock is a LEAF lock —
+        #: taken from submit, stream-finish callbacks and the load and
+        #: unload paths, never around a model call
+        self._lora_lock = threading.Lock()
+        self._lora_reg: dict = {}
+        self._lora_free = list(range(1, self.max_adapters + 1))
+        #: freed-but-not-yet-zeroed bank slots: eviction runs in
+        #: stream-finish callbacks that may hold the worker's _gen_lock,
+        #: where ``model.clear_adapter`` cannot be ordered against a
+        #: concurrent ``set_adapter``, so the factors are zeroed lazily
+        #: inside the NEXT ``load_adapter``'s exclusive window (a freed
+        #: slot is unreachable: no name maps to it)
+        self._lora_stale: set = set()
         self._slots: list = [None] * self.max_slots
         self._n_active = 0
         #: serializes every model call (worker admit/step, sync-mode
@@ -916,6 +1019,182 @@ class GenerationEngine:
                 f"{getattr(d, '_num_layers', '?')}L-"
                 f"{getattr(d, '_units', '?')}u")
 
+    @property
+    def lora(self) -> str:
+        """The replica's batched-LoRA configuration, as the reference
+        names it: ``"off"`` or ``"rank=<r>:max=<n>"``."""
+        if not self.lora_enabled:
+            return "off"
+        return f"rank={self.lora_rank}:max={self.max_adapters}"
+
+    def capabilities(self) -> str:
+        """One-line summary of the engine's configuration, quoted by the
+        ``submit`` and adapter-management errors (the port serves no
+        mesh: ``mesh=off``)."""
+        return (f"precision={self.precision}, "
+                f"speculation={self.speculation}, lora={self.lora}, "
+                f"paged={self.paged}, mesh=off")
+
+    def _submit_error(self, arg, value, why):
+        """The ``submit`` keyword error: names the argument and the
+        engine's capabilities."""
+        return TypeError(
+            f"submit() {arg}={value!r} not supported: {why} "
+            f"(engine capabilities: {self.capabilities()})")
+
+    def _no_bank(self, call, name):
+        return TypeError(
+            f"{call}({name!r}): this engine has no LoRA bank (constructed "
+            f"without lora_rank=) (engine capabilities: "
+            f"{self.capabilities()})")
+
+    # -- multi-tenant LoRA ------------------------------------------------
+    @property
+    def adapters(self):
+        """Sorted names of the loaded adapters (unload-pending ones,
+        pinned by in-flight requests, excluded: they already refuse new
+        requests)."""
+        with self._lora_lock:
+            return sorted(name for name, ad in self._lora_reg.items()
+                          if not ad.unloading)
+
+    def has_adapter(self, name) -> bool:
+        """Whether ``name`` is loaded and not unload-pending: one lookup
+        under the leaf lock."""
+        with self._lora_lock:
+            ad = self._lora_reg.get(name)
+            return ad is not None and not ad.unloading
+
+    def _lora_active_locked(self):
+        """Loaded adapters for the ``lora.active_adapters`` gauge,
+        unload-pending ones excluded (as :attr:`adapters`). Call under
+        ``_lora_lock``."""
+        return sum(1 for ad in self._lora_reg.values() if not ad.unloading)
+
+    def load_adapter(self, name, params, alpha=1.0):
+        """Load (or refresh) one tenant's LoRA adapter at a step
+        boundary: the factors are written into the model's banks in
+        place, so nothing is allocated. ``params`` is the flat
+        ``{"layers.<li>.<proj>.A"/".B": array}`` mapping of
+        ``GPTModel.set_adapter``. Refreshing a loaded name keeps its
+        bank slot; in-flight requests bound to it continue on the new
+        factors. Slots freed since the last load are zeroed first.
+        Returns self."""
+        if not self.lora_enabled:
+            raise self._no_bank("load_adapter", name)
+        if self._closed:
+            raise EngineClosedError("load_adapter on a closed engine")
+        t0 = telemetry.clock()
+        with self._gen_exclusive():
+            with self._lora_lock:
+                ad = self._lora_reg.get(name)
+                if ad is not None and ad.unloading:
+                    raise ValueError(
+                        f"adapter {name!r} is unloading (pinned by "
+                        f"in-flight requests); retry once they finish")
+                if ad is None and not self._lora_free:
+                    raise ValueError(
+                        f"adapter capacity exhausted: {self.max_adapters} "
+                        f"slots all hold live adapters "
+                        f"({sorted(self._lora_reg)!r}, unload-pending "
+                        f"included)")
+                idx = ad.idx if ad is not None else self._lora_free[0]
+                stale, self._lora_stale = self._lora_stale, set()
+            # model calls only under _gen_exclusive, never the leaf
+            # lock: the worker is between steps here. An evicted
+            # tenant's factors must not linger, and if the install below
+            # raises, slot idx must not keep them either.
+            for slot in stale:
+                self.model.clear_adapter(slot)
+            self.model.set_adapter(idx, params, alpha=alpha)
+            with self._lora_lock:
+                if self._lora_reg.get(name) is None:
+                    # a fresh load, or a refresh whose name an unload
+                    # completed (a pin drop takes only the leaf lock)
+                    # between the two sections: the factors are in idx,
+                    # so register them
+                    self._lora_free.remove(idx)
+                    self._lora_reg[name] = _Adapter(name, idx)
+                # the slot holds a live install: an eviction in the
+                # window above must not leave it marked for zeroing
+                self._lora_stale.discard(idx)
+                n_active = self._lora_active_locked()
+        telemetry.hist_since("serving.generate.lora.load", t0)
+        telemetry.counter("serving.generate.lora.adapters_loaded")
+        telemetry.gauge("serving.generate.lora.active_adapters", n_active)
+        return self
+
+    def _release_adapter_locked(self, ad):
+        """Free ``ad``'s bank slot (zeroed at the next load). Call under
+        ``_lora_lock``."""
+        del self._lora_reg[ad.name]
+        self._lora_free.append(ad.idx)
+        self._lora_free.sort()
+        self._lora_stale.add(ad.idx)
+
+    def unload_adapter(self, name) -> bool:
+        """Unload an adapter. True when its bank slot was freed at once;
+        False when in-flight requests still pin it: the unload is
+        deferred — the name refuses new requests now, and the slot frees
+        when the last pinned request finishes
+        (``lora.adapters_evicted`` counts the eviction either way)."""
+        if not self.lora_enabled:
+            raise self._no_bank("unload_adapter", name)
+        with self._lora_lock:
+            ad = self._lora_reg.get(name)
+            if ad is None:
+                raise ValueError(f"unknown adapter {name!r} (loaded: "
+                                 f"{sorted(self._lora_reg)!r})")
+            deferred = ad.refs > 0
+            if deferred:
+                ad.unloading = True
+            else:
+                self._release_adapter_locked(ad)
+            n_active = self._lora_active_locked()
+        telemetry.gauge("serving.generate.lora.active_adapters", n_active)
+        if deferred:
+            return False
+        telemetry.counter("serving.generate.lora.adapters_evicted")
+        return True
+
+    def _pin_adapter(self, name):
+        """Resolve a ``submit(adapter=)`` name to its bank slot and pin
+        it: an unload while the request runs is deferred, never a
+        tenant swapped mid-stream."""
+        with self._lora_lock:
+            ad = self._lora_reg.get(name)
+            if ad is None or ad.unloading:
+                loaded = sorted(n for n, a in self._lora_reg.items()
+                                if not a.unloading)
+                raise ValueError(
+                    f"submit() adapter={name!r} is not loaded on this "
+                    f"engine (loaded adapters: {loaded!r}; engine "
+                    f"capabilities: {self.capabilities()})")
+            ad.refs += 1
+            return ad.idx
+
+    def _unpin_adapter(self, name):
+        """Drop one request's pin; completes a deferred unload when the
+        last pin goes (a stream-finish callback: leaf lock only)."""
+        with self._lora_lock:
+            ad = self._lora_reg.get(name)
+            if ad is None:
+                return
+            ad.refs -= 1
+            evicted = ad.refs <= 0 and ad.unloading
+            if evicted:
+                self._release_adapter_locked(ad)
+                n_active = self._lora_active_locked()
+        if evicted:
+            telemetry.counter("serving.generate.lora.adapters_evicted")
+            telemetry.gauge("serving.generate.lora.active_adapters",
+                            n_active)
+
+    def _akw(self, idx):
+        """The ``adapters=`` keyword of a model call, on a LoRA engine
+        only (other decoders need not take it)."""
+        return {"adapters": idx} if self.lora_enabled else {}
+
     def load_weights(self, source, strict: bool = True):
         """Weight rollover: install new parameter values into the live
         model while traffic runs.
@@ -1062,7 +1341,10 @@ class GenerationEngine:
         ``top_p`` / ``seed`` are then ignored). ``seed`` seeds the
         request's own generator: the same seed gives the same tokens on
         the same device and engine configuration; without one a fresh
-        seed is drawn. ``trace`` arms per-request tracing
+        seed is drawn. ``adapter`` names a loaded LoRA adapter
+        (``load_adapter``) the request decodes under; it stays pinned
+        (an unload defers) until the request finishes. Default: the
+        base model. ``trace`` arms per-request tracing
         (``True``/``False``/``None`` = the module flag, or a
         ``tracing.Trace`` to thread through)."""
         if self._failure is not None:
@@ -1076,12 +1358,18 @@ class GenerationEngine:
                                               eos_id)
         temp, tk, tp, seed = self._validate_sampling(temperature, top_k,
                                                      top_p, seed)
-        if adapter is not None:
-            raise not_ported("adapter=", "11 (batched LoRA)")
+        if adapter is not None and not self.lora_enabled:
+            raise self._submit_error(
+                "adapter", adapter, "this engine has no LoRA bank "
+                "(constructed without lora_rank=)")
         if temp > 0:
             telemetry.counter("serving.generate.sampling.requests")
             if seed is None:
                 seed = int.from_bytes(os.urandom(4), "little")
+        aidx = 0
+        if adapter is not None:
+            aidx = self._pin_adapter(adapter)   # raises on an unknown name
+            telemetry.counter("serving.generate.lora.requests")
         telemetry.counter("serving.generate.requests")
         stream = GenerationStream(int(prompt.size))
         tr = tracing.start_trace(trace)
@@ -1089,11 +1377,13 @@ class GenerationEngine:
             stream._trace = tr
             tr.event("submit", prompt_len=int(prompt.size),
                      max_new=max_new)
+        if adapter is not None:
+            stream._on_finish(lambda: self._unpin_adapter(adapter))
         tmo = self.timeout_ms if timeout_ms is None else timeout_ms
         now = time.monotonic()
         req = _GenRequest(prompt, max_new, eos, stream, telemetry.clock(),
                           now, now + tmo / 1e3 if tmo is not None else None,
-                          (temp, tk, tp, seed))
+                          (temp, tk, tp, seed), aidx)
         if self._sync:  # MXTPU_SERVING=0: inline generation
             with self._gen_lock:
                 self._admit_one(req)
@@ -1112,6 +1402,10 @@ class GenerationEngine:
             self._worker._queue.put_nowait(req)
         except queue.Full:
             telemetry.counter("serving.generate.rejected_full")
+            # the stream never reaches the engine and never finishes:
+            # drop the pin here
+            if adapter is not None:
+                self._unpin_adapter(adapter)
             raise QueueFullError(
                 f"request queue at queue_limit={self.queue_limit}") \
                 from None
@@ -1215,11 +1509,13 @@ class GenerationEngine:
         sb = self.policy.bucket(n)
         padded = onp.zeros((1, sb), "i4")
         padded[0, :n] = r.prompt
+        self._adapter_idx[slot] = r.adapter_idx
         pt0 = time.perf_counter() if tr is not None else 0.0
         t0 = telemetry.clock()
         logits, self._cache = self.model.prefill(
             padded, onp.asarray([n], "i4"), self._cache,
-            slots=onp.asarray([slot], "i4"))
+            slots=onp.asarray([slot], "i4"),
+            **self._akw(self._adapter_idx[slot:slot + 1]))
         if self.speculative:
             # the draft mirrors the target's committed prefix from the
             # slot's first moment
@@ -1259,11 +1555,14 @@ class GenerationEngine:
             self._gens[slot] = torch.Generator(
                 device=self.device).manual_seed(seed)
 
-    def _disarm_sampling(self, slot: int):
+    def _disarm_slot(self, slot: int):
+        """Reset a freed slot's per-slot state: its sampling knobs, and
+        its adapter index (a freed row decodes as base)."""
         if self._temps[slot] > 0:
             self._n_sampling -= 1
         self._temps[slot], self._topks[slot], self._topps[slot] = 0, 0, 1
         self._gens[slot] = None
+        self._adapter_idx[slot] = 0
 
     def _draft_prefill(self, slot: int, prompt):
         """The draft's dense prefill of ``prompt`` into its row ``slot``,
@@ -1331,7 +1630,11 @@ class GenerationEngine:
         ps = self._ps
         cap_pages = -(-min(length + r.max_new, self._s_cap) // ps)
         shared_pages, shared_tokens = [], 0
-        if self._prefix is not None:
+        if self._prefix is not None and r.adapter_idx == 0:
+            # prefix reuse is base-model only: cached pages hold the K/V
+            # of the projections that prefilled them, and an adapter
+            # changes q/k/v; adapted requests always prefill fresh and
+            # never publish (_register_prefix)
             shared_pages, shared_tokens = self._prefix.match(r.prompt)
         peek = shared_tokens == length
         first_write = (length if peek else shared_tokens) // ps
@@ -1375,7 +1678,8 @@ class GenerationEngine:
         s = _PagedSlot(r.stream, r.max_new, r.eos_id, r.deadline,
                        n_ctx=length, row=row, page_refs=refs,
                        prompt=r.prompt, seq=self._seq, t_submit=r.t_submit,
-                       sampling=r.sampling)
+                       sampling=r.sampling, adapter_idx=r.adapter_idx)
+        self._adapter_idx[slot] = r.adapter_idx
         if self.speculative:
             # the draft (no pages, no prefix cache) prefills the whole
             # prompt when the slot enters decode, prefix hit or not
@@ -1397,8 +1701,9 @@ class GenerationEngine:
             t0 = telemetry.clock()
             self._cache = self.model.bind_slot_paged(slot, row, length,
                                                      self._cache)
-            logits = self.model.peek_logits_paged(int(r.prompt[-1]), slot,
-                                                  self._cache)
+            logits = self.model.peek_logits_paged(
+                int(r.prompt[-1]), slot, self._cache,
+                **self._akw(self._adapter_idx[slot:slot + 1]))
             self._register_prefix(s)
             self._first_token(slot, s, logits)   # the admission's sync
             telemetry.hist_since("serving.generate.prefill", t0)
@@ -1433,7 +1738,8 @@ class GenerationEngine:
         index-retained tail page becomes shared — arm a COW so the
         slot's first decode write copies it instead of corrupting the
         cached prefix."""
-        if self._prefix is None or s.prompt is None:
+        if self._prefix is None or s.prompt is None \
+                or s.adapter_idx != 0:   # adapted K/V never publishes
             return
         length = int(s.prompt.size)
         needs_cow = (length % self._ps != 0 and s.cow_pending is None
@@ -1502,7 +1808,7 @@ class GenerationEngine:
         t0 = telemetry.clock()
         logits, self._cache = self.model.prefill_paged(
             toks, n_valid, best, s.row, self._cache, start=start,
-            fresh=fresh)
+            fresh=fresh, **self._akw(self._adapter_idx[best:best + 1]))
         telemetry.counter("serving.generate.prefill_chunks")
         self._chunks_this_iter += 1
         if not s.chunks:
@@ -1592,11 +1898,13 @@ class GenerationEngine:
             active[i] = 1
         tt0 = self._span_start(idxs)
         t0 = telemetry.clock()
+        akw = self._akw(self._adapter_idx)
         if self.paged:
             logits, self._cache = self.model.decode_step_paged(
-                toks, active, self._cache)
+                toks, active, self._cache, **akw)
         else:
-            logits, self._cache = self.model.decode_step(toks, self._cache)
+            logits, self._cache = self.model.decode_step(toks, self._cache,
+                                                         **akw)
         step_toks = self._pick_step_tokens(logits)
         telemetry.hist_since("serving.generate.decode", t0)
         self._tick_counters(1, 1)
@@ -1630,7 +1938,8 @@ class GenerationEngine:
             else self.model.decode_multi
         tok_blk, emit_blk, _, self._cache = fn(
             toks, budgets, self._cache, k, self._gens, self._temps,
-            self._topks, self._topps, eos_ids)
+            self._topks, self._topps, eos_ids,
+            **self._akw(self._adapter_idx))
         blk = torch.cat((tok_blk, emit_blk.to(torch.int32)), dim=1) \
             .cpu().numpy()   # the tick's one sync
         telemetry.hist_since("serving.generate.decode", t0)
@@ -1677,6 +1986,10 @@ class GenerationEngine:
         t0 = telemetry.clock()
         verify = self.model.verify_commit_paged if self.paged \
             else self.model.verify_commit
+        # the draft proposes as the base model; the target verifies
+        # each row under its adapter, so every committed token is the
+        # adapted model's own
+        akw = self._akw(self._adapter_idx)
         if self._n_sampling:
             knobs = dict(temps=self._temps, top_ks=self._topks,
                          top_ps=self._topps)
@@ -1684,12 +1997,12 @@ class GenerationEngine:
                 toks, self._draft_cache, k, generators=self._gens, **knobs)
             commit, n_commit, _, self._cache = verify(
                 toks, dt, active, self._cache, q=q, generators=self._gens,
-                **knobs)
+                **knobs, **akw)
         else:
             dt, self._draft_cache = self.draft.propose_tokens(
                 toks, self._draft_cache, k)
             commit, n_commit, self._cache = verify(toks, dt, active,
-                                                   self._cache)
+                                                   self._cache, **akw)
         blk = torch.cat((commit, n_commit[:, None]), dim=1).cpu().numpy()
         telemetry.hist_since("serving.generate.decode", t0)
         ddelta = onp.full((b,), -k, "i4")
@@ -1774,7 +2087,7 @@ class GenerationEngine:
     def _free_slot(self, slot: int):
         self._release_slot_refs(self._slots[slot])
         self._slots[slot] = None
-        self._disarm_sampling(slot)
+        self._disarm_slot(slot)
         self._n_active -= 1
         telemetry.counter("serving.generate.evictions")
         telemetry.gauge("serving.generate.slots", self._n_active)
@@ -1819,7 +2132,7 @@ class GenerationEngine:
                     s.stream._finish(reason=reason)
                 self._release_slot_refs(s)
                 self._slots[i] = None
-                self._disarm_sampling(i)
+                self._disarm_slot(i)
         self._n_active = 0
         self._teardown_paged(EngineClosedError(
             "engine closed while the request awaited KV pages"))
@@ -1854,7 +2167,7 @@ class GenerationEngine:
                 s.stream._finish(exc=failure)
                 self._release_slot_refs(s)
                 self._slots[i] = None
-                self._disarm_sampling(i)
+                self._disarm_slot(i)
         self._n_active = 0
         self._teardown_paged(failure)
         if self._worker is not None:

@@ -345,8 +345,6 @@ def test_kv_dtype_validation(net):
 
 
 UNPORTED = [
-    ("cache_dtype_fp16", dict(cache_dtype="float16"), "10"),
-    ("lora_rank", dict(lora_rank=4), "11"),
     ("mesh_layout", dict(mesh_layout="tp"), "20"),
 ]
 
@@ -358,12 +356,36 @@ def test_unported_modes_raise(net, kw, item):
         _engine(net, **kw)
 
 
+#: the modes that the refusals above used to name (ROADMAP items 10 and
+#: 11): each engine now builds and serves
+PORTED_MODES = [
+    ("cache_dtype_fp16", dict(cache_dtype="float16"), torch.float16),
+    ("lora_rank", dict(lora_rank=4), torch.float32),
+]
+
+
+@pytest.mark.parametrize("kw,cache_dt", [m[1:] for m in PORTED_MODES],
+                         ids=[m[0] for m in PORTED_MODES])
+def test_formerly_unported_modes_serve(kw, cache_dt):
+    eng = GenerationEngine(
+        tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=1,
+                       num_heads=4, max_length=SMAX,
+                       device="cpu").initialize(5),
+        max_slots=2, max_length=SMAX, max_new_tokens=3, device="cpu", **kw)
+    assert eng._cache["k"][0].dtype == cache_dt
+    assert eng.lora == ("rank=4:max=8" if "lora_rank" in kw else "off")
+    r = eng.generate(_prompt(onp.random.RandomState(14), 4), timeout=60)
+    assert len(r.tokens) == 3
+    eng.close()
+
+
 def test_unported_request_options_raise(net):
-    """``adapter=`` (batched LoRA) is still a later slice; sampling is
-    ported, with the reference's validation."""
+    """``adapter=`` on an engine without a LoRA bank is the reference's
+    TypeError naming the argument and the engine's capabilities;
+    sampling is ported, with the reference's validation."""
     eng = _engine(net, max_slots=2, max_new_tokens=2)
     p = _prompt(onp.random.RandomState(13), 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="adapter=.*lora=off"):
         eng.submit(p, adapter="tenant")
     for bad in (dict(temperature=-1.0), dict(temperature=float("nan")),
                 dict(top_k=-1), dict(top_p=0.0), dict(top_p=1.5)):

@@ -169,14 +169,21 @@ def test_cache_validation_and_unported_modes(pair):
     bf16 = tnet.init_cache(2, 16, dtype="bfloat16")
     assert bf16["k"][1].dtype == bf16["v"][0].dtype == torch.bfloat16
     assert "k_scale" not in bf16
-    # float16 needs float16 kernel instances: a later part of item 10
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tnet.init_cache(2, 16, dtype="float16")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tgpt.GPTModel(VOCAB, units=32, num_layers=1, num_heads=4,
-                      dtype="float16", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tnet.cast_compute_params("float16")
+    # float16 (ROADMAP item 10b): the cache, the model and the compute
+    # copies, as the reference's model takes them
+    f16 = tnet.init_cache(2, 16, dtype="float16")
+    assert f16["k"][1].dtype == f16["v"][0].dtype == torch.float16
+    m16 = tgpt.GPTModel(VOCAB, units=32, num_layers=1, num_heads=4,
+                        dtype="float16", device="cpu")
+    assert m16.layers[0].q_proj.weight.dtype == torch.float16
+    assert m16.ln_f.gamma.dtype == torch.float32   # LayerNorms stay fp32
+    assert m16.init_cache(1, 8)["k"][0].dtype == torch.float16
+    tnet.cast_compute_params("float16")
+    try:
+        assert tnet.compute_dtype == "float16"
+    finally:
+        tnet.cast_compute_params(None)
+    assert tnet.compute_dtype == "float32"
     with pytest.raises(ValueError, match="not supported"):
         tnet.cast_compute_params("int8")
 

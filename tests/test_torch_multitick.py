@@ -15,8 +15,9 @@ multi-tick decode and an int8 KV cache. ``decode_multi`` and
 weights and caches: the same tokens and emission masks, greedy, with
 eos and budgets landing mid-tick.
 
-Three cases of the JAX file wait for later items of ROADMAP.md queue 1:
-``test_multitick_greedy_parity_lora`` (batched LoRA, item 11),
+``test_multitick_greedy_parity_lora`` (batched LoRA) also holds the
+streams to the JAX engine's. Two cases of the JAX file wait for later
+items of ROADMAP.md queue 1:
 ``test_trainstep_bf16_fp32_masters_and_bounded_loss`` (``TrainStep``,
 item 12) and ``test_overlap_gather_barrier_chain`` (``TrainStep``'s
 ``tp_fsdp`` layout, item 20).
@@ -188,6 +189,45 @@ def test_multitick_greedy_parity_int8(bf16):
         kw["compute_dtype"] = "bfloat16"
     assert _serve(prompts, budgets, _net(), decode_ticks=4, **kw) == \
         _serve(prompts, budgets, _net(), **kw)
+
+
+def test_multitick_greedy_parity_lora():
+    """Batched LoRA: the per-slot adapter indices ride the k-step call
+    unchanged, and base and adapted co-tenants stay row-independent:
+    decode_ticks=4 equals k = 1, and both equal the JAX engine's
+    streams on the same weights and adapter."""
+    from mxnet_tpu.serving import GenerationEngine as JaxEngine
+    rank = 2
+    rng = onp.random.RandomState(11)
+    adapter = {}
+    for li in range(LAYERS):
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            adapter[f"layers.{li}.{proj}.A"] = \
+                (rng.randn(UNITS, rank) * 0.4).astype("f4")
+            adapter[f"layers.{li}.{proj}.B"] = \
+                (rng.randn(rank, UNITS) * 0.4).astype("f4")
+    prompts, budgets = _corpus(seed=13, n=6)
+    ads = [None, "t", None, "t", "t", None]
+    jnet, tnet = _jax_pair()
+    params = {k: p.data().numpy() for k, p in tnet.collect_params().items()}
+
+    def run(k, jax=False):
+        if jax:
+            eng = JaxEngine(jnet, max_slots=SLOTS, max_length=SMAX,
+                            max_new_tokens=16, lora_rank=rank,
+                            max_adapters=3)
+        else:
+            eng = _engine(tgpt.load_jax_params(_bare(), params),
+                          lora_rank=rank, max_adapters=3, decode_ticks=k)
+        eng.load_adapter("t", adapter)
+        eng.warmup()
+        streams = [eng.submit(p, max_new_tokens=b, adapter=a)
+                   for p, b, a in zip(prompts, budgets, ads)]
+        out = [s.result(timeout=120).tokens for s in streams]
+        eng.close()
+        return out
+
+    assert run(4) == run(1) == run(1, jax=True)
 
 
 def test_multitick_sampled_bitwise_reproducible_across_k():

@@ -480,3 +480,31 @@ def test_waitall_and_engine():
             pass
     with pytest.raises(NotImplementedError, match="item 18"):
         tmx.nd.save("f", {})
+
+
+#: ROADMAP queue 3, F3: negative-step slices of every dtype, read and
+#: written (uint16/uint32 move through a signed view of their width)
+F3_DT = ["bool", "uint8", "uint16", "uint32", "int8", "int16", "int32",
+         "float16", "float32"]
+
+
+def _moved(dt):
+    a = onp.random.RandomState(30).randint(0, 100, (3, 4)).astype(dt)
+    if dt in ("uint16", "uint32"):
+        a[2, 1] = onp.iinfo(dt).max
+    return a
+
+
+@pytest.mark.parametrize("dt", F3_DT)
+@pytest.mark.parametrize("key", [slice(None, None, -1),
+                                 (slice(None, None, -2), slice(1, None)),
+                                 (Ellipsis, slice(3, 0, -2))],
+                         ids=["rev", "rev2", "ell"])
+def test_negative_step_every_dtype(dt, key):
+    a = _moved(dt)
+    _same(tmx.np.array(a)[key], jmx.np.array(a)[key])
+    t, j = tmx.np.array(a), jmx.np.array(a)
+    val = onp.flip(a[key], 0).copy()
+    t[key] = val
+    j[key] = val
+    _same(t, j)

@@ -625,3 +625,162 @@ def test_random_state_snapshot_restores_the_stream():
         onp.testing.assert_array_equal(
             tmx.npx.dropout(tmx.np.ones((50,)), p=0.5).asnumpy(), m)
     assert snap[0] == 5
+
+
+# -- ROADMAP queue 3, F1-F4: each case crossed over these dtypes ----------
+ALL_DT = ["bool", "uint8", "uint16", "uint32", "int8", "int16", "int32",
+          "float16", "float32"]
+
+
+def _tied(dt, seed=20):
+    """numpy-seeded (3, 5) ``dt`` values drawn from 0..3, so that every
+    row holds ties."""
+    return onp.random.RandomState(seed).randint(0, 4, (3, 5)).astype(dt)
+
+
+@pytest.mark.parametrize("dt", ["int32", "float32"])
+def test_topk_tie_keeps_lower_index(dt):
+    """F1: the row [5, 5, 0, 5] with k = 2 gives indices [0, 1], the
+    reference's ``top_k`` order (torch.topk gave [1, 3])."""
+    a = onp.array([5, 5, 0, 5], dt)
+    t = tmx.npx.topk(tmx.np.array(a), k=2, ret_typ="indices", dtype="int32")
+    assert t.asnumpy().tolist() == [0, 1]
+    _same(t, jmx.npx.topk(jmx.np.array(a), k=2, ret_typ="indices",
+                          dtype="int32"), EW)
+
+
+TIE_TOPK = [
+    {"k": 3, "ret_typ": "indices"}, {"k": 3, "ret_typ": "both"},
+    {"k": 2, "ret_typ": "mask"}, {"k": 2, "axis": 0, "ret_typ": "indices"},
+    {"k": 4, "ret_typ": "value"},
+    {"k": 3, "ret_typ": "indices", "is_ascend": True},
+]
+
+
+@pytest.mark.parametrize("dt", ALL_DT)
+@pytest.mark.parametrize("kw", TIE_TOPK,
+                         ids=[f"{c['ret_typ']}-{i}"
+                              for i, c in enumerate(TIE_TOPK)])
+def test_topk_ties(kw, dt):
+    """F1 over every dtype: a stable descending sort ranks ties by
+    index, as the reference does, for indices, both and the mask."""
+    a = _tied(dt)
+    _same(tmx.npx.topk(tmx.np.array(a), **kw),
+          jmx.npx.topk(jmx.np.array(a), **kw), EW)
+
+
+#: F2's examples (ROADMAP queue 3): a reduction under an integer or bool
+#: ``dtype=`` returns that dtype and wraps as the reference's does
+REDUCE_DTYPE = [
+    ("sum", onp.array([100] * 4, "i4"), {"dtype": "int8"}),        # -112
+    ("prod", onp.array([7] * 3, "i4"), {"dtype": "int8"}),         # 87
+    ("mean", onp.array([1, 2, 2, 2], "i4"), {"dtype": "int8"}),    # 1
+    ("mean", onp.array([-1, -2, -2, -2], "i4"), {"dtype": "int8"}),
+    ("mean", onp.array([200, 200, 2, 2], "i4"), {"dtype": "uint8"}),
+    ("sum", onp.array([1, 2, 2, 2], "i4"), {"dtype": "bool"}),     # True
+    ("prod", onp.array([1, 2, 0, 2], "i4"), {"dtype": "bool"}),
+    ("sum", onp.array([[100] * 3, [1, 2, 3]], "i4"),
+     {"axis": 1, "dtype": "int8"}),                                # [44, 6]
+    ("sum", onp.array([[100] * 3, [1, 2, 3]], "i4"),
+     {"axis": 1, "dtype": "int8", "keepdims": True}),
+    ("prod", onp.array([[7] * 3, [1, 2, 3]], "i4"),
+     {"axis": 0, "dtype": "int16"}),
+    ("mean", onp.array([[100] * 3, [1, 2, 3]], "i4"),
+     {"axis": 1, "dtype": "int8"}),
+    ("sum", onp.array([40000, 40000], "i4"), {"dtype": "uint16"}),
+    ("sum", onp.array([3, 4], "i4"), {"axis": (), "dtype": "int8"}),
+]
+
+
+@pytest.mark.parametrize("fn,a,kw", REDUCE_DTYPE,
+                         ids=[f"{c[0]}-{i}" for i, c in
+                              enumerate(REDUCE_DTYPE)])
+def test_reduction_integer_dtype_examples(fn, a, kw):
+    _same(_run(tmx, fn, (a,), kw), _run(jmx, fn, (a,), kw), RED)
+
+
+@pytest.mark.parametrize("src", ALL_DT)
+@pytest.mark.parametrize("fn,dt", [
+    ("sum", "int8"), ("sum", "uint8"), ("sum", "bool"), ("sum", "int16"),
+    ("sum", "uint32"), ("prod", "int8"), ("prod", "uint16"),
+    ("prod", "int32"), ("mean", "int8"), ("mean", "uint8"),
+    ("mean", "int32")])
+def test_reduction_integer_dtype(fn, dt, src):
+    """F2 over every input dtype: the input cast to ``dtype``, reduced in
+    it (sums and products wrap; a mean is the wrapped sum over the
+    count, truncated). A bool mean raises in the reference and is not
+    asked for."""
+    a = onp.random.RandomState(21).randint(0, 90, (3, 4)).astype(src)
+    for axis in (None, 1):
+        kw = {"dtype": dt, "axis": axis}
+        _same(_run(tmx, fn, (a,), kw), _run(jmx, fn, (a,), kw), RED)
+
+
+#: F3: data movement of every dtype (uint16/uint32 go through a signed
+#: view of their width, bit for bit)
+def _moved(dt, seed=22):
+    a = onp.random.RandomState(seed).randint(0, 100, (3, 4)).astype(dt)
+    if dt in ("uint16", "uint32"):
+        a[1, 2] = onp.iinfo(dt).max
+    return a
+
+
+@pytest.mark.parametrize("dt", ALL_DT)
+@pytest.mark.parametrize("axis", [None, 0, (0, 1)])
+def test_flip_every_dtype(dt, axis):
+    a = _moved(dt)
+    _same(tmx.np.flip(tmx.np.array(a), axis=axis),
+          jmx.np.flip(jmx.np.array(a), axis=axis), EW)
+
+
+@pytest.mark.parametrize("dt", ALL_DT)
+@pytest.mark.parametrize("mode", ["clip", "wrap"])
+def test_pick_every_dtype(dt, mode):
+    """In-range indices only: the reference's ``pick`` ignores ``mode``
+    past the axis (ROADMAP "not queued")."""
+    a, idx = _moved(dt), onp.array([3, 0, 2], "i4")
+    kw = {"axis": 1, "mode": mode}
+    _same(tmx.npx.pick(tmx.np.array(a), tmx.np.array(idx), **kw),
+          jmx.npx.pick(jmx.np.array(a), jmx.np.array(idx), **kw), EW)
+
+
+@pytest.mark.parametrize("dt", ALL_DT)
+@pytest.mark.parametrize("k", [0, 1, -2])
+def test_eye_every_dtype(dt, k):
+    _same(tmx.np.eye(3, 4, k=k, dtype=dt), jmx.np.eye(3, 4, k=k, dtype=dt),
+          EW)
+
+
+#: F4: operands of two dtypes, one of them uint16/uint32, which torch
+#: does not promote: every operand is cast to the reference's type first
+def _pairs():
+    return [(w, o) for w in ("uint16", "uint32") for o in ALL_DT]
+
+
+@pytest.mark.parametrize("w,o", _pairs(), ids=[f"{w}-{o}" for w, o in
+                                                _pairs()])
+@pytest.mark.parametrize("fn", ["concatenate", "stack", "where"])
+def test_wide_unsigned_promotion(fn, w, o):
+    a, b = _moved(w), _moved(o, seed=23)
+    cond = onp.random.RandomState(24).randint(0, 2, (3, 4)).astype(bool)
+
+    def run(pkg):
+        x, y = pkg.np.array(a), pkg.np.array(b)
+        if fn == "where":
+            return pkg.np.where(pkg.np.array(cond), x, y)
+        return getattr(pkg.np, fn)([x, y, x], axis=1)
+    _same(run(tmx), run(jmx), EW)
+
+
+@pytest.mark.parametrize("w", ["uint16", "uint32"])
+def test_wide_unsigned_promotion_scalars(w):
+    """A Python float beside a wide unsigned array gives the default
+    float; a Python int takes the array's type; three operands promote
+    in turn (uint16, uint8, bool -> uint16)."""
+    a, cond = _moved(w), onp.array([[True, False] * 2] * 3)
+    for y in (1.5, 7):
+        _same(tmx.np.where(tmx.np.array(cond), tmx.np.array(a), y),
+              jmx.np.where(jmx.np.array(cond), jmx.np.array(a), y), EW)
+    parts = (a, _moved("uint8"), _moved("bool"))
+    _same(tmx.np.concatenate([tmx.np.array(p) for p in parts]),
+          jmx.np.concatenate([jmx.np.array(p) for p in parts]), EW)

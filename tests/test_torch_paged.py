@@ -230,8 +230,8 @@ def test_paged_cache_validation(net):
         [(N_PAGES, HEADS)] * 2
     bf16 = net.init_paged_cache(SLOTS, N_PAGES, PS, SMAX, dtype="bfloat16")
     assert bf16["k"][0].dtype == bf16["v"][1].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 10"):
-        net.init_paged_cache(SLOTS, N_PAGES, PS, SMAX, dtype="float16")
+    f16 = net.init_paged_cache(SLOTS, N_PAGES, PS, SMAX, dtype="float16")
+    assert f16["k"][1].dtype == f16["v"][0].dtype == torch.float16
     cache = net.init_paged_cache(SLOTS, N_PAGES, PS, SMAX)
     row = onp.zeros(P_MAX, "i4")
     with pytest.raises(ValueError, match="multiple of page_size"):

@@ -556,10 +556,8 @@ def test_spec_validation(target, draft):
     with pytest.raises(ValueError, match="margin"):
         GenerationEngine(tnet, draft_model=dnet, spec_k=7, max_length=8,
                          device="cpu")
-    for bad, item in ((dict(lora_rank=4), "11"),
-                      (dict(mesh_layout="tp"), "20")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            GenerationEngine(tnet, draft_model=dnet, **bad, **kw)
+    with pytest.raises(NotImplementedError, match="item 20"):
+        GenerationEngine(tnet, draft_model=dnet, mesh_layout="tp", **kw)
     assert GenerationEngine(tnet, **kw).speculation == "off"
 
 
