@@ -24,8 +24,13 @@ phases on 16-bit inputs; K2 and K3 with a 16-bit and an fp32 q over
 runtime-compiled user kernels: one ``rtc.CudaModule`` compiled by NVRTC
 for sm_90a (the JAX rtc tests' kernels, the example's ``scale2`` and a
 shared-memory ``row_softmax``), each held against its plain torch
-version. Then it drives the imperative front end and serves generation
-at GPT-2-small widths through ``GenerationEngine``:
+version, and K1-bwd, the flash attention backward (its dq and its
+dk/dv launch, fp32, bf16 and float16: causal and not, 512 and 1024
+tokens, head dims 16 and 128, kv_len below the key buffer and below the
+query length, finite garbage past kv_len, the head split's strided views
+and a transposed dO), held against its plain version with dk and dv
+exactly 0 past kv_len. Then it drives the imperative front end and
+serves generation at GPT-2-small widths through ``GenerationEngine``:
 
 - ``custom_op``: the flow of ``examples/custom_op.py`` on the card
   (a CustomOp through ``npx.custom``, an ``autograd.Function``,
@@ -78,8 +83,15 @@ at GPT-2-small widths through ``GenerationEngine``:
   ``cache_dtype="float16"``, each against fp32 by the bf16 contract;
 
 and holds the engines' tokens and logits against the same weights (and
-int8 tables) run on the CPU. Every phase prints one JSON line; any
-failure raises (exit code != 0) and no result line is printed. The line
+int8 tables) run on the CPU. Last, ``train`` drives the training path:
+``parallel.TrainStep`` on GPT-2 small, one seeded batch of 8 x 1024
+tokens, 10 fp32 Adam steps, 10 at ``compute_dtype="bfloat16"`` and 3 on
+a float16 model with fp32 masters, each with 12 K1 launches and 12 of
+each K1-bwd launch a step, every parameter and state on the card; before
+them the card's first two fp32 steps on a 2 x 128 batch against the CPU
+port's, and after the fp32 and bf16 legs a profile of 3 steps. Every
+phase prints one JSON line; any failure raises (exit code != 0) and no
+result line is printed. The line
 before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -113,6 +125,14 @@ Tolerances, with their reasons:
   gap is below 2e-3). The int8 engines are held to the same weights AND
   the same int8 tables on the CPU, through the generation calls (the
   plain ``forward`` stays fp32, as in the reference);
+- K1-bwd vs its plain version on the same card inputs: fp32 within
+  1e-4 x max(1, max|ref|) (sums of up to 1024 products in another order);
+  bf16 and float16 within two steps of their type, 2 x 2^-8 and
+  2 x 2^-10 x max(1, max|ref|), of the plain version on the widened
+  inputs rounded to the type (BWD_TOL);
+- training, card vs the CPU port (fp32, the same weights): losses within
+  1e-4 relative, step-one gradients within 1e-3 x max|g| per tensor;
+  bf16 losses within the reference's 0.15 of fp32's, and falling;
 - the int8-KV engine: the reference's int8-KV gate (``bench.py
   --quant``), int8 KV against an fp32 KV with per-step logits within 0.6
   (the agreement of the two is reported; see
@@ -127,6 +147,7 @@ check of a kernel change) and prints no result line either.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -147,6 +168,9 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 
 OUT_TOL = 2e-5
+#: the train phase's attention, as ``_split_view`` takes it: batch 8 of
+#: 1024 tokens, GPT-2 small's 12 heads of 64
+TRAIN_SHAPE = (8, 1024, 12, 64)
 LSE_TOL = 1e-4
 LOGIT_TOL = 1e-3
 AGREE_MIN = 0.99
@@ -327,6 +351,9 @@ def phase_flash(torch, timer):
     q, k, v = (_split_view(torch, rng, b, sp, h, d) for _ in range(3))
     check(not q.is_contiguous(), "strided case is contiguous")
     compare(q, k, v, True, None, f"strided s={sp} causal")
+    qt, kt, vt = (_split_view(torch, rng, *TRAIN_SHAPE) for _ in range(3))
+    compare(qt, kt, vt, True, None, "train shape strided causal")
+    del qt, kt, vt
     emit("flash_attention_check", cases=cases)
     check(err_o <= OUT_TOL, f"K1 out max-abs-err {err_o} > {OUT_TOL}")
     check(err_l <= LSE_TOL, f"K1 lse max-abs-err {err_l} > {LSE_TOL}")
@@ -772,6 +799,10 @@ def phase_flash_half(torch, timer, tag):
                for _ in range(3))
     check(not q.is_contiguous(), "strided case is contiguous")
     compare(q, k, v, True, None, f"strided s={sp} causal")
+    qt, kt, vt = (_split_view(torch, rng, *TRAIN_SHAPE).to(dt)
+                  for _ in range(3))
+    compare(qt, kt, vt, True, None, "train shape strided causal")
+    del qt, kt, vt
     # a negative scale takes the kernel's other softmax path (scale, mask
     # to -1e30, re-mask after the exp)
     qn, kn2, vn2 = (_rand(torch, rng, b, 4, n, d).to(dt)
@@ -3205,6 +3236,400 @@ def phase_custom_op(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# K1-bwd: the flash attention backward
+# ---------------------------------------------------------------------------
+#: K1-bwd vs its plain version: fp32 within 1e-4 x max(1, max|ref|) (the
+#: kernel sums s, dp and the gradients in fp32 in another order than the
+#: plain version's blocked einsums: sums of up to 1024 terms of p * ds);
+#: a 16-bit instance within two steps of its type of the plain version
+#: run on the widened inputs and rounded to the type (both compute in
+#: fp32 from the same 16-bit values; two steps, as the gradient is
+#: rounded once and its fp32 value may sit a step away across a rounding
+#: boundary)
+BWD_TOL = {"": 1e-4, "bf16": 2 * BF16_ULP, "f16": 2 * F16_ULP}
+#: the train phase's attention as (B, H, S, D)
+BWD_SHAPE = tuple(TRAIN_SHAPE[i] for i in (0, 2, 1, 3))
+#: finite garbage for K and V past kv_len, by instance (the reference's
+#: own backward reads V there, and a NaN would poison its dq; the kernel
+#: never reads it). float16's is smaller: a causal row that sees no key
+#: takes the reference's mean of V over the whole buffer, whose float16
+#: sum must not overflow (its inf would give the reference's, and the
+#: kernel's, ds = 0 * inf = NaN for that row)
+BWD_GARBAGE = {"": (1e4, -3e4), "bf16": (1e4, -3e4), "f16": (1e2, -3e2)}
+
+
+def _bwd_work(b, h, sq, d, el, causal=True):
+    """(bytes, FLOP) of K1-bwd's dq and dkv launches at (b, h, sq, d),
+    keys = queries: each input read once and each output written once
+    (q, k, v, out, dO and dq; q, k, v, dO, dk and dv; lse and delta in
+    fp32), and per visible (query, key) pair s, dp and dq (6 d FLOP) or
+    s, dp, dv and dk (8 d), plus delta's 2 d per query row."""
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sq)
+    nbytes = 6 * b * h * sq * d * el + 2 * 4 * b * h * sq
+    return ((nbytes, pairs * 6 * d + 2 * d * b * h * sq),
+            (nbytes, pairs * 8 * d))
+
+
+def phase_flash_bwd(torch, timer, tag):
+    """K1-bwd's fp32 instance (``tag`` "") or its bf16 or float16 one,
+    both launches, against the plain version (``_flash_bwd``) on the card:
+    (1, 12, 512, 64) causal and not and (2, 12, 1024, 64) causal on the
+    head split's strided views, head dims 16 and 128, kv_len below the key
+    buffer (causal and not) and below the query length (the unseen rows),
+    finite garbage past kv_len, a transposed dO, and the train phase's
+    shape (BWD_SHAPE, causal, strided). dk and dv past kv_len must be
+    exactly 0. Then each launch is timed at BWD_SHAPE beside its plain
+    half, and the backward of ``scaled_dot_product_attention`` on the
+    same tensors (the work of both launches: ``pair_ms_device``, the sum
+    of the two launches' device ms, stands beside it)."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as at
+    dt = getattr(torch, HALF_TYPES[tag][0]) if tag else torch.float32
+    tol = BWD_TOL[tag]
+    sfx = f"_{tag}" if tag else ""
+    rng = np.random.RandomState(20)
+    cases, worst, worst_abs = [], 0.0, 0.0
+
+    def mk(b, h, s, d, strided=True):
+        x = _split_view(torch, rng, b, s, h, d) if strided \
+            else _rand(torch, rng, b, h, s, d)
+        return x.to(dt)
+
+    def compare(q, k, v, do, causal, kv_len, what):
+        nonlocal worst, worst_abs
+        out, lse = at.flash_attention_fwd(q, k, v, causal, None, kv_len)
+        got = at.flash_attention_bwd(q, k, v, out, lse, do, causal, None,
+                                     kv_len)
+        w = [t.float() for t in (q, k, v, out)]
+        ref = at._flash_bwd(*w, lse, do.float(), causal,
+                            1.0 / math.sqrt(q.shape[-1]), kv_len)
+        torch.cuda.synchronize()
+        kl = kv_len or k.shape[2]
+        errs = {}
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            check(g.dtype == dt, f"K1-bwd{sfx} {name} is {g.dtype}")
+            check(bool(torch.isfinite(g).all()),
+                  f"K1-bwd{sfx} non-finite {name} {what}")
+            r = r.to(dt).float()
+            e = float((g.float() - r).abs().max())
+            worst_abs = max(worst_abs, e)
+            errs[name] = e / max(1.0, float(r.abs().max()))
+        tail = all(bool((g[:, :, kl:] == 0).all()) for g in got[1:])
+        check(tail, f"K1-bwd{sfx} dk/dv past kv_len not 0 {what}")
+        cases.append({"case": what, **errs})
+        worst = max(worst, *errs.values())
+
+    b, h, d = 1, 12, 64
+    for causal in (True, False):
+        q, k, v, do = (mk(b, h, 512, d) for _ in range(4))
+        check(not q.is_contiguous(), "strided case is contiguous")
+        compare(q, k, v, do, causal, None, f"s=512 causal={causal} strided")
+    q, k, v, do = (mk(2, h, 1024, d) for _ in range(4))
+    compare(q, k, v, do, True, None, "b=2 s=1024 causal strided")
+    q, k, v, do = (mk(1, 4, 300, 16, strided=False) for _ in range(4))
+    compare(q, k, v, do, True, None, "head_dim=16 s=300 causal")
+    q, k, v, do = (mk(1, 4, 200, 128) for _ in range(4))
+    compare(q, k, v, do, False, None, "head_dim=128 s=200 strided")
+    for sq, sk, kvl, causal in ((256, 600, 500, False),
+                                (256, 600, 500, True),
+                                (300, 320, 200, True)):
+        q, do = mk(b, h, sq, d), mk(b, h, sq, d)
+        k, v = mk(b, h, sk, d), mk(b, h, sk, d)
+        k[:, :, kvl:], v[:, :, kvl:] = BWD_GARBAGE[tag]
+        compare(q, k, v, do, causal, kvl,
+                f"sq={sq} kv_len={kvl} of {sk} causal={causal} garbage")
+    q, k, v = (mk(b, h, 512, d) for _ in range(3))
+    do = _rand(torch, rng, b, h, d, 512).to(dt).transpose(2, 3)
+    compare(q, k, v, do, True, None, "transposed dO")
+    b, h, s, d = BWD_SHAPE
+    q, k, v, do = (mk(b, h, s, d) for _ in range(4))
+    compare(q, k, v, do, True, None, "train shape strided causal")
+    emit(f"flash_attention_bwd{sfx}_check", cases=cases, tol=tol)
+    check(worst <= tol, f"K1-bwd{sfx} off its plain version by {worst} "
+          f"(x max(1, max|ref|)) > {tol}")
+
+    # timing at the train phase's shape
+    sc = 1.0 / math.sqrt(d)
+    out, lse = at.flash_attention_fwd(q, k, v, True)
+    dq, delta = at._flash_bwd_launch("dq", q, k, v, out, lse, do, True, sc,
+                                     s)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib_ms, lib_dev = timer.both(lambda: torch.autograd.grad(
+        o_lib, (qs, ks, vs), do, retain_graph=True))
+    el = 4 if dt == torch.float32 else 2
+    res = {}
+    for kind, work, kern, plain in (
+            ("dq", _bwd_work(b, h, s, d, el)[0],
+             lambda: at._flash_bwd_launch("dq", q, k, v, out, lse, do, True,
+                                          sc, s),
+             lambda: at._flash_bwd_dq(q, k, v, out, lse, do, True, sc, s)),
+            ("dkv", _bwd_work(b, h, s, d, el)[1],
+             lambda: at._flash_bwd_launch("dkv", q, k, v, out, lse, do,
+                                          True, sc, s, delta),
+             lambda: at._flash_bwd_dkv(q, k, v, lse, do, delta, True, sc,
+                                       s))):
+        nbytes, flops = work
+        if dt == torch.float32:
+            # the fp32-accurate work on the tensor cores: 3xTF32, as K1's
+            # bound; the fp32 CUDA cores' figure beside it
+            bound_ms, bound_by = bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+            extra = {"bound_ms_fp32_cores": bound(nbytes, flops)[0],
+                     "bound_rule": "3 x FLOP at 495 TFLOP/s (3xTF32) vs "
+                                   "bytes at 3.35 TB/s"}
+        else:
+            bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+            extra = {"bound_rule": f"{tag} FLOP at 989 TFLOP/s vs bytes "
+                                   f"at 3.35 TB/s"}
+        k_ms, k_dev = timer.both(kern)
+        p_ms, p_dev = timer.both(plain)
+        res[kind] = {
+            "max_abs_err": worst_abs, "max_err_rel": worst, "tol": tol,
+            "kernel_ms": k_ms,
+            "kernel_ms_device": k_dev, "plain_ms": p_ms,
+            "plain_ms_device": p_dev, "library_ms": lib_ms,
+            "library_ms_device": lib_dev,
+            "library": "backward of scaled_dot_product_attention "
+                       "(causal) on the same tensors: dq, dk and dv, the "
+                       "work of both K1-bwd launches",
+            "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops,
+            "bytes": nbytes, "shape": list(BWD_SHAPE), "causal": True,
+            **extra}
+    for key in ("ms", "ms_device"):
+        pair = res["dq"][f"kernel_{key}"] + res["dkv"][f"kernel_{key}"]
+        for r in res.values():
+            r[f"pair_{key}"] = pair
+    emit(f"flash_attention_bwd{sfx}", **res)
+    return res["dq"], res["dkv"]
+
+
+# ---------------------------------------------------------------------------
+# train: TrainStep on GPT-2 small (the slice's main path)
+# ---------------------------------------------------------------------------
+TRAIN_ROWS, TRAIN_COLS = 8, 1024
+TRAIN_STEPS = 10
+TRAIN_LR = 3e-4
+TRAIN_F16_STEPS = 3
+TRAIN_PROFILE_STEPS = 3
+TRAIN_CPU_ROWS, TRAIN_CPU_COLS, TRAIN_CPU_STEPS = 2, 128, 2
+#: card vs CPU port, fp32: step-one gradients per tensor within 1e-3 x
+#: its max|g| (12 layers of 768-wide fp32 products and a 50257-way head
+#: summed in other orders by two BLAS libraries and two attention
+#: backwards); losses within 1e-4 relative
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_LOSS_REL = 1e-4
+#: the reference's bf16 contract: bf16 losses within 0.15 of fp32's
+TRAIN_BF16_TOL = 0.15
+#: K1 and K1-bwd launches a step: one of each per layer
+TRAIN_ATTN = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
+
+def _train_batch(rows, cols, seed):
+    x = np.random.RandomState(seed).randint(
+        0, PAGED_MODEL["vocab_size"], (rows, cols + 1))
+    return x[:, :-1].astype("i4"), x[:, 1:].astype("i4")
+
+
+def _leaves(state):
+    if isinstance(state, (tuple, list)):
+        return [t for s in state for t in _leaves(s)]
+    return [state]
+
+
+def _train_leg(torch, step, data, label, steps):
+    """``steps`` training steps on one batch, counted from zero: the
+    losses, each step's wall ms (the loss read back ends it) and the
+    kernels' launches."""
+    from mxnet_tpu_torch import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(data, label)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    return losses, ms, launches
+
+
+def _kernel_class(name):
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "K1"
+    if "flash_bwd_dq" in low:
+        return "K1-bwd dq"
+    if "flash_bwd_dkv" in low:
+        return "K1-bwd dkv"
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "gemv", "sm90_")):
+        return "products"
+    if "softmax" in low or "nll" in low:
+        return "softmax / loss"
+    return "other"
+
+
+def _train_profile(torch, step, data, label):
+    """TRAIN_PROFILE_STEPS steps under torch.profiler: wall ms a step
+    (profiled), device-busy ms a step (the union of the card's kernel
+    intervals) and its share of that wall,
+    kernels a step, device ms a step by kind of kernel and the five
+    heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            float(step(data, label))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILE_STEPS
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kern), "the profiler saw no kernel on the card")
+    busy = _busy_ms([(e.time_range.start, e.time_range.end)
+                     for e in kern]) / TRAIN_PROFILE_STEPS
+    by_class, by_name = {}, {}
+    for e in kern:
+        us = e.time_range.end - e.time_range.start
+        c = _kernel_class(e.name)
+        by_class[c] = by_class.get(c, 0.0) + us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    per = 1e3 * TRAIN_PROFILE_STEPS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall,
+            "kernels_per_step": len(kern) / TRAIN_PROFILE_STEPS,
+            "device_ms_by_kind": {c: us / per for c, us in
+                                  sorted(by_class.items())},
+            "top_kernels_ms": [[n[:120], us / per] for n, us in top]}
+
+
+def phase_train(torch):
+    """The slice's main path: ``parallel.TrainStep`` on GPT-2 small
+    (vocab 50257, 768 units, 12 layers, 12 heads, 1024 positions, dropout
+    0, seed-0 weights) with the per-sequence softmax cross-entropy, one
+    numpy-seeded batch of 8 x 1024 tokens (labels the tokens shifted by
+    one), repeated: 10 fp32 Adam steps, then 10 on a fresh model at
+    ``compute_dtype="bfloat16"``, then 3 on a float16 model with fp32
+    masters (``multi_precision``). First, card against the CPU port: the
+    same weights, 2 fp32 steps on a 2 x 128 batch, losses and step-one
+    gradients."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel
+    loss_fn = gloss.SoftmaxCrossEntropyLoss()
+
+    def make(model, multi_precision=False, **kw):
+        return parallel.TrainStep(
+            model, loss_fn, "adam", {"learning_rate": TRAIN_LR,
+                                     "multi_precision": multi_precision},
+            **kw)
+
+    # card against the CPU port, fp32
+    d, l = _train_batch(TRAIN_CPU_ROWS, TRAIN_CPU_COLS, seed=1)
+    cpu_step = make(GPTModel(**PAGED_MODEL, device="cpu").initialize(seed=0))
+    card_step = make(_gpt2_small(seed=0))
+    cpu_loss, cpu_g = cpu_step.gradients(d, l)
+    card_loss, card_g = card_step.gradients(d, l)
+    check(all(g.is_cuda for g in card_g.values()),
+          "a card gradient is off the card")
+    top = max(float(g.abs().max()) for g in cpu_g.values())
+    grad_err = 0.0
+    for name, g in cpu_g.items():
+        # a k_proj bias's exact gradient is 0 (the softmax cancels it):
+        # both hold rounding noise, held to the model's largest gradient
+        scale = top if name.endswith("k_proj.bias") \
+            else float(g.abs().max())
+        grad_err = max(grad_err, float(
+            (card_g[name].cpu() - g).abs().max()) / scale)
+    cpu_losses = [float(cpu_step(d, l)) for _ in range(TRAIN_CPU_STEPS)]
+    card_losses = [float(card_step(d, l)) for _ in range(TRAIN_CPU_STEPS)]
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(card_losses, cpu_losses))
+    emit("train_card_vs_cpu", batch=[TRAIN_CPU_ROWS, TRAIN_CPU_COLS],
+         step_one_loss=[float(card_loss), float(cpu_loss)],
+         card_losses=card_losses, cpu_losses=cpu_losses,
+         max_loss_rel_err=loss_err, max_grad_err_rel_to_max=grad_err)
+    check(grad_err <= TRAIN_GRAD_TOL,
+          f"card vs CPU step-one gradients {grad_err} > {TRAIN_GRAD_TOL}")
+    check(loss_err <= TRAIN_LOSS_REL,
+          f"card vs CPU losses {loss_err} > {TRAIN_LOSS_REL}")
+    del cpu_step, card_step, cpu_g, card_g
+
+    data, label = (torch.from_numpy(a).cuda()
+                   for a in _train_batch(TRAIN_ROWS, TRAIN_COLS, seed=2))
+    tokens = TRAIN_ROWS * TRAIN_COLS
+    n_layers = PAGED_MODEL["num_layers"]
+    res, launches = {}, {}
+    for leg, dtype, kw, steps, sfx in (
+            ("fp32", "float32", {}, TRAIN_STEPS, ""),
+            ("bf16", "float32", {"compute_dtype": "bfloat16"}, TRAIN_STEPS,
+             "_bf16"),
+            ("f16", "float16", {"multi_precision": True}, TRAIN_F16_STEPS,
+             "_f16")):
+        model = GPTModel(**PAGED_MODEL, dtype=dtype,
+                         device="cuda").initialize(seed=0)
+        step = make(model, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # what the leg found allocated (its model, and whatever earlier
+        # phases still hold): the peak counts it too
+        before = torch.cuda.memory_allocated()
+        losses, ms, counts = _train_leg(torch, step, data, label, steps)
+        peak = torch.cuda.max_memory_allocated()
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        want = {f"{k}{sfx}": n_layers * steps for k in TRAIN_ATTN}
+        check(counts == want, f"train {leg}: launches {counts}, want {want}")
+        check(all(math.isfinite(x) for x in losses),
+              f"train {leg}: non-finite loss {losses}")
+        check(leg == "f16" or losses[-1] < losses[0],
+              f"train {leg}: losses not falling {losses}")
+        params = list(model.collect_params().values())
+        states = [t for s in step._opt_states for t in _leaves(s)]
+        check(all(p._var().is_cuda for p in params)
+              and all(t.is_cuda for t in states),
+              f"train {leg}: a parameter or optimizer state is off the card")
+        p50 = float(np.median(ms[1:]))
+        out = {"losses": losses, "step_ms": ms, "step_ms_p50": p50,
+               "tokens_per_s": tokens / p50 * 1e3,
+               "launches": counts, "max_memory_allocated": peak,
+               "memory_allocated_at_start": before,
+               "param_dtypes": sorted({str(p._var().dtype)
+                                       for p in params}),
+               "state_dtypes": sorted({str(t.dtype) for t in states})}
+        if leg == "bf16":
+            check(out["param_dtypes"] == ["torch.float32"]
+                  and out["state_dtypes"] == ["torch.float32"],
+                  "bf16 training moved a master or a state off fp32")
+            gap = max(abs(a - b) for a, b in zip(losses, res["fp32"]
+                                                 ["losses"]))
+            out["max_gap_to_fp32"] = gap
+            check(gap < TRAIN_BF16_TOL, f"bf16 losses {gap} from fp32's")
+        if leg == "f16":
+            masters = [s[0] for s in step._opt_states
+                       if isinstance(s, tuple) and len(s) == 2
+                       and torch.is_tensor(s[0])]
+            check(masters and all(m.dtype == torch.float32
+                                  for m in masters),
+                  "float16 training kept no fp32 masters")
+        if leg != "f16":
+            # the profiler's host work stretches the step it traces, so
+            # the busy ms also stand over the unprofiled p50
+            prof = _train_profile(torch, step, data, label)
+            prof["device_busy_share_of_p50"] = prof["device_busy_ms"] / p50
+            prof["profiler_overhead_ms"] = prof["wall_ms"] - p50
+            out["profile"] = prof
+        res[leg] = out
+        emit(f"train_{leg}", **out)
+        del model, step, params, states
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    return res
+
+
 #: the kernels line: name, source, the TPU kernel it replaces (file:line
 #: and function), the kernel phase's result key
 KERNELS = [
@@ -3244,6 +3669,14 @@ KERNELS = [
     ("paged_decode_attention_f16", "paged_decode_attention.cu",
      "mxnet_tpu/ops/attention.py:566",
      "paged_decode_attention_pallas on a float16 pool", "k3h"),
+] + [
+    (f"flash_attention_bwd_{kind}{sfx}", "flash_attention_bwd.cu",
+     "mxnet_tpu/ops/attention.py:293",
+     f"_flash_bwd, the custom_vjp backward of flash_attention (jnp, no "
+     f"pallas_call): its {scan} scan{on}", f"k1bwd_{kind}{sfx}")
+    for sfx, on in (("", ""), ("_bf16", ", on bf16 q/k/v"),
+                    ("_f16", ", on float16 q/k/v"))
+    for kind, scan in (("dq", "dq_step"), ("dkv", "dkv_step"))
 ]
 
 
@@ -3271,6 +3704,10 @@ def main(argv=None):
         kernel_res[f"k1{key}"] = phase_flash_half(torch, timer, tag)
         kernel_res[f"k2{key}"] = phase_decode_half(torch, timer, tag)
         kernel_res[f"k3{key}"] = phase_paged_decode_half(torch, timer, tag)
+    for tag in ("", "bf16", "f16"):
+        sfx = f"_{tag}" if tag else ""
+        kernel_res[f"k1bwd_dq{sfx}"], kernel_res[f"k1bwd_dkv{sfx}"] = \
+            phase_flash_bwd(torch, timer, tag)
     if args.kernels_only:
         return 0
     from mxnet_tpu_torch import ops
@@ -3300,6 +3737,7 @@ def main(argv=None):
     phases["dense_int8_kv_engine"] = phase_dense_int8_kv(torch)
     (phases["spec_engine"], phases["spec_paged_engine"],
      _sampled) = phase_spec_engine(torch, dense_prompts)
+    phases["train"] = phase_train(torch)
     rows = []
     for name, src, replaces, fn, key in KERNELS:
         res = kernel_res[key]
@@ -3315,7 +3753,8 @@ def main(argv=None):
             "ms": res["kernel_ms"],
             **{k: res[k] for k in TIMING_KEYS},
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            **{k: res[k] for k in ("bound_ms_fp32_cores", "bound_rule")
+            **{k: res[k] for k in ("bound_ms_fp32_cores", "bound_rule",
+                                   "pair_ms", "pair_ms_device", "library")
                if k in res}})
     by_phase = {ph: r["launches"].get("rtc", 0) for ph, r in phases.items()}
     rows.append({

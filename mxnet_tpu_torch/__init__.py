@@ -11,6 +11,11 @@ kernels written by hand for Hopper (``csrc/``, built with ``nvcc`` at
 the first CUDA call, see ``_build.py``); everything else is plain
 PyTorch.
 
+It trains the same model on one card: ``parallel.TrainStep`` (forward,
+backward and update of a batch) with ``optimizer`` (SGD, NAG, Adam,
+AdamW), ``lr_scheduler`` and ``gluon.loss``, in fp32 or bf16 compute;
+the attention's backward is a hand-written kernel too.
+
 The imperative front end is ported too: ``mx.np`` arrays
 (``NDArray`` over a ``torch.Tensor``), ``mx.npx``, ``autograd``
 (record/pause, backward, ``Function``), ``operator`` (CustomOp) and
@@ -35,7 +40,7 @@ from .context import (Context, cpu, gpu, num_gpus, current_context,
                       resolve_device)
 from .ndarray.ndarray import NDArray, waitall
 from . import ndarray, numpy, numpy_extension, operator, rtc
-from . import gluon, serving
+from . import gluon, serving, optimizer, lr_scheduler, parallel
 
 nd = ndarray
 np = numpy
@@ -43,6 +48,7 @@ npx = numpy_extension
 
 __all__ = ["telemetry", "tracing", "bucketing", "base", "context", "engine",
            "autograd", "ops", "random_state", "ndarray", "numpy",
-           "numpy_extension", "operator", "rtc", "gluon", "serving", "nd",
+           "numpy_extension", "operator", "rtc", "gluon", "serving",
+           "optimizer", "lr_scheduler", "parallel", "nd",
            "np", "npx", "NDArray", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "waitall", "resolve_device", "MXNetError"]

@@ -36,6 +36,7 @@ BUILD_DIR = _PKG / "_build"
 #: kernel name -> source file under csrc/
 KERNEL_SOURCES = {
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "decode_attention": "decode_attention.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
     "dequant_matmul": "dequant_matmul.cu",

@@ -10,6 +10,11 @@ A process-global policy can be installed with `set_policy` /
 `policy_scope`, or via the ``MXTPU_BUCKETING`` env var:
 ``pow2`` | ``mult:8`` | ``16,32,64`` (explicit buckets) | ``0``/unset
 (disabled).
+
+The pad marks (``mark_pad``, ``get_pad``, ``pad_leaves``) are the side
+channel from a data pipeline to ``parallel.TrainStep``: a loader that
+padded a batch marks its arrays, and the step masks those rows out of
+the loss. They take torch tensors and ``NDArray``s.
 """
 from __future__ import annotations
 
@@ -17,8 +22,11 @@ import contextlib
 import os
 import warnings
 
+import torch
+
 __all__ = ["BucketingPolicy", "set_policy", "get_policy",
-           "policy_scope", "as_policy"]
+           "policy_scope", "as_policy", "mark_pad", "get_pad",
+           "pad_leaves"]
 
 
 class BucketingPolicy:
@@ -153,3 +161,40 @@ def policy_scope(policy):
         yield get_policy()
     finally:
         set_policy(prev)
+
+
+# -- pad marking -------------------------------------------------------
+def mark_pad(arr, pad: int):
+    """Record that the trailing ``pad`` rows of ``arr`` are padding."""
+    try:
+        arr._bucket_pad = int(pad)
+    except AttributeError:
+        pass
+    return arr
+
+
+def get_pad(arr) -> int:
+    """Pad rows recorded on ``arr`` by the data pipeline (0 if none)."""
+    return getattr(arr, "_bucket_pad", 0) or 0
+
+
+def pad_leaves(leaves, target: int, batch: int | None = None):
+    """Pad every leaf (a torch tensor or an ``NDArray``) whose leading
+    dim equals the batch up to ``target`` rows, repeating the last row,
+    and mark the pad on each padded leaf. Leaves carrying the batch
+    elsewhere (or not at all) pass through. Returns (new_leaves, pad)."""
+    if batch is None:
+        batch = next((l.shape[0] for l in leaves if len(l.shape)), None)
+    if batch is None or target <= batch:
+        return list(leaves), 0
+    pad = target - batch
+    out = []
+    for l in leaves:
+        if len(l.shape) and l.shape[0] == batch:
+            t = l if torch.is_tensor(l) else l._data
+            t = torch.cat([t, t[-1:].expand(pad, *t.shape[1:])], dim=0)
+            out.append(mark_pad(t if torch.is_tensor(l)
+                                else type(l)(t, ctx=l.ctx), pad))
+        else:
+            out.append(l)
+    return out, pad

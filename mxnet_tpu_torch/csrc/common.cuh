@@ -3,13 +3,14 @@
 // Each kernel source is compiled on its own into a shared library
 // with a plain C interface (nvcc -shared, loaded with ctypes by
 // mxnet_tpu_torch/_build.py), so nothing here may define an
-// exported symbol: header-only, inline, device-side.
+// exported symbol: header-only, inline or internal.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 // The reference's masked score (ops/attention.py NEG_INF): a large
@@ -458,5 +459,25 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 #undef MXTT_WGMMA_RS_N16
 #undef MXTT_WGMMA_RS_N32
 #undef MXTT_WGMMA_RS_N64
+
+namespace {
+
+// Per-device caches of the host-side launch helpers hold this many
+// devices; a device past it is served uncached.
+constexpr int kMaxDevices = 64;
+
+// The dynamic shared-memory limit of a kernel instance, raised once per
+// device.
+template <auto kKernel, size_t kBytes>
+cudaError_t raise_smem_limit(int dev) {
+  static int raised[kMaxDevices] = {};   // 0: not yet, 1: done
+  if (dev < kMaxDevices && raised[dev]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
+  if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = 1;
+  return err;
+}
+
+}  // namespace
 
 }  // namespace mxtt

@@ -944,19 +944,8 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// The dynamic shared-memory limit of a kernel instance, raised once per
-// device.
-template <auto kKernel, size_t kBytes>
-cudaError_t raise_smem_limit(int dev) {
-  static int raised[kMaxDevices] = {};   // 0: not yet, 1: done
-  if (dev < kMaxDevices && raised[dev]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
-  if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = 1;
-  return err;
-}
+using mxtt::kMaxDevices;
+using mxtt::raise_smem_limit;
 
 // The device's SM count, read once per device.
 cudaError_t sm_count(int dev, int* n) {

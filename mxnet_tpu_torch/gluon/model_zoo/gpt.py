@@ -103,6 +103,13 @@ armed projections add each row's low-rank delta after their product
 layers and written in place; a call gathers each row's factors once for
 every layer.
 
+Training (``parallel.TrainStep``) runs the plain ``forward``, the one
+call without ``no_grad``: its attention is differentiable
+(``ops.attention.flash_attention``: K1 forward, K1-bwd backward on the
+card), and ``Dropout`` at ``embed_drop`` and each block's ``drop`` acts
+in training mode. Every generation call keeps ``no_grad`` and builds no
+graph.
+
 The reference's tensor-parallel sharding is a later slice.
 """
 from __future__ import annotations
@@ -791,8 +798,13 @@ class GPTModel(HybridBlock):
             x = self.embed_drop(x)
         return x
 
-    @torch.no_grad()
     def forward(self, tokens):
+        """Full-sequence logits. Differentiable: ``parallel.TrainStep``
+        binds the leaves it differentiates in place of the parameters
+        (``bind_shadows``); its attention is ``flash_attention``, whose
+        backward is K1-bwd on the card. Dropout acts in training mode.
+        Called on the parameters themselves it builds no graph (they do
+        not require grad)."""
         tokens = self._as_tokens(tokens)
         x = self._embed(tokens)
         for blk in self._blocks():

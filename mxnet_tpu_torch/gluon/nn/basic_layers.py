@@ -10,6 +10,7 @@ at construction (no deferred initialization).
 """
 from __future__ import annotations
 
+from ... import autograd, random_state
 from ...ops import nn as _nn
 from ..block import HybridBlock
 from ..parameter import Parameter
@@ -78,15 +79,28 @@ class Embedding(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Dropout; the port serves inference only, so it is the identity
-    (training comes with ROADMAP.md queue 1, item 12)."""
+    """Inverted dropout (``npx.dropout``): active only in training mode
+    (``autograd.is_training()``, which ``parallel.TrainStep`` sets for
+    its forward, and ``autograd.record()`` sets by default), the
+    identity otherwise and at rate 0. A kept element is scaled by
+    ``1 / (1 - rate)``; ``axes`` share one mask draw along those axes
+    (spatial dropout). The mask comes from the port's per-device
+    generator (``random_state.generator``), so ``mx.np.random.seed``
+    repeats it."""
 
     def __init__(self, rate, axes=()):
         super().__init__()
         self._rate = rate
+        self._axes = tuple(axes or ())
 
     def forward(self, x):
-        return x
+        if self._rate <= 0 or not autograd.is_training():
+            return x
+        return _nn.dropout(x, self._rate, self._axes,
+                           random_state.generator(x.device))
+
+    def __repr__(self):
+        return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
 class HybridSequential(HybridBlock):

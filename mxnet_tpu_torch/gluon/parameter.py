@@ -7,7 +7,16 @@ tensor itself is a ``torch.nn.Parameter`` registered on the owning
 ``Module.to(device)`` moves it and ``state_dict`` sees it; ``data()``
 always reads the owner's current tensor — or, inside
 ``bind_shadows``, on the binding thread, the tensor bound in its place
-(the GPT model's bf16 or float16 compute copies).
+(the GPT model's bf16 or float16 compute copies, or the leaves that
+``parallel.TrainStep`` differentiates).
+
+The gradient API of the reference: ``grad_req`` (``"write"``, ``"add"``
+or ``"null"``), ``grad()``, ``zero_grad()``, ``lr_mult`` and
+``wd_mult``. The tensor itself never requires grad, so no serving call
+builds an autograd graph and ``data()`` converts to numpy as it is: a
+gradient is taken only where a training step binds a differentiable leaf
+in the parameter's place, and only for a parameter whose ``grad_req``
+is not ``"null"``.
 """
 from __future__ import annotations
 
@@ -33,6 +42,13 @@ def torch_dtype(dtype) -> torch.dtype:
                     f"bfloat16 or float16)")
 
 
+def _check_grad_req(req):
+    if req not in ("write", "add", "null"):
+        raise ValueError(f"grad_req must be 'write', 'add' or 'null', "
+                         f"got {req!r}")
+    return req
+
+
 #: this thread's ``{Parameter: tensor}`` binding, or None
 _BOUND = threading.local()
 
@@ -56,7 +72,8 @@ class Parameter:
     default device at construction; ``initialize`` on the model or
     ``set_data`` fills it, and ``data()`` before either raises."""
 
-    def __init__(self, name, shape, dtype="float32"):
+    def __init__(self, name, shape, dtype="float32", grad_req="write",
+                 lr_mult=1.0, wd_mult=1.0):
         self.name = name
         self.shape = tuple(int(s) for s in shape)
         self.dtype = torch_dtype(dtype)
@@ -65,6 +82,49 @@ class Parameter:
         self._owner = None
         self._key = None
         self._initialized = False
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self._grad_req = _check_grad_req(grad_req)
+        self._grad = None
+
+    @property
+    def grad_req(self) -> str:
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        self._grad_req = _check_grad_req(req)
+        if req == "null":
+            self._grad = None
+
+    def grad(self) -> torch.Tensor:
+        """The gradient buffer (zeros until a step writes it): overwritten
+        by a ``"write"`` parameter, summed into by an ``"add"`` one. A
+        ``"null"`` parameter has none and raises."""
+        if not self._initialized:
+            raise RuntimeError(
+                f"Parameter '{self.name}' has not been initialized")
+        if self._grad_req == "null":
+            raise RuntimeError(
+                f"Cannot get gradient array for Parameter {self.name} "
+                f"because grad_req='null'")
+        var = self._var()
+        if self._grad is None or self._grad.device != var.device \
+                or self._grad.dtype != var.dtype:
+            self._grad = torch.zeros_like(var)
+        return self._grad
+
+    def zero_grad(self):
+        if self._grad is not None:
+            self._grad.zero_()
+
+    def _write_grad(self, g):
+        """Store ``g`` by ``grad_req``: overwrite or accumulate."""
+        buf = self.grad()
+        if self._grad_req == "add":
+            buf.add_(g.to(buf.dtype))
+        else:
+            buf.copy_(g)
 
     def _bind(self, owner, key):
         self._owner = owner

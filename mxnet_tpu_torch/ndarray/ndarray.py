@@ -140,7 +140,7 @@ class NDArray:
     """An asynchronous n-dimensional array on the card (or the CPU)."""
 
     __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_fresh_grad",
-                 "_version", "__weakref__")
+                 "_version", "_bucket_pad", "__weakref__")
 
     # `onp_array op ndarray` hits our reflected ops, not numpy's
     __array_priority__ = 1000.0

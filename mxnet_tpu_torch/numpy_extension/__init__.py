@@ -9,10 +9,9 @@ The port of ``mxnet_tpu/numpy_extension/__init__.py``'s activations
 ``waitall``/``num_gpus``/``current_device``. Everything runs as plain
 PyTorch through ``ops.apply_op``.
 
-``flash_attention`` and ``decode_attention`` wait for the training
-slice: under ``record()`` they need K1's backward (ROADMAP.md queue 1,
-item 12). Other functions of the reference raise
-``base.not_ported(..., 13)``.
+``flash_attention`` runs K1 forward and, under ``record()``, K1-bwd
+backward (``ops.attention``). ``decode_attention`` and the other
+functions of the reference raise ``base.not_ported(..., 13)``.
 """
 from __future__ import annotations
 
@@ -22,11 +21,12 @@ from .. import autograd as _ag
 from ..base import not_ported, resolve_dtype
 from ..ndarray.ndarray import _signed_view
 from ..ops import apply_op
+from ..ops import nn as _nn
 from ..random_state import generator
 
 __all__ = ["relu", "sigmoid", "softmax", "log_softmax", "dropout",
-           "one_hot", "pick", "topk", "custom", "waitall", "num_gpus",
-           "current_device"]
+           "one_hot", "pick", "topk", "flash_attention", "custom",
+           "waitall", "num_gpus", "current_device"]
 
 
 def _c(x):
@@ -114,16 +114,9 @@ def dropout(data, p=0.5, axes=None, mode="training", cudnn_off=None,
     data = _c(data)
     if p <= 0.0 or (mode == "training" and not _ag.is_training()):
         return data
-    shape = list(data.shape)
-    for ax in axes or ():
-        shape[ax] = 1
-    keep = 1.0 - p
-    dev = data._data.device
-    u = torch.rand(shape, generator=generator(dev), device=dev)
-
-    def f(x):
-        return torch.where(u < keep, x / keep, torch.zeros_like(x))
-    return apply_op(f, data, name="dropout")
+    gen = generator(data._data.device)
+    return apply_op(lambda x: _nn.dropout(x, p, axes, gen), data,
+                    name="dropout")
 
 
 def one_hot(data, depth, on_value=1.0, off_value=0.0, dtype="float32",
@@ -222,14 +215,26 @@ def waitall():
     engine.waitall()
 
 
-def flash_attention(*args, **kwargs):
-    raise not_ported("npx.flash_attention (K1's backward under record())",
-                     12)
+def flash_attention(query, key, value, causal=False, scale=None,
+                    kv_len=None):
+    """Blockwise (flash) attention over (B, H, S, D) NDArrays: K1's
+    forward and K1-bwd's backward on the card, their plain versions on
+    the CPU (``ops.attention.flash_attention``). Under ``record()`` the
+    gradients of q, k and v reach ``.grad`` through ``backward``.
+    ``kv_len`` (int) marks the valid key prefix of a longer cache buffer:
+    the tail is masked out and the causal diagonal end-aligns against
+    the valid prefix."""
+    from ..ops import attention as _att
+
+    def fn(q, k, v):
+        return _att.flash_attention(q, k, v, causal, scale, kv_len)
+
+    return apply_op(fn, _c(query), _c(key), _c(value),
+                    name="flash_attention")
 
 
 def decode_attention(*args, **kwargs):
-    raise not_ported("npx.decode_attention (K1's backward under record())",
-                     12)
+    raise not_ported("npx.decode_attention", 13)
 
 
 def __getattr__(name):

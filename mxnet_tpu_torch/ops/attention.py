@@ -2,7 +2,7 @@
 decode attention over a dense KV cache and over a paged pool, and the
 chunked-prefill attention of the paged engine.
 
-Counterpart of ``mxnet_tpu/ops/attention.py``, forward only. Each op
+Counterpart of ``mxnet_tpu/ops/attention.py``. Each op
 that the reference ran as a Pallas kernel has a plain PyTorch version
 (``_blockwise_fwd``, ``_decode_fwd_torch``, ``gather_pages`` +
 ``_decode_fwd_torch``) and a CUDA kernel written for Hopper
@@ -12,8 +12,12 @@ fp32, an int8, a bf16 and a float16 instance: an int8 cache
 (``k_scale``/``v_scale`` given) is dequantized before the masked softmax
 in the plain version and in registers, after the int8 load, in the
 kernel; a bf16 or float16 cache is read as it is and widened in
-registers. K1 comes in an fp32, a bf16 and a float16 instance. The
-public functions dispatch on
+registers. K1 comes in an fp32, a bf16 and a float16 instance.
+``flash_attention`` is differentiable, as the reference's ``custom_vjp``
+is: its backward is the reference's blockwise ``_flash_bwd`` (plain
+``jnp`` there), here a plain version beside a CUDA kernel of its own,
+K1-bwd (``csrc/flash_attention_bwd.cu``), in the same three instances.
+The public functions dispatch on
 the device of their inputs: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises — there is no fallback from
 the kernel to the plain version. ``chunked_prefill_attention`` is plain
@@ -54,10 +58,10 @@ import torch
 from .. import _build
 
 __all__ = ["NEG_INF", "mha_reference", "flash_attention",
-           "flash_attention_fwd", "decode_attention", "gather_pages",
-           "expand_page_scales", "paged_decode_attention",
-           "chunked_prefill_attention", "launch_counts",
-           "reset_launch_counts", "KERNEL_HEAD_DIMS"]
+           "flash_attention_fwd", "flash_attention_bwd",
+           "decode_attention", "gather_pages", "expand_page_scales",
+           "paged_decode_attention", "chunked_prefill_attention",
+           "launch_counts", "reset_launch_counts", "KERNEL_HEAD_DIMS"]
 
 NEG_INF = -1e30
 
@@ -68,6 +72,11 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 #: wrappers right where they launch, and nowhere else
 _launches = {"flash_attention_fwd": 0, "flash_attention_fwd_bf16": 0,
              "flash_attention_fwd_f16": 0,
+             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+             "flash_attention_bwd_dq_bf16": 0,
+             "flash_attention_bwd_dkv_bf16": 0,
+             "flash_attention_bwd_dq_f16": 0,
+             "flash_attention_bwd_dkv_f16": 0,
              "decode_attention": 0, "decode_attention_int8": 0,
              "decode_attention_bf16": 0, "decode_attention_f16": 0,
              "paged_decode_attention": 0,
@@ -196,6 +205,17 @@ def _check_flash_inputs(name, q, k, v):
     return q.dtype
 
 
+def _check_flash_shapes(name, q, k, v):
+    """q (B, H, Sq, D) against k and v (B, H, Sk, D), D a head dim the
+    kernels are instantiated for."""
+    b, h, _, d = q.shape
+    if k.shape[:2] != (b, h) or k.shape[-1] != d or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
+
+
 #: q, k, v, out, lse; B, H, Sq, D, kv_len, causal; scale; strides; stream
 _FLASH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
@@ -215,12 +235,8 @@ def _flash_fwd_cuda(q, k, v, causal, scale, kv_len):
     the kernel and nothing is copied."""
     half = _HALF.get(_check_flash_inputs("flash_attention_fwd", q, k, v))
     name = f"flash_attention_fwd_{half}" if half else "flash_attention_fwd"
+    _check_flash_shapes(name, q, k, v)
     b, h, sq, d = q.shape
-    if k.shape[:2] != (b, h) or k.shape[-1] != d or v.shape != k.shape:
-        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {d} not in {KERNEL_HEAD_DIMS}")
     if -(-sq // _FLASH_BLOCK_Q) > _GRID_Y_MAX:
         raise ValueError(f"{name}: {sq} query rows exceed the grid")
     strides = _Strides9(*_kernel_strides(name, q), *_kernel_strides(name, k),
@@ -279,8 +295,213 @@ def flash_attention(q, k, v, causal=False, scale=None, kv_len=None):
     """``kv_len`` (int) marks the valid key prefix of a longer cache
     buffer: keys beyond it are masked out of the softmax and the causal
     diagonal end-aligns to the valid prefix (the last query row sees
-    keys [0, kv_len))."""
+    keys [0, kv_len)).
+
+    Differentiable, as the reference's ``custom_vjp`` is: when grad
+    mode is on and q, k or v requires grad, the call goes through
+    ``_FlashAttention`` (forward K1, backward K1-bwd on the card; the
+    plain versions on the CPU). ``causal``, ``scale`` and ``kv_len`` get
+    no gradient (the reference's ``nondiff_argnums=(3, 4, 5)``).
+    Otherwise — every serving call runs under ``no_grad`` — it builds no
+    graph and saves nothing."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale, kv_len)
     return flash_attention_fwd(q, k, v, causal, scale, kv_len)[0]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``flash_attention.defvjp(_flash_fwd, _flash_bwd)``:
+    the forward saves q, k, v, out and lse; the backward rematerializes
+    P from them (``flash_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kv_len):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale, kv_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward
+# ---------------------------------------------------------------------------
+def _flash_bwd(q, k, v, o, lse, do, causal, scale, kv_len=None, block=512):
+    """The plain version of K1-bwd: the reference's blockwise backward
+    (``_flash_bwd``), in the kernel's two halves: ``_flash_bwd_dq``
+    (``delta = sum(dO * out)``, then P rematerialized from lse one key
+    block at a time) and ``_flash_bwd_dkv`` (one query block at a time).
+    Returns dq, dk, dv in q's, k's and v's types."""
+    kv_len = _check_kv_len(kv_len, k.shape[-2])
+    dq, delta = _flash_bwd_dq(q, k, v, o, lse, do, causal, scale, kv_len,
+                              block)
+    dk, dv = _flash_bwd_dkv(q, k, v, lse, do, delta, causal, scale, kv_len,
+                            block)
+    return dq, dk, dv
+
+
+def _flash_bwd_dq(q, k, v, o, lse, do, causal, scale, kv_len, block=512):
+    """dq and delta: ``p = where(valid, exp(s - lse), 0)``,
+    ``ds = p * (dp - delta) * scale``, ``dq = ds K``; s is computed in
+    the inputs' type and widened, as the reference's einsum does,
+    everything after it in fp32. Only the keys below ``kv_len`` are read:
+    the reference also reads the zero-padded and masked tail, where it
+    adds exact zeros on finite data (p = 0 there), so the result is the
+    same."""
+    sq = q.shape[-2]
+    offset = kv_len - sq
+    dev = q.device
+    do32 = do.float()
+    delta = (do32 * o.float()).sum(-1)                       # (..., sq)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    row = torch.arange(sq, device=dev)[:, None]
+    for j in range(0, kv_len, block):
+        kj = k[..., j:min(j + block, kv_len), :]
+        vj = v[..., j:min(j + block, kv_len), :].float()
+        col = torch.arange(j, j + kj.shape[-2], device=dev)[None, :]
+        valid = col <= row + offset if causal else torch.ones_like(
+            col, dtype=torch.bool)
+        s = torch.einsum("...qd,...kd->...qk", q, kj).float() * scale
+        p = torch.where(valid, torch.exp(s - lse[..., None]),
+                        torch.zeros_like(s))
+        dp = torch.einsum("...qd,...kd->...qk", do32, vj)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("...qk,...kd->...qd", ds, kj.float())
+    return dq.to(q.dtype), delta
+
+
+def _flash_bwd_dkv(q, k, v, lse, do, delta, causal, scale, kv_len,
+                   block=512):
+    """dk and dv from the dq half's delta: ``dv = P^T dO`` and
+    ``dk = dS^T q``, one query block at a time over the keys below
+    ``kv_len``; keys at or past it get exact-zero dk and dv."""
+    sq = q.shape[-2]
+    offset = kv_len - sq
+    dev = q.device
+    do32 = do.float()
+    kl, vl32 = k[..., :kv_len, :], v[..., :kv_len, :].float()
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+    col = torch.arange(kv_len, device=dev)[None, :]
+    for i in range(0, sq, block):
+        qi, doi = q[..., i:i + block, :], do32[..., i:i + block, :]
+        row = torch.arange(i, i + qi.shape[-2], device=dev)[:, None]
+        valid = col <= row + offset if causal else torch.ones_like(
+            col, dtype=torch.bool)
+        s = torch.einsum("...qd,...kd->...qk", qi, kl).float() * scale
+        p = torch.where(valid, torch.exp(s - lse[..., i:i + block, None]),
+                        torch.zeros_like(s))
+        dv[..., :kv_len, :] += torch.einsum("...qk,...qd->...kd", p, doi)
+        dp = torch.einsum("...qd,...kd->...qk", doi, vl32)
+        ds = p * (dp - delta[..., i:i + block, None]) * scale
+        dk[..., :kv_len, :] += torch.einsum("...qk,...qd->...kd", ds,
+                                            qi.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _dense_rows(x):
+    """True when ``x`` has the row layout the kernels read (contiguous
+    last axis, 16-byte aligned base and row starts)."""
+    st = x.stride()
+    return (st[-1] == 1 or x.shape[-1] == 1) and not x.data_ptr() % 16 \
+        and not any(s * x.element_size() % 16 for s in st[:-1])
+
+
+#: q, k, v, out | dO, dO | lse, lse | delta, dq | dk, delta | dv;
+#: B, H, Sq, Sk, D, kv_len, causal; scale; strides; stream
+_FLASH_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+#: the (b, h, s) strides of q, k, v, out and dO
+_Strides15 = ctypes.c_longlong * 15
+#: K1-bwd's rows (queries or keys) per tile
+_FLASH_BWD_TILE = 64
+
+
+def _flash_bwd_launch(kind, q, k, v, out, lse, do, causal, scale, kv_len,
+                      delta=None):
+    """One of K1-bwd's two launches (``csrc/flash_attention_bwd.cu``),
+    its fp32, bf16 or float16 instance by q's type: ``"dq"`` returns
+    ``(dq, delta)``; ``"dkv"``, given that launch's delta, returns
+    ``(dk, dv)``. q, k and v are read through their strides, as K1 reads
+    them (the head split's views, no copy); out and lse are the
+    forward's."""
+    half = _HALF.get(_check_flash_inputs("flash_attention_bwd", q, k, v))
+    name = f"flash_attention_bwd_{kind}" + (f"_{half}" if half else "")
+    _check_flash_shapes(name, q, k, v)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    for t, what in ((out, "out"), (do, "dO")):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {what} must be {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if t is not None and (t.shape != q.shape[:-1]
+                              or t.dtype != torch.float32
+                              or not t.is_contiguous()
+                              or t.device != q.device):
+            raise ValueError(f"{name}: {what} must be a contiguous "
+                             f"{tuple(q.shape[:-1])} float32 tensor")
+    if max(-(-sq // _FLASH_BWD_TILE), -(-sk // _FLASH_BWD_TILE)) \
+            > _GRID_Y_MAX:
+        raise ValueError(f"{name}: {max(sq, sk)} rows exceed the grid")
+    if not _dense_rows(do):
+        # the one input the wrapper copies: dO comes from whatever the
+        # consumer's backward made (an expanded or transposed gradient)
+        do = do.contiguous()
+    strides = _Strides15(*_kernel_strides(name, q), *_kernel_strides(name, k),
+                         *_kernel_strides(name, v),
+                         *_kernel_strides(name, out),
+                         *_kernel_strides(name, do))
+    if kind == "dq":
+        dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+        delta = torch.empty((b, h, sq), dtype=torch.float32,
+                            device=q.device)
+        ptrs, res = (q, k, v, out, do, lse, dq, delta), (dq, delta)
+    elif delta is None:
+        raise ValueError(f"{name}: needs the dq launch's delta")
+    else:
+        dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
+        dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=q.device)
+        ptrs, res = (q, k, v, do, lse, delta, dk, dv), (dk, dv)
+    fn = _build.function("flash_attention_bwd", f"mxtt_{name}",
+                         _FLASH_BWD_ARGTYPES)
+    err = _build.launch_on(q, fn, (
+        *(t.data_ptr() for t in ptrs), b, h, sq, sk, d, kv_len,
+        int(bool(causal)), float(scale), ctypes.addressof(strides)))
+    _launches[name] += 1
+    _build.check("flash_attention_bwd", err, name)
+    return res
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_len):
+    """Launch K1-bwd: the dq launch (which also writes delta), then the
+    dk/dv launch, queued after it on the same stream."""
+    dq, delta = _flash_bwd_launch("dq", q, k, v, out, lse, do, causal,
+                                  scale, kv_len)
+    dk, dv = _flash_bwd_launch("dkv", q, k, v, out, lse, do, causal, scale,
+                               kv_len, delta)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None,
+                        kv_len=None):
+    """Flash attention backward: ``(dq, dk, dv)`` from the forward's
+    inputs, its ``(out, lse)`` and the output gradient ``do``. CUDA
+    inputs launch K1-bwd; CPU inputs take the plain blockwise version.
+    Keys at or past ``kv_len`` get exact-zero dk and dv, and causal rows
+    that see no key get zero gradients on both paths."""
+    kv_len = _check_kv_len(kv_len, k.shape[-2])
+    scale = _scale(q, scale)
+    if q.is_cuda:
+        return _flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_len)
+    return _flash_bwd(q, k, v, out, lse, do, causal, scale, kv_len)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 The subset of ``mxnet_tpu/ops/nn.py`` that ``gluon/model_zoo/gpt.py``
 reaches: the fully-connected layer with the reference's ``(out, in)``
 weight layout, layer normalization (biased variance, eps 1e-5, the
-``accum_dtype`` policy), the exact erf GELU and the embedding lookup.
+``accum_dtype`` policy), the exact erf GELU, the embedding lookup and
+inverted dropout.
 These are large products or elementwise passes that the reference left
 to XLA outside any Pallas kernel, so here they stay library calls.
 """
@@ -15,7 +16,7 @@ import torch.nn.functional as F
 from ..base import not_ported
 
 __all__ = ["fully_connected", "accum_dtype", "layer_norm", "gelu",
-           "activation", "embedding"]
+           "activation", "embedding", "dropout"]
 
 
 def fully_connected(x, weight, bias=None, flatten=True):
@@ -69,3 +70,17 @@ def activation(x, act_type):
 def embedding(tokens, weight):
     """Row gather: ``weight[tokens]``."""
     return F.embedding(tokens.long(), weight)
+
+
+def dropout(x, p, axes=(), generator=None):
+    """Inverted dropout (the reference's ``ops.nn.dropout``): keep each
+    element with probability ``1 - p`` (a uniform draw below it, as
+    ``jax.random.bernoulli`` draws), scaled by ``1 / (1 - p)``, else 0;
+    ``axes`` broadcast one draw along them. The draws come from
+    ``generator`` and differ from JAX's for the same seed."""
+    shape = list(x.shape)
+    for ax in axes or ():
+        shape[ax] = 1
+    keep = 1.0 - p
+    u = torch.rand(shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))

@@ -26,7 +26,10 @@ from mxnet_tpu_torch.serving import paging
 from mxnet_tpu_torch.gluon.model_zoo.gpt import GPTModel, load_jax_params
 from mxnet_tpu_torch.serving import GenerationEngine
 from mxnet_tpu_torch import (autograd, operator, rtc, engine, numpy,
-                             numpy_extension, ndarray, random_state)
+                             numpy_extension, ndarray, random_state,
+                             optimizer, lr_scheduler, parallel)
+from mxnet_tpu_torch.gluon import loss
+from mxnet_tpu_torch.parallel import TrainStep
 import mxnet_tpu_torch as mx
 assert mx.np is numpy and mx.npx is numpy_extension and mx.nd is ndarray
 bad = sorted(m for m in sys.modules
@@ -108,7 +111,7 @@ def test_import_builds_nothing():
     assert _build._libs == {} or all(
         n in _build.KERNEL_SOURCES for n in _build._libs)
     assert set(_build.KERNEL_SOURCES) == {
-        "flash_attention", "decode_attention", "paged_decode_attention",
-        "dequant_matmul"}
+        "flash_attention", "flash_attention_bwd", "decode_attention",
+        "paged_decode_attention", "dequant_matmul"}
     for src in _build.KERNEL_SOURCES.values():
         assert (_build.CSRC / src).is_file()

@@ -16,11 +16,11 @@ weights and caches: the same tokens and emission masks, greedy, with
 eos and budgets landing mid-tick.
 
 ``test_multitick_greedy_parity_lora`` (batched LoRA) also holds the
-streams to the JAX engine's. Two cases of the JAX file wait for later
-items of ROADMAP.md queue 1:
-``test_trainstep_bf16_fp32_masters_and_bounded_loss`` (``TrainStep``,
-item 12) and ``test_overlap_gather_barrier_chain`` (``TrainStep``'s
-``tp_fsdp`` layout, item 20).
+streams to the JAX engine's. Two cases of the JAX file are about
+``TrainStep``: ``test_trainstep_bf16_fp32_masters_and_bounded_loss``
+is ported, under its name, in ``tests/test_torch_train_step.py``;
+``test_overlap_gather_barrier_chain`` (``TrainStep``'s ``tp_fsdp``
+layout) waits for ROADMAP.md queue 1, item 20.
 """
 import math
 

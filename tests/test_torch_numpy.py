@@ -414,8 +414,8 @@ def test_unported_function_raises_not_ported():
         tmx.np.no_such_function
     with pytest.raises(NotImplementedError, match="item 13"):
         tmx.npx.batch_norm
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmx.npx.flash_attention(None, None, None)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tmx.npx.decode_attention(None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
