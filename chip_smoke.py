@@ -28,9 +28,13 @@ version, and K1-bwd, the flash attention backward (its dq and its
 dk/dv launch, fp32, bf16 and float16: causal and not, 512 and 1024
 tokens, head dims 16 and 128, kv_len below the key buffer and below the
 query length, finite garbage past kv_len, the head split's strided views
-and a transposed dO), held against its plain version with dk and dv
-exactly 0 past kv_len. Then it drives the imperative front end and
-serves generation at GPT-2-small widths through ``GenerationEngine``:
+and a transposed dO, a small dO whose dS falls under float16's smallest
+normal, and 130 tokens, whose lse rows start off 16-byte boundaries),
+held against its plain version with dk and dv exactly 0 past kv_len;
+the build prints the registers, spills and wgmma serialization warnings
+of its 16-bit instances (``build_flash_bwd_wg``). Then it drives the
+imperative front end and serves generation at GPT-2-small widths
+through ``GenerationEngine``:
 
 - ``custom_op``: the flow of ``examples/custom_op.py`` on the card
   (a CustomOp through ``npx.custom``, an ``autograd.Function``,
@@ -129,7 +133,9 @@ Tolerances, with their reasons:
   1e-4 x max(1, max|ref|) (sums of up to 1024 products in another order);
   bf16 and float16 within two steps of their type, 2 x 2^-8 and
   2 x 2^-10 x max(1, max|ref|), of the plain version on the widened
-  inputs rounded to the type (BWD_TOL);
+  inputs rounded to the type (BWD_TOL); the small-dO case within the
+  same BWD_TOL x max|ref| (its gradients are far below 1, where
+  max(1, .) would make the gate absolute);
 - training, card vs the CPU port (fp32, the same weights): losses within
   1e-4 relative, step-one gradients within 1e-3 x max|g| per tensor;
   bf16 losses within the reference's 0.15 of fp32's, and falling;
@@ -150,6 +156,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -283,11 +290,42 @@ def phase_env(torch):
     return card
 
 
+def _wg_resources(lines, kernel="flash_bwd_wg_kernel"):
+    """ptxas's registers and spill bytes of each instance of ``kernel``
+    (head dim, element type, launch from its mangled name), and its
+    performance warnings (wgmma serialized: C7512, C7515, C7520)."""
+    pat = re.compile(kernel + r"ILi(\d+)E\w*?(bfloat16|half)Lb([01])E")
+    out, cur = [], None
+    for ln in lines:
+        m = pat.search(ln)
+        if "Compiling entry" in ln:
+            cur = None
+            if m:
+                cur = {"head_dim": int(m.group(1)),
+                       "type": "bf16" if m.group(2) == "bfloat16" else "f16",
+                       "launch": "dkv" if m.group(3) == "1" else "dq"}
+                out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", ln)
+            cur["spill_stores"], cur["spill_loads"] = map(int, st.groups())
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+    warnings = [ln for ln in lines if "Performance Loss" in ln
+                and kernel in ln]
+    return out, warnings
+
+
 def phase_build():
     from mxnet_tpu_torch import _build
     t0 = time.perf_counter()
     _build.build_all()
     emit("build", seconds=time.perf_counter() - t0, kernels=_build.build_info)
+    # K1-bwd's 16-bit instances: registers, spills and wgmma serialization
+    inst, warnings = _wg_resources(
+        _build.build_info.get("flash_attention_bwd", {}).get("ptxas", []))
+    emit("build_flash_bwd_wg", instances=inst, ptxas_warnings=warnings)
 
 
 def _rand(torch, rng, *shape):
@@ -3257,6 +3295,14 @@ BWD_SHAPE = tuple(TRAIN_SHAPE[i] for i in (0, 2, 1, 3))
 #: sum must not overflow (its inf would give the reference's, and the
 #: kernel's, ds = 0 * inf = NaN for that row)
 BWD_GARBAGE = {"": (1e4, -3e4), "bf16": (1e4, -3e4), "f16": (1e2, -3e2)}
+#: the small-dO case, (B, H, S, D) causal with dO scaled by 2^-12: max |dS|
+#: falls under float16's smallest normal, 2^-14, while max |dq|, |dk| and
+#: |dv| stay normal (tests/test_torch_flash_bwd_wg.py: a float16 dS split
+#: without its power-of-two scale misses BWD_TOL there). It is gated
+#: relative to max|ref|, not max(1, max|ref|), whose floor of 1 would turn
+#: a 16-bit tolerance into an absolute one far above these gradients.
+BWD_SMALL_DO = ((1, 2, 256, 64), 2.0 ** -12)
+F16_MIN_NORMAL = 2.0 ** -14
 
 
 def _bwd_work(b, h, sq, d, el, causal=True):
@@ -3271,6 +3317,22 @@ def _bwd_work(b, h, sq, d, el, causal=True):
             (nbytes, pairs * 8 * d))
 
 
+def _small_do_regime(torch, q, k, v, do):
+    """max |dS| and the smallest of max |dq|, |dk|, |dv| of a causal
+    attention on the card in fp32, dense (the small-dO case's regime)."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = q.shape[2]
+    sc = 1.0 / math.sqrt(q.shape[-1])
+    mask = torch.full((s, s), -math.inf, device=q.device).triu(1)
+    p = torch.softmax(qf @ kf.transpose(-1, -2) * sc + mask, -1)
+    out = p @ vf
+    ds = p * (dof @ vf.transpose(-1, -2)
+              - (dof * out).sum(-1, keepdim=True)) * sc
+    grads = (ds @ kf, ds.transpose(-1, -2) @ qf, p.transpose(-1, -2) @ dof)
+    return {"ds_max": float(ds.abs().max()),
+            "grad_min_of_max": min(float(g.abs().max()) for g in grads)}
+
+
 def phase_flash_bwd(torch, timer, tag):
     """K1-bwd's fp32 instance (``tag`` "") or its bf16 or float16 one,
     both launches, against the plain version (``_flash_bwd``) on the card:
@@ -3278,8 +3340,10 @@ def phase_flash_bwd(torch, timer, tag):
     head split's strided views, head dims 16 and 128, kv_len below the key
     buffer (causal and not) and below the query length (the unseen rows),
     finite garbage past kv_len, a transposed dO, and the train phase's
-    shape (BWD_SHAPE, causal, strided). dk and dv past kv_len must be
-    exactly 0. Then each launch is timed at BWD_SHAPE beside its plain
+    shape (BWD_SHAPE, causal, strided); the small-dO case (BWD_SMALL_DO),
+    gated relative to max|ref|; and (1, 2, 130, 64) causal, whose lse and
+    delta rows start off 16-byte boundaries. dk and dv past kv_len must
+    be exactly 0. Then each launch is timed at BWD_SHAPE beside its plain
     half, and the backward of ``scaled_dot_product_attention`` on the
     same tensors (the work of both launches: ``pair_ms_device``, the sum
     of the two launches' device ms, stands beside it)."""
@@ -3296,7 +3360,7 @@ def phase_flash_bwd(torch, timer, tag):
             else _rand(torch, rng, b, h, s, d)
         return x.to(dt)
 
-    def compare(q, k, v, do, causal, kv_len, what):
+    def compare(q, k, v, do, causal, kv_len, what, rel=False):
         nonlocal worst, worst_abs
         out, lse = at.flash_attention_fwd(q, k, v, causal, None, kv_len)
         got = at.flash_attention_bwd(q, k, v, out, lse, do, causal, None,
@@ -3314,11 +3378,15 @@ def phase_flash_bwd(torch, timer, tag):
             r = r.to(dt).float()
             e = float((g.float() - r).abs().max())
             worst_abs = max(worst_abs, e)
-            errs[name] = e / max(1.0, float(r.abs().max()))
+            m = float(r.abs().max())
+            errs[name] = e / (m if rel else max(1.0, m))
+            errs[f"{name}_max"] = m
         tail = all(bool((g[:, :, kl:] == 0).all()) for g in got[1:])
         check(tail, f"K1-bwd{sfx} dk/dv past kv_len not 0 {what}")
-        cases.append({"case": what, **errs})
-        worst = max(worst, *errs.values())
+        cases.append({"case": what,
+                      "gate": "x max|ref|" if rel else "x max(1, max|ref|)",
+                      **errs})
+        worst = max(worst, *(errs[n] for n in ("dq", "dk", "dv")))
 
     b, h, d = 1, 12, 64
     for causal in (True, False):
@@ -3345,9 +3413,28 @@ def phase_flash_bwd(torch, timer, tag):
     b, h, s, d = BWD_SHAPE
     q, k, v, do = (mk(b, h, s, d) for _ in range(4))
     compare(q, k, v, do, True, None, "train shape strided causal")
+    (sb, sh, ss, sd), do_scale = BWD_SMALL_DO
+    rs = np.random.RandomState(21)
+    sq_, sk_, sv_, sdo = (_split_view(torch, rs, sb, ss, sh, sd).to(dt)
+                          for _ in range(4))
+    sdo = (sdo.float() * do_scale).to(dt)
+    regime = _small_do_regime(torch, sq_, sk_, sv_, sdo)
+    if tag == "f16":
+        check(regime["ds_max"] < F16_MIN_NORMAL
+              and regime["grad_min_of_max"] >= F16_MIN_NORMAL,
+              f"the small-dO case is not in its regime: {regime}")
+    compare(sq_, sk_, sv_, sdo, True, None,
+            f"small dO (x {do_scale}) causal strided", rel=True)
+    cases[-1].update(regime)
+    # B H Sq rows of lse and delta whose (b, h) rows start off a 16-byte
+    # boundary (Sq = 130): the 16-bit dkv launch's TMA boxes start early
+    rs = np.random.RandomState(22)
+    aq, ak, av, ado = (_split_view(torch, rs, 1, 130, 2, 64).to(dt)
+                       for _ in range(4))
+    compare(aq, ak, av, ado, True, None, "s=130 h=2 causal strided")
     emit(f"flash_attention_bwd{sfx}_check", cases=cases, tol=tol)
     check(worst <= tol, f"K1-bwd{sfx} off its plain version by {worst} "
-          f"(x max(1, max|ref|)) > {tol}")
+          f"(x max(1, max|ref|); the small-dO case x max|ref|) > {tol}")
 
     # timing at the train phase's shape
     sc = 1.0 / math.sqrt(d)
@@ -3462,6 +3549,10 @@ def _kernel_class(name):
         return "K1-bwd dq"
     if "flash_bwd_dkv" in low:
         return "K1-bwd dkv"
+    if "flash_bwd_wg" in low:
+        # the 16-bit instances: one template, kDkv its last argument
+        return "K1-bwd dkv" if ", true>" in low or "lb1e" in low \
+            else "K1-bwd dq"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "gemv", "sm90_")):
         return "products"
     if "softmax" in low or "nll" in low:

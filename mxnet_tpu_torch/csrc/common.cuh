@@ -6,6 +6,7 @@
 // exported symbol: header-only, inline or internal.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -122,6 +123,25 @@ __device__ __forceinline__ unsigned half_bits(float x) {
 template <class T>
 __device__ __forceinline__ unsigned half_pack(float lo, float hi) {
   return half_bits<T>(lo) | (half_bits<T>(hi) << 16);
+}
+
+// x0, x1 split as hi + lo in the 16-bit type T, each pair packed as a
+// wgmma A fragment register (x0 in the low half): hi = T(x), lo =
+// T(x - hi)
+template <class T>
+__device__ __forceinline__ void split_pair(float x0, float x1, unsigned& hi,
+                                           unsigned& lo) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    hi = *reinterpret_cast<const unsigned*>(&h);
+    lo = bf16_pack(x0 - hf.x, x1 - hf.y);
+  } else {
+    const __half2 h = __floats2half2_rn(x0, x1);
+    const float2 hf = __half22float2(h);
+    hi = *reinterpret_cast<const unsigned*>(&h);
+    lo = half_pack<T>(x0 - hf.x, x1 - hf.y);
+  }
 }
 
 // ---- TF32 tensor cores (mma.sync m16n8k8) ------------------------------
@@ -296,6 +316,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       : "memory");
 }
 
+// One box of a 1-d tensor map at coordinate c0 (see tma_load_4d).
+__device__ __forceinline__ void tma_load_1d(void* dst, const void* map,
+                                            int c0, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(c0), "r"(bar)
+      : "memory");
+}
+
 // Fetch a tensor map (the generic address of a __grid_constant__
 // CUtensorMap) into the descriptor cache ahead of its first copy.
 __device__ __forceinline__ void prefetch_tensormap(const void* map) {
@@ -460,6 +490,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 #undef MXTT_WGMMA_RS_N32
 #undef MXTT_WGMMA_RS_N64
 
+// d (64 x N, fp32) += A (registers) * B (shared, MN-major), N = 64, 32
+// or 16
+template <int N, class T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const unsigned (&a)[4],
+                                         uint64_t b) {
+  if constexpr (N == 64)
+    wgmma_rs_n64<T>(d, a, b);
+  else if constexpr (N == 32)
+    wgmma_rs_n32<T>(d, a, b);
+  else
+    wgmma_rs_n16<T>(d, a, b);
+}
+
 namespace {
 
 // Per-device caches of the host-side launch helpers hold this many
@@ -476,6 +520,71 @@ cudaError_t raise_smem_limit(int dev) {
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
   if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = 1;
   return err;
+}
+
+// cuTensorMapEncodeTiled, found through the runtime (nothing links
+// libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t tensor_map_encoder(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (!found) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess) return err;
+    if (status != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// The tensor map of a (B, H, rows, D) bf16 or float16 (T) view with
+// (b, h, s) element strides ``st``, over its first ``rows`` rows: boxes
+// of kSwizzle / 2 head dims x 64 rows in a kSwizzle-byte swizzle (128,
+// 64 or 32), the layout wgmma reads; elements outside it read as zeros.
+// An axis of extent 1 gets a stride of one row (its coordinate is
+// always 0).
+template <class T, int kSwizzle>
+cudaError_t tensor_map_rows(CUtensorMap* map, const void* base, int D, int B,
+                            int H, int rows, const long long* st) {
+  static_assert(sizeof(T) == 2, "a 16-bit element type");
+  EncodeTiled encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)H, (cuuint64_t)B};
+  const long long el[3] = {st[2], st[1], st[0]};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = dims[i + 1] > 1 ? (cuuint64_t)el[i] * 2 : (cuuint64_t)D * 2;
+  const cuuint32_t box[4] = {(cuuint32_t)kSwizzle / 2, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      kSwizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(
+      map,
+      std::is_same_v<T, bf16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -569,36 +569,6 @@ struct WgSmem {
                 "the exchange fits in the ring");
 };
 
-template <int N, class T>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const unsigned (&a)[4],
-                                         uint64_t b) {
-  if constexpr (N == 64)
-    mxtt::wgmma_rs_n64<T>(d, a, b);
-  else if constexpr (N == 32)
-    mxtt::wgmma_rs_n32<T>(d, a, b);
-  else
-    mxtt::wgmma_rs_n16<T>(d, a, b);
-}
-
-// x0, x1 split as hi + lo in the 16-bit type T, each pair packed as an
-// A fragment register (x0 in the low half): hi = T(x), lo = T(x - hi)
-template <class T>
-__device__ __forceinline__ void split_pair(float x0, float x1, unsigned& hi,
-                                           unsigned& lo) {
-  if constexpr (std::is_same_v<T, mxtt::bf16>) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    const float2 hf = __bfloat1622float2(h);
-    hi = *reinterpret_cast<const unsigned*>(&h);
-    lo = mxtt::bf16_pack(x0 - hf.x, x1 - hf.y);
-  } else {
-    const __half2 h = __floats2half2_rn(x0, x1);
-    const float2 hf = __half22float2(h);
-    hi = *reinterpret_cast<const unsigned*>(&h);
-    lo = mxtt::half_pack<T>(x0 - hf.x, x1 - hf.y);
-  }
-}
-
 template <int D, class T>
 __global__ void __launch_bounds__(WgSmem<D>::kThreads, 1)
 flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -732,8 +702,8 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int c = 0; c < kNC; ++c) {
         const uint64_t dv = mxtt::wgmma_desc<S::kSwizzle>(
             v_s + c * S::kPart + j * 16 * S::kSwizzle, S::kPart, kSbo);
-        wgmma_rs<kN, T>(o[c], ph[j], dv);
-        wgmma_rs<kN, T>(o[c], pl[j], dv);
+        mxtt::wgmma_rs<kN, T>(o[c], ph[j], dv);
+        mxtt::wgmma_rs<kN, T>(o[c], pl[j], dv);
       }
     mxtt::wgmma_commit();
   };
@@ -835,8 +805,8 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int j = 0; j < kPSteps; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        split_pair<T>(s[8 * j + 2 * r], s[8 * j + 2 * r + 1], ph[j][r],
-                      pl[j][r]);
+        mxtt::split_pair<T>(s[8 * j + 2 * r], s[8 * j + 2 * r + 1],
+                            ph[j][r], pl[j][r]);
   };
   // tile t's stage is free: each warp arrives; warp 0 waits for the four
   // (the whole warp: a wait loop in a branch ptxas takes as divergent
@@ -999,71 +969,6 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                                 causal, scale, st, stream);
 }
 
-// cuTensorMapEncodeTiled, found through the runtime (nothing links
-// libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-cudaError_t tensor_map_encoder(EncodeTiled* fn) {
-  static EncodeTiled found = nullptr;
-  if (!found) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess) return err;
-    if (status != cudaDriverEntryPointSuccess || p == nullptr)
-      return cudaErrorNotSupported;
-    found = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = found;
-  return cudaSuccess;
-}
-
-// The tensor map of a (B, H, rows, D) bf16 or float16 (T) view with
-// (b, h, s) element strides ``st``, over its first ``rows`` rows (Sq for
-// q, kv_len for k and v): boxes of kBoxD head dims x 64 rows in WgSmem's
-// swizzle, elements outside it read as zeros. An axis of extent 1 gets a
-// stride of one row (its coordinate is always 0).
-template <int D, class T>
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int H,
-                       int rows, const long long* st) {
-  using S = WgSmem<D>;
-  EncodeTiled encode;
-  const cudaError_t err = tensor_map_encoder(&encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)H, (cuuint64_t)B};
-  const long long el[3] = {st[2], st[1], st[0]};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i)
-    strides[i] = dims[i + 1] > 1 ? (cuuint64_t)el[i] * 2 : (cuuint64_t)D * 2;
-  const cuuint32_t box[4] = {(cuuint32_t)S::kBoxD, (cuuint32_t)kWgRows, 1,
-                             1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      S::kSwizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-      : S::kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                          : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(
-      map,
-      std::is_same_v<T, mxtt::bf16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D, class T>
 cudaError_t launch_wg(const T* q, const T* k, const T* v, T* out, float* lse,
                       int B, int H, int Sq, int kv_len, int causal,
@@ -1074,12 +979,18 @@ cudaError_t launch_wg(const T* q, const T* k, const T* v, T* out, float* lse,
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = raise_smem_limit<flash_fwd_wg_kernel<D, T>, S::kBytes>(dev);
+  // per-call tensor maps of the strided views (common.cuh
+  // tensor_map_rows: boxes of kBoxD head dims x 64 rows); K and V end at
+  // kv_len
+  static_assert(kWgRows == 64 && S::kBoxD * 2 == S::kSwizzle, "the box");
+  constexpr int kSw = S::kSwizzle;
   CUtensorMap qm, km, vm;
-  if (err == cudaSuccess) err = tensor_map<D, T>(&qm, q, B, H, Sq, st);
   if (err == cudaSuccess)
-    err = tensor_map<D, T>(&km, k, B, H, kv_len, st + 3);
+    err = mxtt::tensor_map_rows<T, kSw>(&qm, q, D, B, H, Sq, st);
   if (err == cudaSuccess)
-    err = tensor_map<D, T>(&vm, v, B, H, kv_len, st + 6);
+    err = mxtt::tensor_map_rows<T, kSw>(&km, k, D, B, H, kv_len, st + 3);
+  if (err == cudaSuccess)
+    err = mxtt::tensor_map_rows<T, kSw>(&vm, v, D, B, H, kv_len, st + 6);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kWgRows - 1) / kWgRows);
   flash_fwd_wg_kernel<D, T><<<grid, S::kThreads, S::kBytes, stream>>>(

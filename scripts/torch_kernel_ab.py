@@ -73,7 +73,14 @@ builds agree.
    ``mxnet_tpu_torch``), for that tree's wrappers in a child process
    (``--host-probe ROOT``).
 
-7. ``bf16_kernel_us``: this checkout's bf16 instances alone (the
+7. ``flash_attention_bwd_ab``: K1-bwd's bf16 and float16 instances
+   (the dq launch, the dk/dv launch and the pair) from ``DIR`` against
+   this checkout's, through the same wrapper, at ``chip_smoke.py``'s
+   BWD_SHAPE (8, 12, 1024, 64), causal, strided, with the backward of
+   ``scaled_dot_product_attention`` on the same tensors beside them
+   (device ms, kernel-only µs).
+
+8. ``bf16_kernel_us``: this checkout's bf16 instances alone (the
    parent revision has none): K1-bf16 at the prefill shape (and SDPA
    on the same bf16 tensors), K2-bf16 and K3-bf16 at the decode shapes
    above over bf16 caches, each with a bf16 and an fp32 q: the kernels'
@@ -82,7 +89,7 @@ builds agree.
 
 ``--only NAME`` (repeatable) runs just those: ``flash``, ``dequant``,
 ``decode``, ``paged``, ``int8_dense_vs_paged``, ``wrapper_cost``,
-``wrapper_host_us``, ``bf16``.
+``wrapper_host_us``, ``bf16``, ``flash_bwd``.
 
 The first line printed is ``nvidia-smi``'s name and power limit; each
 measurement prints one JSON line.
@@ -440,6 +447,97 @@ def flash_ab(timer, other_csrc, rounds):
                     **_summary(times))
 
 
+def flash_bwd_ab(timer, other_csrc, rounds):
+    """K1-bwd's bf16 and float16 instances (both launches) from
+    ``other_csrc`` against this checkout's, through the same wrapper (the
+    cached entry points swapped), at ``chip_smoke.py``'s BWD_SHAPE,
+    causal, on the head split's strided views: device ms of each launch
+    and of the pair in turns, kernel-only µs (profiler), and the backward
+    of ``scaled_dot_product_attention`` on the same tensors beside them.
+    The two builds must agree within twice the instance's BWD_TOL of
+    max(1, max|g|) (each is within BWD_TOL of the plain version there)."""
+    import torch.nn.functional as F
+    other = _compile(os.path.join(other_csrc, "flash_attention_bwd.cu"),
+                     other_csrc, "flash_attention_bwd-other")
+    b, h, s, d = cs.BWD_SHAPE
+    sc = 1.0 / np.sqrt(d)
+    for tag, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        syms = {kind: f"mxtt_flash_attention_bwd_{kind}_{tag}"
+                for kind in ("dq", "dkv")}
+        if not all(hasattr(other, sym) for sym in syms.values()):
+            cs.emit("flash_attention_bwd_ab", instance=tag,
+                    other_csrc=other_csrc,
+                    skipped="no 16-bit K1-bwd in the other revision")
+            continue
+        fns = {}
+        for which, lib in (("other", other), ("this", None)):
+            fns[which] = {}
+            for kind, sym in syms.items():
+                if lib is None:
+                    fn = _build.function("flash_attention_bwd", sym,
+                                         at._FLASH_BWD_ARGTYPES)
+                else:
+                    fn = getattr(lib, sym)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = at._FLASH_BWD_ARGTYPES
+                fns[which][kind] = fn
+        rng = np.random.RandomState(20)
+        q, k, v, do = (cs._split_view(torch, rng, b, s, h, d).to(dt)
+                       for _ in range(4))
+        out, lse = at.flash_attention_fwd(q, k, v, True)
+
+        def use(which):
+            for kind, sym in syms.items():
+                _build._fns[("flash_attention_bwd", sym)] = fns[which][kind]
+
+        def dq_call(which):
+            use(which)
+            return at._flash_bwd_launch("dq", q, k, v, out, lse, do, True,
+                                        sc, s)
+
+        def pair(which):
+            dq, delta = dq_call(which)
+            dk, dv = at._flash_bwd_launch("dkv", q, k, v, out, lse, do, True,
+                                          sc, s, delta)
+            return dq, dk, dv
+        got = {w: pair(w) for w in ("this", "other")}
+        tol = 2 * cs.BWD_TOL[tag]
+        diff = {}
+        for i, name in enumerate(("dq", "dk", "dv")):
+            a, o = got["this"][i].float(), got["other"][i].float()
+            diff[name] = float((a - o).abs().max()) / max(
+                1.0, float(o.abs().max()))
+        cs.check(max(diff.values()) <= tol,
+                 f"the two {tag} K1-bwd builds differ by {diff}")
+        _, delta = dq_call("this")
+        calls = {
+            "dq": lambda w: dq_call(w),
+            "dkv": lambda w: (use(w), at._flash_bwd_launch(
+                "dkv", q, k, v, out, lse, do, True, sc, s, delta)),
+            "pair": pair}
+        res = {}
+        for kind, call in calls.items():
+            times = _turns(timer, {w: (lambda w=w: call(w))
+                                   for w in ("other", "this")},
+                           rounds, False)
+            res[kind] = {**_summary(times), "kernel_us_profiler": {
+                w: _kernel_us(lambda w=w: call(w), "flash_bwd")
+                for w in ("other", "this")}}
+        use("this")
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(o_lib, (qs, ks, vs), do,
+                                       retain_graph=True)
+        cs.emit("flash_attention_bwd_ab", instance=tag,
+                shape=list(cs.BWD_SHAPE), causal=True, strided=True,
+                other_csrc=other_csrc, max_rel_diff=diff,
+                order="other, this, this, other", rounds=rounds, **res,
+                sdpa_bwd={"ms_device": timer(sdpa_bwd, device=True),
+                          "kernel_us_profiler": _kernel_us(sdpa_bwd, "")})
+
+
 #: K4's entry point before it took a bias: x, wq, scales, out; M, N, K;
 #: stream
 _DEQUANT_ARGTYPES_NO_BIAS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
@@ -687,7 +785,7 @@ def wrapper_cost(timer):
 
 #: the measurements --only selects from
 ONLY = ("flash", "dequant", "decode", "paged", "int8_dense_vs_paged",
-        "wrapper_cost", "wrapper_host_us", "bf16")
+        "wrapper_cost", "wrapper_host_us", "bf16", "flash_bwd")
 
 
 def main(argv=None):
@@ -722,6 +820,8 @@ def main(argv=None):
             flash_ab(timer, other, args.rounds)
         if "dequant" in only:
             dequant_ab(timer, other, args.rounds)
+        if "flash_bwd" in only:
+            flash_bwd_ab(timer, other, args.rounds)
         for paged in (False, True):
             if ("paged" if paged else "decode") in only:
                 for int8 in (False, True):
