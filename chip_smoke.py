@@ -15,8 +15,10 @@ garbage past every length and NaN in the scrap page, every unreferenced
 page and their int8 scales; both also at lengths on either side of
 their cluster ranks' ranges, K3 at a P_max that is not a multiple of
 its cluster size, K2 at S = 1000, on a cache sliced from a longer
-buffer and on a row-strided view), K4 int8 dequant-matmul (M = 1 to 512,
-with and without the bias it adds in its epilogue), the bf16 and the
+buffer and on a row-strided view), K4 int8 dequant-matmul (M = 1 to 512:
+the GEMV, each row-frag instance of the tile kernel and its tails, 64-row
+m tiles, N not a multiple of 32 and K not of 64; with and without the
+bias it adds in its epilogue), the bf16 and the
 float16 instances of K1 (its own kernel, templated on the element
 type: wgmma on tiles brought by TMA), K2 and K3 (every case of the fp32
 phases on 16-bit inputs; K2 and K3 with a 16-bit and an fp32 q over
@@ -110,7 +112,7 @@ Tolerances, with their reasons:
   different orders), of the log-sum-exp <= 1e-4 (a value of ~10 in fp32
   carries ~1e-6 per rounding, and exp/log add a few); K4's max-abs-err
   <= 2e-5 x max|ref| (fp32 sums of 768-3072 terms in another order;
-  at M <= 8 x is split for the tensor cores as K1's operands are);
+  at every M x is split for the tensor cores as K1's operands are);
 - a bf16 (float16) kernel vs its plain version run in fp32 on the
   widened inputs and rounded to its type: one step of the type, 2^-8
   (2^-10) x max(1, max|ref|) (both compute in fp32 before one rounding;
@@ -317,6 +319,25 @@ def _wg_resources(lines, kernel="flash_bwd_wg_kernel"):
     return out, warnings
 
 
+def _tc_resources(lines, kernel):
+    """ptxas's registers and spill bytes of each instance of ``kernel``,
+    by its integer template argument (head dim, or row frags)."""
+    pat = re.compile(kernel + r"ILi(\d+)E")
+    out, cur = {}, None
+    for ln in lines:
+        if "Compiling entry" in ln:
+            m = pat.search(ln)
+            cur = out.setdefault(int(m.group(1)), {}) if m else None
+        elif cur is not None and "spill stores" in ln:
+            st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", ln)
+            cur["spill_stores"], cur["spill_loads"] = map(int, st.groups())
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+    return out
+
+
 def phase_build():
     from mxnet_tpu_torch import _build
     t0 = time.perf_counter()
@@ -326,6 +347,14 @@ def phase_build():
     inst, warnings = _wg_resources(
         _build.build_info.get("flash_attention_bwd", {}).get("ptxas", []))
     emit("build_flash_bwd_wg", instances=inst, ptxas_warnings=warnings)
+    # the TF32 tensor-core kernels: K1-bwd's fp32 launches by head dim,
+    # K4's tile kernel by its 8-row frags
+    emit("build_tf32", instances={
+        kern: _tc_resources(_build.build_info.get(lib, {}).get("ptxas", []),
+                            kern)
+        for lib, kern in (("flash_attention_bwd", "flash_bwd_dq_tc_kernel"),
+                          ("flash_attention_bwd", "flash_bwd_dkv_tc_kernel"),
+                          ("dequant_matmul", "dequant_tile_kernel"))})
 
 
 def _rand(torch, rng, *shape):
@@ -1093,12 +1122,28 @@ def _library_dequant(torch, x, wq, scales):
                 "F.linear on a pre-dequantized fp32 weight")
 
 
+#: K4's check rows: the GEMV (M <= 8), the tile kernel's instances of 2
+#: to 8 row frags with their tails (9 .. 64), 64-row m tiles (65, 100,
+#: 512), each on every projection shape and DEQUANT_ODD_SHAPE
+DEQUANT_CHECK_M = (1, 3, 8, 9, 16, 17, 31, 32, 33, 40, 64, 65, 100, 512)
+#: (N, K) with N not a multiple of the tile kernel's 32-channel block and
+#: K not of its 64-wide span
+DEQUANT_ODD_SHAPE = (1000, 1040)
+#: the rows K4 is timed at: the peek (1), a decode step (8), a prefill
+#: chunk (32), the speculative verify (40) and the dense prefill (512)
+DEQUANT_TIMED_M = (1, 8, 32, 40, 512)
+#: the kernels line's K4 rows (dequant_matmul, _m32, _m64: the wrapper's
+#: counters by M): result key -> (timed M, the check rows it covers)
+DEQUANT_ROWS = {"k4": (8, range(1, 9)), "k4m32": (32, range(9, 33)),
+                "k4m64": (40, range(33, 1 << 20))}
+
+
 def phase_dequant(torch, timer):
     from mxnet_tpu_torch.ops import quantized as qz
     rng = np.random.RandomState(4)
-    cases, err_abs, err_rel = [], 0.0, 0.0
+    cases = []
     tables, biases = {}, {}
-    for n, k in sorted(set(LAYER_PROJECTIONS)):
+    for n, k in sorted(set(LAYER_PROJECTIONS) | {DEQUANT_ODD_SHAPE}):
         w = torch.from_numpy(
             (rng.standard_normal((n, k)) * 0.02).astype("f4")).cuda()
         w[n // 3] = 0.0                          # an all-zero channel
@@ -1106,7 +1151,7 @@ def phase_dequant(torch, timer):
         biases[(n, k)] = _rand(torch, rng, n)
         wq, sc = tables[(n, k)]
         check(int(wq[n // 3].abs().max()) == 0, "zero channel not zero")
-        for m in (1, 3, 8, 9, 32, 40, 512):
+        for m in DEQUANT_CHECK_M:
             x = _rand(torch, rng, m, k)
             for bias in (None, biases[(n, k)]):
                 out = qz.dequant_matmul(x, wq, sc, bias=bias)
@@ -1119,18 +1164,16 @@ def phase_dequant(torch, timer):
                 cases.append({"M": m, "N": n, "K": k,
                               "bias": bias is not None, "max_abs_err": e,
                               "rel": rel})
-                err_abs, err_rel = max(err_abs, e), max(err_rel, rel)
     emit("dequant_matmul_check", cases=cases)
+    err_rel = max(c["rel"] for c in cases)
     check(err_rel <= DEQUANT_REL_TOL,
           f"K4 max-abs-err {err_rel} x max|ref| > {DEQUANT_REL_TOL}")
 
-    # timing at the decode shape, M = 8 (the kernels line), and at M = 1
-    # (peek), M = 32 (a prefill chunk) and M = 40 (a speculative verify
-    # of 8 slots x (SPEC_K + 1) positions), each projection of one layer;
-    # bias=None, as the library call and earlier kernels had none, with
-    # the path's bias epilogue timed beside it
+    # timing of each projection of one layer at DEQUANT_TIMED_M; bias=None,
+    # as the library call and earlier kernels had none, with the path's
+    # bias epilogue timed beside it
     per_shape, lib_name = {}, None
-    for m in (1, 8, 32, 40):
+    for m in DEQUANT_TIMED_M:
         for n, k in sorted(set(LAYER_PROJECTIONS)):
             wq, sc = tables[(n, k)]
             bias = biases[(n, k)]
@@ -1142,38 +1185,51 @@ def phase_dequant(torch, timer):
                           lambda: qz._dequant_matmul_torch(x, wq, sc), lib),
                 "kernel_bias_ms_device": timer(
                     lambda: qz.dequant_matmul(x, wq, sc, bias=bias),
-                    flush=True, device=True),
-                "bound": bound(n * k + 4 * (m * k + n + m * n),
-                               2 * m * n * k)}
+                    flush=True, device=True)}
 
     def layer(m, key):
         return sum(per_shape[(m, n, k)][key] for n, k in LAYER_PROJECTIONS)
 
     def layer_bound(m):
-        return bound(sum(n * k + 4 * (m * k + n + m * n)
-                         for n, k in LAYER_PROJECTIONS),
-                     sum(2 * m * n * k for n, k in LAYER_PROJECTIONS))
-    m = 8
-    bound_ms, bound_by = layer_bound(m)
-    res = {"max_abs_err": err_abs, "max_rel_err": err_rel,
-           **{key: layer(m, key) for key in TIMING_KEYS},
-           "kernel_bias_ms_device": layer(m, "kernel_bias_ms_device"),
-           "library": lib_name, "bound_ms": bound_ms, "bound_by": bound_by,
-           "timed": "the 6 projections of one layer at M=8, summed",
-           "per_m": {mm: {"kernel_ms": layer(mm, "kernel_ms"),
-                          "kernel_ms_device": layer(mm, "kernel_ms_device"),
-                          "library_ms_device": layer(mm, "library_ms_device"),
-                          "plain_ms_device": layer(mm, "plain_ms_device"),
-                          "bound_ms": layer_bound(mm)[0],
-                          "bound_by": layer_bound(mm)[1]}
-                     for mm in (1, 8, 32, 40)},
-           "per_shape": [{"M": mm, "N": n, "K": k,
-                          **{kk: vv for kk, vv in r.items()
-                             if kk != "bound"},
-                          "bound_ms": r["bound"][0]}
-                         for (mm, n, k), r in per_shape.items()]}
-    emit("dequant_matmul", **res)
-    return res
+        """The GEMV's bound: bytes vs fp32 operations; the tile kernel's:
+        bytes vs its two TF32 products (x's big and small parts against
+        the exact int8 weight) at the TF32 tensor cores' rate."""
+        nbytes = sum(n * k + 4 * (m * k + n + m * n)
+                     for n, k in LAYER_PROJECTIONS)
+        flops = sum(2 * m * n * k for n, k in LAYER_PROJECTIONS)
+        if m <= 8:
+            return (*bound(nbytes, flops),
+                    "bytes at 3.35 TB/s vs FLOP at 67 TFLOP/s (fp32)")
+        return (*bound(nbytes, 2 * flops, PEAK_TF32_FLOPS),
+                "bytes at 3.35 TB/s vs 2 x FLOP at 495 TFLOP/s (2xTF32)")
+
+    per_m = {}
+    for mm in DEQUANT_TIMED_M:
+        bm, by, rule = layer_bound(mm)
+        per_m[mm] = {**{key: layer(mm, key) for key in
+                        ("kernel_ms", "kernel_ms_device", "library_ms_device",
+                         "plain_ms_device", "kernel_bias_ms_device")},
+                     "bound_ms": bm, "bound_by": by, "bound_rule": rule}
+    out = {}
+    for key, (m, rows) in DEQUANT_ROWS.items():
+        bm, by, rule = layer_bound(m)
+        mine = [c for c in cases if c["M"] in rows]
+        out[key] = {
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_rel_err": max(c["rel"] for c in mine),
+            "checked_m": sorted({c["M"] for c in mine}),
+            **{kk: layer(m, kk) for kk in TIMING_KEYS},
+            "kernel_bias_ms_device": layer(m, "kernel_bias_ms_device"),
+            "library": lib_name, "bound_ms": bm, "bound_by": by,
+            "bound_rule": rule,
+            "timed": f"the 6 projections of one layer at M={m}, summed"}
+    out["k4m64"]["m512"] = per_m[512]
+    emit("dequant_matmul", per_m=per_m,
+         rows={kk: {k2: v for k2, v in r.items() if k2 != "m512"}
+               for kk, r in out.items()},
+         per_shape=[{"M": mm, "N": n, "K": k, **r}
+                    for (mm, n, k), r in per_shape.items()])
+    return out
 
 
 def phase_engine(torch):
@@ -1556,10 +1612,10 @@ def _serve_paged_traffic(torch, eng, prompts, repeats, submit_kw=None):
     check(res["prefix_hits"] > 0, "no prefix hit (peek) ran")
     check(res["cow_copies"] > 0, "no copy-on-write ran")
     steps = res["decode_steps"]
-    check(eng.quantize is None or res["launches"]["dequant_matmul"]
-          >= 6 * PAGED_MODEL["num_layers"] * steps,
-          f"K4 launched {res['launches']['dequant_matmul']} times for "
-          f"{steps} decode steps")
+    k4 = sum(n for name, n in res["launches"].items()
+             if name.startswith("dequant_matmul"))
+    check(eng.quantize is None or k4 >= 6 * PAGED_MODEL["num_layers"] * steps,
+          f"K4 launched {k4} times for {steps} decode steps")
     return results, res
 
 
@@ -3739,7 +3795,14 @@ KERNELS = [
      "mxnet_tpu/ops/attention.py:566",
      "paged_decode_attention_pallas (k_scale/v_scale)", "k3i"),
     ("dequant_matmul", "dequant_matmul.cu",
-     "mxnet_tpu/ops/quantized.py:151", "dequant_matmul_pallas", "k4"),
+     "mxnet_tpu/ops/quantized.py:151", "dequant_matmul_pallas (M <= 8: "
+     "the GEMV)", "k4"),
+    ("dequant_matmul_m32", "dequant_matmul.cu",
+     "mxnet_tpu/ops/quantized.py:151", "dequant_matmul_pallas (9-32 rows, "
+     "prefill chunks: the tile kernel)", "k4m32"),
+    ("dequant_matmul_m64", "dequant_matmul.cu",
+     "mxnet_tpu/ops/quantized.py:151", "dequant_matmul_pallas (over 32 "
+     "rows, the speculative verify: the tile kernel)", "k4m64"),
     ("flash_attention_fwd_bf16", "flash_attention.cu",
      "mxnet_tpu/ops/attention.py:141",
      "flash_attention_pallas on bf16 q/k/v", "k1b"),
@@ -3790,7 +3853,7 @@ def main(argv=None):
     k4 = phase_dequant(torch, timer)
     k5 = phase_rtc(torch, timer)
     kernel_res = {"k1": k1, "k2": k2, "k2i": k2i, "k3": k3, "k3i": k3i,
-                  "k4": k4}
+                  **k4}
     for tag, key in (("bf16", "b"), ("f16", "h")):
         kernel_res[f"k1{key}"] = phase_flash_half(torch, timer, tag)
         kernel_res[f"k2{key}"] = phase_decode_half(torch, timer, tag)
@@ -3845,7 +3908,8 @@ def main(argv=None):
             **{k: res[k] for k in TIMING_KEYS},
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             **{k: res[k] for k in ("bound_ms_fp32_cores", "bound_rule",
-                                   "pair_ms", "pair_ms_device", "library")
+                                   "pair_ms", "pair_ms_device", "library",
+                                   "timed", "m512")
                if k in res}})
     by_phase = {ph: r["launches"].get("rtc", 0) for ph, r in phases.items()}
     rows.append({

@@ -44,12 +44,38 @@
 //   epilogue applies the scale and the bias. No cluster, no atomics,
 //   no second pass. N is split across blocks (96-384 at GPT-2 widths).
 //
-// M > 8: a lane per output channel (dequant_tiled_kernel), all rows of
-// a 32-row tile of x per lane, so each weight byte is read once per
-// tile; K split across the block's 8 warps and across a thread-block
-// cluster of up to 8 blocks sized at launch, sums met through
-// distributed shared memory in rank order; x staged in shared memory
-// and read as broadcasts; the bias added by rank 0.
+// M > 8: a tile kernel on the TF32 tensor cores (dequant_tile_kernel<NF>).
+// The chunks of a paged prefill (M = 32, and 9-31 at a prompt's tail)
+// and the speculative verify (M = 40) run it; the weight's bytes bound
+// it up to about M = 64 (a layer's six at M = 40: 0.0023 ms by bytes,
+// about as much by the two TF32 products at 495 TFLOP/s), so every
+// weight byte is read once a launch up to 64 rows.
+// - The weight is the mma's A operand (16 channels x 8 k) and x its B
+//   (8 k x 8 rows), so the rows come in 8-row frags (NF = ceil(M / 8),
+//   an instance each up to 64 rows; above, 64-row m tiles re-read the
+//   weight from L2). An int8 weight is exact in TF32, so only x is
+//   split: x_big * w + x_small * w, two mma on one A fragment, summed
+//   in one accumulator.
+// - A block owns 32 channels (two 16-channel frags) and K is split over
+//   its two warps and over a cluster of up to 8 blocks, sized at launch
+//   for about two blocks an SM (144-288 at GPT-2 widths; without the
+//   cluster, a layer's six took 1.4x as long at M = 32-40); the partial
+//   sums meet in shared memory (warps) and through distributed shared
+//   memory (ranks), added in a fixed order, each rank finishing its
+//   share of the rows. No atomics.
+// - Each warp issues its 16-byte weight loads first (lane (g, t): 16 k
+//   of channels g and g + 8 at 16 t of each 64-wide span; the mma's k
+//   t and t + 4 map to the lane's own k 16 t + 2 i and + 1 in step i,
+//   as in the GEMV), then the block copies x's rows of its K share into
+//   shared memory by cp.async (rows past M and k past K zero-filled)
+//   while they fly, two spans at a time (at most 36 KB; six spans timed
+//   the same at M = 32 and 40 and 17 % slower at M = 512, where fewer
+//   blocks fit an SM), rotating each 16-float chunk's 16-byte parts so a
+//   quarter warp's loads hit distinct bank groups. An int8 weight
+//   becomes its fp32 value by a byte permute into 2^23's mantissa and
+//   one subtraction (exact).
+// - The scale multiplies each channel's fp32 sum once, and the bias is
+//   added, in the epilogue.
 //
 // K must be a multiple of 16 and x, wq 16-byte aligned (the wrapper
 // checks); the activation stays a torch op after the kernel.
@@ -178,138 +204,210 @@ cudaError_t launch_gemv(const float* x, const signed char* wq,
   return cudaGetLastError();
 }
 
-// ---- M > 8: a lane per channel, K split across warps and a cluster ------
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMT = 32;             // rows of x per launch tile
-constexpr int kMaxSplit = 8;        // blocks of one cluster, splitting K
-constexpr int kTargetBlocks = 264;  // about two per SM of the H100
-constexpr int kSmemFloats = 8192;   // 32 KB: the x tile, then the sums
-constexpr int kLoads = 4;           // weight loads in flight per lane
+// ---- M > 8: the tensor-core tile kernel ----------------------------------
+constexpr int kChFrags = 2;                // 16-channel frags (mma m) a block
+constexpr int kKWarps = 2;                 // warps splitting a block's K
+constexpr int kTileChannels = 16 * kChFrags;
+constexpr int kTileThreads = 32 * kChFrags * kKWarps;
+constexpr int kTileRows = 64;              // rows of x a block (8 n frags)
+constexpr int kPieceSpans = 2;             // 64-k spans of x staged at once
+constexpr int kPitch = kPieceSpans * kSpan + 16;   // 16 mod 32 floats
+static_assert(kPieceSpans % kKWarps == 0, "a piece's spans share out evenly");
+constexpr int kMaxSplit = 8;               // blocks of a cluster, splitting K
+constexpr int kTargetBlocks = 264;         // about two per SM of the H100
+constexpr int kTileBlocks = 2;             // blocks an SM the registers allow
 
-__global__ void __launch_bounds__(kThreads)
-dequant_tiled_kernel(const float* __restrict__ x,
-                     const signed char* __restrict__ wq,
-                     const float* __restrict__ scales,
-                     const float* __restrict__ bias, float* __restrict__ out,
-                     int M, int N, int K) {
-  constexpr int MT = kMT;
-  constexpr int KT = kSmemFloats / MT;   // k per staged x tile
-  static_assert(KT % 16 == 0 && KT * MT <= kSmemFloats, "x tile");
-  static_assert(kWarps * MT * 32 <= kSmemFloats, "partial sums");
-  __shared__ __align__(16) float smem[kSmemFloats];
-  __shared__ float part[MT * 32];        // this block's sums, for rank 0
+// Shared memory of an instance of NF 8-row frags: the staged x piece
+// (reused by the partial sums at the end).
+template <int NF>
+constexpr size_t kTileSmem = (size_t)8 * NF * kPitch * sizeof(float);
+static_assert(kTileSmem<8> <= 48 * 1024, "no opt-in shared memory needed");
 
-  // launched as clusters of gridDim.z blocks along z
+// An int8 weight as the fp32 (and TF32) value it is: its byte, biased to
+// unsigned (``w`` carries the XOR with 0x80808080), becomes the low
+// mantissa byte of 2^23, and the bias and 2^23 are subtracted (exact).
+__device__ __forceinline__ unsigned s8_tf32(unsigned w, int byte) {
+  return __float_as_uint(
+      __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u | byte)) -
+      8388736.f);
+}
+
+// x's piece in shared memory: row r, 16-float chunk c16 of the piece,
+// 16-byte part p at r * kPitch + 16 c16 + 4 ((p + c16) % 4). A lane
+// (g, t) reads chunk 4 s + t of its rows: the rotation puts a quarter
+// warp's 8 loads (rows g, g + 1; t = 0..3) on 8 distinct bank groups.
+__device__ __forceinline__ int x_at(int r, int c16, int p) {
+  return r * kPitch + 16 * c16 + 4 * ((p + c16) & 3);
+}
+
+// out (rows m0.., channels blockIdx.x * kTileChannels..) of NF 8-row
+// frags. Launched as clusters of gridDim.z blocks along z, each summing
+// its share of K's 64-wide spans.
+template <int NF>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+dequant_tile_kernel(const float* __restrict__ x,
+                    const signed char* __restrict__ wq,
+                    const float* __restrict__ scales,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int M, int N, int K) {
+  extern __shared__ __align__(16) float tile_smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const unsigned rank = cluster.block_rank();
+  const int rank = (int)cluster.block_rank();
   const int split = gridDim.z;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int n = blockIdx.x * 32 + lane;
-  const bool live = n < N;
-  const int m0 = blockIdx.y * MT;
-  const int mt = min(MT, M - m0);
-  const float s = live ? __ldg(scales + n) : 0.f;
-  const int4* wrow =
-      reinterpret_cast<const int4*>(wq + (long long)(live ? n : 0) * K);
-  // this block's share of K, in whole 16-weight groups
-  const int all_groups = K / 16;
-  const int per_block = (all_groups + split - 1) / split;
-  const int kb0 = min(all_groups, (int)rank * per_block) * 16;
-  const int kb1 = min(all_groups, ((int)rank + 1) * per_block) * 16;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int cf = warp % kChFrags, kw = warp / kChFrags;
+  const int n0 = blockIdx.x * kTileChannels;
+  const int m0 = blockIdx.y * kTileRows;
+  const int rows = min(8 * NF, M - m0);   // rows of x this block reads
+  // this block's spans of K
+  const int spans = (K + kSpan - 1) / kSpan;
+  const int per = (spans + split - 1) / split;
+  const int s_begin = min(spans, rank * per);
+  const int s_end = min(spans, s_begin + per);
+  // the lane's weight rows: channels g and g + 8 of its frag
+  const int na = n0 + 16 * cf + g, nb = na + 8;
+  const signed char* wa = wq + (long long)(na < N ? na : 0) * K;
+  const signed char* wb = wq + (long long)(nb < N ? nb : 0) * K;
+  // the epilogue's outputs: channel n0 + tid % kTileChannels of rows
+  // r_lo + tid / kTileChannels, + kTileThreads / kTileChannels.. (this
+  // rank's share of the block's rows); its scale and bias fetched now
+  const int r_per = (rows + split - 1) / split;
+  const int r_lo = min(rows, rank * r_per), r_hi = min(rows, r_lo + r_per);
+  const int n_out = n0 + tid % kTileChannels;
+  const float s_out = n_out < N ? __ldg(scales + n_out) : 0.f;
+  const float b_out =
+      n_out < N && bias != nullptr ? __ldg(bias + n_out) : 0.f;
 
-  float acc[MT];
+  // two accumulators a frag (even and odd k steps): chains of 8 a span
+  float acc[2][NF][4];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[e][f][i] = 0.f;
 
-  for (int kt = kb0; kt < kb1; kt += KT) {
-    const int kc = min(KT, kb1 - kt);    // a multiple of 16
-    const int c4 = kc / 4;
-    __syncthreads();                     // the previous tile is consumed
-    for (int i = tid; i < MT * c4; i += kThreads) {
-      const int r = i / c4;
-      const int c = (i - r * c4) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);   // absent rows: zeros
-      if (r < mt) v = mxtt::load4(x + (long long)(m0 + r) * K + kt + c);
-      *reinterpret_cast<float4*>(&smem[r * KT + c]) = v;
+  constexpr int kWarpSpans = kPieceSpans / kKWarps;   // a warp's, a piece
+  for (int p0 = s_begin; p0 < s_end; p0 += kPieceSpans) {
+    const int p1 = min(s_end, p0 + kPieceSpans);
+    // the warp's weight loads first: spans p0 + kw + kKWarps i
+    int4 w[kWarpSpans][2];
+#pragma unroll
+    for (int i = 0; i < kWarpSpans; ++i) {
+      const int s = p0 + kw + kKWarps * i;
+      const int k = s * kSpan + 16 * t;
+      const bool live = s < p1 && k < K;
+      w[i][0] = live && na < N ? __ldg(reinterpret_cast<const int4*>(wa + k))
+                               : make_int4(0, 0, 0, 0);
+      w[i][1] = live && nb < N ? __ldg(reinterpret_cast<const int4*>(wb + k))
+                               : make_int4(0, 0, 0, 0);
     }
+    // x's piece, rows past M and columns past K zero-filled
+    const int chunks = (p1 - p0) * (kSpan / 4);
+    for (int i = tid; i < 8 * NF * chunks; i += kTileThreads) {
+      const int r = i / chunks, c = i - r * chunks;
+      const int k = p0 * kSpan + 4 * c;
+      const bool live = r < rows && k < K;
+      mxtt::cp_async16(tile_smem + x_at(r, c >> 2, c & 3),
+                       x + (live ? (long long)(m0 + r) * K + k : 0), live);
+    }
+    mxtt::cp_async_commit();
+    mxtt::cp_async_wait<0>();
     __syncthreads();
-    // this warp's contiguous range of the tile's 16-weight groups
-    const int groups = kc / 16;
-    const int per = (groups + kWarps - 1) / kWarps;
-    const int g1 = min(groups, (warp + 1) * per);
-    if (live) {
-      for (int g0 = warp * per; g0 < g1; g0 += kLoads) {
-        int4 raw[kLoads];
 #pragma unroll
-        for (int u = 0; u < kLoads; ++u)
-          if (g0 + u < g1) raw[u] = __ldg(wrow + (kt / 16) + g0 + u);
+    for (int i = 0; i < kWarpSpans; ++i) {
+      const int ls = kw + kKWarps * i;   // the span within the piece
+      if (p0 + ls >= p1) break;
+      // A: the weights of k steps st = 0..7 (the lane's k 16 t + 2 st
+      // and + 1 as the mma's k t and t + 4), exact in TF32
+      unsigned a[8][4];
 #pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
-          if (g0 + u >= g1) break;
-          const signed char* b = reinterpret_cast<const signed char*>(&raw[u]);
-          float w[16];
+      for (int st = 0; st < 8; ++st) {
+        const int word = st >> 1, byte = 2 * (st & 1);
+        const unsigned ua = (&w[i][0].x)[word] ^ 0x80808080u;
+        const unsigned ub = (&w[i][1].x)[word] ^ 0x80808080u;
+        a[st][0] = s8_tf32(ua, byte);
+        a[st][1] = s8_tf32(ub, byte);
+        a[st][2] = s8_tf32(ua, byte + 1);
+        a[st][3] = s8_tf32(ub, byte + 1);
+      }
+      // B: x row 8 f + g at the same k, big and small parts
 #pragma unroll
-          for (int i = 0; i < 16; ++i) w[i] = static_cast<float>(b[i]) * s;
+      for (int f = 0; f < NF; ++f) {
+        const int c16 = 4 * ls + t;
 #pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const float* xr = &smem[m * KT + (g0 + u) * 16];
-            float a = acc[m];
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              tile_smem + x_at(8 * f + g, c16, q));
+          const float xv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * c);
-              a = fmaf(xv.x, w[4 * c], a);
-              a = fmaf(xv.y, w[4 * c + 1], a);
-              a = fmaf(xv.z, w[4 * c + 2], a);
-              a = fmaf(xv.w, w[4 * c + 3], a);
-            }
-            acc[m] = a;
+          for (int h = 0; h < 2; ++h) {
+            const int st = 2 * q + h;
+            unsigned bb[2], bs[2];
+            mxtt::split_tf32(xv[2 * h], bb[0], bs[0]);
+            mxtt::split_tf32(xv[2 * h + 1], bb[1], bs[1]);
+            mxtt::mma_tf32(acc[h][f], a[st], bs);
+            mxtt::mma_tf32(acc[h][f], a[st], bb);
           }
         }
       }
     }
+    __syncthreads();   // the piece is consumed
   }
 
-  // the 8 warps' partial sums of each (row, channel), in warp order
-  __syncthreads();
+  // the block's sums: part[kw][row][channel], then kw's added in order
+  // into part[0] (the x area, free now)
+  float* part = tile_smem;
+  constexpr int kPart = 8 * NF * kTileChannels;
 #pragma unroll
-  for (int m = 0; m < MT; ++m) smem[(warp * MT + m) * 32 + lane] = acc[m];
-  __syncthreads();
-  for (int i = tid; i < MT * 32; i += kThreads) {
-    const int m = i >> 5;
-    const int l = i & 31;
-    float t = 0.f;
+  for (int f = 0; f < NF; ++f)
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += smem[(w * MT + m) * 32 + l];
-    part[i] = t;
-  }
-  // the cluster's blocks' sums, in rank order, by rank 0
-  cluster.sync();
-  if (rank == 0) {
-    for (int i = tid; i < mt * 32; i += kThreads) {
-      const int nn = blockIdx.x * 32 + (i & 31);
-      if (nn >= N) continue;
-      float t = 0.f;
-      for (int r = 0; r < split; ++r)
-        t += *cluster.map_shared_rank(part + i, r);
-      if (bias != nullptr) t += __ldg(bias + nn);
-      out[(long long)(m0 + (i >> 5)) * N + nn] = t;
+    for (int i = 0; i < 4; ++i) {
+      const int row = 8 * f + 2 * t + (i & 1);
+      const int ch = 16 * cf + g + 8 * (i >> 1);
+      part[kw * kPart + row * kTileChannels + ch] =
+          acc[0][f][i] + acc[1][f][i];
     }
+  __syncthreads();
+  for (int i = tid; i < kPart; i += kTileThreads) {
+    float s = part[i];
+#pragma unroll
+    for (int u = 1; u < kKWarps; ++u) s += part[u * kPart + i];
+    part[i] = s;
   }
-  cluster.sync();   // peers keep their shared memory until rank 0 is done
+  // the cluster's blocks' sums, in rank order: each rank finishes its
+  // share of the rows
+  cluster.sync();
+  if (n_out < N)
+    for (int r = r_lo + tid / kTileChannels; r < r_hi;
+         r += kTileThreads / kTileChannels) {
+      const int i = r * kTileChannels + tid % kTileChannels;
+      float s = 0.f;
+      for (int u = 0; u < split; ++u)
+        s += *cluster.map_shared_rank(part + i, u);
+      out[(long long)(m0 + r) * N + n_out] = s * s_out + b_out;
+    }
+  cluster.sync();   // peers keep their shared memory until all are done
 }
 
-cudaError_t launch_tiled(const float* x, const signed char* wq,
-                         const float* scales, const float* bias, float* out,
-                         int M, int N, int K, cudaStream_t stream) {
-  const int tiles = ((N + 31) / 32) * ((M + kMT - 1) / kMT);
-  const int split = max(1, min(kMaxSplit, kTargetBlocks / tiles));
+template <int NF>
+cudaError_t launch_tile(const float* x, const signed char* wq,
+                        const float* scales, const float* bias, float* out,
+                        int M, int N, int K, cudaStream_t stream) {
+  const int groups = (N + kTileChannels - 1) / kTileChannels;
+  const int m_tiles = (M + kTileRows - 1) / kTileRows;
+  const int spans = (K + kSpan - 1) / kSpan;
+  // about kTargetBlocks blocks, then no rank without spans
+  int split = (kTargetBlocks + groups * m_tiles - 1) / (groups * m_tiles);
+  split = max(1, min(split, min(kMaxSplit, spans)));
+  const int per = (spans + split - 1) / split;
+  split = (spans + per - 1) / per;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + 31) / 32, (M + kMT - 1) / kMT, split);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.gridDim = dim3(groups, m_tiles, split);
+  cfg.blockDim = dim3(kTileThreads);
+  cfg.dynamicSmemBytes = kTileSmem<NF>;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -319,8 +417,31 @@ cudaError_t launch_tiled(const float* x, const signed char* wq,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, dequant_tiled_kernel, x, wq, scales, bias, out, M, N, K);
+      &cfg, dequant_tile_kernel<NF>, x, wq, scales, bias, out, M, N, K);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The tile kernel's instance for M rows: NF = ceil(M / 8) 8-row frags up
+// to 64 rows, and 64-row m tiles above
+cudaError_t launch_tiled(const float* x, const signed char* wq,
+                         const float* scales, const float* bias, float* out,
+                         int M, int N, int K, cudaStream_t stream) {
+  switch (M >= kTileRows ? 8 : (M + 7) / 8) {
+    case 2:
+      return launch_tile<2>(x, wq, scales, bias, out, M, N, K, stream);
+    case 3:
+      return launch_tile<3>(x, wq, scales, bias, out, M, N, K, stream);
+    case 4:
+      return launch_tile<4>(x, wq, scales, bias, out, M, N, K, stream);
+    case 5:
+      return launch_tile<5>(x, wq, scales, bias, out, M, N, K, stream);
+    case 6:
+      return launch_tile<6>(x, wq, scales, bias, out, M, N, K, stream);
+    case 7:
+      return launch_tile<7>(x, wq, scales, bias, out, M, N, K, stream);
+    default:
+      return launch_tile<8>(x, wq, scales, bias, out, M, N, K, stream);
+  }
 }
 
 }  // namespace
@@ -337,7 +458,7 @@ int mxtt_dequant_matmul(const float* x, const signed char* wq,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return cudaSuccess;
   if (K <= 0 || K % 16) return cudaErrorInvalidValue;
-  if ((M + kMT - 1) / kMT > 65535) return cudaErrorInvalidValue;
+  if ((M + kTileRows - 1) / kTileRows > 65535) return cudaErrorInvalidValue;
   if (M <= kGemvRows)
     return launch_gemv(x, wq, scales, bias, out, M, N, K, s);
   return launch_tiled(x, wq, scales, bias, out, M, N, K, s);

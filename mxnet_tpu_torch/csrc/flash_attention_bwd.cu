@@ -28,15 +28,42 @@
 // tensors, so the work per byte grows with the sequence: operations
 // bound every instance at the train step's 1024 tokens.
 //
-// The fp32 instance: SIMT on the fp32 CUDA cores (67 TFLOP/s), 256
-// threads in a 16 x 16 grid each owning a 4 x 4 micro-tile of the 64 x 64
-// score tile (rows ty + 16 i, columns tx + 16 j), read as 16-byte
-// shared-memory loads over the head dim (rows padded to D + 4 floats: a
-// quarter warp's 8 rows land on 8 distinct bank groups at every head
-// dim), and then the columns tx + 16 m of the 64 x D gradient tile. Rows
-// outside the view load as zeros. It is bound by its fp32 FMA chain and
-// by registers (dk and dv in registers: one block an SM); its move onto
-// the tensor cores in 3xTF32 is later work.
+// The fp32 instance: flash_bwd_{dq,dkv}_tc_kernel<D>, every product on
+// the TF32 tensor cores as mma.sync m16n8k8 in 3xTF32 (common.cuh
+// split_tf32 / mma_3xtf32: x = big + small, three TF32 products a
+// product, about 2^-22 relative), K1's fp32 forward's machinery. wgmma's
+// tf32 form reads B only K-major, and dQ += dS K (dK += dS^T Q, dV +=
+// P^T dO) needs K (Q, dO) with the key (query) index summed over, which
+// is MN-major in memory; mma.sync takes any layout its loads build. Its
+// bound: 3 x 14 D FLOP a visible pair at 495 TFLOP/s.
+// - A block is 4 warps and owns 64 rows (dq: queries; dkv: keys), 16 a
+//   warp (the mma's m); its two tiles of them (dq: Q, dO; dkv: K, V)
+//   stay in shared memory, and it walks the other side's 32-row tiles
+//   (dq: K, V; dkv: Q, dO and their lse and delta) through a 2-stage
+//   cp.async ring, the copies of tile t + 1 issued as tile t starts.
+//   Rows at or past kv_len (Sq) are zero-filled and never read. Two
+//   blocks an SM at D >= 64 (176 and 206 registers at D = 64, no spill
+//   at any head dim), three at D <= 32.
+// - S, then dP (dkv: S^T = K Q^T, then dP^T = V dO^T), each into four
+//   accumulators, one an 8-row slice of the streamed tile; the resident
+//   A fragments are split as loaded, once per k step pair for the four
+//   slices. Interleaving the two products' k steps (eight chains a
+//   warp) took 16 registers more and timed the same.
+// - P and dS are formed on the accumulator fragments (a row's lse and
+//   delta in the lane's registers for dq; for dkv a column's from the
+//   stage's rows), and then dQ += dS K (dV += P^T dO, dK += dS^T Q) takes
+//   the accumulator as its A fragment directly, split (big + small: a
+//   single TF32 P or dS misses the fp32 contract,
+//   tests/test_torch_tf32_bwd.py): the accumulator's lane (g, t) holds
+//   columns 2t and 2t + 1 of each 8-column slice, which are A's columns
+//   t and t + 4, so B reads the streamed tile's rows 2t and 2t + 1 of
+//   the slice in that order (K1's P V trick). Those rows are permuted
+//   within each slice (tc_perm) so that one row pitch, 8 mod 32 floats,
+//   keeps both the S loads and these loads free of bank conflicts.
+// - The heaviest causal tiles run first (dq: the grid's y reversed; dkv:
+//   the first key tiles), a tile past the block's diagonal is never
+//   loaded, a warp skips a tile none of its rows sees, and only a tile
+//   that crosses kv_len, Sq or the warp's diagonal tests each pair.
 //
 // The bf16 and float16 instances: flash_bwd_wg_kernel<D, T, kDkv>, on
 // Hopper's 16-bit tensor cores (989 TFLOP/s), the design of K1-bf16
@@ -112,291 +139,447 @@
 
 namespace {
 
-constexpr int kTile = 64;      // query rows / keys per tile
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads (fp32)
-constexpr int kPad = 4;        // floats of padding after each row (fp32)
+constexpr int kTile = 64;   // own rows of a block (queries or keys)
 
 // The (b, h, s) element strides of q, k, v, out and dO, in that order.
 struct Strides {
   long long q[3], k[3], v[3], o[3], d[3];
 };
 
-// ---- the fp32 instance: SIMT ----------------------------------------------
+// ---- the fp32 instance: mma.sync TF32 in 3xTF32 ---------------------------
+constexpr int kTcWarps = kTile / 16;       // a warp owns 16 rows (mma m)
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcSub = 32;                 // streamed rows a stage
+constexpr int kTcSlices = kTcSub / 8;      // 8-row slices (mma n) of it
+constexpr int kTcStages = 2;               // the cp.async ring
+// Blocks an SM: shared memory holds three at D <= 64, but at three (168
+// registers a thread) D = 64 spilled, and its pair timed the same as at
+// two (scripts/torch_kernel_ab.py)
 template <int D>
-struct BwdSmem {
+constexpr int kTcBlocks = D <= 32 ? 3 : 2;
+constexpr float kTcLog2e = 1.4426950408889634f;
+
+// Shared memory of a block: its own two tiles (dq: Q, dO; dkv: K, V),
+// then kTcStages stages of the other side's two tiles (dq: K, V; dkv: Q,
+// dO), each followed by its rows' lse and delta (dkv); every row padded
+// to 8 mod 32 floats (see the row permutation below; the own tiles'
+// A loads take a 2-way bank conflict at that pitch, and padding them to
+// 16 mod 32 with a third stage timed the same). 74 KB at D = 64.
+template <int D>
+struct TcSmem {
   static_assert(D % 16 == 0, "head dims are multiples of 16");
-  static constexpr int kRow = D + kPad;        // a Q, dO, K or V row
-  static constexpr int kPRow = kTile + kPad;   // a P or dS row
-  static constexpr int kTileElems = kTile * kRow;
-  static constexpr int kCols = D / 16;         // gradient columns a thread
-  // Q, dO, K, V tiles; P and dS (dkv) or dS (dq); lse and delta
-  static constexpr size_t kBytesDq =
-      (4 * kTileElems + kTile * kPRow + 2 * kTile) * sizeof(float);
-  static constexpr size_t kBytesDkv =
-      (4 * kTileElems + 2 * kTile * kPRow + 2 * kTile) * sizeof(float);
+  static constexpr int kPad = (D + 8) % 32 == 8 ? D + 8 : D + 24;
+  static constexpr int kOwn = kTile * kPad;
+  static constexpr int kRing = kTcSub * kPad;
+  static constexpr int kStage = 2 * kRing + 2 * kTcSub;
+  static constexpr size_t kBytes =
+      (2 * kOwn + kTcStages * kStage) * sizeof(float);
 };
+
+// The streamed rows' order inside an 8-row slice: the mma's n column g
+// of S (S^T) is row perm(g), so the accumulator entries 2t and 2t + 1 of
+// a lane are rows perm(2t) = t and perm(2t + 1) = 4 + (t + 2) % 4, and
+// those are the rows the lane's B fragment of the second product reads.
+// With rows 8 mod 32 floats apart both loads are conflict-free: a
+// quarter warp's S loads (rows perm(g), perm(g + 1) at 4 chunks) and its
+// second-product loads (rows perm(2t) or perm(2t + 1) at chunks g, g + 1)
+// each land on 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int tc_perm(int g) {
+  return (g & 1) ? 4 + (((g >> 1) + 2) & 3) : g >> 1;
+}
 
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// Rows [row0, row0 + 64) of one (b, h) slice of a view with row stride
-// ``st`` into ``dst`` (rows of D + kPad floats); rows at or past ``rows``
-// load as zeros and are not read.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* base,
-                                          long long st, int row0, int rows) {
+// Rows [row0, row0 + n) of one (b, h) slice of a view with row stride
+// ``st`` into ``dst`` (row pitch P floats) by cp.async; rows at or past
+// ``rows`` are zero-filled and never read.
+template <int D, int P>
+__device__ __forceinline__ void tc_rows_async(float* dst, const float* base,
+                                              long long st, int row0, int n,
+                                              int rows) {
   constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) x = mxtt::load4(base + (long long)(row0 + r) * st + c);
-    *reinterpret_cast<float4*>(dst + r * BwdSmem<D>::kRow + c) = x;
+  for (int i = threadIdx.x; i < n * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = (i - r * kChunks) * 4;
+    const bool live = row0 + r < rows;
+    mxtt::cp_async16(dst + r * P + c,
+                     base + (long long)(live ? row0 + r : 0) * st + c, live);
   }
 }
 
-// s = A_rows . B_rows and dp = C_rows . E_rows over the head dim for the
-// thread's 4 x 4 micro-tile: rows ty + 16 i of A and C, rows tx + 16 j of
-// B and E.
-template <int D>
-__device__ __forceinline__ void tile_dots(const float* A, const float* B,
-                                          const float* C, const float* E,
-                                          int ty, int tx, float (&s)[4][4],
-                                          float (&dp)[4][4]) {
-  constexpr int R = BwdSmem<D>::kRow;
+// s[j] = A B^T over the head dim, for the warp's 16 own rows (A: rows g
+// and g + 8) against the kTcSub streamed rows (B; slice j's column g is
+// row 8 j + tc_perm(g)), rows P floats apart. Over a pair of k steps a
+// lane's A and B fragments are the head dims 16 c + 4 t .. + 3 of its
+// rows, one 16-byte load each; the A fragments are split once for the
+// slices.
+template <int D, int P>
+__device__ __forceinline__ void tc_product(const float* A, const float* B,
+                                           int g, int t,
+                                           float (&s)[kTcSlices][4]) {
+  const int pg = tc_perm(g);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < kTcSlices; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4], c[4], e[4];
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = lds4(A + (ty + 16 * i) * R + d);
-      c[i] = lds4(C + (ty + 16 * i) * R + d);
-      b[i] = lds4(B + (tx + 16 * i) * R + d);
-      e[i] = lds4(E + (tx + 16 * i) * R + d);
+  for (int c = 0; c < D / 16; ++c) {
+    unsigned ab[2][4], as[2][4];
+    const float4 lo = lds4(A + g * P + 16 * c + 4 * t);
+    const float4 hi = lds4(A + (g + 8) * P + 16 * c + 4 * t);
+    mxtt::split_tf32(lo.x, ab[0][0], as[0][0]);
+    mxtt::split_tf32(hi.x, ab[0][1], as[0][1]);
+    mxtt::split_tf32(lo.y, ab[0][2], as[0][2]);
+    mxtt::split_tf32(hi.y, ab[0][3], as[0][3]);
+    mxtt::split_tf32(lo.z, ab[1][0], as[1][0]);
+    mxtt::split_tf32(hi.z, ab[1][1], as[1][1]);
+    mxtt::split_tf32(lo.w, ab[1][2], as[1][2]);
+    mxtt::split_tf32(hi.w, ab[1][3], as[1][3]);
+#pragma unroll
+    for (int j = 0; j < kTcSlices; ++j) {
+      const float4 x = lds4(B + (8 * j + pg) * P + 16 * c + 4 * t);
+      unsigned xb[2][2], xs[2][2];
+      mxtt::split_tf32(x.x, xb[0][0], xs[0][0]);
+      mxtt::split_tf32(x.y, xb[0][1], xs[0][1]);
+      mxtt::split_tf32(x.z, xb[1][0], xs[1][0]);
+      mxtt::split_tf32(x.w, xb[1][1], xs[1][1]);
+      mxtt::mma_3xtf32(s[j], ab[0], as[0], xb[0], xs[0]);
+      mxtt::mma_3xtf32(s[j], ab[1], as[1], xb[1], xs[1]);
+    }
+  }
+}
+
+// The A fragment of slice j's 16 x 8 block of an accumulator (its k
+// index t is the slice's row perm(2t), t + 4 row perm(2t + 1): the
+// accumulator's own entries), split.
+__device__ __forceinline__ void tc_acc_frag(const float (&x)[4],
+                                            unsigned (&big)[4],
+                                            unsigned (&small)[4]) {
+  mxtt::split_tf32(x[0], big[0], small[0]);
+  mxtt::split_tf32(x[2], big[1], small[1]);
+  mxtt::split_tf32(x[1], big[2], small[2]);
+  mxtt::split_tf32(x[3], big[3], small[3]);
+}
+
+// acc[n] (n tile n of the head dim) += A (split, 16 x 8) times rows
+// perm(2t) and perm(2t + 1) of slice j of the streamed tile X (rows P
+// floats apart). B's column g of n tile VEC c + r is head dim
+// 8 VEC c + VEC g + r: one 16-byte load of each row per 4 n tiles
+// (8 bytes per 2 at D = 16).
+template <int D, int P>
+__device__ __forceinline__ void tc_grad(float (&acc)[D / 8][4],
+                                        const unsigned (&ab)[4],
+                                        const unsigned (&as)[4],
+                                        const float* X, int j, int g,
+                                        int t) {
+  constexpr int VEC = D >= 32 ? 4 : 2;
+  const float* r0 = X + (8 * j + t) * P + VEC * g;
+  const float* r1 = X + (8 * j + 4 + ((t + 2) & 3)) * P + VEC * g;
+#pragma unroll
+  for (int c = 0; c < D / (8 * VEC); ++c) {
+    float x0[VEC], x1[VEC];
+    if constexpr (VEC == 4) {
+      const float4 u = lds4(r0 + 32 * c), w = lds4(r1 + 32 * c);
+      x0[0] = u.x; x0[1] = u.y; x0[2] = u.z; x0[3] = u.w;
+      x1[0] = w.x; x1[1] = w.y; x1[2] = w.z; x1[3] = w.w;
+    } else {
+      const float2 u = *reinterpret_cast<const float2*>(r0 + 16 * c);
+      const float2 w = *reinterpret_cast<const float2*>(r1 + 16 * c);
+      x0[0] = u.x; x0[1] = u.y;
+      x1[0] = w.x; x1[1] = w.y;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int r = 0; r < VEC; ++r) {
+      unsigned bb[2], bs[2];
+      mxtt::split_tf32(x0[r], bb[0], bs[0]);
+      mxtt::split_tf32(x1[r], bb[1], bs[1]);
+      mxtt::mma_3xtf32(acc[VEC * c + r], ab, as, bb, bs);
+    }
+  }
+}
+
+// Rows row0 (half 0) and row0 + 8 (half 1) of a contiguous (rows, D)
+// gradient from acc (entry [2 half + e] of n tile VEC c + r is head dim
+// 8 VEC c + VEC (2 t + e) + r); ``live[half]`` false writes zeros.
+template <int D>
+__device__ __forceinline__ void tc_store(float* base,
+                                         const float (&acc)[D / 8][4],
+                                         int row0, int n_rows,
+                                         const bool (&live)[2], int t) {
+  constexpr int VEC = D >= 32 ? 4 : 2;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = mxtt::dot4(a[i], b[j], s[i][j]);
-        dp[i][j] = mxtt::dot4(c[i], e[j], dp[i][j]);
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= n_rows) continue;
+    float* dst = base + (long long)row * D;
+#pragma unroll
+    for (int c = 0; c < D / (8 * VEC); ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v[VEC];
+#pragma unroll
+        for (int r = 0; r < VEC; ++r)
+          v[r] = live[half] ? acc[VEC * c + r][2 * half + e] : 0.f;
+        float* p = dst + 8 * VEC * c + VEC * (2 * t + e);
+        if constexpr (VEC == 4)
+          *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+        else
+          *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
       }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ o,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        float* __restrict__ dq, float* __restrict__ delta,
-                        int H, int Sq, int kv_len, int causal, float scale,
-                        Strides st) {
-  using S = BwdSmem<D>;
-  constexpr int R = S::kRow, PR = S::kPRow, NC = S::kCols;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + S::kTileElems;
-  float* Ks = dOs + S::kTileElems;
-  float* Vs = Ks + S::kTileElems;
-  float* dSs = Vs + S::kTileElems;
-  float* lse_s = dSs + kTile * PR;
-  float* delta_s = lse_s + kTile;
+__global__ void __launch_bounds__(kTcThreads, kTcBlocks<D>)
+    flash_bwd_dq_tc_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ o,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           float* __restrict__ dq, float* __restrict__ delta,
+                           int H, int Sq, int kv_len, int causal,
+                           float scale, Strides st) {
+  using S = TcSmem<D>;
+  constexpr int P = S::kPad;
+  extern __shared__ float4 tc_smem4[];
+  float* const own = reinterpret_cast<float*>(tc_smem4);   // Q, dO
+  float* const ring = own + 2 * S::kOwn;                   // K, V stages
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * kTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const long long rows = (long long)bh * Sq;   // this slice's lse/delta/dq
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  // heaviest causal q-tile first
+  const int r0 =
+      (causal ? (int)gridDim.y - 1 - (int)blockIdx.y : (int)blockIdx.y) *
+      kTile;
+  const int offset = kv_len - Sq;
+  const long long rows = (long long)bh * Sq;   // lse, delta, dq
   const float* qb = q + b * st.q[0] + h * st.q[1];
   const float* kb = k + b * st.k[0] + h * st.k[1];
   const float* vb = v + b * st.v[0] + h * st.v[1];
   const float* ob = o + b * st.o[0] + h * st.o[1];
   const float* db = dout + b * st.d[0] + h * st.d[1];
+  // the last key a row of the block (of the warp) sees
+  const int w0 = r0 + 16 * warp;
+  int last = kv_len - 1, warp_last = kv_len - 1;
+  if (causal) {
+    last = min(last, r0 + kTile - 1 + offset);
+    warp_last = min(warp_last, w0 + 15 + offset);
+  }
+  const int n_tiles = last < 0 ? 0 : last / kTcSub + 1;
 
-  load_tile<D>(Qs, qb, st.q[2], q0, Sq);
-  load_tile<D>(dOs, db, st.d[2], q0, Sq);
-  __syncthreads();
-  // delta = sum_d dO * out, a warp per row
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    const int gr = q0 + r;
+  auto load_ring = [&](int tile) {
+    float* s = ring + (tile % kTcStages) * S::kStage;
+    tc_rows_async<D, P>(s, kb, st.k[2], tile * kTcSub, kTcSub, kv_len);
+    tc_rows_async<D, P>(s + S::kRing, vb, st.v[2], tile * kTcSub, kTcSub,
+                         kv_len);
+  };
+  // copy group 0: Q, dO and ring tile 0; then one group a ring tile
+  tc_rows_async<D, P>(own, qb, st.q[2], r0, kTile, Sq);
+  tc_rows_async<D, P>(own + S::kOwn, db, st.d[2], r0, kTile, Sq);
+#pragma unroll
+  for (int i = 0; i < kTcStages - 1; ++i) {
+    if (i < n_tiles) load_ring(i);
+    mxtt::cp_async_commit();
+  }
+
+  // the lane's rows g and g + 8 of its warp: delta = sum_d dO * out (a
+  // quad's four lanes a quarter of the head dim each; written for the
+  // dkv launch) and -lse log2(e)
+  const int row0 = w0 + g;
+  float nl[2], dl[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
     float acc = 0.f;
-    if (gr < Sq)
-      for (int c = lane; c < D; c += 32)
-        acc = fmaf(dOs[r * R + c], ob[(long long)gr * st.o[2] + c], acc);
-    acc = mxtt::warp_sum(acc);
-    if (lane == 0) {
-      delta_s[r] = acc;
-      lse_s[r] = gr < Sq ? lse[rows + gr] : 0.f;
-      if (gr < Sq) delta[rows + gr] = acc;
+    if (row < Sq) {
+      const float* dr = db + (long long)row * st.d[2] + t * (D / 4);
+      const float* orow = ob + (long long)row * st.o[2] + t * (D / 4);
+#pragma unroll
+      for (int e = 0; e < D / 4; e += 4)
+        acc = mxtt::dot4(mxtt::load4(dr + e), mxtt::load4(orow + e), acc);
     }
+    acc += __shfl_xor_sync(mxtt::kFullMask, acc, 1);
+    acc += __shfl_xor_sync(mxtt::kFullMask, acc, 2);
+    dl[half] = acc;
+    nl[half] = row < Sq ? -lse[rows + row] * kTcLog2e : 0.f;
+    if (t == 0 && row < Sq) delta[rows + row] = acc;
   }
+  const float qscale = scale * kTcLog2e;
 
-  const int offset = kv_len - Sq;
-  const int q_last = min(q0 + kTile, Sq) - 1;
-  const int k_end = causal ? min(kv_len, q_last + offset + 1) : kv_len;
-  float acc[4][NC];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int m = 0; m < NC; ++m) acc[i][m] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();   // the last tile's K, V and dS are consumed
-    load_tile<D>(Ks, kb, st.k[2], k0, kv_len);
-    load_tile<D>(Vs, vb, st.v[2], k0, kv_len);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dots<D>(Qs, Ks, dOs, Vs, ty, tx, s, dp);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    mxtt::cp_async_wait<kTcStages - 2>();   // this thread's copies of it
+    __syncthreads();   // everyone's; and the stage refilled below is free
+    if (tile + kTcStages - 1 < n_tiles) load_ring(tile + kTcStages - 1);
+    mxtt::cp_async_commit();
+    const int k0 = tile * kTcSub;
+    // none of the warp's rows sees it (or exists)
+    if (k0 > warp_last || w0 >= Sq) continue;
+    const float* ks = ring + (tile % kTcStages) * S::kStage;
+    const float* vs = ks + S::kRing;
+    float s[kTcSlices][4], dp[kTcSlices][4];
+    tc_product<D, P>(own + 16 * warp * P, ks, g, t, s);
+    tc_product<D, P>(own + S::kOwn + 16 * warp * P, vs, g, t, dp);
+    // P and dS on the fragments: entry [2 half + e] of slice j is row
+    // row0 + 8 half, key k0 + 8 j + perm(2 t + e). Only a tile that
+    // crosses kv_len, Sq or the warp's diagonal tests each pair.
+    const bool edge = k0 + kTcSub > kv_len || w0 + 16 > Sq ||
+                      (causal && k0 + kTcSub - 1 > w0 + offset);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, gr = q0 + r;
+    for (int j = 0; j < kTcSlices; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gc = k0 + tx + 16 * j;
-        const bool valid =
-            gr < Sq && gc < kv_len && (!causal || gc <= gr + offset);
-        const float p = valid ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dSs[r * PR + tx + 16 * j] = p * (dp[i][j] - delta_s[r]) * scale;
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + (e ? 4 + ((t + 2) & 3) : t);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = row0 + 8 * half, x = 2 * half + e;
+          const bool valid = !edge || (key < kv_len && row < Sq &&
+                                       (!causal || key <= row + offset));
+          const float p = valid
+              ? mxtt::exp2_ftz(fmaf(s[j][x], qscale, nl[half])) : 0.f;
+          dp[j][x] = p * (dp[j][x] - dl[half]) * scale;
+        }
       }
-    }
-    __syncthreads();
-    // dq += dS K over the tile's keys
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float a[4];
+    // dQ += dS K
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = dSs[(ty + 16 * i) * PR + kk];
-#pragma unroll
-      for (int m = 0; m < NC; ++m) {
-        const float kv = Ks[kk * R + tx + 16 * m];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][m] = fmaf(a[i], kv, acc[i][m]);
-      }
+    for (int j = 0; j < kTcSlices; ++j) {
+      unsigned ab[4], as[4];
+      tc_acc_frag(dp[j], ab, as);
+      tc_grad<D, P>(acc, ab, as, ks, j, g, t);
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = q0 + ty + 16 * i;
-    if (gr >= Sq) continue;
-#pragma unroll
-    for (int m = 0; m < NC; ++m)
-      dq[(rows + gr) * D + tx + 16 * m] = acc[i][m];
-  }
+  mxtt::cp_async_wait<0>();
+  const bool live[2] = {true, true};
+  tc_store<D>(dq + rows * D, acc, row0, Sq, live, t);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int H, int Sq, int Sk, int kv_len, int causal,
-                         float scale, Strides st) {
-  using S = BwdSmem<D>;
-  constexpr int R = S::kRow, PR = S::kPRow, NC = S::kCols;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + S::kTileElems;
-  float* Qs = Vs + S::kTileElems;
-  float* dOs = Qs + S::kTileElems;
-  float* Ps = dOs + S::kTileElems;
-  float* dSs = Ps + kTile * PR;
-  float* lse_s = dSs + kTile * PR;
-  float* delta_s = lse_s + kTile;
+__global__ void __launch_bounds__(kTcThreads, kTcBlocks<D>)
+    flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int H, int Sq, int Sk, int kv_len, int causal,
+                            float scale, Strides st) {
+  using S = TcSmem<D>;
+  constexpr int P = S::kPad;
+  extern __shared__ float4 tc_smem4[];
+  float* const own = reinterpret_cast<float*>(tc_smem4);   // K, V
+  float* const ring = own + 2 * S::kOwn;   // Q, dO, lse, delta stages
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * kTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int r0 = (int)blockIdx.y * kTile;   // the first key tiles are the
+                                            // heaviest, and run first
+  const int offset = kv_len - Sq;
   const long long rows = (long long)bh * Sq;   // lse and delta
-  float dk_acc[4][NC], dv_acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int m = 0; m < NC; ++m) dk_acc[i][m] = dv_acc[i][m] = 0.f;
+  const float* qb = q + b * st.q[0] + h * st.q[1];
+  const float* kb = k + b * st.k[0] + h * st.k[1];
+  const float* vb = v + b * st.v[0] + h * st.v[1];
+  const float* db = dout + b * st.d[0] + h * st.d[1];
+  // the query tiles walked: from the first holding a row that sees key
+  // r0 (causal) to Sq; none when the block's keys are all at or past
+  // kv_len
+  const int t_first = causal ? max(0, r0 - offset) / kTcSub : 0;
+  const int n_tiles =
+      r0 < kv_len ? max(0, (Sq + kTcSub - 1) / kTcSub - t_first) : 0;
+  const int w0 = r0 + 16 * warp;   // the warp's first key
 
-  if (k0 < kv_len) {
-    const float* qb = q + b * st.q[0] + h * st.q[1];
-    const float* kb = k + b * st.k[0] + h * st.k[1];
-    const float* vb = v + b * st.v[0] + h * st.v[1];
-    const float* db = dout + b * st.d[0] + h * st.d[1];
-    load_tile<D>(Ks, kb, st.k[2], k0, kv_len);
-    load_tile<D>(Vs, vb, st.v[2], k0, kv_len);
-    const int offset = kv_len - Sq;
-    // the first query row that sees key k0, rounded down to its tile
-    const int q_begin = causal ? max(0, k0 - offset) / kTile * kTile : 0;
-    for (int q0 = q_begin; q0 < Sq; q0 += kTile) {
-      __syncthreads();   // the last tile's Q, dO, P and dS are consumed
-      load_tile<D>(Qs, qb, st.q[2], q0, Sq);
-      load_tile<D>(dOs, db, st.d[2], q0, Sq);
-      if (tid < kTile) {
-        const int gr = q0 + tid;
-        lse_s[tid] = gr < Sq ? lse[rows + gr] : 0.f;
-        delta_s[tid] = gr < Sq ? delta[rows + gr] : 0.f;
-      }
-      __syncthreads();
-      // the transposed tile: rows are keys, columns queries
-      float s[4][4], dp[4][4];
-      tile_dots<D>(Ks, Qs, Vs, dOs, ty, tx, s, dp);
+  auto load_ring = [&](int tile) {
+    float* s = ring + (tile % kTcStages) * S::kStage;
+    const int q0 = (t_first + tile) * kTcSub;
+    tc_rows_async<D, P>(s, qb, st.q[2], q0, kTcSub, Sq);
+    tc_rows_async<D, P>(s + S::kRing, db, st.d[2], q0, kTcSub, Sq);
+    for (int i = tid; i < 2 * kTcSub; i += kTcThreads) {
+      const int r = i % kTcSub;
+      const bool live = q0 + r < Sq;
+      mxtt::cp_async4(s + 2 * S::kRing + i,
+                      (i < kTcSub ? lse : delta) + rows + (live ? q0 + r : 0),
+                      live);
+    }
+  };
+  if (n_tiles > 0) {
+    tc_rows_async<D, P>(own, kb, st.k[2], r0, kTile, kv_len);
+    tc_rows_async<D, P>(own + S::kOwn, vb, st.v[2], r0, kTile, kv_len);
+  }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i, key = k0 + r;
+  for (int i = 0; i < kTcStages - 1; ++i) {
+    if (i < n_tiles) load_ring(i);
+    mxtt::cp_async_commit();
+  }
+  const float qscale = scale * kTcLog2e;
+  const int key0 = w0 + g;   // the lane's keys: key0 and key0 + 8
+
+  float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j, gq = q0 + c;
-          const bool valid =
-              gq < Sq && key < kv_len && (!causal || key <= gq + offset);
-          const float p = valid ? expf(s[i][j] * scale - lse_s[c]) : 0.f;
-          Ps[r * PR + c] = p;
-          dSs[r * PR + c] = p * (dp[i][j] - delta_s[c]) * scale;
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    mxtt::cp_async_wait<kTcStages - 2>();
+    __syncthreads();
+    if (tile + kTcStages - 1 < n_tiles) load_ring(tile + kTcStages - 1);
+    mxtt::cp_async_commit();
+    const int q0 = (t_first + tile) * kTcSub;
+    // the warp's keys are all dead, or no query of the tile sees them
+    if (w0 >= kv_len || (causal && w0 > q0 + kTcSub - 1 + offset)) continue;
+    const float* qs = ring + (tile % kTcStages) * S::kStage;
+    const float* dos = qs + S::kRing;
+    const float* ls = dos + S::kRing;   // lse, then delta
+    // S^T = K Q^T and dP^T = V dO^T: rows are the warp's keys, columns
+    // the tile's queries
+    float s[kTcSlices][4], dp[kTcSlices][4];
+    tc_product<D, P>(own + 16 * warp * P, qs, g, t, s);
+    tc_product<D, P>(own + S::kOwn + 16 * warp * P, dos, g, t, dp);
+    const bool edge = w0 + 16 > kv_len || q0 + kTcSub > Sq ||
+                      (causal && w0 + 15 > q0 + offset);
+#pragma unroll
+    for (int j = 0; j < kTcSlices; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + (e ? 4 + ((t + 2) & 3) : t);
+        const int qr = q0 + col;
+        const float nlc = -ls[col] * kTcLog2e, dlc = ls[kTcSub + col];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int key = key0 + 8 * half, x = 2 * half + e;
+          const bool valid = !edge || (key < kv_len && qr < Sq &&
+                                       (!causal || key <= qr + offset));
+          const float p =
+              valid ? mxtt::exp2_ftz(fmaf(s[j][x], qscale, nlc)) : 0.f;
+          s[j][x] = p;
+          dp[j][x] = p * (dp[j][x] - dlc) * scale;
         }
       }
-      __syncthreads();
-      // dv += P^T dO, dk += dS^T Q over the tile's queries
-#pragma unroll 4
-      for (int qq = 0; qq < kTile; ++qq) {
-        float pa[4], sa[4];
+    // dV += P^T dO, dK += dS^T Q
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pa[i] = Ps[(ty + 16 * i) * PR + qq];
-          sa[i] = dSs[(ty + 16 * i) * PR + qq];
-        }
-#pragma unroll
-        for (int m = 0; m < NC; ++m) {
-          const float dov = dOs[qq * R + tx + 16 * m];
-          const float qv = Qs[qq * R + tx + 16 * m];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv_acc[i][m] = fmaf(pa[i], dov, dv_acc[i][m]);
-            dk_acc[i][m] = fmaf(sa[i], qv, dk_acc[i][m]);
-          }
-        }
-      }
+    for (int j = 0; j < kTcSlices; ++j) {
+      unsigned pb[4], ps[4], sb[4], ss[4];
+      tc_acc_frag(s[j], pb, ps);
+      tc_acc_frag(dp[j], sb, ss);
+      tc_grad<D, P>(dva, pb, ps, dos, j, g, t);
+      tc_grad<D, P>(dka, sb, ss, qs, j, g, t);
     }
   }
+  mxtt::cp_async_wait<0>();
+  // key rows past kv_len: exact zeros
+  const bool live[2] = {key0 < kv_len, key0 + 8 < kv_len};
   const long long krows = (long long)bh * Sk;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= Sk) continue;
-    const bool live = key < kv_len;   // rows past kv_len: exact zeros
-#pragma unroll
-    for (int m = 0; m < NC; ++m) {
-      const long long at = (krows + key) * D + tx + 16 * m;
-      dk[at] = live ? dk_acc[i][m] : 0.f;
-      dv[at] = live ? dv_acc[i][m] : 0.f;
-    }
-  }
+  tc_store<D>(dk + krows * D, dka, key0, Sk, live, t);
+  tc_store<D>(dv + krows * D, dva, key0, Sk, live, t);
 }
 
 // ---- the 16-bit instances: wgmma on tiles brought by TMA ------------------
@@ -991,12 +1174,12 @@ int dq_launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
       return err;
     return by_head_dim(D, [&](auto d) -> cudaError_t {
       constexpr int kD = decltype(d)::value;
-      constexpr size_t kBytes = BwdSmem<kD>::kBytesDq;
+      constexpr size_t kBytes = TcSmem<kD>::kBytes;
       const cudaError_t err =
-          mxtt::raise_smem_limit<flash_bwd_dq_kernel<kD>, kBytes>(dev);
+          mxtt::raise_smem_limit<flash_bwd_dq_tc_kernel<kD>, kBytes>(dev);
       if (err != cudaSuccess) return err;
       const dim3 grid(B * H, (Sq + kTile - 1) / kTile);
-      flash_bwd_dq_kernel<kD><<<grid, kThreads, kBytes, s>>>(
+      flash_bwd_dq_tc_kernel<kD><<<grid, kTcThreads, kBytes, s>>>(
           q, k, v, o, dout, lse, dq, delta, H, Sq, kv_len, causal, scale,
           st);
       return cudaGetLastError();
@@ -1025,12 +1208,12 @@ int dkv_launch(const T* q, const T* k, const T* v, const T* dout,
       return err;
     return by_head_dim(D, [&](auto d) -> cudaError_t {
       constexpr int kD = decltype(d)::value;
-      constexpr size_t kBytes = BwdSmem<kD>::kBytesDkv;
+      constexpr size_t kBytes = TcSmem<kD>::kBytes;
       const cudaError_t err =
-          mxtt::raise_smem_limit<flash_bwd_dkv_kernel<kD>, kBytes>(dev);
+          mxtt::raise_smem_limit<flash_bwd_dkv_tc_kernel<kD>, kBytes>(dev);
       if (err != cudaSuccess) return err;
       const dim3 grid(B * H, (Sk + kTile - 1) / kTile);
-      flash_bwd_dkv_kernel<kD><<<grid, kThreads, kBytes, s>>>(
+      flash_bwd_dkv_tc_kernel<kD><<<grid, kTcThreads, kBytes, s>>>(
           q, k, v, dout, lse, delta, dk, dv, H, Sq, Sk, kv_len, causal,
           scale, st);
       return cudaGetLastError();

@@ -39,9 +39,22 @@ _INT8_MAX = 127.0
 #: the reference's output-channel block of the plain version
 _BLOCK_N = 512
 
-#: launches of K4 since the last reset — bumped by the wrapper right
-#: where it launches, and nowhere else
-_launches = {"dequant_matmul": 0}
+#: launches of K4 since the last reset, by the kernel the C entry point
+#: runs for the call's M rows — bumped by the wrapper right where it
+#: launches, and nowhere else: the GEMV at M <= 8 (``dequant_matmul``)
+#: and the tile kernel at 9-32 rows (prefill chunks and their tails) and
+#: above 32 (the speculative verify's 40, longer prefills)
+_launches = {"dequant_matmul": 0, "dequant_matmul_m32": 0,
+             "dequant_matmul_m64": 0}
+#: the largest M the GEMV takes (``csrc/dequant_matmul.cu`` kGemvRows)
+_GEMV_ROWS = 8
+
+
+def _counter(m):
+    """The launch counter of a call of ``m`` rows."""
+    if m <= _GEMV_ROWS:
+        return "dequant_matmul"
+    return "dequant_matmul_m32" if m <= 32 else "dequant_matmul_m64"
 
 
 def launch_counts() -> dict:
@@ -159,7 +172,7 @@ def _dequant_matmul_cuda(x2, wq, scales, bias=None):
     err = _build.launch_on(x2, fn, (
         x2.data_ptr(), wq.data_ptr(), scales.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k))
-    _launches[name] += 1
+    _launches[_counter(m)] += 1
     _build.check(name, err, name)
     return out
 

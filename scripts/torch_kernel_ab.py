@@ -22,7 +22,7 @@ lists it): ``git archive HEAD~1 | tar -x -C _tree`` and
    ``chip_smoke.Timer``: enqueue-inclusive and device-only ms.
 2. ``dequant_matmul_ab``: K4 from ``DIR`` against this checkout's, at
    ``chip_smoke.py``'s shapes (one GPT-2-small layer's six projections
-   at M = 1, 8 and 32, L2 flushed before every call), ``bias=None``
+   at M = 1, 8, 32, 40 and 512, L2 flushed before every call), ``bias=None``
    (an earlier entry point may have no bias argument). Both are called
    by one thin caller (output allocation, pointers, the C call), each
    with its own revision's arguments. Both A/Bs add the kernels' own
@@ -73,7 +73,7 @@ builds agree.
    ``mxnet_tpu_torch``), for that tree's wrappers in a child process
    (``--host-probe ROOT``).
 
-7. ``flash_attention_bwd_ab``: K1-bwd's bf16 and float16 instances
+7. ``flash_attention_bwd_ab``: K1-bwd's fp32, bf16 and float16 instances
    (the dq launch, the dk/dv launch and the pair) from ``DIR`` against
    this checkout's, through the same wrapper, at ``chip_smoke.py``'s
    BWD_SHAPE (8, 12, 1024, 64), causal, strided, with the backward of
@@ -448,7 +448,7 @@ def flash_ab(timer, other_csrc, rounds):
 
 
 def flash_bwd_ab(timer, other_csrc, rounds):
-    """K1-bwd's bf16 and float16 instances (both launches) from
+    """K1-bwd's fp32, bf16 and float16 instances (both launches) from
     ``other_csrc`` against this checkout's, through the same wrapper (the
     cached entry points swapped), at ``chip_smoke.py``'s BWD_SHAPE,
     causal, on the head split's strided views: device ms of each launch
@@ -461,13 +461,15 @@ def flash_bwd_ab(timer, other_csrc, rounds):
                      other_csrc, "flash_attention_bwd-other")
     b, h, s, d = cs.BWD_SHAPE
     sc = 1.0 / np.sqrt(d)
-    for tag, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
-        syms = {kind: f"mxtt_flash_attention_bwd_{kind}_{tag}"
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                    ("f16", torch.float16)):
+        sfx = "" if tag == "fp32" else f"_{tag}"
+        syms = {kind: f"mxtt_flash_attention_bwd_{kind}{sfx}"
                 for kind in ("dq", "dkv")}
         if not all(hasattr(other, sym) for sym in syms.values()):
             cs.emit("flash_attention_bwd_ab", instance=tag,
                     other_csrc=other_csrc,
-                    skipped="no 16-bit K1-bwd in the other revision")
+                    skipped=f"no {tag} K1-bwd in the other revision")
             continue
         fns = {}
         for which, lib in (("other", other), ("this", None)):
@@ -501,7 +503,7 @@ def flash_bwd_ab(timer, other_csrc, rounds):
                                           sc, s, delta)
             return dq, dk, dv
         got = {w: pair(w) for w in ("this", "other")}
-        tol = 2 * cs.BWD_TOL[tag]
+        tol = 2 * cs.BWD_TOL[sfx[1:]]
         diff = {}
         for i, name in enumerate(("dq", "dk", "dv")):
             a, o = got["this"][i].float(), got["other"][i].float()
@@ -546,7 +548,8 @@ _DEQUANT_ARGTYPES_NO_BIAS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
 
 def dequant_ab(timer, other_csrc, rounds):
     """K4 from ``other_csrc`` against this checkout's at one layer's six
-    projections, M = 1, 8 and 32, bias=None, through one thin caller."""
+    projections, M = 1 and 8 (the GEMV), 32, 40 and 512 (the tile
+    kernel), bias=None, through one thin caller."""
     src = os.path.join(other_csrc, "dequant_matmul.cu")
     with open(src) as f:
         takes_bias = "const float* bias, float* out" in f.read()
@@ -577,7 +580,7 @@ def dequant_ab(timer, other_csrc, rounds):
         w = torch.from_numpy((rng.standard_normal((n, k)) * 0.02)
                              .astype("f4")).cuda()
         tables[(n, k)] = qz.quantize_channelwise(w)
-    for m in (1, 8, 32):
+    for m in (1, 8, 32, 40, 512):
         per = {"other": {}, "this": {}}
         prof_us = {"other": 0.0, "this": 0.0}
         diff = 0.0

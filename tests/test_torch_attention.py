@@ -18,6 +18,8 @@ import jax.numpy as jnp
 from mxnet_tpu.ops import attention as jat
 from mxnet_tpu_torch.ops import attention as tat
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = dict(rtol=2e-4, atol=2e-5)
 
 

@@ -14,6 +14,8 @@ import pytest
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 GT = dict(rtol=1e-5, atol=1e-5)
 PKGS = pytest.mark.parametrize("pkg", [tmx, jmx], ids=["port", "jax"])
 

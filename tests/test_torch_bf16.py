@@ -39,12 +39,13 @@ from mxnet_tpu_torch.ops import attention as tat
 from mxnet_tpu_torch.ops import quantized as tqz
 from mxnet_tpu_torch.serving import GenerationEngine
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 VOCAB, SLOTS, SMAX = 97, 4, 64
 #: the port's bf16 logits vs the JAX package's (see the docstring)
 LOGIT_TOL_BF16 = 2.0 ** -4
 #: the reference's bf16 contract (tests/test_multitick.py)
 BF16_TOL, BF16_AGREE = 0.25, 0.9
-
 
 def _params(seed=1234, dtype="float32"):
     onp.random.seed(seed)
@@ -57,12 +58,26 @@ def _params(seed=1234, dtype="float32"):
                  net.collect_params().items()}
 
 
-def _pair(dtype="float32"):
-    jnet, params = _params(dtype=dtype)
+def _port(params, dtype="float32"):
     tnet = tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=2,
                           num_heads=4, max_length=128, device="cpu",
                           dtype=dtype)
-    return jnet, tgpt.load_jax_params(tnet, params)
+    return tgpt.load_jax_params(tnet, params)
+
+
+def _pair(dtype="float32"):
+    jnet, params = _params(dtype=dtype)
+    return jnet, _port(params, dtype)
+
+
+@pytest.fixture(scope="module")
+def jax_bf16():
+    """``_pair()``'s JAX model cast once to bf16, which the bf16 and the
+    bf16 + int8 KV logits cases both use (it compiles once), and its
+    fp32 parameters, from which a test builds its own port model."""
+    jnet, params = _params()
+    jnet.cast_compute_params("bfloat16")
+    return jnet, params
 
 
 def _np(x):
@@ -237,30 +252,32 @@ def _forced(ref, f0):
 @pytest.mark.parametrize("quant,kv", [(False, None), (True, None),
                                       (False, "int8")],
                          ids=["bf16", "bf16+int8_weights", "bf16+int8_kv"])
-def test_bf16_logits_track_the_jax_bf16_model(quant, kv):
+def test_bf16_logits_track_the_jax_bf16_model(jax_bf16, quant, kv):
     """Teacher-forced on the fp32 model's greedy stream, the port's bf16
-    logits against the JAX bf16 model's, within LOGIT_TOL_BF16."""
-    jnet, tnet = _pair()
+    logits against the JAX bf16 model's, within LOGIT_TOL_BF16 (int8
+    weights arm the tables: that case casts a pair of its own)."""
+    jnet, params = _params() if quant else jax_bf16
+    tnet = _port(params)
     prompts = _prompts()
     ref, f0 = _run(tnet, prompts)
     forced = _forced(ref, f0)
-    for net in (jnet, tnet):
+    for net in (jnet, tnet) if quant else (tnet,):
         if quant:
             net.quantize_params()
         net.cast_compute_params("bfloat16")
-        assert net.compute_dtype == "bfloat16"
+    assert jnet.compute_dtype == tnet.compute_dtype == "bfloat16"
     got, _ = _run(tnet, prompts, forced, cache_dtype=kv)
     want, _ = _run(jnet, prompts, forced, cache_dtype=kv)
     assert onp.abs(got - want).max() <= LOGIT_TOL_BF16
 
 
-def test_bf16_model_teacher_forced_bounded_divergence():
+def test_bf16_model_teacher_forced_bounded_divergence(jax_bf16):
     """The reference's bf16 contract in the port: bf16 tracks fp32
     within 0.25 under teacher forcing and agrees on >= 90 % of the
     greedy tokens; the masters stay fp32, and disarming gives the fp32
     logits back bitwise (the plain ``forward`` reads the masters even
     while armed)."""
-    _, tnet = _pair()
+    tnet = _port(jax_bf16[1])
     prompts = _prompts()
     ref, f0 = _run(tnet, prompts)
     fwd = tnet(prompts[0][None])
@@ -359,13 +376,12 @@ def test_dtype_flow_matches_jax(monkeypatch, mode):
 
 # -- the engine -----------------------------------------------------------
 
-def test_engine_bf16_precision_cache_and_rollover():
+def test_engine_bf16_precision_cache_and_rollover(jax_bf16):
     """``compute_dtype="bfloat16"`` arms the model's bf16 copies and
     defaults the cache to bf16 (int8 KV composes); ``precision`` names
     it; ``load_weights`` re-casts inside the swap, so the engine then
     serves what a fresh bf16 engine on the new weights serves."""
-    _, tnet = _pair()
-    _, donor = _pair()
+    tnet, donor = _port(jax_bf16[1]), _port(jax_bf16[1])
     donor.initialize(seed=5)
     eng = GenerationEngine(tnet, max_slots=2, max_length=SMAX,
                            max_new_tokens=6, compute_dtype="bfloat16",

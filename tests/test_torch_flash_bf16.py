@@ -35,6 +35,8 @@ import torch
 import jax.numpy as jnp
 from mxnet_tpu.ops import attention as jat
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 SRC = (Path(__file__).resolve().parents[1] / "mxnet_tpu_torch" / "csrc"
        / "flash_attention.cu").read_text()
 #: keys per K/V tile

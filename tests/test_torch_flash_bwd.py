@@ -30,6 +30,8 @@ from mxnet_tpu.ops import attention as jat
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.ops import attention as tat
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -7}
 
 #: (B, H, Sq, Sk, D, causal, kv_len)

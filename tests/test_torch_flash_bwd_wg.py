@@ -49,6 +49,8 @@ from mxnet_tpu.ops import attention as jat
 
 from mxnet_tpu_torch.ops import attention as tat
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 _CSRC = Path(__file__).resolve().parents[1] / "mxnet_tpu_torch" / "csrc"
 SRC = (_CSRC / "flash_attention_bwd.cu").read_text()
 COMMON = (_CSRC / "common.cuh").read_text()

@@ -34,13 +34,14 @@ from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.ops import attention as tat
 from mxnet_tpu_torch.serving import GenerationEngine
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 VOCAB, SLOTS, SMAX = 97, 4, 64
 #: one float16 step of the output's magnitude (against Pallas), and the
 #: jnp path's two extra roundings
 F16_STEP, F16_JNP = 2.0 ** -10, 2.0 ** -8
 #: the port's float16 logits vs the JAX package's (see the docstring)
 LOGIT_TOL_F16 = 2.0 ** -7
-
 
 def _params(seed=1234, dtype="float32"):
     onp.random.seed(seed)
@@ -53,12 +54,39 @@ def _params(seed=1234, dtype="float32"):
                  net.collect_params().items()}
 
 
-def _pair(dtype="float32"):
-    jnet, params = _params(dtype=dtype)
+def _port(params, dtype="float32"):
     tnet = tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=2,
                           num_heads=4, max_length=128, device="cpu",
                           dtype=dtype)
-    return jnet, tgpt.load_jax_params(tnet, params)
+    return tgpt.load_jax_params(tnet, params)
+
+
+def _pair(dtype="float32"):
+    jnet, params = _params(dtype=dtype)
+    return jnet, _port(params, dtype)
+
+
+@pytest.fixture(scope="module")
+def f16_pair():
+    """The float16 pair the model test and the float16-model engine test
+    share: neither arms nor casts it, and its JAX model compiles once."""
+    return _pair(dtype="float16")
+
+
+@pytest.fixture(scope="module")
+def fp32_pair():
+    """The fp32 pair the float16-cache engine tests and the refusal test
+    share (they neither arm nor cast it)."""
+    return _pair()
+
+
+@pytest.fixture(scope="module")
+def jax_f16_compute():
+    """The JAX model the two float16-compute cases cast identically
+    (``_pair()``'s, cast once to float16), and its parameters."""
+    jnet, params = _params()
+    jnet.cast_compute_params("float16")
+    return jnet, params
 
 
 def _np(x):
@@ -184,11 +212,11 @@ def _forced(ref, f0):
     return [f0] + [ref[t].argmax(axis=1).astype("i4") for t in range(9)]
 
 
-def test_f16_model_logits_against_jax():
+def test_f16_model_logits_against_jax(f16_pair):
     """``GPTModel(dtype="float16")``: float16 parameters (LayerNorms
     fp32), a float16 cache by default, and prefill and teacher-forced
     decode logits within LOGIT_TOL_F16 of the JAX float16 model's."""
-    jnet, tnet = _pair(dtype="float16")
+    jnet, tnet = f16_pair
     assert tnet.layers[0].q_proj.weight.data().dtype == torch.float16
     assert tnet.layers[0].ln1.gamma.data().dtype == torch.float32
     assert tnet.init_cache(2, 16)["k"][0].dtype == torch.float16
@@ -201,17 +229,17 @@ def test_f16_model_logits_against_jax():
 
 @pytest.mark.parametrize("cache", [None, "float16"],
                          ids=["f16-compute", "f16-compute+f16-cache"])
-def test_f16_compute_logits_against_jax(cache):
+def test_f16_compute_logits_against_jax(jax_f16_compute, cache):
     """``cast_compute_params("float16")`` (which the reference's model
     takes and its engine refuses): teacher-forced logits within
     LOGIT_TOL_F16 of the JAX model's under the same cast; disarming
     gives the fp32 logits back bitwise."""
-    jnet, tnet = _pair()
+    jnet, params = jax_f16_compute
+    tnet = _port(params)
     prompts = _prompts()
     ref, _, f0 = _run(tnet, prompts)
     forced = _forced(ref, f0)
-    for net in (jnet, tnet):
-        net.cast_compute_params("float16")
+    tnet.cast_compute_params("float16")
     assert tnet.compute_dtype == "float16"
     got, gpre, _ = _run(tnet, prompts, forced, cache_dtype=cache)
     want, wpre, _ = _run(jnet, prompts, forced, cache_dtype=cache)
@@ -288,8 +316,8 @@ ENGINES = [
 
 @pytest.mark.parametrize("dtype,kw", [e[1:] for e in ENGINES],
                          ids=[e[0] for e in ENGINES])
-def test_f16_engine_token_identity_with_jax(dtype, kw):
-    jnet, tnet = _pair(dtype=dtype)
+def test_f16_engine_token_identity_with_jax(f16_pair, fp32_pair, dtype, kw):
+    jnet, tnet = f16_pair if dtype == "float16" else fp32_pair
     prompts = _prompts(seed=9)
     streams = []
     for Engine, net, extra in ((JaxEngine, jnet, {}),
@@ -303,8 +331,8 @@ def test_f16_engine_token_identity_with_jax(dtype, kw):
     assert streams[0] == streams[1]
 
 
-def test_f16_compute_dtype_refused_as_in_reference():
-    jnet, tnet = _pair()
+def test_f16_compute_dtype_refused_as_in_reference(fp32_pair):
+    jnet, tnet = fp32_pair
     for Engine, net, extra in ((JaxEngine, jnet, {}),
                                (GenerationEngine, tnet, {"device": "cpu"})):
         with pytest.raises(ValueError, match="compute_dtype"):

@@ -26,6 +26,8 @@ from mxnet_tpu_torch.serving import (
     ReplicaFailedError, RequestTimeoutError,
 )
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 VOCAB, SLOTS, SMAX = 97, 4, 64
 
 

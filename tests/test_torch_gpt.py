@@ -15,6 +15,8 @@ import mxnet_tpu as mx
 from mxnet_tpu.gluon.model_zoo import gpt as jgpt
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 VOCAB, SLOTS, SMAX = 97, 4, 64
 TOL = dict(rtol=2e-3, atol=2e-4)
 

@@ -11,6 +11,8 @@ import sys
 
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "mxnet_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")

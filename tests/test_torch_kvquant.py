@@ -39,6 +39,8 @@ from mxnet_tpu_torch.ops import attention as tat
 from mxnet_tpu_torch.ops import quantized as tqz
 from mxnet_tpu_torch.serving import GenerationEngine
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ATT_TOL = 1e-5
 LOGIT_TOL = dict(rtol=2e-3, atol=1e-3)
 VOCAB, HEADS, DH = 1000, 4, 16

@@ -40,6 +40,8 @@ from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.ops import lora as tlora
 from mxnet_tpu_torch.serving import GenerationEngine
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 VOCAB, SLOTS, SMAX = 64, 4, 48
 UNITS, LAYERS, HEADS, RANK = 16, 2, 2, 2
 PROJS = ("q_proj", "k_proj", "v_proj", "out_proj")

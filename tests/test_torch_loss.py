@@ -21,6 +21,8 @@ from mxnet_tpu import gluon as jgluon
 
 from mxnet_tpu_torch.gluon import loss as tloss
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = {"float32": (1e-6, 1e-6), "bfloat16": (2.0 ** -7, 2.0 ** -7)}
 
 B, C = 6, 5

@@ -34,6 +34,8 @@ from mxnet_tpu_torch import telemetry
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.serving import GenerationEngine
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 VOCAB, SLOTS, SMAX = 97, 4, 64
 UNITS, LAYERS, HEADS = 32, 2, 4
 

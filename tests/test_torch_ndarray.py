@@ -20,6 +20,8 @@ import torch
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 EW = dict(rtol=1e-6, atol=1e-6)
 
 

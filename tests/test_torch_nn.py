@@ -10,6 +10,8 @@ from mxnet_tpu.ops import nn as jnn
 from mxnet_tpu_torch.ops import nn as tnn
 from mxnet_tpu_torch.gluon import nn as gnn
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ATOL = dict(rtol=0, atol=1e-6)
 
 

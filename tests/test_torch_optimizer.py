@@ -25,6 +25,8 @@ from mxnet_tpu import optimizer as jopt
 from mxnet_tpu_torch import lr_scheduler as tsched
 from mxnet_tpu_torch import optimizer as topt
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 SHAPES = ((4, 5), (7,))
 STEPS = 5
 

@@ -30,6 +30,8 @@ from mxnet_tpu_torch import telemetry
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.serving import EngineClosedError, GenerationEngine
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 #: gpt_small's defaults (vocab 1000, 64 units, 2 layers, 4 heads, 128
 #: positions) in both packages
 VOCAB, UNITS, HEADS = 1000, 64, 4

@@ -8,6 +8,8 @@ import pytest
 from mxnet_tpu.serving import paging as jpaging
 from mxnet_tpu_torch.serving import paging as tpaging
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 VOCAB = 97
 IMPLS = [jpaging, tpaging]
 

@@ -23,6 +23,8 @@ from mxnet_tpu.ops import quantized as jqz
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.ops import quantized as tqz
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = dict(rtol=2e-4, atol=2e-5)
 MODEL_TOL = dict(rtol=2e-3, atol=2e-4)
 #: gpt_small's defaults: vocab 1000, 64 units, 2 layers, 4 heads
@@ -258,3 +260,69 @@ def test_quantize_params_validation(pair):
     _, tnet = pair
     with pytest.raises(ValueError, match="quantizable"):
         tnet.quantize_params(include=("ln1",))
+
+
+#: chip_smoke.py's K4 gate: within 2e-5 x max|ref| of the plain version
+DEQUANT_REL_TOL = 2e-5
+
+
+def _tile_kernel_product(x, wq, sc, b, split):
+    """K4's tile route (csrc/dequant_matmul.cu ``dequant_tile_kernel``)
+    in numpy: the int8 weight is exact in TF32, x is split as
+    ``tests/test_torch_tf32_split.py`` splits (``big`` rounded as
+    ``cvt.rna`` rounds, ``small`` truncated to TF32 by the core), the two
+    products ``big * w + small * w`` are exact and summed in float64,
+    rounded to fp32, then scaled per channel and the bias added.
+    ``split=False``: x rounded to TF32 once (single TF32)."""
+    from test_torch_tf32_split import split as tf32_split, tf32_rna
+    w = wq.numpy().astype("f8").T
+    if split:
+        big, small = tf32_split(x)
+        acc = big.astype("f8") @ w + small.astype("f8") @ w
+    else:
+        acc = tf32_rna(x).astype("f8") @ w
+    return acc.astype("f4") * sc.numpy() + b
+
+
+@pytest.mark.parametrize("m", [9, 33, 40])
+def test_tile_kernel_split_within_the_kernel_gate(m):
+    """The tile route's two-term split of x at the M it serves (a prefill
+    chunk's tail, the dense prefill's tail, the speculative verify) is
+    within chip_smoke.py's gate of the JAX package's ``dequant_matmul``
+    plus the Dense's bias; x rounded to TF32 once misses it."""
+    rng = onp.random.RandomState(9)
+    n, k = 64, 768
+    wq, sc = tqz.quantize_channelwise(_t(_weights(rng, n, k, zero_row=5)))
+    x = (rng.randn(m, k) * 0.5).astype("f4")
+    b = (rng.randn(n) * 0.1).astype("f4")
+    ref = onp.asarray(jqz.dequant_matmul(
+        jnp.asarray(x), jnp.asarray(wq.numpy()), jnp.asarray(sc.numpy()))
+        + jnp.asarray(b))
+    scale = float(onp.abs(ref).max())
+    err = float(onp.abs(_tile_kernel_product(x, wq, sc, b, True)
+                        - ref).max()) / scale
+    single = float(onp.abs(_tile_kernel_product(x, wq, sc, b, False)
+                           - ref).max()) / scale
+    print(f"M={m}: two-term {err:.3g}, single TF32 {single:.3g} x max|ref|")
+    assert err <= DEQUANT_REL_TOL
+    assert single > 2 * DEQUANT_REL_TOL
+
+
+@pytest.mark.parametrize("m,counter", [
+    (1, "dequant_matmul"), (8, "dequant_matmul"),
+    (9, "dequant_matmul_m32"), (32, "dequant_matmul_m32"),
+    (33, "dequant_matmul_m64"), (40, "dequant_matmul_m64"),
+    (512, "dequant_matmul_m64")])
+def test_launch_counter_follows_the_route(m, counter):
+    """K4's wrapper counts a launch under the kernel the C entry point
+    runs for its M: the GEMV up to csrc's kGemvRows, the tile kernel
+    above (chip_smoke.py's kernels line has a row for each counter)."""
+    import re
+    from mxnet_tpu_torch import _build
+    src = (_build.CSRC / "dequant_matmul.cu").read_text()
+    gemv = int(re.search(r"constexpr int kGemvRows = (\d+);", src).group(1))
+    assert tqz._GEMV_ROWS == gemv
+    assert tqz._counter(m) == counter
+    assert set(tqz.launch_counts()) == {"dequant_matmul",
+                                        "dequant_matmul_m32",
+                                        "dequant_matmul_m64"}

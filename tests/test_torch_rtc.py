@@ -24,6 +24,8 @@ import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import rtc
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 EW = dict(rtol=1e-6, atol=1e-6)
 
 CUDA_SRC = r'''

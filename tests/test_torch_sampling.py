@@ -22,6 +22,8 @@ import jax.numpy as jnp
 from mxnet_tpu.ops import sampling as jsmp
 from mxnet_tpu_torch.ops import sampling as tsmp
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 NEG = -1e29   # "masked" threshold for assertions (NEG_INF is -1e30)
 
 

@@ -52,12 +52,13 @@ from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.ops import sampling as tsmp
 from mxnet_tpu_torch.serving import GenerationEngine
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 VOCAB, SLOTS, SMAX, PS, K = 97, 4, 64, 8, 3
 N_PAGES = SLOTS * SMAX // PS + 1
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)
 PAGED = dict(paged=True, page_size=PS, prefill_chunk=16)
 INT8 = dict(PAGED, quantize="int8_weights", kv_dtype="int8")
-
 
 def _jax_model(units, layers, seed):
     onp.random.seed(seed)
@@ -69,14 +70,19 @@ def _jax_model(units, layers, seed):
     return net
 
 
-def _pair(units, layers, seed):
-    """(JAX model, port model) on the same seeded weights."""
-    jnet = _jax_model(units, layers, seed)
+def _port_of(jnet, units, layers):
+    """A port model on the JAX model's weights."""
     params = {k: p.data().asnumpy() for k, p in
               jnet.collect_params().items()}
     tnet = tgpt.gpt_small(vocab_size=VOCAB, units=units, num_layers=layers,
                           num_heads=4, max_length=128, device="cpu")
-    return jnet, tgpt.load_jax_params(tnet, params)
+    return tgpt.load_jax_params(tnet, params)
+
+
+def _pair(units, layers, seed):
+    """(JAX model, port model) on the same seeded weights."""
+    jnet = _jax_model(units, layers, seed)
+    return jnet, _port_of(jnet, units, layers)
 
 
 @pytest.fixture(scope="module")
@@ -413,13 +419,14 @@ def _corpus(seed, paged):
 
 @pytest.mark.parametrize("kw", [{}, PAGED, INT8],
                          ids=["dense", "paged", "paged_int8_w_int8_kv"])
-def test_engine_spec_greedy_token_identical(kw):
+def test_engine_spec_greedy_token_identical(target, draft, kw):
     """The reference's identity suite: the speculative engine's greedy
     tokens equal the JAX speculative engine's and the port's
     non-speculative engine's, request by request (an int8 engine arms
-    its model's tables, so each case builds its own pair)."""
-    jt, tt = _pair(32, 2, 21)
-    jd, td = _pair(16, 1, 22)
+    its model's tables, so that case builds its own pairs; the fp32
+    cases serve the module's, whose JAX models are compiled once)."""
+    (jt, tt), (jd, td) = ((_pair(32, 2, 21), _pair(16, 1, 22))
+                          if kw is INT8 else (target, draft))
     prompts, budgets = _corpus(3 + len(kw), bool(kw))
     jeng = JaxEngine(jt, max_slots=SLOTS, max_length=SMAX, max_new_tokens=8,
                      queue_limit=64, draft_model=jd, spec_k=K, **kw)
@@ -441,7 +448,7 @@ def test_bf16_spec_equals_bf16_without(target, draft):
     """bf16 target compute with a draft (which stays fp32) commits the
     bf16 engine's own greedy tokens."""
     prompts, budgets = _corpus(4, False)
-    tnet = _pair(32, 2, 21)[1]
+    tnet = _port_of(target[0], 32, 2)
     plain = _serve(_engine(tnet, compute_dtype="bfloat16"), prompts, budgets)
     spec = _engine(tnet, compute_dtype="bfloat16", draft_model=draft[1],
                    spec_k=K)
@@ -600,7 +607,7 @@ def test_spec_sync_mode_and_load_weights(target, draft, monkeypatch):
     """MXTPU_SERVING=0 speculative generation matches the threaded
     engine; ``load_weights`` swaps the target only, and the engine then
     serves a fresh engine's tokens on the new weights."""
-    tnet = _pair(32, 2, 21)[1]
+    tnet = _port_of(target[0], 32, 2)
     rng = onp.random.RandomState(11)
     p = _prompt(rng, 7)
     eng = _engine(tnet, max_new=6, draft_model=draft[1], spec_k=K)
@@ -617,7 +624,7 @@ def test_spec_sync_mode_and_load_weights(target, draft, monkeypatch):
     fresh = _serve(_engine(tnet, max_new=6), [p], [6])[0].tokens
     assert swapped == fresh
     monkeypatch.setenv("MXTPU_SERVING", "0")
-    tnet2 = _pair(32, 2, 21)[1]
+    tnet2 = _port_of(target[0], 32, 2)
     eng2 = GenerationEngine(tnet2, draft_model=draft[1], spec_k=K,
                             max_slots=SLOTS, max_length=SMAX,
                             max_new_tokens=6, device="cpu")

@@ -40,6 +40,8 @@ import jax.numpy as jnp
 
 from mxnet_tpu.ops import attention as jat
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ATT_TOL = 1e-5
 NEG_INF = onp.float32(-1e30)
 WARPS, CHUNK = 4, 32

@@ -16,6 +16,8 @@ import mxnet_tpu_torch.bucketing as t_bk
 import mxnet_tpu_torch.telemetry as t_tm
 import mxnet_tpu_torch.tracing as t_tr
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 

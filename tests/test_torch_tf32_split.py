@@ -24,6 +24,8 @@ import torch
 
 from mxnet_tpu_torch.ops import attention as tat
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 #: chip_smoke.py's K1 gates
 OUT_TOL, LSE_TOL = 2e-5, 1e-4
 

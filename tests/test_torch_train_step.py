@@ -47,10 +47,11 @@ from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 VOCAB, UNITS, LAYERS, HEADS = 97, 64, 2, 4
 ADAM = ("adam", {"learning_rate": 0.01})
 SGD_MOM = ("sgd", {"learning_rate": 0.1, "momentum": 0.9})
-
 
 def _jax_net(seed=1234):
     onp.random.seed(seed)
@@ -63,9 +64,16 @@ def _jax_net(seed=1234):
 
 
 @pytest.fixture(scope="module")
-def jax_params():
+def jax_net():
+    """The seeded JAX model every port model of the module copies; the
+    step-one gradient test differentiates it (no update)."""
+    return _jax_net()
+
+
+@pytest.fixture(scope="module")
+def jax_params(jax_net):
     return {k: p.data().asnumpy()
-            for k, p in _jax_net().collect_params().items()}
+            for k, p in jax_net.collect_params().items()}
 
 
 def _port_net(params, dropout=0.0):
@@ -150,9 +158,9 @@ def test_flattened_loss_masks_like_reference(jax_params):
     assert abs(got[0] - full) > 1e-3
 
 
-def test_step_one_gradients_match_reference(jax_params):
+def test_step_one_gradients_match_reference(jax_net, jax_params):
     d, l = _batch()
-    jnet = _jax_net()
+    jnet = jax_net
     for p in jnet.collect_params().values():
         p.zero_grad()
     with jautograd.record():
