@@ -3201,6 +3201,569 @@ def _card_moves(torch, mx):
     return out
 
 
+#: the dtype crosses of the numpy phase
+NP_DTYPES = ("bool", "uint8", "uint16", "uint32", "int8", "int32", "float16",
+             "float32")
+#: tolerances of a card result against the CPU port's, as the CPU tests
+#: hold the port to the JAX package: elementwise 1e-6, transcendental
+#: 2e-6, reductions, products, linalg and fft 1e-5 (relative and
+#: absolute); a float16 result one step of its type, 2^-10
+NP_EW, NP_TR, NP_RED, NP_F16 = 1e-6, 2e-6, 1e-5, 2.0 ** -10
+#: the unary table and its float domain (any, unit, pos, ge1); the
+#: exact ones (rounding, sign, bit and class tests) at NP_EW
+NP_UNARY = {
+    "negative": "any", "positive": "any", "abs": "any", "fabs": "any",
+    "sign": "any", "rint": "any", "ceil": "any", "floor": "any",
+    "trunc": "any", "fix": "any", "square": "any", "sqrt": "pos",
+    "cbrt": "any", "reciprocal": "pos", "exp": "any", "exp2": "any",
+    "expm1": "any", "log": "pos", "log2": "pos", "log10": "pos",
+    "log1p": "pos", "sin": "any", "cos": "any", "tan": "unit",
+    "arcsin": "unit", "arccos": "unit", "arctan": "any", "sinh": "any",
+    "cosh": "any", "tanh": "any", "arcsinh": "any", "arccosh": "ge1",
+    "arctanh": "unit", "degrees": "any", "radians": "any",
+    "deg2rad": "any", "rad2deg": "any", "invert": "any",
+    "bitwise_not": "any", "logical_not": "any", "isnan": "any",
+    "isinf": "any", "isneginf": "any", "isposinf": "any",
+    "isfinite": "any", "signbit": "any", "conjugate": "any",
+    "conj": "any", "real": "any", "imag": "any", "angle": "any",
+    "around": "any", "round": "any", "round_": "any", "nan_to_num": "any",
+    "absolute": "any",
+}
+NP_DOMAIN = {"any": (-2.0, 2.0), "unit": (-0.9, 0.9), "pos": (0.1, 3.0),
+             "ge1": (1.0, 3.0)}
+NP_BINARY = ["add", "subtract", "multiply", "divide", "true_divide",
+             "floor_divide", "mod", "remainder", "fmod", "power",
+             "float_power", "maximum", "minimum", "fmax", "fmin", "hypot",
+             "arctan2", "logaddexp", "logaddexp2", "copysign", "nextafter",
+             "ldexp", "heaviside", "bitwise_and", "bitwise_or",
+             "bitwise_xor", "left_shift", "right_shift", "gcd", "lcm",
+             "equal", "not_equal", "less", "less_equal", "greater",
+             "greater_equal", "logical_and", "logical_or", "logical_xor"]
+NP_REDUCE = ["sum", "prod", "mean", "max", "min", "amax", "amin", "nansum",
+             "nanprod", "nanmean", "nanmax", "nanmin", "all", "any",
+             "alltrue", "sometrue", "product", "std", "var", "ptp",
+             "argmax", "argmin", "nanargmax", "nanargmin", "cumsum",
+             "cumprod", "median", "nanmedian", "count_nonzero", "average",
+             "msort", "sort", "argsort", "unique", "trace"]
+#: torch's own kernel behind a function of the crosses, tried on the
+#: card in every dtype: a refusal names a dtype the port routes, and how
+ROUTES = {
+    "sort / argsort / median / unique / lexsort": (
+        lambda torch, t: torch.sort(t, stable=True),
+        "uint16/uint32 as int64, bool as uint8 (_ordered)"),
+    "searchsorted": (
+        lambda torch, t: torch.searchsorted(t.reshape(-1), t.reshape(-1)),
+        "uint16/uint32 as int64, bool as uint8 (_ordered)"),
+    "cumsum / cumprod": (lambda torch, t: torch.cumsum(t, 0),
+                         "every integer in int64, wrapped back"),
+    "take / delete / compress (index_select)": (
+        lambda torch, t: t.index_select(0, torch.zeros(1, dtype=torch.long,
+                                                       device=t.device)),
+        "uint16/uint32 as the signed type (_signed_view)"),
+    "rot90 / roll / tril / diag / flip": (
+        lambda torch, t: torch.rot90(t), "_signed_view"),
+    "isnan / signbit / ceil ... (unary table)": (
+        lambda torch, t: torch.isnan(t), "uint16/uint32 as int64"),
+    "nonzero / argwhere / trim_zeros": (
+        lambda torch, t: torch.nonzero(t), "uint16/uint32 as int64"),
+    "amax / ptp / nanmax": (lambda torch, t: torch.amax(t),
+                            "uint16/uint32 as int64"),
+    "gcd / lcm": (lambda torch, t: torch.gcd(t, t),
+                  "every integer in int64, wrapped back"),
+    "fmax / fmin": (lambda torch, t: torch.fmax(t, t),
+                    "bool as uint8; uint16/uint32 as int64"),
+    "diff / ediff1d": (lambda torch, t: torch.diff(t, dim=0),
+                       "uint16/uint32 as int64 (_wide_first)"),
+    "count_nonzero / all / any": (lambda torch, t: torch.all(t, 0),
+                                  "a bool copy; uint16/uint32 as int64"),
+    "angle": (lambda torch, t: torch.angle(t),
+              "integers and bool in float32, float16 in float32 (_angle)"),
+}
+
+
+def _np_values(dt, shape=(3, 4), seed=0, lo=-2.0, hi=2.0):
+    """Seeded values of ``dt``, as the CPU tests make them: floats uniform
+    in [lo, hi), integers in [0, 5) or [-5, 5), bools half true."""
+    rs = np.random.RandomState(seed)
+    if dt == "bool":
+        return rs.rand(*shape) > 0.5
+    if dt.startswith("uint"):
+        return rs.randint(0, 5, shape).astype(dt)
+    if dt.startswith("int"):
+        return rs.randint(-5, 5, shape).astype(dt)
+    return rs.uniform(lo, hi, shape).astype(dt)
+
+
+def _np_cases():
+    """(path, args, kwargs, tolerance) of the phase's calls beyond the
+    crosses: every other function of mx.np, .linalg and .fft at least
+    once."""
+    f, i = _np_values("float32", seed=1), _np_values("int32", seed=2)
+    v, w = _np_values("float32", (7,), 3), _np_values("float32", (4,), 4)
+    a = _np_values("float32", (4, 4), 5) + 3 * np.eye(4, dtype="f4")
+    sq = _np_values("float32", (4, 4), 6)
+    spd = (sq @ sq.T + 4 * np.eye(4)).astype("f4")
+    r = _np_values("float32", (5, 3), 7)
+    c = (v + 1j * _np_values("float32", (7,), 8)).astype("c8")
+    k = _np_values("int32", (8,), 9)
+    q = np.array([0.1, 0.5, 0.9], "f4")
+    E, R = NP_EW, NP_RED
+    return [
+        # creation helpers
+        ("logspace", (0.0, 2.0), {"num": 7}, E), ("identity", (3,), {}, E),
+        ("tri", (3, 5), {"k": 1}, E), ("tril", (f,), {}, E),
+        ("triu", (f,), {"k": 1}, E), ("diag", (f,), {"k": 1}, E),
+        ("diagflat", (v,), {}, E), ("diagonal", (f,), {"offset": 1}, E),
+        ("diag_indices_from", (a,), {}, E), ("tril_indices", (4,), {}, E),
+        ("tril_indices_from", (a,), {"k": 1}, E),
+        ("triu_indices", (4,), {"k": 1}, E), ("triu_indices_from", (a,), {}, E),
+        ("indices", ((2, 3),), {}, E), ("meshgrid", (v, w), {}, E),
+        ("ascontiguousarray", (f,), {}, E),
+        # shapes
+        ("swapaxes", (f, 0, 1), {}, E), ("moveaxis", (f, 0, -1), {}, E),
+        ("rollaxis", (f, 1), {}, E), ("permute_dims", (f, (1, 0)), {}, E),
+        ("atleast_1d", (np.float32(2.0),), {}, E),
+        ("atleast_2d", (v,), {}, E), ("atleast_3d", (f,), {}, E),
+        ("broadcast_arrays", (f, f[0]), {}, E), ("vstack", ([f, f],), {}, E),
+        ("row_stack", ([f, f],), {}, E), ("hstack", ([f, f],), {}, E),
+        ("dstack", ([f, f],), {}, E), ("column_stack", ([v, v],), {}, E),
+        ("array_split", (v, 3), {}, E), ("hsplit", (f, 2), {}, E),
+        ("vsplit", (f, [1]), {}, E), ("dsplit", (f[None], 2), {}, E),
+        ("repeat", (f, 2), {"axis": 1}, E), ("fliplr", (f,), {}, E),
+        ("flipud", (f,), {}, E), ("rot90", (f,), {}, E),
+        ("roll", (f, 2), {}, E), ("append", (v, 3.0), {}, E),
+        ("insert", (v, 2, 9.0), {}, E), ("delete", (f, 1), {"axis": 1}, E),
+        ("trim_zeros", (np.array([0, 0, 3, 0, 5, 0], "i4"),), {}, E),
+        ("unique", (i,), {"return_index": True, "return_inverse": True,
+                          "return_counts": True}, E),
+        ("resize", (v, (3, 4)), {}, E),
+        *[("pad", (f, ((1, 2), (3, 0))), dict(kw, mode=m), R)
+          for m, kw in (("constant", {"constant_values": 7}), ("edge", {}),
+                        ("wrap", {}), ("reflect", {}),
+                        ("symmetric", {"reflect_type": "odd"}),
+                        ("linear_ramp", {"end_values": (5, -3)}),
+                        ("maximum", {}), ("minimum", {}), ("mean", {}),
+                        ("median", {}), ("empty", {}))],
+        # sorting, searching, indexing
+        ("lexsort", ((k, k[::-1]),), {}, E), ("partition", (v, 3), {}, E),
+        ("argpartition", (v, 3), {}, E), ("nonzero", (i,), {}, E),
+        ("flatnonzero", (i,), {}, E), ("argwhere", (i,), {}, E),
+        ("where", (i > 0,), {}, E),
+        ("take_along_axis", (f, np.argsort(f, 1).astype("i4"), 1), {}, E),
+        ("compress", (i[0] > 0, f), {"axis": 1}, E),
+        ("extract", (i > 0, f), {}, E),
+        ("unravel_index", (np.array([0, 5, 11, 13], "i4"), (3, 4)), {}, E),
+        ("ravel_multi_index", ((np.array([0, 2], "i4"),
+                                np.array([3, 1], "i4")), (3, 4)), {}, E),
+        # products, logic, numerical helpers
+        ("vdot", (v, v), {}, R), ("inner", (f, f), {}, R),
+        ("outer", (v, w), {}, R), ("tensordot", (f, f.T), {"axes": 1}, R),
+        ("tensordot", (i, i.T), {"axes": 1}, R), ("kron", (w, w), {}, R),
+        ("cross", (r, r[::-1]), {}, R), ("einsum", ("ij,jk->ik", f, f.T), {}, R),
+        ("einsum", ("ij,kj", i, i), {}, R), ("matrix_power", (a, 3), {}, R),
+        ("matrix_power", (i[:3, :3], 2), {}, R), ("vander", (w,), {}, R),
+        ("isclose", (f, f + 1e-6), {}, E), ("diff", (f,), {"n": 2}, E),
+        ("ediff1d", (v,), {"to_begin": 1.0}, E),
+        ("gradient", (f,), {}, E), ("convolve", (v, w), {}, R),
+        ("correlate", (v, w), {"mode": "same"}, R), ("cov", (f,), {}, R),
+        ("corrcoef", (f,), {}, R), ("polyval", (w, f), {}, R),
+        ("interp", (np.linspace(-1, 5, 9).astype("f4"),
+                    np.array([0, 1, 2.5, 4], "f4"),
+                    np.array([1, 3, -1, 2], "f4")), {}, E),
+        ("quantile", (f, q), {"axis": 1}, R),
+        ("percentile", (f, q * 100), {"interpolation": "nearest"}, R),
+        ("bincount", (np.abs(k),), {"minlength": 9}, E),
+        ("histogram", (v,), {"bins": 4}, R),
+        ("blackman", (7,), {}, E), ("hamming", (8,), {}, E),
+        ("hanning", (9,), {}, E),
+        # linalg
+        *[(f"linalg.{n}", args, kw, R) for n, args, kw in (
+            ("norm", (a,), {}), ("norm", (r,), {"axis": 1, "ord": 1}),
+            ("inv", (a,), {}), ("pinv", (r,), {}), ("det", (a,), {}),
+            ("slogdet", (a,), {}), ("solve", (a, r[:4]), {}),
+            ("lstsq", (r, v[:5]), {}), ("tensorinv", (a.reshape(2, 2, 2, 2),),
+                                         {}),
+            ("tensorsolve", (a.reshape(2, 2, 2, 2), w.reshape(2, 2)), {}),
+            ("eigvalsh", (spd,), {}), ("cholesky", (spd,), {}),
+            ("matrix_rank", (r,), {}), ("matrix_power", (a, 2), {}),
+            ("multi_dot", ([r.T, r, r[0]],), {}), ("cond", (a,), {}))],
+        # fft
+        *[(f"fft.{n}", args, kw, R) for n, args, kw in (
+            ("fft", (v,), {}), ("ifft", (c,), {}), ("rfft", (v,), {}),
+            ("irfft", (c,), {}), ("hfft", (c,), {}), ("ihfft", (v,), {}),
+            ("fft2", (f,), {}), ("ifft2", (f,), {}), ("rfft2", (f,), {}),
+            ("irfft2", (f.astype("c8"),), {}), ("fftn", (f,), {}),
+            ("ifftn", (f,), {}), ("rfftn", (f,), {}),
+            ("irfftn", (f.astype("c8"),), {}), ("fftshift", (f,), {}),
+            ("ifftshift", (f,), {}), ("fftfreq", (8, 0.5), {}),
+            ("rfftfreq", (9,), {}))],
+        # financial, on float32 arrays (a scalar call gives a float)
+        *[(n, args, {}, R) for n, args in (
+            ("fv", (np.array([0.004, 0.006], "f4"), 120, -100, -100)),
+            ("pv", (np.array([0.004, 0.006], "f4"), 240, -500)),
+            ("pmt", (np.array([0.004, 0.006], "f4"), 180, 2000)),
+            ("nper", (np.array([0.004, 0.006], "f4"), -150, 8000)),
+            ("ipmt", (np.array([0.008, 0.01], "f4"), 3, 24, 2000)),
+            ("ppmt", (np.array([0.008, 0.01], "f4"), 5, 60, 5500)),
+            ("npv", (0.28, np.array([-100, 39, 59, 55, 20], "f4"))),
+            ("mirr", (np.array([-4500, -800, 800, 800, 600, 600, 800, 800,
+                                700, 3000], "f4"), 0.08, 0.055)),
+            ("irr", (np.array([-150000, 15000, 25000, 35000, 45000, 60000],
+                              "f4"),)),
+            ("rate", (10, 0, -3500, 10000)))],
+    ]
+
+
+def _np_same(mx, card, host, tol, what):
+    """A card result against the CPU port's: the same structure, every
+    array on the card, dtype and shape equal, integers and bools equal,
+    floats within ``tol`` (NP_F16 for float16) relative and absolute."""
+    if isinstance(host, (list, tuple)):
+        check(isinstance(card, (list, tuple)) and len(card) == len(host),
+              f"{what}: {type(card)} vs {type(host)}")
+        for c, h in zip(card, host):
+            _np_same(mx, c, h, tol, what)
+        return
+    if not isinstance(host, mx.nd.NDArray):
+        check(type(card) is type(host), f"{what}: {card!r} vs {host!r}")
+        if isinstance(host, float):
+            check(math.isclose(card, host, rel_tol=tol, abs_tol=tol)
+                  or (math.isnan(card) and math.isnan(host)),
+                  f"{what}: {card} vs {host}")
+        else:
+            check(card == host, f"{what}: {card!r} vs {host!r}")
+        return
+    check(card._data.is_cuda, f"{what}: the result is not on the card")
+    check(card.dtype == host.dtype and card.shape == host.shape,
+          f"{what}: card {card.dtype}{card.shape} vs CPU "
+          f"{host.dtype}{host.shape}")
+    c, h = card.asnumpy(), host.asnumpy()
+    if np.dtype(c.dtype).kind in "biu":
+        check(np.array_equal(c, h), f"{what}: values differ")
+        return
+    t = NP_F16 if c.dtype == np.float16 else tol
+    cc, hh = c.astype("c16"), h.astype("c16")
+    check(np.allclose(cc, hh, rtol=t, atol=t, equal_nan=True),
+          f"{what}: card {cc.ravel()[:8]} vs CPU {hh.ravel()[:8]}")
+
+
+def _np_call(mx, path, args, kw):
+    fn = mx.np
+    for part in path.split("."):
+        fn = getattr(fn, part)
+
+    def lift(x):
+        if isinstance(x, np.ndarray):
+            return mx.np.array(x, dtype=x.dtype)
+        if isinstance(x, (list, tuple)) and x \
+                and isinstance(x[0], np.ndarray):
+            return type(x)(lift(y) for y in x)
+        return x
+    return fn(*[lift(x) for x in args], **kw)
+
+
+def _np_both(mx, path, args, kw, tol, failures, called):
+    """``path`` on the card and on the CPU; a mismatch, or one side
+    raising, is a failure (both raising is agreement)."""
+    called.add(path)
+    err = []
+    outs = []
+    for ctx in (None, mx.cpu()):
+        try:
+            if ctx is None:
+                outs.append(_np_call(mx, path, args, kw))
+            else:
+                with ctx:
+                    outs.append(_np_call(mx, path, args, kw))
+        except Exception as e:          # noqa: BLE001 (compared below)
+            err.append(f"{'card' if ctx is None else 'cpu'}: "
+                       f"{type(e).__name__}: {str(e)[:160]}")
+            outs.append(e)
+    if len(err) == 2:
+        return
+    tag = f"{path}{tuple(getattr(a, 'dtype', a) for a in args[:2])}"
+    if err:
+        failures.append(f"{tag}: {err[0]}")
+        return
+    try:
+        _np_same(mx, outs[0], outs[1], tol, tag)
+    except AssertionError as e:
+        failures.append(str(e))
+
+
+def _np_random(mx, called, failures):
+    """Every sampler on the card: the CPU port's dtype and shape, finite
+    values (the card's Philox and the CPU's generator differ), and the
+    port's seeded repeat on the card."""
+    r = mx.np.random
+    cases = [("uniform", (0.0, 2.0)), ("normal", (1.0, 2.0)), ("rand", ()),
+             ("randn", ()), ("randint", (0, 7)), ("beta", (2.0, 5.0)),
+             ("gamma", (3.0,)), ("exponential", (2.0,)),
+             ("laplace", (1.0, 2.0)), ("logistic", (1.0, 2.0)),
+             ("gumbel", (0.5, 2.0)), ("lognormal", (0.2, 0.5)),
+             ("pareto", (5.0,)), ("power", (3.0,)), ("rayleigh", (2.0,)),
+             ("weibull", (2.0,)), ("chisquare", (4.0,)), ("f", (5.0, 10.0)),
+             ("binomial", (10, 0.3)), ("negative_binomial", (5, 0.4)),
+             ("poisson", (3.5,)), ("geometric", (0.25,)),
+             ("bernoulli", (0.25,)), ("choice", (7,)), ("permutation", (6,)),
+             ("multinomial", (20, [0.2, 0.3, 0.5])),
+             ("multivariate_normal", ([0.0, 1.0], [[1.0, 0.3], [0.3, 2.0]]))]
+    sized = {"rand": (2, 3), "randn": (2, 3)}
+    for name, args in cases:
+        called.add(f"random.{name}")
+        kw = {} if name in ("permutation",) else {"size": (2, 3)}
+        fn = getattr(r, name)
+        try:
+            card = fn(*sized[name]) if name in sized else fn(*args, **kw)
+            with mx.cpu():
+                host = fn(*sized[name]) if name in sized \
+                    else fn(*args, **kw)
+            check(card._data.is_cuda and card.dtype == host.dtype
+                  and card.shape == host.shape
+                  and bool(np.isfinite(card.asnumpy().astype("f8")).all()),
+                  f"random.{name}: card {card.dtype}{card.shape} vs CPU "
+                  f"{host.dtype}{host.shape}")
+        except Exception as e:          # noqa: BLE001 (reported)
+            failures.append(f"random.{name}: {type(e).__name__}: {e}")
+    x = mx.np.array(np.arange(12, dtype="f4"))
+    r.shuffle(x)
+    called.update({"random.shuffle", "random.seed"})
+    check(sorted(x.asnumpy().tolist()) == list(range(12)),
+          "random.shuffle lost elements on the card")
+    draws = []
+    for _ in range(2):
+        r.seed(99)
+        draws.append([r.gamma(2.0, size=(5,)).asnumpy(),
+                      r.choice(9, size=(4,)).asnumpy()])
+    check(all(np.array_equal(a, b) for a, b in zip(*draws)),
+          "seeded draws on the card do not repeat")
+
+
+def phase_numpy(torch, smi):
+    """The rest of ``mx.np`` on the card (the port of the JAX package's
+    numpy module, its linalg, fft and random): the unary, binary and
+    reduction tables, sort/argsort/unique/searchsorted/take crossed over
+    NP_DTYPES, and every other function at least once, each on seeded
+    numpy inputs against the same call on the CPU (NP_EW ... NP_F16);
+    the samplers by dtype, shape and seeded repeats; which of torch's
+    card kernels refuse a dtype and the port's route for it; no call of
+    the host fallback; the NumPy protocols on the card; and
+    ``npx.decode_attention`` through K2 (fp32 and bf16 caches at the
+    decode phase's shape) against its plain version, counting K2's
+    launches."""
+    import io
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops, random_state
+    from mxnet_tpu_torch.ops import attention as at
+    ops.reset_launch_counts()
+    rng_state = random_state.get_state()     # the later phases' draws
+    fallback0 = sum(mx.np.FALLBACK_CALLS.values())
+    failures, called = [], set()
+    for name, dom in NP_UNARY.items():
+        lo, hi = NP_DOMAIN[dom]
+        exact = name in ("negative", "positive", "abs", "absolute", "fabs",
+                         "sign", "rint", "ceil", "floor", "trunc", "fix",
+                         "square", "invert", "bitwise_not", "logical_not",
+                         "isnan", "isinf", "isneginf", "isposinf",
+                         "isfinite", "signbit", "conjugate", "conj", "real",
+                         "imag", "around", "round", "round_", "nan_to_num")
+        for dt in NP_DTYPES:
+            _np_both(mx, name, (_np_values(dt, lo=lo, hi=hi, seed=1),), {},
+                     NP_EW if exact else NP_TR, failures, called)
+    for name in NP_BINARY:
+        for dt in NP_DTYPES:
+            x = _np_values(dt, lo=0.2, hi=2.0, seed=3)
+            y = _np_values(dt, lo=0.2, hi=2.0, seed=4)
+            if dt[0] != "f":
+                y = np.where(y == 0, 1, y).astype(dt)    # no integer / 0
+            if name == "ldexp" and dt[0] == "f":
+                y = _np_values("int8", seed=4)
+            _np_both(mx, name, (x, y), {}, NP_TR, failures, called)
+    for name in NP_REDUCE:
+        for dt in NP_DTYPES:
+            _np_both(mx, name, (_np_values(dt, seed=5),), {}, NP_RED,
+                     failures, called)
+    idx = np.array([[0, 3, -1], [5, 2, 11]], "i4")
+    for dt in NP_DTYPES:
+        s = np.sort(_np_values(dt, (6,), 6))
+        for path, args, kw in (
+                ("searchsorted", (s, _np_values(dt, (2, 3), 7)), {}),
+                ("take", (_np_values(dt, seed=8), idx), {"axis": 1,
+                                                         "mode": "wrap"}),
+                ("take", (_np_values(dt, seed=8), idx), {}),
+                ("sort", (_np_values(dt, seed=9),), {"axis": 0}),
+                ("unique", (_np_values(dt, seed=10),),
+                 {"return_index": True, "return_counts": True}),
+                ("cumsum", (_np_values(dt, seed=11),), {"axis": 1})):
+            _np_both(mx, path, args, kw, NP_RED, failures, called)
+    for path, args, kw, tol in _np_cases():
+        _np_both(mx, path, args, kw, tol, failures, called)
+    _np_random(mx, called, failures)
+
+    # the rest, on the card and compared by hand
+    f = _np_values("float32", seed=12)
+    card = mx.np.array(f)
+    called.update({"allclose", "array_equal", "array_equiv", "ndim", "shape",
+                   "size", "may_share_memory", "shares_memory",
+                   "result_type", "promote_types", "can_cast", "fill_diagonal",
+                   "put_along_axis", "save", "savez", "load", "genfromtxt",
+                   "fromiter", "get_printoptions", "set_printoptions",
+                   "get_include", "linalg.svd", "linalg.qr", "linalg.eigh",
+                   "linalg.eig", "linalg.eigvals"})
+    check(mx.np.allclose(card, card + 1e-9) and mx.np.array_equal(card, card)
+          and mx.np.array_equiv(card, card[:1]) is False
+          and mx.np.ndim(card) == 2 and mx.np.shape(card) == (3, 4)
+          and mx.np.size(card, 1) == 4
+          and not mx.np.may_share_memory(card, card)
+          and not mx.np.shares_memory(card, card)
+          and mx.np.result_type(card, 2.0) == np.float32
+          and mx.np.promote_types("int8", "uint8") == np.int16
+          and mx.np.can_cast(card, "float64"), "the helpers on the card")
+    fd = mx.np.array(np.zeros((3, 3), "f4"))
+    mx.np.fill_diagonal(fd, 5.0)
+    pa = mx.np.array(f)
+    mx.np.put_along_axis(pa, mx.np.array(np.zeros((3, 1), "i4")), 9.0, 1)
+    check(fd._data.is_cuda and fd.asnumpy().trace() == 15.0
+          and pa._data.is_cuda and (pa.asnumpy()[:, 0] == 9.0).all(),
+          "fill_diagonal/put_along_axis on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        mx.np.save(f"{tmp}/a.npy", card)
+        mx.np.savez(f"{tmp}/b.npz", card, x=card)
+        back = mx.np.load(f"{tmp}/a.npy")
+        both = mx.np.load(f"{tmp}/b.npz")
+    check(back._data.is_cuda and np.array_equal(back.asnumpy(), f)
+          and set(both) == {"arr_0", "x"}, "save/load on the card")
+    check(mx.np.genfromtxt(io.StringIO("1 2\n3 4\n"))._data.is_cuda
+          and mx.np.fromiter(range(4), dtype="int32")._data.is_cuda
+          and isinstance(mx.np.get_printoptions(), dict)
+          and isinstance(mx.np.get_include(), str),
+          "text sources on the card")
+    mx.np.set_printoptions(**mx.np.get_printoptions())
+    m = mx.np.array(_np_values("float32", (5, 3), 13))
+    u, s, vh = mx.np.linalg.svd(m)
+    qq, rr = mx.np.linalg.qr(m)
+    sym = m.T @ m
+    w, vv = mx.np.linalg.eigh(sym)
+    ew, ev = mx.np.linalg.eig(sym)
+    mn = m.asnumpy()
+    check(np.allclose((u * s[None]) @ vh.asnumpy(), mn, atol=1e-4)
+          and np.allclose(qq.asnumpy() @ rr.asnumpy(), mn, atol=1e-4)
+          and np.allclose(vv.asnumpy() @ np.diag(w.asnumpy())
+                          @ vv.asnumpy().T, sym.asnumpy(), atol=1e-4)
+          and np.allclose(np.sort(ew.asnumpy()), np.sort(w.asnumpy()),
+                          atol=1e-4)
+          and np.allclose(np.sort(mx.np.linalg.eigvals(sym).asnumpy()),
+                          np.sort(w.asnumpy()), atol=1e-4)
+          and ev.shape == (3, 3) and u._data.is_cuda and ew._data.is_cuda,
+          "decompositions on the card")
+
+    # the NumPy protocols: numpy's functions and ufuncs on card arrays run
+    # the port's natives on the card
+    for out in (np.cumsum(card), np.sort(card), np.sqrt(card),
+                np.add(card, np.ones(4, "f4")),
+                np.array([1.0] * 4, "f4") < card, np.linalg.inv(
+                    mx.np.array(np.eye(3, dtype="f4") * 2))):
+        check(isinstance(out, mx.nd.NDArray) and out._data.is_cuda,
+              "a NumPy protocol call left the card")
+    fallback = sum(mx.np.FALLBACK_CALLS.values()) - fallback0
+
+    # the functions of mx.np, .linalg, .fft and .random never called
+    import types
+    public = set()
+    for sub, mod in (("", mx.np), ("linalg.", mx.np.linalg),
+                     ("fft.", mx.np.fft), ("random.", mx.np.random)):
+        for name, val in vars(mod).items():
+            if name.startswith("_") or not callable(val) \
+                    or isinstance(val, (type, types.ModuleType)):
+                continue
+            src = getattr(val, "__module__", "") or ""
+            if src.startswith(("mxnet_tpu_torch.numpy", "numpy")):
+                public.add(sub + name)
+    earlier = {"array", "asarray", "zeros", "ones", "empty", "full",
+               "zeros_like", "ones_like", "full_like", "empty_like",
+               "arange", "linspace", "eye", "copy", "clip", "reshape",
+               "transpose", "expand_dims", "squeeze", "ravel",
+               "broadcast_to", "concatenate", "concat", "stack", "split",
+               "tile", "flip", "dot", "matmul"}
+    uncalled = sorted(public - called - earlier)
+
+    # which of torch's card kernels refuse a dtype, and the port's route
+    refused = {}
+    for what, (raw, route) in ROUTES.items():
+        bad = []
+        for dt in NP_DTYPES:
+            t = torch.from_numpy(_np_values(dt, (4, 4), 14)).cuda()
+            try:
+                raw(torch, t)
+                torch.cuda.synchronize()
+            except (RuntimeError, NotImplementedError):
+                bad.append(dt)
+        if bad:
+            refused[what] = {"refused_on_card": bad, "port_route": route}
+    print("numpy: torch kernels that refused a dtype on the card, and the "
+          "port's route:", json.dumps(refused), flush=True)
+
+    # npx.decode_attention: K2 through the front end
+    rng = np.random.RandomState(16)
+    b, h, s_, d = 8, 12, 1024, 64
+    lengths = [0, 1, 63, 64, 65, 500, 1023, 1024]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = _split_view(torch, rng, b, 1, h, d)
+    k, v = _rand(torch, rng, b, h, s_, d), _rand(torch, rng, b, h, s_, d)
+    scale = 1.0 / math.sqrt(d)
+    dec = {}
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        name = "decode_attention" + ("" if tag == "fp32" else "_bf16")
+        n0 = ops.launch_counts().get(name, 0)
+        kk, vv2, qq2 = k.to(dt), v.to(dt), q.to(dt)
+        out = mx.npx.decode_attention(mx.nd.NDArray(qq2), mx.nd.NDArray(kk),
+                                      mx.nd.NDArray(vv2),
+                                      mx.nd.NDArray(lens))
+        plain = at._decode_fwd_torch(qq2.float(), kk.float(), vv2.float(),
+                                     lens, scale).to(dt)
+        torch.cuda.synchronize()
+        launched = ops.launch_counts().get(name, 0) - n0
+        if tag == "fp32":
+            err, tol = float((out._data - plain).abs().max()), OUT_TOL
+        else:
+            err, tol = _half_err(out._data, plain, BF16_ULP)
+        dec[tag] = {"kernel": name, "launches": launched, "max_abs_err": err,
+                    "tol": tol, "dtype": str(out.dtype)}
+        check(launched == 1 and out._data.dtype == dt and err <= tol,
+              f"npx.decode_attention {tag}: {dec[tag]}")
+
+    # the host's cost of a call, beside an mx.np multiply
+    x3 = mx.np.array(np.array([3.0, 1.0, 2.0], "f4"))
+    m3 = mx.np.array(np.eye(3, dtype="f4"))
+    host_us = {}
+    for key, fn in (("mx_np_multiply", lambda: x3 * 2.0),
+                    ("cumsum", lambda: mx.np.cumsum(x3)),
+                    ("sort", lambda: mx.np.sort(x3)),
+                    ("einsum", lambda: mx.np.einsum("ij,j->i", m3, x3))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        host_us[key] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    random_state.set_state(*rng_state)
+    res = {"calls": len(called), "failures": failures,
+           "uncalled": uncalled, "fallback_calls": fallback,
+           "refused_on_card": refused, "decode_attention": dec,
+           "host_us_per_call": host_us, "nvidia_smi": smi,
+           "launches": ops.launch_counts()}
+    emit("numpy", **res)
+    check(not failures, f"{len(failures)} numpy calls failed on the card: "
+          f"{failures[:10]}")
+    check(not uncalled, f"functions the numpy phase never called: "
+          f"{uncalled}")
+    check(fallback == 0, f"{fallback} calls reached the host fallback")
+    return res
+
+
 def phase_custom_op(torch):
     """The flow of examples/custom_op.py on the card through
     ``import mxnet_tpu_torch as mx``: the softsign CustomOp via
@@ -3844,7 +4407,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    phase_env(torch)
+    card = phase_env(torch)
     phase_build()
     timer = Timer(torch)
     k1 = phase_flash(torch, timer)
@@ -3865,7 +4428,8 @@ def main(argv=None):
     if args.kernels_only:
         return 0
     from mxnet_tpu_torch import ops
-    phases = {"custom_op": phase_custom_op(torch)}
+    phases = {"custom_op": phase_custom_op(torch),
+              "numpy": phase_numpy(torch, card)}
     phases["engine"], cpu_model, dense_prompts, dense_results = \
         phase_engine(torch)
     phases["bf16_engine"] = phase_bf16_engine(torch, cpu_model,

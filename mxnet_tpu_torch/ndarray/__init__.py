@@ -14,3 +14,10 @@ def save(fname, data):
 
 def load(fname):
     raise not_ported("nd.load", 18)
+
+
+def __getattr__(name):
+    if name == "sparse":
+        raise not_ported("nd.sparse (ndarray/sparse.py)", "13b")
+    raise AttributeError(
+        f"module 'mxnet_tpu_torch.ndarray' has no attribute {name!r}")

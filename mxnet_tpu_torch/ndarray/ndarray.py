@@ -142,9 +142,8 @@ class NDArray:
     __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_fresh_grad",
                  "_version", "_bucket_pad", "__weakref__")
 
-    # `onp_array op ndarray` hits our reflected ops, not numpy's
+    # `onp_array op ndarray` dispatches to this array (__array_ufunc__)
     __array_priority__ = 1000.0
-    __array_ufunc__ = None
 
     def __init__(self, data: torch.Tensor, ctx: Context = None):
         self._data = data
@@ -268,6 +267,17 @@ class NDArray:
     def __array__(self, dtype=None, copy=None):
         a = self.asnumpy()
         return a.astype(dtype) if dtype is not None else a
+
+    def __array_function__(self, func, types, args, kwargs):
+        """NumPy dispatch protocol: ``numpy.foo(mx_arr)`` runs the port's
+        ``mx.np.foo`` on the array's device where the port defines it,
+        a host fallback otherwise (``numpy/dispatch.py``)."""
+        from ..numpy import dispatch
+        return dispatch.array_function(self, func, types, args, kwargs)
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        from ..numpy import dispatch
+        return dispatch.array_ufunc(self, ufunc, method, *inputs, **kwargs)
 
     def __dlpack__(self, stream=None):
         return self._data.detach().__dlpack__(stream=stream)
@@ -497,8 +507,7 @@ class NDArray:
     def __ipow__(self, o): return self._inplace(self._np().power(self, o))
 
     # ------------------------------------------------------------------
-    # shape / reduction methods (delegate to mx.np; a function a later
-    # slice ports raises its not-ported error)
+    # shape / reduction methods (delegate to mx.np)
     # ------------------------------------------------------------------
     def reshape(self, *shape, **kwargs):
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
@@ -594,7 +603,7 @@ class NDArray:
         if stype == "default":
             return self
         from ..base import not_ported
-        raise not_ported("sparse storage (ndarray/sparse.py)", 13)
+        raise not_ported("sparse storage (ndarray/sparse.py)", "13b")
 
     def slice_axis(self, axis, begin, end):
         idx = [slice(None)] * self.ndim

@@ -10,8 +10,8 @@ The port of ``mxnet_tpu/numpy_extension/__init__.py``'s activations
 PyTorch through ``ops.apply_op``.
 
 ``flash_attention`` runs K1 forward and, under ``record()``, K1-bwd
-backward (``ops.attention``). ``decode_attention`` and the other
-functions of the reference raise ``base.not_ported(..., 13)``.
+backward; ``decode_attention`` runs K2 (``ops.attention``). The other
+functions of the reference raise ``base.not_ported(..., "13b")``.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from ..ops import nn as _nn
 from ..random_state import generator
 
 __all__ = ["relu", "sigmoid", "softmax", "log_softmax", "dropout",
-           "one_hot", "pick", "topk", "flash_attention", "custom",
+           "one_hot", "pick", "topk", "flash_attention",
+           "decode_attention", "custom",
            "waitall", "num_gpus", "current_device"]
 
 
@@ -233,8 +234,22 @@ def flash_attention(query, key, value, causal=False, scale=None,
                     name="flash_attention")
 
 
-def decode_attention(*args, **kwargs):
-    raise not_ported("npx.decode_attention", 13)
+def decode_attention(query, key, value, lengths, scale=None):
+    """Single-query attention against a preallocated (B, H, S_max, D)
+    KV cache with per-slot valid lengths (the decode hot path): K2 on
+    the card, the instance of the cache's type (fp32, bf16, float16),
+    its plain version on the CPU (``ops.attention.decode_attention``).
+    ``lengths`` (B,) counts each slot's valid keys; it is taken as
+    int32."""
+    from ..ops import attention as _att
+
+    def fn(q, k, v, ln):
+        return _att.decode_attention(q, k, v,
+                                     ln.to(torch.int32).contiguous(),
+                                     scale=scale)
+
+    return apply_op(fn, _c(query), _c(key), _c(value), _c(lengths),
+                    name="decode_attention")
 
 
 def __getattr__(name):
@@ -242,4 +257,4 @@ def __getattr__(name):
         raise AttributeError(
             f"module 'mxnet_tpu_torch.numpy_extension' has no attribute "
             f"{name!r}")
-    raise not_ported(f"npx.{name}", 13)
+    raise not_ported(f"npx.{name}", "13b")

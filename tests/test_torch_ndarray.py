@@ -281,8 +281,19 @@ def test_methods():
     _same(t.slice_axis(1, 1, 3), j.slice_axis(1, 1, 3))
     for a, b in zip(t.split(2, axis=1), j.split(2, axis=1)):
         _same(a, b)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t.cumsum()
+    _same(t.cumsum(), j.cumsum())
+    _same(t.cumsum(axis=1), j.cumsum(axis=1))
+    _same(t.var(), j.var())
+    _same(t.var(axis=0, ddof=1), j.var(axis=0, ddof=1))
+    _same(t.round(1), j.round(1))
+    _same(t.take(tmx.np.array(onp.array([0, 5, 11], "i4"), dtype="int32")),
+          j.take(jmx.np.array(onp.array([0, 5, 11], "i4"), dtype="int32")))
+    _same(t.repeat(2, axis=0), j.repeat(2, axis=0))
+    for a, b in zip(t.nonzero(), j.nonzero()):
+        _same(a, b)
+    _same(t.all(), j.all())
+    _same(t.any(axis=0), j.any(axis=0))
+    _same(t.swapaxes(0, 1), j.swapaxes(0, 1))
 
 
 @pytest.mark.parametrize("dtype", ["int32", "float16", "bool", "float64",
