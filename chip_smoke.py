@@ -48,6 +48,15 @@ through ``GenerationEngine``:
   uint16/uint32 arrays in every dtype against the CPU
   (``_card_moves``);
 
+- ``npx``: every function of ``mx.npx`` on the card against the CPU
+  port (the activations and special functions crossed over the
+  dtypes; pooling, the indexing ops and ``batch_dot`` over the dtypes
+  whose card kernels refuse; the gradients of the convolutions,
+  pooling, norms, ``rnn``, ``ctc_loss``, the legacy heads and
+  ``foreach``), the refused dtypes and the port's routes, and
+  ``npx.flash_attention`` under ``record()``: one K1 and one of each
+  K1-bwd launch, held against their plain versions;
+
 - ``engine``: the dense fp32 engine, 24 greedy requests;
 - ``bf16_engine``: the same requests on the dense engine with
   ``compute_dtype="bfloat16"`` at ``decode_ticks=4`` and then 1 (the
@@ -155,6 +164,7 @@ check of a kernel change) and prints no result line either.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -282,7 +292,13 @@ def phase_env(torch):
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    emit("env", nvidia_smi=card, python=sys.version.split()[0],
+    try:                        # information only: no kernel needs it yet
+        import triton
+        tri = {"importable": True, "version": triton.__version__}
+    except Exception as e:      # noqa: BLE001 (reported)
+        tri = {"importable": False, "error": f"{type(e).__name__}: {e}"}
+    print("triton:", json.dumps(tri), flush=True)
+    emit("env", nvidia_smi=card, python=sys.version.split()[0], triton=tri,
          torch=torch.__version__, cuda=torch.version.cuda,
          kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(),
@@ -3449,6 +3465,8 @@ def _np_same(mx, card, host, tol, what):
 
 def _np_call(mx, path, args, kw):
     fn = mx.np
+    if path.startswith("npx."):
+        fn, path = mx.npx, path[4:]
     for part in path.split("."):
         fn = getattr(fn, part)
 
@@ -3462,10 +3480,12 @@ def _np_call(mx, path, args, kw):
     return fn(*[lift(x) for x in args], **kw)
 
 
-def _np_both(mx, path, args, kw, tol, failures, called):
+def _np_both(mx, path, args, kw, tol, failures, called, both_raised=None):
     """``path`` on the card and on the CPU; a mismatch, or one side
-    raising, is a failure (both raising is agreement)."""
-    called.add(path)
+    raising, is a failure. Both sides raising is agreement only in a
+    dtype cross, where ``both_raised`` is a list (a dtype the function
+    refuses on both), which then collects the case; without it, it is a
+    failure. ``path`` joins ``called`` once a comparison has passed."""
     err = []
     outs = []
     for ctx in (None, mx.cpu()):
@@ -3479,16 +3499,19 @@ def _np_both(mx, path, args, kw, tol, failures, called):
             err.append(f"{'card' if ctx is None else 'cpu'}: "
                        f"{type(e).__name__}: {str(e)[:160]}")
             outs.append(e)
-    if len(err) == 2:
-        return
     tag = f"{path}{tuple(getattr(a, 'dtype', a) for a in args[:2])}"
+    if len(err) == 2 and both_raised is not None:
+        both_raised.append(tag)
+        return
     if err:
-        failures.append(f"{tag}: {err[0]}")
+        failures.append(f"{tag}: {'; '.join(err)}")
         return
     try:
         _np_same(mx, outs[0], outs[1], tol, tag)
     except AssertionError as e:
         failures.append(str(e))
+        return
+    called.add(path)
 
 
 def _np_random(mx, called, failures):
@@ -3559,7 +3582,7 @@ def phase_numpy(torch, smi):
     ops.reset_launch_counts()
     rng_state = random_state.get_state()     # the later phases' draws
     fallback0 = sum(mx.np.FALLBACK_CALLS.values())
-    failures, called = [], set()
+    failures, called, refused_both = [], set(), []
     for name, dom in NP_UNARY.items():
         lo, hi = NP_DOMAIN[dom]
         exact = name in ("negative", "positive", "abs", "absolute", "fabs",
@@ -3570,7 +3593,7 @@ def phase_numpy(torch, smi):
                          "imag", "around", "round", "round_", "nan_to_num")
         for dt in NP_DTYPES:
             _np_both(mx, name, (_np_values(dt, lo=lo, hi=hi, seed=1),), {},
-                     NP_EW if exact else NP_TR, failures, called)
+                     NP_EW if exact else NP_TR, failures, called, refused_both)
     for name in NP_BINARY:
         for dt in NP_DTYPES:
             x = _np_values(dt, lo=0.2, hi=2.0, seed=3)
@@ -3579,11 +3602,12 @@ def phase_numpy(torch, smi):
                 y = np.where(y == 0, 1, y).astype(dt)    # no integer / 0
             if name == "ldexp" and dt[0] == "f":
                 y = _np_values("int8", seed=4)
-            _np_both(mx, name, (x, y), {}, NP_TR, failures, called)
+            _np_both(mx, name, (x, y), {}, NP_TR, failures, called,
+                     refused_both)
     for name in NP_REDUCE:
         for dt in NP_DTYPES:
             _np_both(mx, name, (_np_values(dt, seed=5),), {}, NP_RED,
-                     failures, called)
+                     failures, called, refused_both)
     idx = np.array([[0, 3, -1], [5, 2, 11]], "i4")
     for dt in NP_DTYPES:
         s = np.sort(_np_values(dt, (6,), 6))
@@ -3596,7 +3620,8 @@ def phase_numpy(torch, smi):
                 ("unique", (_np_values(dt, seed=10),),
                  {"return_index": True, "return_counts": True}),
                 ("cumsum", (_np_values(dt, seed=11),), {"axis": 1})):
-            _np_both(mx, path, args, kw, NP_RED, failures, called)
+            _np_both(mx, path, args, kw, NP_RED, failures, called,
+                     refused_both)
     for path, args, kw, tol in _np_cases():
         _np_both(mx, path, args, kw, tol, failures, called)
     _np_random(mx, called, failures)
@@ -3750,7 +3775,10 @@ def phase_numpy(torch, smi):
         host_us[key] = (time.perf_counter() - t0) / 2000 * 1e6
         torch.cuda.synchronize()
     random_state.set_state(*rng_state)
+    print(f"numpy: {len(refused_both)} dtype-cross cases raised on both the "
+          f"card and the CPU: {refused_both}", flush=True)
     res = {"calls": len(called), "failures": failures,
+           "both_raised": len(refused_both),
            "uncalled": uncalled, "fallback_calls": fallback,
            "refused_on_card": refused, "decode_attention": dec,
            "host_us_per_call": host_us, "nvidia_smi": smi,
@@ -3761,6 +3789,437 @@ def phase_numpy(torch, smi):
     check(not uncalled, f"functions the numpy phase never called: "
           f"{uncalled}")
     check(fallback == 0, f"{fallback} calls reached the host fallback")
+    return res
+
+
+#: torch's own kernels behind the npx routes, tried on the card in every
+#: dtype (as ROUTES): a refusal names a dtype the port routes, and how
+def _npx_idx(torch, t):
+    return torch.zeros(2, dtype=torch.long, device=t.device)
+
+
+NPX_ROUTES = {
+    "index_put accumulate (npx.index_add)": (
+        lambda torch, t: t.index_put((_npx_idx(torch, t),), t[:2],
+                                     accumulate=True),
+        "uint16/uint32 in int64, wrapped back"),
+    "index_put (npx.index_update, scatter_nd)": (
+        lambda torch, t: t.index_put((_npx_idx(torch, t),), t[:2]),
+        "uint16/uint32 as the signed type (_put)"),
+    "advanced indexing (npx.gather_nd)": (
+        lambda torch, t: t[_npx_idx(torch, t)],
+        "uint16/uint32 as the signed type (_signed_view)"),
+    "index_select (npx.boolean_mask)": (
+        lambda torch, t: t.index_select(0, _npx_idx(torch, t)),
+        "uint16/uint32 as the signed type (_signed_view)"),
+    "constant_pad_nd + amax of windows (npx.pooling max)": (
+        lambda torch, t: torch.nn.functional.pad(
+            t[None], (1, 1), value=0).unfold(2, 2, 2).amax(-1),
+        "uint16/uint32 pooled as int64"),
+    "sum of windows in the type (npx.pooling sum/avg)": (
+        lambda torch, t: t.unfold(1, 2, 2).sum(-1, dtype=t.dtype),
+        "uint16/uint32 pooled as int64"),
+    "abs (npx.smooth_l1)": (lambda torch, t: torch.abs(t),
+                            "bool, uint16/uint32 in int64"),
+    "ge (npx.leaky_relu)": (lambda torch, t: t >= 0,
+                            "uint16/uint32 in int64"),
+    "relu (npx.relu, npx.activation)": (
+        lambda torch, t: torch.relu(t),
+        "bool as int32, uint16/uint32 in int64"),
+    "sigmoid (npx.sigmoid, float activations)": (
+        lambda torch, t: torch.sigmoid(t),
+        "integers and bool in the default float (float_input)"),
+    "matmul (npx.batch_dot)": (lambda torch, t: torch.matmul(t, t.T),
+                               "integers and bool exact in int64"),
+    "lgamma (npx.gammaln, gamma)": (lambda torch, t: torch.lgamma(t),
+                                    "integers and bool in float32"),
+}
+#: the activation table and the special functions, crossed over NP_DTYPES
+NPX_UNARY = (
+    [("npx.activation", {"act_type": a})
+     for a in ("relu", "sigmoid", "log_sigmoid", "tanh", "softrelu",
+               "softsign", "mish", "relu6", "gelu", "silu", "swish")]
+    + [("npx.leaky_relu", {"act_type": a, "slope": 0.3})
+       for a in ("leaky", "elu", "selu", "gelu", "gelu_tanh", "silu")]
+    + [("npx." + n, {}) for n in (
+        "relu", "sigmoid", "log_sigmoid", "softsign", "softplus", "mish",
+        "gelu", "silu", "hard_sigmoid", "hard_swish", "softmin", "gamma",
+        "gammaln", "erf", "erfinv", "digamma", "rsqrt", "rcbrt",
+        "smooth_l1", "all_finite", "arange_like", "index_array",
+        "shape_array", "softmax", "log_softmax")]
+    + [("npx.gelu", {"approximate": True})])
+#: functions of the phase that launch none of the port's kernels but
+#: flash_attention, held by hand below
+NPX_BY_HAND = {"npx.flash_attention", "npx.decode_attention", "npx.custom",
+               "npx.waitall", "npx.num_gpus", "npx.current_device",
+               "npx.set_np", "npx.reset_np", "npx.is_np_array",
+               "npx.is_np_shape", "npx.dropout", "npx.random",
+               "npx.foreach", "npx.while_loop", "npx.cond"}
+
+
+def _npx_cases():
+    """(path, args, kwargs, tolerance) of the npx phase beyond the unary
+    crosses: every layer, indexing op and head at least once, the
+    dtype-sensitive ones over the dtypes whose card kernels refuse."""
+    v = _np_values
+    f, R = "float32", NP_RED
+    cases = []
+    for lay, xs, ws in (("NCHW", (2, 4, 7, 6), (6, 2, 3, 3)),
+                        ("NHWC", (2, 7, 6, 4), (6, 3, 3, 2)),
+                        ("NCW", (2, 4, 9), (6, 2, 3)),
+                        ("NDHWC", (1, 5, 4, 6, 4), (6, 3, 3, 3, 2))):
+        nsp = len(lay) - 2
+        kw = dict(kernel=(3,) * nsp, num_group=2, layout=lay, pad=1)
+        cases.append(("npx.convolution", (v(f, xs, 1), v(f, ws, 2),
+                                          v(f, (6,), 3)),
+                      dict(kw, stride=2), R))
+        dws = (4, 3, 3, 3)[:nsp + 2] if lay.startswith("NC") else \
+            (4,) + (3,) * nsp + (3,)
+        cases.append(("npx.deconvolution", (v(f, xs, 4), v(f, dws, 5)),
+                      dict(kw, stride=2, adj=1), R))
+    cases.append(("npx.convolution", (v("float16", (2, 4, 7, 6), 6),
+                                      v("float16", (6, 2, 3, 3), 7)),
+                  dict(kernel=(3, 3), num_group=2, no_bias=True), R))
+    for dt in NP_DTYPES:
+        x = v(dt, (2, 3, 7, 6), 8)
+        for pt in ("max", "avg", "sum"):
+            cases.append(("npx.pooling", (x,), dict(kernel=2, pool_type=pt,
+                                                    stride=2, pad=1), R))
+    x = v(f, (2, 3, 7, 6), 9)
+    for conv in ("valid", "full", "same"):
+        for pt in ("max", "avg", "lp"):
+            cases.append(("npx.pooling", (x,), dict(
+                kernel=3, pool_type=pt, stride=2, pad=1,
+                pooling_convention=conv, count_include_pad=False), R))
+    cases.append(("npx.pooling", (x,), dict(pool_type="avg",
+                                            global_pool=True), R))
+    g, b = v(f, (3,), 10, 0.5, 1.5), v(f, (3,), 11)
+    for dt in ("float32", "float16"):
+        xn = v(dt, (4, 3, 5), 12)
+        cases += [
+            ("npx.layer_norm", (xn, v(f, (5,), 13), v(f, (5,), 14)), {}, R),
+            ("npx.group_norm", (xn, g, b), {"num_groups": 3}, R),
+            ("npx.instance_norm", (xn, g, b), {}, R),
+            ("npx.rms_norm", (xn, v(f, (5,), 15)), {}, R),
+            ("npx.l2_normalization", (xn,), {"mode": "channel"}, R),
+            ("npx.batch_norm", (xn, g, b, v(f, (3,), 16),
+                                v(f, (3,), 17, 0.5, 2.0)), {}, R)]
+    xf = v(f, (3, 5), 18)
+    m = v("bool", (3, 5), 19)
+    m[:, 0] = True
+    cases += [
+        ("npx.masked_softmax", (xf, m), {"temperature": 2.0}, R),
+        ("npx.masked_log_softmax", (xf, m), {}, R),
+        ("npx.fully_connected", (v(f, (4, 2, 3), 20), v(f, (5, 6), 21),
+                                 v(f, (5,), 22)), {}, R),
+        ("npx.embedding", (v("int32", (2, 3), 23) + 5, v(f, (10, 4), 24)),
+         {}, R),
+        ("npx.one_hot", (v("int32", (4,), 25) + 5, 10), {}, R),
+        ("npx.pick", (xf, v("int32", (3,), 26) + 5), {}, R),
+        ("npx.topk", (xf,), {"k": 2, "ret_typ": "both"}, R)]
+    idx = np.array([[0, 2, 2, 3], [1, 0, 0, 2]], "i4")
+    for dt in NP_DTYPES:
+        x43 = v(dt, (4, 3), 27)
+        cases += [
+            ("npx.index_add", (x43, idx, v(dt, (4,), 28)), {}, R),
+            ("npx.index_update", (x43, idx[:, :2], v(dt, (2,), 29)), {}, R),
+            ("npx.gather_nd", (x43, idx), {}, R),
+            # distinct coordinates: a repeated one's winner is undefined
+            ("npx.scatter_nd", (v(dt, (3,), 30), idx[:, [0, 1, 3]]),
+             {"shape": (4, 3)}, R),
+            ("npx.boolean_mask", (x43, np.array([1, 0, 1, 1], "i4")), {},
+             R),
+            ("npx.batch_dot", (v(dt, (2, 3, 4), 31), v(dt, (2, 4, 2), 32)),
+             {}, R),
+            ("npx.sequence_mask", (v(dt, (5, 3), 33),
+                                   np.array([4, 2, 5], "i4")),
+             {"use_sequence_length": True}, R)]
+    x53 = v(f, (5, 3, 2), 34)
+    sl = np.array([4, 2, 5], "i4")
+    cases += [
+        ("npx.sequence_last", (x53, sl), {"use_sequence_length": True}, R),
+        ("npx.sequence_reverse", (x53, sl), {"use_sequence_length": True},
+         R),
+        ("npx.broadcast_like", (xf[:1], xf), {}, R),
+        ("npx.reshape_like", (xf, v(f, (5, 3), 35)), {}, R),
+        ("npx.slice_axis", (x53, 0, 1, 4), {}, R),
+        ("npx.slice", (x53, (1, None, 0), (4, None, 2)), {}, R),
+        ("npx.slice", (x53, (None, 2), (None, 0), (None, -1)), {}, R),
+        ("npx.slice_like", (x53, v(f, (3, 2, 1), 35)), {}, R),
+        ("npx.slice_like", (x53, xf), {"axes": (0,)}, R),
+        ("npx.multi_sum_sq", (xf, v("float16", (4,), 36)), {}, R),
+        ("npx.multi_all_finite", (xf, v("int32", (2,), 37)), {}, R),
+        ("npx.upsampling", (v(f, (1, 2, 3, 3), 38),), {"scale": 2}, R),
+        ("npx.upsampling", (v(f, (1, 2, 3, 3), 38), v(f, (2, 1, 4, 4), 39)),
+         {"scale": 2, "sample_type": "bilinear", "num_filter": 2}, R),
+        ("npx.multibox_prior", (v(f, (1, 2, 4, 5), 40),),
+         {"sizes": (0.5, 0.25), "ratios": (1.0, 2.0)}, R),
+        ("npx.roi_pooling", (v(f, (2, 3, 8, 8), 41),
+                             np.array([[0, 0, 0, 7, 7], [1, 2, 1, 5, 6]],
+                                      "f4")), {"pooled_size": (2, 2)}, R),
+        ("npx.ctc_loss", (v(f, (8, 3, 5), 42),
+                          np.array([[1, 2, 2, 0], [3, 1, 0, 0],
+                                    [4, 4, 2, 1]], "i4")), {}, R)]
+    return cases
+
+
+#: differentiable npx calls whose gradients the phase holds on the card
+#: against the CPU port: (path, args, kwargs, indices of the
+#: differentiated arguments)
+def _npx_grad_cases():
+    from mxnet_tpu_torch.ops import nn as tnn
+    v = _np_values
+    f = "float32"
+    cases = [
+        ("npx.convolution", (v(f, (2, 4, 7, 6), 50), v(f, (6, 2, 3, 3), 51),
+                             v(f, (6,), 52)),
+         dict(kernel=(3, 3), num_group=2, stride=2, pad=1), (0, 1, 2)),
+        ("npx.deconvolution", (v(f, (2, 4, 5, 6), 53),
+                               v(f, (4, 3, 3, 3), 54)),
+         dict(kernel=(3, 3), num_group=2, stride=2, pad=1), (0, 1)),
+        ("npx.pooling", (v(f, (2, 3, 7, 6), 55),),
+         dict(kernel=3, pool_type="avg", stride=2, pad=1,
+              pooling_convention="full", count_include_pad=False), (0,)),
+        ("npx.pooling", (v(f, (2, 3, 7, 6), 55),),
+         dict(kernel=3, pool_type="max", stride=2, pad=1), (0,)),
+        ("npx.batch_norm", (v(f, (4, 3, 5), 56), v(f, (3,), 57, 0.5, 1.5),
+                            v(f, (3,), 58), v(f, (3,), 59),
+                            v(f, (3,), 60, 0.5, 2.0)), {}, (0, 1, 2)),
+        ("npx.group_norm", (v(f, (4, 4, 5), 61), v(f, (4,), 62),
+                            v(f, (4,), 63)), {"num_groups": 2}, (0, 1, 2)),
+        ("npx.instance_norm", (v(f, (4, 4, 5), 61), v(f, (4,), 62),
+                               v(f, (4,), 63)), {}, (0, 1, 2)),
+        ("npx.rms_norm", (v(f, (4, 4, 5), 61), v(f, (5,), 64)), {}, (0, 1)),
+        ("npx.l2_normalization", (v(f, (4, 4, 5), 61),), {}, (0,)),
+        ("npx.layer_norm", (v(f, (4, 4, 5), 61), v(f, (5,), 64),
+                            v(f, (5,), 65)), {}, (0, 1, 2)),
+        ("npx.softmax_output", (v(f, (4, 5), 66),
+                                np.array([0, 3, 1, 4], "f4")),
+         {"normalization": "batch", "smooth_alpha": 0.1}, (0,)),
+        ("npx.make_loss", (v(f, (4, 5), 67),), {"normalization": "valid"},
+         (0,)),
+        ("npx.linear_regression_output", (v(f, (4, 3), 68), v(f, (4, 3), 69)),
+         {"grad_scale": 2.0}, (0,)),
+        ("npx.mae_regression_output", (v(f, (4, 3), 68), v(f, (4, 3), 69)),
+         {}, (0,)),
+        ("npx.logistic_regression_output", (v(f, (4, 3), 68),
+                                            v(f, (4, 3), 69)), {}, (0,)),
+        ("npx.ctc_loss", (v(f, (8, 3, 5), 42),
+                          np.array([[1, 2, 2, 0], [3, 1, 0, 0],
+                                    [4, 4, 2, 1]], "i4")), {}, (0,)),
+    ]
+    for mode, bi, proj in (("lstm", True, 3), ("gru", True, None),
+                           ("rnn_tanh", False, None),
+                           ("rnn_relu", False, None)):
+        d = 2 if bi else 1
+        size = tnn.rnn_param_size(mode, 4, 5, 2, bi, proj)
+        args = [v(f, (5, 3, 4), 70), v(f, (size,), 71, -0.4, 0.4),
+                v(f, (2 * d, 3, proj or 5), 72)]
+        if mode == "lstm":
+            args.append(v(f, (2 * d, 3, 5), 73))
+        kw = dict(mode=mode, state_size=5, num_layers=2, bidirectional=bi,
+                  projection_size=proj, use_sequence_length=True)
+        if mode == "lstm":
+            kw.update(lstm_state_clip_min=-0.6, lstm_state_clip_max=0.6)
+        cases.append(("npx.rnn", tuple(args) + (np.array([4, 2, 5], "i4"),),
+                      kw, tuple(range(len(args)))))
+    return cases
+
+
+def _npx_grads(mx, path, args, kw, wrt, ctx):
+    """The first output of ``path`` and the gradients of the arguments
+    at ``wrt`` of its weighted sum, under ``record()`` on ``ctx`` (None:
+    the card)."""
+    def run():
+        xs = [mx.np.array(a, dtype=a.dtype) if isinstance(a, np.ndarray)
+              else a for a in args]
+        for i in wrt:
+            xs[i].attach_grad()
+        with mx.autograd.record():
+            y = _np_call(mx, path, xs, kw)
+            y = y[0] if isinstance(y, (list, tuple)) else y
+            w = mx.np.array(_np_values("float32", y.shape, 99))
+            s = (y * w).sum()
+        s.backward()
+        return [y] + [xs[i].grad for i in wrt]
+    if ctx is None:
+        return run()
+    with ctx:
+        return run()
+
+
+def phase_npx(torch, smi):
+    """``mx.npx`` on the card (the port of the JAX package's
+    numpy_extension, its control flow and random): the activation
+    table and the special functions crossed over NP_DTYPES, every layer,
+    indexing op and legacy head at least once (pooling, the indexing
+    ops, ``batch_dot`` and ``sequence_mask`` over NP_DTYPES), each
+    against the same call on the CPU port; the gradients of the
+    convolutions, pooling, the norms, ``rnn`` (lstm with its projection
+    and clipping, gru, rnn_tanh, rnn_relu; two layers, bidirectional,
+    masked), ``ctc_loss``, the legacy heads and ``foreach`` against the
+    CPU port's; the convolutions with the process's cuDNN TF32 switch on
+    (the port's run without TF32 whatever it says); which of torch's
+    card kernels refuse a dtype and the port's route; and
+    ``npx.flash_attention`` under ``record()`` at (2, 12, 512, 64)
+    causal: one K1 launch forward and one of each K1-bwd launch backward,
+    held against their plain versions (OUT_TOL, BWD_TOL). A case that
+    raises on both the card and the CPU is agreement only in the dtype
+    crosses (their count is printed); elsewhere it is a failure."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops, random_state
+    from mxnet_tpu_torch.ops import attention as at
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    rng_state = random_state.get_state()
+    failures, called, refused_both = [], set(), []
+    for path, kw in NPX_UNARY:
+        for dt in NP_DTYPES:
+            lo, hi = (0.2, 0.9) if "erfinv" in path else (0.2, 2.0)
+            _np_both(mx, path, (_np_values(dt, lo=lo, hi=hi, seed=1),), kw,
+                     NP_TR, failures, called, refused_both)
+    # the convolutions with the process's TF32 switch at torch's default
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for path, args, kw, tol in _npx_cases():
+            _np_both(mx, path, args, kw, tol, failures, called)
+        grad_err = {}
+        for path, args, kw, wrt in _npx_grad_cases():
+            try:
+                card = _npx_grads(mx, path, args, kw, wrt, None)
+                host = _npx_grads(mx, path, args, kw, wrt, mx.cpu())
+                _np_same(mx, card, host, NP_RED, f"{path} gradients")
+                grad_err[path] = max(
+                    float(np.abs(c.asnumpy() - h.asnumpy()).max())
+                    for c, h in zip(card, host))
+                called.add(path)
+            except Exception as e:      # noqa: BLE001 (reported)
+                failures.append(f"{path} gradients: {type(e).__name__}: "
+                                f"{str(e)[:200]}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    # control flow: foreach with its gradient, while_loop, cond
+    def loop(ctx):
+        def body(xt, st):
+            h = mx.np.tanh(mx.np.dot(xt, w) + st[0])
+            return h * 2.0, [h]
+        with ctx if ctx is not None else contextlib.nullcontext():
+            xs = mx.np.array(_np_values("float32", (4, 2, 3), 80))
+            w = mx.np.array(_np_values("float32", (3, 3), 81))
+            h0 = mx.np.array(_np_values("float32", (2, 3), 82))
+            for a in (xs, w, h0):
+                a.attach_grad()
+            with mx.autograd.record():
+                outs, fin = mx.npx.foreach(body, xs, [h0])
+                _, (i, acc) = mx.npx.while_loop(
+                    lambda vs: vs[0] < 3,
+                    lambda vs: ([], [vs[0] + 1, vs[1] * 1.5]),
+                    [mx.np.array(np.array(0, "i4")), fin[0]])
+                c = mx.npx.cond(acc.sum() > -1e9, lambda a: a * 2.0,
+                                lambda a: a, [acc])
+                s = outs.sum() + c.sum()
+            s.backward()
+            return [outs, fin[0], i, acc, c, xs.grad, w.grad, h0.grad]
+    called.update({"npx.foreach", "npx.while_loop", "npx.cond"})
+    try:
+        _np_same(mx, loop(None), loop(mx.cpu()), NP_RED, "control flow")
+    except Exception as e:              # noqa: BLE001 (reported)
+        failures.append(f"control flow: {type(e).__name__}: {e}")
+
+    # dropout, npx.random, the np-mode switches and the helpers
+    x = mx.np.array(np.ones((64, 64), "f4"))
+    with mx.autograd.train_mode():
+        dr = mx.npx.dropout(x, p=0.5).asnumpy()
+    check(set(np.unique(dr).tolist()) <= {0.0, 2.0}
+          and 0.3 < (dr == 0).mean() < 0.7, "npx.dropout on the card")
+    for name, args in (("uniform", (0.0, 1.0)), ("normal", (0.0, 1.0)),
+                       ("randint", (0, 5)), ("gamma", (2.0,)),
+                       ("exponential", (1.0,)), ("bernoulli", (0.3,))):
+        r = getattr(mx.npx.random, name)(*args, size=(3, 4))
+        check(r._data.is_cuda and r.shape == (3, 4),
+              f"npx.random.{name} on the card")
+    check(mx.npx.random.multinomial(10, [0.2, 0.8])._data.is_cuda,
+          "npx.random.multinomial on the card")
+    mx.npx.random.seed(3)
+    try:
+        mx.npx.set_np(dtype=True)
+        d64 = mx.np.ones((2,)) * 2.0
+        check(d64._data.is_cuda and d64.dtype == np.float64,
+              "set_np(dtype=True) on the card")
+    finally:
+        mx.npx.reset_np()
+    check(mx.np.ones((2,)).dtype == np.float32 and mx.npx.is_np_array()
+          and mx.npx.is_np_shape() and mx.npx.num_gpus() >= 1
+          and mx.npx.current_device().device_type == "gpu",
+          "the np-mode switches and helpers")
+    mx.npx.waitall()
+    called.update(NPX_BY_HAND)
+
+    # npx.flash_attention under record(): K1 forward, K1-bwd backward
+    rng = np.random.RandomState(83)
+    b, h, s_, d = 2, 12, 512, 64
+    q, k, v = (_split_view(torch, rng, b, s_, h, d) for _ in range(3))
+    do = _rand(torch, rng, b, h, s_, d)
+    n0 = dict(ops.launch_counts())
+    qa, ka, va = (mx.nd.NDArray(t.clone()) for t in (q, k, v))
+    for a in (qa, ka, va):
+        a.attach_grad()
+    with mx.autograd.record():
+        out = mx.npx.flash_attention(qa, ka, va, causal=True)
+    out.backward(mx.nd.NDArray(do))
+    torch.cuda.synchronize()
+    launched = {n: ops.launch_counts().get(n, 0) - n0.get(n, 0)
+                for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv")}
+    scale = 1.0 / math.sqrt(d)
+    p_out, p_lse = at._blockwise_fwd(q, k, v, True, scale)
+    p_dq, p_dk, p_dv = at._flash_bwd(q, k, v, p_out, p_lse, do, True, scale)
+    torch.cuda.synchronize()
+    fa = {"launches": launched,
+          "out_err": float((out._data.detach() - p_out).abs().max()),
+          "dq_err": float((qa.grad._data - p_dq).abs().max()),
+          "dk_err": float((ka.grad._data - p_dk).abs().max()),
+          "dv_err": float((va.grad._data - p_dv).abs().max()),
+          "out_tol": OUT_TOL, "grad_tol": BWD_TOL[""]}
+    check(all(n == 1 for n in launched.values()),
+          f"npx.flash_attention under record(): launches {launched}")
+    check(fa["out_err"] <= OUT_TOL and max(fa["dq_err"], fa["dk_err"],
+                                           fa["dv_err"]) <= BWD_TOL[""],
+          f"npx.flash_attention against its plain versions: {fa}")
+    called.add("npx.flash_attention")
+
+    public = {f"npx.{n}" for n in mx.npx.__all__}
+    uncalled = sorted(public - called)
+
+    refused = {}
+    for what, (raw, route) in NPX_ROUTES.items():
+        bad = []
+        for dt in NP_DTYPES:
+            t = torch.from_numpy(_np_values(dt, (4, 4), 14)).cuda()
+            try:
+                raw(torch, t)
+                torch.cuda.synchronize()
+            except (RuntimeError, NotImplementedError):
+                bad.append(dt)
+        if bad:
+            refused[what] = {"refused_on_card": bad, "port_route": route}
+    print("npx: torch kernels that refused a dtype on the card, and the "
+          "port's route:", json.dumps(refused), flush=True)
+    random_state.set_state(*rng_state)
+    print(f"npx: {len(refused_both)} dtype-cross cases raised on both the "
+          f"card and the CPU: {refused_both}", flush=True)
+    res = {"calls": len(called), "failures": failures,
+           "both_raised": len(refused_both),
+           "uncalled": uncalled, "refused_on_card": refused,
+           "gradient_max_abs_err": grad_err, "flash_attention": fa,
+           "seconds": time.perf_counter() - t0, "nvidia_smi": smi,
+           "launches": ops.launch_counts()}
+    emit("npx", **res)
+    check(not failures, f"{len(failures)} npx calls failed on the card: "
+          f"{failures[:10]}")
+    check(not uncalled, f"npx functions the phase never called: {uncalled}")
     return res
 
 
@@ -4429,7 +4888,8 @@ def main(argv=None):
         return 0
     from mxnet_tpu_torch import ops
     phases = {"custom_op": phase_custom_op(torch),
-              "numpy": phase_numpy(torch, card)}
+              "numpy": phase_numpy(torch, card),
+              "npx": phase_npx(torch, card)}
     phases["engine"], cpu_model, dense_prompts, dense_results = \
         phase_engine(torch)
     phases["bf16_engine"] = phase_bf16_engine(torch, cpu_model,

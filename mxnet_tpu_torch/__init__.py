@@ -35,7 +35,8 @@ no NVRTC and touches no device.
 """
 from . import telemetry, tracing, bucketing, base, context, engine
 from . import autograd, ops, random_state
-from .base import MXNetError
+from .base import (MXNetError, set_np, reset_np, is_np_array, is_np_shape,
+                   is_np_default_dtype)
 from .context import (Context, cpu, gpu, num_gpus, current_context,
                       resolve_device)
 from .ndarray.ndarray import NDArray, waitall
@@ -51,4 +52,6 @@ __all__ = ["telemetry", "tracing", "bucketing", "base", "context", "engine",
            "numpy_extension", "operator", "rtc", "gluon", "serving",
            "optimizer", "lr_scheduler", "parallel", "nd",
            "np", "npx", "NDArray", "Context", "cpu", "gpu", "num_gpus",
-           "current_context", "waitall", "resolve_device", "MXNetError"]
+           "current_context", "waitall", "resolve_device", "MXNetError",
+           "set_np", "reset_np", "is_np_array", "is_np_shape",
+           "is_np_default_dtype"]

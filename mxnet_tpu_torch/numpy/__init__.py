@@ -39,8 +39,12 @@ import numpy as onp
 import torch
 
 from .. import engine
-from ..base import (NARROW64, default_float, narrow_dtype, resolve_dtype,
-                    to_numpy_dtype, to_torch_dtype)
+from ..base import (NARROW64, default_float, float_input, narrow_dtype,
+                    resolve_dtype, to_numpy_dtype, to_torch_dtype)
+from ..base import UNSIGNED as _UNSIGNED
+from ..base import WIDE_UNSIGNED as _WIDE_UNSIGNED
+from ..base import bool_route as _bool_route
+from ..base import int64_route as _int64_route
 from ..context import Context, current_context  # noqa: F401
 from ..ndarray.ndarray import _SIGNED_VIEW, NDArray, _signed_view
 from ..ops import apply_op
@@ -86,6 +90,21 @@ def _coerce(x):
     return array(x)
 
 
+def _lift(x):
+    """An operand as an NDArray: a Python scalar lifts as ``jnp`` lifts a
+    weak-typed one (an int to int32, a bool to bool, a float to the
+    default float), a NumPy scalar or an array-like as ``array`` lifts
+    it."""
+    x = _coerce(x)
+    if isinstance(x, NDArray):
+        return x
+    if isinstance(x, bool):
+        return array(x, dtype=onp.bool_)
+    if isinstance(x, int):
+        return array(x, dtype=onp.int32)
+    return array(x)
+
+
 def _scalar(x):
     """A Python or numpy scalar as a 0-d CPU tensor: torch then
     promotes it like a JAX weak-typed scalar, and lets it meet a tensor
@@ -97,12 +116,6 @@ def _set_out(out, r):
     if out is None:
         return r
     return out._inplace(r)
-
-
-#: unsigned dtypes torch neither promotes nor computes on
-_WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
-#: sum and prod of these give uint32, as in the reference
-_UNSIGNED = (torch.uint8, *_WIDE_UNSIGNED)
 
 
 def _is_int(dt) -> bool:
@@ -167,38 +180,6 @@ def _via_int64(tfn, res):
     return f
 
 
-def _int64_route(tfn, res=None):
-    """``tfn`` of one tensor (further arguments passed on): a uint16/32/64
-    tensor, which torch's kernels mostly refuse on the CPU and the card
-    alike, is computed on as int64 and an int64 result cast back to its
-    dtype, so ``negative`` wraps as the narrower type would. ``res``
-    names the result dtype of an op with a rule of its own (sum and
-    prod give uint32, uint8 included; argmax keeps its index)."""
-    routed = _UNSIGNED if res is not None else _WIDE_UNSIGNED
-
-    def f(x, *args):
-        if x.dtype not in routed:
-            return tfn(x, *args)
-        r = tfn(x.to(torch.int64), *args)
-        return r.to(res or x.dtype) if r.dtype == torch.int64 else r
-    return f
-
-
-def _bool_route(tfn, res=None):
-    """``tfn`` of one tensor (further arguments passed on) where torch
-    refuses a bool input (``relu``, ``abs``, ``argmax``/``argmin``,
-    ``topk``): a bool tensor is computed on as int32, and the result is
-    cast to ``res`` when given (``abs`` gives the bool input back, as
-    the reference does) or else keeps the dtype ``tfn`` gives it
-    (``relu`` int32, an index its own)."""
-    def f(x, *args):
-        if x.dtype != torch.bool:
-            return tfn(x, *args)
-        r = tfn(x.to(torch.int32), *args)
-        return r if res is None else r.to(res)
-    return f
-
-
 def _bool_operands(tfn, pair=None):
     """``tfn`` of two tensors where torch refuses bool operands. A bool
     operand beside a non-bool one computes in their result type
@@ -241,10 +222,7 @@ def _binary(tfn, a, b, out=None, name=None):
 
 
 def _unary(tfn, a, out=None, name=None):
-    a = _coerce(a)
-    if not isinstance(a, NDArray):
-        a = array(a)
-    return _set_out(out, apply_op(tfn, a, name=name))
+    return _set_out(out, apply_op(tfn, _lift(a), name=name))
 
 
 def _npx():
@@ -624,13 +602,9 @@ lcm = _mkbin(_integer_pair(torch.lcm), "lcm")
 # elementwise unary
 # ---------------------------------------------------------------------------
 def _float_in(tfn):
-    """Integer inputs compute in float32, as jnp does for
+    """Integer inputs compute in the default float, as jnp does for
     transcendental ops."""
-    def f(x):
-        if not (x.dtype.is_floating_point or x.dtype.is_complex):
-            x = x.to(default_float())
-        return tfn(x)
-    return f
+    return lambda x: tfn(float_input(x))
 
 
 negative = _mkunary(torch.neg, "negative")
@@ -818,6 +792,8 @@ def clip(a, a_min=None, a_max=None, out=None):
         a_max._data if isinstance(a_max, NDArray) else a_max)
 
     def f(x):
+        if lo is None and hi is None:
+            return x
         if not x.requires_grad:
             return torch.clamp(x, lo, hi)
         # on the tape, the reference's min(max(x, lo), hi): a tie with a
@@ -1183,7 +1159,7 @@ def _quantile(x, q, axis, method, keepdims, squash_nans):
 
 def _quantile_op(a, q, axis, method, keepdims, name, out=None, scale=1.0,
                  squash=False):
-    a, q = _coerce(a), _coerce(q)
+    a, q = _lift(a), _coerce(q)
 
     def f(x, *qs):
         qt = qs[0] if qs else torch.as_tensor(q, device=x.device)
@@ -1268,12 +1244,13 @@ def bincount(x, weights=None, minlength=0):
     return apply_op(f, x, _coerce(weights), name="bincount")
 
 
-def _linspace64(lo, hi, num, device):
-    """numpy's ``linspace(lo, hi, num)`` in float64 on ``device``
-    (``arange * step + start``, the last point set to ``hi``)."""
+def _linspace(lo, hi, num):
+    """numpy's ``linspace(lo, hi, num)`` in the type of the 0-d tensors
+    ``lo`` and ``hi`` (``arange * step + start``, the last point set to
+    ``hi``)."""
     div = num - 1
     step = (hi - lo) / div
-    y = torch.arange(num, dtype=torch.float64, device=device) * step + lo
+    y = torch.arange(num, dtype=lo.dtype, device=lo.device) * step + lo
     y[-1] = hi
     return y
 
@@ -1283,9 +1260,11 @@ def histogram(a, bins=10, range=None, weights=None, density=None):
     the data's min and max, widened by 0.5 when they agree) in float64,
     or the given edges; a value's bin by ``searchsorted`` of the edges
     (right), the last bin closed, as numpy bins. Counts are int32 (the
-    reference's int64, narrowed), float32 under weights or density;
-    the edges float32."""
-    a = _coerce(a)
+    reference's int64, narrowed), float32 under weights or density.
+    The edges take numpy's type, as the reference keeps it: a float16
+    input's edges are float16 (and bin as such), others float32; given
+    edges keep their own type."""
+    a = _lift(a)
     x = a._data.detach().reshape(-1).to(torch.float64)
     dev = x.device
     if isinstance(bins, (int, onp.integer)):
@@ -1299,13 +1278,22 @@ def histogram(a, bins=10, range=None, weights=None, density=None):
         else:
             lo = torch.zeros((), dtype=torch.float64, device=dev)
             hi = torch.ones((), dtype=torch.float64, device=dev)
+        edt = torch.float16 if a._data.dtype == torch.float16 \
+            else torch.float32
+        if edt == torch.float16 and range is None:
+            # numpy computes edges taken from float16 data in float16
+            lo, hi = lo.to(edt), hi.to(edt)
         same = lo == hi
         lo, hi = torch.where(same, lo - 0.5, lo), torch.where(same, hi + 0.5,
                                                               hi)
-        edges = _linspace64(lo, hi, int(bins) + 1, dev)
+        edges = _linspace(lo, hi, int(bins) + 1)
+        # a value bins by the edges of the type they are returned in
+        edges = (edges.to(edt) if edt == torch.float16 else edges).to(
+            torch.float64)
     else:
         b = bins._data if isinstance(bins, NDArray) else torch.as_tensor(
             onp.asarray(bins))
+        edt = NARROW64.get(b.dtype, b.dtype)
         edges = b.to(device=dev, dtype=torch.float64)
     nb = edges.shape[0] - 1
     w = None
@@ -1319,7 +1307,7 @@ def histogram(a, bins=10, range=None, weights=None, density=None):
     if density:
         hist = hist.to(torch.float64) / (hist.sum() * torch.diff(edges))
     return _new(hist.to(NARROW64.get(hist.dtype, hist.dtype)), a._ctx), \
-        _new(edges.to(torch.float32), a._ctx)
+        _new(edges.to(edt), a._ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -1479,7 +1467,7 @@ atleast_3d = _mkatleast(3, "atleast_3d")
 
 
 def broadcast_arrays(*args):
-    arrs = [_coerce(a) for a in args]
+    arrs = [_lift(a) for a in args]
     outs = apply_op(lambda *xs: tuple(torch.broadcast_tensors(*xs)), *arrs,
                     nout=len(arrs), name="broadcast_arrays")
     return list(outs) if isinstance(outs, tuple) else [outs]
@@ -2248,9 +2236,20 @@ def inner(a, b):
     return _binary(f, a, b, name="inner")
 
 
+def _weak_cast(tfn, a, b):
+    """``tfn`` of two operands cast to the reference's result type of
+    ``a`` and ``b``, where a Python scalar is weak (``int8 array, 2``
+    stays int8, ``float16 array, 0.5`` float16); a uint16/32 result
+    computes in int64, which ``_binary``'s wide route casts back."""
+    rt = to_torch_dtype(result_type(_coerce(a), _coerce(b)))
+    rt = torch.int64 if rt in _WIDE_UNSIGNED else rt
+    return lambda x, y: tfn(x.to(rt), y.to(rt))
+
+
 def outer(a, b):
-    return _binary(lambda x, y: x.reshape(-1)[:, None] * y.reshape(-1)[None],
-                   a, b, name="outer")
+    return _binary(_weak_cast(
+        lambda x, y: x.reshape(-1)[:, None] * y.reshape(-1)[None], a, b),
+        a, b, name="outer")
 
 
 def tensordot(a, b, axes=2):
@@ -2258,13 +2257,8 @@ def tensordot(a, b, axes=2):
                    name="tensordot")
 
 
-def _kron(x, y):
-    dt = torch.promote_types(x.dtype, y.dtype)
-    return torch.kron(x.to(dt), y.to(dt))
-
-
 def kron(a, b):
-    return _binary(_kron, a, b, name="kron")
+    return _binary(_weak_cast(torch.kron, a, b), a, b, name="kron")
 
 
 def _cross(axisa, axisb, axisc):
@@ -2520,8 +2514,9 @@ def gradient(f, *varargs, axis=None, edge_order=1):
                              else float(s) for s in spacing]
         gs = torch.gradient(x, **kw)
         # several axes give one array of the gradients stacked, as the
-        # reference lifts NumPy's tuple of them
-        return gs[0] if len(gs) == 1 else torch.stack(gs)
+        # reference lifts NumPy's tuple of them: at the default float
+        return gs[0] if len(gs) == 1 else torch.stack(gs).to(
+            default_float())
     return apply_op(g, f, name="gradient")
 
 
@@ -2580,7 +2575,7 @@ def _cov(rowvar, bias, ddof):
 
 def cov(m, y=None, rowvar=True, bias=False, ddof=None, fweights=None,
         aweights=None):
-    args = (_coerce(m),) if y is None else (_coerce(m), _coerce(y))
+    args = (_lift(m),) if y is None else (_lift(m), _lift(y))
     return apply_op(_cov(rowvar, bias, ddof), *args, name="cov")
 
 
@@ -2594,20 +2589,20 @@ def corrcoef(x, y=None, rowvar=True):
         r = torch.clamp(_real(c), -1, 1)
         return torch.complex(r, torch.clamp(c.imag, -1, 1)) \
             if c.is_complex() else r
-    args = (_coerce(x),) if y is None else (_coerce(x), _coerce(y))
+    args = (_lift(x),) if y is None else (_lift(x), _lift(y))
     return apply_op(f, *args, name="corrcoef")
 
 
 def polyval(p, x):
     def f(pp, xx):
-        dt = _inexact(torch.promote_types(pp.dtype, xx.dtype))
+        dt = _inexact(pp.dtype)
         pp, xx = pp.to(dt), xx.to(dt)
         y = torch.zeros(torch.broadcast_shapes(pp.shape[1:], xx.shape),
                         dtype=dt, device=xx.device)
         for i in builtins.range(pp.shape[0]):
             y = y * xx + pp[i]
         return y
-    return _binary(f, p, x, name="polyval")
+    return _binary(_weak_cast(f, p, x), p, x, name="polyval")
 
 
 # expose submodules

@@ -10,7 +10,7 @@ with torch's grad mode on only while ``autograd.record()`` is active
 and some input is on the tape (torch would otherwise build a graph
 wherever a tensor that requires grad is used; MXNet records only inside
 ``record()`` and never inside ``pause()``), narrows 64-bit results to
-32 bits (the reference's x64-off policy, ``base.NARROW64``) and wraps
+32 bits (the reference's x64-off policy, ``base.narrowing()``) and wraps
 the outputs on the inputs' context.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 
 from . import attention, nn, quantized, sampling
 from .. import autograd, engine
-from ..base import NARROW64
+from ..base import narrowing
 
 __all__ = ["attention", "nn", "quantized", "sampling", "apply_op",
            "launch_counts", "reset_launch_counts"]
@@ -51,7 +51,7 @@ def _ndarray_cls():
 
 
 def _finish(t: torch.Tensor) -> torch.Tensor:
-    narrow = NARROW64.get(t.dtype)
+    narrow = narrowing().get(t.dtype)
     if narrow is not None:
         t = t.to(narrow)
     return engine.track(t)

@@ -6,8 +6,14 @@ explicit ``torch.Generator`` per device, each seeded from the global
 seed when first used, so ``mx.np.random.seed(n)`` makes every later
 draw repeat. Torch's generators (Philox on the card) and JAX's
 Threefry give different numbers for one seed: the tests compare
-shapes, ranges and moments, never values. ``trace_rng`` is not ported:
-it serves hybridize.
+shapes, ranges and moments, never values.
+
+The reference's key helpers map onto generators: ``next_key`` gives the
+global generator of a device (each draw from it advances the stream, as
+each of the reference's keys is a fresh split), ``request_key`` a
+generator of a request's own seed, and ``trace_rng`` is a no-op scope
+(the eager port has no hybridize trace whose random ops would need a
+traced key).
 """
 from __future__ import annotations
 
@@ -15,7 +21,10 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator", "get_state", "set_state"]
+from .context import resolve_device
+
+__all__ = ["seed", "generator", "get_state", "set_state", "next_key",
+           "request_key", "trace_rng"]
 
 _lock = threading.Lock()
 _seed = [0]
@@ -58,3 +67,33 @@ def set_state(seed_value, states):
         _generators.clear()
     for key, st in states.items():
         generator(torch.device(key)).set_state(st)
+
+
+def next_key(device=None) -> torch.Generator:
+    """The generator to draw the next random numbers from on ``device``
+    (the card unless the CPU is asked for): the global generator of that
+    device, so draws follow ``seed``."""
+    return generator(resolve_device(device))
+
+
+def request_key(seed_value: int, device=None) -> torch.Generator:
+    """The generator of a request's own seed on ``device`` (the card
+    unless the CPU is asked for), independent of the global generators:
+    the same seed gives the same stream, as the serving engine's
+    per-request generators do."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(
+        int(seed_value))
+
+
+class trace_rng:
+    """A no-op scope: the reference installs a traced key here while
+    hybridize traces a block, and the eager port has no such trace."""
+
+    def __init__(self, key=None):
+        self._key = key
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False

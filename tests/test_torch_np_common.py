@@ -67,13 +67,20 @@ def lift(pkg, a):
     return a
 
 
-def call(pkg, path, args, kw):
-    """``pkg.np.<path>(*args, **kw)`` with numpy arrays lifted;
-    ``path`` may name a submodule (``linalg.inv``)."""
+def resolve(pkg, path):
+    """``pkg.np.<path>``; ``path`` may name a submodule (``linalg.inv``),
+    and a path under ``npx.`` names ``pkg.npx.<rest>``."""
     fn = pkg.np
+    if path.startswith("npx."):
+        fn, path = pkg.npx, path[4:]
     for part in path.split("."):
         fn = getattr(fn, part)
-    return fn(*[lift(pkg, a) for a in args], **kw)
+    return fn
+
+
+def call(pkg, path, args, kw):
+    """``resolve(pkg, path)(*args, **kw)`` with numpy arrays lifted."""
+    return resolve(pkg, path)(*[lift(pkg, a) for a in args], **kw)
 
 
 def tol_for(dtype, tol):
@@ -170,13 +177,18 @@ def _key(x):
     return repr(x)
 
 
-def check(path, args=(), kw=None, tol=EW, nojit=False):
+def check(path, args=(), kw=None, tol=EW, nojit=False, wider=False):
     """One case: the port and the JAX package on the same inputs; if the
-    reference raises, the port must raise too."""
+    reference raises, the port must raise too, unless ``wider`` (an
+    input the port takes and the reference refuses, e.g. an integer
+    input of ``npx.erf``: the port's result is then not compared).
+    ``wider`` is refused for float inputs, arrays or Python floats."""
     kw = kw or {}
-    fn = jmx.np
-    for part in path.split("."):
-        fn = getattr(fn, part)
+    if wider and any(isinstance(a, float) or (isinstance(a, onp.ndarray)
+                                              and a.dtype.kind in "fc")
+                     for a in args):
+        raise ValueError(f"{path}: 'wider' is for integer and bool inputs")
+    fn = resolve(jmx, path)
     key = (id(fn), _key(args), _key(sorted(kw.items())))
     try:
         j = REF.get(key, lambda: _ref_call(path, args, kw, nojit))
@@ -184,6 +196,8 @@ def check(path, args=(), kw=None, tol=EW, nojit=False):
         try:
             call(tmx, path, args, kw)
         except Exception:                # noqa: BLE001
+            return None
+        if wider:
             return None
         raise AssertionError(f"{path}: the reference raises, the port "
                              f"does not")
@@ -208,6 +222,34 @@ def grad_pair(path, x, kw=None, reduce="sum"):
         out.append(a.grad)
     return out
 
+
+def grads(path, args, kw=None, wrt=(0,), reduce="w", seed=99, nojit=True):
+    """The gradients of the arguments at ``wrt`` (numpy arrays) of
+    ``reduce(f(*args))`` under ``autograd.record()`` in both packages:
+    ``(port's, reference's)``, each a list of the first output and the
+    gradients, the reference's run as ``ref(nojit)`` runs it. ``reduce``
+    ``"w"`` weighs the first output by fixed seeded values (a plain sum
+    would hide a permuted or mirrored gradient), ``"sum"`` sums it."""
+    kw = kw or {}
+    out = []
+    for pkg in (tmx, jmx):
+        with ref(nojit) if pkg is jmx else contextlib.nullcontext():
+            xs = [lift(pkg, a) for a in args]
+            for i in wrt:
+                xs[i].attach_grad()
+            with pkg.autograd.record():
+                y = resolve(pkg, path)(*xs, **kw)
+                if isinstance(y, (list, tuple)):
+                    y = y[0]
+                if reduce == "w":
+                    w = pkg.np.array(values("float32", shape=y.shape,
+                                            seed=seed))
+                    s = (y * w).sum()
+                else:
+                    s = y.sum()
+            s.backward()
+            out.append([_host(y)] + [_host(xs[i].grad) for i in wrt])
+    return out
 
 
 def test_helpers_are_strict():

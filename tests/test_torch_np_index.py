@@ -223,3 +223,18 @@ def test_gradient(name, args, kw):
     t, j = grad_pair(name, x, dict(kw, **({"indices": args[0]} if args
                                          else {})), reduce="sq")
     same(t, j, RED)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int16", "uint16",
+                                   "float16", "float32"])
+def test_products_keep_type_beside_python_scalar(dtype):
+    """F6: a Python scalar beside an array is weak in ``kron``, ``outer``
+    and ``polyval``: an int8 array with 2 stays int8, a float16 one with
+    0.5 float16."""
+    a = values(dtype, shape=(2, 3), seed=72)
+    for s in (2, 0.5, True):
+        check("kron", (a, s), tol=RED, nojit=True)
+        check("kron", (s, a), tol=RED, nojit=True)
+        check("outer", (a[0], s), tol=RED, nojit=True)
+    check("polyval", (a[0], 0.5), tol=RED)
+    check("polyval", (a[0], 2), tol=RED)

@@ -145,3 +145,23 @@ def test_gradient(name, kw):
     x = values("float32", shape=(3, 4), lo=0.3, hi=1.5, seed=39)
     t, j = grad_pair(name, x, kw, reduce="sq")
     same(t, j, RED)
+
+
+@pytest.mark.parametrize("kw", [{}, {"bins": 5}, {"bins": 7, "range": (-1.0,
+                                                                     1.0)}],
+                         ids=repr)
+def test_histogram_float16_edges(kw):
+    """F8: a float16 input's edges are float16, computed (and binned by)
+    as NumPy computes them."""
+    x = values("float16", shape=(40,), seed=41)
+    x[:3] = [x.max(), x.min(), 0.5]
+    check("histogram", (x,), kw, tol=RED)
+
+
+def test_gradient_over_several_axes_float16():
+    """F8: ``gradient`` of a float16 array over several axes is float32
+    (the reference lifts NumPy's tuple at the default float); over one
+    axis it keeps float16."""
+    x = values("float16", shape=(3, 4), seed=42)
+    check("gradient", (x,), tol=RED)
+    check("gradient", (x,), {"axis": 1}, tol=RED)

@@ -187,3 +187,14 @@ def test_diag_indices_from():
     check("diag_indices_from", (x,))
     check("tril_indices_from", (x[0],), {"k": 1})
     check("triu_indices_from", (x[0],))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_broadcast_arrays_scalar_and_bare_clip(dtype):
+    """F7: ``broadcast_arrays`` lifts a Python scalar beside an array
+    (2 as int32, 2.5 as float32, True as bool), and ``clip`` with
+    neither bound returns its input."""
+    x = values(dtype, seed=80)
+    for s in (2, 2.5, True):
+        check("broadcast_arrays", (x, s), nojit=True)
+    check("clip", (x,), nojit=True)

@@ -139,3 +139,34 @@ def test_unary_gradient(name):
     x = values("float32", lo=lo, hi=hi, seed=9)
     t, j = grad_pair(name, x)
     same(t, j, TR)
+
+
+#: F5: functions of one operand that lifted a bare Python int or bool
+#: to float32, or raised, grouped by the helper they go through
+SCALAR_GROUPS = {
+    "elementwise": ("abs", "ceil", "floor", "trunc", "fix", "around",
+                    "square", "negative", "conjugate", "real", "imag",
+                    "nan_to_num", "invert", "sign"),
+    "shapes": ("flip", "ravel", "squeeze", "transpose", "permute_dims",
+               "atleast_1d", "atleast_2d", "atleast_3d", "diagflat"),
+    "reductions": ("sum", "prod", "nansum", "nanprod", "max", "min",
+                   "nanmax", "nanmin", "ptp", "cumsum", "cumprod"),
+    "likes": ("zeros_like", "ones_like", "empty_like"),
+    "statistics": ("median", "nanmedian", "cov", "corrcoef"),
+}
+
+
+@pytest.mark.parametrize("scalar", [3, True, 2.5], ids=repr)
+@pytest.mark.parametrize("group", sorted(SCALAR_GROUPS))
+def test_python_scalar_operand(group, scalar):
+    for name in SCALAR_GROUPS[group]:
+        check(name, (scalar,), tol=EW, nojit=True)
+
+
+def test_python_scalar_beside_an_array():
+    x = values("int8", seed=3)
+    check("atleast_1d", (x, 2))
+    check("atleast_2d", (True, x))
+    # the port takes a bool's ediff1d (as xor), which jnp refuses
+    check("ediff1d", (3,))
+    check("ediff1d", (2.5,))
