@@ -26,7 +26,10 @@ phases on 16-bit inputs; K2 and K3 with a 16-bit and an fp32 q over
 runtime-compiled user kernels: one ``rtc.CudaModule`` compiled by NVRTC
 for sm_90a (the JAX rtc tests' kernels, the example's ``scale2`` and a
 shared-memory ``row_softmax``), each held against its plain torch
-version, and K1-bwd, the flash attention backward (its dq and its
+version, the same five elementwise kernels through the Triton route of
+``rtc.PallasModule`` (Python kernel source compiled by Triton; bitwise
+against the same plain versions, ``grad=``, the refusals, an
+``interpret=True`` launch on CPU tensors), and K1-bwd, the flash attention backward (its dq and its
 dk/dv launch, fp32, bf16 and float16: causal and not, 512 and 1024
 tokens, head dims 16 and 128, kv_len below the key buffer and below the
 query length, finite garbage past kv_len, the head split's strided views
@@ -40,7 +43,8 @@ through ``GenerationEngine``:
 
 - ``custom_op``: the flow of ``examples/custom_op.py`` on the card
   (a CustomOp through ``npx.custom``, an ``autograd.Function``,
-  ``backward``, ``scale2`` through rtc), a kernel with ``grad=``, an
+  ``backward``, ``scale2`` through rtc and through the Triton route), a
+  kernel with ``grad=``, an
   opaque one and a numpy-backed CustomOp, held against closed forms,
   and ``np.matmul``/``np.dot`` of integer, bool and mixed-dtype
   operands held against the same calls on the CPU (``CARD_PRODUCTS``),
@@ -55,7 +59,12 @@ through ``GenerationEngine``:
   pooling, norms, ``rnn``, ``ctc_loss``, the legacy heads and
   ``foreach``), the refused dtypes and the port's routes, and
   ``npx.flash_attention`` under ``record()``: one K1 and one of each
-  K1-bwd launch, held against their plain versions;
+  K1-bwd launch, held against their plain versions; the contrib
+  operators (detection, ROI, warping, the deformable convolutions, ...)
+  with their gradients, four of them timed at full width (SSD300's
+  ``multibox_detection``, Faster R-CNN's RPN ``proposal``, ``roi_align``
+  of its 300 rois, a 256-channel ``deformable_convolution``), and
+  ``nd.sparse`` (creation, storage casts, dot, add, retain, norm);
 
 - ``engine``: the dense fp32 engine, 24 greedy requests;
 - ``bf16_engine``: the same requests on the dense engine with
@@ -3094,6 +3103,169 @@ def phase_rtc(torch, timer):
     return res
 
 
+#: the Triton route of mx.rtc (``PallasModule``: Python kernel source,
+#: the counterpart of the JAX package's Pallas source): the same five
+#: elementwise kernels as RTC_SOURCE, in the port's convention (the
+#: input pointers, the output pointer, n, BLOCK), their pointers
+#: declared fp32
+RTC_TRITON_SOURCE = '''
+import triton
+import triton.language as tl
+
+
+@triton.jit
+def scale_add(x: "*fp32", y: "*fp32", out: "*fp32", n, BLOCK: tl.constexpr):
+    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    x_ = tl.load(x + i, mask=m)
+    tl.store(out + i, x_ * 2.0 + tl.load(y + i, mask=m), mask=m)
+
+
+@triton.jit
+def negate(x: "*fp32", out: "*fp32", n, BLOCK: tl.constexpr):
+    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    tl.store(out + i, -tl.load(x + i, mask=m), mask=m)
+
+
+@triton.jit
+def double_it(x: "*fp32", out: "*fp32", n, BLOCK: tl.constexpr):
+    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    tl.store(out + i, tl.load(x + i, mask=m) * 2.0, mask=m)
+
+
+@triton.jit
+def ident(x: "*fp32", out: "*fp32", n, BLOCK: tl.constexpr):
+    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    tl.store(out + i, tl.load(x + i, mask=m), mask=m)
+
+
+@triton.jit
+def scale2(x: "*fp32", out: "*fp32", n, BLOCK: tl.constexpr):
+    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    tl.store(out + i, tl.load(x + i, mask=m) * 2.0, mask=m)
+'''
+
+
+def phase_rtc_triton(torch, timer):
+    """The Triton route of mx.rtc: one ``rtc.PallasModule`` of
+    RTC_TRITON_SOURCE, compiled by Triton at its kernels' first launches
+    (the cold compile, then a second module of the same source from
+    Triton's cache), each kernel held bitwise against its plain torch
+    version (RTC_PLAIN) at the K5 shapes, ``double_it`` with ``grad=``
+    against its plain gradient, the refusals (a broken source raises
+    with Triton's message; a dtype or arity mismatch raises before
+    launch), one ``interpret=True`` launch on CPU tensors in Triton's
+    interpreter, and scale_add timed at 2^26 fp32 elements beside K5's
+    CUDA C one (the same bound and library call)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops, rtc
+
+    rng = np.random.RandomState(13)
+    xs = [mx.np.array(rng.standard_normal((257,)).astype("f4"))
+          for _ in range(2)]
+
+    def first_launches(mod):
+        t0 = time.perf_counter()
+        for name in RTC_PLAIN:
+            mod.get_kernel(name)(*(xs if name == "scale_add" else xs[:1]))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with mx.gpu(0):
+        mod = mx.rtc.PallasModule(RTC_TRITON_SOURCE)
+        cold_s = first_launches(mod)
+        cached_s = first_launches(mx.rtc.PallasModule(RTC_TRITON_SOURCE))
+        check(mod.list_kernels() == sorted(RTC_PLAIN),
+              f"triton kernels {mod.list_kernels()}")
+        bad = ("@triton.jit\ndef bad(x, out, n, BLOCK: tl.constexpr):\n"
+               "    tl.store(out + tl.arange(0, BLOCK), no_such_name)\n")
+        try:
+            mx.rtc.PallasModule(bad).get_kernel("bad")(xs[0])
+            raise AssertionError("a broken Triton source compiled")
+        except AssertionError:
+            raise
+        except Exception as e:          # noqa: BLE001 (Triton's error)
+            check("no_such_name" in str(e), f"no Triton message in: {e}")
+        cases, err = [], 0.0
+        for n in (1, 3, 255, 257, (8, 128), (4, 8), 1 << 20):
+            shape = n if isinstance(n, tuple) else (n,)
+            xa = rng.standard_normal(shape).astype("f4")
+            ya = rng.standard_normal(shape).astype("f4")
+            x, y = mx.np.array(xa), mx.np.array(ya)
+            for name, plain in RTC_PLAIN.items():
+                args = (x, y) if name == "scale_add" else (x,)
+                out = mod.get_kernel(name)(*args)
+                ref = plain(*[a._data for a in args])
+                torch.cuda.synchronize()
+                check(out._data.is_cuda and out.shape == tuple(shape),
+                      f"triton {name} output {out.shape}")
+                diff = int((out._data != ref).sum())
+                err = max(err, float((out._data - ref).abs().max()))
+                cases.append({"kernel": name, "shape": list(shape),
+                              "mismatches": diff})
+                check(diff == 0, f"triton {name} differs from its plain "
+                      f"version in {diff} elements at {shape}")
+        # grad=: double_it's gradient against the plain one (2 * w)
+        d = mx.np.array(rng.standard_normal((4, 8)).astype("f4"))
+        w = rng.standard_normal((4, 8)).astype("f4")
+        d.attach_grad()
+        with mx.autograd.record():
+            k = mod.get_kernel("double_it", grad=lambda ct, v: (ct * 2.0,))
+            (k(d) * mx.np.array(w)).sum().backward()
+        grad_err = float(np.abs(d.grad.asnumpy() - 2.0 * w).max())
+        check(grad_err == 0.0, f"triton double_it grad= off by {grad_err}")
+        # dtype and arity refusals happen before any launch
+        before = ops.launch_counts()["rtc_triton"]
+        x64 = mx.NDArray(torch.ones(4, dtype=torch.float64, device="cuda"))
+        for bad_args in ((x64,), (mx.np.ones((4,)), mx.np.ones((4,)))):
+            try:
+                mod.get_kernel("negate")(*bad_args)
+                raise AssertionError(f"negate ran on {bad_args}")
+            except TypeError:
+                pass
+        check(ops.launch_counts()["rtc_triton"] == before,
+              "a refused Triton call launched")
+    # Triton's interpreter on CPU tensors (no launch on the card)
+    with mx.cpu():
+        xa = rng.standard_normal(300).astype("f4")
+        ya = rng.standard_normal(300).astype("f4")
+        before = ops.launch_counts()["rtc_triton"]
+        out = mx.rtc.PallasModule(RTC_TRITON_SOURCE).get_kernel(
+            "scale_add", interpret=True, BLOCK=128)(mx.np.array(xa),
+                                                    mx.np.array(ya))
+        interp_err = float(np.abs(out.asnumpy() - (xa * 2.0 + ya)).max())
+        check(out._data.device.type == "cpu" and interp_err == 0.0,
+              f"interpreted scale_add off by {interp_err}")
+        check(ops.launch_counts()["rtc_triton"] == before,
+              "an interpreted launch counted as a card launch")
+    emit("rtc_triton_check", triton=rtc._triton().__version__,
+         compile_s_cold=cold_s, compile_s_cached=cached_s, cases=cases,
+         grad_err=grad_err, interpret_err=interp_err)
+    with mx.gpu(0):
+        sa = mod.get_kernel("scale_add")
+        x = mx.np.array(rng.standard_normal(SCALE_ADD_N).astype("f4"))
+        y = mx.np.array(rng.standard_normal(SCALE_ADD_N).astype("f4"))
+        xt, yt = x._data, y._data
+        times = timings(timer, False, lambda: sa(x, y),
+                        lambda: xt * 2.0 + yt,
+                        lambda: torch.add(yt, xt, alpha=2.0))
+    bound_ms, bound_by = bound(3 * 4 * SCALE_ADD_N, 2 * SCALE_ADD_N)
+    res = {"max_abs_err": err,
+           "elementwise_mismatches": sum(c["mismatches"] for c in cases),
+           **times, "bound_ms": bound_ms, "bound_by": bound_by,
+           "timed": f"scale_add at {SCALE_ADD_N} fp32 elements",
+           "library": "torch.add(y, x, alpha=2.0)",
+           "compile_s_cold": cold_s, "compile_s_cached": cached_s,
+           "triton": rtc._triton().__version__, "grad_err": grad_err,
+           "interpret_err": interp_err}
+    emit("rtc_triton", **res)
+    return res
+
+
 #: the front end's products held on the card against the CPU: integer
 #: operands (the card has no integer matrix product: the exact int64
 #: route), two dtypes (promoted to the reference's result type) and
@@ -4048,6 +4220,401 @@ def _npx_grads(mx, path, args, kw, wrt, ctx):
         return run()
 
 
+def _boxes(n, seed, lead=()):
+    rs = np.random.RandomState(seed)
+    xy = rs.uniform(0, 0.7, lead + (n, 2))
+    wh = rs.uniform(0.05, 0.4, lead + (n, 2))
+    return np.concatenate([xy, xy + wh], -1).astype("f4")
+
+
+def _nms_rows(seed, n=12):
+    """(2, n, 6) rows [class, score, box] of overlapping boxes, three
+    classes and scores with exact ties (the tests' box_nms input)."""
+    rs = np.random.RandomState(seed)
+    cls = rs.randint(0, 3, (2, n, 1)).astype("f4")
+    score = rs.choice([0.9, 0.7, 0.5, 0.3, 0.05], (2, n, 1)).astype("f4")
+    b = _boxes(n, seed + 1, (2,))
+    b[:, 1::3] = b[:, ::3][:, :b[:, 1::3].shape[1]] + 0.01
+    return np.concatenate([cls, score, b], -1)
+
+
+def _rois(seed, n=5, hi=8.0):
+    rs = np.random.RandomState(seed)
+    xy = rs.uniform(0, hi, (n, 2))
+    wh = rs.uniform(1, hi + 1, (n, 2))
+    return np.concatenate([rs.randint(0, 2, (n, 1)), xy, xy + wh],
+                          1).astype("f4")
+
+
+def _npx_contrib_cases():
+    """(path, args, kwargs, tolerance, crossed) of the contrib operators
+    (numpy_extension/contrib_ops.py), the CPU tests' cases: the
+    elementwise, move, product and window ones crossed over NP_DTYPES
+    (``crossed``: a dtype both sides refuse counts as agreement), the
+    detection, ROI, warping and deformable ones in float32, with exact
+    ties in box_nms, bipartite_matching and proposal."""
+    v = _np_values
+    f, R = "float32", NP_RED
+    cases = []
+    for dt in NP_DTYPES:
+        qkv = v(dt, (4, 2, 18), 1)
+        x = v(dt, (2, 8, 3, 4), 8)
+        xs = v(dt, (2, 6, 5, 7), 15)
+        q, k = v(dt, (2, 7, 3, 4), 19), v(dt, (2, 7, 3, 4), 20)
+        dil = np.array([1, 2, 1], "i4")
+        kw2 = dict(kernel=(3, 2), stride=(2, 1), dilate=(1, 2), pad=(1, 1))
+        cases += [(p, a, k_, R, True) for p, a, k_ in [
+            ("npx.interleaved_matmul_selfatt_qk", (qkv,), {"heads": 2}),
+            ("npx.interleaved_matmul_selfatt_valatt",
+             (qkv, v(dt, (4, 4, 4), 2)), {"heads": 2}),
+            ("npx.interleaved_matmul_encdec_qk",
+             (v(dt, (3, 2, 6), 3), v(dt, (4, 2, 12), 4)), {"heads": 2}),
+            ("npx.interleaved_matmul_encdec_valatt",
+             (v(dt, (4, 2, 12), 4), v(dt, (4, 3, 4), 5)), {"heads": 2}),
+            ("npx.div_sqrt_dim", (x,), {}),
+            ("npx.quadratic", (x,), {"a": 0.5, "b": -1.5, "c": 2.0}),
+            ("npx.stop_gradient", (x,), {}),
+            ("npx.depth_to_space", (x, 2), {}),
+            ("npx.space_to_depth", (v(dt, (2, 2, 4, 6), 9), 2), {}),
+            ("npx.moments", (x,), {"axes": (0, 2)}),
+            ("npx.moments", (x,), {"axes": (1,), "keepdims": True}),
+            ("npx.khatri_rao", (v(dt, (2, 3), 10), v(dt, (4, 3), 11),
+                                v(dt, (2, 3), 12)), {}),
+            ("npx.index_copy", (v(dt, (5, 3), 13), np.array([3, 0], "i4"),
+                                v(dt, (2, 3), 14)), {}),
+            ("npx.lrn", (xs,), {"nsize": 3}),
+            ("npx.adaptive_avg_pool2d", (xs,), {"output_size": (2, 3)}),
+            ("npx.bilinear_resize2d", (xs,), {"height": 9, "width": 4}),
+            ("npx.bilinear_resize2d", (xs,), {"scale_height": 0.6,
+                                             "scale_width": 2.0}),
+            ("npx.im2col", (xs,), kw2),
+            ("npx.col2im", (v(dt, (2, 36, 21), 16), (5, 7)), kw2),
+            ("npx.sldwin_atten_score", (q, k, dil), {"w": 2}),
+            ("npx.sldwin_atten_mask_like", (v(f, (2, 7, 3, 5), 21), dil,
+                                            np.array([5, 7], "i4")),
+             {"w": 2}),
+            ("npx.sldwin_atten_context", (v(dt, (2, 7, 3, 2), 21), k, dil),
+             {"w": 1, "symmetric": False})]]
+    rs = np.random.RandomState(9)
+    anchors = _boxes(10, 10)[None]
+    label = np.full((2, 3, 5), -1.0, "f4")
+    label[0, :2, 0] = [0, 2]
+    label[0, :2, 1:] = anchors[0, [1, 6]] + 0.02
+    label[1, :3, 0] = [1, 1, 0]
+    label[1, :3, 1:] = _boxes(3, 11)
+    p = rs.uniform(0, 1, (2, 4, 10)).astype("f4")
+    p[:, :, 3] = p[:, :, 5]
+    A = 12
+    cls = rs.uniform(0, 1, (2, 2 * A, 3, 4)).astype("f4")
+    cls[:, A:] = np.round(cls[:, A:] * 4) / 4
+    prop = (cls, v(f, (2, 4 * A, 3, 4), 18, -0.2, 0.2),
+            np.array([[60, 70, 1.0], [50, 64, 0.5]], "f4"))
+    pkw = dict(rpn_pre_nms_top_n=40, rpn_post_nms_top_n=12, threshold=0.5,
+               rpn_min_size=4)
+    data = v(f, (2, 8, 9, 10), 14)
+    rr = np.concatenate([rs.randint(0, 2, (4, 1)), rs.uniform(2, 8, (4, 2)),
+                         rs.uniform(1, 6, (4, 2)),
+                         rs.uniform(-90, 90, (4, 1))], 1).astype("f4")
+    theta = np.tile(np.array([1, 0, 0, 0, 1, 0], "f4"), (2, 1)) \
+        + v(f, (2, 6), 7, -0.3, 0.3)
+    hk = (v(f, (3, 2), 25, 0.5, 1.5), v(f, (2,), 26, 0.1, 0.5),
+          v(f, (2,), 27, 0.5, 2.0), v(f, (3, 2), 28, 0.0, 1.0),
+          v(f, (3, 6), 29, 0.1, 1.0), rs.randint(0, 2, (3, 6)).astype("i4"),
+          np.array([6, 3, 0], "f4"), np.array([4.0, 3.5, 3.0], "f4"))
+    dx = v(f, (2, 4, 6, 5), 11)
+    doff = v(f, (2, 18, 6, 5), 12, -1.5, 1.5)
+    dw, db = v(f, (3, 4, 3, 3), 13), v(f, (3,), 14)
+    dm = v(f, (2, 9, 6, 5), 15, 0.0, 1.0)
+    cases += [(p_, a, k_, R, False) for p_, a, k_ in [
+        ("npx.box_iou", (_boxes(5, 1, (2,)), _boxes(4, 2, (2,))), {}),
+        ("npx.box_iou", (_boxes(5, 1, (2,)), _boxes(4, 2, (2,))),
+         {"format": "center"}),
+        ("npx.box_nms", (_nms_rows(3),), {}),
+        ("npx.box_nms", (_nms_rows(3),), {"id_index": 0, "topk": 5}),
+        ("npx.box_nms", (_nms_rows(3),), {"id_index": 0,
+                                          "force_suppress": True,
+                                          "valid_thresh": 0.1}),
+        ("npx.box_nms", (_nms_rows(3),), {"id_index": 0,
+                                          "background_id": 1,
+                                          "overlap_thresh": 0.3}),
+        ("npx.box_encode", (rs.choice([-1.0, 0.0, 1.0], (2, 6)).astype("f4"),
+                            rs.randint(0, 4, (2, 6)).astype("f4"),
+                            _boxes(6, 6, (2,)), _boxes(4, 7, (2,))), {}),
+        ("npx.box_decode", (v(f, (2, 6, 4), 8, -0.5, 0.5),
+                            _boxes(6, 6, (1,))), {"clip": 0.8}),
+        ("npx.bipartite_matching",
+         (rs.choice([0.2, 0.5, 0.8], (2, 5, 4)).astype("f4"),),
+         {"threshold": 0.3}),
+        ("npx.bipartite_matching",
+         (rs.choice([0.2, 0.5, 0.8], (2, 5, 4)).astype("f4"),),
+         {"threshold": 0.4, "is_ascend": True}),
+        ("npx.multibox_target", (anchors, label,
+                                 rs.uniform(0, 1, (2, 4, 10)).astype("f4")),
+         {"negative_mining_ratio": 2.0, "minimum_negative_samples": 1}),
+        ("npx.multibox_detection", (p / p.sum(1, keepdims=True),
+                                    v(f, (2, 40), 13, -0.3, 0.3), anchors),
+         {"nms_topk": 6}),
+        ("npx.roi_align", (data, _rois(15)), {"pooled_size": (2, 3),
+                                             "spatial_scale": 0.5,
+                                             "sample_ratio": 2}),
+        ("npx.roi_align", (data, _rois(15)), {"pooled_size": 2}),
+        ("npx.roi_align", (data, _rois(15)), {"pooled_size": (2, 2),
+                                             "position_sensitive": True,
+                                             "aligned": True}),
+        ("npx.rroi_align", (v(f, (2, 3, 9, 10), 16), rr),
+         {"pooled_size": (2, 2)}),
+        ("npx.proposal", prop, pkw),
+        ("npx.multi_proposal", prop, pkw),
+        ("npx.deformable_psroi_pooling",
+         (v(f, (2, 18, 8, 9), 20), _rois(21), v(f, (5, 4, 2, 2), 22)),
+         dict(spatial_scale=0.5, output_dim=2, group_size=3, pooled_size=3,
+              trans_std=0.1, sample_per_part=2, part_size=2)),
+        ("npx.grid_generator", (theta,), {"target_shape": (5, 7)}),
+        ("npx.grid_generator", (v(f, (2, 2, 5, 7), 2),),
+         {"transform_type": "warp"}),
+        ("npx.bilinear_sampler", (v(f, (2, 3, 5, 6), 3),
+                                  v(f, (2, 2, 4, 5), 4, -1.3, 1.3)), {}),
+        ("npx.spatial_transformer", (v(f, (2, 3, 6, 5), 6), theta),
+         {"target_shape": (4, 5)}),
+        ("npx.correlation", (v(f, (2, 3, 7, 6), 8), v(f, (2, 3, 7, 6), 9)),
+         dict(kernel_size=3, max_displacement=2, stride1=2, stride2=2,
+              pad_size=2)),
+        ("npx.count_sketch", (v(f, (3, 8), 10),
+                              np.array([0, 2, 2, 4, 1, 0, 3, 2], "f4"),
+                              np.array([1, -1, 1, 1, -1, 1, -1, 1], "f4"),
+                              5), {}),
+        ("npx.deformable_convolution", (dx, doff, dw, db),
+         {"kernel": (3, 3)}),
+        ("npx.modulated_deformable_convolution", (dx, doff, dm, dw),
+         {"kernel": (3, 3), "bias": db}),
+        ("npx.hawkesll", hk, {}),
+        ("npx.identity_attach_kl_sparse_reg",
+         (v(f, (4, 3, 2), 26, 0.1, 0.9),), {}),
+        ("npx.constraint_check", (np.array([True, True]),), {})]]
+    return cases
+
+
+def _npx_contrib_grad_cases():
+    """The gradients of the contrib operators with a backward of their
+    own making (four-tap sampling, loops, a custom Function), against
+    the CPU port's: (path, args, kwargs, indices of the differentiated
+    arguments)."""
+    return [
+        ("npx.roi_align", (_np_values("float32", (2, 8, 9, 10), 14),
+                           _rois(15)),
+         {"pooled_size": (2, 3), "spatial_scale": 0.5, "sample_ratio": 2},
+         (0,)),
+        ("npx.bilinear_sampler", (_np_values("float32", (2, 3, 5, 6), 3),
+                                  _np_values("float32", (2, 2, 4, 5), 4,
+                                             -1.3, 1.3)), {}, (0, 1)),
+        ("npx.spatial_transformer", (
+            _np_values("float32", (2, 3, 6, 5), 6),
+            np.tile(np.array([1, 0, 0, 0, 1, 0], "f4"), (2, 1))
+            + _np_values("float32", (2, 6), 7, -0.3, 0.3)),
+         {"target_shape": (4, 5)}, (0, 1)),
+        ("npx.deformable_convolution", (
+            _np_values("float32", (2, 4, 6, 5), 11),
+            _np_values("float32", (2, 18, 6, 5), 12, -1.5, 1.5),
+            _np_values("float32", (3, 4, 3, 3), 13),
+            _np_values("float32", (3,), 14)), {"kernel": (3, 3)},
+         (0, 1, 2, 3)),
+        ("npx.modulated_deformable_convolution", (
+            _np_values("float32", (2, 4, 6, 5), 11),
+            _np_values("float32", (2, 18, 6, 5), 12, -1.5, 1.5),
+            _np_values("float32", (2, 9, 6, 5), 15, 0.0, 1.0),
+            _np_values("float32", (3, 4, 3, 3), 13)), {"kernel": (3, 3)},
+         (0, 1, 2, 3)),
+        ("npx.hawkesll", (
+            _np_values("float32", (3, 2), 25, 0.5, 1.5),
+            _np_values("float32", (2,), 26, 0.1, 0.5),
+            _np_values("float32", (2,), 27, 0.5, 2.0),
+            _np_values("float32", (3, 2), 28, 0.0, 1.0),
+            _np_values("float32", (3, 6), 29, 0.1, 1.0),
+            np.random.RandomState(9).randint(0, 2, (3, 6)).astype("i4"),
+            np.array([6, 3, 0], "f4"), np.array([4.0, 3.5, 3.0], "f4")),
+         {}, (0, 1, 2, 3)),
+        ("npx.identity_attach_kl_sparse_reg",
+         (_np_values("float32", (4, 3, 2), 26, 0.1, 0.9),),
+         {"moving_avg": _np_values("float32", (6,), 27, 0.2, 0.8),
+          "penalty": 0.01}, (0,))]
+
+
+#: SSD300's anchors (Liu et al., 2016; GluonCV's ssd_300_vgg16): six
+#: feature maps (size, boxes a pixel), sizes s_k / 300 and ratios, 8732
+#: anchors in all
+SSD300_MAPS = ((38, 4), (19, 6), (10, 6), (5, 6), (3, 4), (1, 4))
+SSD300_SIZES = (30, 60, 111, 162, 213, 264, 315)
+
+
+def _ssd300_anchors(mx):
+    out = []
+    for i, (hw, nb) in enumerate(SSD300_MAPS):
+        s, s1 = SSD300_SIZES[i] / 300, SSD300_SIZES[i + 1] / 300
+        ratios = (1.0, 2.0, 0.5) if nb == 4 else (1.0, 2.0, 0.5, 3.0, 1 / 3)
+        out.append(mx.npx.multibox_prior(
+            mx.np.zeros((1, 1, hw, hw)), sizes=(s, math.sqrt(s * s1)),
+            ratios=ratios).asnumpy())
+    return np.concatenate(out, 1)
+
+
+def _softmax(x, axis):
+    e = np.exp(x - x.max(axis=axis, keepdims=True))
+    return (e / e.sum(axis=axis, keepdims=True)).astype("f4")
+
+
+def _full_width_cases(mx):
+    """The contrib operators at the widths of the models they serve:
+    (name, path, args, kwargs, source)."""
+    rs = np.random.RandomState(90)
+    B = 8
+    anchors = _ssd300_anchors(mx)
+    A = anchors.shape[1]
+    ssd = (_softmax(rs.standard_normal((B, 21, A)).astype("f4") * 2, 1),
+           (rs.standard_normal((B, A * 4)) * 0.1).astype("f4"), anchors)
+    h, w, na = 38, 50, 9
+    logits = rs.standard_normal((1, 2, na, h, w)).astype("f4")
+    rpn = (_softmax(logits, 1).reshape(1, 2 * na, h, w),
+           (rs.standard_normal((1, 4 * na, h, w)) * 0.1).astype("f4"),
+           np.array([[600.0, 800.0, 1.0]], "f4"))
+    rpn_kw = dict(rpn_pre_nms_top_n=6000, rpn_post_nms_top_n=300,
+                  threshold=0.7, rpn_min_size=16, scales=(8.0, 16.0, 32.0),
+                  ratios=(0.5, 1.0, 2.0), feature_stride=16)
+    with mx.cpu():
+        rois = mx.npx.proposal(*[mx.np.array(a) for a in rpn],
+                               **rpn_kw).asnumpy()
+    feat = rs.standard_normal((1, 256, h, w)).astype("f4")
+    dx = rs.standard_normal((2, 256, h, w)).astype("f4")
+    return [
+        ("ssd300_multibox_detection", "npx.multibox_detection", ssd,
+         dict(threshold=0.01, nms_threshold=0.45, nms_topk=400),
+         f"SSD300 (Liu et al., 2016): {A} anchors, 21 VOC classes, "
+         f"batch {B}"),
+        ("faster_rcnn_rpn_proposal", "npx.proposal", rpn, rpn_kw,
+         "Faster R-CNN RPN (Ren et al., 2015): 9 anchors on a 38 x 50 "
+         "map (stride 16, a 600 x 800 image), 6000 pre-NMS, 300 kept"),
+        ("roi_align_300x7x7", "npx.roi_align", (feat, rois),
+         dict(pooled_size=(7, 7), spatial_scale=1 / 16, sample_ratio=2),
+         "the RPN's 300 rois to 7 x 7 over (1, 256, 38, 50)"),
+        ("deformable_convolution_256", "npx.deformable_convolution",
+         (dx, (rs.standard_normal((2, 18, h, w)) * 0.5).astype("f4"),
+          (rs.standard_normal((256, 256, 3, 3)) * 0.02).astype("f4"),
+          (rs.standard_normal(256) * 0.1).astype("f4")),
+         dict(kernel=(3, 3), pad=(1, 1)),
+         "a 3 x 3 deformable convolution, 256 -> 256, on (2, 256, 38, 50)")]
+
+
+#: the full-width cases' card results against the CPU port's, relative
+#: and absolute: their sample coordinates reach 50 pixels (800 in
+#: proposal's image), where one fp32 step is 3.8e-6 (6.1e-5), and a
+#: sample moves by that step times the feature map's slope (a few units
+#: a pixel in the random maps); the card's division by a scalar is a
+#: product with its reciprocal, a step off the CPU's; and the
+#: deformable convolution sums 2304 fp32 products in another order
+FULL_TOL = 1e-4
+
+
+def _full_width(torch, mx, called, failures):
+    """Each full-width case on the card (median of 3 timed calls after
+    one, CUDA events) and on the CPU port (one call, wall clock), the
+    two results compared within FULL_TOL (a class id, a batch index or
+    a kept row against a suppressed one differs by far more)."""
+    out = {}
+    for name, path, args, kw, src in _full_width_cases(mx):
+        try:
+            card = _np_call(mx, path, args, kw)
+            times = []
+            for _ in range(3):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                _np_call(mx, path, args, kw)
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            t0 = time.perf_counter()
+            with mx.cpu():
+                host = _np_call(mx, path, args, kw)
+            cpu_s = time.perf_counter() - t0
+            c, h = card.asnumpy(), host.asnumpy()
+            res = {"source": src, "shape": list(card.shape),
+                   "card_ms": float(np.median(times)), "card_ms_runs": times,
+                   "cpu_port_s": cpu_s,
+                   "max_abs_diff": float(np.abs(c - h).max()),
+                   "rows_equal": float(np.mean(np.all(
+                       np.isclose(c, h, rtol=FULL_TOL, atol=FULL_TOL),
+                       axis=-1))) if c.ndim > 1 else None}
+            if path in ("npx.multibox_detection", "npx.proposal"):
+                kept = c[..., 0] >= 0 if path.endswith("detection") \
+                    else np.ones(c.shape[:-1], bool)
+                res["kept_rows"] = int(kept.sum())
+            out[name] = res
+            _np_same(mx, card, host, FULL_TOL, f"{name} card vs CPU")
+            called.add(path)
+        except Exception as e:          # noqa: BLE001 (reported)
+            failures.append(f"full width {name}: {type(e).__name__}: "
+                            f"{str(e)[:300]}")
+    print("npx full width:", json.dumps(out), flush=True)
+    return out
+
+
+def _sparse_step(torch, mx, failures):
+    """``nd.sparse`` on the card against the CPU port, in float32 and
+    the integer dtypes the reference accepts: CSR and row_sparse
+    creation (from dense arrays and from their parts), the storage
+    casts both ways, dot (csr x dense, csr^T x dense, row_sparse x
+    dense), add, retain and norm."""
+    sp_dtypes = ("float32", "int32", "int8", "uint8", "uint16")
+    ok, done = 0, []
+    for dt in sp_dtypes:
+        rs = np.random.RandomState(40)
+        if dt == "float32":
+            d = rs.uniform(-3, 3, (64, 48)).astype(dt)
+        else:
+            d = rs.randint(0 if dt.startswith("u") else -4, 5,
+                           (64, 48)).astype(dt)
+        d[rs.uniform(size=d.shape) > 0.2] = 0
+        r = d.copy()
+        r[rs.uniform(size=64) > 0.4] = 0
+        rhs = rs.randint(0, 4, (48, 16)).astype(dt)
+        rhs_t = rs.randint(0, 4, (64, 16)).astype(dt)
+
+        def steps(ctx):
+            with ctx:
+                sp = mx.nd.sparse
+                csr = mx.np.array(d).tostype("csr")
+                rsp = mx.np.array(r).tostype("row_sparse")
+                csr2 = sp.csr_matrix((csr.data.asnumpy(),
+                                      csr.indices.asnumpy(),
+                                      csr.indptr.asnumpy()), shape=d.shape)
+                rsp2 = sp.row_sparse_array((rsp.data.asnumpy(),
+                                            rsp.indices.asnumpy()),
+                                           shape=r.shape)
+                res = [csr.data, csr.indices, csr.indptr, rsp.data,
+                       rsp.indices, csr2.todense(), rsp2.todense(),
+                       csr.tostype("default"), rsp.tostype("csr").todense(),
+                       sp.dot(csr, mx.np.array(rhs)),
+                       sp.dot(csr, mx.np.array(rhs_t), transpose_a=True),
+                       sp.dot(rsp, mx.np.array(rhs)),
+                       (rsp + rsp2).todense(),
+                       sp.retain(rsp, mx.np.array(
+                           np.array([1, 5, 9, 40], "i4"))).todense()]
+                if dt == "float32":
+                    res.append(sp.norm(csr))
+                return res
+        try:
+            card = steps(mx.gpu(0))
+            host = steps(mx.cpu())
+            _np_same(mx, card, host, NP_RED, f"sparse {dt}")
+            ok += 1
+            done.append(dt)
+        except Exception as e:          # noqa: BLE001 (reported)
+            failures.append(f"sparse {dt}: {type(e).__name__}: "
+                            f"{str(e)[:300]}")
+    print(f"npx sparse: {ok} of {len(sp_dtypes)} dtypes agree on the card "
+          f"({done})", flush=True)
+    return {"dtypes": done, "agree": ok, "of": len(sp_dtypes)}
+
+
 def phase_npx(torch, smi):
     """``mx.npx`` on the card (the port of the JAX package's
     numpy_extension, its control flow and random): the activation
@@ -4084,8 +4651,12 @@ def phase_npx(torch, smi):
     try:
         for path, args, kw, tol in _npx_cases():
             _np_both(mx, path, args, kw, tol, failures, called)
+        for path, args, kw, tol, crossed in _npx_contrib_cases():
+            _np_both(mx, path, args, kw, tol, failures, called,
+                     refused_both if crossed else None)
         grad_err = {}
-        for path, args, kw, wrt in _npx_grad_cases():
+        for path, args, kw, wrt in (_npx_grad_cases()
+                                    + _npx_contrib_grad_cases()):
             try:
                 card = _npx_grads(mx, path, args, kw, wrt, None)
                 host = _npx_grads(mx, path, args, kw, wrt, mx.cpu())
@@ -4190,6 +4761,11 @@ def phase_npx(torch, smi):
           f"npx.flash_attention against its plain versions: {fa}")
     called.add("npx.flash_attention")
 
+    t1 = time.perf_counter()
+    full = _full_width(torch, mx, called, failures)
+    sparse = _sparse_step(torch, mx, failures)
+    full_s = time.perf_counter() - t1
+
     public = {f"npx.{n}" for n in mx.npx.__all__}
     uncalled = sorted(public - called)
 
@@ -4214,6 +4790,8 @@ def phase_npx(torch, smi):
            "both_raised": len(refused_both),
            "uncalled": uncalled, "refused_on_card": refused,
            "gradient_max_abs_err": grad_err, "flash_attention": fa,
+           "full_width": full, "sparse": sparse,
+           "full_width_and_sparse_s": full_s,
            "seconds": time.perf_counter() - t0, "nvidia_smi": smi,
            "launches": ops.launch_counts()}
     emit("npx", **res)
@@ -4281,6 +4859,7 @@ def phase_custom_op(torch):
             return mx.np.clip(dy, -0.1, 0.1)
 
     mod = mx.rtc.CudaModule(RTC_SOURCE, options=RTC_OPTIONS)
+    tmod = mx.rtc.PallasModule(RTC_TRITON_SOURCE)
     xs = np.linspace(-3, 3, 8, dtype="float32")
     xd = np.random.RandomState(12).uniform(-1, 1, (4, 8)).astype("f4")
     xg = np.linspace(-2, 2, 12, dtype="float32").reshape(3, 4)
@@ -4295,6 +4874,7 @@ def phase_custom_op(torch):
         loss = z.sum()
     loss.backward()
     s2 = mod.get_kernel("scale2")(mx.np.array([1.0, 2.0, 3.0]))
+    t2 = tmod.get_kernel("scale2")(mx.np.array([1.0, 2.0, 3.0]))
     d = mx.np.array(xd)
     d.attach_grad()
     with autograd.record():
@@ -4315,7 +4895,8 @@ def phase_custom_op(torch):
     launches = ops.launch_counts()     # ... and ends here
 
     for name, arr in (("x", x), ("y", y), ("z", z), ("x.grad", x.grad),
-                      ("scale2", s2), ("d.grad", d.grad),
+                      ("scale2", s2), ("triton_scale2", t2),
+                      ("d.grad", d.grad),
                       ("ident.grad", i.grad), ("sigmoid_x2", sg),
                       ("sigmoid_x2.grad", g.grad)):
         on_card.append(name)
@@ -4330,6 +4911,8 @@ def phase_custom_op(torch):
                                    / (0.4 / (1 + np.abs(xs)) ** 2)
                                    - 1).max()),
         "scale2": float(np.abs(s2.asnumpy() - [2.0, 4.0, 6.0]).max()),
+        "triton_scale2": float(np.abs(t2.asnumpy() - [2.0, 4.0, 6.0])
+                               .max()),
         "double.grad": float(np.abs(d.grad.asnumpy() - 2.0).max()),
         "ident.grad": float(np.abs(i.grad.asnumpy()).max()),
         "sigmoid_x2_rel": float(np.abs(sg.asnumpy() / (2 * sig)
@@ -4342,13 +4925,15 @@ def phase_custom_op(torch):
     res = {"launches": launches, "on_card": on_card, "errors": errs,
            "products": prods, "data_movement": moves}
     emit("custom_op", **res)
-    for key in ("softsign", "clip_forward", "scale2", "double.grad",
-                "ident.grad"):
+    for key in ("softsign", "clip_forward", "scale2", "triton_scale2",
+                "double.grad", "ident.grad"):
         check(errs[key] <= 1e-6, f"custom_op {key} off by {errs[key]}")
     for key in ("x.grad_rel", "sigmoid_x2_rel", "sigmoid_x2.grad_rel"):
         check(errs[key] <= 1e-5, f"custom_op {key} off by {errs[key]}")
     check(launches["rtc"] == 3, f"rtc launched {launches['rtc']} times "
           "in the custom_op flow (scale2, double, ident)")
+    check(launches["rtc_triton"] == 1, f"the Triton route launched "
+          f"{launches['rtc_triton']} times in the custom_op flow (scale2)")
     return res
 
 
@@ -4874,6 +5459,7 @@ def main(argv=None):
     k3, k3i = phase_paged_decode(torch, timer)
     k4 = phase_dequant(torch, timer)
     k5 = phase_rtc(torch, timer)
+    k5t = phase_rtc_triton(torch, timer)
     kernel_res = {"k1": k1, "k2": k2, "k2i": k2i, "k3": k3, "k3i": k3i,
                   **k4}
     for tag, key in (("bf16", "b"), ("f16", "h")):
@@ -4946,6 +5532,21 @@ def main(argv=None):
         "max_abs_err": k5["max_abs_err"], "timed": k5["timed"],
         "ms": k5["kernel_ms"], **{k: k5[k] for k in TIMING_KEYS},
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"]})
+    by_phase = {ph: r["launches"].get("rtc_triton", 0)
+                for ph, r in phases.items()}
+    rows.append({
+        "name": "rtc_triton", "route": "triton",
+        "compiler": f"triton {k5t['triton']}",
+        "source": "mxnet_tpu_torch/rtc.py",
+        "user_source": "chip_smoke.py RTC_TRITON_SOURCE",
+        "replaces": "mxnet_tpu/rtc.py:56",
+        "replaces_function": "Kernel._build_call (pl.pallas_call :75), "
+                             "reached by PallasModule (:122) with Python "
+                             "source",
+        "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+        "max_abs_err": k5t["max_abs_err"], "timed": k5t["timed"],
+        "ms": k5t["kernel_ms"], **{k: k5t[k] for k in TIMING_KEYS},
+        "bound_ms": k5t["bound_ms"], "bound_by": k5t["bound_by"]})
     check(set(ops.launch_counts()) == {r["name"] for r in rows},
           "a kernel of the path is missing from the kernels line")
     check(all(r["launches"] > 0 for r in rows),

@@ -19,8 +19,11 @@ the attention's backward is a hand-written kernel too.
 The imperative front end is ported too: ``mx.np`` arrays
 (``NDArray`` over a ``torch.Tensor``), ``mx.npx``, ``autograd``
 (record/pause, backward, ``Function``), ``operator`` (CustomOp) and
-``rtc`` (``CudaModule``: CUDA C user kernels compiled at runtime with
-NVRTC).
+``rtc`` (user kernels compiled at runtime: ``CudaModule``, CUDA C
+through NVRTC, and ``PallasModule``, Python source in Triton), the
+contrib operators of ``mx.npx`` (detection, ROI, warping, the
+deformable convolutions, ...), the sparse arrays of ``mx.nd.sparse``
+and ``test_utils``.
 
 Device rule: entry points default to the CUDA card (``device="cuda"``,
 ``mx.gpu(0)``) and raise when no card is present — pass
@@ -42,6 +45,7 @@ from .context import (Context, cpu, gpu, num_gpus, current_context,
 from .ndarray.ndarray import NDArray, waitall
 from . import ndarray, numpy, numpy_extension, operator, rtc
 from . import gluon, serving, optimizer, lr_scheduler, parallel
+from . import test_utils
 
 nd = ndarray
 np = numpy
@@ -50,7 +54,7 @@ npx = numpy_extension
 __all__ = ["telemetry", "tracing", "bucketing", "base", "context", "engine",
            "autograd", "ops", "random_state", "ndarray", "numpy",
            "numpy_extension", "operator", "rtc", "gluon", "serving",
-           "optimizer", "lr_scheduler", "parallel", "nd",
+           "optimizer", "lr_scheduler", "parallel", "test_utils", "nd",
            "np", "npx", "NDArray", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "waitall", "resolve_device", "MXNetError",
            "set_np", "reset_np", "is_np_array", "is_np_shape",

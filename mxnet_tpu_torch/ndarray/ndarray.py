@@ -602,8 +602,8 @@ class NDArray:
     def tostype(self, stype):
         if stype == "default":
             return self
-        from ..base import not_ported
-        raise not_ported("sparse storage (ndarray/sparse.py)", "13b")
+        from . import sparse
+        return sparse.cast_storage(self, stype)
 
     def slice_axis(self, axis, begin, end):
         idx = [slice(None)] * self.ndim

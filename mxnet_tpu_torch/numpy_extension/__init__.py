@@ -20,10 +20,12 @@ and the np-mode switches (``set_np``, ``reset_np``, ``is_np_array``,
 ``is_np_shape``). Each runs through ``ops.apply_op`` over the layer in
 ``ops/nn.py``, on the device of its inputs.
 
-Not ported: ``ring_attention`` (ROADMAP.md queue 1, item 20),
-``load``/``save`` (item 18) and the detection, ROI, resize and
-sliding-window operators the reference imports from ``contrib_ops.py``
-(item 13b, its second slice); each raises ``base.NotPortedError``.
+The contrib operators the reference imports from ``contrib_ops.py``
+(detection, ROI, warping, resize, sliding-window attention, the
+deformable convolutions, ...) are this package's ``contrib_ops``.
+
+Not ported: ``ring_attention`` (ROADMAP.md queue 1, item 20) and
+``load``/``save`` (item 18); each raises ``base.NotPortedError``.
 """
 from __future__ import annotations
 
@@ -1089,9 +1091,24 @@ def save(fname, data):
 from .control_flow import foreach, while_loop, cond  # noqa: E402,F401
 
 
-def __getattr__(name):
-    if name.startswith("_"):
-        raise AttributeError(
-            f"module 'mxnet_tpu_torch.numpy_extension' has no attribute "
-            f"{name!r}")
-    raise not_ported(f"npx.{name}", "13b")
+# the contrib operators (detection, warping, ROI, resize, sliding-window
+# attention, ...) live in their own module
+from .contrib_ops import (  # noqa: E402,F401
+    interleaved_matmul_selfatt_qk, interleaved_matmul_selfatt_valatt,
+    interleaved_matmul_encdec_qk, interleaved_matmul_encdec_valatt,
+    div_sqrt_dim, box_iou, box_nms, box_encode, box_decode,
+    bipartite_matching, multibox_target, multibox_detection,
+    lrn, adaptive_avg_pool2d, bilinear_resize2d,
+    depth_to_space, space_to_depth, im2col, col2im,
+    moments, khatri_rao, index_copy, quadratic, stop_gradient,
+    constraint_check,
+    sldwin_atten_score, sldwin_atten_mask_like, sldwin_atten_context,
+    roi_align, hawkesll, rroi_align, identity_attach_kl_sparse_reg,
+    grid_generator, bilinear_sampler, spatial_transformer,
+    correlation, count_sketch, proposal, multi_proposal,
+    deformable_convolution, deformable_psroi_pooling,
+    modulated_deformable_convolution,
+)
+from . import contrib_ops as _contrib  # noqa: E402
+
+__all__ += _contrib.__all__

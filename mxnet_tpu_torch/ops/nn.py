@@ -33,7 +33,8 @@ __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
            "layer_norm", "group_norm", "instance_norm", "l2_normalization",
            "rms_norm", "gelu", "activation", "leaky_relu", "masked_softmax",
            "softmin", "embedding", "dropout", "sequence_mask",
-           "sequence_last", "sequence_reverse", "rnn_param_size", "rnn"]
+           "sequence_last", "sequence_reverse", "rnn_param_size", "rnn",
+           "fp32_matmul"]
 
 
 def _tuplize(v, n):
@@ -65,10 +66,11 @@ _tf32_lock = threading.Lock()
 
 @contextlib.contextmanager
 def _fp32_products(on_card):
-    """cuDNN without TF32 for a convolution on the card: an fp32
-    convolution rounds its products as the reference's fp32
-    ``lax.conv`` does, whatever the process's
-    ``torch.backends.cudnn.allow_tf32`` says. The switch is
+    """cuDNN and cuBLAS without TF32 on the card: an fp32 convolution
+    or product rounds as the reference's fp32 ``lax.conv`` or
+    ``einsum`` does, whatever the process's
+    ``torch.backends.cudnn.allow_tf32`` (``cuda.matmul.allow_tf32``)
+    says. Each switch is
     process-wide, so it is turned off and restored under a lock: two
     threads' convolutions (the backward runs on autograd's device
     thread) never interleave the save and the restore. A cuDNN call
@@ -78,12 +80,45 @@ def _fp32_products(on_card):
         yield
         return
     with _tf32_lock:
-        prev = torch.backends.cudnn.allow_tf32
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
         try:
             yield
         finally:
-            torch.backends.cudnn.allow_tf32 = prev
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+class _Fp32Matmul(torch.autograd.Function):
+    """``torch.matmul`` of two float tensors (batch dims broadcast)
+    whose forward and backward both run without TF32 on the card
+    (``_fp32_products`` covers cuBLAS's switch too): the reference's
+    fp32 products outside Pallas (``jnp.einsum``) round as fp32 ones."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _fp32_products(a.is_cuda):
+            return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with _fp32_products(g.is_cuda):
+            if ctx.needs_input_grad[0]:
+                ga = torch.matmul(g, b.mT).sum_to_size(a.shape)
+            if ctx.needs_input_grad[1]:
+                gb = torch.matmul(a.mT, g).sum_to_size(b.shape)
+        return ga, gb
+
+
+def fp32_matmul(a, b):
+    """``a @ b`` (both at least 2-d) of two float tensors of one type,
+    with no TF32 on the card in either pass."""
+    return _Fp32Matmul.apply(a, b)
 
 
 class _Conv(torch.autograd.Function):

@@ -11,7 +11,9 @@ PyTorch's current stream. Both libraries are loaded with ctypes on the
 first compile (``libnvrtc`` by its soname, else from ``$CUDA_HOME`` or
 ``/usr/local/cuda``; ``libcuda.so.1``): importing this module loads
 neither and touches no device. ``nvrtc_info()`` says which NVRTC ran.
-The JAX package's ``PallasModule`` becomes a stub here that raises.
+The JAX package's ``PallasModule``, which takes Python kernel source,
+is ``PallasModule`` here too, over Triton (see its docstring):
+importing this module imports no ``triton``.
 
 Calling convention of a user kernel::
 
@@ -55,15 +57,20 @@ Example::
 """
 from __future__ import annotations
 
+import ast
 import ctypes
+import inspect
 import os
 import re
+import textwrap
 import threading
 
 import torch
 
-__all__ = ["CudaModule", "Kernel", "PallasModule", "nvrtc_info",
-           "launch_counts", "reset_launch_counts", "ARCH", "PTR_DTYPES"]
+__all__ = ["CudaModule", "Kernel", "PallasModule", "TritonKernel",
+           "nvrtc_info", "launch_counts", "reset_launch_counts",
+           "parse_kernels", "parse_triton_kernels", "ARCH", "PTR_DTYPES",
+           "TRITON_PTR_DTYPES", "TRITON_BLOCK"]
 
 ARCH = "sm_90a"
 #: pointer element type of a declaration -> the tensor dtype it takes
@@ -84,7 +91,7 @@ _COMMENT = re.compile(r"//[^\n]*|/\*.*?\*/", re.S)
 _DEFAULT_BLOCK = 256
 _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES = 8
 
-_launches = {"rtc": 0}
+_launches = {"rtc": 0, "rtc_triton": 0}
 _lock = threading.RLock()
 _libs: dict = {}
 #: (source, options) -> cubin bytes
@@ -101,7 +108,8 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
-    _launches["rtc"] = 0
+    for k in _launches:
+        _launches[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -376,19 +384,32 @@ class Kernel:
             raise ValueError(f"kernel {name!r}: unsupported pointer "
                              f"types {unknown}; known: {sorted(PTR_DTYPES)}")
         self._module = module
-        self.name = name
-        self._in_types = [t for t, _ in params[:-2]]
-        self._in_dtypes = [PTR_DTYPES[t] for t in self._in_types]
-        self._out_type = params[-2][0]
-        self._out_like = out_like
-        self._out_shape = None if out_shape is None else tuple(out_shape)
-        self._out_dtype = resolve_dtype(out_dtype)
+        self._output(name, [t for t, _ in params[:-2]],
+                     [PTR_DTYPES[t] for t, _ in params[:-2]],
+                     params[-2][0], PTR_DTYPES[params[-2][0]], out_like,
+                     out_shape, resolve_dtype(out_dtype), grad)
+        self._in_decls = [f"{t}*" for t in self._in_decls]
+        self._out_decl += "*"
         self._grid = _dim3(grid, "grid")
         self._block = _dim3(block, "block") or (_DEFAULT_BLOCK, 1, 1)
         self._shared_mem = int(shared_mem)
-        self._grad = grad
         #: device index -> CUfunction, filled at the first launch there
         self._fns = {}
+
+    def _output(self, name, in_decls, in_dtypes, out_decl, out_decl_dtype,
+                out_like, out_shape, out_dtype, grad):
+        """The launch contract shared by both routes: the declared type
+        of each input (None: any) and of the output, and how the output
+        is shaped."""
+        self.name = name
+        self._in_decls = in_decls
+        self._in_dtypes = in_dtypes
+        self._out_decl = out_decl
+        self._out_decl_dtype = out_decl_dtype
+        self._out_like = out_like
+        self._out_shape = None if out_shape is None else tuple(out_shape)
+        self._out_dtype = out_dtype
+        self._grad = grad
         if self._out_shape is None \
                 and not 0 <= out_like < len(self._in_dtypes):
             raise ValueError(f"out_like={out_like} is not an input of "
@@ -402,9 +423,10 @@ class Kernel:
         else:
             ref = ins[self._out_like]
             shape, dtype = tuple(ref.shape), self._out_dtype or ref.dtype
-        if dtype != PTR_DTYPES[self._out_type]:
+        if self._out_decl_dtype is not None \
+                and dtype != self._out_decl_dtype:
             raise TypeError(
-                f"kernel {self.name!r} writes {self._out_type}* but its "
+                f"kernel {self.name!r} writes {self._out_decl} but its "
                 f"output would be {dtype}; pass out_dtype")
         return shape, dtype
 
@@ -422,10 +444,10 @@ class Kernel:
         ins = [(a if isinstance(a, NDArray) else _np.array(a, ctx=ctx))._data
                for a in args]
         for i, (t, dt) in enumerate(zip(ins, self._in_dtypes)):
-            if t.dtype != dt:
+            if dt is not None and t.dtype != dt:
                 raise TypeError(
                     f"input {i} of kernel {self.name!r} is {t.dtype} but "
-                    f"the kernel declares {self._in_types[i]}*")
+                    f"the kernel declares {self._in_decls[i]}")
             if t.device != ins[0].device:
                 raise ValueError(f"kernel {self.name!r}: inputs on "
                                  f"{ins[0].device} and {t.device}")
@@ -518,10 +540,332 @@ class CudaModule:
         return self
 
 
-def PallasModule(*args, **kwargs):
-    """The JAX package's Pallas entry point; Pallas has no CUDA
-    backend here."""
-    raise NotImplementedError(
-        "PallasModule compiles Pallas kernels for the TPU; on the card "
-        "write the kernel in CUDA C and use mx.rtc.CudaModule (same "
-        "runtime-compilation workflow, NVRTC for sm_90a)")
+# ---------------------------------------------------------------------------
+# PallasModule: Python-source kernels, written in Triton
+# ---------------------------------------------------------------------------
+#: Triton pointer annotation of a kernel parameter -> the dtype it takes
+TRITON_PTR_DTYPES = {
+    "*fp32": torch.float32, "*fp64": torch.float64, "*fp16": torch.float16,
+    "*bf16": torch.bfloat16, "*i8": torch.int8, "*i16": torch.int16,
+    "*i32": torch.int32, "*i64": torch.int64, "*u8": torch.uint8,
+    "*i1": torch.bool,
+}
+#: the block size of a launch whose ``BLOCK`` is not given
+TRITON_BLOCK = 1024
+_TRITON = []
+
+
+def _triton():
+    """``triton``, imported at the first launch (the CPU has none); its
+    cache of compiled kernels defaults to the package's build directory,
+    beside the CUDA kernels'."""
+    if not _TRITON:
+        from ._build import BUILD_DIR
+        os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+        try:
+            import triton
+        except ImportError as e:
+            raise ImportError(
+                "rtc.PallasModule kernels are Triton kernels, and `import "
+                f"triton` failed ({e}): Triton compiles them for the card "
+                "(and interprets them on the CPU with interpret=True)") from e
+        _TRITON.append(triton)
+    return _TRITON[0]
+
+
+def _is_jit(node):
+    """A ``@triton.jit`` / ``@jit`` decorator (called or not)."""
+    if isinstance(node, ast.Call):
+        node = node.func
+    if isinstance(node, ast.Name):
+        return node.id == "jit"
+    return isinstance(node, ast.Attribute) and node.attr == "jit" \
+        and isinstance(node.value, ast.Name) and node.value.id == "triton"
+
+
+def _ann_text(node):
+    """A parameter annotation as the convention reads it: a pointer
+    type's string (``"*fp32"``), ``"constexpr"``, or None."""
+    if node is None:
+        return None
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value
+    text = ast.unparse(node)
+    return "constexpr" if text.split(".")[-1] == "constexpr" else text
+
+
+_NO_DEFAULT = object()
+
+
+def parse_triton_kernels(source: str) -> dict:
+    """``{name: [(parameter, annotation, default), ...]}`` for every
+    top-level ``@triton.jit`` function of ``source``, read with ``ast``:
+    nothing is executed and ``triton`` is not imported."""
+    tree = ast.parse(source)
+    out = {}
+    for node in tree.body:
+        if not isinstance(node, ast.FunctionDef) \
+                or not any(_is_jit(d) for d in node.decorator_list):
+            continue
+        args = node.args.posonlyargs + node.args.args
+        defaults = [_NO_DEFAULT] * (len(args) - len(node.args.defaults)) \
+            + [ast.literal_eval(d) for d in node.args.defaults]
+        out[node.name] = [(a.arg, _ann_text(a.annotation), d)
+                          for a, d in zip(args, defaults)]
+    return out
+
+
+def _strip_pointer_annotations(source: str) -> str:
+    """``source`` without its ``"*fp32"``-style annotations (the
+    convention's declarations, which Triton need not read), every other
+    character and line in place."""
+    lines = source.splitlines(True)
+    cuts = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.arg) and isinstance(
+                node.annotation, ast.Constant) \
+                and isinstance(node.annotation.value, str) \
+                and node.annotation.value.startswith("*"):
+            ann = node.annotation
+            if ann.end_lineno != node.lineno:
+                raise ValueError(f"the annotation of {node.arg!r} must sit "
+                                 "on its parameter's line")
+            cuts.append((node.lineno - 1,
+                         node.col_offset + len(node.arg.encode()),
+                         ann.end_col_offset))
+    for ln, start, end in sorted(cuts, reverse=True):
+        b = lines[ln].encode()
+        lines[ln] = (b[:start] + b[end:]).decode()
+    return "".join(lines)
+
+
+def _signature(fn):
+    """The parameters of a kernel given as a function (or a Triton
+    ``JITFunction``) as ``parse_triton_kernels`` gives them."""
+    f = getattr(fn, "fn", fn)
+    out = []
+    for p in inspect.signature(f).parameters.values():
+        a = p.annotation
+        if a is inspect.Parameter.empty:
+            ann = None
+        elif isinstance(a, str):
+            ann = a
+        else:
+            ann = "constexpr" if getattr(a, "__name__", "") == "constexpr" \
+                else repr(a)
+        d = _NO_DEFAULT if p.default is inspect.Parameter.empty \
+            else p.default
+        out.append((p.name, ann, d))
+    return out
+
+
+class TritonKernel(Kernel):
+    """A launchable Triton kernel of a :class:`PallasModule` (the JAX
+    package's ``rtc.Kernel`` over a Pallas function). Its launch checks
+    and output allocation are ``Kernel``'s; ``_compute`` compiles (once,
+    at the first launch) and launches it."""
+
+    def __init__(self, module, name, params, out_like=0, out_shape=None,
+                 out_dtype=None, grid=None, grad=None, interpret=None,
+                 **kw):
+        from .base import resolve_dtype
+        specs = sorted(k for k in kw if k in ("in_specs", "out_specs"))
+        if specs:
+            raise TypeError(
+                f"{specs} are Pallas BlockSpecs, which have no meaning for "
+                f"a Triton kernel: its program reads what it indexes "
+                f"(pass grid= and the kernel's constexprs instead)")
+        const = [(p, d) for p, a, d in params if a == "constexpr"]
+        runtime = [(p, a) for p, a, _ in params if a != "constexpr"]
+        first_const = next((i for i, (_, a, _) in enumerate(params)
+                            if a == "constexpr"), len(params))
+        if len(runtime) < 2 or first_const != len(runtime) \
+                or "BLOCK" not in dict(const):
+            raise ValueError(
+                f"kernel {name!r} does not follow the rtc calling "
+                f"convention (one pointer per input, the output pointer, "
+                f"n, then `BLOCK: tl.constexpr` and any other "
+                f"constexprs): {[p for p, _, _ in params]}")
+        ptrs = runtime[:-1]
+        bad = [a for _, a in ptrs if a is not None
+               and a not in TRITON_PTR_DTYPES]
+        if bad:
+            raise ValueError(f"kernel {name!r}: unsupported pointer "
+                             f"annotations {bad}; known: "
+                             f"{sorted(TRITON_PTR_DTYPES)}")
+        unknown = sorted(k for k in kw if k not in dict(const))
+        if unknown:
+            raise TypeError(f"kernel {name!r} has no constexpr {unknown}; "
+                            f"its constexprs: {[p for p, _ in const]}")
+        self._meta = {p: d for p, d in const if d is not _NO_DEFAULT}
+        self._meta.setdefault("BLOCK", TRITON_BLOCK)
+        self._meta.update(kw)
+        missing = [p for p, _ in const if p not in self._meta]
+        if missing:
+            raise TypeError(f"kernel {name!r}: give its constexprs "
+                            f"{missing} to get_kernel")
+        self._module = module
+        self._output(name, [a or "any" for _, a in ptrs[:-1]],
+                     [TRITON_PTR_DTYPES.get(a) for _, a in ptrs[:-1]],
+                     ptrs[-1][1], TRITON_PTR_DTYPES.get(ptrs[-1][1]),
+                     out_like, out_shape, resolve_dtype(out_dtype), grad)
+        self._grid = grid
+        self._interpret = bool(interpret)
+
+    def _compute(self, ins, out):
+        """Compile (once) and launch the kernel into ``out`` on the
+        current stream, or run it in Triton's interpreter on the CPU
+        with ``interpret=True``: the only place that runs Triton."""
+        triton = _triton()
+        if not self._interpret and out.device.type != "cuda":
+            raise RuntimeError(
+                f"rtc kernel {self.name!r}: Triton kernels run on the card, "
+                f"and this launch is on {out.device}; create the inputs on "
+                f"mx.gpu(), or pass interpret=True to get_kernel to run it "
+                f"in Triton's interpreter")
+        n = out.numel()
+        if n == 0:
+            return
+        fn = self._module._jit(self.name, self._interpret)
+        grid = self._grid
+        if grid is None:
+            grid = (triton.cdiv(n, self._meta["BLOCK"]),)
+        elif isinstance(grid, int):
+            grid = (grid,)
+        if self._interpret:
+            fn[grid](*ins, out, n, **self._meta)
+            return
+        with torch.cuda.device(out.device):
+            fn[grid](*ins, out, n, **self._meta)
+        _launches["rtc_triton"] += 1
+
+
+class PallasModule:
+    """A module of kernels given as Python source at runtime (the JAX
+    package's ``mx.rtc.PallasModule``), written in Triton: a ``str`` of
+    source defining ``@triton.jit`` functions, one such function, or a
+    ``dict`` of them.
+
+    A source string is read with ``ast`` when the module is made
+    (``list_kernels``, ``exports`` and the calling convention need no
+    ``triton``), and executed at the first launch, with ``triton``,
+    ``tl`` (``triton.language``) and ``torch`` in its namespace; Triton
+    then compiles each kernel for the card at its first launch and
+    caches it (``TRITON_CACHE_DIR``, by default
+    ``mxnet_tpu_torch/_build/triton``).
+
+    Calling convention of a kernel::
+
+        @triton.jit
+        def name(in0, ..., ink, out, n, BLOCK: tl.constexpr, ...):
+
+    one pointer per input, in order, then the output pointer, then
+    ``n``, the output's element count, then ``BLOCK`` and any further
+    ``tl.constexpr`` the caller gives ``get_kernel``. A pointer may
+    declare its dtype with Triton's annotation (``x: "*fp32"``), which
+    ``launch`` checks before anything runs; an undeclared one takes any
+    dtype. The default grid is ``ceil(n / BLOCK)`` programs, ``BLOCK``
+    1024; ``grid`` (an int, a tuple, or a function of the constexprs)
+    replaces it. Each launch on the card adds one to
+    ``launch_counts()["rtc_triton"]``. Example::
+
+        src = '''
+        @triton.jit
+        def scale_add(x, y, out, n, BLOCK: tl.constexpr):
+            i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+            m = i < n
+            tl.store(out + i, tl.load(x + i, mask=m) * 2.0
+                     + tl.load(y + i, mask=m), mask=m)
+        '''
+        k = mx.rtc.PallasModule(src).get_kernel("scale_add")
+        z = k.launch(x, y)                  # NDArray in, NDArray out
+    """
+
+    def __init__(self, source=None, exports=None):
+        self.source = None
+        self._fns = {}
+        self._decls = {}
+        if isinstance(source, str):
+            self.source = textwrap.dedent(source)
+            self._decls = parse_triton_kernels(self.source)
+        elif isinstance(source, dict):
+            self._fns = dict(source)
+        elif callable(source):
+            name = getattr(source, "__name__", None) \
+                or getattr(source, "fn").__name__
+            self._fns = {name: source}
+        elif source is not None:
+            raise TypeError("source must be str, callable, or dict")
+        for k, f in self._fns.items():
+            self._decls[k] = _signature(f)
+        if exports is not None:
+            missing = set(exports) - set(self._decls)
+            if missing:
+                raise ValueError(
+                    f"source does not define {sorted(missing)}")
+            self._decls = {k: self._decls[k] for k in exports}
+        #: interpret flag -> {name: the Triton function}
+        self._jitted = {}
+
+    def list_kernels(self):
+        return sorted(self._decls)
+
+    def get_kernel(self, name, out_like=0, out_shape=None, out_dtype=None,
+                   grid=None, grad=None, interpret=None, **kw):
+        if name not in self._decls:
+            raise ValueError(f"no kernel {name!r}; module defines "
+                             f"{self.list_kernels()}")
+        return TritonKernel(self, name, self._decls[name], out_like=out_like,
+                            out_shape=out_shape, out_dtype=out_dtype,
+                            grid=grid, grad=grad, interpret=interpret, **kw)
+
+    def _jit(self, name, interpret):
+        """The module's Triton functions (their interpreted form with
+        ``interpret``), made at the first launch."""
+        fns = self._jitted.get(interpret)
+        if fns is None:
+            with _lock:
+                fns = self._jitted.get(interpret)
+                if fns is None:
+                    fns = self._jitted[interpret] = self._build(interpret)
+        return fns[name]
+
+    def _build(self, interpret):
+        triton = _triton()
+        from triton.runtime.interpreter import InterpretedFunction
+        from triton.runtime.jit import JITFunction
+        fns = _exec_source(triton, self.source, interpret) \
+            if self.source is not None else dict(self._fns)
+        for k, f in fns.items():
+            kind = InterpretedFunction if interpret else JITFunction
+            if not isinstance(f, kind):
+                f = getattr(f, "fn", f)
+                fns[k] = InterpretedFunction(f) if interpret \
+                    else triton.jit(f)
+        return {k: fns[k] for k in self._decls}
+
+
+def _exec_source(triton, source, interpret):
+    """Execute a kernel source (its pointer annotations stripped) in a
+    namespace of its own; Python's ``inspect``, which Triton reads a
+    kernel's source through, finds it in ``linecache`` under a name made
+    from its digest."""
+    import hashlib
+    import linecache
+    src = _strip_pointer_annotations(source)
+    digest = hashlib.sha256(f"{interpret}\n{src}".encode()).hexdigest()[:16]
+    fname = f"<rtc-triton-{digest}>"
+    linecache.cache[fname] = (len(src), None, src.splitlines(True), fname)
+    ns = {"triton": triton, "tl": triton.language, "torch": torch,
+          "__name__": f"mxnet_tpu_torch.rtc.user_{digest}"}
+    prev = os.environ.get("TRITON_INTERPRET")
+    os.environ["TRITON_INTERPRET"] = "1" if interpret else "0"
+    try:
+        exec(compile(src, fname, "exec"), ns)
+    finally:
+        if prev is None:
+            os.environ.pop("TRITON_INTERPRET", None)
+        else:
+            os.environ["TRITON_INTERPRET"] = prev
+    return {k: v for k, v in ns.items() if callable(v)
+            and hasattr(v, "__getitem__") and not isinstance(v, type)}

@@ -8,8 +8,10 @@ exact integer products, ``slice``/``slice_like``/``slice_axis``,
 the np-mode switches (``set_np(dtype=True)``'s float64 default), the
 random-state helpers, and the name parity of the two modules: every
 name the reference defines itself is ported but ``ring_attention``
-(item 20) and ``load``/``save`` (item 18); the names it imports from
-``contrib_ops.py`` (item 13b, its second slice) still raise.
+(item 20) and ``load``/``save`` (item 18), and so are the 42 names it
+imports from ``contrib_ops.py`` (item 13b-ii, held against the
+reference in ``test_torch_npx_warp.py``, ``_detection.py`` and
+``_contrib.py``).
 
 Tolerances (``test_torch_np_common.py``): dtype and shape exactly;
 integers and bools exactly; elementwise fp32 at 2e-6 (``TR``), the rest
@@ -298,12 +300,16 @@ def test_name_parity():
 
 
 def test_contrib_names_still_raise():
-    """The reference's ``contrib_ops.py`` names (item 13b, its second
-    slice) raise ``NotPortedError``; this lists those still missing."""
+    """The reference's ``contrib_ops.py`` names (item 13b-ii) are all
+    ported: each is in the port's ``npx.__all__`` and resolves to a
+    function of its ``contrib_ops`` (``multi_proposal`` is
+    ``proposal``, as in the reference)."""
     contrib = _contrib(jmx.npx)
-    assert len(contrib) >= 40
-    still = [n for n in contrib if n not in vars(tmx.npx)]
-    assert still == contrib, sorted(set(contrib) - set(still))
-    for name in still:
-        with pytest.raises(NotPortedError, match="13b"):
-            getattr(tmx.npx, name)
+    assert len(contrib) == 42
+    missing = [n for n in contrib if n not in tmx.npx.__all__]
+    assert not missing, missing
+    for name in contrib:
+        fn = getattr(tmx.npx, name)
+        assert callable(fn)
+        assert fn is getattr(tmx.npx.contrib_ops, name)
+    assert tmx.npx.multi_proposal is tmx.npx.proposal

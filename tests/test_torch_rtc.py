@@ -1,20 +1,25 @@
-"""The port's runtime-compiled user kernels (mxnet_tpu_torch.rtc,
-``CudaModule``/``Kernel``: CUDA C compiled by NVRTC for sm_90a) on the
-CPU, where there is no card and no NVRTC.
+"""The port's runtime-compiled user kernels (mxnet_tpu_torch.rtc) on
+the CPU, where there is no card, no NVRTC and no Triton: ``CudaModule``
+(CUDA C compiled by NVRTC for sm_90a) and ``PallasModule`` (Python
+kernel source in Triton, the counterpart of the JAX package's Pallas
+source).
 
-What runs here: declaration parsing, ``list_kernels``, ``exports``,
-unknown names, the calling-convention, arity and dtype checks (all
-before anything runs), the refusal of a CPU launch, and the
-``PallasModule`` stub. The JAX package's rtc tests
-(tests/test_extensions.py: ``scale_add``, ``negate``, ``double`` with
-``grad=``, ``ident`` opaque) and the example's ``scale2`` are held
-against the port's wiring: the one compile-and-launch seam
-(``Kernel._compute``) is replaced, in the test only, by a CPU stand-in
-that computes the named kernel, and outputs and gradients are compared
-with the JAX ``PallasModule`` (interpret mode) on the same inputs
-(rtol=1e-6, atol=1e-6). That checks marshalling, output allocation and
-autograd; the compiled kernels themselves are held against their plain
-versions on the card by chip_smoke.py.
+What runs here, for both routes: declaration parsing (Triton source is
+read with ``ast``, without importing Triton), ``list_kernels``,
+``exports``, unknown names, the calling-convention, arity and dtype
+checks (all before anything runs), the refusal of a CPU launch, and for
+the Triton route the ImportError naming Triton that its first launch
+raises here and the refusal of Pallas ``BlockSpec``s. The JAX package's
+rtc tests (tests/test_extensions.py: ``scale_add``, ``negate``,
+``double`` with ``grad=``, ``ident`` opaque) and the example's
+``scale2`` are held against the port's wiring: the one
+compile-and-launch seam of each route (``Kernel._compute``,
+``TritonKernel._compute``) is replaced, in the test only, by a CPU
+stand-in that computes the named kernel, and outputs and gradients are
+compared with the JAX ``PallasModule`` (interpret mode) on the same
+inputs (rtol=1e-6, atol=1e-6). That checks marshalling, output
+allocation and autograd; the compiled kernels themselves are held
+against their plain versions on the card by chip_smoke.py.
 """
 import numpy as onp
 import pytest
@@ -67,6 +72,55 @@ def ident(x_ref, o_ref):
 def scale2(x_ref, o_ref):
     o_ref[...] = x_ref[...] * 2.0
 """
+
+#: the same kernels in Triton, in the port's convention (pointers in
+#: order, the output, n, BLOCK); scale_add declares its pointer types
+TRITON_SRC = '''
+import triton
+import triton.language as tl
+
+
+@triton.jit
+def scale_add(x: "*fp32", y: "*fp32", out: "*fp32", n,
+              BLOCK: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    tl.store(out + i, tl.load(x + i, mask=m) * 2.0 + tl.load(y + i, mask=m),
+             mask=m)
+
+
+@triton.jit
+def negate(x, out, n, BLOCK: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    tl.store(out + i, -tl.load(x + i, mask=m), mask=m)
+
+
+@triton.jit()
+def double_it(x, out, n, BLOCK: tl.constexpr = 256):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    tl.store(out + i, tl.load(x + i, mask=m) * 2.0, mask=m)
+
+
+@jit
+def ident(x, out, n, BLOCK: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    tl.store(out + i, tl.load(x + i, mask=m), mask=m)
+
+
+@triton.jit
+def scale2(x: "*fp32", out: "*fp32", n, BLOCK: tl.constexpr,
+           SCALE: tl.constexpr):
+    i = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    m = i < n
+    tl.store(out + i, tl.load(x + i, mask=m) * SCALE, mask=m)
+
+
+def helper(v):
+    return v
+'''
 
 IDENT_SRC = r'''
 extern "C" __global__ void ident(const float* x, float* o, long long n) {
@@ -186,8 +240,16 @@ def test_cpu_launch_raises():
 
 
 def test_pallas_module_points_at_cuda_module():
-    with pytest.raises(NotImplementedError, match="CudaModule"):
-        tmx.rtc.PallasModule("def f(x_ref, o_ref): pass")
+    """``PallasModule`` is the Triton route now: without Triton (as on
+    this CPU) its first launch raises an ImportError naming Triton, on a
+    CPU context and with ``interpret=True`` alike; nothing runs a plain
+    version instead."""
+    mod = tmx.rtc.PallasModule(TRITON_SRC)
+    for kw in ({}, {"interpret": True}):
+        k = mod.get_kernel("negate", **kw)
+        with pytest.raises(ImportError, match="Triton"):
+            k(tmx.np.ones((3,)))
+    assert tmx.ops.launch_counts()["rtc_triton"] == 0
 
 
 def _inputs(*shapes, seed=0):
@@ -288,3 +350,173 @@ def test_kernel_outside_record_is_off_the_tape(stand_in):
         "scale2", grad=lambda ct, x: ct * 2.0)(x)
     assert not tmx.autograd._on_tape(y)
     onp.testing.assert_allclose(y.asnumpy(), [2.0, 4.0])
+
+
+# ---------------------------------------------------------------------------
+# the Triton route: PallasModule
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def triton_stand_in(monkeypatch):
+    """The Triton seam replaced by a CPU computation of the named
+    kernel; records each call's inputs, output and constexprs."""
+    calls = []
+
+    def compute(self, ins, out):
+        assert all(t.is_contiguous() and not t.requires_grad for t in ins)
+        calls.append((self.name, [(tuple(t.shape), t.dtype) for t in ins],
+                      (tuple(out.shape), out.dtype), dict(self._meta)))
+        if self.name == "scale2":
+            out.copy_(ins[0] * self._meta["SCALE"])
+        else:
+            out.copy_(STAND_IN[self.name](*ins))
+
+    monkeypatch.setattr(rtc.TritonKernel, "_compute", compute)
+    return calls
+
+
+def test_triton_module_parses_without_triton():
+    """The source is read, not run: no ``triton`` import, the
+    ``@triton.jit``, ``@triton.jit()`` and ``@jit`` functions listed
+    with their parameters, a plain function left out."""
+    import sys
+    mod = tmx.rtc.PallasModule(TRITON_SRC)
+    assert "triton" not in sys.modules
+    assert mod.list_kernels() == ["double_it", "ident", "negate", "scale2",
+                                  "scale_add"]
+    decls = rtc.parse_triton_kernels(TRITON_SRC)
+    assert [(p, a) for p, a, _ in decls["scale_add"]] == [
+        ("x", "*fp32"), ("y", "*fp32"), ("out", "*fp32"), ("n", None),
+        ("BLOCK", "constexpr")]
+    assert decls["double_it"][-1][2] == 256
+    k = mod.get_kernel("scale_add")
+    assert k._in_dtypes == [torch.float32, torch.float32]
+    assert mod.get_kernel("negate")._in_dtypes == [None]
+    assert mod.get_kernel("double_it")._meta == {"BLOCK": 256}
+    assert mod.get_kernel("scale2", SCALE=3.0)._meta == {"BLOCK": 1024,
+                                                         "SCALE": 3.0}
+    assert "triton" not in sys.modules
+    assert rtc._TRITON == []
+
+
+def test_triton_exports_and_sources():
+    mod = tmx.rtc.PallasModule(TRITON_SRC, exports=["negate"])
+    assert mod.list_kernels() == ["negate"]
+    with pytest.raises(ValueError, match="does not define"):
+        tmx.rtc.PallasModule(TRITON_SRC, exports=["negate", "missing"])
+    with pytest.raises(ValueError, match="no kernel 'scale_add'"):
+        mod.get_kernel("scale_add")
+    with pytest.raises(ValueError, match="no kernel 'helper'"):
+        tmx.rtc.PallasModule(TRITON_SRC).get_kernel("helper")
+    with pytest.raises(TypeError):
+        tmx.rtc.PallasModule(3)
+
+    def twice(x, out, n, BLOCK: "constexpr"):
+        pass
+
+    one = tmx.rtc.PallasModule(twice)
+    assert one.list_kernels() == ["twice"]
+    both = tmx.rtc.PallasModule({"a": twice, "b": twice})
+    assert both.list_kernels() == ["a", "b"]
+    assert both.get_kernel("b")._in_dtypes == [None]
+
+
+@pytest.mark.parametrize("src, err", [
+    ("@triton.jit\ndef k(out, n):\n    pass\n", ValueError),
+    ("@triton.jit\ndef k(x, out, BLOCK: tl.constexpr):\n    pass\n",
+     ValueError),
+    ("@triton.jit\ndef k(x, BLOCK: tl.constexpr, out, n):\n    pass\n",
+     ValueError),
+    ("@triton.jit\ndef k(x: '*f7', out, n, BLOCK: tl.constexpr):\n"
+     "    pass\n", ValueError),
+], ids=["no_block", "no_n", "constexpr_first", "unknown_type"])
+def test_triton_convention_violations_raise_at_get_kernel(src, err):
+    with pytest.raises(err):
+        tmx.rtc.PallasModule(src).get_kernel("k")
+
+
+def test_triton_block_specs_and_constexprs_refused():
+    mod = tmx.rtc.PallasModule(TRITON_SRC)
+    for kw in ({"in_specs": [None]}, {"out_specs": None}):
+        with pytest.raises(TypeError, match="BlockSpec"):
+            mod.get_kernel("negate", **kw)
+    with pytest.raises(TypeError, match="SCALE"):
+        mod.get_kernel("scale2")
+    with pytest.raises(TypeError, match="no constexpr"):
+        mod.get_kernel("negate", COLS=4)
+    assert mod.get_kernel("negate", BLOCK=128)._meta == {"BLOCK": 128}
+
+
+def test_triton_launch_checks_before_running(triton_stand_in):
+    mod = tmx.rtc.PallasModule(TRITON_SRC)
+    k = mod.get_kernel("scale_add")
+    x = tmx.np.ones((4,))
+    with pytest.raises(TypeError, match="takes 2 inputs"):
+        k(x)
+    x64 = tmx.NDArray(torch.ones(4, dtype=torch.float64))
+    with pytest.raises(TypeError, match="float64.*\\*fp32"):
+        k(x, x64)
+    with pytest.raises(TypeError, match="out_dtype"):
+        mod.get_kernel("scale2", SCALE=2.0, out_dtype="float16")(x)
+    assert triton_stand_in == []
+    # an undeclared pointer takes any dtype
+    neg = mod.get_kernel("negate")
+    onp.testing.assert_array_equal(
+        neg(tmx.np.array([1, 2], dtype="int32")).asnumpy(), [-1, -2])
+    assert triton_stand_in[-1][1] == [((2,), torch.int32)]
+    assert triton_stand_in[-1][3] == {"BLOCK": 1024}
+
+
+def test_triton_cpu_launch_raises_on_the_card_route(monkeypatch):
+    """With Triton importable, a CPU launch without ``interpret=True``
+    is refused before anything compiles."""
+    monkeypatch.setattr(rtc, "_TRITON", [object()])
+    k = tmx.rtc.PallasModule(TRITON_SRC).get_kernel("negate")
+    with pytest.raises(RuntimeError, match="run on the card"):
+        k(tmx.np.ones((3,)))
+    assert tmx.ops.launch_counts()["rtc_triton"] == 0
+
+
+def test_triton_scale_add_and_negate_against_pallas(triton_stand_in):
+    xa, ya = _inputs((8, 128), (8, 128), seed=3)
+    tmod = tmx.rtc.PallasModule(TRITON_SRC)
+    jmod = jmx.rtc.PallasModule(PALLAS_SRC)
+    tz = tmod.get_kernel("scale_add")(tmx.np.array(xa), tmx.np.array(ya))
+    jz = jmod.get_kernel("scale_add")(jmx.np.array(xa), jmx.np.array(ya))
+    assert tz.shape == jz.shape and tz.dtype == jz.dtype
+    onp.testing.assert_allclose(tz.asnumpy(), jz.asnumpy(), **EW)
+    tn = tmod.get_kernel("negate")(tmx.np.array(xa))
+    jn = jmod.get_kernel("negate")(jmx.np.array(xa))
+    onp.testing.assert_allclose(tn.asnumpy(), jn.asnumpy(), **EW)
+    # out_shape / out_dtype allocate the output as the reference does
+    t2 = tmod.get_kernel("scale2", SCALE=2.0, out_shape=(8, 128))(
+        tmx.np.array(xa))
+    j2 = jmod.get_kernel("scale2", out_shape=(8, 128))(jmx.np.array(xa))
+    onp.testing.assert_allclose(t2.asnumpy(), j2.asnumpy(), **EW)
+    assert [c[0] for c in triton_stand_in] == ["scale_add", "negate",
+                                               "scale2"]
+
+
+def test_triton_kernel_with_custom_grad_against_pallas(triton_stand_in):
+    xa, = _inputs((4, 8), seed=4)
+    ty, tg = _grad_case(tmx, tmx.rtc.PallasModule(TRITON_SRC), xa)
+    jy, jg = _grad_case(jmx, jmx.rtc.PallasModule(PALLAS_SRC), xa)
+    onp.testing.assert_allclose(ty, jy, **EW)
+    onp.testing.assert_allclose(tg, jg, **EW)
+
+
+def test_triton_kernel_without_grad_is_opaque_against_pallas(
+        triton_stand_in):
+    xa, = _inputs((4,), seed=5)
+    to, tg = _opaque_case(tmx, tmx.rtc.PallasModule(TRITON_SRC), xa)
+    jo, jg = _opaque_case(jmx, jmx.rtc.PallasModule(PALLAS_SRC), xa)
+    onp.testing.assert_allclose(to, jo, **EW)
+    onp.testing.assert_allclose(tg, jg, **EW)
+    onp.testing.assert_allclose(tg, onp.full(4, 3.0))
+
+
+def test_pointer_annotations_are_stripped_in_place():
+    src = rtc._strip_pointer_annotations(TRITON_SRC)
+    assert '"*fp32"' not in src
+    assert len(src.splitlines()) == len(TRITON_SRC.splitlines())
+    assert "def scale_add(x, y, out, n," in src
+    assert "BLOCK: tl.constexpr" in src
