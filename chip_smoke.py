@@ -66,6 +66,17 @@ through ``GenerationEngine``:
   of its 300 rois, a 256-channel ``deformable_convolution``), and
   ``nd.sparse`` (creation, storage casts, dot, add, retain, norm);
 
+- ``gluon``: the classic Gluon loop on the card, each net against the
+  CPU port from the same weights and data: two
+  ``TransformerEncoderCell``s at GPT-2 small's widths (fp32, 8 x 512,
+  ``initialize`` deferred, ``hybridize``, 3 steps of ``record()``,
+  ``L2Loss``, ``backward`` and ``Trainer("adam").step``; one K1 and one
+  of each K1-bwd launch per cell and step; a profile of 2 steps), and
+  ResNet-18's stem and first stage (32 x 3 x 224 x 224, 2 SGD steps with
+  momentum, BatchNorm's running statistics, then a bucketed predict
+  forward of 20 that adds no entry); then DLPack, ``runtime``, the
+  memory queries and ``mx.random.seed`` on the card;
+
 - ``engine``: the dense fp32 engine, 24 greedy requests;
 - ``bf16_engine``: the same requests on the dense engine with
   ``compute_dtype="bfloat16"`` at ``decode_ticks=4`` and then 1 (the
@@ -159,6 +170,11 @@ Tolerances, with their reasons:
 - training, card vs the CPU port (fp32, the same weights): losses within
   1e-4 relative, step-one gradients within 1e-3 x max|g| per tensor;
   bf16 losses within the reference's 0.15 of fp32's, and falling;
+- the ``gluon`` phase, card vs the CPU port: losses within 1e-4
+  relative; the Transformer's Adam updates element by element within
+  1 % of lr, at most 1e-3 of the elements outside; the conv net's
+  parameters and running statistics within 1e-2 of their change
+  (2-norm; see GLUON_CONV_REL); the bucketed predict rows within 1e-6;
 - the int8-KV engine: the reference's int8-KV gate (``bench.py
   --quant``), int8 KV against an fp32 KV with per-step logits within 0.6
   (the agreement of the two is reported; see
@@ -5384,6 +5400,358 @@ def phase_train(torch):
     return res
 
 
+#: the gluon phase's Transformer: GPT-2 small's block widths (Radford et
+#: al., 2019), its depth cut from 12 to 2; fp32, batch 8 x 512 tokens
+GLUON_TF = dict(units=768, heads=12, hidden=3072, layers=2, batch=8,
+                seq=512, steps=3, lr=1e-4)
+#: the gluon phase's conv net: ResNet-18's stem and first stage (He et
+#: al., 2016) over a 1000-way head; fp32, batch 32 x 3 x 224 x 224
+GLUON_CONV = dict(batch=32, classes=1000, steps=2, lr=0.1, momentum=0.9,
+                  predict_batch=20, bucket=32)
+GLUON_PROFILE_STEPS = 2
+#: card vs CPU port (fp32, the same weights and data): losses within
+#: 1e-4 relative (two devices' fp32 reduction orders over 768-3072-wide
+#: products and 32 x 112 x 112 BatchNorm sums)
+GLUON_LOSS_REL = 1e-4
+#: Adam moves each weight by about lr a step whatever the gradient's
+#: size, so a gradient that is noise (a k_proj bias's exact gradient is
+#: 0) can take either sign on two devices: the Transformer's parameters
+#: are held by their updates, each element's card and CPU updates within
+#: 1 % of lr, and at most 1e-3 of the elements outside that
+GLUON_TF_UPDATE_TOL = 1e-2
+GLUON_TF_UPDATE_FRAC = 1e-3
+#: SGD's update is lr x the gradient: the conv net's parameters and
+#: running statistics, each tensor's distance from the CPU's within
+#: 1e-2 of how far it moved (2-norms; the largest element's ratio is
+#: reported). The stem's weight sets it: about 2e-3 (4.5e-3
+#: elementwise) on NVIDIA H100 80GB HBM3, 700.00 W, the losses within
+#: 1e-7. Its gradient sums 32 x 112 x 112 products that BatchNorm's
+#: backward makes cancel, in two devices' orders, and the second step
+#: builds on the first's
+GLUON_CONV_REL = 1e-2
+#: the bucketed predict forward against the unpadded rows: products of
+#: one batch shape, the rows independent of each other
+GLUON_BUCKET_TOL = 1e-6
+
+
+def _gluon_transformer(mx, nn):
+    net = nn.HybridSequential()
+    for _ in range(GLUON_TF["layers"]):
+        net.add(nn.TransformerEncoderCell(
+            GLUON_TF["units"], GLUON_TF["heads"],
+            hidden_dim=GLUON_TF["hidden"], causal=True, activation="gelu",
+            pre_norm=True))
+    return net
+
+
+def _gluon_resnet(mx, nn):
+    """ResNet-18's stem and first stage (two basic blocks of 64
+    channels), global average pooling and a Dense head with deferred
+    ``in_units``. The basic block is a user's block written over
+    NDArrays."""
+    class BasicBlock(mx.gluon.HybridBlock):
+        def __init__(self, channels):
+            super().__init__()
+            self.body = nn.HybridSequential()
+            self.body.add(
+                nn.Conv2D(channels, 3, padding=1, use_bias=False),
+                nn.BatchNorm(), nn.Activation("relu"),
+                nn.Conv2D(channels, 3, padding=1, use_bias=False),
+                nn.BatchNorm())
+
+        def forward(self, x):
+            return mx.npx.relu(self.body(x) + x)
+
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(64, 7, strides=2, padding=3, use_bias=False),
+            nn.BatchNorm(), nn.Activation("relu"), nn.MaxPool2D(3, 2, 1),
+            BasicBlock(64), BasicBlock(64), nn.GlobalAvgPool2D(),
+            nn.Dense(GLUON_CONV["classes"]))
+    return net
+
+
+def _gluon_pair(torch, mx, build, x, init):
+    """The net on the card (``initialize`` deferred, ``hybridize``, the
+    shapes settled by ``infer_shape``) and its copy on the CPU port with
+    the same weights (carried by name)."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.parameter import load_jax_params
+    with mx.gpu(0):
+        card = build(mx, nn)
+        card.initialize(init)
+        card.hybridize()
+        card.infer_shape(mx.np.array(x[:1]))
+    weights = {k: p.data().asnumpy()
+               for k, p in card.collect_params().items()}
+    with mx.cpu():
+        host = build(mx, nn)
+        host.initialize()
+        host.hybridize()
+        load_jax_params(host, weights)
+    return card, host, weights
+
+
+def _gluon_steps(torch, mx, net, ctx, x, y, loss_fn, trainer_args, steps,
+                 batch):
+    """``steps`` of record() -> loss -> backward() -> Trainer.step on
+    ``ctx``: the mean losses and each step's wall ms (the loss read back
+    ends it)."""
+    with ctx:
+        trainer = mx.gluon.Trainer(net.collect_params(), *trainer_args)
+        xa, ya = mx.np.array(x), mx.np.array(y)
+        losses, ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            with mx.autograd.record():
+                loss = loss_fn(net(xa), ya)
+            loss.backward()
+            trainer.step(batch)
+            losses.append(float(loss.mean()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, trainer
+
+
+def _gluon_profile(torch, mx, net, x, y, loss_fn, trainer, batch):
+    """GLUON_PROFILE_STEPS more card steps under torch.profiler: wall ms
+    a step and the card's busy ms (the union of its kernel intervals)
+    and share."""
+    from torch.profiler import ProfilerActivity, profile
+    with mx.gpu(0):
+        xa, ya = mx.np.array(x), mx.np.array(y)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(GLUON_PROFILE_STEPS):
+                with mx.autograd.record():
+                    loss = loss_fn(net(xa), ya)
+                loss.backward()
+                trainer.step(batch)
+                float(loss.mean())
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / GLUON_PROFILE_STEPS
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kern), "the profiler saw no kernel on the card")
+    busy = _busy_ms([(e.time_range.start, e.time_range.end)
+                     for e in kern]) / GLUON_PROFILE_STEPS
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall,
+            "kernels_per_step": len(kern) / GLUON_PROFILE_STEPS}
+
+
+def _gluon_transformer_part(torch, mx, card_name):
+    from mxnet_tpu_torch import ops
+    rs = np.random.RandomState(31)
+    b, s, u = GLUON_TF["batch"], GLUON_TF["seq"], GLUON_TF["units"]
+    x = rs.standard_normal((b, s, u)).astype("f4")
+    y = rs.standard_normal((b, s, u)).astype("f4")
+    t0 = time.perf_counter()
+    card, host, weights = _gluon_pair(torch, mx, _gluon_transformer, x,
+                                      mx.init.Xavier())
+    check(all(p.data().ctx == mx.gpu(0)
+              for p in card.collect_params().values()),
+          "gluon transformer: a parameter is off the card")
+    args = ("adam", {"learning_rate": GLUON_TF["lr"]})
+    loss_fn = mx.gluon.loss.L2Loss()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    card_losses, ms, trainer = _gluon_steps(
+        torch, mx, card, mx.gpu(0), x, y, loss_fn, args, GLUON_TF["steps"],
+        b)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    want = {k: GLUON_TF["layers"] * GLUON_TF["steps"] for k in TRAIN_ATTN}
+    check(launches == want,
+          f"gluon transformer: launches {launches}, want {want}")
+    host_losses, _, _ = _gluon_steps(
+        torch, mx, host, mx.cpu(), x, y, loss_fn, args, GLUON_TF["steps"],
+        b)
+    loss_err = max(abs(a - c) / abs(c)
+                   for a, c in zip(card_losses, host_losses))
+    worst, off, n = 0.0, 0, 0
+    hp = host.collect_params()
+    for name, p in card.collect_params().items():
+        w0 = weights[name]
+        du_card = p.data().asnumpy() - w0
+        du_host = hp[name].data().asnumpy() - w0
+        diff = np.abs(du_card - du_host) / GLUON_TF["lr"]
+        worst = max(worst, float(diff.max()))
+        off += int((diff > GLUON_TF_UPDATE_TOL).sum())
+        n += diff.size
+    prof = _gluon_profile(torch, mx, card, x, y, loss_fn, trainer, b)
+    p50 = float(np.median(ms[1:]))  # the first step warms cuBLAS/cuDNN
+    # the profiler's host work stretches the steps it traces
+    prof["device_busy_share_of_p50"] = prof["device_busy_ms"] / p50
+    out = {"card": card_name, "config": GLUON_TF,
+           "card_losses": card_losses, "cpu_losses": host_losses,
+           "max_loss_rel_err": loss_err,
+           "max_update_err_in_lr": worst,
+           "update_elements_outside_tol": off, "elements": n,
+           "step_ms": ms, "step_ms_p50": p50,
+           "tokens_per_s": b * s / p50 * 1e3, "launches": launches,
+           "profile": prof,
+           "seconds": time.perf_counter() - t0}
+    emit("gluon_transformer", **out)
+    check(all(math.isfinite(v) for v in card_losses),
+          f"gluon transformer: non-finite loss {card_losses}")
+    check(card_losses[-1] < card_losses[0],
+          f"gluon transformer: losses not falling {card_losses}")
+    check(loss_err <= GLUON_LOSS_REL,
+          f"gluon transformer: card vs CPU losses {loss_err}")
+    check(off <= GLUON_TF_UPDATE_FRAC * n,
+          f"gluon transformer: {off} of {n} updates beyond "
+          f"{GLUON_TF_UPDATE_TOL} x lr of the CPU's")
+    return out
+
+
+def _gluon_resnet_part(torch, mx, card_name):
+    from mxnet_tpu_torch import bucketing, telemetry
+    rs = np.random.RandomState(32)
+    nb = GLUON_CONV["batch"]
+    x = rs.standard_normal((nb, 3, 224, 224)).astype("f4")
+    y = rs.randint(0, GLUON_CONV["classes"], (nb,)).astype("i4")
+    t0 = time.perf_counter()
+    card, host, weights = _gluon_pair(torch, mx, _gluon_resnet, x,
+                                      mx.init.Xavier())
+    args = ("sgd", {"learning_rate": GLUON_CONV["lr"],
+                    "momentum": GLUON_CONV["momentum"]})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    card_losses, ms, _ = _gluon_steps(
+        torch, mx, card, mx.gpu(0), x, y, loss_fn, args,
+        GLUON_CONV["steps"], nb)
+    host_losses, _, _ = _gluon_steps(
+        torch, mx, host, mx.cpu(), x, y, loss_fn, args,
+        GLUON_CONV["steps"], nb)
+    loss_err = max(abs(a - c) / abs(c)
+                   for a, c in zip(card_losses, host_losses))
+    worst, worst_name, worst_elem = 0.0, None, 0.0
+    hp = host.collect_params()
+    for name, p in card.collect_params().items():
+        got = p.data().asnumpy()
+        moved = got - weights[name]
+        err = got - hp[name].data().asnumpy()
+        rel = float(np.linalg.norm(err)) / max(
+            float(np.linalg.norm(moved)), 1e-30)
+        worst_elem = max(worst_elem, float(np.abs(err).max()) / max(
+            float(np.abs(moved).max()), 1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    # one predict-mode forward of a batch of 20, bucketed up to the 32
+    # of an entry made first: the outputs come back sliced, no entry
+    # is added, and the rows equal the unpadded batch's
+    xp = x[:GLUON_CONV["predict_batch"]]
+    with mx.gpu(0), mx.autograd.predict_mode():
+        full = card(mx.np.array(x)).asnumpy()
+        n_entries = len(card._cached_op._entries)
+        prev = telemetry.set_enabled(True)
+        pads = telemetry.counter_value("gluon.cachedop.bucket_pad")
+        try:
+            with bucketing.policy_scope(bucketing.BucketingPolicy(
+                    buckets=[GLUON_CONV["bucket"]])):
+                part = card(mx.np.array(xp))
+            pads = telemetry.counter_value("gluon.cachedop.bucket_pad") \
+                - pads
+        finally:
+            telemetry.set_enabled(prev)
+        grown = len(card._cached_op._entries) - n_entries
+    bucket_err = float(np.abs(part.asnumpy() - full[:len(xp)]).max())
+    p50 = float(np.median(ms[1:]))  # the first step warms cuBLAS/cuDNN
+    out = {"card": card_name, "config": GLUON_CONV,
+           "card_losses": card_losses, "cpu_losses": host_losses,
+           "max_loss_rel_err": loss_err,
+           "max_param_err_rel_to_change": worst,
+           "worst_param": worst_name,
+           "max_element_err_rel_to_change": worst_elem,
+           "step_ms": ms, "step_ms_p50": p50,
+           "images_per_s": nb / p50 * 1e3,
+           "bucketed_shape": list(part.shape), "bucket_pads": pads,
+           "entries_added": grown, "bucketed_max_abs_err": bucket_err,
+           "seconds": time.perf_counter() - t0}
+    emit("gluon_resnet", **out)
+    check(all(math.isfinite(v) for v in card_losses),
+          f"gluon resnet: non-finite loss {card_losses}")
+    check(loss_err <= GLUON_LOSS_REL,
+          f"gluon resnet: card vs CPU losses {loss_err}")
+    check(worst <= GLUON_CONV_REL,
+          f"gluon resnet: {worst_name} {worst} x its change (2-norm) from "
+          f"the CPU's")
+    check(tuple(part.shape) == (len(xp), GLUON_CONV["classes"])
+          and pads == 1 and grown == 0,
+          f"gluon resnet: bucketed predict {part.shape}, {pads} pads, "
+          f"{grown} entries added")
+    check(bucket_err <= GLUON_BUCKET_TOL * max(1.0, float(np.abs(
+        full).max())), f"gluon resnet: bucketed rows differ {bucket_err}")
+    return out
+
+
+def _gluon_toplevel(torch, mx, card_name):
+    """Item 29 on the card: DLPack without a copy, the runtime
+    features, the memory queries, and ``mx.random.seed`` repeating a
+    Dropout draw."""
+    t0 = time.perf_counter()
+    t = torch.arange(12, dtype=torch.float32, device="cuda").reshape(3, 4)
+    a = mx.NDArray(t)
+    back = mx.dlpack.from_dlpack(mx.dlpack.to_dlpack_for_read(a))
+    wback = mx.dlpack.from_dlpack(mx.dlpack.to_dlpack_for_write(a))
+    check(back._data.data_ptr() == t.data_ptr() == wback._data.data_ptr()
+          and back.ctx == mx.gpu(0) and back._data.is_cuda,
+          "dlpack: the round trip copied or left the card")
+    feats = mx.runtime.Features()
+    check(feats.is_enabled("CUDA") and feats.is_enabled("NVRTC"),
+          f"runtime: CUDA/NVRTC not enabled: {feats}")
+    free, total = torch.cuda.mem_get_info(0)
+    mem = {"torch": [free, total], "util": list(mx.util.get_gpu_memory(0)),
+           "context": list(mx.context.gpu_memory_info(0))}
+    for key in ("util", "context"):
+        check(mem[key][1] == total and abs(mem[key][0] - free) <= 256 << 20,
+              f"{key} memory {mem[key]} vs torch {free, total}")
+    x = np.ones((256, 256), "f4")
+    drops = []
+    with mx.gpu(0):
+        layer = mx.gluon.nn.Dropout(0.5)
+        for _ in range(2):
+            mx.random.seed(7)
+            with mx.autograd.train_mode():
+                drops.append(layer(mx.np.array(x)).asnumpy())
+    kept = float((drops[0] != 0).mean())
+    check(np.array_equal(drops[0], drops[1]) and abs(kept - 0.5) < 0.02,
+          f"random.seed did not repeat the card's Dropout ({kept} kept)")
+    out = {"card": card_name, "dlpack_same_ptr": True,
+           "features": {k: f.enabled for k, f in feats.items()},
+           "compute_capability": mx.util.get_cuda_compute_capability(
+               mx.gpu(0)),
+           "memory": mem, "dropout_kept": kept,
+           "seconds": time.perf_counter() - t0}
+    emit("gluon_toplevel", **out)
+    return out
+
+
+def phase_gluon(torch, card_name):
+    """The classic Gluon loop on the card (item 15a) and item 29's
+    modules: (1) 2 ``TransformerEncoderCell``s at GPT-2 small's widths,
+    fp32, batch 8 x 512: ``initialize(Xavier())`` deferred,
+    ``hybridize``, 3 steps of ``record()`` -> ``L2Loss`` -> ``backward``
+    -> ``Trainer("adam").step``, against the CPU port from the same
+    weights and data, one K1 and one of each K1-bwd launch per cell per
+    step, then a profile of 2 steps; (2) ResNet-18's stem and first
+    stage, batch 32 x 3 x 224 x 224, 2 SGD steps with momentum in
+    training mode against the CPU port (losses, parameters, BatchNorm's
+    running statistics), then a bucketed predict-mode forward of 20;
+    (3) DLPack, ``runtime``, the memory queries and ``mx.random.seed``
+    on the card. The phase's launches are the Transformer steps'."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    tf = _gluon_transformer_part(torch, mx, card_name)
+    conv = _gluon_resnet_part(torch, mx, card_name)
+    top = _gluon_toplevel(torch, mx, card_name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("gluon", card=card_name, seconds=time.perf_counter() - t0)
+    return {"launches": tf["launches"], "transformer": tf,
+            "resnet": conv, "toplevel": top}
+
+
 #: the kernels line: name, source, the TPU kernel it replaces (file:line
 #: and function), the kernel phase's result key
 KERNELS = [
@@ -5475,7 +5843,8 @@ def main(argv=None):
     from mxnet_tpu_torch import ops
     phases = {"custom_op": phase_custom_op(torch),
               "numpy": phase_numpy(torch, card),
-              "npx": phase_npx(torch, card)}
+              "npx": phase_npx(torch, card),
+              "gluon": phase_gluon(torch, card)}
     phases["engine"], cpu_model, dense_prompts, dense_results = \
         phase_engine(torch)
     phases["bf16_engine"] = phase_bf16_engine(torch, cpu_model,

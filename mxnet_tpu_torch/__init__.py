@@ -14,7 +14,12 @@ PyTorch.
 It trains the same model on one card: ``parallel.TrainStep`` (forward,
 backward and update of a batch) with ``optimizer`` (SGD, NAG, Adam,
 AdamW), ``lr_scheduler`` and ``gluon.loss``, in fp32 or bf16 compute;
-the attention's backward is a hand-written kernel too.
+the attention's backward is a hand-written kernel too. The classic
+Gluon loop runs too: ``Block``/``HybridBlock`` with ``hybridize``,
+``Parameter`` with deferred initialization, ``initializer``,
+``gluon.Trainer`` and every layer of ``gluon.nn``, beside the small
+top-level modules (``registry``, ``util``, ``random``, ``dlpack``,
+``runtime``, ``callback``, ...).
 
 The imperative front end is ported too: ``mx.np`` arrays
 (``NDArray`` over a ``torch.Tensor``), ``mx.npx``, ``autograd``
@@ -44,12 +49,20 @@ from .context import (Context, cpu, gpu, num_gpus, current_context,
                       resolve_device)
 from .ndarray.ndarray import NDArray, waitall
 from . import ndarray, numpy, numpy_extension, operator, rtc
-from . import gluon, serving, optimizer, lr_scheduler, parallel
+from . import registry, error, log, name, attribute, util, random, dlpack
+from . import runtime, compile_cache, callback, initializer, init
+from . import gluon, serving, optimizer, lr_scheduler, parallel, misc
 from . import test_utils
+from .attribute import AttrScope
+from .context import cpu_pinned, gpu_memory_info
 
 nd = ndarray
 np = numpy
 npx = numpy_extension
+rnd = random
+
+# MXTPU_COMPILE_CACHE_DIR moves the kernel caches; unset, nothing changes
+compile_cache.configure()
 
 __all__ = ["telemetry", "tracing", "bucketing", "base", "context", "engine",
            "autograd", "ops", "random_state", "ndarray", "numpy",
@@ -58,4 +71,7 @@ __all__ = ["telemetry", "tracing", "bucketing", "base", "context", "engine",
            "np", "npx", "NDArray", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "waitall", "resolve_device", "MXNetError",
            "set_np", "reset_np", "is_np_array", "is_np_shape",
-           "is_np_default_dtype"]
+           "is_np_default_dtype", "registry", "error", "log", "name",
+           "attribute", "util", "random", "rnd", "dlpack", "runtime",
+           "compile_cache", "callback", "initializer", "init", "misc",
+           "AttrScope", "cpu_pinned", "gpu_memory_info"]

@@ -20,8 +20,9 @@ import threading
 
 import torch
 
-__all__ = ["resolve_device", "Context", "cpu", "gpu", "tpu", "num_gpus",
-           "default_context", "current_context"]
+__all__ = ["resolve_device", "Context", "cpu", "cpu_pinned", "gpu", "tpu",
+           "num_gpus", "default_context", "current_context",
+           "gpu_memory_info"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -134,6 +135,12 @@ def cpu(device_id: int = 0) -> Context:
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Page-locked host memory's context (its tensors are CPU tensors
+    to torch)."""
+    return Context("cpu_pinned", device_id)
+
+
 def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
 
@@ -158,3 +165,8 @@ def default_context() -> Context:
 def current_context() -> Context:
     return Context._current()
 
+
+def gpu_memory_info(device_id: int = 0):
+    """``(free, total)`` bytes of card ``device_id``
+    (``torch.cuda.mem_get_info``)."""
+    return gpu(device_id).memory_info()

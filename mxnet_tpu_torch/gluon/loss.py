@@ -4,9 +4,10 @@ Counterpart of ``mxnet_tpu/gluon/loss.py:11-118``: ``Loss`` with its
 ``weight`` and ``batch_axis``, ``_apply_weighting``, ``_reshape_like``,
 ``L2Loss``, ``L1Loss`` and ``SoftmaxCrossEntropyLoss`` (alias
 ``SoftmaxCELoss``: ``sparse_label``, ``from_logits``, ``axis``). Each
-takes torch tensors and returns one loss per sample (the mean over every
-axis but ``batch_axis``), as plain PyTorch, as the reference's are
-plain jnp. The other losses wait for ROADMAP.md queue 1, item 15.
+takes torch tensors or NDArrays (see ``block.py``) and returns one loss
+per sample (the mean over every axis but ``batch_axis``), as plain
+PyTorch, as the reference's are plain jnp. The other losses wait for
+ROADMAP.md queue 1, item 15b.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ def _reshape_like(pred, label):
 
 
 class Loss(HybridBlock):
+    _tensor_forward = True
+
     def __init__(self, weight=None, batch_axis=0):
         super().__init__()
         self._weight = weight

@@ -127,7 +127,7 @@ from ...ops import quantized as _qz
 from ...ops import nn as _nn
 from ...ops import sampling as _smp
 from ..block import HybridBlock
-from ..parameter import Parameter, bind_shadows
+from ..parameter import Parameter, bind_shadows, load_jax_params
 from ..nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
 
 __all__ = ["GPTBlock", "GPTModel", "gpt_small", "load_jax_params"]
@@ -239,7 +239,7 @@ class GPTBlock(HybridBlock):
         if q is None:
             y = layer(x)
         else:
-            bias = layer.bias.data() if layer.bias is not None else None
+            bias = layer.bias._read() if layer.bias is not None else None
             y = _qz.dequant_matmul(x, *q, bias=bias)
             if layer._act_type is not None:
                 y = _nn.activation(y, layer._act_type)
@@ -487,7 +487,7 @@ class GPTModel(HybridBlock):
         with dev:
             self.word_embed = Embedding(vocab_size, units, dtype=dtype)
             self.position_weight = Parameter(
-                "position_weight", (max_length, units), dtype=dtype)
+                "position_weight", shape=(max_length, units), dtype=dtype)
             self.embed_drop = Dropout(dropout) if dropout else None
             self.layers = HybridSequential()
             for _ in range(num_layers):
@@ -531,7 +531,7 @@ class GPTModel(HybridBlock):
                     raise ValueError(
                         f"unknown quantizable projection {name!r} "
                         f"(choose from {_QUANTIZED_PROJECTIONS})")
-                tab[name] = _qz.quantize_channelwise(layer.weight.data())
+                tab[name] = _qz.quantize_channelwise(layer.weight._read())
             tabs.append(tab)
         self._quant = tabs
         if self._cast is not None:   # which biases it widens follows _quant
@@ -573,7 +573,7 @@ class GPTModel(HybridBlock):
                    zip(self._blocks(), self._quant or ()) for n in tab}
         cast = {}
         for p in self.collect_params().values():
-            t = p.data()
+            t = p._read()
             if t.is_floating_point():
                 t = t.to(dt)
                 if p in widened:
@@ -793,7 +793,7 @@ class GPTModel(HybridBlock):
 
     def _embed(self, tokens):
         x = self.word_embed(tokens)
-        x = x + self.position_weight.data()[:tokens.shape[-1]]
+        x = x + self.position_weight._read()[:tokens.shape[-1]]
         if self.embed_drop is not None:
             x = self.embed_drop(x)
         return x
@@ -924,7 +924,7 @@ class GPTModel(HybridBlock):
         pos = ln.clamp(max=s_max - 1).long()   # clamped write position
         att_len = (pos + 1).to(torch.int32)    # incl. the new token
         emb = self.word_embed(tokens)          # (B, U)
-        x = (emb + self.position_weight.data()[pos])[:, None, :]
+        x = (emb + self.position_weight._read()[pos])[:, None, :]
         if self.embed_drop is not None:
             x = self.embed_drop(x)
         for blk, kc, vc, ks, vs in zip(self._blocks(), cache["k"],
@@ -1000,7 +1000,7 @@ class GPTModel(HybridBlock):
 
     # -- speculative decoding ------------------------------------------
     def _verify_embed(self, tokens, pos):
-        x = self.word_embed(tokens) + self.position_weight.data()[pos]
+        x = self.word_embed(tokens) + self.position_weight._read()[pos]
         if self.embed_drop is not None:
             x = self.embed_drop(x)
         return x
@@ -1284,7 +1284,7 @@ class GPTModel(HybridBlock):
                         _write_quantized(vp, vs, _to_pages(v, ps),
                                          (page_ids,))
             else:
-                pw = self.position_weight.data()
+                pw = self.position_weight._read()
                 x = self.word_embed(tokens) + pw[start:start + w]
                 if self.embed_drop is not None:
                     x = self.embed_drop(x)
@@ -1331,7 +1331,7 @@ class GPTModel(HybridBlock):
         # inherits; same scrap-page redirect
         prev_page = torch.where(
             live, table[rows, (pos // ps - 1).clamp(min=0)].long(), zero)
-        x = (self.word_embed(tokens) + self.position_weight.data()[pos])[
+        x = (self.word_embed(tokens) + self.position_weight._read()[pos])[
             :, None, :]
         if self.embed_drop is not None:
             x = self.embed_drop(x)
@@ -1355,7 +1355,7 @@ class GPTModel(HybridBlock):
         tok = self._as_tokens([int(token)])
         table1 = cache["table"][slot:slot + 1]
         with self._bound(adapters, 1):
-            x = (self.word_embed(tok) + self.position_weight.data()[pos])[
+            x = (self.word_embed(tok) + self.position_weight._read()[pos])[
                 :, None, :]
             if self.embed_drop is not None:
                 x = self.embed_drop(x)
@@ -1395,24 +1395,3 @@ def gpt_small(vocab_size=1000, units=64, num_layers=2, num_heads=4,
                     num_layers=num_layers, num_heads=num_heads,
                     max_length=max_length, dropout=dropout, dtype=dtype,
                     **kwargs)
-
-
-def load_jax_params(model, params):
-    """Fill ``model``'s parameters from the JAX model's
-    ``collect_params()`` exported to numpy (``{name: array}``), mapping
-    names one to one. Raises on a missing name, an extra name or a
-    shape mismatch, before writing anything. Returns ``model``."""
-    ours = model.collect_params()
-    missing = [n for n in ours if n not in params]
-    extra = [n for n in params if n not in ours]
-    if missing or extra:
-        raise KeyError(f"parameter names differ: missing {missing}, "
-                       f"extra {extra}")
-    bad = [(n, tuple(onp.shape(params[n])), p.shape)
-           for n, p in ours.items() if tuple(onp.shape(params[n])) != p.shape]
-    if bad:
-        raise ValueError(f"parameter shapes differ (name, given, "
-                         f"expected): {bad}")
-    for name, p in ours.items():
-        p.set_data(torch.from_numpy(onp.array(params[name], dtype="f4")))
-    return model

@@ -1,0 +1,144 @@
+"""Gluon ``Trainer`` on one device (the port of
+``mxnet_tpu/gluon/trainer.py``).
+
+``step(batch_size)`` sets ``rescale_grad`` to ``scale / batch_size``,
+all-reduces (the identity on one device) and applies the optimizer to
+every parameter whose ``grad_req`` is not ``"null"``, in place on the
+card. The update is the port's optimizers' (SGD, NAG, Adam, AdamW,
+``optimizer``), one parameter at a time in the reference's order (the
+parameters sorted by name): the reference's fused multi-tensor path
+gives the same numbers as its loop, and grouping the updates is
+ROADMAP.md queue 2, item 14. A parameter whose gradient no backward
+wrote since the last step warns, naming it (``ignore_stale_grad``
+silences it).
+
+Stores: ``kvstore=None``, ``"device"`` and ``"local"`` on one context
+give the single-device update. Any other store, a store object,
+``update_on_kvstore=True`` or gradient compression wait for
+``kvstore/`` (queue 1, item 19); an optimizer the port lacks for item
+16; ``save_states``/``load_states`` for item 18.
+"""
+from __future__ import annotations
+
+import warnings
+
+from .. import optimizer as opt
+from ..base import not_ported
+from .parameter import Parameter
+
+__all__ = ["Trainer"]
+
+_ONE_DEVICE_STORES = (None, False, "device", "local")
+
+
+class Trainer:
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None, fusion=None):
+        if isinstance(params, dict):
+            params = [params[k] for k in sorted(params.keys())]
+        if not isinstance(params, (list, tuple)):
+            raise ValueError("First argument must be a list or dict of "
+                             f"Parameters, got {type(params)}.")
+        self._params = []
+        seen = set()
+        for p in params:
+            if not isinstance(p, Parameter):
+                raise ValueError("First argument must be a list or dict of "
+                                 f"Parameters, got list of {type(p)}.")
+            if id(p) in seen:
+                continue            # a tied parameter is updated once
+            seen.add(id(p))
+            self._params.append(p)
+        if not (kvstore in _ONE_DEVICE_STORES
+                or (isinstance(kvstore, str)
+                    and kvstore in ("device", "local"))):
+            raise not_ported(f"Trainer(kvstore={kvstore!r})", 19)
+        if update_on_kvstore:
+            raise not_ported("Trainer(update_on_kvstore=True)", 19)
+        if compression_params is not None:
+            raise not_ported("Trainer(compression_params=...)", 19)
+        self._kvstore = None
+        self._update_on_kvstore = False
+        self._init_optimizer(optimizer, optimizer_params or {})
+        self._scale = self._optimizer.rescale_grad
+        self._states = [None] * len(self._params)
+        self._states_initialized = [False] * len(self._params)
+
+    def _init_optimizer(self, optimizer, optimizer_params):
+        param_dict = dict(enumerate(self._params))
+        if isinstance(optimizer, opt.Optimizer):
+            assert not optimizer_params, \
+                "optimizer_params must be None if optimizer is an " \
+                "Optimizer instance"
+            self._optimizer = optimizer
+            self._optimizer.param_dict = param_dict
+            return
+        if str(optimizer).lower() not in opt._REGISTRY:
+            raise not_ported(f"optimizer {optimizer!r}", 16)
+        self._optimizer = opt.create(optimizer, param_dict=param_dict,
+                                     **optimizer_params)
+
+    # -- properties -----------------------------------------------------
+    @property
+    def learning_rate(self):
+        return self._optimizer.learning_rate
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    def set_learning_rate(self, lr):
+        self._optimizer.set_learning_rate(lr)
+
+    # -- the step -------------------------------------------------------
+    def _grad_rescale(self, batch_size):
+        return self._scale / batch_size
+
+    def step(self, batch_size, ignore_stale_grad=False):
+        """Rescale by ``1 / batch_size``, all-reduce, update."""
+        self._optimizer.rescale_grad = self._grad_rescale(batch_size)
+        self.allreduce_grads()
+        self._update(ignore_stale_grad)
+
+    def allreduce_grads(self):
+        """The identity: one device holds every gradient."""
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        """The update of ``step`` without the all-reduce."""
+        self._optimizer.rescale_grad = self._grad_rescale(batch_size)
+        self._update(ignore_stale_grad)
+
+    def _update(self, ignore_stale_grad=False):
+        updates, stale = [], []
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null" or not p._initialized:
+                continue
+            if not ignore_stale_grad and not p._fresh_grad:
+                stale.append(p)
+            if not self._states_initialized[i]:
+                self._states[i] = \
+                    self._optimizer.create_state_multi_precision(
+                        i, p._var())
+                self._states_initialized[i] = True
+            updates.append((i, p))
+        if stale:
+            names = ", ".join(f"`{p.name}`" for p in stale)
+            warnings.warn(
+                f"Gradient of Parameter(s) {names} on context "
+                f"{stale[0].list_ctx()[0]} has not been updated by "
+                f"backward since last `step`. This could mean a bug in "
+                f"your model that made it only use a subset of the "
+                f"Parameters for the last iteration, call step with "
+                f"ignore_stale_grad=True to suppress this warning")
+        for i, p in updates:
+            self._optimizer.update_multi_precision(
+                [i], [p._var()], [p._grad_nd()._data], [self._states[i]])
+            p._fresh_grad = False
+
+    # -- state io -------------------------------------------------------
+    def save_states(self, fname):
+        raise not_ported("Trainer.save_states", 18)
+
+    def load_states(self, fname):
+        raise not_ported("Trainer.load_states", 18)

@@ -14,9 +14,9 @@ and every scalar computed from them (``1 - b1``, the bias corrections,
 are. ``_step_mp`` runs the step on an fp32 master copy of a float16 or
 bf16 weight (``multi_precision=True``) and casts the new master back.
 
-``update``/``update_multi_precision`` take weights as ``Parameter``s or
-tensors and write the new weight and state into the given tensors in
-place (the reference installs new arrays). The other optimizers of the
+``update``/``update_multi_precision`` take weights (and gradients) as
+``Parameter``s, NDArrays or tensors and write the new weight and state
+into the given tensors in place (the reference installs new arrays). The other optimizers of the
 reference (Adamax through LAMB) wait for ROADMAP.md queue 1, item 16.
 """
 from __future__ import annotations
@@ -49,8 +49,19 @@ def _f(x) -> float:
 
 
 def _tensor(x) -> torch.Tensor:
-    """The tensor of a weight given as a ``Parameter`` or a tensor."""
-    return x if torch.is_tensor(x) else x._var()
+    """The tensor of a weight given as a ``Parameter``, an NDArray or a
+    tensor."""
+    if torch.is_tensor(x):
+        return x
+    return x._var() if hasattr(x, "_var") else x._data
+
+
+def _grad_tensor(g) -> torch.Tensor:
+    """The tensor of a gradient given as a tensor, an NDArray or a
+    ``Parameter`` (its gradient buffer)."""
+    if torch.is_tensor(g):
+        return g
+    return g.grad()._data if hasattr(g, "_var") else g._data
 
 
 def assign_state(old, new):
@@ -181,7 +192,7 @@ class Optimizer:
     def _apply(self, index, weight, grad, state, mp):
         hyper = self._hyper(index)
         w = _tensor(weight)
-        g = grad if torch.is_tensor(grad) else grad.grad()
+        g = _grad_tensor(grad)
         with torch.no_grad():
             if mp:
                 new_w, new_s = type(self)._step_mp(w, g, state, hyper)

@@ -185,7 +185,8 @@ def _swap_param_buffers(params, new_params, strict=True):
                              f"{tuple(p.shape)}, given {shape}")
         plan.append((p, arr))
     for p, arr in plan:
-        p.set_data(arr if torch.is_tensor(arr) else onp.asarray(arr))
+        p.set_data(arr if torch.is_tensor(arr) or hasattr(arr, "_data")
+                   else onp.asarray(arr))
     return len(plan)
 
 

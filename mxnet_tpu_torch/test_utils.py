@@ -12,8 +12,7 @@ module the port does not have yet raise ``base.NotPortedError`` naming
 its ROADMAP.md item: the symbolic checks (``check_symbolic_forward``,
 ``check_symbolic_backward``, ``same_symbol_structure``,
 ``numeric_grad``'s executor, ``check_speed`` of a symbol) need the
-Symbol API (item 26), ``check_gluon_hybridize_consistency`` needs
-``hybridize`` (item 15), and ``compare_optimizer`` takes the port's
+Symbol API (item 26), and ``compare_optimizer`` takes the port's
 optimizers (SGD, NAG, Adam, AdamW and Test); the others wait for item
 16.
 """
@@ -507,9 +506,41 @@ def compare_optimizer_noise_seeded(opt1, opt2, shapes, dtype, seed,
 
 def check_gluon_hybridize_consistency(net_builder, data_l, numpy_func=None,
                                       test_grad=True, rtol=1e-4, atol=1e-4):
-    """Needs ``hybridize``."""
-    raise not_ported("test_utils.check_gluon_hybridize_consistency "
-                     "(hybridize)", 15)
+    """A block's forward, and its inputs' gradients, equal with and
+    without ``hybridize`` on the same weights (the second build takes
+    the first's); with ``numpy_func``, the output equals it too."""
+    from . import autograd
+    saved_out = saved_grads = saved_params = None
+    for hybridize in (False, True):
+        net = net_builder()
+        net.initialize()
+        if saved_params is None:
+            saved_params = {k: p.data().copy() for k, p in
+                            net.collect_params().items()}
+        else:
+            for k, p in net.collect_params().items():
+                p.set_data(saved_params[k])
+        if hybridize:
+            net.hybridize()
+        ins = [x.copy() for x in data_l]
+        for x in ins:
+            x.attach_grad()
+        with autograd.record():
+            out = net(*ins)
+        if test_grad:
+            out.backward()
+        out_np = _to_numpy(out)
+        grads = [_to_numpy(x.grad) for x in ins] if test_grad else []
+        if saved_out is None:
+            saved_out, saved_grads = out_np, grads
+            continue
+        assert_almost_equal(out_np, saved_out, rtol=rtol, atol=atol)
+        for g, sg in zip(grads, saved_grads):
+            assert_almost_equal(g, sg, rtol=rtol, atol=atol)
+    if numpy_func is not None:
+        assert_almost_equal(saved_out,
+                            numpy_func(*[_to_numpy(x) for x in data_l]),
+                            rtol=rtol, atol=atol)
 
 
 def same_symbol_structure(sym1, sym2):

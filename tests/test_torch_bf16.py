@@ -284,7 +284,7 @@ def test_bf16_model_teacher_forced_bounded_divergence(jax_bf16):
     tnet.cast_compute_params("bfloat16")
     assert tnet.compute_dtype == "bfloat16"
     assert torch.equal(tnet(prompts[0][None]), fwd)
-    assert {str(p.data().dtype) for p in tnet.collect_params().values()} \
+    assert {str(p._read().dtype) for p in tnet.collect_params().values()} \
         == {"torch.float32"}
     got, _ = _run(tnet, prompts, _forced(ref, f0))
     assert onp.abs(ref - got).max() < BF16_TOL
@@ -300,8 +300,8 @@ def test_bf16_parameters_model_against_jax():
     as in the reference), a bf16 cache by default, and logits within
     LOGIT_TOL_BF16 of the JAX bf16 model's on the same weights."""
     jnet, tnet = _pair(dtype="bfloat16")
-    assert tnet.layers[0].q_proj.weight.data().dtype == torch.bfloat16
-    assert tnet.layers[0].ln1.gamma.data().dtype == torch.float32
+    assert tnet.layers[0].q_proj.weight._read().dtype == torch.bfloat16
+    assert tnet.layers[0].ln1.gamma._read().dtype == torch.float32
     assert tnet.init_cache(2, 16)["k"][0].dtype == torch.bfloat16
     prompts = _prompts(seed=8)
     got, f0 = _run(tnet, prompts)

@@ -217,8 +217,8 @@ def test_f16_model_logits_against_jax(f16_pair):
     fp32), a float16 cache by default, and prefill and teacher-forced
     decode logits within LOGIT_TOL_F16 of the JAX float16 model's."""
     jnet, tnet = f16_pair
-    assert tnet.layers[0].q_proj.weight.data().dtype == torch.float16
-    assert tnet.layers[0].ln1.gamma.data().dtype == torch.float32
+    assert tnet.layers[0].q_proj.weight._read().dtype == torch.float16
+    assert tnet.layers[0].ln1.gamma._read().dtype == torch.float32
     assert tnet.init_cache(2, 16)["k"][0].dtype == torch.float16
     prompts = _prompts(seed=8)
     got, gpre, f0 = _run(tnet, prompts)

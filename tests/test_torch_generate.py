@@ -461,7 +461,7 @@ def _fresh_params(seed):
     donor = tgpt.gpt_small(vocab_size=VOCAB, units=32, num_layers=2,
                            num_heads=4, max_length=128,
                            device="cpu").initialize(seed=seed)
-    return {k: p.data().numpy().copy()
+    return {k: p._read().numpy().copy()
             for k, p in donor.collect_params().items()}
 
 
@@ -482,14 +482,14 @@ def test_load_weights_matches_a_fresh_engine(kw):
     net_a = model(0)
     eng = _engine(net_a, max_slots=2, max_new_tokens=6, **kw).warmup()
     before = [eng.generate(p, timeout=120).tokens for p in prompts]
-    ptrs = [p.data().data_ptr() for p in net_a.collect_params().values()]
+    ptrs = [p._read().data_ptr() for p in net_a.collect_params().values()]
     new = _fresh_params(5)
     telemetry.reset()
     assert eng.load_weights(new) is eng
     after = [eng.generate(p, timeout=120).tokens for p in prompts]
     snap = telemetry.snapshot()
     eng.close()
-    assert [p.data().data_ptr()
+    assert [p._read().data_ptr()
             for p in net_a.collect_params().values()] == ptrs
     assert snap["counters"]["serving.generate.weight_swaps"] == 1
     assert "serving.generate.swap" in snap["histograms"]
@@ -503,7 +503,7 @@ def test_load_weights_matches_a_fresh_engine(kw):
 
 def test_load_weights_validates_before_touching_anything(net):
     eng = _engine(net, max_slots=2, max_new_tokens=2)
-    good = {k: p.data().numpy().copy()
+    good = {k: p._read().numpy().copy()
             for k, p in net.collect_params().items()}
     snapshot = {k: v.copy() for k, v in good.items()}
     bad_shape = dict(good)
@@ -515,7 +515,7 @@ def test_load_weights_validates_before_touching_anything(net):
     with pytest.raises(ValueError, match="missing"):
         eng.load_weights(missing)
     for k, p in net.collect_params().items():
-        onp.testing.assert_array_equal(p.data().numpy(), snapshot[k])
+        onp.testing.assert_array_equal(p._read().numpy(), snapshot[k])
     eng.load_weights(missing, strict=False)   # the intersection
     with pytest.raises(NotImplementedError, match="item 18"):
         eng.load_weights("/some/checkpoint/dir")

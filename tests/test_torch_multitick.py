@@ -211,7 +211,7 @@ def test_multitick_greedy_parity_lora():
     prompts, budgets = _corpus(seed=13, n=6)
     ads = [None, "t", None, "t", "t", None]
     jnet, tnet = _jax_pair()
-    params = {k: p.data().numpy() for k, p in tnet.collect_params().items()}
+    params = {k: p._read().numpy() for k, p in tnet.collect_params().items()}
 
     def run(k, jax=False):
         if jax:

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 
 from mxnet_tpu.ops import nn as jnn
 from mxnet_tpu_torch.ops import nn as tnn
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.gluon import nn as gnn
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -66,8 +67,15 @@ def test_embedding_matches():
 
 
 def test_layers_need_static_shapes_and_initialization():
-    with pytest.raises(ValueError, match="in_units"):
-        gnn.Dense(4)
+    # a layer without in_units infers it at its first forward (deferred
+    # initialization, since the Gluon core was ported), after initialize()
+    dense = gnn.Dense(4)
+    assert dense.weight.shape == (4, 0)
+    with pytest.raises(RuntimeError, match="not been initialized"):
+        dense(torch.zeros(2, 3))
+    dense.initialize(ctx=tmx.cpu())
+    assert tuple(dense(torch.zeros(2, 3)).shape) == (2, 4)
+    assert dense.weight.shape == (4, 3)
     layer = gnn.LayerNorm(in_channels=4)
     with pytest.raises(RuntimeError, match="not been initialized"):
         layer(torch.zeros(2, 4))

@@ -154,13 +154,22 @@ def test_comparison_with_numpy_operand():
 # name parity: every public function of the JAX package's modules is
 # defined natively in the port's counterpart
 # ---------------------------------------------------------------------------
+def _is_fallback(v):
+    """A host fallback that ``mx.np.__getattr__`` cached in the module's
+    globals at its first lookup (the reference's and the port's alike):
+    not a function the module defines."""
+    return (getattr(v, "__doc__", None) or "").startswith(
+        "Host (NumPy) fallback")
+
+
 def _public(mod):
     """The public callables a module defines or re-exports from NumPy
-    (not those it imports from the rest of its package)."""
+    (not those it imports from the rest of its package, nor the host
+    fallbacks an earlier lookup cached)."""
     out = set()
     for name, v in vars(mod).items():
         if name.startswith("_") or isinstance(v, types.ModuleType) \
-                or not callable(v):
+                or not callable(v) or _is_fallback(v):
             continue
         m = getattr(v, "__module__", "") or ""
         if m.startswith("mxnet_tpu.") and not m.startswith(mod.__name__):
@@ -186,6 +195,18 @@ def test_name_parity(sub):
                       "PZERO", "NZERO"):
             assert vars(tm)[const] == vars(jm)[const] \
                 or onp.isnan(vars(jm)[const])
+
+
+def test_name_parity_after_fallback_lookups():
+    """A lookup of a name neither package defines caches a host fallback
+    in the module's globals; parity holds all the same, whichever test
+    ran first on the worker."""
+    for name in ("busday_count", "nanpercentile", "poly"):
+        assert callable(getattr(jmx.np, name))
+        assert callable(getattr(tmx.np, name))
+    assert "busday_count" in vars(jmx.np)
+    assert not {"busday_count", "nanpercentile", "poly"} & _public(jmx.np)
+    assert not sorted(n for n in _public(jmx.np) if n not in vars(tmx.np))
 
 
 # ---------------------------------------------------------------------------

@@ -158,12 +158,12 @@ def test_update_on_parameters_reads_their_gradient():
     """``update`` takes ``Parameter`` weights and gradients (the
     parameter's ``grad()`` buffer) and writes in place."""
     from mxnet_tpu_torch.gluon import Parameter
-    p = Parameter("w", (3,))
+    p = Parameter("w", shape=(3,))
     p.set_data(torch.ones(3))
-    p.grad().fill_(2.0)
+    p.grad()[:] = 2.0
     opt = topt.create("sgd", learning_rate=0.5)
     opt.update(0, p, p, opt.create_state(0, p))
-    assert torch.equal(p.data(), torch.zeros(3))
+    assert torch.equal(p._read(), torch.zeros(3))
 
 
 def test_registry_and_counts():

@@ -503,7 +503,7 @@ def test_engine_paged_rollover_flushes_prefix_cache(kv_dtype):
     (tests/test_paged.py's rollover test)."""
     def build(seed):
         return tgpt.gpt_small(device="cpu").initialize(seed=seed)
-    params_b = {k: p.data().numpy().copy()
+    params_b = {k: p._read().numpy().copy()
                 for k, p in build(2).collect_params().items()}
     eng = _paged_engine(build(1), kv_dtype=kv_dtype)
     p = _prompt(onp.random.RandomState(12), 2 * PS)   # a clean peek hit

@@ -241,7 +241,7 @@ def test_quantized_generation_logits_match_jax(pair):
                                     onp.asarray(jl)[[1, 3]], **MODEL_TOL)
     # the int8 path really differs from fp32 (the rounding is visible)
     fp32 = tgpt.gpt_small(device="cpu")
-    tgpt.load_jax_params(fp32, {k: p.data().numpy() for k, p in
+    tgpt.load_jax_params(fp32, {k: p._read().numpy() for k, p in
                                 tnet.collect_params().items()})
     fl, _ = fp32.prefill(padded, [11, 5], fp32.init_cache(SLOTS, SMAX),
                          slots=[1, 3])

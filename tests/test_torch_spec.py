@@ -612,14 +612,14 @@ def test_spec_sync_mode_and_load_weights(target, draft, monkeypatch):
     p = _prompt(rng, 7)
     eng = _engine(tnet, max_new=6, draft_model=draft[1], spec_k=K)
     ref = eng.submit(p).result(timeout=120).tokens
-    new = {k: q.data().numpy() * 1.5 for k, q in
+    new = {k: q._read().numpy() * 1.5 for k, q in
            _pair(32, 2, 23)[1].collect_params().items()}
-    draft_before = {k: v.data().clone() for k, v in
+    draft_before = {k: v._read().clone() for k, v in
                     draft[1].collect_params().items()}
     eng.load_weights(new)
     swapped = eng.submit(p).result(timeout=120).tokens
     eng.close()
-    assert all(torch.equal(v.data(), draft_before[k])
+    assert all(torch.equal(v._read(), draft_before[k])
                for k, v in draft[1].collect_params().items())
     fresh = _serve(_engine(tnet, max_new=6), [p], [6])[0].tokens
     assert swapped == fresh

@@ -201,10 +201,33 @@ def test_download_serves_local_files(tmp_path):
     ("check_symbolic_backward", (None, [], None, []), 26),
     ("same_symbol_structure", (None, None), 26),
     ("numeric_grad", (None, {}), 26),
-    ("check_gluon_hybridize_consistency", (None, []), 15),
 ])
 def test_helpers_of_later_items_raise(name, args, item):
     with pytest.raises(NotPortedError, match=f"item {item}"):
         getattr(tu, name)(*args)
     with pytest.raises(NotPortedError, match="item 26"):
         tu.check_speed(sym=object())
+
+
+def test_check_gluon_hybridize_consistency():
+    """Since ``hybridize`` is ported the helper runs: a block's output
+    and input gradients, and ``numpy_func``; a block whose hybridized
+    call differs from its eager one fails it."""
+    from mxnet_tpu_torch.gluon import nn
+
+    def build():
+        net = nn.HybridSequential()
+        net.add(nn.Dense(4, activation="tanh", in_units=5),
+                nn.Dense(2, in_units=4))
+        return net
+
+    x = tmx.np.array(onp.random.RandomState(0).rand(3, 5).astype("f4"))
+    tu.check_gluon_hybridize_consistency(build, [x])
+    tu.check_gluon_hybridize_consistency(
+        lambda: nn.HybridLambda("tanh"), [x], numpy_func=onp.tanh)
+
+    class Moody(nn.HybridBlock):
+        def forward(self, x):
+            return x * (2.0 if self._active else 1.0)
+    with pytest.raises(AssertionError):
+        tu.check_gluon_hybridize_consistency(Moody, [x])

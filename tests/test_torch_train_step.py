@@ -139,7 +139,7 @@ def test_adam_losses_match_reference(jax_params, jax_adam):
     assert got[-1] < got[0]
     for a, b in zip(got, ref):
         assert abs(a - b) <= 1e-4 * abs(b), (got, ref)
-    assert {p.data().dtype for p in net.collect_params().values()} \
+    assert {p._read().dtype for p in net.collect_params().values()} \
         == {torch.float32}
 
 
@@ -183,7 +183,7 @@ def test_step_one_gradients_match_reference(jax_net, jax_params):
             else float(onp.abs(r).max())
         assert float(onp.abs(g.numpy() - r).max()) <= 1e-5 * scale, name
         # grad_req "write": the parameter's buffer holds the gradient
-        assert torch.equal(net.collect_params()[name].grad(), g)
+        assert torch.equal(net.collect_params()[name].grad()._data, g)
     # gradients() applies nothing
     assert step.optimizer.num_update == 0
 
@@ -194,7 +194,7 @@ def test_sgd_momentum_params_match_reference(jax_params):
     for a, b in zip(got_losses, ref_losses):
         assert abs(a - b) <= 1e-4 * abs(b)
     for name, p in net.collect_params().items():
-        onp.testing.assert_allclose(p.data().numpy(), ref[name], atol=1e-5,
+        onp.testing.assert_allclose(p._read().numpy(), ref[name], atol=1e-5,
                                     rtol=0, err_msg=name)
 
 
@@ -209,7 +209,7 @@ def test_trainstep_bf16_fp32_masters_and_bounded_loss(jax_params):
         step = tparallel.TrainStep(net, _LmLoss(), "adam",
                                    {"learning_rate": 0.01}, **kw)
         losses = [float(step(data, label)) for _ in range(3)]
-        dtypes = {str(p.data().dtype) for p in
+        dtypes = {str(p._read().dtype) for p in
                   net.collect_params().values()}
         states = {str(t.dtype) for s in step._opt_states for t in s}
         return losses, dtypes | states
@@ -261,7 +261,7 @@ def test_padded_batch_equals_unpadded(jax_params, how):
     assert abs(loss_a - loss_b) <= 1e-6 * loss_a
     for (name, pa), pb in zip(net_a.collect_params().items(),
                               net_b.collect_params().values()):
-        torch.testing.assert_close(pa.data(), pb.data(), atol=1e-6,
+        torch.testing.assert_close(pa._read(), pb._read(), atol=1e-6,
                                    rtol=1e-6, msg=name)
 
 
@@ -294,7 +294,7 @@ def test_run_chain_equals_sequential_steps(jax_params):
     assert [float(x) for x in chain] == seq
     for pa, pb in zip(net_b.collect_params().values(),
                       net_c.collect_params().values()):
-        assert torch.equal(pa.data(), pb.data())
+        assert torch.equal(pa._read(), pb._read())
 
 
 def test_optimizer_state_survives_signature_change(jax_params):
@@ -331,7 +331,7 @@ def test_grad_req_null_and_add(jax_params):
     params = net.collect_params()
     frozen = params["word_embed.weight"]
     frozen.grad_req = "null"
-    before = frozen.data().clone()
+    before = frozen._read().clone()
     step = tparallel.TrainStep(net, _LmLoss(), "sgd", {"learning_rate": 1.0})
     d, l = (torch.from_numpy(a) for a in _batch())
     _, grads = step.gradients(d, l)
@@ -339,21 +339,21 @@ def test_grad_req_null_and_add(jax_params):
     with pytest.raises(RuntimeError, match="grad_req='null'"):
         frozen.grad()
     step(d, l)
-    assert torch.equal(frozen.data(), before)
+    assert torch.equal(frozen._read(), before)
     head = params["lm_head.weight"]
     head.grad_req = "add"
     head.zero_grad()
     step.gradients(d, l)
-    once = head.grad().clone()
+    once = head.grad()._data.clone()
     step.gradients(d, l)
-    torch.testing.assert_close(head.grad(), 2 * once)
+    torch.testing.assert_close(head.grad()._data, 2 * once)
     with pytest.raises(ValueError, match="grad_req"):
         head.grad_req = "sometimes"
 
 
 def test_warmup_updates_nothing(jax_params):
     net = _port_net(jax_params)
-    before = {k: p.data().clone() for k, p in net.collect_params().items()}
+    before = {k: p._read().clone() for k, p in net.collect_params().items()}
     step = tparallel.TrainStep(net, _LmLoss(), *ADAM)
     telemetry.reset()
     sigs = step.warmup([((8, 32), (8, 32))], dtype="int32")
@@ -362,7 +362,7 @@ def test_warmup_updates_nothing(jax_params):
         assert telemetry.counter_value("parallel.train_step.build") == 1
         assert telemetry.counter_value("parallel.train_step.warmup") == 1
     for k, p in net.collect_params().items():
-        assert torch.equal(p.data(), before[k]), k
+        assert torch.equal(p._read(), before[k]), k
     d, l = (torch.from_numpy(a) for a in _batch())
     step(d, l)
     assert len(step._entries) == 1     # the warmed entry serves the step
@@ -373,7 +373,7 @@ def test_serving_calls_build_no_graph(jax_params):
     step = tparallel.TrainStep(net, _LmLoss(), *ADAM)
     d, l = (torch.from_numpy(a) for a in _batch(2))
     step(d, l)
-    assert not any(p.data().requires_grad
+    assert not any(p._read().requires_grad
                    for p in net.collect_params().values())
     assert not net(d).requires_grad
     cache = net.init_cache(2)
@@ -381,7 +381,7 @@ def test_serving_calls_build_no_graph(jax_params):
                             cache)
     assert logits.grad_fn is None and not logits.requires_grad
     # the parameters still convert to numpy as they are (no grad)
-    assert net.collect_params()["lm_head.weight"].data().numpy().shape \
+    assert net.collect_params()["lm_head.weight"]._read().numpy().shape \
         == (VOCAB, UNITS)
 
 
