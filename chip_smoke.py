@@ -77,6 +77,19 @@ through ``GenerationEngine``:
   forward of 20 that adds no entry); then DLPack, ``runtime``, the
   memory queries and ``mx.random.seed`` on the card;
 
+- ``rnn``: ``gluon.rnn``, the losses, ``gluon.metric`` and the file
+  layer on the card, each against the CPU port: the word-level LSTM
+  language model at its published width (Zaremba et al., 2014's
+  "medium": vocab 10000, 650 x 2 layers, bptt 35, batch 64; 3 SGD steps
+  with the gradient norm clipped, ``metric.Perplexity``), save and load
+  of its parameters (the card's and the CPU port's files) and of its
+  trainer's states (the next step bitwise), ``mx.save``/``mx.load`` of
+  sparse arrays, ``model.save_checkpoint``, a dropout step repeated
+  under ``mx.random.seed``, a profile and the same step through cuDNN's
+  LSTM (printed only); a bidirectional GRU with sequence lengths, a
+  ``Conv2DLSTMCell`` unrolled 10 steps, every new loss at a realistic
+  size and every metric;
+
 - ``engine``: the dense fp32 engine, 24 greedy requests;
 - ``bf16_engine``: the same requests on the dense engine with
   ``compute_dtype="bfloat16"`` at ``decode_ticks=4`` and then 1 (the
@@ -170,6 +183,12 @@ Tolerances, with their reasons:
 - training, card vs the CPU port (fp32, the same weights): losses within
   1e-4 relative, step-one gradients within 1e-3 x max|g| per tensor;
   bf16 losses within the reference's 0.15 of fp32's, and falling;
+- the ``rnn`` phase, card vs the CPU port: the LM's losses within 1e-4
+  relative and parameters within 1e-2 of their change (2-norm),
+  ``Perplexity`` within 1e-5 of exp(mean loss), the GRU, the conv cell
+  and the losses within 1e-4 x max(1, max|ref|), the metrics equal, and
+  what a file carries bitwise (RNN_LOSS_REL, RNN_PARAM_REL, RNN_PPL_REL,
+  RNN_FWD_TOL);
 - the ``gluon`` phase, card vs the CPU port: losses within 1e-4
   relative; the Transformer's Adam updates element by element within
   1 % of lr, at most 1e-3 of the elements outside; the conv net's
@@ -5752,6 +5771,655 @@ def phase_gluon(torch, card_name):
             "resnet": conv, "toplevel": top}
 
 
+#: the rnn phase's language model: the "medium" word-level LSTM LM of
+#: Zaremba et al., 2014 (*Recurrent Neural Network Regularization*; the
+#: reference's example/rnn/word_lm) in examples/lstm_lm.py's structure
+#: (Embedding -> Dropout -> rnn.LSTM -> Dense) at
+#: scripts/tpu_stage_lstm.py's configuration: vocab 10000, a 650-wide
+#: embedding, 2 LSTM layers of 650, bptt 35, batch 64, layout NTC; SGD
+#: at lr 1.0 with the global gradient norm clipped at 0.25 and
+#: SoftmaxCrossEntropyLoss, the state carried and detached between steps
+RNN_LM = dict(vocab=10000, embed=650, hidden=650, layers=2, bptt=35,
+              batch=64, lr=1.0, clip=0.25, steps=3, dropout=0.5,
+              profile_steps=2, library_steps=4)
+#: card vs CPU port, the same weights and data (fp32): losses within
+#: 1e-4 relative (two devices' reduction orders over 650-wide products,
+#: a 10000-way softmax and 2240 tokens); each parameter's distance from
+#: the CPU's within 1e-2 of how far it moved (2-norms, as the gluon
+#: phase's conv gate); metric.Perplexity on the card's softmax equal to
+#: exp of the mean loss within 1e-5 relative (the same log-probabilities,
+#: one computed on the host from the card's probabilities)
+RNN_LOSS_REL = 1e-4
+RNN_PARAM_REL = 1e-2
+RNN_PPL_REL = 1e-5
+#: the other recurrent paths and the losses, card vs CPU port: within
+#: 1e-4 x max(1, max|ref|) (fp32 sums of 650-1600-term products and 35
+#: steps of recurrence, or 200 frames of CTC's log-sum-exp recursion, in
+#: two devices' orders)
+RNN_FWD_TOL = 1e-4
+#: a bidirectional GRU with use_sequence_length at the LM's width
+RNN_GRU = dict(hidden=650, input=650, bptt=35, batch=64)
+#: Conv2DLSTMCell at the Moving-MNIST patch shape of Shi et al., 2015
+#: (16 x 16 x 16 input, 64 hidden channels, 5 x 5 kernels), 10 steps
+RNN_CONV = dict(batch=16, input=(16, 16, 16), hidden=64, kernel=5,
+                steps=10)
+#: CTCLoss at a character set's size: N 32, T 200, 29 classes, labels up
+#: to 50
+RNN_CTC = dict(n=32, t=200, classes=29, max_label=50)
+
+
+def _lm_corpus(n_tokens, vocab, seed=0):
+    """examples/lstm_lm.py's synthetic corpus: Zipf unigrams, and token
+    t followed by (7 t + 3) % vocab 60 % of the time."""
+    rng = np.random.RandomState(seed)
+    ranks = np.arange(1, vocab + 1, dtype="f8")
+    p = (1.0 / ranks) / (1.0 / ranks).sum()
+    toks = np.empty(n_tokens, "i4")
+    toks[0] = 0
+    zipf = rng.choice(vocab, size=n_tokens, p=p)
+    follow = rng.uniform(size=n_tokens) < 0.6
+    for i in range(1, n_tokens):
+        toks[i] = (toks[i - 1] * 7 + 3) % vocab if follow[i] else zipf[i]
+    return toks
+
+
+def _lm_batches(n):
+    """``n`` (x, y) batches of (batch, bptt) tokens, y shifted by one."""
+    b, t = RNN_LM["batch"], RNN_LM["bptt"]
+    data = _lm_corpus(b * (n * t + 1), RNN_LM["vocab"]).reshape(b, -1)
+    return [(data[:, s * t:(s + 1) * t],
+             data[:, s * t + 1:(s + 1) * t + 1]) for s in range(n)]
+
+
+def _lm_model(mx, dropout=0.0):
+    """examples/lstm_lm.py's LSTMLanguageModel at RNN_LM's widths, a
+    user's block over NDArrays."""
+    nn, rnn = mx.gluon.nn, mx.gluon.rnn
+
+    class LSTMLanguageModel(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(RNN_LM["vocab"], RNN_LM["embed"])
+            self.drop = nn.Dropout(dropout)
+            self.lstm = rnn.LSTM(RNN_LM["hidden"],
+                                 num_layers=RNN_LM["layers"],
+                                 dropout=dropout, layout="NTC",
+                                 input_size=RNN_LM["embed"])
+            self.decoder = nn.Dense(RNN_LM["vocab"], flatten=False)
+
+        def begin_state(self, batch_size, ctx=None):
+            return self.lstm.begin_state(batch_size=batch_size, ctx=ctx)
+
+        def forward(self, tokens, state):
+            x = self.drop(self.embed(tokens))
+            out, new_state = self.lstm(x, state)
+            return self.decoder(self.drop(out)), new_state
+
+    return LSTMLanguageModel()
+
+
+def _lm_settled(mx, ctx, x, weights=None, dropout=0.0):
+    """An LM on ``ctx``, its deferred shapes settled by one predict-mode
+    forward, initialized by Xavier or given ``weights`` by name."""
+    from mxnet_tpu_torch.gluon.parameter import load_jax_params
+    with ctx:
+        net = _lm_model(mx, dropout)
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.pause():
+            net(mx.np.array(x), net.begin_state(x.shape[0]))
+        if weights is not None:
+            load_jax_params(net, weights)
+    return net
+
+
+class _LMTrainer:
+    """examples/lstm_lm.py's loop: record -> the mean per-sequence loss
+    -> backward -> clip_global_norm -> Trainer("sgd").step(1), the
+    state detached between steps."""
+
+    def __init__(self, mx, net, ctx):
+        self.mx, self.net, self.ctx = mx, net, ctx
+        with ctx:
+            self.trainer = mx.gluon.Trainer(
+                net.collect_params(), "sgd",
+                {"learning_rate": RNN_LM["lr"]})
+            self.state = net.begin_state(RNN_LM["batch"])
+        self.loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        self.logits = None
+
+    def step(self, x, y):
+        mx = self.mx
+        with self.ctx:
+            self.state = [s.detach() for s in self.state]
+            with mx.autograd.record():
+                logits, self.state = self.net(mx.np.array(x), self.state)
+                loss = self.loss_fn(logits, mx.np.array(y)).mean()
+            loss.backward()
+            grads = [p.grad() for p in self.net.collect_params().values()
+                     if p.grad_req != "null"]
+            mx.gluon.utils.clip_global_norm(grads, RNN_LM["clip"])
+            self.trainer.step(1)
+        self.logits = logits
+        return float(loss)
+
+
+def _lm_steps(torch, trainer, batches):
+    """Train on ``batches``: the losses and each step's wall ms (the
+    loss read back ends it)."""
+    losses, ms = [], []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        losses.append(trainer.step(x, y))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def _params_np(net):
+    return {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+
+
+def _library_lm_step(torch, weights, batches):
+    """The same step in plain PyTorch with the recurrence through
+    ``torch.nn.LSTM`` (cuDNN): wall ms a step (printed only, never on
+    the port's path)."""
+    f = torch.nn.functional
+    dev = torch.device("cuda")
+
+    def t(name):
+        return torch.tensor(weights[name], device=dev, requires_grad=True)
+
+    emb, dec_w, dec_b = t("embed.weight"), t("decoder.weight"), \
+        t("decoder.bias")
+    lstm = torch.nn.LSTM(RNN_LM["embed"], RNN_LM["hidden"],
+                         RNN_LM["layers"], batch_first=True).to(dev)
+    with torch.no_grad():
+        for layer in range(RNN_LM["layers"]):
+            for ours, theirs in (("i2h_weight", "weight_ih"),
+                                 ("h2h_weight", "weight_hh"),
+                                 ("i2h_bias", "bias_ih"),
+                                 ("h2h_bias", "bias_hh")):
+                getattr(lstm, f"{theirs}_l{layer}").copy_(torch.tensor(
+                    weights[f"lstm.l{layer}_{ours}"]))
+    params = [emb, dec_w, dec_b] + list(lstm.parameters())
+    opt = torch.optim.SGD(params, lr=RNN_LM["lr"])
+    shape = (RNN_LM["layers"], RNN_LM["batch"], RNN_LM["hidden"])
+    state = (torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+    ms = []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = tuple(s.detach() for s in state)
+        xt = torch.as_tensor(x, device=dev).long()
+        yt = torch.as_tensor(y, device=dev).long()
+        out, state = lstm(f.embedding(xt, emb), state)
+        logits = f.linear(out, dec_w, dec_b)
+        loss = f.cross_entropy(logits.reshape(-1, RNN_LM["vocab"]),
+                               yt.reshape(-1))
+        opt.zero_grad()
+        loss.backward()
+        torch.nn.utils.clip_grad_norm_(params, RNN_LM["clip"])
+        opt.step()
+        float(loss.detach())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _recurrence_ms(torch, weights):
+    """The recurrence alone, forward and backward at the LM's shape:
+    the port's ``ops.nn.rnn`` (per-timestep loop) and ``torch.nn.LSTM``
+    (cuDNN), ms of each (the median of 3, after one warm-up)."""
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    dev = torch.device("cuda")
+    b, t, h = RNN_LM["batch"], RNN_LM["bptt"], RNN_LM["hidden"]
+    names = [f"lstm.l{k}_{g}_weight" for k in range(RNN_LM["layers"])
+             for g in ("i2h", "h2h")] + \
+        [f"lstm.l{k}_{g}_bias" for k in range(RNN_LM["layers"])
+         for g in ("i2h", "h2h")]
+    flat = torch.cat([torch.tensor(weights[n]).reshape(-1)
+                      for n in names]).to(dev).requires_grad_(True)
+    x = torch.randn(t, b, h, device=dev, requires_grad=True)
+    h0 = torch.zeros(RNN_LM["layers"], b, h, device=dev)
+    lstm = torch.nn.LSTM(h, h, RNN_LM["layers"]).to(dev)
+
+    def ours():
+        out = ops_nn.rnn(x, flat, h0, state_cell=h0, mode="lstm",
+                         state_size=h, num_layers=RNN_LM["layers"])[0]
+        out.sum().backward()
+
+    def cudnn():
+        out, _ = lstm(x, (h0, h0))
+        out.sum().backward()
+
+    res = {}
+    for name, fn in (("port_loop", ours), ("cudnn", cudnn)):
+        ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res[name] = float(np.median(ms[1:]))
+    return res
+
+
+def _lm_profile(torch, trainer, batches):
+    """RNN_LM["profile_steps"] more card steps under torch.profiler:
+    wall ms a step, the card's busy ms (the union of its kernel
+    intervals) and share, kernels a step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in batches:
+            trainer.step(x, y)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / len(batches)
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kern), "the profiler saw no kernel on the card")
+    busy = _busy_ms([(e.time_range.start, e.time_range.end)
+                     for e in kern]) / len(batches)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall,
+            "kernels_per_step": len(kern) / len(batches)}
+
+
+def _rel_to_change(card, host, before):
+    """The largest ratio, over the parameters, of the card-CPU distance
+    to how far the parameter moved (2-norms), and its name."""
+    worst, worst_name = 0.0, None
+    for name, got in card.items():
+        moved = float(np.linalg.norm(got - before[name]))
+        rel = float(np.linalg.norm(got - host[name])) / max(moved, 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def _rnn_lm_part(torch, mx, card_name, tmp):
+    from mxnet_tpu_torch import ops
+    n_steps = RNN_LM["steps"]
+    batches = _lm_batches(n_steps + 2 + RNN_LM["profile_steps"]
+                          + RNN_LM["library_steps"])
+    t0 = time.perf_counter()
+    x0 = batches[0][0]
+    card = _lm_settled(mx, mx.gpu(0), x0)
+    check(all(p.data().ctx == mx.gpu(0)
+              for p in card.collect_params().values()),
+          "rnn LM: a parameter is off the card")
+    state_ctx = {s.ctx for s in card.begin_state(2)}
+    check(state_ctx == {mx.gpu(0)}, f"rnn LM: begin_state on {state_ctx}")
+    weights = _params_np(card)
+    host = _lm_settled(mx, mx.cpu(), x0, weights)
+    ctr = _LMTrainer(mx, card, mx.gpu(0))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    card_losses, ms = _lm_steps(torch, ctr, batches[:n_steps])
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    # metric.Perplexity on the last step's card softmax, its labels
+    ppl = mx.gluon.metric.Perplexity()
+    with mx.gpu(0):
+        ppl.update([mx.np.array(batches[n_steps - 1][1])],
+                   [mx.npx.softmax(ctr.logits)])
+    ppl_err = abs(ppl.get()[1] - math.exp(card_losses[-1])) \
+        / math.exp(card_losses[-1])
+    htr = _LMTrainer(mx, host, mx.cpu())
+    host_losses, host_ms = _lm_steps(torch, htr, batches[:n_steps])
+    loss_err = max(abs(a - c) / abs(c)
+                   for a, c in zip(card_losses, host_losses))
+    card_w, host_w = _params_np(card), _params_np(host)
+    worst, worst_name = _rel_to_change(card_w, host_w, weights)
+    files = _rnn_files(torch, mx, card, host_w, ctr, batches, tmp)
+    # one step at dropout 0.5 on the trained weights: finite, and
+    # repeated under mx.random.seed
+    drop = _lm_settled(mx, mx.gpu(0), x0, card_w, RNN_LM["dropout"])
+    dtr = _LMTrainer(mx, drop, mx.gpu(0))
+    x, y = batches[n_steps + 1]
+    with mx.gpu(0):
+        mx.random.seed(11)
+        with mx.autograd.record():
+            first = dtr.loss_fn(drop(mx.np.array(x), dtr.state)[0],
+                                mx.np.array(y)).mean()
+        mx.random.seed(11)
+        drop_loss = dtr.step(x, y)
+    drop_same = float(first) == drop_loss
+    del drop, dtr
+    prof = _lm_profile(torch, ctr, batches[n_steps + 2:n_steps + 2
+                                           + RNN_LM["profile_steps"]])
+    lib_ms = _library_lm_step(torch, card_w, batches[-RNN_LM[
+        "library_steps"]:])
+    rec = _recurrence_ms(torch, card_w)
+    p50 = float(np.median(ms[1:]))  # the first step warms cuBLAS
+    prof["device_busy_share_of_p50"] = prof["device_busy_ms"] / p50
+    tokens = RNN_LM["batch"] * RNN_LM["bptt"]
+    out = {"card": card_name, "config": RNN_LM,
+           "card_losses": card_losses, "cpu_losses": host_losses,
+           "max_loss_rel_err": loss_err,
+           "max_param_err_rel_to_change": worst, "worst_param": worst_name,
+           "perplexity": ppl.get()[1], "perplexity_rel_err": ppl_err,
+           "dropout_loss": drop_loss, "dropout_repeats": drop_same,
+           "step_ms": ms, "step_ms_p50": p50,
+           "tokens_per_s": tokens / p50 * 1e3, "cpu_step_ms": host_ms,
+           "launches": launches, "profile": prof,
+           "library_step_ms": lib_ms,
+           "library_step_ms_p50": float(np.median(lib_ms[1:])),
+           "library": "the same step with torch.nn.LSTM (cuDNN), "
+                      "F.cross_entropy, clip_grad_norm_, optim.SGD",
+           "recurrence_fwd_bwd_ms": rec, "files": files,
+           "seconds": time.perf_counter() - t0}
+    emit("rnn_lm", **out)
+    check(all(math.isfinite(v) for v in card_losses),
+          f"rnn LM: non-finite loss {card_losses}")
+    check(loss_err <= RNN_LOSS_REL, f"rnn LM: card vs CPU losses {loss_err}")
+    check(worst <= RNN_PARAM_REL,
+          f"rnn LM: {worst_name} {worst} x its change (2-norm) from the "
+          f"CPU's")
+    check(ppl_err <= RNN_PPL_REL,
+          f"rnn LM: perplexity {ppl.get()[1]} vs exp(loss) {ppl_err}")
+    check(math.isfinite(drop_loss) and drop_same,
+          f"rnn LM: dropout step {drop_loss} (repeats: {drop_same})")
+    return out
+
+
+def _rnn_files(torch, mx, card, host_w, ctr, batches, tmp):
+    """Save and load on the card: parameters (from the card net and from
+    the CPU port's), the trainer's states (the next step bitwise the
+    uninterrupted one's), mx.save/mx.load with sparse arrays, and
+    model.save_checkpoint/load_params."""
+    from mxnet_tpu_torch.gluon.parameter import load_jax_params
+    x0, _ = batches[0]
+    res = {}
+    with mx.gpu(0):
+        xa = mx.np.array(x0)
+        st = card.begin_state(RNN_LM["batch"])
+        with mx.autograd.pause():
+            want = card(xa, st)[0].asnumpy()
+        pf = f"{tmp}/lm.params"
+        card.save_parameters(pf)
+        fresh = _lm_settled(mx, mx.gpu(0), x0)
+        ptrs = [p._var().data_ptr() for p in fresh.collect_params().values()]
+        fresh.load_parameters(pf)
+        with mx.autograd.pause():
+            got = fresh(xa, st)[0].asnumpy()
+        res["card_file_bitwise"] = bool(np.array_equal(got, want))
+        res["storage_kept"] = ptrs == [p._var().data_ptr() for p in
+                                       fresh.collect_params().values()]
+        # a file the CPU port wrote, against the same weights set by name
+        with mx.cpu():
+            host = _lm_settled(mx, mx.cpu(), x0, host_w)
+            host.save_parameters(f"{tmp}/host.params")
+        fresh.load_parameters(f"{tmp}/host.params")
+        by_name = _lm_settled(mx, mx.gpu(0), x0)
+        load_jax_params(by_name, host_w)
+        with mx.autograd.pause():
+            a = fresh(xa, st)[0].asnumpy()
+            b = by_name(xa, st)[0].asnumpy()
+        res["cpu_file_bitwise"] = bool(np.array_equal(a, b))
+        del host, by_name
+        # the trainer: save after the trained steps, then the next step
+        # uninterrupted and resumed from the files
+        sf = f"{tmp}/lm.states"
+        card.save_parameters(pf)
+        ctr.trainer.save_states(sf)
+        state0 = [s.detach() for s in ctr.state]
+        x, y = batches[RNN_LM["steps"]]
+        ctr.step(x, y)
+        want = _params_np(card)
+        rtr = _LMTrainer(mx, fresh, mx.gpu(0))
+        fresh.load_parameters(pf)
+        rtr.trainer.load_states(sf)
+        rtr.state = state0
+        rtr.step(x, y)
+        got = _params_np(fresh)
+        res["resume_bitwise"] = all(np.array_equal(got[k], want[k])
+                                    for k in want)
+        del fresh, rtr
+        # mx.save/mx.load: a dict with a csr and a row_sparse array
+        dense = np.zeros((64, 650), "f4")
+        dense[::7, ::3] = np.random.RandomState(5).standard_normal(
+            dense[::7, ::3].shape)
+        d = {"csr": mx.nd.sparse.csr_matrix(dense),
+             "rsp": mx.nd.sparse.row_sparse_array(dense),
+             "emb": card.embed.weight.data()}
+        mx.save(f"{tmp}/d.npz", d)
+        back = mx.load(f"{tmp}/d.npz")
+        res["sparse_round_trip"] = (
+            back["csr"].stype == "csr" and back["rsp"].stype == "row_sparse"
+            and all(v.ctx == mx.gpu(0) for v in back.values())
+            and all(np.array_equal(back[k].asnumpy(), d[k].asnumpy())
+                    for k in d))
+        # model.save_checkpoint / load_params (legacy .params)
+        arg = {k: p.data() for k, p in card.collect_params().items()}
+        mx.model.save_checkpoint(f"{tmp}/ck", 1, None, arg, {})
+        a, x_ = mx.model.load_params(f"{tmp}/ck", 1)
+        res["checkpoint_round_trip"] = (
+            list(a) == list(arg) and not x_
+            and all(np.array_equal(a[k].asnumpy(), arg[k].asnumpy())
+                    for k in arg))
+    for key, ok in res.items():
+        check(ok, f"rnn files: {key} failed")
+    return res
+
+
+def _card_cpu(torch, build, run, x_np):
+    """``run(block, x)`` of the block ``build`` makes, on the card and on
+    the CPU port with the card block's weights: the outputs (numpy) of
+    each, and the card call's ms (after one warm-up)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.parameter import load_jax_params
+    with mx.gpu(0):
+        card = build()
+        card.initialize(mx.init.Xavier())
+        xa = mx.np.array(x_np)
+        run(card, xa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [o.asnumpy() for o in run(card, xa)]
+        ms = (time.perf_counter() - t0) * 1e3
+        weights = _params_np(card)
+    with mx.cpu():
+        host = build()
+        host.initialize()
+        load_jax_params(host, weights)
+        ref = [o.asnumpy() for o in run(host, mx.np.array(x_np))]
+    err = max(float(np.abs(g - r).max()) / max(1.0, float(np.abs(r).max()))
+              for g, r in zip(got, ref))
+    return err, ms
+
+
+def _rnn_other_part(torch, mx, card_name):
+    """A bidirectional GRU with use_sequence_length at the LM's width and
+    a Conv2DLSTMCell unrolled 10 steps, card against the CPU port."""
+    rnn = mx.gluon.rnn
+    g = RNN_GRU
+    rs = np.random.RandomState(41)
+    xg = rs.standard_normal((g["batch"], g["bptt"], g["input"])).astype("f4")
+    lens = rs.randint(1, g["bptt"] + 1, g["batch"]).astype("i4")
+
+    def gru():
+        return rnn.GRU(g["hidden"], bidirectional=True, layout="NTC",
+                       use_sequence_length=True, input_size=g["input"])
+
+    def run_gru(block, x):
+        st = block.begin_state(g["batch"])
+        out, states = block(x, st, mx.np.array(lens, ctx=x.ctx))
+        return [out] + list(states)
+
+    gru_err, gru_ms = _card_cpu(torch, gru, run_gru, xg)
+    c = RNN_CONV
+    xc = rs.standard_normal((c["batch"], c["steps"]) + c["input"]) \
+        .astype("f4")
+    pad = c["kernel"] // 2
+
+    def conv():
+        return rnn.Conv2DLSTMCell(c["input"], c["hidden"], c["kernel"],
+                                  c["kernel"], i2h_pad=pad)
+
+    def run_conv(block, x):
+        out, states = block.unroll(c["steps"], x, layout="NTC")
+        return [out] + list(states)
+
+    conv_err, conv_ms = _card_cpu(torch, conv, run_conv, xc)
+    out = {"card": card_name, "gru": g, "gru_max_err": gru_err,
+           "gru_fwd_ms": gru_ms, "conv_lstm": c, "conv_max_err": conv_err,
+           "conv_unroll_ms": conv_ms}
+    emit("rnn_other", **out)
+    check(gru_err <= RNN_FWD_TOL, f"rnn GRU: card vs CPU {gru_err}")
+    check(conv_err <= RNN_FWD_TOL, f"rnn ConvLSTM: card vs CPU {conv_err}")
+    return out
+
+
+def _rnn_loss_cases(rs):
+    """Every loss of item 15b at a realistic size: (name, class, kwargs,
+    forward arguments as numpy)."""
+    def nrm(*shape):
+        return rs.standard_normal(shape).astype("f4")
+
+    def bits(*shape):
+        return rs.randint(0, 2, shape).astype("f4")
+
+    c = RNN_CTC
+    lab = rs.randint(1, c["classes"], (c["n"], c["max_label"])).astype("i4")
+    lab_len = rs.randint(c["max_label"] // 5, c["max_label"] + 1,
+                         c["n"]).astype("i4")
+    lab[np.arange(c["max_label"])[None, :] >= lab_len[:, None]] = 0
+    pred_len = rs.randint(3 * c["t"] // 4, c["t"] + 1, c["n"]).astype("i4")
+    logp = nrm(256, 1000)
+    prob = np.exp(nrm(256, 1000))
+    prob /= prob.sum(-1, keepdims=True)
+    return [
+        ("sigmoid_bce", "SigmoidBCELoss", {}, [nrm(1024, 256),
+                                               bits(1024, 256)], {}),
+        ("sigmoid_bce_pos_weight", "SigmoidBinaryCrossEntropyLoss",
+         {"from_sigmoid": True},
+         [1 / (1 + np.exp(-nrm(1024, 256))), bits(1024, 256)],
+         {"pos_weight": rs.uniform(0.5, 3, 256).astype("f4")}),
+        ("kldiv", "KLDivLoss", {"from_logits": False},
+         [logp, prob.astype("f4")], {}),
+        ("ctc_ntc", "CTCLoss", {},
+         [nrm(c["n"], c["t"], c["classes"]), lab], {}),
+        ("ctc_tnc_lengths", "CTCLoss",
+         {"layout": "TNC", "label_layout": "TN"},
+         [nrm(c["t"], c["n"], c["classes"]), lab.T.copy(), pred_len,
+          lab_len], {}),
+        ("huber", "HuberLoss", {"rho": 0.5}, [nrm(1024, 256),
+                                              nrm(1024, 256)], {}),
+        ("hinge", "HingeLoss", {}, [nrm(1024, 256),
+                                    2 * bits(1024, 256) - 1], {}),
+        ("squared_hinge", "SquaredHingeLoss", {},
+         [nrm(1024, 256), 2 * bits(1024, 256) - 1], {}),
+        ("logistic", "LogisticLoss", {"label_format": "binary"},
+         [nrm(1024, 256), bits(1024, 256)], {}),
+        ("triplet", "TripletLoss", {}, [nrm(1024, 128), nrm(1024, 128),
+                                        nrm(1024, 128)], {}),
+        ("poisson_nll", "PoissonNLLLoss", {"compute_full": True},
+         [nrm(1024, 256) * 0.5,
+          rs.poisson(2.0, (1024, 256)).astype("f4")], {}),
+        ("cosine_embedding", "CosineEmbeddingLoss", {"margin": 0.2},
+         [nrm(1024, 128), nrm(1024, 128), 2 * bits(1024) - 1], {}),
+        ("sdml", "SDMLLoss", {}, [nrm(256, 128), nrm(256, 128)], {}),
+    ]
+
+
+def _rnn_losses_metrics(torch, mx, card_name):
+    """Every new loss at a realistic size and every registered metric,
+    card inputs against the same inputs on the CPU port."""
+    import mxnet_tpu_torch.gluon.loss as L
+    import mxnet_tpu_torch.gluon.metric as M
+    rs = np.random.RandomState(43)
+    losses = {}
+    for name, cls, kw, args, call_kw in _rnn_loss_cases(rs):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            fn = getattr(L, cls)(**kw)
+            ta = [torch.as_tensor(a, device=dev) for a in args]
+            tk = {k: torch.as_tensor(v, device=dev)
+                  for k, v in call_kw.items()}
+            outs.append(fn(*ta, **tk).cpu().numpy())
+        err = float(np.abs(outs[0] - outs[1]).max()) / max(
+            1.0, float(np.abs(outs[1]).max()))
+        losses[name] = {"shape": list(outs[0].shape), "max_err": err,
+                        "finite": bool(np.isfinite(outs[0]).all())}
+    n, c = 4096, 1000
+    logits = rs.standard_normal((n, c)).astype("f4")
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    labels = rs.randint(0, c, n).astype("f4")
+    bin_lab = rs.randint(0, 2, n).astype("f4")
+    reg = (rs.standard_normal((n, 64)).astype("f4"),
+           rs.standard_normal((n, 64)).astype("f4"))
+    sig = (1 / (1 + np.exp(-logits[:, 0]))).astype("f4")
+    inputs = {"class": (labels, probs), "binary": (bin_lab, sig),
+              "binary2": (bin_lab, probs[:, :2]), "reg": reg,
+              "loss": (labels, probs[:, 0])}
+    kinds = {"accuracy": "class", "topkaccuracy": "class", "f1": "binary",
+             "mcc": "binary2", "fbeta": "binary", "mae": "reg", "mse": "reg",
+             "rmse": "reg", "crossentropy": "class",
+             "negativeloglikelihood": "class", "perplexity": "class",
+             "pearsoncorrelation": "reg", "binaryaccuracy": "binary",
+             "meanpairwisedistance": "reg", "meancosinesimilarity": "reg",
+             "pcc": "class", "loss": "loss", "torch": "loss"}
+    metrics = {}
+    for name, kind in kinds.items():
+        lab, pred = inputs[kind]
+        kw = {"top_k": 5} if name == "topkaccuracy" else {}
+        vals = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            m = M.create(name, **kw)
+            with ctx:
+                m.update([mx.np.array(lab)], [mx.np.array(pred)])
+            vals.append(m.get()[1])
+        card_t = M.create(name, **kw)
+        card_t.update([torch.as_tensor(lab, device="cuda")],
+                      [torch.as_tensor(pred, device="cuda")])
+        metrics[name] = {"card": vals[0], "cpu": vals[1],
+                         "card_tensor": card_t.get()[1]}
+    classes = {k.__name__.lower() for k in M._REGISTRY.values()}
+    check(classes - {"compositeevalmetric", "custommetric"} == set(kinds),
+          f"rnn: registered metric classes {sorted(classes)} vs the card "
+          f"cases {sorted(kinds)}")
+    out = {"card": card_name, "losses": losses, "metrics": metrics}
+    emit("rnn_losses_metrics", **out)
+    for name, r in losses.items():
+        check(r["finite"] and r["max_err"] <= RNN_FWD_TOL,
+              f"rnn loss {name}: card vs CPU {r}")
+    for name, r in metrics.items():
+        check(r["card"] == r["cpu"] == r["card_tensor"],
+              f"rnn metric {name}: card {r['card']} vs CPU {r['cpu']} "
+              f"(tensor {r['card_tensor']})")
+    return out
+
+
+def phase_rnn(torch, card_name):
+    """Item 15b and item 18a on the card: (1) the word-level LSTM LM
+    (RNN_LM) trained 3 steps at dropout 0 against the CPU port on the
+    same weights and data (losses, parameters, metric.Perplexity), then
+    save and load (parameters from the card's and the CPU port's files,
+    the trainer's states resuming bitwise, mx.save/mx.load with sparse
+    arrays, model.save_checkpoint/load_params), one step at dropout 0.5
+    repeated under mx.random.seed, a profile of 2 steps, and the same
+    step in plain PyTorch with cuDNN's LSTM (printed only); (2) a
+    bidirectional GRU with use_sequence_length and a Conv2DLSTMCell,
+    card against the CPU port; (3) every new loss at a realistic size
+    (CTCLoss at N 32, T 200, 29 classes) and every metric, card inputs
+    against the CPU's. It launches none of K1-K5: the recurrence is
+    cuBLAS products step by step, as in the reference (a scan)."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lm = _rnn_lm_part(torch, mx, card_name, tmp)
+    other = _rnn_other_part(torch, mx, card_name)
+    lm_ = _rnn_losses_metrics(torch, mx, card_name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("rnn", card=card_name, seconds=time.perf_counter() - t0)
+    return {"launches": lm["launches"], "lm": lm, "other": other,
+            "losses_metrics": lm_}
+
+
 #: the kernels line: name, source, the TPU kernel it replaces (file:line
 #: and function), the kernel phase's result key
 KERNELS = [
@@ -5844,7 +6512,8 @@ def main(argv=None):
     phases = {"custom_op": phase_custom_op(torch),
               "numpy": phase_numpy(torch, card),
               "npx": phase_npx(torch, card),
-              "gluon": phase_gluon(torch, card)}
+              "gluon": phase_gluon(torch, card),
+              "rnn": phase_rnn(torch, card)}
     phases["engine"], cpu_model, dense_prompts, dense_results = \
         phase_engine(torch)
     phases["bf16_engine"] = phase_bf16_engine(torch, cpu_model,

@@ -19,7 +19,10 @@ Gluon loop runs too: ``Block``/``HybridBlock`` with ``hybridize``,
 ``Parameter`` with deferred initialization, ``initializer``,
 ``gluon.Trainer`` and every layer of ``gluon.nn``, beside the small
 top-level modules (``registry``, ``util``, ``random``, ``dlpack``,
-``runtime``, ``callback``, ...).
+``runtime``, ``callback``, ...), ``gluon.rnn``, ``gluon.metric`` and
+the file layer (``mx.save``/``mx.load``, the legacy ``.params`` format,
+``model.save_checkpoint``, save and load of blocks, parameter dicts and
+trainers).
 
 The imperative front end is ported too: ``mx.np`` arrays
 (``NDArray`` over a ``torch.Tensor``), ``mx.npx``, ``autograd``
@@ -52,7 +55,8 @@ from . import ndarray, numpy, numpy_extension, operator, rtc
 from . import registry, error, log, name, attribute, util, random, dlpack
 from . import runtime, compile_cache, callback, initializer, init
 from . import gluon, serving, optimizer, lr_scheduler, parallel, misc
-from . import test_utils
+from . import test_utils, utils_io, legacy_serialization, model
+from .utils_io import save, load
 from .attribute import AttrScope
 from .context import cpu_pinned, gpu_memory_info
 
@@ -74,4 +78,5 @@ __all__ = ["telemetry", "tracing", "bucketing", "base", "context", "engine",
            "is_np_default_dtype", "registry", "error", "log", "name",
            "attribute", "util", "random", "rnd", "dlpack", "runtime",
            "compile_cache", "callback", "initializer", "init", "misc",
-           "AttrScope", "cpu_pinned", "gpu_memory_info"]
+           "AttrScope", "cpu_pinned", "gpu_memory_info", "utils_io",
+           "legacy_serialization", "model", "save", "load"]

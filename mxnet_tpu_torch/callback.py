@@ -2,8 +2,8 @@
 ``mxnet_tpu/callback.py``): ``Speedometer``, ``ProgressBar``,
 ``log_train_metric`` and ``LogValidationMetricsCallback``, each taking
 the reference's ``BatchEndParam`` record (epoch, nbatch, eval_metric,
-locals). ``do_checkpoint`` writes through ``model.save_checkpoint``,
-which waits for ROADMAP.md queue 1, item 18, and raises when called.
+locals), and ``do_checkpoint`` (``model.save_checkpoint``'s parameter
+file; a symbol waits for ``mx.sym``, ROADMAP.md queue 1, item 26).
 """
 from __future__ import annotations
 
@@ -11,8 +11,6 @@ import logging
 import math
 import time
 from collections import namedtuple
-
-from .base import not_ported
 
 __all__ = ["BatchEndParam", "do_checkpoint", "log_train_metric",
            "Speedometer", "ProgressBar", "LogValidationMetricsCallback"]
@@ -22,9 +20,18 @@ BatchEndParam = namedtuple(
 
 
 def do_checkpoint(prefix, period=1):
-    """The epoch-end callback saving a checkpoint every ``period``
-    epochs: ``model.save_checkpoint`` is not ported yet."""
-    raise not_ported("callback.do_checkpoint", 18)
+    """Epoch-end callback saving ``prefix-NNNN.params`` every
+    ``period`` epochs via :func:`mxnet_tpu_torch.model.save_checkpoint`
+    (``sym`` None; a symbol raises for ``mx.sym``)."""
+    from . import model
+
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            model.save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

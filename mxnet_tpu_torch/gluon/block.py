@@ -121,6 +121,46 @@ def _flatten(args):
     return leaves, walk(list(args))
 
 
+def _maybe_transpose_conv_kernel(name, p, val):
+    """Transpose a reference-written NCHW convolution kernel (O, I, H,
+    W) into a channels-last layer's (O, H, W, I), for parameters a
+    ``Conv2D`` tagged ``_kernel_layout == "OHWI"`` only (the reference's
+    rule, ``mxnet_tpu/gluon/block.py:52``): a shape that already fits is
+    kept; with ``in_channels`` deferred the kernel's (H, W) dims tell the
+    layout, and a kernel where both readings fit raises."""
+    if getattr(p, "_kernel_layout", None) != "OHWI" \
+            or getattr(val, "ndim", 0) != 4:
+        return val
+    kh, kw = p._kernel_hw
+    shape = tuple(val.shape)
+    if p._shape_known():
+        expected = tuple(p.shape)
+        if shape == expected:
+            return val
+        if (shape[0], shape[2], shape[3], shape[1]) == expected:
+            warnings.warn(
+                f"Parameter '{name}': loaded kernel {shape} treated as "
+                f"reference NCHW (O,I,H,W) and transposed to {expected}"
+                f" (O,H,W,I). If this checkpoint was NOT written by an "
+                f"NCHW model, the weights are mis-permuted.",
+                UserWarning, stacklevel=4)
+            return val.transpose((0, 2, 3, 1))
+        return val  # set_data raises its shape error
+    looks_ohwi = shape[1:3] == (kh, kw)
+    looks_oihw = shape[2:4] == (kh, kw)
+    if looks_ohwi and looks_oihw:
+        raise ValueError(
+            f"Parameter '{name}': cannot tell whether the checkpoint "
+            f"kernel {shape} is NCHW (O,I,H,W) or NHWC (O,H,W,I) — "
+            f"kernel {kh}x{kw} with matching channel count is "
+            f"ambiguous while in_channels is deferred. Run one forward "
+            f"pass (or construct the layer with in_channels=...) "
+            f"before load_parameters.")
+    if looks_oihw:
+        return val.transpose((0, 2, 3, 1))
+    return val
+
+
 class _HookHandle:
     def __init__(self, hooks, key):
         self._hooks = hooks
@@ -281,18 +321,59 @@ class Block(torch.nn.Module):
         pass
 
     def save_parameters(self, filename, deduplicate=False):
-        raise not_ported("Block.save_parameters", 18)
+        """Write every initialized parameter to ``filename`` (``mx.save``
+        of ``{dotted name: data()}``)."""
+        from .. import utils_io
+        utils_io.save(filename, {k: p.data() for k, p in
+                                 self.collect_params().items()
+                                 if p._initialized})
 
     def load_parameters(self, filename, device=None, ctx=None,
                         allow_missing=False, ignore_extra=False,
                         cast_dtype=False, dtype_source="current"):
-        raise not_ported("Block.load_parameters", 18)
+        """Read a file of :meth:`save_parameters` (either package's, or
+        a legacy ``.params``) into the parameters by name, in place:
+        each keeps its storage (a hybridized entry and a ``Trainer``
+        hold those tensors). ``cast_dtype`` casts each parameter first,
+        to the saved dtype with ``dtype_source="saved"``; a channels-last
+        2-d convolution's kernel saved as (O, I, H, W) is transposed
+        (``_maybe_transpose_conv_kernel``). The file is read on the
+        host and each value copied to its parameter's device; a
+        parameter initialized here goes to ``ctx`` when it is given."""
+        from .. import utils_io
+        from ..context import cpu
+        with cpu():
+            loaded = utils_io.load(filename)
+        params = self.collect_params()
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise AssertionError(
+                        f"Parameter '{name}' is missing in '{filename}'")
+        ctx = ctx or device
+        for name, val in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise AssertionError(
+                        f"Parameter '{name}' loaded from '{filename}' is "
+                        "not present in the Block")
+                continue
+            p = params[name]
+            if cast_dtype:
+                p.cast(val.dtype if dtype_source == "saved" else p.dtype)
+            val = _maybe_transpose_conv_kernel(name, p, val)
+            fresh = not p._initialized
+            p.set_data(val)
+            if fresh and ctx is not None:
+                p.reset_ctx(ctx)
 
     def save(self, prefix):
-        raise not_ported("Block.save", 18)
+        """``save_parameters`` to ``{prefix}-model.params``."""
+        self.save_parameters(f"{prefix}-model.params")
 
     def load(self, prefix):
-        raise not_ported("Block.load", 18)
+        """``load_parameters`` from ``{prefix}-model.params``."""
+        self.load_parameters(f"{prefix}-model.params")
 
     # -- execution ------------------------------------------------------
     #: a hybridized block's calls go through its CachedOp (HybridBlock)
@@ -557,7 +638,7 @@ class HybridBlock(Block):
         return self._cached().infer(*args)
 
     def export(self, path, epoch=0, remove_amp_cast=True):
-        raise not_ported("HybridBlock.export", "15b")
+        raise not_ported("HybridBlock.export", "15c")
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError

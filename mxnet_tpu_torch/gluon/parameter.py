@@ -515,11 +515,40 @@ class ParameterDict(dict):
     reset_device = reset_ctx
 
     def save(self, filename, strip_prefix=""):
-        raise not_ported("ParameterDict.save", 18)
+        """``mx.save`` of ``{name less strip_prefix: data()}``; a name
+        not starting with ``strip_prefix`` raises."""
+        from .. import utils_io
+        arg_dict = {}
+        for name, param in self.items():
+            weight = param.data()
+            if not name.startswith(strip_prefix):
+                raise ValueError(f"Prefix '{strip_prefix}' is to be striped "
+                                 f"before saving, but Parameter's name "
+                                 f"'{name}' does not start with it")
+            arg_dict[name[len(strip_prefix):]] = weight
+        utils_io.save(filename, arg_dict)
 
     def load(self, filename, ctx=None, allow_missing=False,
              ignore_extra=False, restore_prefix=""):
-        raise not_ported("ParameterDict.load", 18)
+        """Read a file of :meth:`save` into the parameters (names
+        prefixed by ``restore_prefix``), in place; read on the host."""
+        from .. import utils_io
+        with cpu():
+            loaded = utils_io.load(filename)
+        loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self:
+                if name not in loaded:
+                    raise AssertionError(f"Parameter '{name}' is missing in "
+                                         f"file '{filename}'")
+        for name, val in loaded.items():
+            if name not in self:
+                if not ignore_extra:
+                    raise ValueError(
+                        f"Parameter '{name}' loaded from file '{filename}' "
+                        "is not present in this ParameterDict")
+                continue
+            self[name].set_data(val)
 
 
 def _host_array(a):

@@ -16,15 +16,27 @@ Stores: ``kvstore=None``, ``"device"`` and ``"local"`` on one context
 give the single-device update. Any other store, a store object,
 ``update_on_kvstore=True`` or gradient compression wait for
 ``kvstore/`` (queue 1, item 19); an optimizer the port lacks for item
-16; ``save_states``/``load_states`` for item 18.
+16.
+
+``save_states`` writes the reference's pickle: the optimizer states as
+numpy arrays (bfloat16 as float32) with ``num_update``,
+``begin_num_update`` and ``index_update_count``, so either package
+reads the other's file. ``load_states`` copies them into the states in
+place (made first where a parameter has none yet, on its device and in
+its dtype), so a run resumed after step k continues bit-identically.
 """
 from __future__ import annotations
 
+import pickle
 import warnings
+
+import numpy as onp
+import torch
 
 from .. import optimizer as opt
 from ..base import not_ported
-from .parameter import Parameter
+from ..utils_io import _host
+from .parameter import Parameter, _host_array
 
 __all__ = ["Trainer"]
 
@@ -138,7 +150,61 @@ class Trainer:
 
     # -- state io -------------------------------------------------------
     def save_states(self, fname):
-        raise not_ported("Trainer.save_states", 18)
+        """Pickle the optimizer states and update counts to ``fname``."""
+        with open(fname, "wb") as f:
+            pickle.dump({"states": _host_tree(self._states),
+                         "num_update": self._optimizer.num_update,
+                         "begin_num_update":
+                             self._optimizer.begin_num_update,
+                         "index_update_count":
+                             dict(self._optimizer._index_update_count)}, f)
 
     def load_states(self, fname):
-        raise not_ported("Trainer.load_states", 18)
+        """Read a file of :meth:`save_states` (either package's)."""
+        with open(fname, "rb") as f:
+            blob = pickle.load(f)
+        states = blob["states"]
+        if len(states) != len(self._params):
+            raise ValueError(f"'{fname}' holds {len(states)} states for "
+                             f"{len(self._params)} parameters")
+        for i, (p, saved) in enumerate(zip(self._params, states)):
+            if saved is None:
+                self._states[i] = None
+                self._states_initialized[i] = False
+                continue
+            if not self._states_initialized[i]:
+                self._states[i] = \
+                    self._optimizer.create_state_multi_precision(
+                        i, p._var())
+                self._states_initialized[i] = True
+            self._states[i] = _fill(self._states[i], saved, p._var())
+        self._optimizer.num_update = blob["num_update"]
+        self._optimizer.begin_num_update = blob.get("begin_num_update", 0)
+        self._optimizer._index_update_count = dict(
+            blob["index_update_count"])
+
+
+def _host_tree(x):
+    """Tensors of a state tree as numpy arrays (bfloat16 as float32)."""
+    if torch.is_tensor(x):
+        return _host(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host_tree(v) for v in x)
+    return x
+
+
+def _fill(have, saved, like):
+    """Copy the saved tree into ``have``'s tensors in place; a saved
+    array with no tensor to go into becomes one on ``like``'s device."""
+    if isinstance(saved, (list, tuple)):
+        if not isinstance(have, (list, tuple)) or len(have) != len(saved):
+            have = [None] * len(saved)
+        return type(saved)(_fill(h, s, like) for h, s in zip(have, saved))
+    if isinstance(saved, onp.ndarray) or onp.isscalar(saved):
+        src = torch.from_numpy(_host_array(saved))
+        if torch.is_tensor(have) and tuple(have.shape) == tuple(src.shape):
+            with torch.no_grad():
+                have.copy_(src.to(device=have.device, dtype=have.dtype))
+            return have
+        return src.to(like.device)
+    return saved

@@ -1,9 +1,8 @@
 """mx.nd — the NDArray type, ``waitall``, the sparse arrays
-(``nd.sparse``) and the sparse-aware ``dot`` (``nd.save``/``nd.load``
-come with ROADMAP.md queue-1 item 18)."""
+(``nd.sparse``), the sparse-aware ``dot`` and ``nd.save``/``nd.load``
+(``utils_io``'s)."""
 from __future__ import annotations
 
-from ..base import not_ported
 from .ndarray import NDArray, waitall
 from . import sparse
 from .sparse import BaseSparseNDArray, RowSparseNDArray, CSRNDArray
@@ -28,8 +27,12 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False, out=None):
 
 
 def save(fname, data):
-    raise not_ported("nd.save", 18)
+    """``mx.save``: an array, a list or a dict of arrays to ``fname``."""
+    from ..utils_io import save as _save
+    return _save(fname, data)
 
 
 def load(fname):
-    raise not_ported("nd.load", 18)
+    """``mx.load``: the list or dict of arrays in ``fname``."""
+    from ..utils_io import load as _load
+    return _load(fname)

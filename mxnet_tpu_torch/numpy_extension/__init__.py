@@ -24,8 +24,9 @@ The contrib operators the reference imports from ``contrib_ops.py``
 (detection, ROI, warping, resize, sliding-window attention, the
 deformable convolutions, ...) are this package's ``contrib_ops``.
 
-Not ported: ``ring_attention`` (ROADMAP.md queue 1, item 20) and
-``load``/``save`` (item 18); each raises ``base.NotPortedError``.
+``load``/``save`` are ``mx.load``/``mx.save`` (``utils_io``). Not
+ported: ``ring_attention`` (ROADMAP.md queue 1, item 20), which raises
+``base.NotPortedError``.
 """
 from __future__ import annotations
 
@@ -1080,11 +1081,13 @@ def ring_attention(query, key, value, causal=False, scale=None,
 
 
 def load(fname):
-    raise not_ported("npx.load", 18)
+    from ..utils_io import load as _load
+    return _load(fname)
 
 
 def save(fname, data):
-    raise not_ported("npx.save", 18)
+    from ..utils_io import save as _save
+    return _save(fname, data)
 
 
 # control flow (npx.foreach / while_loop / cond) lives in its own module

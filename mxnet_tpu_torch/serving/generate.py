@@ -1220,7 +1220,7 @@ class GenerationEngine:
             raise EngineClosedError("load_weights on a closed engine")
         if not isinstance(source, dict):
             raise not_ported("load_weights from a checkpoint path",
-                             "18 (checkpoint)")
+                             "18b (checkpoint)")
         t0 = telemetry.clock()
         with self._gen_exclusive():
             _swap_param_buffers(self.model.collect_params(), source, strict)

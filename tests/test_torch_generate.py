@@ -517,7 +517,7 @@ def test_load_weights_validates_before_touching_anything(net):
     for k, p in net.collect_params().items():
         onp.testing.assert_array_equal(p._read().numpy(), snapshot[k])
     eng.load_weights(missing, strict=False)   # the intersection
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="item 18b"):
         eng.load_weights("/some/checkpoint/dir")
     eng.close()
     with pytest.raises(EngineClosedError):

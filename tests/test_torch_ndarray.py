@@ -472,7 +472,7 @@ def test_detach():
         onp.testing.assert_allclose(x.grad.asnumpy(), [6.0])
 
 
-def test_waitall_and_engine():
+def test_waitall_and_engine(tmp_path):
     from mxnet_tpu_torch import engine, telemetry
     a = tmx.np.array(X) * 2
     a.wait_to_read()
@@ -491,8 +491,10 @@ def test_waitall_and_engine():
         engine.bulk._warned = False
         with engine.bulk(8):
             pass
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tmx.nd.save("f", {})
+    # nd.save/nd.load (item 18a) round-trip a dict
+    path = str(tmp_path / "nd.npz")
+    tmx.nd.save(path, {"x": tmx.np.array(X)})
+    onp.testing.assert_array_equal(tmx.nd.load(path)["x"].asnumpy(), X)
 
 
 #: ROADMAP queue 3, F3: negative-step slices of every dtype, read and

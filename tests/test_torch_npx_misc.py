@@ -8,10 +8,11 @@ exact integer products, ``slice``/``slice_like``/``slice_axis``,
 the np-mode switches (``set_np(dtype=True)``'s float64 default), the
 random-state helpers, and the name parity of the two modules: every
 name the reference defines itself is ported but ``ring_attention``
-(item 20) and ``load``/``save`` (item 18), and so are the 42 names it
+(item 20), and so are the 42 names it
 imports from ``contrib_ops.py`` (item 13b-ii, held against the
 reference in ``test_torch_npx_warp.py``, ``_detection.py`` and
-``_contrib.py``).
+``_contrib.py``); ``npx.save``/``npx.load`` (item 18a) with the JAX
+package's files.
 
 Tolerances (``test_torch_np_common.py``): dtype and shape exactly;
 integers and bools exactly; elementwise fp32 at 2e-6 (``TR``), the rest
@@ -284,8 +285,7 @@ def _own_public(mod):
 
 
 #: names the reference defines itself that wait for a later item
-LATER = {"ring_attention": ("item 20", 3), "load": ("item 18", 1),
-         "save": ("item 18", 2)}
+LATER = {"ring_attention": ("item 20", 3)}
 
 
 def test_name_parity():
@@ -297,6 +297,18 @@ def test_name_parity():
         with pytest.raises(NotPortedError, match=item):
             getattr(tmx.npx, name)(*([None] * nargs))
     assert set(tmx.npx.__all__) <= set(vars(tmx.npx))
+
+
+def test_npx_save_load(tmp_path):
+    """``npx.save``/``npx.load`` (item 18a) read each other's file and
+    the JAX package's."""
+    x = onp.arange(6, dtype="f4").reshape(2, 3)
+    path = str(tmp_path / "npx.npz")
+    tmx.npx.save(path, {"x": tmx.np.array(x)})
+    onp.testing.assert_array_equal(tmx.npx.load(path)["x"].asnumpy(), x)
+    onp.testing.assert_array_equal(jmx.npx.load(path)["x"].asnumpy(), x)
+    jmx.npx.save(path, [jmx.np.array(x)])
+    onp.testing.assert_array_equal(tmx.npx.load(path)[0].asnumpy(), x)
 
 
 def test_contrib_names_still_raise():

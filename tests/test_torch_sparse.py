@@ -8,7 +8,7 @@ case the reference refuses for a dtype must raise in the port too).
 
 Tolerances: stored values, indices and integer results exactly; float
 products within 1e-5 (``RED``), a float16 one within one float16 step.
-``nd.save``/``nd.load`` of sparse arrays wait for ROADMAP.md item 18."""
+``nd.save``/``nd.load`` of sparse arrays are ``test_torch_save_load.py``'s."""
 import numpy as onp
 import pytest
 

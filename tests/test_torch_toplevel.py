@@ -224,7 +224,7 @@ def test_compile_cache(tmp_path, monkeypatch):
         _build.BUILD_DIR = before
 
 
-def test_callbacks(caplog):
+def test_callbacks(caplog, tmp_path):
     class Metric:
         def __init__(self):
             self.resets = 0
@@ -249,8 +249,11 @@ def test_callbacks(caplog):
     assert "samples/sec" in text and "Train-acc" in text
     assert "Validation-acc" in text and "[" in text
     assert m.resets == 3
-    with pytest.raises(NotPortedError, match="item 18"):
-        tmx.callback.do_checkpoint("prefix")
+    # do_checkpoint (item 18a) writes prefix-NNNN.params every period
+    prefix = str(tmp_path / "ck")
+    tmx.callback.do_checkpoint(prefix)(0, None, {"w": tmx.np.ones(2)}, {})
+    arg, aux = tmx.model.load_params(prefix, 1)
+    assert list(arg) == ["w"] and aux == {}
 
 
 def test_misc_and_context():
