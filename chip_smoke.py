@@ -90,6 +90,23 @@ through ``GenerationEngine``:
   ``Conv2DLSTMCell`` unrolled 10 steps, every new loss at a realistic
   size and every metric;
 
+- ``amp_data``: item 16 and item 17a, the classic mixed-precision loop:
+  a BERT-base-width model (768 units, 12 heads, FFN 3072, vocabulary
+  30522, 2 post-norm cells) fed 8 x 512 tokens by a process-worker
+  ``DataLoader`` with pinned batches, ``amp.init("float16")``,
+  ``amp.scale_loss`` and ``Trainer("lamb")`` with dynamic loss scaling,
+  one epoch of 8 steps (one K1-f16 and one of each K1-bwd-f16 launch
+  per cell and step), an injected inf and an injected NaN skipped, the
+  process workers' batches against thread workers', the same steps in
+  fp32, the card against the CPU port at 2 x 32 tokens (first logits
+  and each parameter's change), K1-f16 and K1-bwd-f16 against their
+  plain versions at (8, 12, 512, 64) non-causal; a synthetic CIFAR-10
+  through ``vision.CIFAR10``, the augmentation and 4 process workers
+  into ResNet-18's stem and first stage under AMP; every registered
+  optimizer on GPT-2 small's FFN pair against the CPU port (fp32,
+  float16 with fp32 masters, an ``Updater``, the Trainer against one
+  update a parameter);
+
 - ``engine``: the dense fp32 engine, 24 greedy requests;
 - ``bf16_engine``: the same requests on the dense engine with
   ``compute_dtype="bfloat16"`` at ``decode_ticks=4`` and then 1 (the
@@ -194,6 +211,18 @@ Tolerances, with their reasons:
   1 % of lr, at most 1e-3 of the elements outside; the conv net's
   parameters and running statistics within 1e-2 of their change
   (2-norm; see GLUON_CONV_REL); the bucketed predict rows within 1e-6;
+- the ``amp_data`` phase: float16 AMP against fp32 on the card, losses
+  within the train phase's 0.15 (AMP_FP32_TOL), the first step's logits
+  and each parameter's change over the epoch within AMP_FP32_REL; the
+  card against the CPU port under AMP at 2 x 32 tokens, losses within
+  2e-3 relative, the first logits and each parameter's change within
+  AMP_CPU's limits (2-norms);
+  K1-f16 within one float16 step and K1-bwd-f16 within two of their
+  plain versions (as the f16 kernel phases); the augmentation card vs
+  CPU within 1e-6; the optimizer sweep's fp32 weights and states within
+  1e-5 x max(1, max|ref|), float16 weights within one float16 step
+  (AMP_SWEEP), the Updater's and the Trainer's results bitwise equal to
+  one update a parameter, SGLD's noise std within 2 % of sqrt(3 lr);
 - the int8-KV engine: the reference's int8-KV gate (``bench.py
   --quant``), int8 KV against an fp32 KV with per-step logits within 0.6
   (the agreement of the two is reported; see
@@ -6420,6 +6449,725 @@ def phase_rnn(torch, card_name):
             "losses_metrics": lm_}
 
 
+#: the amp_data phase's model: BERT-base's widths (Devlin et al., 2019:
+#: 768 units, 12 heads, FFN 3072, WordPiece vocabulary 30522, sequences
+#: of 512): an Embedding, post-norm non-causal TransformerEncoderCells
+#: with GELU (depth cut from 12 to 2, as the gluon phase's), a 30522-way
+#: Dense head and SoftmaxCrossEntropyLoss; batch 8 x 512 from an
+#: ArrayDataset of 64 seeded sequences through a process-worker
+#: DataLoader; float16 AMP (amp.init), LAMB at lr 1e-4 (You et al.,
+#: 2019) with dynamic loss scaling, one epoch of 8 steps (the p50 of 7
+#: timed ones), then a profile of 2
+AMP_BERT = dict(vocab=30522, units=768, heads=12, hidden=3072, layers=2,
+                batch=8, seq=512, samples=64, steps=8, lr=1e-4, workers=2,
+                profile_steps=2)
+#: card vs CPU port under the same AMP, from the same weights on the same
+#: batches cut to 2 x 32 tokens on both devices: the host of an H100
+#: machine took 105.7 s for two such steps at 2 x 128 tokens (its float16
+#: products have no fast host kernel; PERF.md §6). Every product's
+#: output rounds to float16 on both devices, from sums in another order.
+#: Losses within 2e-3 relative; they sit near ln(30522) at Xavier init
+#: and show no update, so the first step's logits (2-norm of the
+#: difference over the CPU's) and each parameter's change over the two
+#: steps (_change_err) are held too. The scale starts at 2^12, not
+#: 2^16: at 2^16 a float16 bias gradient (a sum over the tokens) sits
+#: at 65056 on the first step and overflows on the second, on one device
+#: or both, so the steps compared would be skipped ones. A learning
+#: rate 1.1 x too large moves the changes 0.10 apart, an attention
+#: scale 1.1 x too large the logits 0.024 and the changes 0.24 (the CPU
+#: port against itself: scripts/torch_amp_yardsticks.py). The card read
+#: 5.0e-4 and 0.035 (the first cell's ln1.beta) on NVIDIA H100 80GB
+#: HBM3, 700.00 W: the limits sit 8 x and 1.7 x above the readings, 6 x
+#: and 1.7 x below those faults
+AMP_CPU = dict(batch=2, seq=32, steps=2, loss_rel=2e-3, loss_scale=2.0 ** 12,
+               logits_rel=4e-3, change_rel=0.06)
+#: the AMP run against an fp32 run of the same model on the card, the
+#: same weights and batches, the fp32 run updating where the AMP run's
+#: scaler did not skip: losses within the train phase's 0.15 (the
+#: reference's bf16 contract); the first step's logits and each
+#: parameter's change over the epoch (AMP_FP32_REL: the card read 4.9e-4
+#: and 0.063, the first cell's out_proj.bias, on NVIDIA H100 80GB HBM3,
+#: 700.00 W; the CPU port 5.4e-4 and 0.022 for two steps at 2 x 32
+#: tokens); the limits are 8 x and 1.9 x the card's readings
+AMP_FP32_TOL = 0.15
+AMP_FP32_REL = dict(logits_rel=4e-3, change_rel=0.12)
+#: the amp_data phase's image part: a synthetic CIFAR-10 file (seeded,
+#: data_batch_1 of 10000 images, data_batch_2-5 empty) through
+#: vision.CIFAR10 and the usual augmentation into 4 process workers,
+#: feeding the gluon phase's ResNet-18 stem and first stage under the
+#: same AMP with SGD (momentum 0.9, multi_precision=False), 2 steps
+AMP_CIFAR = dict(images=10000, batch=128, workers=4, steps=2, lr=0.1,
+                 momentum=0.9, held=16)
+#: the optimizer sweep's weights: GPT-2 small's FFN pair (a 3072 x 768
+#: weight and its bias); each registered optimizer 3 steps, card against
+#: the CPU port: fp32 weights and states within 1e-5 x max(1, max|ref|)
+#: (the same float32 elementwise operations round the same on both
+#: devices; LAMB's, LARS's and LANS's norms sum in another order);
+#: float16 weights (multi_precision) within one float16 step of
+#: max(1, max|ref|), their fp32 masters within the fp32 bound
+AMP_SWEEP = dict(out=3072, inp=768, steps=3, lr=0.01, tol=1e-5)
+
+
+def _bert(mx, nn):
+    c = AMP_BERT
+    net = nn.HybridSequential()
+    net.add(nn.Embedding(c["vocab"], c["units"]))
+    for _ in range(c["layers"]):
+        net.add(nn.TransformerEncoderCell(
+            c["units"], c["heads"], hidden_dim=c["hidden"], causal=False,
+            activation="gelu", pre_norm=False))
+    net.add(nn.Dense(c["vocab"], flatten=False))
+    return net
+
+
+def _amp_copy(mx, build, weights, ctx):
+    """``build``'s net on ``ctx`` with ``weights`` (carried by name)."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.parameter import load_jax_params
+    with ctx:
+        net = build(mx, nn)
+        net.initialize(mx.init.Zero())
+        load_jax_params(net, weights)
+    return net
+
+
+def _amp_step(mx, net, trainer, loss_fn, x, y, batch, scaled=True,
+              keep=None, apply=True):
+    """One record() -> loss -> scale_loss -> backward -> step (none
+    unless ``apply``); returns the mean loss read back. ``keep``, a
+    list, gets the step's logits."""
+    with mx.autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+        if scaled:
+            with mx.amp.scale_loss(loss, trainer) as sl:
+                pass
+        else:
+            sl = loss
+    sl.backward()
+    if apply:
+        trainer.step(batch)
+    if keep is not None:
+        keep.append(out._data.detach())
+    return float(loss.mean())
+
+
+def _rel2(a, b):
+    """||a - b|| / ||b|| (2-norms in float64) of two tensors on one
+    device."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def _change_err(got, ref, w0):
+    """The parameter whose change from ``w0`` in ``got`` differs most
+    from its change in ``ref`` (dicts of tensors by name, on one
+    device): (||got - ref|| / ||ref - w0||, its name). The key
+    projections' biases are left out: softmax is invariant under a
+    shift of one query's scores, so their gradient is 0 in exact
+    arithmetic and their change is rounding noise that LAMB's trust
+    ratio scales up."""
+    return max((_rel2(got[k].double() - w0[k].double(),
+                      ref[k].double() - w0[k].double()), k)
+               for k in ref if not k.endswith("k_proj.bias"))
+
+
+def _weights_of(net, device):
+    """``net``'s parameters by name, copied to ``device``."""
+    return {k: p._var().detach().to(device, copy=True)
+            for k, p in net.collect_params().items()}
+
+
+def _amp_profile(torch, mx, net, trainer, loss_fn, x, y, batch, steps):
+    """``steps`` more card steps under torch.profiler: wall ms a step,
+    the card's busy ms (the union of its kernel intervals), its share,
+    and kernels a step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _amp_step(mx, net, trainer, loss_fn, x, y, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kern), "amp_data: the profiler saw no kernel on the card")
+    busy = _busy_ms([(e.time_range.start, e.time_range.end)
+                     for e in kern]) / steps
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall,
+            "kernels_per_step": len(kern) / steps}
+
+
+def _amp_kernels(torch):
+    """K1-f16 and both K1-bwd-f16 launches at this phase's attention,
+    (8, 12, 512, 64) non-causal float16 on the head split's strided
+    views, against their plain versions on the widened inputs rounded
+    to float16: one float16 step of max(1, max|ref|) for the output
+    (as the f16 kernel phase), two for the gradients (BWD_TOL)."""
+    from mxnet_tpu_torch.ops import attention as at
+    c = AMP_BERT
+    b, s, h, d = c["batch"], c["seq"], c["heads"], c["units"] // c["heads"]
+    rng = np.random.RandomState(41)
+    q, k, v, do = (_split_view(torch, rng, b, s, h, d).half()
+                   for _ in range(4))
+    sc = 1.0 / math.sqrt(d)
+    out, lse = at.flash_attention_fwd(q, k, v, False, None, None)
+    ref, ref_lse = at._blockwise_fwd(q.float(), k.float(), v.float(), False,
+                                     sc)
+    eo, tol = _half_err(out, ref.half(), F16_ULP)
+    el = float((lse - ref_lse).abs().max())
+    got = at.flash_attention_bwd(q, k, v, out, lse, do, False, None, None)
+    refg = at._flash_bwd(q.float(), k.float(), v.float(), out.float(), lse,
+                         do.float(), False, sc, None)
+    torch.cuda.synchronize()
+    grads = {}
+    for name, g, r in zip(("dq", "dk", "dv"), got, refg):
+        check(g.dtype == torch.float16 and bool(torch.isfinite(g).all()),
+              f"amp_data: K1-bwd-f16 {name} {g.dtype} or not finite")
+        r = r.half().float()
+        grads[name] = float((g.float() - r).abs().max()) / max(
+            1.0, float(r.abs().max()))
+    res = {"shape": [b, h, s, d], "causal": False, "out_err": eo,
+           "out_tol": tol, "lse_err": el, "grad_err_rel": grads,
+           "grad_tol": BWD_TOL["f16"]}
+    check(eo <= tol and el <= LSE_TOL,
+          f"amp_data: K1-f16 vs plain {eo} (tol {tol}), lse {el}")
+    check(max(grads.values()) <= BWD_TOL["f16"],
+          f"amp_data: K1-bwd-f16 vs plain {grads}")
+    return res
+
+
+def _bert_data(mx):
+    """AMP_BERT's 64 seeded sequences; each token's label is the token
+    one place on (the sequence wraps)."""
+    c = AMP_BERT
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, c["vocab"], (c["samples"], c["seq"])).astype("i4")
+    return mx.gluon.data.ArrayDataset(ids, np.roll(ids, -1, axis=1))
+
+
+def _amp_bert_part(torch, mx, card_name, dataset, loader):
+    """The BERT-width AMP + LAMB loop (AMP_BERT) through ``loader``, a
+    process-worker DataLoader over ``dataset``, with its checks."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.gluon import data as gdata
+    c = AMP_BERT
+    card_dev = mx.gpu(0).torch_device
+    t0 = time.perf_counter()
+    secs = {}
+    ids = dataset[0][0][None]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.gpu(0):
+        mx.random.seed(0)
+        card = _bert(mx, mx.gluon.nn)
+        card.initialize(mx.init.Xavier())
+        card.infer_shape(mx.np.array(ids[:, :8]))
+    weights = {k: p.data().asnumpy()
+               for k, p in card.collect_params().items()}
+    n_params = int(sum(w.size for w in weights.values()))
+    mx.amp.init("float16")
+    secs["build"] = time.perf_counter() - t0
+    # card vs the CPU port, both under AMP, on the dataset's first
+    # sequences cut to AMP_CPU's 2 x 32 tokens: the CPU's steps run
+    # while the loader's workers start
+    cb, cs = AMP_CPU["batch"], AMP_CPU["seq"]
+    small = [tuple(np.stack([dataset[i][f][:cs]
+                             for i in range(k * cb, (k + 1) * cb)])
+                   for f in (0, 1)) for k in range(AMP_CPU["steps"])]
+    pair, pair_logits, pair_w, pair_scale = {}, {}, {}, {}
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        net = _amp_copy(mx, _bert, weights, ctx)
+        keep = []
+        with ctx:
+            tr = mx.gluon.Trainer(net.collect_params(), "lamb",
+                                  {"learning_rate": c["lr"]})
+            mx.amp.init_trainer(tr)
+            tr._amp_loss_scaler.loss_scale = AMP_CPU["loss_scale"]
+            pair[name] = [_amp_step(mx, net, tr, loss_fn, mx.np.array(x),
+                                    mx.np.array(y), cb, keep=keep)
+                          for x, y in small]
+        pair_scale[name] = (tr._amp_loss_scaler.loss_scale,
+                            tr._amp_loss_scaler.overflow_count)
+        pair_logits[name] = keep[0].cpu()
+        pair_w[name] = _weights_of(net, "cpu")
+        del net, tr, keep
+    cpu_err = max(abs(a - b) / abs(b)
+                  for a, b in zip(pair["card"], pair["cpu"]))
+    cpu_logits_err = _rel2(pair_logits["card"], pair_logits["cpu"])
+    w0 = {k: torch.from_numpy(v) for k, v in weights.items()}
+    cpu_change_err, cpu_change_worst = _change_err(pair_w["card"],
+                                                   pair_w["cpu"], w0)
+    del pair_logits, pair_w
+    secs["cpu_compare"] = time.perf_counter() - t0 - sum(secs.values())
+    with mx.gpu(0):
+        trainer = mx.gluon.Trainer(card.collect_params(), "lamb",
+                                   {"learning_rate": c["lr"]})
+        mx.amp.init_trainer(trainer)
+        np.random.seed(1)
+        it = iter(loader)
+        losses, ms, waits, scales, used, keep = [], [], [], [], [], []
+        applied = []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for step in range(c["steps"]):
+            t1 = time.perf_counter()
+            x, y = next(it)
+            waits.append((time.perf_counter() - t1) * 1e3)
+            skips = trainer._amp_loss_scaler.overflow_count
+            losses.append(_amp_step(mx, card, trainer, loss_fn, x, y,
+                                    c["batch"], keep=keep if step == 0
+                                    else None))
+            applied.append(trainer._amp_loss_scaler.overflow_count == skips)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            scales.append(trainer._amp_loss_scaler.loss_scale)
+            used.append((x, y))
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in ops.launch_counts().items() if n}
+        amp_w = _weights_of(card, card_dev)
+        rest = list(it)
+        # the first batch's loss again after the steps (batches differ
+        # by more than a few steps at lr 1e-4 move a loss)
+        after = float(loss_fn(card(used[0][0]), used[0][1]).mean())
+    secs["steps"] = time.perf_counter() - t0 - sum(secs.values())
+    want = {k: c["layers"] * c["steps"] for k in (
+        "flash_attention_fwd_f16", "flash_attention_bwd_dq_f16",
+        "flash_attention_bwd_dkv_f16")}
+    check(launches == want,
+          f"amp_data: launches {launches}, want {want} (and no fp32 "
+          f"attention launch)")
+    check(used[0][0].ctx == mx.gpu(0) and str(used[0][0].dtype) == "int32",
+          f"amp_data: batch on {used[0][0].ctx} as {used[0][0].dtype}")
+    # the same epoch from thread workers: the same batches
+    threads = gdata.DataLoader(dataset, batch_size=c["batch"], shuffle=True,
+                               num_workers=c["workers"])
+    np.random.seed(1)
+    with mx.gpu(0):
+        thread_batches = list(threads)
+    proc_batches = [b for b in used] + rest
+    workers_equal = len(proc_batches) == len(thread_batches) == \
+        c["samples"] // c["batch"] and all(
+            np.array_equal(a.asnumpy(), b.asnumpy())
+            for pa, pb in zip(proc_batches, thread_batches)
+            for a, b in zip(pa, pb))
+    check(workers_equal, "amp_data: process workers' batches differ from "
+          "thread workers'")
+    threads.close()
+    secs["threads"] = time.perf_counter() - t0 - sum(secs.values())
+    prof = _amp_profile(torch, mx, card, trainer, loss_fn, *used[0],
+                        c["batch"], c["profile_steps"])
+    p50 = float(np.median(ms[1:]))
+    prof["device_busy_share_of_p50"] = prof["device_busy_ms"] / p50
+    # injected overflows, each with a fresh trainer: an inf in the
+    # head's gradient, a NaN (float16's usual overflow result) in the
+    # middle of the embedding's
+    overflow = {}
+    for kind, block, at in (("inf", -1, (0, 0)),
+                            ("nan", 0, (c["vocab"] // 2, 7))):
+        with mx.gpu(0):
+            tr2 = mx.gluon.Trainer(card.collect_params(), "lamb",
+                                   {"learning_rate": c["lr"]})
+            mx.amp.init_trainer(tr2)
+            x, y = used[0]
+            with mx.autograd.record():
+                loss = loss_fn(card(x), y)
+                with mx.amp.scale_loss(loss, tr2) as sl:
+                    pass
+            sl.backward()
+            params = list(card.collect_params().values())
+            card[block].weight.grad()[at] = float(kind)
+            before = [p._var().clone() for p in params]
+            scaler = tr2._amp_loss_scaler
+            s0 = scaler.loss_scale
+            flag, syncs, _ = _audit(torch, card_dev,
+                                    lambda: scaler.has_overflow(params))
+            tr2.step(c["batch"])
+            unchanged = all(torch.equal(p._var(), b0)
+                            for p, b0 in zip(params, before))
+            del before
+        row = {"detected": flag, "host_reads": sum(syncs.values()),
+               "syncs": syncs, "params_unchanged": unchanged,
+               "scale_before": s0, "scale_after": scaler.loss_scale,
+               "overflow_count": scaler.overflow_count}
+        overflow[kind] = row
+        check(flag and unchanged and scaler.loss_scale == s0 / 2
+              and scaler.overflow_count == 1,
+              f"amp_data: injected {kind} {row}")
+        check(sum(syncs.values()) == 1,
+              f"amp_data: has_overflow read the card {syncs}")
+    # the check's one reduction on a NaN alone, in each floating type
+    # and at sizes of one block, several, and many
+    from mxnet_tpu_torch.amp.loss_scaler import all_finite
+    nan_seen = {}
+    for dt in (torch.float16, torch.bfloat16, torch.float32):
+        for n in (5, 4099, (1 << 22) + 3):
+            t = torch.zeros(n, dtype=dt, device=card_dev)
+            t[n // 2] = float("nan")
+            nan_seen[f"{str(dt)[6:]}x{n}"] = not all_finite(
+                [torch.ones(3, device=card_dev), t])
+    overflow["nan_alone_seen"] = nan_seen
+    check(all(nan_seen.values()), f"amp_data: a NaN passed {nan_seen}")
+    secs["profile_overflow"] = time.perf_counter() - t0 - sum(secs.values())
+    # the same model in fp32 on the card, the same weights and batches,
+    # updating where the AMP run did (not where its scaler skipped)
+    mx.amp._state["active"] = False
+    keep32 = []
+    try:
+        fp32 = _amp_copy(mx, _bert, weights, mx.gpu(0))
+        with mx.gpu(0):
+            tr32 = mx.gluon.Trainer(fp32.collect_params(), "lamb",
+                                    {"learning_rate": c["lr"]})
+            fp32_losses = [_amp_step(mx, fp32, tr32, loss_fn, x, y,
+                                     c["batch"], scaled=False,
+                                     keep=keep32 if step == 0 else None,
+                                     apply=applied[step])
+                           for step, (x, y) in enumerate(used)]
+        fp32_w = _weights_of(fp32, card_dev)
+        del fp32, tr32
+    finally:
+        mx.amp._state["active"] = True
+    fp32_gap = max(abs(a - b) for a, b in zip(losses, fp32_losses))
+    fp32_logits_err = _rel2(keep[0], keep32[0])
+    w0 = {k: v.to(card_dev) for k, v in w0.items()}
+    fp32_change_err, fp32_change_worst = _change_err(amp_w, fp32_w, w0)
+    del keep, keep32, amp_w, fp32_w, w0
+    secs["fp32"] = time.perf_counter() - t0 - sum(secs.values())
+    kern = _amp_kernels(torch)
+    out = {"card": card_name, "config": AMP_BERT, "parameters": n_params,
+           "losses": losses, "first_batch_loss_after": after,
+           "loss_scale": scales, "applied": applied, "step_ms": ms,
+           "step_ms_p50": p50,
+           "tokens_per_s": c["batch"] * c["seq"] / p50 * 1e3,
+           "loader_wait_ms": waits,
+           "launches": launches, "profile": prof,
+           "workers_equal": workers_equal, "overflow": overflow,
+           "fp32_losses": fp32_losses, "amp_vs_fp32_max_gap": fp32_gap,
+           "amp_vs_fp32": {**AMP_FP32_REL,
+                           "first_logits_rel_err": fp32_logits_err,
+                           "worst_change_rel_err": fp32_change_err,
+                           "worst_change_param": fp32_change_worst},
+           "cpu_compare": {**AMP_CPU, "card_losses": pair["card"],
+                           "cpu_losses": pair["cpu"],
+                           "max_loss_rel_err": cpu_err,
+                           "scale_and_overflows": pair_scale,
+                           "first_logits_rel_err": cpu_logits_err,
+                           "worst_change_rel_err": cpu_change_err,
+                           "worst_change_param": cpu_change_worst},
+           "kernels": kern, "seconds": time.perf_counter() - t0,
+           "seconds_by_part": secs}
+    emit("amp_bert", **out)
+    check(all(math.isfinite(v) for v in losses + fp32_losses),
+          f"amp_data: non-finite loss {losses} {fp32_losses}")
+    check(math.isfinite(after) and after < losses[0],
+          f"amp_data: the first batch's loss did not fall: {losses[0]} "
+          f"before the steps, {after} after")
+    check(fp32_gap <= AMP_FP32_TOL,
+          f"amp_data: AMP vs fp32 losses {fp32_gap}")
+    check(cpu_err <= AMP_CPU["loss_rel"],
+          f"amp_data: card vs CPU losses {cpu_err}")
+    check(all(v == (AMP_CPU["loss_scale"], 0) for v in pair_scale.values()),
+          f"amp_data: a step of the card vs CPU pair was skipped "
+          f"{pair_scale}")
+    check(cpu_logits_err <= AMP_CPU["logits_rel"],
+          f"amp_data: card vs CPU first logits {cpu_logits_err}")
+    check(cpu_change_err <= AMP_CPU["change_rel"],
+          f"amp_data: card vs CPU {cpu_change_worst}'s change "
+          f"{cpu_change_err}")
+    check(fp32_logits_err <= AMP_FP32_REL["logits_rel"],
+          f"amp_data: AMP vs fp32 first logits {fp32_logits_err}")
+    check(fp32_change_err <= AMP_FP32_REL["change_rel"],
+          f"amp_data: AMP vs fp32 {fp32_change_worst}'s change "
+          f"{fp32_change_err}")
+    return out
+
+
+def _write_cifar(root, n):
+    """A synthetic CIFAR-10 in the python pickle layout: ``n`` seeded
+    images in data_batch_1, data_batch_2-5 empty."""
+    import os
+    import pickle
+    rs = np.random.RandomState(7)
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    for i in range(1, 6):
+        k = n if i == 1 else 0
+        with open(os.path.join(base, f"data_batch_{i}"), "wb") as f:
+            pickle.dump({"data": rs.randint(0, 256, (k, 3072)).astype("u1"),
+                         "labels": rs.randint(0, 10, k).tolist()}, f)
+
+
+def _cifar_transform(mx):
+    tf = mx.gluon.data.vision.transforms
+    return tf.Compose([tf.RandomCrop(32, pad=4), tf.RandomFlipLeftRight(),
+                       tf.ToTensor(),
+                       tf.Normalize((0.4914, 0.4822, 0.4465),
+                                    (0.2470, 0.2435, 0.2616))])
+
+
+def _cifar_loader(mx, root):
+    """AMP_CIFAR's synthetic CIFAR-10 under ``root`` through
+    vision.CIFAR10 and the augmentation into process workers."""
+    from mxnet_tpu_torch.gluon import data as gdata
+    c = AMP_CIFAR
+    _write_cifar(root, c["images"])
+    raw = gdata.vision.CIFAR10(root)
+    check(len(raw) == c["images"], f"amp_data: CIFAR10 has {len(raw)}")
+    ds = raw.transform_first(_cifar_transform(mx))
+    return raw, gdata.DataLoader(ds, batch_size=c["batch"], shuffle=True,
+                                 num_workers=c["workers"],
+                                 thread_pool=False, pin_memory=True,
+                                 last_batch="discard")
+
+
+def _amp_cifar_part(torch, mx, card_name, raw, loader):
+    c = AMP_CIFAR
+    t0 = time.perf_counter()
+    # the transforms on the card and on the CPU port, the same draws
+    held = {}
+    for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        with ctx:
+            tf = _cifar_transform(mx)
+            np.random.seed(5)
+            held[name] = np.stack([tf(raw[i][0]).asnumpy()
+                                   for i in range(c["held"])])
+    tf_err = float(np.abs(held["card"] - held["cpu"]).max())
+    check(held["card"].shape == (c["held"], 3, 32, 32) and tf_err <= 1e-6,
+          f"amp_data: transforms card vs CPU {tf_err}")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.gpu(0):
+        mx.random.seed(1)
+        net = _gluon_resnet(mx, mx.gluon.nn)
+        net.initialize(mx.init.Xavier())
+        net.infer_shape(mx.np.array(np.zeros((1, 3, 32, 32), "f4")))
+        trainer = mx.gluon.Trainer(
+            net.collect_params(), "sgd",
+            {"learning_rate": c["lr"], "momentum": c["momentum"],
+             "multi_precision": False})
+        mx.amp.init_trainer(trainer)
+        it = iter(loader)
+        losses, ms, waits = [], [], []
+        for _ in range(c["steps"]):
+            t1 = time.perf_counter()
+            x, y = next(it)
+            waits.append((time.perf_counter() - t1) * 1e3)
+            losses.append(_amp_step(mx, net, trainer, loss_fn, x, y,
+                                    c["batch"]))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        conv = net[0](x)
+        bn = net[1](conv)
+        types = {"input": str(x.dtype), "conv": str(conv.dtype),
+                 "batch_norm": str(bn.dtype),
+                 "weights": str(net[0].weight.data().dtype)}
+    out = {"card": card_name, "config": AMP_CIFAR, "losses": losses,
+           "step_ms": ms, "loader_wait_ms": waits,
+           "images_per_s": c["batch"] / ms[-1] * 1e3, "types": types,
+           "transform_max_abs_err": tf_err,
+           "seconds": time.perf_counter() - t0}
+    emit("amp_cifar", **out)
+    check(all(math.isfinite(v) for v in losses),
+          f"amp_data: CIFAR non-finite loss {losses}")
+    check(types == {"input": "float32", "conv": "float16",
+                    "batch_norm": "float32", "weights": "float32"},
+          f"amp_data: CIFAR types {types}")
+    return out
+
+
+_SWEEP_DATA = {}
+
+
+def _sweep_data(torch):
+    """The sweep's seeded weights and gradients (host tensors), made
+    once: the FFN pair's weight and bias, and 3 steps' gradients."""
+    if not _SWEEP_DATA:
+        c = AMP_SWEEP
+        rs = np.random.RandomState(3)
+        shapes = [(c["out"], c["inp"]), (c["out"],)]
+        _SWEEP_DATA["w"] = [torch.from_numpy(
+            rs.uniform(-1, 1, s).astype("f4")) for s in shapes]
+        _SWEEP_DATA["g"] = [[torch.from_numpy(
+            rs.standard_normal(s).astype("f4")) for s in shapes]
+            for _ in range(c["steps"])]
+    return _SWEEP_DATA
+
+
+def _sweep_run(torch, mx, name, ctx, mp, lr=None):
+    """One optimizer's 3 steps on the FFN pair on ``ctx``: fp32, or
+    float16 weights with fp32 masters (``mp``). Returns the weights, the
+    states, the gradients and the optimizer's arguments."""
+    c = AMP_SWEEP
+    opt = mx.optimizer
+    data = _sweep_data(torch)
+    n = 1 if name == "groupadagrad" else 2
+    dev = ctx.torch_device
+    dt = torch.float16 if mp else torch.float32
+    ws = [w.to(dev, dt, copy=True) for w in data["w"][:n]]
+    gs = [[g.to(dev, dt) for g in step[:n]] for step in data["g"]]
+    kw = {"learning_rate": lr or c["lr"], "multi_precision": mp}
+    if name != "groupadagrad":
+        kw["wd"] = 0.01
+    o = opt.create(name, **kw)
+    states = [o.create_state_multi_precision(i, w) for i, w in enumerate(ws)]
+    idx = list(range(len(ws)))
+    for g in gs:
+        o.update_multi_precision(idx, ws, g, states)
+    return ws, states, gs, kw
+
+
+def _np_leaves(x):
+    if isinstance(x, (list, tuple)):
+        return [y for v in x for y in _np_leaves(v)]
+    return [x.float().cpu().numpy()]
+
+
+def _amp_sweep(torch, mx, card_name):
+    """Every registered optimizer, card against the CPU port."""
+    c = AMP_SWEEP
+    t0 = time.perf_counter()
+    card, res = mx.gpu(0), {}
+    for name in sorted(mx.optimizer._REGISTRY):
+        row = {}
+        if name == "sgld":
+            # the noise comes from each device's own generator: the
+            # deterministic part is the CPU's SGD step without noise,
+            # the noise's std sqrt(lr), and a seed repeats it
+            runs = []
+            for _ in range(2):
+                mx.random.seed(11)
+                runs.append(_sweep_run(torch, mx, name, card, False)[0])
+            det = _sweep_run(torch, mx, "sgd", mx.cpu(), False,
+                             lr=c["lr"] / 2)[0]
+            noise = (runs[0][0].cpu() - det[0]).double()
+            row = {"repeats": all(torch.equal(a, b)
+                                  for a, b in zip(*runs))}
+            row["noise_std_over_sqrt_lr_x3"] = float(noise.std()) / (
+                math.sqrt(c["lr"]) * math.sqrt(c["steps"]))
+            res[name] = row
+            continue
+        errs = {}
+        for mp in (False, True):
+            wc, sc, gs, kw = _sweep_run(torch, mx, name, card, mp)
+            wh, sh, _, _ = _sweep_run(torch, mx, name, mx.cpu(), mp)
+            ew = max(float(np.abs(a - b).max()) / max(1.0, float(
+                np.abs(b).max())) for a, b in zip(_np_leaves(wc),
+                                                  _np_leaves(wh)))
+            es = max([float(np.abs(a - b).max()) / max(1.0, float(
+                np.abs(b).max())) for a, b in zip(_np_leaves(sc),
+                                                  _np_leaves(sh))] or [0.0])
+            errs["mp_f16" if mp else "fp32"] = {"weights": ew, "states": es}
+            if not mp:
+                # the same steps through an Updater: the same bits
+                shapes = [tuple(w.shape) for w in wc]
+                w2 = [w.cuda() for w in _sweep_data(torch)["w"][:len(wc)]]
+                upd = mx.optimizer.get_updater(mx.optimizer.create(name,
+                                                                   **kw))
+                for g in gs:
+                    upd(list(range(len(w2))), g, w2)
+                row["updater_bitwise"] = all(torch.equal(a, b)
+                                             for a, b in zip(w2, wc))
+                # the Trainer (its fused update) against one
+                # update_multi_precision a parameter, called directly
+                o = mx.optimizer.create(name, **kw)
+                w3 = [w.cuda() for w in _sweep_data(torch)["w"][:len(wc)]]
+                st3 = [o.create_state_multi_precision(i, w)
+                       for i, w in enumerate(w3)]
+                for g in gs:
+                    for i, (w, gi) in enumerate(zip(w3, g)):
+                        o.update_multi_precision([i], [w], [gi], [st3[i]])
+                with card:
+                    ps = []
+                    for i, s in enumerate(shapes):
+                        p = mx.gluon.Parameter(f"p{i}", shape=s)
+                        p.initialize(ctx=card)
+                        p.set_data(_sweep_data(torch)["w"][i])
+                        ps.append(p)
+                    tr = mx.gluon.Trainer(ps, name, dict(kw))
+                    for g in gs:
+                        for p, gi in zip(ps, g):
+                            p.grad()[:] = mx.NDArray(gi, ctx=card)
+                        tr.step(1, ignore_stale_grad=True)
+                row["trainer_bitwise"] = all(
+                    torch.equal(p._var(), w) for p, w in zip(ps, w3))
+        row.update(errs)
+        res[name] = row
+    out = {"card": card_name, "config": AMP_SWEEP, "optimizers": res,
+           "seconds": time.perf_counter() - t0}
+    emit("amp_optimizer_sweep", **out)
+    check(set(res) == set(mx.optimizer._REGISTRY),
+          "amp_data: an optimizer missed the sweep")
+    for name, row in res.items():
+        if name == "sgld":
+            check(row["repeats"] and abs(
+                row["noise_std_over_sqrt_lr_x3"] - 1) < 0.02,
+                f"amp_data: SGLD {row}")
+            continue
+        check(row["updater_bitwise"] and row["trainer_bitwise"],
+              f"amp_data: {name} Updater/Trainer bits {row}")
+        check(row["fp32"]["weights"] <= c["tol"]
+              and row["fp32"]["states"] <= c["tol"],
+              f"amp_data: {name} fp32 card vs CPU {row['fp32']}")
+        check(row["mp_f16"]["weights"] <= F16_ULP
+              and row["mp_f16"]["states"] <= c["tol"],
+              f"amp_data: {name} float16 mp card vs CPU {row['mp_f16']}")
+    return out
+
+
+def phase_amp_data(torch, card_name):
+    """Item 16 and item 17a on the card: (1) the BERT-width float16 AMP
+    + LAMB loop (AMP_BERT) fed by a process-worker DataLoader with
+    pinned batches: one K1-f16 and one of each K1-bwd-f16 launch per
+    cell and step and no fp32 attention launch, losses finite, the
+    first batch's loss lower after the steps, the loss scale each step,
+    the loader's wait per batch, a profile of 2 steps; the process
+    workers' epoch equal to thread workers'; an injected inf and an
+    injected NaN each skipping the step (every parameter bitwise
+    unchanged, the scale halved, one overflow) with one host read in
+    ``has_overflow``, and the check's reduction seeing a lone NaN in
+    each floating type; the same steps in fp32 (AMP_FP32_TOL,
+    AMP_FP32_REL); the card against the CPU port at 2 x 32 tokens
+    (AMP_CPU); K1-f16
+    and K1-bwd-f16 against their plain versions at this shape; (2) a
+    synthetic CIFAR-10 through vision.CIFAR10, the augmentation
+    (card against the CPU port) and 4 process workers into ResNet-18's
+    stem and first stage under AMP, 2 SGD steps (float16 convolutions,
+    fp32 BatchNorm); (3) every registered optimizer on the FFN pair,
+    card against the CPU port in fp32 and float16 with fp32 masters,
+    through an Updater, and the Trainer's (fused) update bitwise against
+    one update_multi_precision a parameter. AMP is off again when the
+    phase ends."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    saved = dict(mx.amp._state)
+    c = AMP_BERT
+    with tempfile.TemporaryDirectory() as tmp:
+        # both loaders' workers start first: each takes seconds to import
+        # the package, while the BERT model builds
+        dataset = _bert_data(mx)
+        bert_loader = mx.gluon.data.DataLoader(
+            dataset, batch_size=c["batch"], shuffle=True,
+            num_workers=c["workers"], thread_pool=False, pin_memory=True)
+        raw, cifar_loader = _cifar_loader(mx, tmp)
+        for ld in (bert_loader, cifar_loader):
+            ld._ensure_proc_pool()
+        try:
+            bert = _amp_bert_part(torch, mx, card_name, dataset,
+                                  bert_loader)
+            cifar = _amp_cifar_part(torch, mx, card_name, raw, cifar_loader)
+        finally:
+            mx.amp._state.clear()
+            mx.amp._state.update(saved)
+            bert_loader.close()
+            cifar_loader.close()
+    sweep = _amp_sweep(torch, mx, card_name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("amp_data", card=card_name, seconds=time.perf_counter() - t0)
+    return {"launches": bert["launches"], "bert": bert, "cifar": cifar,
+            "sweep": sweep}
+
+
 #: the kernels line: name, source, the TPU kernel it replaces (file:line
 #: and function), the kernel phase's result key
 KERNELS = [
@@ -6513,7 +7261,8 @@ def main(argv=None):
               "numpy": phase_numpy(torch, card),
               "npx": phase_npx(torch, card),
               "gluon": phase_gluon(torch, card),
-              "rnn": phase_rnn(torch, card)}
+              "rnn": phase_rnn(torch, card),
+              "amp_data": phase_amp_data(torch, card)}
     phases["engine"], cpu_model, dense_prompts, dense_results = \
         phase_engine(torch)
     phases["bf16_engine"] = phase_bf16_engine(torch, cpu_model,

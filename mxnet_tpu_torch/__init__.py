@@ -12,9 +12,13 @@ the first CUDA call, see ``_build.py``); everything else is plain
 PyTorch.
 
 It trains the same model on one card: ``parallel.TrainStep`` (forward,
-backward and update of a batch) with ``optimizer`` (SGD, NAG, Adam,
-AdamW), ``lr_scheduler`` and ``gluon.loss``, in fp32 or bf16 compute;
-the attention's backward is a hand-written kernel too. The classic
+backward and update of a batch) with ``optimizer`` (every optimizer of
+the reference, ``Updater``), ``lr_scheduler`` and ``gluon.loss``, in
+fp32 or bf16 compute; the attention's backward is a hand-written
+kernel too. ``amp`` (the reference's cast lists and dynamic loss
+scaling) and ``gluon.data`` (datasets, samplers, the thread and process
+``DataLoader``, ``vision`` with PIL's resampling redone in torch,
+``image``) make the classic mixed-precision loop. The classic
 Gluon loop runs too: ``Block``/``HybridBlock`` with ``hybridize``,
 ``Parameter`` with deferred initialization, ``initializer``,
 ``gluon.Trainer`` and every layer of ``gluon.nn``, beside the small
@@ -56,6 +60,7 @@ from . import registry, error, log, name, attribute, util, random, dlpack
 from . import runtime, compile_cache, callback, initializer, init
 from . import gluon, serving, optimizer, lr_scheduler, parallel, misc
 from . import test_utils, utils_io, legacy_serialization, model
+from . import amp, grad_fusion, image
 from .utils_io import save, load
 from .attribute import AttrScope
 from .context import cpu_pinned, gpu_memory_info
@@ -79,4 +84,5 @@ __all__ = ["telemetry", "tracing", "bucketing", "base", "context", "engine",
            "attribute", "util", "random", "rnd", "dlpack", "runtime",
            "compile_cache", "callback", "initializer", "init", "misc",
            "AttrScope", "cpu_pinned", "gpu_memory_info", "utils_io",
-           "legacy_serialization", "model", "save", "load"]
+           "legacy_serialization", "model", "save", "load", "amp",
+           "grad_fusion", "image"]

@@ -11,7 +11,9 @@
 torch tensors or NDArrays (see ``block.py``) and returns one loss per
 sample (the mean over every axis but ``batch_axis``; ``CTCLoss`` and
 ``TripletLoss`` one value a sequence or triplet), as plain PyTorch, as
-the reference's are plain jnp.
+the reference's are plain jnp. Under ``amp.init()`` the reference's
+named ops keep their casts here (``log_softmax`` and the per-sample
+``mean`` in fp32).
 
 ``CTCLoss`` is ATen's ``ctc_loss`` (the reference's is
 ``optax.ctc_loss``), with the reference's conventions: blank 0; without
@@ -28,6 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..amp import cast_args as _amp
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
@@ -65,7 +68,10 @@ class Loss(HybridBlock):
 
     def _mean_per_sample(self, loss):
         axes = tuple(i for i in range(loss.dim()) if i != self._batch_axis)
-        return loss.mean(dim=axes) if axes else loss
+        if not axes:
+            return loss
+        (loss,) = _amp("mean", loss)
+        return loss.mean(dim=axes)
 
 
 class L2Loss(Loss):
@@ -147,6 +153,7 @@ class SoftmaxCrossEntropyLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
+            (pred,) = _amp("log_softmax", pred)
             pred = torch.log_softmax(pred, dim=self._axis)
         if self._sparse_label:
             ax = self._axis % pred.dim()
@@ -175,6 +182,7 @@ class KLDivLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
+            (pred,) = _amp("log_softmax", pred)
             pred = torch.log_softmax(pred, dim=self._axis)
         loss = label * (torch.log(label + 1e-12) - pred)
         loss = _apply_weighting(loss, self._weight, sample_weight)

@@ -4,19 +4,29 @@
 ``step(batch_size)`` sets ``rescale_grad`` to ``scale / batch_size``,
 all-reduces (the identity on one device) and applies the optimizer to
 every parameter whose ``grad_req`` is not ``"null"``, in place on the
-card. The update is the port's optimizers' (SGD, NAG, Adam, AdamW,
-``optimizer``), one parameter at a time in the reference's order (the
-parameters sorted by name): the reference's fused multi-tensor path
-gives the same numbers as its loop, and grouping the updates is
-ROADMAP.md queue 2, item 14. A parameter whose gradient no backward
-wrote since the last step warns, naming it (``ignore_stale_grad``
-silences it).
+card, with any optimizer of ``optimizer``. The update is
+``Optimizer.fused_update_multi_precision`` over every parameter at
+once: the same bits as one ``update_multi_precision`` a parameter in
+the reference's order (the parameters sorted by name), since each
+parameter is still its own ``_step``, so the reference's
+``MXTPU_FUSED_TRAINER`` switch selects nothing here. Grouping the
+launches of a group is ROADMAP.md queue 2, item 14. A parameter whose
+gradient no backward wrote since the last step warns, naming it
+(``ignore_stale_grad`` silences it).
+
+Dynamic loss scaling (``amp.init_trainer``): ``step`` first checks the
+gradients for an inf or a NaN (one host read); on an overflow it skips
+the whole update, halves the scale and clears the fresh-gradient
+flags. The gradients are divided by the scale through
+``rescale_grad``, unless ``amp.unscale`` already divided them; a
+successful ``update`` lets the scale grow.
 
 Stores: ``kvstore=None``, ``"device"`` and ``"local"`` on one context
 give the single-device update. Any other store, a store object,
 ``update_on_kvstore=True`` or gradient compression wait for
-``kvstore/`` (queue 1, item 19); an optimizer the port lacks for item
-16.
+``kvstore/`` (queue 1, item 19). ``fusion=`` (the gradient buckets'
+byte cap) is validated as the reference does it; only those stores
+would read it.
 
 ``save_states`` writes the reference's pickle: the optimizer states as
 numpy arrays (bfloat16 as float32) with ``num_update``,
@@ -33,6 +43,7 @@ import warnings
 import numpy as onp
 import torch
 
+from .. import telemetry
 from .. import optimizer as opt
 from ..base import not_ported
 from ..utils_io import _host
@@ -76,6 +87,11 @@ class Trainer:
         self._scale = self._optimizer.rescale_grad
         self._states = [None] * len(self._params)
         self._states_initialized = [False] * len(self._params)
+        if fusion and fusion is not True and int(fusion) <= 0:
+            # negatives and 0 < fusion < 1
+            raise ValueError(
+                f"fusion must be a positive byte cap, False, or None "
+                f"(got {fusion!r})")
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -86,8 +102,6 @@ class Trainer:
             self._optimizer = optimizer
             self._optimizer.param_dict = param_dict
             return
-        if str(optimizer).lower() not in opt._REGISTRY:
-            raise not_ported(f"optimizer {optimizer!r}", 16)
         self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                      **optimizer_params)
 
@@ -105,13 +119,29 @@ class Trainer:
 
     # -- the step -------------------------------------------------------
     def _grad_rescale(self, batch_size):
-        return self._scale / batch_size
+        """``scale / batch_size``, and the inverse loss scale unless
+        ``amp.unscale`` already divided the gradients."""
+        r = self._scale / batch_size
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None and not getattr(
+                self, "_amp_manual_unscaled", False):
+            r /= scaler.loss_scale
+        return r
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale by ``1 / batch_size``, all-reduce, update."""
+        """Rescale by ``1 / batch_size``, all-reduce, update; under
+        loss scaling an overflowing step updates nothing."""
         self._optimizer.rescale_grad = self._grad_rescale(batch_size)
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None and scaler.has_overflow(self._params):
+            scaler.update_scale(True)
+            self._amp_manual_unscaled = False
+            for p in self._params:
+                if p.grad_req != "null" and p._initialized:
+                    p._fresh_grad = False
+            return
         self.allreduce_grads()
-        self._update(ignore_stale_grad)
+        self.update(batch_size, ignore_stale_grad)
 
     def allreduce_grads(self):
         """The identity: one device holds every gradient."""
@@ -120,6 +150,10 @@ class Trainer:
         """The update of ``step`` without the all-reduce."""
         self._optimizer.rescale_grad = self._grad_rescale(batch_size)
         self._update(ignore_stale_grad)
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None:
+            scaler.update_scale(False)
+            self._amp_manual_unscaled = False
 
     def _update(self, ignore_stale_grad=False):
         updates, stale = [], []
@@ -143,9 +177,16 @@ class Trainer:
                 f"your model that made it only use a subset of the "
                 f"Parameters for the last iteration, call step with "
                 f"ignore_stale_grad=True to suppress this warning")
-        for i, p in updates:
-            self._optimizer.update_multi_precision(
-                [i], [p._var()], [p._grad_nd()._data], [self._states[i]])
+        if not updates:
+            return
+        t0 = telemetry.clock()
+        idxs = [i for i, _ in updates]
+        if self._optimizer.fused_update_multi_precision(
+                idxs, [p._var() for _, p in updates],
+                [p._grad_nd()._data for _, p in updates],
+                [self._states[i] for i in idxs]):
+            telemetry.duration_since("trainer.fused.update", t0)
+        for _, p in updates:
             p._fresh_grad = False
 
     # -- state io -------------------------------------------------------
@@ -168,6 +209,7 @@ class Trainer:
             raise ValueError(f"'{fname}' holds {len(states)} states for "
                              f"{len(self._params)} parameters")
         for i, (p, saved) in enumerate(zip(self._params, states)):
+            saved = self._optimizer._migrate_state(saved)
             if saved is None:
                 self._states[i] = None
                 self._states_initialized[i] = False

@@ -11,14 +11,18 @@ and some input is on the tape (torch would otherwise build a graph
 wherever a tensor that requires grad is used; MXNet records only inside
 ``record()`` and never inside ``pause()``), narrows 64-bit results to
 32 bits (the reference's x64-off policy, ``base.narrowing()``) and wraps
-the outputs on the inputs' context.
+the outputs on the inputs' context. Under ``amp.init()`` it applies
+the AMP lists' casts to an op by its ``name`` (``amp.autocast_plan``)
+inside the function it runs, so the backward casts the cotangents
+back; the names whose ``ops.nn`` entry points cast their own inputs
+(``nn.AMP_CAST_AT_ENTRY``) are left to them.
 """
 from __future__ import annotations
 
 import torch
 
 from . import attention, nn, quantized, sampling
-from .. import autograd, engine
+from .. import amp, autograd, engine
 from ..base import narrowing
 
 __all__ = ["attention", "nn", "quantized", "sampling", "apply_op",
@@ -57,14 +61,19 @@ def _finish(t: torch.Tensor) -> torch.Tensor:
     return engine.track(t)
 
 
+def _cast_first(fn, plan):
+    def cast(*xs):
+        return fn(*[x.to(plan[i]) if i in plan else x
+                    for i, x in enumerate(xs)])
+    return cast
+
+
 def apply_op(fn, *args, nout: int = 1, ctx=None, name: str = None):
     """Invoke ``fn`` over mixed NDArray / raw arguments.
 
     Positional NDArray arguments are the differentiable inputs; all
     static attributes must already be closed over in ``fn``. Returns
-    one NDArray (``nout == 1``) or a tuple of NDArrays. (The reference
-    inserts its AMP casts here; ``amp/`` is not ported, ROADMAP.md
-    queue 1, item 16.)
+    one NDArray (``nout == 1``) or a tuple of NDArrays.
     """
     NDArray = _ndarray_cls()
     datas = []
@@ -79,6 +88,12 @@ def apply_op(fn, *args, nout: int = 1, ctx=None, name: str = None):
                 octx = a._ctx
         else:
             datas.append(a)
+    if name is not None and amp.is_active() \
+            and name not in nn.AMP_CAST_AT_ENTRY:
+        pos = [i for i, a in enumerate(args) if isinstance(a, NDArray)]
+        plan = amp.autocast_plan(name, datas, pos)
+        if plan:
+            fn = _cast_first(fn, plan)
     with torch.set_grad_enabled(on_tape and autograd.is_recording()):
         out = fn(*datas)
     outs = out if isinstance(out, (tuple, list)) else (out,)

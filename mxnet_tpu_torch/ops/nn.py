@@ -26,6 +26,7 @@ import numpy as onp
 import torch
 import torch.nn.functional as F
 
+from ..amp import cast_args as _amp
 from ..base import WIDE_UNSIGNED, bool_route, float_input, int64_route
 
 __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
@@ -34,7 +35,15 @@ __all__ = ["fully_connected", "convolution", "deconvolution", "pooling",
            "rms_norm", "gelu", "activation", "leaky_relu", "masked_softmax",
            "softmin", "embedding", "dropout", "sequence_mask",
            "sequence_last", "sequence_reverse", "rnn_param_size", "rnn",
-           "fp32_matmul"]
+           "fp32_matmul", "AMP_CAST_AT_ENTRY"]
+
+#: the AMP lists' op names whose casts the entry points of this module
+#: apply themselves (``amp.cast_args``), for the Gluon layers that call
+#: them on tensors; ``apply_op`` leaves these names alone
+AMP_CAST_AT_ENTRY = frozenset({
+    "fully_connected", "convolution", "deconvolution", "batch_norm",
+    "layer_norm", "group_norm", "instance_norm", "l2_normalization",
+    "masked_softmax"})
 
 
 def _tuplize(v, n):
@@ -51,6 +60,7 @@ def fully_connected(x, weight, bias=None, flatten=True):
     """y = x @ W^T + b, weight layout (out_units, in_units). Operands of
     two float types promote as jnp promotes them (an fp32 activation
     against a bf16 weight computes in fp32)."""
+    x, weight, bias = _amp("fully_connected", x, weight, bias)
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
     dt = torch.promote_types(x.dtype, weight.dtype)
@@ -161,6 +171,7 @@ def convolution(x, weight, bias=None, kernel=None, stride=1, dilate=1, pad=0,
     ``pad``. The weight layout is the reference's: ``(O, I/g, *k)`` for
     ``NC*`` layouts and ``(O, *k, I/g)`` for ``N*C`` ones. fp32 products
     are exact fp32 (no TF32), forward and backward."""
+    x, weight, bias = _amp("convolution", x, weight, bias)
     nsp = x.dim() - 2
     channel_last = not layout.startswith("NC")
     if channel_last:
@@ -182,6 +193,7 @@ def deconvolution(x, weight, bias=None, stride=1, dilate=1, pad=0, adj=0,
     for ``N*C`` ones. The output's extent is ``(in - 1) * stride - 2 *
     pad + dilate * (k - 1) + 1 + adj``; ``target_shape`` is accepted and
     not applied, as in the reference. fp32 products are exact fp32."""
+    x, weight, bias = _amp("deconvolution", x, weight, bias)
     nsp = x.dim() - 2
     channel_last = not layout.startswith("NC")
     if channel_last:
@@ -310,6 +322,7 @@ def batch_norm_train(x, gamma, beta, axis=1, eps=1e-5):
     """(out, batch mean, batch variance) over every axis but ``axis``;
     the variance is the biased one. The caller updates the running
     statistics."""
+    x, gamma, beta = _amp("batch_norm", x, gamma, beta)
     axis %= x.dim()
     dims = tuple(i for i in range(x.dim()) if i != axis)
     cd = accum_dtype(x.dtype)
@@ -324,6 +337,8 @@ def batch_norm_train(x, gamma, beta, axis=1, eps=1e-5):
 
 def batch_norm_inference(x, gamma, beta, moving_mean, moving_var, axis=1,
                          eps=1e-5):
+    x, gamma, beta, moving_mean, moving_var = _amp(
+        "batch_norm", x, gamma, beta, moving_mean, moving_var)
     axis %= x.dim()
     shape = [1] * x.dim()
     shape[axis] = x.shape[axis]
@@ -336,6 +351,7 @@ def batch_norm_inference(x, gamma, beta, moving_mean, moving_var, axis=1,
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     """Biased-variance layer norm over ``axis``; the output returns in
     ``x``'s dtype."""
+    x, gamma, beta = _amp("layer_norm", x, gamma, beta)
     cd = accum_dtype(x.dtype)
     xc = x.to(cd)
     mean = xc.mean(dim=axis, keepdim=True)
@@ -356,6 +372,7 @@ def _promoted(*ts):
 def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
     """Layout NC + spatial: statistics over each group of channels and
     the spatial dims; gamma and beta per channel."""
+    x, gamma, beta = _amp("group_norm", x, gamma, beta)
     n, c = x.shape[0], x.shape[1]
     cd = accum_dtype(x.dtype)
     xg = x.to(cd).reshape((n, num_groups, c // num_groups)
@@ -370,6 +387,7 @@ def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
 def instance_norm(x, gamma, beta, eps=1e-5):
     """Layout NC + spatial: statistics over each channel's spatial
     dims."""
+    x, gamma, beta = _amp("instance_norm", x, gamma, beta)
     cd = accum_dtype(x.dtype)
     xc = x.to(cd)
     dims = tuple(range(2, x.dim()))
@@ -383,6 +401,7 @@ def l2_normalization(x, eps=1e-10, mode="instance"):
     """x / sqrt(sum(x^2) + eps) over all but the batch axis
     (``instance``), the channel axis (``channel``) or the spatial axes
     (``spatial``)."""
+    (x,) = _amp("l2_normalization", x)
     dims = {"instance": tuple(range(1, x.dim())),
             "channel": (1,)}.get(mode, tuple(range(2, x.dim())))
     x = float_input(x)
@@ -471,6 +490,7 @@ def masked_softmax(x, mask=None, axis=-1, temperature=1.0):
     """Softmax with the positions where ``mask`` is false at -inf
     (-1e30 for bf16), so they get no mass; a row masked whole gives
     NaN, as in the reference."""
+    x, mask = _amp("masked_softmax", x, mask)
     if temperature != 1.0:
         x = x / temperature
     if mask is not None:

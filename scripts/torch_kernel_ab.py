@@ -80,12 +80,13 @@ builds agree.
    ``scaled_dot_product_attention`` on the same tensors beside them
    (device ms, kernel-only µs).
 
-8. ``bf16_kernel_us``: this checkout's bf16 instances alone (the
-   parent revision has none): K1-bf16 at the prefill shape (and SDPA
-   on the same bf16 tensors), K2-bf16 and K3-bf16 at the decode shapes
-   above over bf16 caches, each with a bf16 and an fp32 q: the kernels'
-   own run time from ``torch.profiler`` and the device ms with L2
-   flushed and left warm.
+8. ``bf16_kernel_us``: this checkout's bf16 and float16 instances
+   alone: K1-bf16 and K1-f16 at the prefill shape (and SDPA on the same
+   16-bit tensors), K1-f16 also at ``chip_smoke.py``'s ``amp_data``
+   shape, (8, 12, 512, 64) non-causal, K2 and K3 at the decode shapes
+   above over 16-bit caches, each with a 16-bit and an fp32 q: the
+   kernels' own run time from ``torch.profiler`` and the device ms with
+   L2 flushed and left warm.
 
 ``--only NAME`` (repeatable) runs just those: ``flash``, ``dequant``,
 ``decode``, ``paged``, ``int8_dense_vs_paged``, ``wrapper_cost``,
@@ -349,38 +350,50 @@ def _kernel_us(fn, name_part, reps=10, flush=None):
 
 
 def bf16_kernel_us(timer):
-    """Kernel-only µs (profiler) and device ms of the bf16 instances at
-    ``chip_smoke.py``'s shapes, beside SDPA's for K1-bf16."""
+    """Kernel-only µs (profiler) and device ms of the bf16 and float16
+    instances at ``chip_smoke.py``'s shapes, beside SDPA's for K1; K1-f16
+    also at the ``amp_data`` phase's (8, 12, 512, 64) non-causal."""
     import torch.nn.functional as F
-    rng = np.random.RandomState(5)
-    q, k, v = (cs._split_view(torch, rng, 1, 512, 12, 64).bfloat16()
-               for _ in range(3))
-    runs = {"flash_attention_fwd_bf16": (
-                lambda: at.flash_attention_fwd(q, k, v, True), "flash_fwd"),
-            "sdpa_bf16": (
-                lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True),
-                "")}
-    qd, kn, vn, lens, _, _ = _decode_inputs(rng)
-    kb, vb = kn.bfloat16(), vn.bfloat16()
-    qp, kp, vp, plens, _, _ = _decode_inputs(rng, PAGED_LENGTHS)
-    kpb, table = _to_pool(kp.bfloat16(), 16)
-    vpb, _ = _to_pool(vp.bfloat16(), 16)
-    for tag, qq, qpp in (("q_bf16", qd.bfloat16(), qp.bfloat16()),
-                         ("q_fp32", qd, qp)):
-        runs[f"decode_attention_bf16 {tag}"] = (
-            lambda qq=qq: at.decode_attention(qq, kb, vb, lens), "decode")
-        runs[f"paged_decode_attention_bf16 {tag}"] = (
-            lambda qpp=qpp: at.paged_decode_attention(qpp, kpb, vpb, table,
-                                                      plens), "paged_")
-    for name, (fn, part) in runs.items():
-        # SDPA's kernels go by several names: every kernel of its call
-        # counts, so no flush runs inside its profile
-        cs.emit("bf16_kernel_us", kernel=name,
-                kernel_us_profiler=_kernel_us(
-                    fn, part, flush=timer.buf.zero_ if part else None),
-                ms_device=timer(fn, flush=True, device=True),
-                ms_device_warm=timer(fn, device=True))
+    for tag, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        rng = np.random.RandomState(5)
+        q, k, v = (cs._split_view(torch, rng, 1, 512, 12, 64).to(dt)
+                   for _ in range(3))
+        runs = {f"flash_attention_fwd_{tag}": (
+                    lambda q=q, k=k, v=v: at.flash_attention_fwd(
+                        q, k, v, True), "flash_fwd"),
+                f"sdpa_{tag}": (
+                    lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True), "")}
+        if dt == torch.float16:
+            qa, ka, va = (cs._split_view(torch, rng, 8, 512, 12, 64).to(dt)
+                          for _ in range(3))
+            runs["flash_attention_fwd_f16 amp_data"] = (
+                lambda: at.flash_attention_fwd(qa, ka, va, False),
+                "flash_fwd")
+            runs["sdpa_f16 amp_data"] = (
+                lambda: F.scaled_dot_product_attention(qa, ka, va), "")
+        qd, kn, vn, lens, _, _ = _decode_inputs(rng)
+        kb, vb = kn.to(dt), vn.to(dt)
+        qp, kp, vp, plens, _, _ = _decode_inputs(rng, PAGED_LENGTHS)
+        kpb, table = _to_pool(kp.to(dt), 16)
+        vpb, _ = _to_pool(vp.to(dt), 16)
+        for qtag, qq, qpp in ((f"q_{tag}", qd.to(dt), qp.to(dt)),
+                              ("q_fp32", qd, qp)):
+            runs[f"decode_attention_{tag} {qtag}"] = (
+                lambda qq=qq, kb=kb, vb=vb, lens=lens: at.decode_attention(
+                    qq, kb, vb, lens), "decode")
+            runs[f"paged_decode_attention_{tag} {qtag}"] = (
+                lambda qpp=qpp, kpb=kpb, vpb=vpb, table=table, plens=plens:
+                at.paged_decode_attention(qpp, kpb, vpb, table, plens),
+                "paged_")
+        for name, (fn, part) in runs.items():
+            # SDPA's kernels go by several names: every kernel of its
+            # call counts, so no flush runs inside its profile
+            cs.emit("bf16_kernel_us", kernel=name,
+                    kernel_us_profiler=_kernel_us(
+                        fn, part, flush=timer.buf.zero_ if part else None),
+                    ms_device=timer(fn, flush=True, device=True),
+                    ms_device_warm=timer(fn, device=True))
 
 
 #: K1's entry points: the fp32 instance and the bf16 one (the input type)

@@ -355,7 +355,8 @@ def test_later_items_raise(tmp_path):
     net = _net(tnn)
     for call, item in ((lambda: net.export("p"), "15c"),
                        (lambda: tgluon.SymbolBlock, "15c"),
-                       (lambda: tgluon.data, "17"),
+                       (lambda: tgluon.data.RecordFileDataset("d.rec"),
+                        "17b"),
                        (lambda: tnn.SyncBatchNorm(num_devices=2), "19")):
         with pytest.raises(NotPortedError, match=f"item {item}"):
             call()

@@ -177,8 +177,11 @@ def test_later_items_raise(tmp_path):
                      ({"compression_params": {"type": "2bit"}}, 19)):
         with pytest.raises(NotPortedError, match=f"item {item}"):
             tmx.gluon.Trainer(params, "sgd", **kw)
-    with pytest.raises(NotPortedError, match="item 16"):
-        tmx.gluon.Trainer(params, "rmsprop")
+    # item 16: every optimizer of the reference; fusion= validated
+    assert type(tmx.gluon.Trainer(params, "rmsprop").optimizer).__name__ \
+        == "RMSProp"
+    with pytest.raises(ValueError, match="positive byte cap"):
+        tmx.gluon.Trainer(params, "sgd", fusion=-1)
     for kv in (None, "device", "local"):
         tr = tmx.gluon.Trainer(params, "sgd", kvstore=kv)
         tr.allreduce_grads()

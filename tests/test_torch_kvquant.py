@@ -423,14 +423,22 @@ ENGINES = [
 ]
 
 
+@pytest.fixture(scope="module")
+def engine_pair():
+    """The fp32-weight engines' model pair, built once for the module
+    (the JAX model's programs compile once)."""
+    return _models_for_engine()
+
+
 @pytest.mark.parametrize("kw", [e[1] for e in ENGINES],
                          ids=[e[0] for e in ENGINES])
-def test_int8_kv_engine_token_identical_to_jax(kw):
-    """Each configuration on a model pair of its own (an int8-weight
-    engine arms its model's tables): every request's greedy tokens
-    equal the JAX int8-KV engine's; precision reads as the
-    reference's."""
-    jnet, tnet = _models_for_engine()
+def test_int8_kv_engine_token_identical_to_jax(kw, engine_pair):
+    """Each int8-weight configuration on a model pair of its own (an
+    int8-weight engine arms its model's tables), the fp32-weight ones on
+    the module's pair, all on the same seeded weights: every request's
+    greedy tokens equal the JAX int8-KV engine's; precision reads as
+    the reference's."""
+    jnet, tnet = _models_for_engine() if "quantize" in kw else engine_pair
     prompts, budgets = _corpus()
     common = dict(max_slots=SLOTS, max_length=SMAX, max_new_tokens=8,
                   queue_limit=64, kv_dtype="int8", **kw)
